@@ -1,0 +1,12 @@
+"""fastvideotagging_tpu_torch: the PyTorch / CUDA port of fastvideotagging_tpu.
+
+This slice serves: the R(2+1)D eval forward and ``tag(video)``, with the
+factorized (2+1)D convs on hand-written Hopper kernels (csrc/). It imports
+neither JAX nor the JAX package. Entry points run on the card unless the
+caller passes ``device="cpu"``.
+"""
+
+from fastvideotagging_tpu_torch.evaluation.tagger import Tagger, tag
+from fastvideotagging_tpu_torch.models.zoo import get_model, list_models, model_from_config
+
+__all__ = ["Tagger", "get_model", "list_models", "model_from_config", "tag"]

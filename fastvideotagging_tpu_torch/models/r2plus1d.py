@@ -1,0 +1,127 @@
+"""R(2+1)D backbone (Tran et al. CVPR'18), eval forward.
+
+The counterpart of ``fastvideotagging_tpu/models/r2plus1d.py``: every 3x3x3
+conv is factorized into a spatial 1x3x3 conv (M mid-channels) + BN + ReLU +
+a temporal 3x1x1 conv. Stem: 1x7x7 s(1,2,2) -> 45 mid-channels -> 3x1x1 ->
+64. Stages 64/128/256/512; temporal and spatial stride 2 at each later
+stage's entry, applied inside the respective factor. Head: global average
+pool + FC in f32.
+
+Module and parameter names follow the JAX tree (``stage1_block0.conv1.
+spatial.kernel``, ``...bn_mid.scale``), so models/convert.py maps one onto
+the other by name. Remat and ``time_axis`` are training / multi-chip knobs
+and are not ported; dropout is the identity in eval.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+from fastvideotagging_tpu_torch.models.layers import (
+    Conv3D,
+    Norm,
+    SpatialConv,
+    TemporalConv,
+    _check_eval,
+    global_avg_pool_3d,
+    lecun_normal,
+    r2plus1d_mid_channels,
+)
+
+
+class Conv2Plus1D(nn.Module):
+    """Factorized spatiotemporal conv: spatial(1xkxk) -> BN -> ReLU -> temporal(kx1x1)."""
+
+    def __init__(self, cin: int, features: int, mid_features: int,
+                 spatial_stride: int = 1, temporal_stride: int = 1,
+                 backend: str = "cuda", dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "batch", generator: torch.Generator | None = None):
+        super().__init__()
+        self.spatial = SpatialConv(cin, mid_features, 3, stride=spatial_stride,
+                                   backend=backend, dtype=dtype, generator=generator)
+        self.bn_mid = Norm(mid_features, kind=norm, dtype=dtype)
+        self.temporal = TemporalConv(mid_features, features, 3, stride=temporal_stride,
+                                     backend=backend, dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.temporal(torch.relu(self.bn_mid(self.spatial(x))))
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 backend: str = "cuda", dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "batch",
+                 mid_channels_fn: Callable[[int, int], int] = r2plus1d_mid_channels,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(backend=backend, dtype=dtype, norm=norm, generator=generator)
+        self.conv1 = Conv2Plus1D(cin, features, mid_channels_fn(cin, features),
+                                 spatial_stride=stride, temporal_stride=stride, **kw)
+        self.bn1 = Norm(features, kind=norm, dtype=dtype)
+        self.conv2 = Conv2Plus1D(features, features, mid_channels_fn(features, features),
+                                 **kw)
+        self.bn2 = Norm(features, kind=norm, dtype=dtype)
+        self.downsample = self.bn_down = None
+        if stride != 1 or cin != features:
+            self.downsample = Conv3D(cin, features, (1, 1, 1), strides=stride,
+                                     dtype=dtype, generator=generator)
+            self.bn_down = Norm(features, kind=norm, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.downsample is not None:
+            residual = self.bn_down(self.downsample(x))
+        return torch.relu(y + residual)
+
+
+class R2Plus1D(nn.Module):
+    def __init__(self, stage_blocks: Sequence[int] = (2, 2, 2, 2),
+                 num_classes: int = 101, backend: str = "cuda",
+                 dropout: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 norm: str = "batch",
+                 mid_channels_fn: Callable[[int, int], int] = r2plus1d_mid_channels,
+                 stem_mid: int = 45, generator: torch.Generator | None = None):
+        super().__init__()
+        self.stage_blocks = tuple(stage_blocks)
+        self.dtype = dtype
+        self.dropout = dropout  # identity in eval
+        g = generator
+        self.stem_spatial = SpatialConv(3, stem_mid, 7, stride=2, backend=backend,
+                                        dtype=dtype, generator=g)
+        self.stem_bn1 = Norm(stem_mid, kind=norm, dtype=dtype)
+        self.stem_temporal = TemporalConv(stem_mid, 64, 3, backend=backend,
+                                          dtype=dtype, generator=g)
+        self.stem_bn2 = Norm(64, kind=norm, dtype=dtype)
+        cin = 64
+        self.block_names = []
+        for stage, num_blocks in enumerate(self.stage_blocks):
+            features = 64 * (2 ** stage)
+            for block in range(num_blocks):
+                stride = 2 if (stage > 0 and block == 0) else 1
+                name = f"stage{stage + 1}_block{block}"
+                self.add_module(name, BasicBlock(
+                    cin, features, stride=stride, backend=backend, dtype=dtype,
+                    norm=norm, mid_channels_fn=mid_channels_fn, generator=g))
+                self.block_names.append(name)
+                cin = features
+        self.fc = nn.Linear(cin, num_classes)
+        with torch.no_grad():  # Flax Dense init: lecun_normal kernel, zero bias
+            self.fc.weight.copy_(lecun_normal((cin, num_classes), g).T)
+            self.fc.bias.zero_()
+
+    def forward(self, x: torch.Tensor, features_only: bool = False) -> torch.Tensor:
+        _check_eval(self)
+        x = x.to(self.dtype)
+        x = torch.relu(self.stem_bn1(self.stem_spatial(x)))
+        x = torch.relu(self.stem_bn2(self.stem_temporal(x)))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        if features_only:
+            return x  # pre-pool feature map (B, T', H', W', C)
+        x = global_avg_pool_3d(x)
+        return self.fc(x.float())

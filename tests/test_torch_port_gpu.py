@@ -1,0 +1,107 @@
+"""K1 / K2 against their plain versions on the card (marker ``gpu``).
+
+Skipped without a CUDA card (decided inside the fixture, so every pytest
+worker collects the same tests). On the card, from the repository root —
+the JAX-importing tests/conftest.py is left out, since the card's machine
+has no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py -q
+
+Shapes: the R(2+1)D-18 serving path's (clip_batch 8, 16x112x112) and ragged
+ones (C or Co not a multiple of 8, k = 5, row counts that are not a multiple
+of the 128-row tile). Kernel and plain version take the same bf16 inputs and
+sum in f32, so they agree within 1e-2 of the output's largest magnitude
+(bf16 output rounding).
+"""
+
+import pytest
+import torch
+
+from fastvideotagging_tpu_torch import get_model
+from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+
+pytestmark = pytest.mark.gpu
+
+TOL = 1e-2
+
+SPATIAL = [  # x (N, H, W, C), Co, k
+    ((128, 56, 56, 64), 144, 3), ((64, 28, 28, 128), 288, 3),
+    ((32, 14, 14, 256), 576, 3), ((16, 7, 7, 512), 1152, 3),
+    ((3, 9, 11, 45), 40, 3), ((2, 10, 7, 36), 21, 5), ((1, 5, 5, 32), 8, 3),
+]
+TEMPORAL = [  # x (B, T, S, C), Co, k
+    ((8, 16, 3136, 45), 64, 3), ((8, 16, 3136, 144), 64, 3),
+    ((8, 8, 784, 288), 128, 3), ((8, 4, 196, 576), 256, 3), ((8, 2, 49, 1152), 512, 3),
+    ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 1, 33), 8, 3),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _close(got, ref):
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("x_shape,co,k", SPATIAL)
+def test_spatial_kernel_matches_plain(cuda, x_shape, co, k):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, k, x_shape[-1], co), generator=g, device=cuda)
+         / (k * k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    before = ops.launch_counts["spatial_conv"]
+    got = ops.spatial_conv_cuda(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["spatial_conv"] == before + 1
+    _close(got, ops.spatial_conv_plain(x, w))
+
+
+@pytest.mark.parametrize("x_shape,co,k", TEMPORAL)
+def test_temporal_kernel_matches_plain(cuda, x_shape, co, k):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, x_shape[-1], co), generator=g, device=cuda)
+         / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    before = ops.launch_counts["temporal_conv"]
+    got = ops.temporal_conv_cuda(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["temporal_conv"] == before + 1
+    _close(got, ops.temporal_conv_plain(x, w))
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 4, 4, 32), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 32, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.spatial_conv_cuda(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.spatial_conv_cuda(x.transpose(1, 2), w)
+    with pytest.raises(ValueError, match="w must be"):
+        ops.spatial_conv_cuda(x, w[:, :, :16])
+    with pytest.raises(ValueError, match="odd"):
+        ops.temporal_conv_cuda(x, torch.zeros((2, 32, 8), device=cuda, dtype=torch.bfloat16))
+
+
+def test_model_kernels_agree_with_library_convs(cuda):
+    g = torch.Generator().manual_seed(0)
+    state = get_model("r2plus1d_18", num_classes=16, device="cpu", generator=g).state_dict()
+    models = {}
+    for backend in ("cuda", "torch"):
+        models[backend] = get_model("r2plus1d_18", num_classes=16, device=cuda,
+                                    backend=backend)
+        models[backend].load_state_dict(state)
+    x = torch.randn((2, 16, 112, 112, 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        a = models["cuda"](x)
+        b = models["torch"](x)
+    assert ops.launch_counts == {"spatial_conv": 13, "temporal_conv": 14}
+    assert torch.isfinite(a).all()
+    assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()
