@@ -8,16 +8,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. card   — name, power limit and device count;
 2. build  — compile every csrc/*.cu kernel (one nvcc per source, in
             parallel) and print ptxas' register / shared memory report;
-3. kernels — K1 (spatial 1xkxk) and K2 (temporal kx1x1) at every shape of
-            the R(2+1)D-18 serving path (clip_batch 8, 16x112x112, bf16):
-            kernel vs its plain PyTorch version, and times of the kernel,
-            the plain version and F.conv3d (cuDNN, TF32 off) on the same
-            tensors, beside the least time the card could take;
+3. kernels — at every kernel-eligible (2+1)D conv site of R(2+1)D-18
+            (16x112x112, bf16), at the serving clip batch (8) and the
+            training batch (32): K1 (spatial 1xkxk) and K2 (temporal kx1x1)
+            forward and as dx (the same kernels on the flipped,
+            channel-transposed weights, C and Co swapped), K3 (the temporal
+            weight gradient, two launches bitwise equal) — each against its
+            plain PyTorch version, with the times of the kernel, the plain
+            version and the library call for the same function (F.conv3d,
+            torch.nn.grad.conv3d_input / conv3d_weight; cuDNN, TF32 off)
+            beside the least time the card could take. Then the two
+            autograd Functions' dx and dw against autograd through the
+            plain versions;
 4. path   — the port's Tagger (r2plus1d_18, 400 classes, multilabel, bf16,
             kernels='cuda', seeded random weights) on seeded synthetic
             frames through ``scores_from``: launch counts per forward,
             finite scores, agreement with the kernels='torch' tagger and
-            with an f32 reference forward, clips/s of both taggers.
+            with an f32 reference forward, clips/s of both taggers;
+5. train  — the ``r2plus1d18_ucf101`` preset (101 classes, B = 32, bf16,
+            batch-statistics BN, dropout 0.5, SGD) through
+            ``create_train_state`` / ``make_train_step`` on one seeded
+            synthetic batch: launch counts of one step (26 / 28 / 14),
+            step-0 loss and logits against a kernels='torch' state with
+            the same weights, the gradients of both against an f32
+            reference, a falling loss over 10 steps,
+            moved BN statistics, ms per step, clips/s and peak memory of
+            both routes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -26,6 +42,7 @@ result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -33,34 +50,54 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from fastvideotagging_tpu_torch import Tagger, get_model
 from fastvideotagging_tpu_torch.config import (
+    PRESETS,
     ClipSamplerConfig,
     DataConfig,
     ExperimentConfig,
     ModelConfig,
 )
 from fastvideotagging_tpu_torch.data.synthetic import make_frames
+from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
+from fastvideotagging_tpu_torch.train.loop import make_train_step
+from fastvideotagging_tpu_torch.train.state import create_train_state
 
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 CLIP_BATCH = 8
+TRAIN_BATCH = 32
+TRAIN_STEPS = 10
 SEED = 0
+K = 3
+DEV = "cuda"  # everything here runs on the card
 # kernel vs plain version: both take the same bf16 inputs and sum in f32;
 # they differ by summation order and the bf16 rounding of the output
 # (2^-8 relative), so 1e-2 of the output's largest magnitude.
 KERNEL_TOL = 1e-2
-# path: the kernels='cuda' and kernels='torch' taggers round to bf16 at
+# K3 writes f32 and differs from its plain version by summation order only:
+# 1e-3 of the output's largest magnitude.
+DW_TOL = 1e-3
+# path: the kernels='cuda' and kernels='torch' routes round to bf16 at
 # different places; logits agree within 5e-2 of the largest |logit|
-# (the model-level bound of tests/test_fused_infer.py), scores within 5e-2.
+# (the model-level bound of tests/test_fused_infer.py), scores and the
+# training loss within 5e-2.
 PATH_TOL = 5e-2
+# Gradients of one training step, all parameters taken together, as
+# ||g - g_ref|| / ||g_ref|| against an f32 reference (F.conv3d, TF32 off) on
+# the same weights, batch and dropout mask. bf16 gradients of this network
+# at a random init are far from the f32 ones with either route (BN
+# statistics and the cotangents between layers are rounded to bf16), so the
+# kernels='cuda' route is held to the kernels='torch' route's distance:
+# at most 1.25 times as far, plus 0.02.
+GRAD_FACTOR, GRAD_SLACK = 1.25, 0.02
 
 KERNELS = {
     "spatial_conv": dict(
@@ -71,7 +108,13 @@ KERNELS = {
         name="temporal_conv_kernel", route="cuda",
         source="fastvideotagging_tpu_torch/csrc/conv2plus1d.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:225 (_temporal_pallas)"),
+    "temporal_dw": dict(
+        name="temporal_dw_kernel", route="cuda",
+        source="fastvideotagging_tpu_torch/csrc/temporal_dw.cu",
+        replaces="fastvideotagging_tpu/ops/conv2plus1d.py:284 (_temporal_dw)"),
 }
+# launches of one r2plus1d_18 training step: forward + dx, and the dw
+TRAIN_STEP_LAUNCHES = {"spatial_conv": 26, "temporal_conv": 28, "temporal_dw": 14}
 
 
 def path_sites(b: int = CLIP_BATCH):
@@ -90,11 +133,20 @@ def path_sites(b: int = CLIP_BATCH):
     return sites
 
 
-def bound(kernel: str, x_shape, co: int, k: int = 3):
+def bound(kernel: str, x_shape, co: int, k: int = K):
+    """The least time (ms) the card could take, and what bounds it: each
+    input read once, each output written once, against the operations."""
     b, t, h, w, c = x_shape
-    taps = k * k if kernel == "spatial_conv" else k
-    flops = 2.0 * b * t * h * w * taps * c * co
-    nbytes = 2.0 * (b * t * h * w * (c + co) + taps * c * co)
+    rows = b * t * h * w
+    if kernel == "temporal_dw":
+        # only the row pairs that exist: T - |dt - k//2| planes per tap
+        pairs = b * h * w * sum(max(0, t - abs(dt - k // 2)) for dt in range(k))
+        flops = 2.0 * pairs * c * co
+        nbytes = 2.0 * rows * (c + co) + 4.0 * k * c * co
+    else:
+        taps = k * k if kernel == "spatial_conv" else k
+        flops = 2.0 * rows * taps * c * co
+        nbytes = 2.0 * (rows * (c + co) + taps * c * co)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -134,75 +186,191 @@ def phase_build() -> None:
         print(report.strip())
 
 
+def _ncdhw(x5: torch.Tensor) -> torch.Tensor:
+    """NTHWC tensor as a channels-last-3d NCDHW view (no copy)."""
+    return x5.permute(0, 4, 1, 2, 3)
+
+
+def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
+    """The kernel calls one conv site makes in a training step, each with
+    its plain version and the library call for the same function:
+    (role, kernel key, run, plain, library, (bound ms, bound by))."""
+    b, t, h, w, c = xs
+    dev = torch.device(DEV)
+    x5 = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+    g5 = torch.randn((b, t, h, w, co), generator=gen, device=dev).to(torch.bfloat16)
+    if kernel == "spatial_conv":
+        x, g = x5.reshape(b * t, h, w, c), g5.reshape(b * t, h, w, co)
+        wt = (torch.randn((K, K, c, co), generator=gen, device=dev)
+              / (K * K * c) ** 0.5).to(torch.bfloat16)
+        w_t = wt.flip(0, 1).transpose(2, 3).contiguous()
+        run, plain = ops.spatial_conv_cuda, ops.spatial_conv_plain
+        w5, pad = wt[None], (0, K // 2, K // 2)
+    else:
+        x, g = x5.reshape(b, t, h * w, c), g5.reshape(b, t, h * w, co)
+        wt = (torch.randn((K, c, co), generator=gen, device=dev)
+              / (K * c) ** 0.5).to(torch.bfloat16)
+        w_t = wt.flip(0).transpose(1, 2).contiguous()
+        run, plain = ops.temporal_conv_cuda, ops.temporal_conv_plain
+        w5, pad = wt[:, None, None], (K // 2, 0, 0)
+    w_lib = w5.permute(4, 3, 0, 1, 2)  # (Co, C, kt, kh, kw)
+    cases = [
+        ("fwd", kernel, lambda: run(x, wt), lambda: plain(x, wt),
+         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co)),
+        ("dx", kernel, lambda: run(g, w_t), lambda: plain(g, w_t),
+         lambda: torch.nn.grad.conv3d_input(_ncdhw(x5).shape, w_lib, _ncdhw(g5), padding=pad),
+         bound(kernel, (b, t, h, w, co), c)),
+    ]
+    if kernel == "temporal_conv":
+        cases.append(
+            ("dw", "temporal_dw", lambda: ops.temporal_dw_cuda(x, g, K),
+             lambda: ops.temporal_dw_plain(x, g, K),
+             lambda: torch.nn.grad.conv3d_weight(_ncdhw(x5), w_lib.shape, _ncdhw(g5),
+                                                 padding=pad),
+             bound("temporal_dw", xs, co)))
+    return cases
+
+
+def _lib_as(role: str, out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """The library call's result in the layout of the plain version's."""
+    if role == "fwd":
+        return out.reshape(ref.shape)
+    if role == "dx":  # NCDHW view of an NTHWC gradient
+        return out.permute(0, 2, 3, 4, 1).reshape(ref.shape)
+    return out.permute(2, 3, 4, 1, 0).reshape(ref.shape)  # (Co,C,kt,1,1) -> (k,C,Co)
+
+
+def _new_agg():
+    return dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+
+
 def phase_kernels(card: str) -> dict:
     print("== phase 3: kernels", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    dev = torch.device("cuda")
-    agg = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                   library_ms=0.0, ops_ms=0.0, bytes_ms=0.0, ok=True, sites=[])
-           for k in KERNELS}
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    # sums over the launches of one forward at the serving clip batch, and of
+    # one training step (forward + dx, or dw) at the training batch
+    agg = {k: dict(max_abs_err=0.0, max_rel_err=0.0, ok=True, serving=_new_agg(),
+                   train=_new_agg(), train_roles={}, sites=[]) for k in KERNELS}
     failures = []
-    for site, kernel, xs, co, n in path_sites():
-        b, t, h, w, c = xs
-        k = 3
-        x5 = torch.randn(xs, generator=g, device=dev).to(torch.bfloat16)
-        if kernel == "spatial_conv":
-            x = x5.reshape(b * t, h, w, c)
-            wt = (torch.randn((k, k, c, co), generator=g, device=dev)
-                  / (k * k * c) ** 0.5).to(torch.bfloat16)
-            run, plain = ops.spatial_conv_cuda, ops.spatial_conv_plain
-            w5 = wt[None]
-            lib = lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), (0, 1, 1))  # noqa: E731
-        else:
-            x = x5.reshape(b, t, h * w, c)
-            wt = (torch.randn((k, c, co), generator=g, device=dev)
-                  / (k * c) ** 0.5).to(torch.bfloat16)
-            run, plain = ops.temporal_conv_cuda, ops.temporal_conv_plain
-            w5 = wt[:, None, None]
-            lib = lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), (1, 0, 0))  # noqa: E731
-        got = run(x, wt)
-        torch.cuda.synchronize()
-        ref = plain(x, wt)
-        libout = lib()
-        torch.cuda.synchronize()
-        diff = (got.float() - ref.float()).abs()
-        scale = ref.float().abs().max().item()
-        max_abs = diff.max().item()
-        max_rel = max_abs / scale
-        lib_rel = (libout.reshape(ref.shape).float() - ref.float()).abs().max().item() / scale
-        ok = bool(torch.isfinite(got).all().item()) and max_rel <= KERNEL_TOL
-        ms = time_ms(lambda: run(x, wt), iters=20)
-        plain_ms = time_ms(lambda: plain(x, wt), iters=5, warmup=1)
-        library_ms = time_ms(lib, iters=20)
-        bound_ms, by = bound(kernel, xs, co)
-        print(f"{site:18s} {kernel:14s} x={xs} Co={co} x{n}/forward  "
-              f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-              f"(tol {KERNEL_TOL}; F.conv3d vs plain {lib_rel:.3e}) "
-              f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms F.conv3d={library_ms:.4f} ms "
-              f"bound={bound_ms * 1e3:.1f} us ({by}) ok={ok}", flush=True)
-        if not ok:
-            failures.append(site)
-        a = agg[kernel]
-        a["max_abs_err"] = max(a["max_abs_err"], max_abs)
-        a["ok"] = a["ok"] and ok
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                       ("bound_ms", bound_ms)):
-            a[key] += n * v
-        a["ops_ms" if by == "operations" else "bytes_ms"] += n * bound_ms
-        a["sites"].append(dict(site=site, x=list(xs), co=co, launches_per_forward=n,
-                               max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
-                               plain_ms=plain_ms, library_ms=library_ms,
-                               bound_ms=bound_ms, bound_by=by))
-        del x5, x, wt, got, ref, libout, diff
-    print(f"per-forward sums (launches x time, {card}):")
-    for kernel, a in agg.items():
-        print(f"  {kernel}: kernel {a['ms']:.4f} ms, plain {a['plain_ms']:.4f} ms, "
-              f"F.conv3d {a['library_ms']:.4f} ms, bound {a['bound_ms']:.4f} ms")
+    for batch in (CLIP_BATCH, TRAIN_BATCH):
+        for site, kernel, xs, co, n in path_sites(batch):
+            for role, key, run, plain, lib, (bound_ms, by) in site_cases(kernel, xs, co, gen):
+                tol = DW_TOL if role == "dw" else KERNEL_TOL
+                got = run()
+                torch.cuda.synchronize()
+                ref = plain()
+                libout = _lib_as(role, lib(), ref)
+                torch.cuda.synchronize()
+                scale = ref.float().abs().max().item()
+                max_abs = (got.float() - ref.float()).abs().max().item()
+                max_rel = max_abs / scale
+                lib_rel = (libout.float() - ref.float()).abs().max().item() / scale
+                ok = bool(torch.isfinite(got).all().item()) and max_rel <= tol
+                note = ""
+                if role == "dw":  # deterministic: no atomics, fixed reduction order
+                    same = torch.equal(got, run())
+                    ok = ok and same
+                    note = f" two launches bitwise equal={same}"
+                del got, ref, libout
+                ms = time_ms(run, iters=20)
+                plain_ms = time_ms(plain, iters=3, warmup=1)
+                library_ms = time_ms(lib, iters=20)
+                print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
+                      f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
+                      f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "
+                      f"plain={plain_ms:.4f} ms library={library_ms:.4f} ms "
+                      f"bound={bound_ms * 1e3:.1f} us ({by}) ok={ok}", flush=True)
+                if not ok:
+                    failures.append((batch, site, role))
+                a = agg[key]
+                a["max_abs_err"] = max(a["max_abs_err"], max_abs)
+                a["max_rel_err"] = max(a["max_rel_err"], max_rel)
+                a["ok"] = a["ok"] and ok
+                sums = []
+                if batch == CLIP_BATCH and role == "fwd":
+                    sums.append(a["serving"])
+                if batch == TRAIN_BATCH:
+                    sums += [a["train"], a["train_roles"].setdefault(role, _new_agg())]
+                for s in sums:
+                    for name, v in (("ms", ms), ("plain_ms", plain_ms),
+                                    ("library_ms", library_ms), ("bound_ms", bound_ms)):
+                        s[name] += n * v
+                    s["ops_ms" if by == "operations" else "bytes_ms"] += n * bound_ms
+                a["sites"].append(dict(
+                    site=site, role=role, batch=batch, x=list(xs), co=co, launches=n,
+                    max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
+                    library_ms=library_ms, bound_ms=bound_ms, bound_by=by))
+            torch.cuda.empty_cache()
+    print(f"sums over launches ({card}):")
+    for key, a in agg.items():
+        for what, per in (("serving", f"one forward at clip_batch {CLIP_BATCH}"),
+                          ("train", f"one training step at B={TRAIN_BATCH}")):
+            s = a[what]
+            if not s["ms"]:
+                continue  # K3 is not on the serving path
+            print(f"  {key} per {per}: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, "
+                  f"library {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms")
+        for role, s in a["train_roles"].items():
+            print(f"    of which {role}: kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, "
+                  f"library {s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms")
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version at {failures}")
     return agg
+
+
+def _grads(fn, x, w, gy):
+    x = x.clone().requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    fn(x, w).backward(gy)
+    return x.grad, w.grad
+
+
+def phase_functions() -> None:
+    """dx and dw of the two autograd Functions (kernels on the card)
+    against autograd through the plain versions, at every site."""
+    print("== phase 3b: autograd Functions", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    dev = torch.device(DEV)
+    failures = []
+    for site, kernel, xs, co, _ in path_sites(CLIP_BATCH):
+        b, t, h, w, c = xs
+        x = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+        gy = torch.randn((b, t, h, w, co), generator=gen, device=dev).to(torch.bfloat16)
+        if kernel == "spatial_conv":
+            wt = (torch.randn((K, K, c, co), generator=gen, device=dev)
+                  / (K * K * c) ** 0.5).to(torch.bfloat16)
+            fn = ops.spatial_conv
+
+            def plain(x, wt):
+                return ops.spatial_conv_plain(x.reshape(b * t, h, w, c), wt).reshape(b, t, h, w, -1)
+        else:
+            wt = (torch.randn((K, c, co), generator=gen, device=dev)
+                  / (K * c) ** 0.5).to(torch.bfloat16)
+            fn = ops.temporal_conv
+
+            def plain(x, wt):
+                return ops.temporal_conv_plain(x.reshape(b, t, h * w, c), wt).reshape(b, t, h, w, -1)
+        dx, dw = _grads(fn, x, wt, gy)
+        # the reference in f32 end to end (autograd through bf16 leaves would
+        # add up the taps' dx in bf16)
+        rdx, rdw = _grads(plain, x.float(), wt.float(), gy.float())
+        torch.cuda.synchronize()
+        errs = {}
+        for name, got, ref in (("dx", dx, rdx), ("dw", dw, rdw)):
+            errs[name] = ((got.float() - ref.float()).abs().max().item()
+                          / ref.float().abs().max().item())
+        ok = (dx.dtype == dw.dtype == torch.bfloat16
+              and all(e <= KERNEL_TOL for e in errs.values()))
+        print(f"{site:16s} {fn.__name__:13s} x={xs} Co={co}  dx max_rel_err={errs['dx']:.3e} "
+              f"dw max_rel_err={errs['dw']:.3e} (tol {KERNEL_TOL}) ok={ok}", flush=True)
+        if not ok:
+            failures.append(site)
+        del x, gy, wt, dx, dw, rdx, rdw
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"autograd Function disagrees with the plain versions at {failures}")
 
 
 def _cfg(kernels: str, compute_dtype: str = "bfloat16") -> ExperimentConfig:
@@ -225,14 +393,14 @@ def phase_path(card: str) -> dict:
 
     n_clips = 160 // 16
     chunks = -(-n_clips // CLIP_BATCH)
-    cuda_tagger = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, device="cuda")
-    torch_tagger = Tagger(_cfg("torch"), state, clip_batch=CLIP_BATCH, device="cuda")
+    cuda_tagger = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, device=DEV)
+    torch_tagger = Tagger(_cfg("torch"), state, clip_batch=CLIP_BATCH, device=DEV)
 
     ops.reset_launch_counts()
     scores = cuda_tagger.scores_from(read_frames, len(frames))
     launches = dict(ops.launch_counts)
     print(f"launches over {chunks} chunks: {launches}")
-    want = {"spatial_conv": 13 * chunks, "temporal_conv": 14 * chunks}
+    want = {"spatial_conv": 13 * chunks, "temporal_conv": 14 * chunks, "temporal_dw": 0}
     if launches != want:
         raise SystemExit(f"launch counts {launches} != {want}")
     if scores.shape != (400,) or not np.isfinite(scores).all():
@@ -248,10 +416,9 @@ def phase_path(card: str) -> dict:
     # (F.conv3d, TF32 off).
     torch.backends.cudnn.allow_tf32 = False
     clip_idx = np.arange(CLIP_BATCH * 16).reshape(CLIP_BATCH, 16)
-    clips_u8 = torch.from_numpy(frames[clip_idx]).cuda()
-    from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
+    clips_u8 = torch.from_numpy(frames[clip_idx]).to(DEV)
     d = cuda_tagger.cfg.data
-    f32_model = get_model("r2plus1d_18", num_classes=400, device="cuda", backend="torch",
+    f32_model = get_model("r2plus1d_18", num_classes=400, device=DEV, backend="torch",
                           dtype=torch.float32)
     f32_model.load_state_dict(state)
     with torch.inference_mode():
@@ -289,6 +456,169 @@ def phase_path(card: str) -> dict:
     return launches
 
 
+def _train_batch(cfg: ExperimentConfig) -> dict:
+    """One seeded synthetic training batch: 128x171 uint8 clips whose content
+    encodes the label, random crops and flips."""
+    d, b = cfg.data, cfg.train.batch_size
+    rng = np.random.default_rng(SEED)
+    labels = np.arange(b) % cfg.model.num_classes
+    rh, rw = d.resize_hw
+    frames = np.stack([make_frames(int(label), num_frames=d.sampler.clip_len, height=rh,
+                                   width=rw, seed=SEED + i) for i, label in enumerate(labels)])
+    return {
+        "frames": frames,
+        "labels": labels.astype(np.int32),
+        "crop_tops": rng.integers(0, rh - d.crop_hw[0] + 1, size=b).astype(np.int32),
+        "crop_lefts": rng.integers(0, rw - d.crop_hw[1] + 1, size=b).astype(np.int32),
+        "flips": rng.uniform(size=b) < 0.5,
+        "weights": np.ones(b, np.float32),
+    }
+
+
+def _first_step_by_hand(state, cfg: ExperimentConfig, batch: dict):
+    """Loss, logits and gradients of the state's model on ``batch`` in train
+    mode (what the train step computes before its update); the gradients
+    are dropped from the parameters again."""
+    d = cfg.data
+    model = state.model
+    clips = preprocess_batch(batch["frames"], batch["crop_tops"], batch["crop_lefts"],
+                             batch["flips"], d.mean, d.std, resize_hw=d.resize_hw,
+                             crop_hw=d.crop_hw,
+                             out_dtype=getattr(torch, cfg.model.compute_dtype))
+    logits = model.train()(clips, generator=torch.Generator(device=DEV).manual_seed(SEED))
+    loss = heads.softmax_cross_entropy(logits, batch["labels"], batch["weights"])
+    loss.backward()
+    grads = {name: p.grad.detach().clone() for name, p in model.named_parameters()}
+    state.optimizer.zero_grad(set_to_none=True)
+    return loss.detach(), logits.detach(), grads
+
+
+def phase_train(card: str) -> dict:
+    print("== phase 5: train", flush=True)
+    cfgs = {"cuda": PRESETS["r2plus1d18_ucf101"]}
+    cfgs["torch"] = dataclasses.replace(
+        cfgs["cuda"], model=dataclasses.replace(cfgs["cuda"].model, kernels="torch"))
+    cfg = cfgs["cuda"]
+    m, t = cfg.model, cfg.train
+    print(f"preset r2plus1d18_ucf101: {m.name}, {m.num_classes} classes, B={t.batch_size}, "
+          f"{m.compute_dtype}, norm={m.norm}, dropout={m.dropout}, lr={t.base_lr}, "
+          f"momentum={t.momentum}, weight_decay={t.weight_decay}")
+    if t.batch_size != TRAIN_BATCH:
+        raise SystemExit(f"the preset's batch size is {t.batch_size}, not {TRAIN_BATCH}")
+    host_batch = _train_batch(cfg)
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in host_batch.items()}
+    init = None
+    first, result, launches = {}, {}, None
+    for route in ("cuda", "torch"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(cfgs[route], steps_per_epoch=100, device=DEV,
+                                   generator=torch.Generator().manual_seed(SEED))
+        if init is None:
+            init = {k: v.clone() for k, v in state.model.state_dict().items()}
+        else:  # the same weights, whatever the init drew
+            state.model.load_state_dict(init)
+        first[route] = _first_step_by_hand(state, cfgs[route], batch)
+        state.model.load_state_dict(init)  # undo the BN statistics' first move
+        step = make_train_step(state.model, cfgs[route])
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        state, metrics = step(state, batch, gen)
+        counts = dict(ops.launch_counts)
+        losses = [metrics["loss"]]
+        if route == "cuda":
+            launches = counts
+            print(f"launches of one training step: {counts}")
+            if counts != TRAIN_STEP_LAUNCHES:
+                raise SystemExit(f"launch counts {counts} != {TRAIN_STEP_LAUNCHES}")
+        elif any(counts.values()):
+            raise SystemExit(f"the kernels='torch' step launched hand kernels: {counts}")
+        # the remaining steps on the repeated batch, without a host sync:
+        # the losses are read after the last one
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TRAIN_STEPS - 1):
+            state, metrics = step(state, batch, gen)
+            losses.append(metrics["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_STEPS - 1)
+        event_ms = start.elapsed_time(end) / (TRAIN_STEPS - 1)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(x) for x in losses]
+        moved = max((state.model.state_dict()[k] - init[k]).abs().max().item()
+                    for k in init if k.endswith((".mean", ".var")))
+        finite = all(np.isfinite(losses))
+        print(f"kernels='{route}': losses {['%.4f' % x for x in losses]} "
+              f"top1 {float(metrics['top1']):.3f}; BN statistics moved by up to {moved:.3e}; "
+              f"step {state.step}")
+        print(f"kernels='{route}': {event_ms:.2f} ms/step (CUDA events), {wall_ms:.2f} ms/step "
+              f"(wall, {TRAIN_STEPS - 1} steps, one sync at the end), "
+              f"{TRAIN_BATCH / wall_ms * 1e3:.1f} clips/s at B={TRAIN_BATCH}, "
+              f"peak memory {peak_gb:.2f} GB on {card}")
+        if not finite:
+            raise SystemExit(f"kernels='{route}': the loss is not finite")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise SystemExit(f"kernels='{route}': the loss did not fall on the repeated batch")
+        if not moved > 0 or state.step != TRAIN_STEPS:
+            raise SystemExit(f"kernels='{route}': BN statistics or the step count did not move")
+        result[route] = dict(ms_per_step=event_ms, wall_ms_per_step=wall_ms,
+                             clips_per_s=TRAIN_BATCH / wall_ms * 1e3, peak_memory_gb=peak_gb,
+                             first_loss=losses[0], last_loss=losses[-1])
+        del state, step
+    # the f32 reference: F.conv3d everywhere, TF32 off, same weights and mask
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfgs["torch"], model=dataclasses.replace(
+        cfgs["torch"].model, compute_dtype="float32"))
+    state = create_train_state(cfg32, steps_per_epoch=100, device=DEV,
+                               generator=torch.Generator().manual_seed(SEED))
+    state.model.load_state_dict(init)
+    l32, g32, d32 = _first_step_by_hand(state, cfg32, batch)
+    del state
+    torch.cuda.empty_cache()
+    (lc, gc, dc), (lt, gt, dt) = first["cuda"], first["torch"]
+    scale = gt.abs().max().item()
+    logit_err = (gc - gt).abs().max().item() / scale
+    loss_err = abs(lc.item() - lt.item()) / abs(lt.item())
+    print(f"step 0, same weights and dropout mask: loss cuda {lc.item():.5f} torch "
+          f"{lt.item():.5f} (relative diff {loss_err:.3e}); logits max abs diff / max|logit| "
+          f"{logit_err:.3e} (max|logit| {scale:.3f}; tol {PATH_TOL})")
+    print(f"step 0 against the f32 reference: loss {l32.item():.5f}; logits max abs diff / "
+          f"max|logit|: cuda {(gc - g32).abs().max().item() / scale:.3e}, "
+          f"torch {(gt - g32).abs().max().item() / scale:.3e}")
+
+    def distance(a, ref):
+        num = sum((a[k].float() - ref[k]).pow(2).sum().item() for k in ref) ** 0.5
+        den = sum(ref[k].pow(2).sum().item() for k in ref) ** 0.5
+        per = sorted((((a[k].float() - ref[k]).norm().item()
+                       / max(ref[k].norm().item(), 1e-30), k) for k in ref), reverse=True)
+        return num / den, per
+
+    err_c, per_c = distance(dc, d32)
+    err_t, per_t = distance(dt, d32)
+    err_ct, _ = distance(dc, {k: v.float() for k, v in dt.items()})
+    limit = GRAD_FACTOR * err_t + GRAD_SLACK
+    print(f"step-0 gradients, ||g - g_f32|| / ||g_f32|| over all parameters: cuda {err_c:.3e}, "
+          f"torch {err_t:.3e} (cuda may reach {limit:.3e}); cuda vs torch {err_ct:.3e}")
+    for name, per in (("cuda", per_c), ("torch", per_t)):
+        print(f"  kernels='{name}' per tensor: worst "
+              + ", ".join(f"{k} {e:.3e}" for e, k in per[:3])
+              + f"; median {per[len(per) // 2][0]:.3e}; best {per[-1][1]} {per[-1][0]:.3e}")
+    if not (torch.isfinite(gc).all() and loss_err <= PATH_TOL and logit_err <= PATH_TOL):
+        raise SystemExit("step-0 loss or logits of the kernels='cuda' route disagree")
+    if not err_c <= limit:
+        raise SystemExit("step-0 gradients of the kernels='cuda' route are further from the "
+                         "f32 reference than the kernels='torch' route's allow")
+    result["step0"] = dict(loss_cuda=lc.item(), loss_torch=lt.item(), loss_f32=l32.item(),
+                           logits_cuda_vs_torch=logit_err, grad_dist_cuda_vs_f32=err_c,
+                           grad_dist_torch_vs_f32=err_t, grad_dist_cuda_vs_torch=err_ct)
+    return dict(launches=launches, routes=result)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -297,17 +627,27 @@ def main() -> int:
     card = phase_card()
     phase_build()
     agg = phase_kernels(card)
-    launches = phase_path(card)
+    phase_functions()
+    serving = phase_path(card)
+    train = phase_train(card)
     entries = []
     for kernel, meta in KERNELS.items():
         a = agg[kernel]
+        s = a["train"]
         entries.append(dict(
-            meta, launches=launches[kernel], max_abs_err=a["max_abs_err"],
-            ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-            bound_by="operations" if a["ops_ms"] >= a["bytes_ms"] else "bytes",
-            library_ms=a["library_ms"], ok=a["ok"], bound_us=a["bound_ms"] * 1e3,
-            per="one r2plus1d_18 forward at clip_batch 8 (sum over its launches)",
+            meta, launches=serving[kernel] + train["launches"][kernel],
+            launches_serving=serving[kernel], launches_train_step=train["launches"][kernel],
+            max_abs_err=a["max_abs_err"], max_rel_err=a["max_rel_err"],
+            ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+            bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
+            library_ms=s["library_ms"], ok=a["ok"],
+            per=f"one r2plus1d_18 training step at B={TRAIN_BATCH} (sum over its launches)",
+            train_step_by_role=a["train_roles"],
+            serving_forward=dict(
+                a["serving"], per=f"one forward at clip_batch {CLIP_BATCH}") if a["serving"]["ms"]
+            else None,
             sites=a["sites"]))
+    print(json.dumps({"train": train["routes"], "card": card}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """fastvideotagging_tpu_torch: the PyTorch / CUDA port of fastvideotagging_tpu.
 
-This slice serves: the R(2+1)D eval forward and ``tag(video)``, with the
-factorized (2+1)D convs on hand-written Hopper kernels (csrc/). It imports
-neither JAX nor the JAX package. Entry points run on the card unless the
+It serves (the R(2+1)D eval forward and ``tag(video)``) and trains
+(``train.state.create_train_state`` / ``train.loop.make_train_step``), with
+the factorized (2+1)D convs and their gradients on hand-written Hopper
+kernels (csrc/). It imports neither JAX nor the JAX package. Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 

@@ -2,9 +2,9 @@
 
 A copy of ``fastvideotagging_tpu/config.py`` (the port imports nothing of the
 JAX package): the same dataclasses with the same defaults, except
-``ModelConfig.kernels``, whose names and default are the port's own.
-``TrainConfig``, ``ParallelConfig`` (and their ``ExperimentConfig`` fields)
-and ``PRESETS`` wait for the training slice.
+``ModelConfig.kernels``, whose names and default are the port's own. A
+preset may name a model or a setting the port cannot build yet; the
+constructors raise for those.
 """
 
 from __future__ import annotations
@@ -72,13 +72,109 @@ class ModelConfig:
     # nothing about an H100; the port's default is its own kernels.
     kernels: str = "cuda"
     compute_dtype: str = "bfloat16"  # params stay f32; compute in bf16
-    # 'batch' | 'frozen' (eval-identical in this slice); other kinds wait
-    # for the training slice.
+    # 'batch'  -> BatchNorm, batch statistics in train mode
+    # 'frozen' -> running averages always (scale/bias still train)
+    # ('group' and 'scaleonly' are not ported yet)
     norm: str = "batch"
+    # Activation rematerialization: only 'none' is ported.
     remat: str = "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 32
+    num_epochs: int = 30
+    base_lr: float = 0.01
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    # Multi-factor LR schedule: multiply by lr_decay at each epoch in lr_steps.
+    lr_steps: Tuple[int, ...] = (10, 20)
+    lr_decay: float = 0.1
+    warmup_epochs: int = 0
+    # >0 clips gradients to this global L2 norm before SGD; 0 disables
+    # (default: plain SGD).
+    clip_grad_norm: float = 0.0
+    grad_accum_steps: int = 1  # only 1 is ported
+    seed: int = 0
+    log_every: int = 20
+    checkpoint_dir: str = "checkpoints"  # "" disables checkpointing
+    checkpoint_every_steps: int = 0  # 0 -> once per epoch
+    resume: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh/partitioning config, kept field for field; the port runs on one
+    card until the parallel slice.
+
+    data_axis:  batch sharded over this axis, grads allreduced.
+    model_axis: channel sharding for the dual-pathway stretch config.
+    Sizes of -1 mean "use all available devices on the data axis".
+    """
+
+    data_parallel: int = -1
+    model_parallel: int = 1
+    data_axis: str = "data"
+    model_axis: str = "model"
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+
+
+def _kinetics_data(**kw) -> DataConfig:
+    return DataConfig(
+        resize_hw=(256, 342),
+        crop_hw=(224, 224),
+        sampler=ClipSamplerConfig(clip_len=32, stride=2, eval_mode="uniform"),
+        **kw,
+    )
+
+
+# The BASELINE.json configs as named presets, field for field as in the JAX
+# package (``kernels`` takes the port's default).
+PRESETS = {
+    # C3D on one UCF101 clip: 16x112x112, batch 1, forward + sigmoid loss.
+    "c3d_ucf101_smoke": ExperimentConfig(
+        model=ModelConfig(name="c3d", num_classes=101, multilabel=True),
+        train=TrainConfig(batch_size=1),
+    ),
+    # R(2+1)D-18 on UCF101: 16x112x112 clips, batch 32, full train step.
+    "r2plus1d18_ucf101": ExperimentConfig(
+        model=ModelConfig(name="r2plus1d_18", num_classes=101),
+        train=TrainConfig(batch_size=32),
+    ),
+    # UCF101 top-1 parity protocol: 128x171 resize -> center 112x112 crop,
+    # 10 uniformly spaced eval clips per video, video-level top-1.
+    "ucf101_parity": ExperimentConfig(
+        model=ModelConfig(name="r2plus1d_18", num_classes=101),
+        data=DataConfig(
+            sampler=ClipSamplerConfig(clip_len=16, eval_mode="uniform",
+                                      num_eval_clips=10)),
+        train=TrainConfig(batch_size=32),
+    ),
+    # P3D-63 / R(2+1)D-34 on Kinetics-400: 32x224x224, multi-clip eval.
+    "p3d63_kinetics": ExperimentConfig(
+        model=ModelConfig(name="p3d_63", num_classes=400),
+        data=_kinetics_data(),
+    ),
+    "r2plus1d34_kinetics": ExperimentConfig(
+        model=ModelConfig(name="r2plus1d_34", num_classes=400),
+        data=_kinetics_data(),
+    ),
+    # Multi-label tagging: 1k-tag sigmoid head, dense clip sampling.
+    "multilabel_tagging_1k": ExperimentConfig(
+        model=ModelConfig(name="r2plus1d_18", num_classes=1000, multilabel=True),
+        data=DataConfig(sampler=ClipSamplerConfig(eval_mode="dense")),
+    ),
+    # SlowFast-style dual-pathway stretch, channel-sharded.
+    "slowfast_stretch": ExperimentConfig(
+        model=ModelConfig(name="slowfast_r2plus1d", num_classes=400),
+        data=_kinetics_data(),
+        parallel=ParallelConfig(model_parallel=2),
+    ),
+}

@@ -1,4 +1,4 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from and to the JAX package.
 
 ``from_jax_variables`` maps the JAX package's R(2+1)D variables — nested
 dicts of numpy arrays, ``{'params': ..., 'batch_stats': ...}`` — onto the
@@ -11,6 +11,10 @@ name:
   ``batch_stats/.../<norm>/BatchNorm_0/{mean,var}`` drop the ``BatchNorm_0``
   level;
 - ``fc/kernel`` (512, classes) becomes ``fc.weight`` (classes, 512).
+
+``to_jax_variables`` is the inverse: a state_dict of the port (a trained
+model's, say) becomes nested dicts of numpy arrays that the JAX package's
+``model.apply`` takes.
 
 Neither JAX nor Flax is imported: any array with ``__array__`` works.
 """
@@ -42,3 +46,28 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
                 names, value = ["fc", "weight"], value.T.contiguous()
             state[".".join(names)] = value
     return state
+
+
+_BN_PARAMS = ("scale", "bias")
+_BN_STATS = ("mean", "var")
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port model's state_dict -> JAX-layout R(2+1)D variables
+    ``{'params': ..., 'batch_stats': ...}`` of float32 numpy arrays."""
+    variables: dict = {"params": {}, "batch_stats": {}}
+    for key, tensor in state_dict.items():
+        *path, leaf = key.split(".")
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        collection = "params"
+        if key == "fc.weight":
+            leaf, value = "kernel", value.T
+        elif path != ["fc"] and (leaf in _BN_PARAMS or leaf in _BN_STATS):
+            path.append("BatchNorm_0")
+            if leaf in _BN_STATS:
+                collection = "batch_stats"
+        node = variables[collection]
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return variables

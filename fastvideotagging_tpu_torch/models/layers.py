@@ -7,8 +7,9 @@ conv, as the JAX modules do; the hand kernels read that layout directly.
 
 ``backend`` selects the factorized convs' route: 'cuda' (the hand kernels of
 ops/conv2plus1d.py, plain versions on the CPU) or 'torch' (``F.conv3d``).
-Modules here are eval-only; train mode (batch statistics, gradients through
-the kernels) is the training slice's.
+Both routes are differentiable: the kernels through the
+``torch.autograd.Function``s of ops/conv2plus1d.py, ``F.conv3d`` through
+PyTorch's own autograd.
 """
 
 from __future__ import annotations
@@ -76,13 +77,6 @@ def _check_backend(backend: str) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown kernels backend {backend!r}; expected one of {BACKENDS}")
     return backend
-
-
-def _check_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} runs in eval mode only; call .eval() "
-            "(train mode is not ported yet)")
 
 
 class Conv3D(nn.Module):
@@ -154,9 +148,17 @@ class TemporalConv(nn.Module):
 
 
 class Norm(nn.Module):
-    """BatchNorm in eval mode over the channel (last) axis: kinds 'batch' and
-    'frozen', which agree outside training. Parameters ``scale``/``bias``
-    and buffers ``mean``/``var`` in f32, as Flax's BatchNorm keeps them.
+    """BatchNorm over the channel (last) axis with Flax's semantics.
+    Parameters ``scale``/``bias`` and buffers ``mean``/``var`` in f32, as
+    Flax's BatchNorm keeps them.
+
+    - 'batch': in train mode the statistics of the batch, taken in f32 over
+      (B, T, H, W) as ``var = max(0, mean(x^2) - mean(x)^2)`` (biased), and
+      the running ``mean``/``var`` move to ``momentum * old + (1 - momentum)
+      * batch`` (the running var from the biased batch var, unlike
+      ``nn.BatchNorm3d``); in eval mode the running averages.
+    - 'frozen': the running averages always (``scale``/``bias`` still
+      train); the buffers never move.
 
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` is computed in f32
     and cast to the compute dtype, Flax's order and promotion."""
@@ -164,13 +166,14 @@ class Norm(nn.Module):
     KINDS = ("batch", "frozen")
 
     def __init__(self, features: int, kind: str = "batch", epsilon: float = 1e-5,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, momentum: float = 0.9):
         super().__init__()
         if kind not in self.KINDS:
             raise ValueError(
                 f"norm kind {kind!r} is not ported yet; expected one of {self.KINDS}")
         self.kind = kind
         self.epsilon = epsilon
+        self.momentum = momentum
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -178,9 +181,19 @@ class Norm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        y = (x.float() - self.mean) * mul + self.bias
+        # Flax promotes to at least f32 (an f64 input keeps f64).
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training and self.kind == "batch":
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        y = (xf - mean) * mul + self.bias
         return y.to(self.dtype)
 
 

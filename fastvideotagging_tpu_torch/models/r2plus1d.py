@@ -1,4 +1,4 @@
-"""R(2+1)D backbone (Tran et al. CVPR'18), eval forward.
+"""R(2+1)D backbone (Tran et al. CVPR'18).
 
 The counterpart of ``fastvideotagging_tpu/models/r2plus1d.py``: every 3x3x3
 conv is factorized into a spatial 1x3x3 conv (M mid-channels) + BN + ReLU +
@@ -9,8 +9,10 @@ pool + FC in f32.
 
 Module and parameter names follow the JAX tree (``stage1_block0.conv1.
 spatial.kernel``, ``...bn_mid.scale``), so models/convert.py maps one onto
-the other by name. Remat and ``time_axis`` are training / multi-chip knobs
-and are not ported; dropout is the identity in eval.
+the other by name. ``module.train()`` / ``.eval()`` take the place of the
+JAX ``train`` argument: in train mode BatchNorm uses batch statistics and
+dropout (before ``fc``) is drawn from the ``generator`` given to
+``forward``. Remat and ``time_axis`` are not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from fastvideotagging_tpu_torch.models.layers import (
     Norm,
     SpatialConv,
     TemporalConv,
-    _check_eval,
     global_avg_pool_3d,
     lecun_normal,
     r2plus1d_mid_channels,
@@ -87,9 +88,11 @@ class R2Plus1D(nn.Module):
                  mid_channels_fn: Callable[[int, int], int] = r2plus1d_mid_channels,
                  stem_mid: int = 45, generator: torch.Generator | None = None):
         super().__init__()
+        if not 0.0 <= dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         self.stage_blocks = tuple(stage_blocks)
         self.dtype = dtype
-        self.dropout = dropout  # identity in eval
+        self.dropout = dropout
         g = generator
         self.stem_spatial = SpatialConv(3, stem_mid, 7, stride=2, backend=backend,
                                         dtype=dtype, generator=g)
@@ -114,8 +117,10 @@ class R2Plus1D(nn.Module):
             self.fc.weight.copy_(lecun_normal((cin, num_classes), g).T)
             self.fc.bias.zero_()
 
-    def forward(self, x: torch.Tensor, features_only: bool = False) -> torch.Tensor:
-        _check_eval(self)
+    def forward(self, x: torch.Tensor, features_only: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` (on x's device) draws the train-mode dropout mask;
+        None takes PyTorch's default generator."""
         x = x.to(self.dtype)
         x = torch.relu(self.stem_bn1(self.stem_spatial(x)))
         x = torch.relu(self.stem_bn2(self.stem_temporal(x)))
@@ -124,4 +129,8 @@ class R2Plus1D(nn.Module):
         if features_only:
             return x  # pre-pool feature map (B, T', H', W', C)
         x = global_avg_pool_3d(x)
+        if self.training and self.dropout > 0:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            x = x * mask / keep
         return self.fc(x.float())

@@ -3,6 +3,7 @@
 
     net = get_model("r2plus1d_18", num_classes=101)   # on the card, eval mode
     logits = net(clips)                                # clips (B, T, H, W, 3)
+    net.train()                                        # batch-stat BN, dropout
 
 Every constructor takes ``num_classes``, ``backend`` ('cuda' | 'torch'),
 ``dtype``, ``norm``, ``dropout`` and a ``generator`` for its seeded init.
@@ -48,7 +49,8 @@ def model_from_config(m_cfg, device: str | torch.device = "cuda",
                       **overrides) -> nn.Module:
     """Build the model exactly as a ``ModelConfig`` specifies: ``kernels``
     becomes the conv backend and ``compute_dtype`` the activation dtype.
-    ``remat`` is a training-memory knob with no effect on an eval forward.
+    ``remat`` is a training-memory knob with no effect on an eval forward
+    (train/state.py refuses values it cannot honour).
     ``overrides`` win over config fields."""
     kw = dict(
         num_classes=m_cfg.num_classes,

@@ -1,19 +1,29 @@
 """The factorized (2+1)D convolutions: hand-written Hopper kernels, their
-plain PyTorch versions, and the routing of the JAX package's
-``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
+plain PyTorch versions, their gradients, and the routing of the JAX
+package's ``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
 
 - ``spatial_conv_kernel`` (K1, csrc/conv2plus1d.cu) replaces the TPU kernel
   ``_spatial_kernel`` / ``_spatial_pallas``: a stride-1 1 x k x k conv.
 - ``temporal_conv_kernel`` (K2) replaces ``_temporal_kernel`` /
   ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
+- ``temporal_dw_kernel`` (K3, csrc/temporal_dw.cu) replaces
+  ``_temporal_dw_kernel`` / ``_temporal_dw``: the temporal conv's weight
+  gradient.
 
-Each wrapper (``spatial_conv_cuda`` / ``temporal_conv_cuda``) takes bf16
-contiguous CUDA tensors, launches its kernel on the current stream, raises if
-the launch fails, and adds one to ``launch_counts``. ``spatial_conv`` /
-``temporal_conv`` send a CUDA tensor to the kernel and a CPU tensor to the
-plain version (``spatial_conv_plain`` / ``temporal_conv_plain``: the same
-arithmetic as k or k*k shifted matmuls into an f32 accumulator); nothing
-falls back from the kernel to the plain version.
+Each wrapper (``spatial_conv_cuda`` / ``temporal_conv_cuda`` /
+``temporal_dw_cuda``) takes bf16 contiguous CUDA tensors, launches its
+kernel on the current stream, raises if the launch fails, and adds one to
+``launch_counts``. A CUDA tensor goes to the kernel and a CPU tensor to the
+plain version (``*_plain``: the same arithmetic as k or k*k shifted matmuls
+into an f32 accumulator); nothing falls back from the kernel to the plain
+version.
+
+``spatial_conv`` / ``temporal_conv`` are differentiable through two
+``torch.autograd.Function``s, the counterparts of the JAX package's
+``_spatial_op`` / ``_temporal_op``: dx is the same forward kernel on the
+flipped, channel-transposed weights; the temporal dw is K3; the spatial dw
+is k*k tap-sliced matmuls (XLA's in the JAX package, the matmul library's
+here).
 
 Convs the kernels do not take (strided stage entries, the 3-channel stem,
 C < MIN_C) go to ``F.conv3d``, as the JAX package sends them to
@@ -22,10 +32,12 @@ C < MIN_C) go to ``F.conv3d``, as the JAX package sends them to
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from fastvideotagging_tpu_torch.ops import _build
 
@@ -34,7 +46,7 @@ from fastvideotagging_tpu_torch.ops import _build
 MIN_C = 32
 
 # Kernel launches since the last reset, by kernel.
-launch_counts = {"spatial_conv": 0, "temporal_conv": 0}
+launch_counts = {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -43,6 +55,7 @@ def reset_launch_counts() -> None:
 
 
 _lib = None
+_dw_lib = None
 
 
 def _kernels() -> ctypes.CDLL:
@@ -59,17 +72,36 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def _check_kernel_args(x: torch.Tensor, w: torch.Tensor, x_dims: int,
-                       w_shape: tuple) -> None:
-    for name, t in (("x", x), ("w", w)):
+def _dw_kernels() -> ctypes.CDLL:
+    global _dw_lib
+    if _dw_lib is None:
+        lib = _build.load("temporal_dw")
+        lib.fvt_temporal_dw_bf16.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.fvt_temporal_dw_bf16.restype = ctypes.c_int
+        _dw_lib = lib
+    return _dw_lib
+
+
+def _check_kernel_tensors(**tensors: torch.Tensor) -> None:
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if w.device != x.device:
-        raise ValueError(f"x on {x.device} but w on {w.device}")
+        if t.device != first.device:
+            raise ValueError(f"tensors on {first.device} and {t.device}")
+
+
+def _check_kernel_args(x: torch.Tensor, w: torch.Tensor, x_dims: int,
+                       w_shape: tuple) -> None:
+    _check_kernel_tensors(x=x, w=w)
     if x.ndim != x_dims:
         raise ValueError(f"x must have {x_dims} dims, got {tuple(x.shape)}")
     if tuple(w.shape) != w_shape:
@@ -78,13 +110,19 @@ def _check_kernel_args(x: torch.Tensor, w: torch.Tensor, x_dims: int,
         raise ValueError(f"kernel size must be odd, got {w_shape[0]}")
 
 
-def _route(kernel, plain, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulator: f32, as in the kernels (f64 for an
+    f64 input, which the kernels do not take)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _route(kernel, plain, x: torch.Tensor, *args):
     """The kernel for a CUDA tensor, its plain version for a CPU tensor."""
     if x.is_cuda:
-        return kernel(x, w)
+        return kernel(x, *args)
     if x.device.type != "cpu":
         raise ValueError(f"no kernel for device {x.device}")
-    return plain(x, w)
+    return plain(x, *args)
 
 
 def _launch(fn, x, w, y, dims, k) -> None:
@@ -119,11 +157,67 @@ def spatial_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n, h, wd, c = x.shape
     p = k // 2
     xp = F.pad(x, (0, 0, p, p, p, p))
-    acc = torch.zeros((n, h, wd, w.shape[-1]), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((n, h, wd, w.shape[-1]), dtype=_acc_dtype(x), device=x.device)
     for dh in range(k):
         for dw in range(k):
-            acc += xp[:, dh : dh + h, dw : dw + wd, :].float() @ w[dh, dw].float()
+            acc += xp[:, dh : dh + h, dw : dw + wd, :].to(acc.dtype) @ w[dh, dw].to(acc.dtype)
     return acc.to(x.dtype)
+
+
+@contextlib.contextmanager
+def _f32_accumulation():
+    """Matmuls inside sum in f32 all the way: no bf16 split-K reduction,
+    no TF32 (the contractions here run over up to 1.6 M rows)."""
+    mm = torch.backends.cuda.matmul
+    prev = (mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32)
+    mm.allow_bf16_reduced_precision_reduction = False
+    mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction, mm.allow_tf32 = prev
+
+
+def spatial_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """The spatial conv's weight gradient,
+    dw[dh,dw,c,co] = sum_{n,h,w} x_pad[n,h+dh,w+dw,c] g[n,h,w,co], as k*k
+    tap-sliced (rows, C)^T @ (rows, Co) matmuls accumulated in f32 (the JAX
+    package's ``_spatial_dw`` leaves the same products to XLA). x (N,H,W,C),
+    g (N,H,W,Co) -> (k, k, C, Co) in x's dtype."""
+    n, h, wd, c = x.shape
+    p = k // 2
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
+    taps = []
+    with _f32_accumulation():
+        for dh in range(k):
+            for dw in range(k):
+                patch = xp[:, dh : dh + h, dw : dw + wd, :].reshape(-1, c)
+                taps.append(patch.T @ g2)
+    return torch.stack(taps).reshape(k, k, c, -1)
+
+
+class _SpatialOp(torch.autograd.Function):
+    """K1 with its gradients (the JAX package's ``_spatial_op``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _route(spatial_conv_cuda, spatial_conv_plain, x, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx: correlate g with spatially flipped, channel-transposed weights.
+            w_t = w.flip(0, 1).transpose(2, 3).contiguous()
+            dx = _route(spatial_conv_cuda, spatial_conv_plain, g, w_t)
+        if ctx.needs_input_grad[1]:
+            dw = spatial_dw(x, g, w.shape[0]).to(w.dtype)
+        return dx, dw
 
 
 def spatial_eligible(x_shape, k: int, stride: int) -> bool:
@@ -140,7 +234,7 @@ def spatial_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Ten
     k = w.shape[0]
     if spatial_eligible(x.shape, k, stride):
         x4 = x.reshape(b * t, h, wd, c).contiguous()
-        y = _route(spatial_conv_cuda, spatial_conv_plain, x4, w.contiguous())
+        y = _SpatialOp.apply(x4, w.contiguous())
         return y.reshape(b, t, h, wd, -1)
     p = k // 2
     return conv3d_nthwc(x, w[None], (1, stride, stride), (0, p, p))
@@ -170,10 +264,99 @@ def temporal_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, t, s, c = x.shape
     p = k // 2
     xp = F.pad(x, (0, 0, 0, 0, p, p))
-    acc = torch.zeros((b, t, s, w.shape[-1]), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, t, s, w.shape[-1]), dtype=_acc_dtype(x), device=x.device)
     for dt in range(k):
-        acc += xp[:, dt : dt + t].float() @ w[dt].float()
+        acc += xp[:, dt : dt + t].to(acc.dtype) @ w[dt].to(acc.dtype)
     return acc.to(x.dtype)
+
+
+_DW_TILE = 64  # csrc/temporal_dw.cu: BM, BN
+_DW_SLAB = 32  # BK
+_DW_MIN_ROWS = 256
+_DW_TARGET_BLOCKS = 8 * 132
+
+
+def _dw_split(m: int, k: int, c: int, co: int) -> tuple[int, int]:
+    """How K3 splits its m contraction rows: (chunks, rows per chunk).
+
+    One block computes a 64 x 64 tile of one tap over one chunk. With few
+    tiles (stage 1: 9) the rows are cut into enough chunks for about eight
+    blocks per SM; with many tiles (stage 4: 432) into few. A chunk is a
+    multiple of the kernel's 32-row slab and at least 256 rows."""
+    tiles = k * -(-c // _DW_TILE) * -(-co // _DW_TILE)
+    chunks = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), -(-m // _DW_MIN_ROWS)))
+    rows = -(-(-(-m // chunks)) // _DW_SLAB) * _DW_SLAB
+    return -(-m // rows), rows
+
+
+def temporal_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """K3: x (B, T, S, C), g (B, T, S, Co), both bf16 contiguous on CUDA ->
+    dw (k, C, Co) f32, dw[dt] = sum over rows of x[t+dt-k//2]^T g[t].
+    Deterministic: partial sums per row chunk, added in chunk order."""
+    _check_kernel_tensors(x=x, g=g)
+    if x.ndim != 4 or g.ndim != 4 or g.shape[:3] != x.shape[:3]:
+        raise ValueError(
+            f"x (B,T,S,C) and g (B,T,S,Co) must share B, T, S; got "
+            f"{tuple(x.shape)} and {tuple(g.shape)}")
+    if k <= 0 or k % 2 == 0:
+        raise ValueError(f"kernel size must be odd, got {k}")
+    b, t, s, c = x.shape
+    co = g.shape[-1]
+    chunks, rows = _dw_split(b * t * s, k, c, co)
+    dw = torch.empty((k, c, co), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((chunks, k, c, co), dtype=torch.float32, device=x.device)
+          if chunks > 1 else dw)
+    fn = _dw_kernels().fvt_temporal_dw_bf16
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, t, s, c,
+            co, k, chunks, rows, x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"fvt_temporal_dw_bf16 launch failed: CUDA error {rc}")
+    launch_counts["temporal_dw"] += 1
+    return dw
+
+
+def temporal_dw_plain(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version of K3: k shifted (rows, C)^T @ (rows, Co) products
+    in f32 over the rows where both x[t+dt-p] and g[t] exist -> (k, C, Co)
+    f32."""
+    t, c = x.shape[1], x.shape[-1]
+    p = k // 2
+    acc = _acc_dtype(x)
+    taps = []
+    with _f32_accumulation():
+        for dt in range(k):
+            off = dt - p
+            rows = t - abs(off)
+            if rows <= 0:
+                taps.append(torch.zeros((c, g.shape[-1]), dtype=acc, device=x.device))
+                continue
+            xt = x[:, max(0, off) : max(0, off) + rows].reshape(-1, c).to(acc)
+            gt = g[:, max(0, -off) : max(0, -off) + rows].reshape(-1, g.shape[-1]).to(acc)
+            taps.append(xt.T @ gt)
+    return torch.stack(taps)
+
+
+class _TemporalOp(torch.autograd.Function):
+    """K2 with its gradients (the JAX package's ``_temporal_op``)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _route(temporal_conv_cuda, temporal_conv_plain, x, w)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_t = w.flip(0).transpose(1, 2).contiguous()
+            dx = _route(temporal_conv_cuda, temporal_conv_plain, g, w_t)
+        if ctx.needs_input_grad[1]:
+            dw = _route(temporal_dw_cuda, temporal_dw_plain, x, g, w.shape[0]).to(w.dtype)
+        return dx, dw
 
 
 def temporal_eligible(x_shape, k: int, stride: int) -> bool:
@@ -188,7 +371,7 @@ def temporal_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Te
     k = w.shape[0]
     if temporal_eligible(x.shape, k, stride):
         x4 = x.reshape(b, t, h * wd, c).contiguous()
-        y = _route(temporal_conv_cuda, temporal_conv_plain, x4, w.contiguous())
+        y = _TemporalOp.apply(x4, w.contiguous())
         return y.reshape(b, t, h, wd, -1)
     p = k // 2
     return conv3d_nthwc(x, w[:, None, None], (stride, 1, 1), (p, 0, 0))

@@ -1,0 +1,91 @@
+"""The train step (counterpart of ``fastvideotagging_tpu/train/loop.py``):
+
+  uint8 frames -> device preprocess (resize, random crop, flip, normalize)
+  -> model forward in train mode (compute dtype) -> loss (f32) -> backward
+  (through the hand kernels with ``kernels='cuda'``) -> clip -> SGD update.
+
+The step runs eagerly on the state's device and never waits for it: the
+metrics come back as device tensors, for the caller to read every
+``log_every`` steps.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from fastvideotagging_tpu_torch.config import ExperimentConfig
+from fastvideotagging_tpu_torch.models import heads
+from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch
+from fastvideotagging_tpu_torch.train.state import TrainState
+
+
+def make_train_step(
+    model: torch.nn.Module, cfg: ExperimentConfig, device_cache: bool = False,
+) -> Callable[[TrainState, dict, torch.Generator | None], tuple[TrainState, dict]]:
+    """Build the train step: ``(state, batch, generator) -> (state, metrics)``.
+
+    batch: frames uint8 (B,T,H,W,3), labels int (B,) or multihot f32 (B,K),
+    crop_tops/crop_lefts int (B,), flips bool (B,), weights f32 (B,) —
+    tensors or numpy arrays on the host or the device. ``generator`` (on
+    the model's device) draws the dropout mask. The state is updated in
+    place and returned; ``metrics`` holds ``loss`` and, for single-label
+    models, ``top1`` as 0-d device tensors.
+    """
+    if device_cache:
+        raise NotImplementedError("device_cache=True is not ported yet")
+    d = cfg.data
+    multilabel = cfg.model.multilabel
+    compute_dtype = getattr(torch, cfg.model.compute_dtype)
+    # host_crop ships pre-cropped frames: the device "resize" becomes the
+    # (crop_hw -> crop_hw) identity and only flip + normalize remain.
+    resize_hw = d.crop_hw if d.host_crop else d.resize_hw
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step was built for")
+        dev = next(model.parameters()).device
+        batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
+        clips = preprocess_batch(
+            batch["frames"], batch["crop_tops"], batch["crop_lefts"], batch["flips"],
+            d.mean, d.std, resize_hw=resize_hw, crop_hw=d.crop_hw,
+            out_dtype=compute_dtype)
+        model.train()
+        logits = model(clips, generator=generator)
+        if multilabel:
+            loss = heads.sigmoid_bce(logits, batch["multihot"], batch["weights"])
+        else:
+            loss = heads.softmax_cross_entropy(logits, batch["labels"], batch["weights"])
+        loss.backward()
+        state.apply_gradients()
+        metrics = {"loss": loss.detach()}
+        if not multilabel:
+            w = batch["weights"].float()
+            top1 = (logits.detach().argmax(dim=-1) == batch["labels"]).float()
+            metrics["top1"] = (top1 * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return state, metrics
+
+    return step
+
+
+def make_sample_batch(cfg: ExperimentConfig, batch_size: int | None = None,
+                      device_cache: bool = False) -> dict:
+    """A zeros batch (host tensors) with the config's exact shapes."""
+    if device_cache:
+        raise NotImplementedError("device_cache=True is not ported yet")
+    d = cfg.data
+    b = batch_size or cfg.train.batch_size
+    t = d.sampler.clip_len
+    h, w = d.crop_hw if d.host_crop else (d.source_hw or d.resize_hw)
+    batch = {
+        "frames": torch.zeros((b, t, h, w, 3), dtype=torch.uint8),
+        "labels": torch.zeros((b,), dtype=torch.int32),
+        "crop_tops": torch.zeros((b,), dtype=torch.int32),
+        "crop_lefts": torch.zeros((b,), dtype=torch.int32),
+        "flips": torch.zeros((b,), dtype=torch.bool),
+        "weights": torch.ones((b,), dtype=torch.float32),
+    }
+    if cfg.model.multilabel:
+        batch["multihot"] = torch.zeros((b, cfg.model.num_classes), dtype=torch.float32)
+    return batch

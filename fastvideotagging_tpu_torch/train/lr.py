@@ -1,0 +1,69 @@
+"""LR schedule and optimizer (counterpart of
+``fastvideotagging_tpu/train/lr.py``): SGD-momentum with multi-factor decay.
+
+The JAX package chains optax ``clip_by_global_norm`` -> ``add_decayed_weights``
+-> ``sgd(schedule, momentum)``. ``torch.optim.SGD(weight_decay=...)`` adds
+``weight_decay * p`` to the gradient before the momentum buffer and steps by
+``lr * buffer``: the same arithmetic once the gradient is clipped first and
+``lr`` is set from the schedule before every step. The decay has no mask:
+BN scale/bias and the fc bias decay too, as in the optax chain.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import torch
+
+from fastvideotagging_tpu_torch.config import TrainConfig
+
+
+def multifactor_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], float]:
+    """``step -> lr``: base_lr, x lr_decay at each epoch in lr_steps, with
+    linear warmup from 0 over ``warmup_epochs``.
+
+    The decay boundaries are counted from the end of warmup (the
+    post-warmup schedule sees ``step - warmup_steps``), so an lr_steps epoch
+    fires at that epoch and not warmup_epochs later."""
+    warmup_steps = (max(1, int(cfg.warmup_epochs * steps_per_epoch))
+                    if cfg.warmup_epochs > 0 else 0)
+    if cfg.lr_steps and cfg.warmup_epochs >= min(cfg.lr_steps):
+        # A boundary at or before the end of warmup would otherwise apply
+        # its decay factor from the first post-warmup step.
+        raise ValueError(
+            f"warmup_epochs={cfg.warmup_epochs} must end before the first "
+            f"lr_steps decay epoch {min(cfg.lr_steps)}")
+    boundaries = sorted(int(e * steps_per_epoch) - warmup_steps for e in cfg.lr_steps)
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return cfg.base_lr * step / warmup_steps
+        lr = cfg.base_lr
+        for boundary in boundaries:
+            if step - warmup_steps >= boundary:
+                lr *= cfg.lr_decay
+        return lr
+
+    return schedule
+
+
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+    """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``
+    (optax ``clip_by_global_norm``: untouched below it, ``g / norm *
+    max_norm`` above). Stays on the device: no host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, coef)
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
+                   steps_per_epoch: int) -> tuple[torch.optim.SGD, Callable[[int], float]]:
+    """SGD + momentum + weight decay over ``params`` and the schedule that
+    sets its ``lr`` before every step (train/state.py applies it, after the
+    clip when ``clip_grad_norm > 0``)."""
+    if cfg.grad_accum_steps > 1:
+        raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
+    schedule = multifactor_schedule(cfg, steps_per_epoch)
+    sgd = torch.optim.SGD(params, lr=schedule(0), momentum=cfg.momentum,
+                          weight_decay=cfg.weight_decay, dampening=0, nesterov=False)
+    return sgd, schedule

@@ -1,20 +1,27 @@
-"""Device-time breakdown of one R(2+1)D forward on the card.
+"""Device-time breakdown of one R(2+1)D forward, or of one training step,
+on the card.
 
     python -m fastvideotagging_tpu_torch.utils.profiling [--model r2plus1d_18]
-        [--clip-batch 8] [--iters 5]
+        [--clip-batch 8] [--iters 5] [--train [--batch 32]]
 
-Runs the eval forward of a seeded random-weight model (16x112x112 clips,
-bf16) with ``kernels='cuda'`` and ``kernels='torch'``, traces ``--iters``
-forwards with ``torch.profiler`` after a warm-up, and prints one JSON line
-per backend: device time per forward by kernel group, the device's busy
-time, the host wall time and the idle share (1 - busy / wall).
+Without ``--train``: the eval forward of a seeded random-weight model
+(16x112x112 clips, bf16). With ``--train``: the training step of
+``train/loop.py`` (preprocess, forward in train mode, loss, backward, SGD)
+for the ``r2plus1d18_ucf101`` preset on one seeded random batch of
+``--batch`` clips. Either runs with ``kernels='cuda'`` and
+``kernels='torch'``, traces ``--iters`` iterations with ``torch.profiler``
+after a warm-up, and prints one JSON line per backend: device time per
+iteration by kernel group, the device's busy time, the host wall time and
+the idle share (1 - busy / wall).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
+from typing import Callable
 
 import torch
 from torch.autograd import DeviceType
@@ -25,9 +32,14 @@ from fastvideotagging_tpu_torch.models.zoo import get_model
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("K1 spatial_conv_kernel", ("spatial_conv_kernel",)),
     ("K2 temporal_conv_kernel", ("temporal_conv_kernel",)),
-    ("library conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90")),
+    ("K3 temporal_dw_kernel (+ reduce)", ("temporal_dw",)),
+    ("library matmul (cuBLAS)", ("nvjet", "xmma_gemm", "gemv", "s16816gemm", "s1688gemm",
+                                 "sgemm", "splitkreduce", "cublas")),
+    ("library conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90",
+                              "wgrad", "dgrad", "fprop")),
+    ("optimizer (foreach SGD, clip)", ("multi_tensor", "foreach")),
     ("elementwise (BN, ReLU, add, casts)", ("elementwise", "vectorized", "unrolled")),
-    ("reduction (pool)", ("reduce",)),
+    ("reduction (BN statistics, pool, loss)", ("reduce", "softmax", "nll")),
     ("copy / layout", ("copy", "memcpy", "memset", "cat")),
 )
 
@@ -52,17 +64,17 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def breakdown(model: torch.nn.Module, x: torch.Tensor, iters: int) -> dict:
-    with torch.inference_mode():
-        for _ in range(3):
-            model(x)
+def breakdown(run: Callable[[], object], iters: int) -> dict:
+    """Trace ``iters`` calls of ``run`` after three warm-up calls."""
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model(x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     groups: dict[str, float] = {}
     names: dict[str, float] = {}
     intervals = []
@@ -76,23 +88,18 @@ def breakdown(model: torch.nn.Module, x: torch.Tensor, iters: int) -> dict:
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
     busy = _busy_us(intervals)
-    top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:16]
     return dict(
-        ms_per_forward={g: v / iters / 1e3 for g, v in sorted(groups.items(),
-                                                                key=lambda kv: -kv[1])},
-        device_busy_ms_per_forward=busy / iters / 1e3,
-        wall_ms_per_forward=wall_us / iters / 1e3,
+        ms_per_iter={g: v / iters / 1e3 for g, v in sorted(groups.items(),
+                                                             key=lambda kv: -kv[1])},
+        device_busy_ms_per_iter=busy / iters / 1e3,
+        wall_ms_per_iter=wall_us / iters / 1e3,
         idle_share=1.0 - busy / wall_us,
-        top_kernels_ms_per_forward=[(n[:120], v / iters / 1e3) for n, v in top],
+        top_kernels_ms_per_iter=[(n[:120], v / iters / 1e3) for n, v in top],
     )
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", default="r2plus1d_18")
-    ap.add_argument("--clip-batch", type=int, default=8)
-    ap.add_argument("--iters", type=int, default=5)
-    args = ap.parse_args()
+def _forward_runs(args):
     g = torch.Generator().manual_seed(0)
     state = get_model(args.model, num_classes=400, device="cpu", generator=g).state_dict()
     x = torch.randn((args.clip_batch, 16, 112, 112, 3),
@@ -101,8 +108,53 @@ def main() -> None:
     for backend in ("cuda", "torch"):
         model = get_model(args.model, num_classes=400, backend=backend)
         model.load_state_dict(state)
-        res = breakdown(model, x, args.iters)
-        print(json.dumps(dict(model=args.model, kernels=backend, clip_batch=args.clip_batch,
+
+        def run(model=model):
+            with torch.inference_mode():
+                model(x)
+        yield backend, dict(what="eval forward", clip_batch=args.clip_batch), run
+
+
+def _train_runs(args):
+    from fastvideotagging_tpu_torch.config import PRESETS
+    from fastvideotagging_tpu_torch.train.loop import make_sample_batch, make_train_step
+    from fastvideotagging_tpu_torch.train.state import create_train_state
+
+    preset = PRESETS["r2plus1d18_ucf101"]
+    preset = dataclasses.replace(
+        preset, model=dataclasses.replace(preset.model, name=args.model),
+        train=dataclasses.replace(preset.train, batch_size=args.batch))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: v.cuda() for k, v in make_sample_batch(preset).items()}
+    batch["frames"] = torch.randint(0, 256, batch["frames"].shape, generator=gen,
+                                    device="cuda", dtype=torch.uint8)
+    batch["labels"] = (torch.arange(args.batch, device="cuda")
+                       % preset.model.num_classes).int()
+    for backend in ("cuda", "torch"):
+        cfg = dataclasses.replace(
+            preset, model=dataclasses.replace(preset.model, kernels=backend))
+        state = create_train_state(cfg, steps_per_epoch=100,
+                                   generator=torch.Generator().manual_seed(0))
+        step = make_train_step(state.model, cfg)
+
+        def run(step=step, state=state):
+            step(state, batch, gen)
+        yield backend, dict(what="training step", batch=args.batch), run
+        del state, step, run
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="r2plus1d_18")
+    ap.add_argument("--clip-batch", type=int, default=8)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--batch", type=int, default=32)
+    args = ap.parse_args()
+    for backend, what, run in (_train_runs if args.train else _forward_runs)(args):
+        res = breakdown(run, args.iters)
+        print(json.dumps(dict(model=args.model, kernels=backend, **what,
                               device=torch.cuda.get_device_name(0), **res)), flush=True)
 
 

@@ -1,4 +1,4 @@
-"""K1 / K2 against their plain versions on the card (marker ``gpu``).
+"""K1 / K2 / K3 against their plain versions on the card (marker ``gpu``).
 
 Skipped without a CUDA card (decided inside the fixture, so every pytest
 worker collects the same tests). On the card, from the repository root —
@@ -11,7 +11,11 @@ Shapes: the R(2+1)D-18 serving path's (clip_batch 8, 16x112x112) and ragged
 ones (C or Co not a multiple of 8, k = 5, row counts that are not a multiple
 of the 128-row tile). Kernel and plain version take the same bf16 inputs and
 sum in f32, so they agree within 1e-2 of the output's largest magnitude
-(bf16 output rounding).
+(bf16 output rounding). K3's output is f32 and differs from its plain
+version by summation order only: 1e-3 of the largest magnitude. The dx
+routes run K1 / K2 on the flipped, channel-transposed weights (C and Co
+swapped, so the ragged side is the output's) and are held to autograd
+through the plain versions.
 """
 
 import pytest
@@ -34,6 +38,16 @@ TEMPORAL = [  # x (B, T, S, C), Co, k
     ((8, 8, 784, 288), 128, 3), ((8, 4, 196, 576), 256, 3), ((8, 2, 49, 1152), 512, 3),
     ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 1, 33), 8, 3),
 ]
+
+
+DW = [  # x (B, T, S, C), Co, k
+    ((8, 16, 3136, 45), 64, 3), ((8, 16, 3136, 144), 64, 3),
+    ((8, 8, 784, 288), 128, 3), ((8, 4, 196, 576), 256, 3), ((8, 2, 49, 1152), 512, 3),
+    ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 1, 33), 8, 3),
+    ((2, 2, 50, 72), 130, 5),   # T = 2 with k = 5: the outer taps have no rows
+    ((1, 3, 700, 64), 64, 3),   # several chunks, the last one ragged
+]
+DW_TOL = 1e-3
 
 
 @pytest.fixture
@@ -75,6 +89,83 @@ def test_temporal_kernel_matches_plain(cuda, x_shape, co, k):
     _close(got, ops.temporal_conv_plain(x, w))
 
 
+@pytest.mark.parametrize("x_shape,co,k", DW)
+def test_temporal_dw_kernel_matches_plain_and_is_deterministic(cuda, x_shape, co, k):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    gy = torch.randn(x_shape[:3] + (co,), generator=g, device=cuda).to(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = ops.launch_counts["temporal_dw"]
+    got = ops.temporal_dw_cuda(x, gy, k)
+    again = ops.temporal_dw_cuda(x, gy, k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["temporal_dw"] == before + 2
+    ref = ops.temporal_dw_plain(x, gy, k)
+    assert got.dtype == torch.float32 and got.shape == ref.shape == (k, x_shape[-1], co)
+    assert torch.equal(got, again)  # bitwise: no atomics, fixed reduction order
+    err = (got - ref).abs().max().item()
+    assert err <= DW_TOL * ref.abs().max().item(), err
+
+
+def _grads(fn, x, w, gy):
+    x = x.clone().requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    fn(x, w).backward(gy)
+    return x.grad, w.grad
+
+
+@pytest.mark.parametrize("x_shape,co,k", [
+    ((2, 4, 14, 14, 64), 144, 3), ((1, 2, 9, 11, 45), 40, 3), ((1, 2, 10, 7, 36), 21, 5),
+    ((2, 2, 7, 7, 512), 1152, 3)])
+def test_spatial_conv_backward_runs_the_kernel(cuda, x_shape, co, k):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, k, x_shape[-1], co), generator=g, device=cuda)
+         / (k * k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    gy = torch.randn(x_shape[:4] + (co,), generator=g, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    # a non-contiguous incoming gradient is made contiguous, not refused
+    dx, dw = _grads(ops.spatial_conv, x, w, gy.transpose(2, 3).contiguous().transpose(2, 3))
+    assert ops.launch_counts == {"spatial_conv": 2, "temporal_conv": 0, "temporal_dw": 0}
+
+    def plain(x, w):
+        b, t, h, wd, c = x.shape
+        return ops.spatial_conv_plain(x.reshape(b * t, h, wd, c), w).reshape(b, t, h, wd, -1)
+    rdx, rdw = _grads(plain, x.float(), w.float(), gy.float())  # f32 reference
+    _close(dx, rdx)
+    _close(dw, rdw)
+
+
+@pytest.mark.parametrize("x_shape,co,k", [
+    ((2, 4, 14, 14, 144), 64, 3), ((2, 8, 6, 6, 45), 64, 3), ((1, 7, 3, 3, 40), 24, 5),
+    ((2, 2, 7, 7, 1152), 512, 3), ((1, 4, 5, 5, 64), 45, 3)])
+def test_temporal_conv_backward_runs_the_kernels(cuda, x_shape, co, k):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, x_shape[-1], co), generator=g, device=cuda)
+         / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    gy = torch.randn(x_shape[:4] + (co,), generator=g, device=cuda).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    dx, dw = _grads(ops.temporal_conv, x, w, gy)
+    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 2, "temporal_dw": 1}
+
+    def plain(x, w):
+        b, t, h, wd, c = x.shape
+        return ops.temporal_conv_plain(x.reshape(b, t, h * wd, c), w).reshape(b, t, h, wd, -1)
+    rdx, rdw = _grads(plain, x.float(), w.float(), gy.float())  # f32 reference
+    _close(dx, rdx)
+    _close(dw, rdw)
+
+
+def test_backward_honours_needs_input_grad(cuda):
+    x = torch.randn((1, 4, 6, 6, 64), device=cuda).to(torch.bfloat16)
+    w = torch.randn((3, 64, 32), device=cuda).to(torch.bfloat16).requires_grad_(True)
+    ops.reset_launch_counts()
+    ops.temporal_conv(x, w).float().sum().backward()
+    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 1, "temporal_dw": 1}
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((1, 4, 4, 32), device=cuda, dtype=torch.bfloat16)
     w = torch.zeros((3, 3, 32, 8), device=cuda, dtype=torch.bfloat16)
@@ -86,6 +177,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ops.spatial_conv_cuda(x, w[:, :, :16])
     with pytest.raises(ValueError, match="odd"):
         ops.temporal_conv_cuda(x, torch.zeros((2, 32, 8), device=cuda, dtype=torch.bfloat16))
+    gy = torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.temporal_dw_cuda(x, gy.float(), 3)
+    with pytest.raises(ValueError, match="share B, T, S"):
+        ops.temporal_dw_cuda(x, gy[:, :2].contiguous(), 3)
+    with pytest.raises(ValueError, match="odd"):
+        ops.temporal_dw_cuda(x, gy, 2)
 
 
 def test_model_kernels_agree_with_library_convs(cuda):
@@ -102,6 +200,6 @@ def test_model_kernels_agree_with_library_convs(cuda):
     with torch.inference_mode():
         a = models["cuda"](x)
         b = models["torch"](x)
-    assert ops.launch_counts == {"spatial_conv": 13, "temporal_conv": 14}
+    assert ops.launch_counts == {"spatial_conv": 13, "temporal_conv": 14, "temporal_dw": 0}
     assert torch.isfinite(a).all()
     assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()

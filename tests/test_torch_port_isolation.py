@@ -4,6 +4,7 @@ stack and no module of the JAX package; with no CUDA card, an entry point
 called without ``device='cpu'`` raises; a failed kernel build raises."""
 
 import json
+import os
 import subprocess
 import sys
 
@@ -31,7 +32,13 @@ def test_importing_every_port_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"fastvideotagging_tpu_torch.ops.conv2plus1d",
             "fastvideotagging_tpu_torch.evaluation.tagger",
-            "fastvideotagging_tpu_torch.models.convert"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.models.convert",
+            "fastvideotagging_tpu_torch.models.heads",
+            "fastvideotagging_tpu_torch.train.loop",
+            "fastvideotagging_tpu_torch.train.lr",
+            "fastvideotagging_tpu_torch.train.metrics",
+            "fastvideotagging_tpu_torch.train.state",
+            "fastvideotagging_tpu_torch.utils.profiling"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -67,7 +74,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["conv2plus1d"]
+    assert _build.sources() == ["conv2plus1d", "temporal_dw"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
@@ -86,3 +93,55 @@ def test_tagger_rejects_wrong_tag_names():
     with pytest.raises(RuntimeError, match="size mismatch"):
         Tagger(ExperimentConfig(model=ModelConfig(num_classes=4)), state, device="cpu")
     assert np.isfinite(state["fc.weight"].numpy()).all()
+
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    _needs_no_card()
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=_ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_imports_no_jax_and_knows_the_training_path():
+    code = ("import json, sys, chip_smoke as cs\n"
+            "sites = cs.path_sites(cs.TRAIN_BATCH)\n"
+            "print(json.dumps({'modules': sorted(sys.modules), 'sites': sites,\n"
+            "                  'launches': cs.TRAIN_STEP_LAUNCHES, 'kernels': list(cs.KERNELS),\n"
+            "                  'dw': cs.bound('temporal_dw', (8, 16, 56, 56, 144), 64),\n"
+            "                  'dx': cs.bound('temporal_conv', (8, 16, 56, 56, 64), 144)}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
+                         text=True, check=True, timeout=300)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    for mod in res["modules"]:
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
+        assert root != "fastvideotagging_tpu", mod
+    assert res["kernels"] == ["spatial_conv", "temporal_conv", "temporal_dw"]
+    # one step launches each forward kernel twice per site (forward + dx)
+    # and K3 once per temporal site
+    per_forward = {"spatial_conv": 0, "temporal_conv": 0}
+    for _, kernel, xs, _, n in res["sites"]:
+        assert xs[0] == 32
+        per_forward[kernel] += n
+    assert per_forward == {"spatial_conv": 13, "temporal_conv": 14}
+    assert res["launches"] == {"spatial_conv": 26, "temporal_conv": 28, "temporal_dw": 14}
+    # stage-1 temporal dw at 8 clips: x and g read once, dw written in f32,
+    # 16 + 15 + 15 row-plane pairs over the three taps; bytes bound it
+    rows = 8 * 16 * 3136
+    ms, by = res["dw"]
+    assert by == "bytes"
+    assert ms == pytest.approx((2 * rows * (144 + 64) + 4 * 3 * 144 * 64) / 3.35e12 * 1e3)
+    ops_ms = 2 * 8 * 3136 * (16 + 15 + 15) * 144 * 64 / 989e12 * 1e3
+    assert ops_ms < ms
+    # the dx of that conv is the forward's GEMM with C and Co swapped
+    assert res["dx"] == list(_bound_forward(rows, 3, 64, 144))
+
+
+def _bound_forward(rows, taps, c, co):
+    t_ops = 2.0 * rows * taps * c * co / 989e12
+    t_bytes = 2.0 * (rows * (c + co) + taps * c * co) / 3.35e12
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"

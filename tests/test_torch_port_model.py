@@ -122,8 +122,10 @@ def test_zoo_registry_and_config():
         model_from_config(ModelConfig(kernels="pallas"), device="cpu")
     with pytest.raises(ValueError, match="norm kind"):
         model_from_config(ModelConfig(norm="group"), device="cpu")
-    with pytest.raises(NotImplementedError, match="eval mode"):
-        m.train()(torch.zeros(1, 4, 32, 32, 3))
+    # train mode runs (batch statistics) and moves the running averages
+    before = m.stem_bn1.mean.clone()
+    out = m.train()(torch.ones(2, 4, 32, 32, 3))
+    assert out.shape == (2, 3) and not torch.equal(m.stem_bn1.mean, before)
 
 
 def test_seeded_init_is_deterministic():
