@@ -20,6 +20,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             beside the least time the card could take. Then the two
             autograd Functions' dx and dw against autograd through the
             plain versions;
+   3c. K4 (the fused spatial conv + folded BN + ReLU + temporal conv) at
+            r2plus1d_18's four stride-1 pair sites at clip_batch 8 against
+            its plain version (two launches bitwise equal), timed beside
+            the library chain (F.conv3d -> affine -> ReLU -> F.conv3d),
+            the port's unfused chain (K1 -> affine -> ReLU -> K2) and the
+            least time the card could take;
 4. path   — the port's Tagger (r2plus1d_18, 400 classes, multilabel, bf16,
             kernels='cuda', seeded random weights) on seeded synthetic
             frames through ``scores_from``: launch counts per forward,
@@ -33,10 +39,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             the same weights, the gradients of both against an f32
             reference, a falling loss over 10 steps,
             moved BN statistics, ms per step, clips/s and peak memory of
-            both routes.
+            both routes;
+6. eval   — ``evaluate()`` over a seeded ``.fvtpack`` (8 synthetic videos
+            of 160 frames at 128x171, 400 tags, dense clips: 80 clips) on
+            r2plus1d_18 with seeded random weights, three engines: the
+            default apply with kernels='cuda', with kernels='torch', and
+            the fused engine on K4 as ``apply_fn``: launch counts per
+            chunk (fused: 13 K4, no K1/K2), finite video scores, fused
+            scores against kernels='cuda', fused logits against an f32
+            reference forward, metrics, clips/s and forward ms.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+The line before the last is a JSON object with one entry per kernel. Its
+``launches`` is the kernel's launches over the main path's runs, phases 4 to
+6 (each run counted from 0 just before it and read just after), and
+``launches_by_run`` splits them by run; its times are per training step for
+K1-K3 and per serving forward for K4 (inference only). The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when no CUDA device is present.
 """
 
@@ -44,8 +61,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -59,11 +78,15 @@ from fastvideotagging_tpu_torch.config import (
     ExperimentConfig,
     ModelConfig,
 )
+from fastvideotagging_tpu_torch.data.packed import open_dataset, write_pack_from_arrays
 from fastvideotagging_tpu_torch.data.synthetic import make_frames
+from fastvideotagging_tpu_torch.evaluation import evaluate as evaluation
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+from fastvideotagging_tpu_torch.ops import fused_block as fused
+from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.loop import make_train_step
 from fastvideotagging_tpu_torch.train.state import create_train_state
@@ -112,9 +135,22 @@ KERNELS = {
         name="temporal_dw_kernel", route="cuda",
         source="fastvideotagging_tpu_torch/csrc/temporal_dw.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:284 (_temporal_dw)"),
+    "fused_block": dict(
+        name="fused_block_kernel", route="cuda",
+        source="fastvideotagging_tpu_torch/csrc/fused_block.cu",
+        replaces="fastvideotagging_tpu/ops/fused_block.py:99 (_fused_pallas)"),
 }
 # launches of one r2plus1d_18 training step: forward + dx, and the dw
-TRAIN_STEP_LAUNCHES = {"spatial_conv": 26, "temporal_conv": 28, "temporal_dw": 14}
+TRAIN_STEP_LAUNCHES = {"spatial_conv": 26, "temporal_conv": 28, "temporal_dw": 14,
+                       "fused_block": 0}
+# launches of one r2plus1d_18 forward per engine: K1 / K2 at 13 / 14 sites,
+# or K4 at the 13 stride-1 (2+1)D pairs
+FORWARD_LAUNCHES = {
+    "cuda": {"spatial_conv": 13, "temporal_conv": 14, "temporal_dw": 0, "fused_block": 0},
+    "torch": {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0, "fused_block": 0},
+    "fused": {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0, "fused_block": 13},
+}
+EVAL_VIDEOS, EVAL_FRAMES, EVAL_CLASSES = 8, 160, 400
 
 
 def path_sites(b: int = CLIP_BATCH):
@@ -133,22 +169,34 @@ def path_sites(b: int = CLIP_BATCH):
     return sites
 
 
+def tap_pairs(n: int, k: int = K) -> int:
+    """(output, input) position pairs of a size-k, stride-1, k//2-padded
+    conv along an axis of length n that fall inside it: n - |d - k//2| per
+    tap d. Taps into the zero padding do no work."""
+    return sum(max(0, n - abs(d - k // 2)) for d in range(k))
+
+
+def _min_time(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound(kernel: str, x_shape, co: int, k: int = K):
     """The least time (ms) the card could take, and what bounds it: each
-    input read once, each output written once, against the operations."""
+    input read once, each output written once, against the operations of
+    the taps that fall inside the input (none into its zero padding)."""
     b, t, h, w, c = x_shape
     rows = b * t * h * w
+    if kernel == "spatial_conv":
+        flops = 2.0 * b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * co
+    else:
+        flops = 2.0 * b * h * w * tap_pairs(t, k) * c * co
     if kernel == "temporal_dw":
-        # only the row pairs that exist: T - |dt - k//2| planes per tap
-        pairs = b * h * w * sum(max(0, t - abs(dt - k // 2)) for dt in range(k))
-        flops = 2.0 * pairs * c * co
         nbytes = 2.0 * rows * (c + co) + 4.0 * k * c * co
     else:
         taps = k * k if kernel == "spatial_conv" else k
-        flops = 2.0 * rows * taps * c * co
         nbytes = 2.0 * (rows * (c + co) + taps * c * co)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _min_time(flops, nbytes)
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -373,6 +421,123 @@ def phase_functions() -> None:
         raise SystemExit(f"autograd Function disagrees with the plain versions at {failures}")
 
 
+def fused_sites(b: int = CLIP_BATCH):
+    """r2plus1d_18's stride-1 (2+1)D pairs at 16x112x112, K4's sites:
+    (site, x shape (B,T,H,W,C), M, Co, launches/forward)."""
+    sites, t, hw = [], 16, 56
+    for stage in range(4):
+        c = 64 * 2 ** stage
+        if stage:
+            t, hw = t // 2, hw // 2
+        n = 4 if stage == 0 else 3  # each stage's entry pair is strided
+        sites.append((f"stage{stage + 1}", (b, t, hw, hw, c), r2plus1d_mid_channels(c, c), c, n))
+    return sites
+
+
+def fused_bound(x_shape, m: int, co: int, k: int = K):
+    """K4's least time (ms) and what bounds it: the operations of both
+    GEMMs over the taps that fall inside the frame (spatial) and inside
+    [0, T) (temporal), against x, y, the weights and the folded BN read or
+    written once (mid stays on chip, which is the kernel's point)."""
+    b, t, h, w, c = x_shape
+    rows = b * t * h * w
+    flops = 2.0 * (b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * m
+                   + b * h * w * tap_pairs(t, k) * m * co)
+    nbytes = 2.0 * (rows * (c + co) + k * k * c * m + k * m * co) + 8.0 * m
+    return _min_time(flops, nbytes)
+
+
+def phase_fused_kernel(card: str) -> dict:
+    """K4 at its four sites (clip_batch 8) against its plain version, with
+    the library chain and the port's unfused chain for the same function."""
+    print("== phase 3c: K4 (fused block)", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    dev = torch.device(DEV)
+    sums = dict(ms=0.0, plain_ms=0.0, library_chain_ms=0.0, unfused_chain_ms=0.0, bound_ms=0.0,
+                ops_ms=0.0, bytes_ms=0.0)
+    agg = dict(max_abs_err=0.0, max_rel_err=0.0, ok=True, serving=sums, sites=[])
+    failures = []
+    for site, xs, m, co, n in fused_sites():
+        b, t, h, w, c = xs
+        x = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
+        w_sp = (torch.randn((K, K, c, m), generator=gen, device=dev)
+                / (K * K * c) ** 0.5).to(torch.bfloat16)
+        w_tmp = (torch.randn((K, m, co), generator=gen, device=dev) / (K * m) ** 0.5).to(torch.bfloat16)
+        scale, bias = fused.fold_bn(torch.rand(m, generator=gen, device=dev) + 0.5,
+                                    torch.randn(m, generator=gen, device=dev) * 0.1,
+                                    torch.randn(m, generator=gen, device=dev) * 0.1,
+                                    torch.rand(m, generator=gen, device=dev) + 0.5)
+
+        def run():
+            return fused.fused_block_cuda(x, w_sp, scale, bias, w_tmp)
+
+        def plain():
+            return fused.fused_block_plain(x, w_sp, scale, bias, w_tmp)
+
+        def library():
+            mid = ops.conv3d_nthwc(x, w_sp[None], (1, 1, 1), (0, K // 2, K // 2))
+            mid = torch.relu(mid.float() * scale + bias).to(torch.bfloat16)
+            return ops.conv3d_nthwc(mid, w_tmp[:, None, None], (1, 1, 1), (K // 2, 0, 0))
+
+        def unfused():
+            mid = ops.spatial_conv_cuda(x.reshape(b * t, h, w, c), w_sp)
+            mid = torch.relu(mid.float() * scale + bias).to(torch.bfloat16)
+            return ops.temporal_conv_cuda(mid.reshape(b, t, h * w, m), w_tmp).reshape(b, t, h, w, co)
+
+        got = run()
+        again = run()
+        torch.cuda.synchronize()
+        ref = plain()
+        lib_out, unf_out = library(), unfused()
+        torch.cuda.synchronize()
+        ref_max = ref.float().abs().max().item()
+        max_abs = (got.float() - ref.float()).abs().max().item()
+        max_rel = max_abs / ref_max
+        lib_rel = (lib_out.float() - ref.float()).abs().max().item() / ref_max
+        unf_rel = (unf_out.float() - ref.float()).abs().max().item() / ref_max
+        same = torch.equal(got, again)
+        ok = bool(torch.isfinite(got).all().item()) and max_rel <= KERNEL_TOL and same
+        del got, again, ref, lib_out, unf_out
+        ms = time_ms(run, iters=20)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        lib_ms = time_ms(library, iters=20)
+        unf_ms = time_ms(unfused, iters=20)
+        bound_ms, by = fused_bound(xs, m, co)
+        rows, per_group = fused.fused_plan(xs, K, m, co)
+        print(f"B={b} {site} fused_block x={xs} M={m} Co={co} x{n} (plan: {rows} pixels "
+              f"per block, {per_group} Co tiles per block)  max_abs_err={max_abs:.3e} "
+              f"max_rel_err={max_rel:.3e} (tol {KERNEL_TOL}; library chain vs plain "
+              f"{lib_rel:.3e}, unfused chain vs plain {unf_rel:.3e}) two launches bitwise "
+              f"equal={same} kernel={ms:.4f} ms plain={plain_ms:.4f} ms library "
+              f"chain={lib_ms:.4f} ms unfused K1+K2 chain={unf_ms:.4f} ms "
+              f"bound={bound_ms * 1e3:.1f} us ({by}) ok={ok}", flush=True)
+        if not ok:
+            failures.append(site)
+        agg["max_abs_err"] = max(agg["max_abs_err"], max_abs)
+        agg["max_rel_err"] = max(agg["max_rel_err"], max_rel)
+        agg["ok"] = agg["ok"] and ok
+        for name, v in (("ms", ms), ("plain_ms", plain_ms), ("library_chain_ms", lib_ms),
+                        ("unfused_chain_ms", unf_ms), ("bound_ms", bound_ms)):
+            sums[name] += n * v
+        sums["ops_ms" if by == "operations" else "bytes_ms"] += n * bound_ms
+        agg["sites"].append(dict(
+            site=site, batch=b, x=list(xs), m=m, co=co, launches=n, rows_per_block=rows,
+            co_tiles_per_block=per_group, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+            plain_ms=plain_ms, library_chain_ms=lib_ms, unfused_chain_ms=unf_ms,
+            bound_ms=bound_ms, bound_by=by))
+        del x, w_sp, w_tmp
+        torch.cuda.empty_cache()
+    print(f"  fused_block per one forward at clip_batch {CLIP_BATCH} (13 launches; {card}): "
+          f"kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, library chain "
+          f"{sums['library_chain_ms']:.4f} ms, unfused K1+K2 chain "
+          f"{sums['unfused_chain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
+    if failures:
+        raise SystemExit(f"K4 disagrees with its plain version at {failures}")
+    return agg
+
+
 def _cfg(kernels: str, compute_dtype: str = "bfloat16") -> ExperimentConfig:
     return ExperimentConfig(
         model=ModelConfig(name="r2plus1d_18", num_classes=400, multilabel=True,
@@ -400,7 +565,7 @@ def phase_path(card: str) -> dict:
     scores = cuda_tagger.scores_from(read_frames, len(frames))
     launches = dict(ops.launch_counts)
     print(f"launches over {chunks} chunks: {launches}")
-    want = {"spatial_conv": 13 * chunks, "temporal_conv": 14 * chunks, "temporal_dw": 0}
+    want = {k: n * chunks for k, n in FORWARD_LAUNCHES["cuda"].items()}
     if launches != want:
         raise SystemExit(f"launch counts {launches} != {want}")
     if scores.shape != (400,) or not np.isfinite(scores).all():
@@ -619,6 +784,133 @@ def phase_train(card: str) -> dict:
     return dict(launches=launches, routes=result)
 
 
+def _eval_items():
+    """The eval pack's videos: seeded synthetic frames at 128x171, each with
+    a tag set of three of the 400 tags (its label first)."""
+    rng = np.random.default_rng(SEED + 4)
+    for i in range(EVAL_VIDEOS):
+        tags = [int(v) for v in rng.choice(EVAL_CLASSES, size=3, replace=False)]
+        frames = make_frames(tags[0], num_frames=EVAL_FRAMES, height=128, width=171,
+                             seed=SEED + 10 + i)
+        yield f"video{i}.mp4", tags[0], tags, frames
+
+
+def _fused_apply(state, clips):
+    return heads.predict_scores(r2plus1d_fused_infer(state, clips), True)
+
+
+def phase_eval(card: str) -> dict:
+    print("== phase 6: eval", flush=True)
+    cfgs = {k: _cfg(k) for k in ("cuda", "torch")}
+    g = torch.Generator().manual_seed(SEED + 2)
+    state = get_model("r2plus1d_18", num_classes=EVAL_CLASSES, device="cpu",
+                      generator=g).state_dict()
+    rng = torch.Generator().manual_seed(SEED + 5)
+    for name, v in state.items():  # BN statistics off the identity, so folding matters
+        if name.endswith(".mean"):
+            v += (torch.rand(v.shape, generator=rng) - 0.5) * 0.2
+        elif name.endswith(".var"):
+            v *= 0.8 + 0.4 * torch.rand(v.shape, generator=rng)
+    state = {k: v.to(DEV) for k, v in state.items()}
+    models = {}
+    for k, cfg in cfgs.items():
+        models[k] = get_model(cfg.model.name, num_classes=EVAL_CLASSES, device=DEV,
+                              backend=cfg.model.kernels)
+        models[k].load_state_dict(state)
+    engines = {"cuda": (models["cuda"], cfgs["cuda"], None),
+               "torch": (models["torch"], cfgs["torch"], None),
+               "fused": (models["cuda"], cfgs["cuda"], _fused_apply)}
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "eval.fvtpack")
+        t0 = time.perf_counter()
+        summary = write_pack_from_arrays(_eval_items(), path, (128, 171), num_tags=EVAL_CLASSES)
+        ds = open_dataset(path, cfgs["cuda"].data, mode="eval")
+        n_clips = sum(len(ds.get_eval_clips(i)[0]) for i in range(len(ds)))
+        chunks = sum(-(-len(ds.get_eval_clips(i)[0]) // CLIP_BATCH) for i in range(len(ds)))
+        print(f"pack: {summary['videos']} videos, {summary['frames']} frames, "
+              f"{summary['bytes'] / 1e6:.1f} MB, written in {time.perf_counter() - t0:.2f} s; "
+              f"{n_clips} dense clips in {chunks} chunks of {CLIP_BATCH}; num_tags {ds.num_tags}")
+        scores = {}
+        for name, (model, cfg, apply_fn) in engines.items():
+            # the counted pass: video scores, as evaluate() aggregates them
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            s, records = evaluation.evaluate_video_scores(model, state, ds, cfg, CLIP_BATCH,
+                                                          apply_fn=apply_fn)
+            counts = dict(ops.launch_counts)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            want = {k: n * chunks for k, n in FORWARD_LAUNCHES[name].items()}
+            print(f"{name}: launches over {chunks} chunks {counts}")
+            if counts != want:
+                raise SystemExit(f"{name}: launch counts {counts} != {want}")
+            if s.shape != (EVAL_VIDEOS, EVAL_CLASSES) or not np.isfinite(s).all():
+                raise SystemExit(f"{name}: bad video scores, shape {s.shape}")
+            scores[name] = s
+            # the timed passes: evaluate() end to end, metrics from the first
+            runs, metrics = [], None
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = evaluation.evaluate(model, state, ds, cfg, CLIP_BATCH, apply_fn=apply_fn)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+                metrics = metrics or m
+            print(f"{name}: metrics {metrics}")
+            if metrics["num_videos"] != EVAL_VIDEOS or not np.isfinite(metrics["mAP"]):
+                raise SystemExit(f"{name}: bad metrics {metrics}")
+            result[name] = dict(metrics=metrics, launches=counts, peak_memory_gb=peak_gb,
+                                clips_per_s=n_clips / float(np.median(runs)))
+            print(f"{name}: top-5 tags of video 0 {np.argsort(-s[0])[:5].tolist()} "
+                  f"(its tags {list(records[0].tags)})")
+        fused_err = float(np.abs(scores["fused"] - scores["cuda"]).max())
+        torch_err = float(np.abs(scores["torch"] - scores["cuda"]).max())
+        print(f"video scores: fused vs kernels='cuda' max abs diff {fused_err:.3e}, torch vs "
+              f"cuda {torch_err:.3e} (tol {PATH_TOL})")
+        if fused_err > PATH_TOL:
+            raise SystemExit("the fused engine's video scores disagree with kernels='cuda'")
+        result["scores_fused_vs_cuda"] = fused_err
+        result["scores_torch_vs_cuda"] = torch_err
+
+        # One chunk of video 0: logits of the three engines against an f32
+        # reference forward (F.conv3d, TF32 off), and forward ms.
+        d = cfgs["cuda"].data
+        clips_u8 = torch.from_numpy(ds.get_eval_clips(0)[0][:CLIP_BATCH]).to(DEV)
+    torch.backends.cudnn.allow_tf32 = False
+    f32_model = get_model("r2plus1d_18", num_classes=EVAL_CLASSES, device=DEV, backend="torch",
+                          dtype=torch.float32)
+    f32_model.load_state_dict(state)
+    applies = {"cuda": evaluation._make_apply(models["cuda"], True),
+               "torch": evaluation._make_apply(models["torch"], True),
+               "fused": _fused_apply}
+    with torch.inference_mode():
+        x32 = preprocess_eval_clip(clips_u8, d.resize_hw, d.crop_hw, d.mean, d.std,
+                                   out_dtype=torch.float32)
+        xb = x32.to(torch.bfloat16)
+        ref = f32_model(x32)
+        logits = {"cuda": models["cuda"](xb), "torch": models["torch"](xb),
+                  "fused": r2plus1d_fused_infer(state, x32)}
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        errs = {k: (v.float() - ref).abs().max().item() / scale for k, v in logits.items()}
+        for name, apply in applies.items():
+            result[name]["forward_ms"] = time_ms(lambda a=apply: a(state, xb), iters=10)
+            result[name]["logits_vs_f32"] = errs[name]
+    print(f"logits ({CLIP_BATCH} clips): max|logit| {scale:.3f}; max abs err / max|logit| vs "
+          f"the f32 reference: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {PATH_TOL})")
+    if errs["fused"] > PATH_TOL:
+        raise SystemExit("the fused engine's logits disagree with the f32 reference")
+    for name in engines:
+        r = result[name]
+        print(f"{name}: {r['clips_per_s']:.2f} clips/s through evaluate ({n_clips} clips, "
+              f"median of 3), forward of {CLIP_BATCH} clips {r['forward_ms']:.3f} ms "
+              f"(CUDA events), peak memory of an evaluate {r['peak_memory_gb']:.2f} GB "
+              f"(both models' weights resident) on {card}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -628,26 +920,36 @@ def main() -> int:
     phase_build()
     agg = phase_kernels(card)
     phase_functions()
+    k4 = phase_fused_kernel(card)
     serving = phase_path(card)
     train = phase_train(card)
+    ev = phase_eval(card)
     entries = []
     for kernel, meta in KERNELS.items():
-        a = agg[kernel]
-        s = a["train"]
+        runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
+                **{f"eval_{e}": ev[e]["launches"][kernel] for e in FORWARD_LAUNCHES}}
+        if kernel == "fused_block":  # inference only: times per serving forward
+            a, s = k4, k4["serving"]
+            extra = dict(
+                library_chain_ms=s["library_chain_ms"], unfused_chain_ms=s["unfused_chain_ms"],
+                per=f"one r2plus1d_18 forward at clip_batch {CLIP_BATCH} (sum over its 13 "
+                    f"launches); no single PyTorch call computes K4: library_chain_ms is "
+                    f"F.conv3d -> affine -> ReLU -> F.conv3d")
+        else:
+            a = agg[kernel]
+            s = a["train"]
+            extra = dict(
+                per=f"one r2plus1d_18 training step at B={TRAIN_BATCH} (sum over its launches)",
+                train_step_by_role=a["train_roles"],
+                serving_forward=dict(a["serving"], per=f"one forward at clip_batch {CLIP_BATCH}")
+                if a["serving"]["ms"] else None)
         entries.append(dict(
-            meta, launches=serving[kernel] + train["launches"][kernel],
-            launches_serving=serving[kernel], launches_train_step=train["launches"][kernel],
-            max_abs_err=a["max_abs_err"], max_rel_err=a["max_rel_err"],
-            ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+            meta, launches=sum(runs.values()), launches_by_run=runs,
+            max_abs_err=a["max_abs_err"], max_rel_err=a["max_rel_err"], ms=s["ms"],
+            plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
-            library_ms=s["library_ms"], ok=a["ok"],
-            per=f"one r2plus1d_18 training step at B={TRAIN_BATCH} (sum over its launches)",
-            train_step_by_role=a["train_roles"],
-            serving_forward=dict(
-                a["serving"], per=f"one forward at clip_batch {CLIP_BATCH}") if a["serving"]["ms"]
-            else None,
-            sites=a["sites"]))
-    print(json.dumps({"train": train["routes"], "card": card}))
+            library_ms=s.get("library_ms"), ok=a["ok"], **extra, sites=a["sites"]))
+    print(json.dumps({"train": train["routes"], "eval": ev, "card": card}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
 """fastvideotagging_tpu_torch: the PyTorch / CUDA port of fastvideotagging_tpu.
 
-It serves (the R(2+1)D eval forward and ``tag(video)``) and trains
-(``train.state.create_train_state`` / ``train.loop.make_train_step``), with
-the factorized (2+1)D convs and their gradients on hand-written Hopper
-kernels (csrc/). It imports neither JAX nor the JAX package. Entry points run on the card unless the
-caller passes ``device="cpu"``.
+It serves (the R(2+1)D eval forward, ``tag(video)`` and
+``evaluation.tagger.iter_pack_tags``), evaluates (``evaluation.evaluate.
+evaluate`` over a ``ClipDataset`` or a decode-once ``.fvtpack`` pack) and
+trains (``train.state.create_train_state`` / ``train.loop.make_train_step``),
+with the factorized (2+1)D convs and their gradients on hand-written Hopper
+kernels (csrc/). ``ops.fused_infer.r2plus1d_fused_infer``, the fused serving
+engine, runs each stride-1 (2+1)D pair with its BatchNorm and ReLU as one
+kernel (K4). It imports neither JAX nor the JAX package. Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 
 from fastvideotagging_tpu_torch.evaluation.tagger import Tagger, tag

@@ -1,9 +1,10 @@
 """Video decode via cv2's bundled FFmpeg.
 
-A copy of the streaming half of ``fastvideotagging_tpu/data/decode.py``
-(``probe_video`` and ``SequentialReader``), with the same corrupt-frame fill
-policy: an undecodable frame is served as the nearest previously decoded
-frame, frames before the first decodable one as the first decodable frame.
+A copy of ``fastvideotagging_tpu/data/decode.py``'s ``probe_video``,
+``read_frames_at``, ``SequentialReader`` and ``iter_frame_chunks``, with the
+same corrupt-frame fill policy: an undecodable frame is served as the nearest
+previously decoded frame, frames before the first decodable one as the first
+decodable frame, indices past the end of the stream as the last one.
 cv2 is optional at import time; decoding without it raises.
 """
 
@@ -44,6 +45,91 @@ def probe_video(path: str) -> tuple[int, float, int, int]:
     finally:
         cap.release()
 
+
+
+def read_frames_at(path: str, indices: np.ndarray) -> np.ndarray:
+    """Decode frames at the given indices. Returns RGB uint8 (len(indices), H, W, 3).
+
+    Single sequential pass with ``grab()`` (fast frame skip, no per-frame
+    decode) and ``retrieve()`` only at wanted indices — seeking per-index is
+    pathologically slow on long-GOP codecs.
+    """
+    _require_cv2()
+    indices = np.asarray(indices, dtype=np.int64).reshape(-1)
+    order = np.argsort(indices, kind="stable")
+    sorted_idx = indices[order]
+
+    cap = cv2.VideoCapture(path)
+    try:
+        if not cap.isOpened():
+            raise DecodeError(f"cannot open video: {path}")
+        # Corrupt-frame fill policy (shared with SequentialReader and
+        # iter_frame_chunks so the decode-once pack is bit-identical to
+        # streaming): an undecodable frame = the nearest PREVIOUSLY decoded
+        # frame; frames before the first decodable one = the FIRST decodable
+        # frame; indices past end-of-stream = the last decoded frame.
+        wanted = {}
+        pos = 0  # next frame number grab() will consume
+        last_good = None
+        first_good = None
+        max_idx = int(sorted_idx[-1])
+        k = 0
+        while pos <= max_idx and k < len(sorted_idx):
+            ok = cap.grab()
+            if not ok:
+                if k < len(sorted_idx):
+                    # stream shorter than the wanted indices (lying
+                    # container): the last successfully GRABBED frame is
+                    # still retrievable — use the stream's true last frame
+                    # as the past-end fill, matching SequentialReader and
+                    # the pack's clamp-to-last-stored semantics
+                    ok2, frame = cap.retrieve()
+                    if ok2 and frame is not None:
+                        last_good = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                        if first_good is None:
+                            first_good = last_good
+                break
+            if pos == sorted_idx[k]:
+                ok, frame = cap.retrieve()
+                if ok and frame is not None:
+                    rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                    last_good = rgb
+                    if first_good is None:
+                        first_good = rgb
+                else:
+                    rgb = last_good  # None for leading-bad: backfilled below
+                while k < len(sorted_idx) and sorted_idx[k] == pos:
+                    wanted[k] = rgb
+                    k += 1
+            pos += 1
+        if last_good is None:
+            # The wanted indices all failed retrieve (or stream empty); a
+            # later frame may still decode — scan forward for the backfill
+            # source before declaring the video dead.
+            while first_good is None:
+                ok = cap.grab()
+                if not ok:
+                    break
+                ok, frame = cap.retrieve()
+                if ok and frame is not None:
+                    first_good = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            if first_good is None:
+                raise DecodeError(f"no decodable frames in: {path}")
+            last_good = first_good
+        # Leading-bad indices (key present, value None) -> first decodable
+        # frame; past-end (key absent) -> last decoded frame.
+        frames_sorted = []
+        for i in range(len(sorted_idx)):
+            v = wanted.get(i, last_good)
+            if v is None:
+                v = first_good
+            frames_sorted.append(v)
+        out = np.empty((len(indices),) + last_good.shape, dtype=np.uint8)
+        for dst, src in enumerate(order):
+            out[src] = frames_sorted[dst]
+        return out
+    finally:
+        cap.release()
 
 class SequentialReader:
     """Forward-streaming frame reader for long-form video.
@@ -138,3 +224,52 @@ class SequentialReader:
                 f = self._cache.get(int(indices[i]), self._last_good)
             out[i] = f
         return out
+
+
+def iter_frame_chunks(path: str, chunk_size: int = 256):
+    """Yield successive (K, H, W, 3) uint8 RGB chunks in ONE forward pass.
+
+    The decode-once writer's memory-bounded read path (data/packed.py):
+    a long-form video never needs more than ``chunk_size`` frames resident.
+    Stops at end of stream (same boundary semantics as ``read_all_frames``);
+    raises DecodeError if not a single frame decodes.
+    """
+    _require_cv2()
+    cap = cv2.VideoCapture(path)
+    got_any = False
+    try:
+        if not cap.isOpened():
+            raise DecodeError(f"cannot open video: {path}")
+        # Same corrupt-frame fill policy as read_frames_at/SequentialReader
+        # (grab ok + retrieve fail -> nearest previous good frame; before
+        # the first good frame -> the first good frame) so the decode-once
+        # pack stores exactly what the streaming readers would serve.
+        buf: list[np.ndarray] = []
+        last_good: np.ndarray | None = None
+        pending_leading = 0
+        while True:
+            if not cap.grab():
+                break
+            ok, frame = cap.retrieve()
+            if ok and frame is not None:
+                rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                if last_good is None and pending_leading:
+                    buf.extend([rgb] * pending_leading)
+                    pending_leading = 0
+                last_good = rgb
+                buf.append(rgb)
+            elif last_good is not None:
+                buf.append(last_good)
+            else:
+                pending_leading += 1
+            while len(buf) >= chunk_size:
+                got_any = True
+                yield np.stack(buf[:chunk_size])
+                buf = buf[chunk_size:]
+        if buf:
+            got_any = True
+            yield np.stack(buf)
+        if not got_any:
+            raise DecodeError(f"no decodable frames in: {path}")
+    finally:
+        cap.release()

@@ -4,7 +4,8 @@ The counterpart of ``fastvideotagging_tpu/evaluation/tagger.py``. Pipeline:
 decode -> dense/uniform clip sampling -> device preprocess -> batched
 forward (fixed-size chunks) -> sigmoid/softmax -> f64 host mean over clips
 -> [(tag, score), ...] above threshold. Long videos stream in bounded
-chunks, so memory is O(chunk), not O(video length).
+chunks, so memory is O(chunk), not O(video length). ``iter_pack_tags``
+tags every video of a decode-once ``.fvtpack``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from fastvideotagging_tpu_torch.config import (
 )
 from fastvideotagging_tpu_torch.data import decode, sampler
 from fastvideotagging_tpu_torch.data.frames import _ensure_size
+from fastvideotagging_tpu_torch.data.packed import Pack
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
 from fastvideotagging_tpu_torch.models.zoo import model_from_config
@@ -198,6 +200,31 @@ class Tagger:
             top_k: int | None = None) -> list[TagResult]:
         return rank_tags(self.video_scores(video_path), self.tag_names,
                          threshold=threshold, top_k=top_k)
+
+
+def iter_pack_tags(engine, pack, threshold: float = 0.5,
+                   top_k: int | None = None, root: str = ""):
+    """Bulk-tag every video in a ``.fvtpack`` — the decode-once backfill
+    tier: no decode per request, frames served from the pack's mmap to any
+    engine that exposes ``scores_from`` and ``ship_hw`` (``Tagger``).
+
+    Sampling parity with the streaming ``tag()`` holds by construction: the
+    pack stores ship-geometry frames from the same decode + resize path and
+    ``probe_frames`` (the container-reported count the streaming sampler
+    draws indices from). Yields ``(video_path, [TagResult, ...])`` per video
+    in pack order (paths joined onto ``root``)."""
+    pack = pack if isinstance(pack, Pack) else Pack(pack)
+    ship = tuple(engine.ship_hw)
+    if (pack.height, pack.width) != ship:
+        raise ValueError(
+            f"pack geometry {pack.height}x{pack.width} != the engine's ship "
+            f"geometry {ship}; re-write the pack at this config")
+    for i, rec in enumerate(pack.records(root)):
+        scores = engine.scores_from(
+            lambda idx, _i=i: pack.gather(_i, idx),
+            pack.entries[i]["probe_frames"])
+        yield rec.path, rank_tags(scores, engine.tag_names,
+                                  threshold=threshold, top_k=top_k)
 
 
 def tag(

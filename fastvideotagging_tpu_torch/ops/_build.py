@@ -7,6 +7,10 @@ rebuilds and an unchanged one is reused. Nothing is built when the package
 is imported: a missing ``nvcc`` or a failed build raises when a CUDA tensor
 first reaches a kernel wrapper (or when ``build_all`` is called).
 
+A source whose tile plan lives in its Python wrapper (``_PLANNED``) is
+compiled with the wrapper's ``NVCC_DEFINES`` as well, so that the plan the
+wrapper sizes its launches with is the one the kernel is built with.
+
 ``build_all()`` starts one nvcc per source, all at once, and returns each
 build's ``-Xptxas -v`` report (registers, shared memory, spills).
 """
@@ -15,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -28,6 +33,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _BUILD_TIMEOUT_S = 600
+# source -> the wrapper module whose NVCC_DEFINES (its tile plan) it takes
+_PLANNED = {"fused_block": "fastvideotagging_tpu_torch.ops.fused_block"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -48,9 +55,14 @@ def _nvcc() -> str:
     return cand
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    module = _PLANNED.get(name)
+    return NVCC_FLAGS + (importlib.import_module(module).NVCC_DEFINES if module else ())
+
+
 def _so_path(name: str) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -61,7 +73,7 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, so

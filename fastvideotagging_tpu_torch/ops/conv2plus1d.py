@@ -45,8 +45,10 @@ from fastvideotagging_tpu_torch.ops import _build
 # with the library conv.
 MIN_C = 32
 
-# Kernel launches since the last reset, by kernel.
-launch_counts = {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0}
+# Kernel launches since the last reset, by kernel (``fused_block`` is K4 of
+# ops/fused_block.py).
+launch_counts = {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0,
+                 "fused_block": 0}
 
 
 def reset_launch_counts() -> None:

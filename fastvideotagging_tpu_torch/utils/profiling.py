@@ -5,14 +5,15 @@ on the card.
         [--clip-batch 8] [--iters 5] [--train [--batch 32]]
 
 Without ``--train``: the eval forward of a seeded random-weight model
-(16x112x112 clips, bf16). With ``--train``: the training step of
-``train/loop.py`` (preprocess, forward in train mode, loss, backward, SGD)
-for the ``r2plus1d18_ucf101`` preset on one seeded random batch of
-``--batch`` clips. Either runs with ``kernels='cuda'`` and
-``kernels='torch'``, traces ``--iters`` iterations with ``torch.profiler``
-after a warm-up, and prints one JSON line per backend: device time per
-iteration by kernel group, the device's busy time, the host wall time and
-the idle share (1 - busy / wall).
+(16x112x112 clips, bf16) with ``kernels='cuda'``, ``kernels='torch'`` and
+the fused engine on K4 (``ops/fused_infer.py``, R(2+1)D only). With
+``--train``: the training step of ``train/loop.py`` (preprocess, forward in
+train mode, loss, backward, SGD) for the ``r2plus1d18_ucf101`` preset on
+one seeded random batch of ``--batch`` clips, with ``kernels='cuda'`` and
+``kernels='torch'``. Each traces ``--iters`` iterations with
+``torch.profiler`` after a warm-up, and prints one JSON line per backend:
+device time per iteration by kernel group, the device's busy time, the host
+wall time and the idle share (1 - busy / wall).
 """
 
 from __future__ import annotations
@@ -28,11 +29,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from fastvideotagging_tpu_torch.models.zoo import get_model
+from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("K1 spatial_conv_kernel", ("spatial_conv_kernel",)),
     ("K2 temporal_conv_kernel", ("temporal_conv_kernel",)),
     ("K3 temporal_dw_kernel (+ reduce)", ("temporal_dw",)),
+    ("K4 fused_block_kernel", ("fused_block_kernel",)),
     ("library matmul (cuBLAS)", ("nvjet", "xmma_gemm", "gemv", "s16816gemm", "s1688gemm",
                                  "sgemm", "splitkreduce", "cublas")),
     ("library conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90",
@@ -113,6 +116,12 @@ def _forward_runs(args):
             with torch.inference_mode():
                 model(x)
         yield backend, dict(what="eval forward", clip_batch=args.clip_batch), run
+    weights = {k: v.cuda() for k, v in state.items()}
+    blocks = model.stage_blocks
+
+    def fused():
+        r2plus1d_fused_infer(weights, x, stage_blocks=blocks)
+    yield "fused", dict(what="eval forward, fused engine", clip_batch=args.clip_batch), fused
 
 
 def _train_runs(args):

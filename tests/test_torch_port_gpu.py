@@ -1,4 +1,5 @@
-"""K1 / K2 / K3 against their plain versions on the card (marker ``gpu``).
+"""K1 / K2 / K3 / K4 against their plain versions on the card (marker ``gpu``),
+and the fused serving engine on K4 against the model forward.
 
 Skipped without a CUDA card (decided inside the fixture, so every pytest
 worker collects the same tests). On the card, from the repository root —
@@ -23,6 +24,8 @@ import torch
 
 from fastvideotagging_tpu_torch import get_model
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+from fastvideotagging_tpu_torch.ops import fused_block as fused
+from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 
 pytestmark = pytest.mark.gpu
 
@@ -126,7 +129,8 @@ def test_spatial_conv_backward_runs_the_kernel(cuda, x_shape, co, k):
     ops.reset_launch_counts()
     # a non-contiguous incoming gradient is made contiguous, not refused
     dx, dw = _grads(ops.spatial_conv, x, w, gy.transpose(2, 3).contiguous().transpose(2, 3))
-    assert ops.launch_counts == {"spatial_conv": 2, "temporal_conv": 0, "temporal_dw": 0}
+    assert ops.launch_counts == {"spatial_conv": 2, "temporal_conv": 0, "temporal_dw": 0,
+                                 "fused_block": 0}
 
     def plain(x, w):
         b, t, h, wd, c = x.shape
@@ -147,7 +151,8 @@ def test_temporal_conv_backward_runs_the_kernels(cuda, x_shape, co, k):
     gy = torch.randn(x_shape[:4] + (co,), generator=g, device=cuda).to(torch.bfloat16)
     ops.reset_launch_counts()
     dx, dw = _grads(ops.temporal_conv, x, w, gy)
-    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 2, "temporal_dw": 1}
+    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 2, "temporal_dw": 1,
+                                 "fused_block": 0}
 
     def plain(x, w):
         b, t, h, wd, c = x.shape
@@ -162,7 +167,8 @@ def test_backward_honours_needs_input_grad(cuda):
     w = torch.randn((3, 64, 32), device=cuda).to(torch.bfloat16).requires_grad_(True)
     ops.reset_launch_counts()
     ops.temporal_conv(x, w).float().sum().backward()
-    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 1, "temporal_dw": 1}
+    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 1, "temporal_dw": 1,
+                                 "fused_block": 0}
     assert w.grad is not None and torch.isfinite(w.grad).all()
 
 
@@ -200,6 +206,89 @@ def test_model_kernels_agree_with_library_convs(cuda):
     with torch.inference_mode():
         a = models["cuda"](x)
         b = models["torch"](x)
-    assert ops.launch_counts == {"spatial_conv": 13, "temporal_conv": 14, "temporal_dw": 0}
+    assert ops.launch_counts == {"spatial_conv": 13, "temporal_conv": 14, "temporal_dw": 0,
+                                 "fused_block": 0}
     assert torch.isfinite(a).all()
     assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()
+
+
+# K4: x (B, T, H, W, C), M, Co, k. The four r2plus1d_18 stride-1 sites (at
+# B = 2), ragged widths, and T = 1, 2, 16 (a halo frame contributes zero to
+# the temporal conv, not ReLU(bias)).
+FUSED = [
+    ((2, 16, 56, 56, 64), 144, 64, 3), ((2, 8, 28, 28, 128), 288, 128, 3),
+    ((2, 4, 14, 14, 256), 576, 256, 3), ((2, 2, 7, 7, 512), 1152, 512, 3),
+    ((2, 1, 9, 11, 40), 50, 24, 3), ((1, 2, 6, 7, 40), 50, 24, 3),
+    ((3, 16, 5, 5, 33), 21, 70, 3), ((1, 5, 8, 6, 36), 40, 16, 5),
+]
+
+
+def _fused_inputs(cuda, x_shape, m, co, k, seed=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    c = x_shape[-1]
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w_sp = (torch.randn((k, k, c, m), generator=g, device=cuda)
+            / (k * k * c) ** 0.5).to(torch.bfloat16)
+    w_tmp = (torch.randn((k, m, co), generator=g, device=cuda) / (k * m) ** 0.5).to(torch.bfloat16)
+    gamma = torch.rand(m, generator=g, device=cuda) + 0.5
+    beta = torch.randn(m, generator=g, device=cuda) * 0.1 + 0.3  # ReLU(bias) > 0 mostly
+    mean = torch.randn(m, generator=g, device=cuda) * 0.1
+    var = torch.rand(m, generator=g, device=cuda) + 0.5
+    scale, bias = fused.fold_bn(gamma, beta, mean, var)
+    return x, w_sp, scale, bias, w_tmp
+
+
+@pytest.mark.parametrize("x_shape,m,co,k", FUSED)
+def test_fused_block_kernel_matches_plain(cuda, x_shape, m, co, k):
+    args = _fused_inputs(cuda, x_shape, m, co, k)
+    assert fused.fused_supported(x_shape, k, m, co)
+    before = ops.launch_counts["fused_block"]
+    got = fused.fused_block_cuda(*args)
+    again = fused.fused_block_cuda(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["fused_block"] == before + 2
+    assert torch.equal(got, again)
+    _close(got, fused.fused_block_plain(*args))
+
+
+def test_fused_block_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, w_sp, scale, bias, w_tmp = _fused_inputs(cuda, (1, 2, 6, 6, 32), 40, 16, 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused.fused_block_cuda(x.float(), w_sp, scale, bias, w_tmp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.fused_block_cuda(x.transpose(2, 3), w_sp, scale, bias, w_tmp)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused.fused_block_cuda(x.cpu(), w_sp, scale, bias, w_tmp)
+    with pytest.raises(ValueError, match="scale must be"):
+        fused.fused_block_cuda(x, w_sp, scale.to(torch.bfloat16), bias, w_tmp)
+    with pytest.raises(ValueError, match="w_sp must be"):
+        fused.fused_block_cuda(x, w_sp, scale, bias, w_tmp[:, :8].contiguous())
+    # the routed entry point sends a CUDA tensor to the kernel, never the plain version
+    before = ops.launch_counts["fused_block"]
+    fused.conv2plus1d_fused(x, w_sp, scale, bias, w_tmp)
+    assert ops.launch_counts["fused_block"] == before + 1
+
+
+def test_fused_engine_on_the_card_matches_the_model(cuda):
+    g = torch.Generator().manual_seed(0)
+    model = get_model("r2plus1d_18", num_classes=16, device="cpu", generator=g)
+    state = model.state_dict()
+    rng = torch.Generator().manual_seed(1)
+    for name, v in state.items():  # move the BN statistics off the identity
+        if name.endswith((".mean", ".var")):
+            v += torch.rand(v.shape, generator=rng) * 0.1
+    state = {k: v.to(cuda) for k, v in state.items()}
+    net = get_model("r2plus1d_18", num_classes=16, device=cuda)
+    net.load_state_dict(state)
+    x = torch.randn((2, 16, 112, 112, 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    ops.reset_launch_counts()
+    got = r2plus1d_fused_infer(state, x)
+    again = r2plus1d_fused_infer(state, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts == {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0,
+                                 "fused_block": 26}
+    with torch.inference_mode():
+        ref = net(x)
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()

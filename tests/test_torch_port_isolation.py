@@ -38,7 +38,14 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.train.lr",
             "fastvideotagging_tpu_torch.train.metrics",
             "fastvideotagging_tpu_torch.train.state",
-            "fastvideotagging_tpu_torch.utils.profiling"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.utils.profiling",
+            "fastvideotagging_tpu_torch.utils.logging",
+            "fastvideotagging_tpu_torch.data.ucf101",
+            "fastvideotagging_tpu_torch.data.pipeline",
+            "fastvideotagging_tpu_torch.data.packed",
+            "fastvideotagging_tpu_torch.ops.fused_block",
+            "fastvideotagging_tpu_torch.ops.fused_infer",
+            "fastvideotagging_tpu_torch.evaluation.evaluate"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -74,7 +81,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["conv2plus1d", "temporal_dw"]
+    assert _build.sources() == ["conv2plus1d", "fused_block", "temporal_dw"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
@@ -83,6 +90,22 @@ def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
     assert a.startswith(str(tmp_path)) and a.endswith(".so")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build._so_path("conv2plus1d") != a
+
+
+def test_fused_block_is_built_with_its_wrappers_tile_plan(tmp_path, monkeypatch):
+    """K4's tile constants have one source, ops/fused_block.py: nvcc gets
+    them as -D flags, and a changed plan is a new build."""
+    from fastvideotagging_tpu_torch.ops import fused_block
+
+    flags = _build._flags("fused_block")
+    assert flags[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    assert set(fused_block.NVCC_DEFINES) <= set(flags)
+    assert "-DFVT_NT=64" in flags and "-DFVT_BK=32" in flags
+    assert _build._flags("conv2plus1d") == _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    a = _build._so_path("fused_block")
+    monkeypatch.setattr(fused_block, "NVCC_DEFINES", fused_block.NVCC_DEFINES + ("-DFVT_X=1",))
+    assert _build._so_path("fused_block") != a
 
 
 def test_tagger_rejects_wrong_tag_names():
@@ -112,7 +135,10 @@ def test_chip_smoke_imports_no_jax_and_knows_the_training_path():
             "print(json.dumps({'modules': sorted(sys.modules), 'sites': sites,\n"
             "                  'launches': cs.TRAIN_STEP_LAUNCHES, 'kernels': list(cs.KERNELS),\n"
             "                  'dw': cs.bound('temporal_dw', (8, 16, 56, 56, 144), 64),\n"
-            "                  'dx': cs.bound('temporal_conv', (8, 16, 56, 56, 64), 144)}))\n")
+            "                  'dx': cs.bound('temporal_conv', (8, 16, 56, 56, 64), 144),\n"
+            "                  'fused_sites': cs.fused_sites(),\n"
+            "                  'k4': cs.fused_bound((8, 16, 56, 56, 64), 144, 64),\n"
+            "                  'forward': cs.FORWARD_LAUNCHES}))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT, capture_output=True,
                          text=True, check=True, timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -120,7 +146,7 @@ def test_chip_smoke_imports_no_jax_and_knows_the_training_path():
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
         assert root != "fastvideotagging_tpu", mod
-    assert res["kernels"] == ["spatial_conv", "temporal_conv", "temporal_dw"]
+    assert res["kernels"] == ["spatial_conv", "temporal_conv", "temporal_dw", "fused_block"]
     # one step launches each forward kernel twice per site (forward + dx)
     # and K3 once per temporal site
     per_forward = {"spatial_conv": 0, "temporal_conv": 0}
@@ -128,7 +154,21 @@ def test_chip_smoke_imports_no_jax_and_knows_the_training_path():
         assert xs[0] == 32
         per_forward[kernel] += n
     assert per_forward == {"spatial_conv": 13, "temporal_conv": 14}
-    assert res["launches"] == {"spatial_conv": 26, "temporal_conv": 28, "temporal_dw": 14}
+    assert res["launches"] == {"spatial_conv": 26, "temporal_conv": 28, "temporal_dw": 14,
+                               "fused_block": 0}
+    # K4 takes the 13 stride-1 (2+1)D pairs of a forward; the fused engine
+    # launches nothing else of the port's
+    assert sum(n for *_, n in res["fused_sites"]) == 13
+    assert res["forward"]["fused"] == {"spatial_conv": 0, "temporal_conv": 0,
+                                       "temporal_dw": 0, "fused_block": 13}
+    assert res["forward"]["cuda"]["fused_block"] == 0
+    # stage 1 at 8 clips: the two GEMMs over the taps inside the frame
+    # (56 + 55 + 55 per spatial axis) and inside [0, T) (16 + 15 + 15);
+    # mid stays on chip
+    k4_ms, k4_by = res["k4"]
+    assert k4_by == "operations"
+    flops = 2 * (8 * 16 * 166 * 166 * 64 * 144 + 8 * 3136 * 46 * 144 * 64)
+    assert k4_ms == pytest.approx(flops / 989e12 * 1e3)
     # stage-1 temporal dw at 8 clips: x and g read once, dw written in f32,
     # 16 + 15 + 15 row-plane pairs over the three taps; bytes bound it
     rows = 8 * 16 * 3136
@@ -137,11 +177,12 @@ def test_chip_smoke_imports_no_jax_and_knows_the_training_path():
     assert ms == pytest.approx((2 * rows * (144 + 64) + 4 * 3 * 144 * 64) / 3.35e12 * 1e3)
     ops_ms = 2 * 8 * 3136 * (16 + 15 + 15) * 144 * 64 / 989e12 * 1e3
     assert ops_ms < ms
-    # the dx of that conv is the forward's GEMM with C and Co swapped
-    assert res["dx"] == list(_bound_forward(rows, 3, 64, 144))
+    # the dx of that conv is the forward's GEMM with C and Co swapped, over
+    # the same 16 + 15 + 15 row-plane pairs
+    assert res["dx"] == list(_bound_forward(rows, 3, 8 * 3136 * 46, 64, 144))
 
 
-def _bound_forward(rows, taps, c, co):
-    t_ops = 2.0 * rows * taps * c * co / 989e12
+def _bound_forward(rows, taps, pairs, c, co):
+    t_ops = 2.0 * pairs * c * co / 989e12
     t_bytes = 2.0 * (rows * (c + co) + taps * c * co) / 3.35e12
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"

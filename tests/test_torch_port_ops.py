@@ -102,4 +102,5 @@ def test_cpu_route_takes_plain_version_without_a_launch():
     x, w = _inputs((1, 3, 5, 5, 32), (3, 3, 32, 16))
     tops.spatial_conv(torch.from_numpy(x), torch.from_numpy(w))
     tops.temporal_conv(torch.from_numpy(x), torch.from_numpy(w[0]))
-    assert tops.launch_counts == {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0}
+    assert tops.launch_counts == {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0,
+                                  "fused_block": 0}

@@ -1,5 +1,6 @@
 """The port's serving slice against the JAX package: Tagger.scores_from,
-rank_tags, Tagger.tag on a decoded video and the one-call tag().
+rank_tags, Tagger.tag on a decoded video, the one-call tag() and
+iter_pack_tags over a decode-once pack.
 
 Both taggers run r2plus1d_18 at full depth in f32 on the same seeded uint8
 frames and the same weights (JAX init, carried across by
@@ -19,6 +20,7 @@ from fastvideotagging_tpu.evaluation import tagger as jtagger
 from fastvideotagging_tpu.models import get_model as jget_model
 from fastvideotagging_tpu_torch import config as tcfg
 from fastvideotagging_tpu_torch import tag as ttag
+from fastvideotagging_tpu_torch.data import packed as tpacked
 from fastvideotagging_tpu_torch.data import synthetic
 from fastvideotagging_tpu_torch.evaluation import tagger as ttagger
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
@@ -134,3 +136,21 @@ def test_tag_video_file_matches_jax(tmp_path, taggers, weights):
     assert [r.index for r in one] == [r.index for r in got]
     np.testing.assert_allclose([r.score for r in one], [r.score for r in got],
                                rtol=0, atol=SCORE_ATOL)
+
+
+def test_iter_pack_tags_matches_jax(tmp_path, taggers):
+    items = [(f"clip{i}.mp4", i, (i,), _frames(40, 56, n=n)) for i, n in enumerate((21, 9))]
+    path = str(tmp_path / "videos.fvtpack")
+    tpacked.write_pack_from_arrays(items, path, (40, 56), NUM_CLASSES)
+    jt, tt = taggers[True]
+    want = list(jtagger.iter_pack_tags(jt, path, threshold=0.0, root="r"))
+    got = list(ttagger.iter_pack_tags(tt, path, threshold=0.0, root="r"))
+    assert [p for p, _ in got] == [p for p, _ in want] == ["r/clip0.mp4", "r/clip1.mp4"]
+    for (_, a), (_, b) in zip(got, want):
+        assert [r.index for r in a] == [r.index for r in b]
+        np.testing.assert_allclose([r.score for r in a], [r.score for r in b],
+                                   rtol=0, atol=SCORE_ATOL)
+    other = str(tmp_path / "other.fvtpack")
+    tpacked.write_pack_from_arrays([("x.mp4", 0, (0,), _frames(40, 48))], other, (40, 48))
+    with pytest.raises(ValueError, match="ship geometry"):
+        next(ttagger.iter_pack_tags(tt, other))
