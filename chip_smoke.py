@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             (16x112x112, bf16), at the serving clip batch (8) and the
             training batch (32): K1 (spatial 1xkxk) and K2 (temporal kx1x1)
             forward and as dx (the same kernels on the flipped,
-            channel-transposed weights, C and Co swapped), K3 (the temporal
+            channel-transposed weights, C and Co swapped; K1's dx as the
+            training step runs it, through ``spatial_conv_dx_cuda``, with
+            its tile plan, TFLOP/s and share of the bound printed, and no
+            path site padded), K3 (the temporal
             weight gradient, two launches bitwise equal) — each against its
             plain PyTorch version, with the times of the kernel, the plain
             version and the library call for the same function (F.conv3d,
@@ -124,8 +127,8 @@ GRAD_FACTOR, GRAD_SLACK = 1.25, 0.02
 
 KERNELS = {
     "spatial_conv": dict(
-        name="spatial_conv_kernel", route="cuda",
-        source="fastvideotagging_tpu_torch/csrc/conv2plus1d.cu",
+        name="spatial_conv_hopper_kernel", route="cuda",
+        source="fastvideotagging_tpu_torch/csrc/spatial_conv.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:94 (_spatial_pallas)"),
     "temporal_conv": dict(
         name="temporal_conv_kernel", route="cuda",
@@ -176,6 +179,13 @@ def tap_pairs(n: int, k: int = K) -> int:
     return sum(max(0, n - abs(d - k // 2)) for d in range(k))
 
 
+def spatial_flops(x_shape, co: int, k: int = K) -> float:
+    """Operations of a 1 x k x k conv over the taps that fall inside the
+    frame: x (B, T, H, W, C) -> Co channels."""
+    b, t, h, w, c = x_shape
+    return 2.0 * b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * co
+
+
 def _min_time(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -188,7 +198,7 @@ def bound(kernel: str, x_shape, co: int, k: int = K):
     b, t, h, w, c = x_shape
     rows = b * t * h * w
     if kernel == "spatial_conv":
-        flops = 2.0 * b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * co
+        flops = spatial_flops(x_shape, co, k)
     else:
         flops = 2.0 * b * h * w * tap_pairs(t, k) * c * co
     if kernel == "temporal_dw":
@@ -251,8 +261,10 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
         x, g = x5.reshape(b * t, h, w, c), g5.reshape(b * t, h, w, co)
         wt = (torch.randn((K, K, c, co), generator=gen, device=dev)
               / (K * K * c) ** 0.5).to(torch.bfloat16)
-        w_t = wt.flip(0, 1).transpose(2, 3).contiguous()
         run, plain = ops.spatial_conv_cuda, ops.spatial_conv_plain
+        # dx as the training step runs it: K1's weight layout built straight
+        # from the forward weight, the taps read in reverse
+        run_dx, plain_dx, w_dx = ops.spatial_conv_dx_cuda, ops.spatial_conv_dx_plain, wt
         w5, pad = wt[None], (0, K // 2, K // 2)
     else:
         x, g = x5.reshape(b, t, h * w, c), g5.reshape(b, t, h * w, co)
@@ -260,12 +272,13 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
               / (K * c) ** 0.5).to(torch.bfloat16)
         w_t = wt.flip(0).transpose(1, 2).contiguous()
         run, plain = ops.temporal_conv_cuda, ops.temporal_conv_plain
+        run_dx, plain_dx, w_dx = run, plain, w_t
         w5, pad = wt[:, None, None], (K // 2, 0, 0)
     w_lib = w5.permute(4, 3, 0, 1, 2)  # (Co, C, kt, kh, kw)
     cases = [
         ("fwd", kernel, lambda: run(x, wt), lambda: plain(x, wt),
          lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co)),
-        ("dx", kernel, lambda: run(g, w_t), lambda: plain(g, w_t),
+        ("dx", kernel, lambda: run_dx(g, w_dx), lambda: plain_dx(g, w_dx),
          lambda: torch.nn.grad.conv3d_input(_ncdhw(x5).shape, w_lib, _ncdhw(g5), padding=pad),
          bound(kernel, (b, t, h, w, co), c)),
     ]
@@ -325,6 +338,18 @@ def phase_kernels(card: str) -> dict:
                 ms = time_ms(run, iters=20)
                 plain_ms = time_ms(plain, iters=3, warmup=1)
                 library_ms = time_ms(lib, iters=20)
+                plan = None
+                if key == "spatial_conv":
+                    # the (N, H, W, C) K1 reads and the channels it writes
+                    cin, cout = (xs[-1], co) if role == "fwd" else (co, xs[-1])
+                    plan = ops.spatial_plan((xs[0] * xs[1], xs[2], xs[3], cin), cout, K)
+                    rate = spatial_flops(xs[:-1] + (cin,), cout) / ms / 1e9
+                    note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles, {plan.grid} "
+                             f"blocks, {plan.smem_bytes} B shared; {rate:.1f} TFLOP/s, "
+                             f"{bound_ms / ms:.3f} of the bound")
+                    if cin % 8:  # a path site the wrapper would pad
+                        ok = False
+                        note += " PADDED"
                 print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
                       f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
                       f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "
@@ -349,7 +374,8 @@ def phase_kernels(card: str) -> dict:
                 a["sites"].append(dict(
                     site=site, role=role, batch=batch, x=list(xs), co=co, launches=n,
                     max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
-                    library_ms=library_ms, bound_ms=bound_ms, bound_by=by))
+                    library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
+                    **({"plan": plan._asdict()} if plan else {})))
             torch.cuda.empty_cache()
     print(f"sums over launches ({card}):")
     for key, a in agg.items():

@@ -1,23 +1,19 @@
-// Hand-written Hopper kernels for the factorized (2+1)D convolutions.
+// Hand-written Hopper kernel for the temporal half of the factorized (2+1)D
+// convolution (the spatial half, K1, is csrc/spatial_conv.cu).
 //
-//   K1 spatial_conv_kernel   replaces fastvideotagging_tpu/ops/conv2plus1d.py
-//                            _spatial_kernel / _spatial_pallas (TPU Pallas):
-//       y[n,h,w,co] = sum_{dh,dw,c} x[n, h+dh-p, w+dw-p, c] * W[dh,dw,c,co]
-//       x (N, H, W, C) bf16, W (k, k, C, Co) bf16 -> y (N, H, W, Co) bf16,
-//       zeros outside the frame, p = k/2 (stride 1, odd k).
 //   K2 temporal_conv_kernel  replaces fastvideotagging_tpu/ops/conv2plus1d.py
 //                            _temporal_kernel / _temporal_pallas (TPU Pallas):
 //       y[b,t,s,co] = sum_{dt,c} x[b, t+dt-p, s, c] * W[dt,c,co]
 //       x (B, T, S, C) bf16, W (k, C, Co) bf16 -> y (B, T, S, Co) bf16,
 //       zero rows for t+dt-p outside [0, T).
 //
-// Both are one implicit GEMM: output row m is an output pixel, the
-// contraction runs over (tap, c), and a tap reads the input row m shifted by
-// (da, db) along the two axes of the row index, or zero where the shifted
-// row falls outside the frame. The TPU kernels packed the taps into the
-// contraction dim inside VMEM (a halo'd row block for K1); here a block
-// gathers the shifted rows itself, so there is no halo, no padded copy and
-// no tile that has to divide H.
+// One implicit GEMM: output row m is an output pixel, the contraction runs
+// over (tap, c), and a tap reads the input row m shifted by (da, db) along
+// the two axes of the row index, or zero where the shifted row falls
+// outside the frame. The TPU kernel packed the taps into the contraction
+// dim inside VMEM; here a block gathers the shifted rows itself, so there
+// is no halo, no padded copy and no tile that has to divide T. The tile
+// routine (conv_taps_tile) takes kA x kB taps; K2 uses k x 1.
 //
 // Design (first, simple version): one block of 256 threads per
 // (128 output rows x 64 output channels) tile. For every (tap, 32-channel
@@ -30,15 +26,13 @@
 // y) is a multiple of 8 and the pointers allow it, else 2 bytes at a time:
 // C = 45 (the stem's temporal conv) takes the scalar path.
 //
-// What bounds them on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the
-// R(2+1)D-18 path shapes K1 is bound by operations (e.g. stage 1: 66.6
-// GFLOP, 167 MB -> 67 us) and K2 by bytes at stages 1-2 and by operations
-// at stages 3-4. This design reaches neither bound yet: WMMA through
-// mma.sync peaks well below wgmma's rate, one shared stage with a
-// barrier on each side of every 32-deep product leaves the tensor cores
-// waiting on the store of the next slice, and every Co tile
-// re-reads its A rows. wgmma with TMA-fed multi-stage rings, wider Co tiles
-// and a persistent schedule are the next steps.
+// What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the
+// R(2+1)D-18 path shapes, bytes at stages 1-2 and operations at stages
+// 3-4. This design reaches neither bound yet: WMMA through mma.sync peaks
+// well below wgmma's rate, one shared stage with a barrier on each side of
+// every 32-deep product leaves the tensor cores waiting on the store of the
+// next slice, and every Co tile re-reads its A rows. wgmma with multi-stage
+// rings and wider Co tiles (as K1 now has) are the next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -295,16 +289,6 @@ __device__ __forceinline__ void conv_taps_tile(
   }
 }
 
-// K1: rows m = (n*H + h)*W + w; k x k taps shift (h, w).
-template <bool VA, bool VB>
-__global__ void __launch_bounds__(THREADS)
-spatial_conv_kernel(const unsigned short* __restrict__ x,
-                    const unsigned short* __restrict__ w,
-                    unsigned short* __restrict__ y, int64_t M, int H, int W,
-                    int C, int Co, int k) {
-  conv_taps_tile<VA, VB>(x, w, y, M, H, W, k, k, C, Co);
-}
-
 // K2: rows m = (b*T + t)*S + s; k taps shift t only.
 template <bool VA, bool VB>
 __global__ void __launch_bounds__(THREADS)
@@ -326,32 +310,6 @@ extern "C" {
 // here as well as in the Python wrapper. The device is set explicitly: this
 // library carries its own CUDA runtime, whose current device is not the
 // caller's.
-int fvt_spatial_conv_bf16(const void* x, const void* w, void* y, long long n,
-                          int h, int wd, int c, int co, int k, int device,
-                          void* stream) {
-  if (n <= 0 || h <= 0 || wd <= 0 || c <= 0 || co <= 0 || k <= 0 || (k % 2) == 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t M = (int64_t)n * h * wd;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((co + BN - 1) / BN));
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool va = (c % 8) == 0 && aligned16(x);
-  const bool vb = (co % 8) == 0 && aligned16(w) && aligned16(y);
-  auto xs = static_cast<const unsigned short*>(x);
-  auto ws = static_cast<const unsigned short*>(w);
-  auto ys = static_cast<unsigned short*>(y);
-  if (va && vb)
-    spatial_conv_kernel<true, true><<<grid, THREADS, 0, s>>>(xs, ws, ys, M, h, wd, c, co, k);
-  else if (va)
-    spatial_conv_kernel<true, false><<<grid, THREADS, 0, s>>>(xs, ws, ys, M, h, wd, c, co, k);
-  else if (vb)
-    spatial_conv_kernel<false, true><<<grid, THREADS, 0, s>>>(xs, ws, ys, M, h, wd, c, co, k);
-  else
-    spatial_conv_kernel<false, false><<<grid, THREADS, 0, s>>>(xs, ws, ys, M, h, wd, c, co, k);
-  return (int)cudaGetLastError();
-}
-
 int fvt_temporal_conv_bf16(const void* x, const void* w, void* y, long long b,
                            int t, int s_len, int c, int co, int k, int device,
                            void* stream) {

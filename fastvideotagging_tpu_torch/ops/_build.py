@@ -34,7 +34,8 @@ NVCC_FLAGS = (
 )
 _BUILD_TIMEOUT_S = 600
 # source -> the wrapper module whose NVCC_DEFINES (its tile plan) it takes
-_PLANNED = {"fused_block": "fastvideotagging_tpu_torch.ops.fused_block"}
+_PLANNED = {"fused_block": "fastvideotagging_tpu_torch.ops.fused_block",
+            "spatial_conv": "fastvideotagging_tpu_torch.ops.conv2plus1d"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

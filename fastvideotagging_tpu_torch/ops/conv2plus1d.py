@@ -2,10 +2,11 @@
 plain PyTorch versions, their gradients, and the routing of the JAX
 package's ``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
 
-- ``spatial_conv_kernel`` (K1, csrc/conv2plus1d.cu) replaces the TPU kernel
-  ``_spatial_kernel`` / ``_spatial_pallas``: a stride-1 1 x k x k conv.
-- ``temporal_conv_kernel`` (K2) replaces ``_temporal_kernel`` /
-  ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
+- ``spatial_conv_hopper_kernel`` (K1, csrc/spatial_conv.cu) replaces the
+  TPU kernel ``_spatial_kernel`` / ``_spatial_pallas``: a stride-1
+  1 x k x k conv. Its tile plan has one source, ``spatial_plan``.
+- ``temporal_conv_kernel`` (K2, csrc/conv2plus1d.cu) replaces
+  ``_temporal_kernel`` / ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
 - ``temporal_dw_kernel`` (K3, csrc/temporal_dw.cu) replaces
   ``_temporal_dw_kernel`` / ``_temporal_dw``: the temporal conv's weight
   gradient.
@@ -21,7 +22,9 @@ version.
 ``spatial_conv`` / ``temporal_conv`` are differentiable through two
 ``torch.autograd.Function``s, the counterparts of the JAX package's
 ``_spatial_op`` / ``_temporal_op``: dx is the same forward kernel on the
-flipped, channel-transposed weights; the temporal dw is K3; the spatial dw
+flipped, channel-transposed weights (``spatial_conv_dx_cuda`` builds K1's
+weight layout for it straight from the forward weight); the temporal dw is
+K3; the spatial dw
 is k*k tap-sliced matmuls (XLA's in the JAX package, the matmul library's
 here).
 
@@ -34,6 +37,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import types
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -60,17 +66,21 @@ _lib = None
 _dw_lib = None
 
 
-def _kernels() -> ctypes.CDLL:
+def _kernels() -> types.SimpleNamespace:
+    """K1's entry point (csrc/spatial_conv.cu) and K2's (csrc/conv2plus1d.cu)."""
     global _lib
     if _lib is None:
-        lib = _build.load("conv2plus1d")
-        for fn in (lib.fvt_spatial_conv_bf16, lib.fvt_temporal_conv_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        k1 = _build.load("spatial_conv").fvt_spatial_conv_bf16
+        k1.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        k1.restype = ctypes.c_int
+        k2 = _build.load("conv2plus1d").fvt_temporal_conv_bf16
+        k2.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        k2.restype = ctypes.c_int
+        _lib = types.SimpleNamespace(fvt_spatial_conv_bf16=k1, fvt_temporal_conv_bf16=k2)
     return _lib
 
 
@@ -140,16 +150,116 @@ def _launch(fn, x, w, y, dims, k) -> None:
 # ---------------------------------------------------------------------------
 
 
+# K1's tile plan (csrc/spatial_conv.cu), its one source: the ring depth is
+# compiled in (NVCC_DEFINES, through _build), and each launch passes the
+# column tile and the shared-memory bytes that spatial_plan sized.
+_K1_BM = 128  # output rows per block
+_K1_BK = 64  # contraction slice (128 bytes of bf16 a row)
+_K1_STAGES = 4  # slices in the cp.async ring
+_K1_BNS = (192, 144, 128, 64)  # column tiles the kernel is built for, widest first
+_K1_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle's period
+NVCC_DEFINES = (f"-DFVT_K1_STAGES={_K1_STAGES}",)
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use (227 KB)
+SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made off the card
+
+
+class SpatialPlan(NamedTuple):
+    bn: int  # output channels per block
+    stages: int  # slices in the ring
+    smem_bytes: int  # dynamic shared memory of one block
+    row_tiles: int  # blocks along the output pixels (128 rows each)
+    col_tiles: int  # blocks along the output channels (bn each)
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+
+@functools.lru_cache(maxsize=256)
+def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
+    """K1's launch plan for x (N, H, W, C) -> Co channels.
+
+    The column tile covers Co where it fits (the narrowest that does) and
+    otherwise divides it (the widest that does), so that the A rows are
+    gathered as few times as possible: Co = 144 -> 144 x 1, 288 -> 144 x 2,
+    576 -> 192 x 3, 64 / 128 -> one tile, 256 / 512 -> 128 x 2 / x 4.
+    Where that leaves fewer blocks than the ``sms`` the card has (stage 4 at
+    8 clips: 7 row tiles), it steps down to narrower tiles that still
+    divide Co, the widest that fills the card, else the narrowest. A Co
+    that no tile divides is covered by the least wasteful one."""
+    n, h, w, _ = x_shape
+    row_tiles = -(-n * h * w // _K1_BM)
+    covering = [bn for bn in _K1_BNS if bn >= co]
+    dividing = [bn for bn in _K1_BNS if co % bn == 0]
+    if covering:
+        bn = covering[-1]
+    elif dividing:
+        bn = dividing[0]
+    else:
+        bn = min(_K1_BNS, key=lambda b: (-(-co // b) * b - co, -b))
+    if row_tiles * -(-co // bn) < sms:
+        narrower = [b for b in dividing if b < bn]
+        if narrower:
+            bn = next((b for b in narrower if row_tiles * (co // b) >= sms), narrower[-1])
+    smem = _K1_STAGES * (_K1_BM + bn) * _K1_BK * 2 + _K1_ALIGN
+    return SpatialPlan(bn, _K1_STAGES, smem, row_tiles, -(-co // bn))
+
+
+def _k1_operands(x: torch.Tensor, w: torch.Tensor, dx: bool):
+    """x and the weight as K1 takes them: the weight K-major, (out channel,
+    tap, in channel) contiguous, and the contraction's channels zero-padded
+    to a multiple of 8 in both (a 16-byte chunk of A then lies in one tap).
+
+    Forward: w (k, k, C, Co) -> (Co, k*k, C). dx (x is the incoming
+    gradient, with Co channels): (C, k*k, Co) in the forward's tap order,
+    one copy of w with no flipped intermediate; the kernel reads the taps
+    in reverse (``flip``)."""
+    k, _, c, co = w.shape
+    wk = (w.reshape(k * k, c, co).permute(1, 0, 2) if dx
+          else w.permute(3, 0, 1, 2).reshape(co, k * k, c))
+    pad = -x.shape[-1] % 8
+    if pad:
+        return F.pad(x, (0, pad)), F.pad(wk, (0, pad))
+    return x, wk.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _k1_launch(x: torch.Tensor, wk: torch.Tensor, co: int, k: int, flip: bool) -> torch.Tensor:
+    n, h, wd, c = x.shape
+    if x.data_ptr() % 16:  # a view into a larger buffer: the kernel reads 16 bytes at a time
+        x = x.clone()
+    plan = spatial_plan(x.shape, co, k, _sm_count(x.device))
+    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _kernels().fvt_spatial_conv_bf16(
+        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd, c, co, k, int(flip), plan.bn,
+        plan.stages, plan.smem_bytes, x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"fvt_spatial_conv_bf16 launch failed: CUDA error {rc}")
+    launch_counts["spatial_conv"] += 1
+    return y
+
+
 def spatial_conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1: x (N, H, W, C), w (k, k, C, Co), both bf16 contiguous on CUDA ->
     (N, H, W, Co) bf16. Stride 1, zero padding k//2."""
     k = w.shape[0]
     n, h, wd, c = x.shape
     _check_kernel_args(x, w, 4, (k, k, c, w.shape[-1]))
-    y = torch.empty((n, h, wd, w.shape[-1]), dtype=x.dtype, device=x.device)
-    _launch(_kernels().fvt_spatial_conv_bf16, x, w, y, (n, h, wd, c, w.shape[-1]), k)
-    launch_counts["spatial_conv"] += 1
-    return y
+    return _k1_launch(*_k1_operands(x, w, dx=False), w.shape[-1], k, flip=False)
+
+
+def spatial_conv_dx_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of K1's forward with weight w (k, k, C, Co), on K1: g (N, H, W,
+    Co), w, both bf16 contiguous on CUDA -> (N, H, W, C) bf16. The same
+    conv as ``spatial_conv_cuda(g, w.flip(0, 1).transpose(2, 3))``."""
+    k = w.shape[0]
+    _check_kernel_args(g, w, 4, (k, k, w.shape[2], g.shape[-1]))
+    return _k1_launch(*_k1_operands(g, w, dx=True), w.shape[2], k, flip=True)
 
 
 def spatial_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -164,6 +274,12 @@ def spatial_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         for dw in range(k):
             acc += xp[:, dh : dh + h, dw : dw + wd, :].to(acc.dtype) @ w[dh, dw].to(acc.dtype)
     return acc.to(x.dtype)
+
+
+def spatial_conv_dx_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``spatial_conv_dx_cuda``: the forward's plain
+    version on the flipped, channel-transposed weights."""
+    return spatial_conv_plain(g, w.flip(0, 1).transpose(2, 3))
 
 
 @contextlib.contextmanager
@@ -215,8 +331,7 @@ class _SpatialOp(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # dx: correlate g with spatially flipped, channel-transposed weights.
-            w_t = w.flip(0, 1).transpose(2, 3).contiguous()
-            dx = _route(spatial_conv_cuda, spatial_conv_plain, g, w_t)
+            dx = _route(spatial_conv_dx_cuda, spatial_conv_dx_plain, g, w)
         if ctx.needs_input_grad[1]:
             dw = spatial_dw(x, g, w.shape[0]).to(w.dtype)
         return dx, dw

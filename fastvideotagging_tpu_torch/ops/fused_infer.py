@@ -21,6 +21,8 @@ As an ``evaluate`` engine (``apply_fn(variables, clips) -> scores``)::
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 from fastvideotagging_tpu_torch.ops.conv2plus1d import conv3d_nthwc
@@ -62,12 +64,29 @@ def _conv2plus1d(x, sd, name, spatial_stride, temporal_stride):
     return _conv(y, w_tmp[:, None, None], (temporal_stride, 1, 1))
 
 
+_BLOCK_KEY = re.compile(r"^(stage\d+_block\d+)\.")
+
+
+def _check_blocks(sd: dict, stage_blocks: tuple) -> None:
+    """Raise unless the weights hold exactly the blocks ``stage_blocks``
+    walks: deeper weights (r2plus1d_34 under the default (2, 2, 2, 2))
+    would otherwise give a shallower network's logits with no error."""
+    have = {m.group(1) for m in map(_BLOCK_KEY.match, sd) if m}
+    want = {f"stage{s + 1}_block{b}" for s, n in enumerate(stage_blocks) for b in range(n)}
+    if have != want:
+        raise ValueError(
+            f"stage_blocks={tuple(stage_blocks)} does not match the weights: blocks "
+            f"not walked {sorted(have - want)}, blocks missing {sorted(want - have)}")
+
+
 @torch.inference_mode()
 def r2plus1d_fused_infer(state_dict: dict, x: torch.Tensor,
                          stage_blocks: tuple = (2, 2, 2, 2)) -> torch.Tensor:
     """Inference-mode forward, fused. x: (B, T, H, W, 3) -> (B, K) f32 logits,
-    on the device of x and the weights."""
+    on the device of x and the weights. Raises ValueError when the weights'
+    ``stageN_blockM`` blocks are not exactly those ``stage_blocks`` walks."""
     sd = state_dict
+    _check_blocks(sd, stage_blocks)
     x = x.to(torch.bfloat16)
 
     # Stem (3 input channels, then 45: F.conv3d).

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from fastvideotagging_tpu.models.r2plus1d import R2Plus1D as JR2Plus1D
 from fastvideotagging_tpu.ops import fused_block as jfused
 from fastvideotagging_tpu.ops.fused_infer import r2plus1d_fused_infer as j_engine
+from fastvideotagging_tpu_torch import get_model
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
 from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
@@ -173,3 +174,29 @@ def test_engine_deterministic(engine_case):
     a = t_engine(state, torch.from_numpy(x), stage_blocks=(1, 1))
     b = t_engine(state, torch.from_numpy(x), stage_blocks=(1, 1))
     assert torch.equal(a, b)
+
+
+def test_engine_refuses_blocks_it_does_not_walk():
+    """r2plus1d_34 weights: the default (2, 2, 2, 2) would run an 18-layer
+    network on them and return wrong logits, so it raises, naming the
+    blocks; with their own stage_blocks the engine matches the model."""
+    model = get_model("r2plus1d_34", num_classes=5, device="cpu", dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    rng = torch.Generator().manual_seed(1)
+    for name, v in state.items():  # move the BN statistics off the identity
+        if name.endswith((".mean", ".var")):
+            v += torch.rand(v.shape, generator=rng) * 0.1
+    model.load_state_dict(state)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 4, 32, 32, 3))
+                         .astype(np.float32))
+    with pytest.raises(ValueError, match=r"not walked \['stage1_block2'"):
+        t_engine(state, x)
+    with pytest.raises(ValueError, match=r"missing \['stage3_block2'"):
+        t_engine({k: v for k, v in state.items() if not k.startswith("stage3_block2.")}, x,
+                 stage_blocks=(3, 4, 6, 3))
+    got = t_engine(state, x, stage_blocks=(3, 4, 6, 3))
+    with torch.inference_mode():
+        ref = model(x)
+    assert got.shape == ref.shape == (2, 5)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=ENGINE_TOL, atol=ENGINE_TOL)

@@ -10,7 +10,9 @@ has no JAX:
 
 Shapes: the R(2+1)D-18 serving path's (clip_batch 8, 16x112x112) and ragged
 ones (C or Co not a multiple of 8, k = 5, row counts that are not a multiple
-of the 128-row tile). Kernel and plain version take the same bf16 inputs and
+of the 128-row tile); for K1 also the dx widths (C = 144 -> 64, 1152 -> 512:
+contractions that are not a multiple of the 64-deep slice), one clip of
+frames smaller than 8 x 8, and Co = 8. Kernel and plain version take the same bf16 inputs and
 sum in f32, so they agree within 1e-2 of the output's largest magnitude
 (bf16 output rounding). K3's output is f32 and differs from its plain
 version by summation order only: 1e-3 of the largest magnitude. The dx
@@ -35,6 +37,9 @@ SPATIAL = [  # x (N, H, W, C), Co, k
     ((128, 56, 56, 64), 144, 3), ((64, 28, 28, 128), 288, 3),
     ((32, 14, 14, 256), 576, 3), ((16, 7, 7, 512), 1152, 3),
     ((3, 9, 11, 45), 40, 3), ((2, 10, 7, 36), 21, 5), ((1, 5, 5, 32), 8, 3),
+    ((128, 56, 56, 144), 64, 3), ((16, 7, 7, 1152), 512, 3),  # dx widths
+    ((3, 9, 11, 48), 200, 3),   # M = 297, Co > 192 and divided by no tile
+    ((1, 6, 5, 40), 8, 5),      # N = 1, H and W < 8, Co = 8
 ]
 TEMPORAL = [  # x (B, T, S, C), Co, k
     ((8, 16, 3136, 45), 64, 3), ((8, 16, 3136, 144), 64, 3),
@@ -77,6 +82,38 @@ def test_spatial_kernel_matches_plain(cuda, x_shape, co, k):
     torch.cuda.synchronize()
     assert ops.launch_counts["spatial_conv"] == before + 1
     _close(got, ops.spatial_conv_plain(x, w))
+
+
+@pytest.mark.parametrize("x_shape,co,k", [
+    ((128, 56, 56, 144), 64, 3), ((16, 7, 7, 1152), 512, 3), ((3, 9, 11, 40), 45, 3),
+    ((2, 10, 7, 21), 36, 5), ((1, 5, 6, 8), 32, 3)])
+def test_spatial_dx_kernel_matches_plain(cuda, x_shape, co, k):
+    """K1 as dx: g (N, H, W, Co) -> (N, H, W, C) with x_shape's C = Co of
+    the forward weight (k, k, co, C); ragged widths are padded to 8."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    gy = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, k, co, x_shape[-1]), generator=g, device=cuda)
+         / (k * k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    before = ops.launch_counts["spatial_conv"]
+    got = ops.spatial_conv_dx_cuda(gy, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["spatial_conv"] == before + 1
+    assert got.shape == x_shape[:3] + (co,)
+    _close(got, ops.spatial_conv_dx_plain(gy, w))
+    # the same conv through the forward wrapper, on the flipped weights
+    fwd = ops.spatial_conv_cuda(gy, w.flip(0, 1).transpose(2, 3).contiguous())
+    assert torch.equal(got, fwd)
+
+
+def test_spatial_kernel_takes_a_misaligned_view(cuda):
+    """A contiguous view that starts 2 bytes into its buffer: the wrapper
+    copies it to an aligned tensor for the kernel's 16-byte loads."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.randn(1 + 2 * 6 * 7 * 32, generator=g, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(2, 6, 7, 32)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w = torch.randn((3, 3, 32, 16), generator=g, device=cuda).to(torch.bfloat16)
+    _close(ops.spatial_conv_cuda(x, w), ops.spatial_conv_plain(x, w))
 
 
 @pytest.mark.parametrize("x_shape,co,k", TEMPORAL)

@@ -81,7 +81,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["conv2plus1d", "fused_block", "temporal_dw"]
+    assert _build.sources() == ["conv2plus1d", "fused_block", "spatial_conv", "temporal_dw"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
@@ -106,6 +106,21 @@ def test_fused_block_is_built_with_its_wrappers_tile_plan(tmp_path, monkeypatch)
     a = _build._so_path("fused_block")
     monkeypatch.setattr(fused_block, "NVCC_DEFINES", fused_block.NVCC_DEFINES + ("-DFVT_X=1",))
     assert _build._so_path("fused_block") != a
+
+
+def test_spatial_conv_is_built_with_its_wrappers_ring_depth(tmp_path, monkeypatch):
+    """K1's ring depth has one source, ops/conv2plus1d.py: nvcc gets it as a
+    -D flag, each launch passes the plan's depth (which the kernel checks),
+    and a changed depth is a new build."""
+    from fastvideotagging_tpu_torch.ops import conv2plus1d
+
+    flags = _build._flags("spatial_conv")
+    assert flags[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    assert f"-DFVT_K1_STAGES={conv2plus1d.spatial_plan((1, 8, 8, 64), 64, 3).stages}" in flags
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    a = _build._so_path("spatial_conv")
+    monkeypatch.setattr(conv2plus1d, "NVCC_DEFINES", ("-DFVT_K1_STAGES=3",))
+    assert _build._so_path("spatial_conv") != a
 
 
 def test_tagger_rejects_wrong_tag_names():

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from fastvideotagging_tpu.ops import conv2plus1d as jops
+from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
 from fastvideotagging_tpu_torch.ops import conv2plus1d as tops
 
 TOL = 1e-4
@@ -93,6 +94,9 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tops.spatial_conv_cuda(x, torch.zeros((3, 3, 32, 8), dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="CUDA"):
+        tops.spatial_conv_dx_cuda(x[..., :8].contiguous(),
+                                  torch.zeros((3, 3, 32, 8), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
         tops.temporal_conv_cuda(x, torch.zeros((3, 32, 8), dtype=torch.bfloat16))
     assert tops.launch_counts == before
 
@@ -104,3 +108,90 @@ def test_cpu_route_takes_plain_version_without_a_launch():
     tops.temporal_conv(torch.from_numpy(x), torch.from_numpy(w[0]))
     assert tops.launch_counts == {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0,
                                   "fused_block": 0}
+
+
+def _k1_sites(b):
+    """r2plus1d_18's K1 sites at 16x112x112: (x (N, H, W, C), Co) of the
+    forward, and of its dx (C and Co swapped)."""
+    t, hw = 16, 56
+    for stage in range(4):
+        c = 64 * 2 ** stage
+        if stage:
+            t, hw = t // 2, hw // 2
+        m = r2plus1d_mid_channels(c, c)
+        yield "fwd", (b * t, hw, hw, c), m
+        yield "dx", (b * t, hw, hw, m), c
+
+
+# the column tile where the grid fills the card: Co covered or divided
+# with as few tiles as the kernel's instances allow
+_K1_DEFAULT_BN = {144: 144, 288: 144, 576: 192, 1152: 192, 64: 64, 128: 128, 256: 128,
+                  512: 128}
+
+
+@pytest.mark.parametrize("b", [8, 32])
+def test_spatial_plan_at_every_path_site(b):
+    for role, xs, co in _k1_sites(b):
+        plan = tops.spatial_plan(xs, co, 3)
+        assert plan.smem_bytes <= tops.SMEM_LIMIT, (role, xs)
+        assert plan.bn % 8 == 0 and plan.bn <= 256 and plan.bn in tops._K1_BNS
+        rows = xs[0] * xs[1] * xs[2]
+        assert (plan.row_tiles - 1) * 128 < rows <= plan.row_tiles * 128
+        assert (plan.col_tiles - 1) * plan.bn < co <= plan.col_tiles * plan.bn
+        assert co % plan.bn == 0 and xs[-1] % 8 == 0  # no path site is ragged or padded
+        assert plan.grid == plan.row_tiles * plan.col_tiles
+        # on a card the default plan fills, or one narrower tile that divides Co
+        assert tops.spatial_plan(xs, co, 3, sms=1).bn == _K1_DEFAULT_BN[co]
+        if plan.bn != _K1_DEFAULT_BN[co]:
+            assert plan.bn < _K1_DEFAULT_BN[co]
+            assert plan.grid >= 132 or plan.bn == 64
+    # stage 4 at 8 clips has 7 row tiles: narrower column tiles fill the card
+    assert tops.spatial_plan((16, 7, 7, 512), 1152, 3).bn == 64
+    assert tops.spatial_plan((16, 7, 7, 512), 1152, 3, sms=40).bn == 192
+
+
+@pytest.mark.parametrize("co,k", [(40, 3), (21, 5), (8, 3), (300, 3)])
+def test_spatial_plan_takes_ragged_widths(co, k):
+    plan = tops.spatial_plan((2, 9, 11, 48), co, k)
+    assert plan.col_tiles * plan.bn >= co and plan.smem_bytes <= tops.SMEM_LIMIT
+
+
+def _k1_emulated(x, wk, co, k, flip):
+    """K1's arithmetic as the kernel indexes it, in plain tensors: row m,
+    kappa = tap * C + c; A[m, kappa] is x at the tap's shifted pixel (zero
+    outside the frame), B[kappa, n] = wk[n, tap (reversed when flip), c]."""
+    n, h, w, c = x.shape
+    p = k // 2
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    a = torch.cat([xp[:, dh:dh + h, dw:dw + w] for dh in range(k) for dw in range(k)], -1)
+    b = (wk.flip(1) if flip else wk).reshape(co, k * k * c).T
+    return (a.reshape(n * h * w, k * k * c) @ b).reshape(n, h, w, co)
+
+
+@pytest.mark.parametrize("shape,co,k", [
+    ((2, 6, 7, 64), 144, 3),   # the stage-1 widths: no padding
+    ((3, 5, 9, 45), 40, 3),    # C = 45 padded to 48
+    ((1, 4, 3, 36), 21, 5),    # k = 5, Co ragged
+])
+@pytest.mark.parametrize("dx", [False, True])
+def test_k1_operands_match_plain(shape, co, k, dx):
+    """The wrapper's K-major weights (for dx straight from the forward
+    weight, taps read in reverse) and zero-padded channels give the plain
+    version's result through K1's indexing."""
+    n, h, w, c = shape
+    x, wt = _inputs((n, h, w, co if dx else c), (k, k, c, co), seed=3)
+    x, wt = torch.from_numpy(x), torch.from_numpy(wt)
+    xk, wk = tops._k1_operands(x, wt, dx=dx)
+    out = c if dx else co
+    assert xk.shape[-1] % 8 == 0 and wk.shape == (out, k * k, xk.shape[-1])
+    assert wk.is_contiguous() and torch.equal(xk[..., :x.shape[-1]], x)
+    got = _k1_emulated(xk, wk, out, k, flip=dx)
+    if dx:
+        ref = tops.spatial_conv_dx_plain(x, wt)
+        # and the dx of the forward conv, by the library
+        lib = torch.nn.grad.conv2d_input((n, c, h, w), wt.permute(3, 2, 0, 1),
+                                         x.permute(0, 3, 1, 2), padding=k // 2)
+        torch.testing.assert_close(ref, lib.permute(0, 2, 3, 1), rtol=TOL, atol=TOL)
+    else:
+        ref = tops.spatial_conv_plain(x, wt)
+    torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
