@@ -14,8 +14,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             forward and as dx (the same kernels on the flipped,
             channel-transposed weights, C and Co swapped; K1's dx as the
             training step runs it, through ``spatial_conv_dx_cuda``, with
-            its tile plan, TFLOP/s and share of the bound printed, and no
-            path site padded), K3 (the temporal
+            its tile plan, TFLOP/s and share of the bound printed, no path
+            site padded, and two launches bitwise equal where the plan
+            splits the contraction), K3 (the temporal
             weight gradient, two launches bitwise equal) — each against its
             plain PyTorch version, with the times of the kernel, the plain
             version and the library call for the same function (F.conv3d,
@@ -329,27 +330,28 @@ def phase_kernels(card: str) -> dict:
                 max_rel = max_abs / scale
                 lib_rel = (libout.float() - ref.float()).abs().max().item() / scale
                 ok = bool(torch.isfinite(got).all().item()) and max_rel <= tol
-                note = ""
-                if role == "dw":  # deterministic: no atomics, fixed reduction order
-                    same = torch.equal(got, run())
-                    ok = ok and same
-                    note = f" two launches bitwise equal={same}"
-                del got, ref, libout
-                ms = time_ms(run, iters=20)
-                plain_ms = time_ms(plain, iters=3, warmup=1)
-                library_ms = time_ms(lib, iters=20)
-                plan = None
+                note, plan = "", None
                 if key == "spatial_conv":
                     # the (N, H, W, C) K1 reads and the channels it writes
                     cin, cout = (xs[-1], co) if role == "fwd" else (co, xs[-1])
                     plan = ops.spatial_plan((xs[0] * xs[1], xs[2], xs[3], cin), cout, K)
-                    rate = spatial_flops(xs[:-1] + (cin,), cout) / ms / 1e9
-                    note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles, {plan.grid} "
-                             f"blocks, {plan.smem_bytes} B shared; {rate:.1f} TFLOP/s, "
-                             f"{bound_ms / ms:.3f} of the bound")
                     if cin % 8:  # a path site the wrapper would pad
                         ok = False
                         note += " PADDED"
+                # deterministic: no atomics, partial sums added in a fixed order
+                if role == "dw" or (plan and plan.splits > 1):
+                    same = torch.equal(got, run())
+                    ok = ok and same
+                    note += f" two launches bitwise equal={same}"
+                del got, ref, libout
+                ms = time_ms(run, iters=20)
+                plain_ms = time_ms(plain, iters=3, warmup=1)
+                library_ms = time_ms(lib, iters=20)
+                if plan:
+                    rate = spatial_flops(xs[:-1] + (cin,), cout) / ms / 1e9
+                    note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles x{plan.splits} "
+                             f"kappa chunks, {plan.grid} blocks, {plan.smem_bytes} B shared; "
+                             f"{rate:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
                 print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
                       f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
                       f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "

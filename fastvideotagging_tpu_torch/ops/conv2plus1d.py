@@ -66,13 +66,18 @@ _lib = None
 _dw_lib = None
 
 
+# fvt_spatial_conv_bf16(x, w, wk, y, ws, n, h, wd, cp, cw, cow, k, dx, bn,
+# stages, splits, smem_bytes, device, stream)
+_K1_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 12
+                + [ctypes.c_void_p])
+
+
 def _kernels() -> types.SimpleNamespace:
     """K1's entry point (csrc/spatial_conv.cu) and K2's (csrc/conv2plus1d.cu)."""
     global _lib
     if _lib is None:
         k1 = _build.load("spatial_conv").fvt_spatial_conv_bf16
-        k1.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 10
-                       + [ctypes.c_void_p])
+        k1.argtypes = _K1_ARGTYPES
         k1.restype = ctypes.c_int
         k2 = _build.load("conv2plus1d").fvt_temporal_conv_bf16
         k2.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -155,9 +160,10 @@ def _launch(fn, x, w, y, dims, k) -> None:
 # column tile and the shared-memory bytes that spatial_plan sized.
 _K1_BM = 128  # output rows per block
 _K1_BK = 64  # contraction slice (128 bytes of bf16 a row)
-_K1_STAGES = 4  # slices in the cp.async ring
-_K1_BNS = (192, 144, 128, 64)  # column tiles the kernel is built for, widest first
+_K1_STAGES = 3  # slices in the cp.async ring (two blocks fit an SM)
+_K1_BNS = (144, 128, 64)  # column tiles the kernel is built for, widest first
 _K1_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle's period
+_K1_MIN_SPLIT_SLICES = 8  # a kappa chunk of a split contraction is at least this deep
 NVCC_DEFINES = (f"-DFVT_K1_STAGES={_K1_STAGES}",)
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use (227 KB)
 SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made off the card
@@ -169,10 +175,11 @@ class SpatialPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of one block
     row_tiles: int  # blocks along the output pixels (128 rows each)
     col_tiles: int  # blocks along the output channels (bn each)
+    splits: int  # kappa chunks, each a block writing f32 partial sums (1: none)
 
     @property
     def grid(self) -> int:
-        return self.row_tiles * self.col_tiles
+        return self.row_tiles * self.col_tiles * self.splits
 
 
 @functools.lru_cache(maxsize=256)
@@ -181,13 +188,18 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
 
     The column tile covers Co where it fits (the narrowest that does) and
     otherwise divides it (the widest that does), so that the A rows are
-    gathered as few times as possible: Co = 144 -> 144 x 1, 288 -> 144 x 2,
-    576 -> 192 x 3, 64 / 128 -> one tile, 256 / 512 -> 128 x 2 / x 4.
-    Where that leaves fewer blocks than the ``sms`` the card has (stage 4 at
-    8 clips: 7 row tiles), it steps down to narrower tiles that still
-    divide Co, the widest that fills the card, else the narrowest. A Co
-    that no tile divides is covered by the least wasteful one."""
-    n, h, w, _ = x_shape
+    gathered as few times as possible: Co = 144 -> 144 x 1, 288 / 576 /
+    1152 -> 144 x 2 / 4 / 8, 64 / 128 -> one tile, 256 / 512 -> 128 x 2 /
+    x 4. Tiles stop at 144 so that two blocks share an SM (a 192-wide tile
+    with its ring fits one). A Co that no tile divides is covered by the
+    least wasteful one.
+
+    Where those tiles are fewer than the ``sms`` the card has (stages 3-4
+    at 8 clips: 49 and 7 row tiles), the contraction is split into chunks
+    of at least 8 slices, enough to fill the card: each block writes f32
+    partial sums, and a second kernel adds them in chunk order (no atomics:
+    two launches are bitwise equal)."""
+    n, h, w, c = x_shape
     row_tiles = -(-n * h * w // _K1_BM)
     covering = [bn for bn in _K1_BNS if bn >= co]
     dividing = [bn for bn in _K1_BNS if co % bn == 0]
@@ -197,30 +209,33 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
         bn = dividing[0]
     else:
         bn = min(_K1_BNS, key=lambda b: (-(-co // b) * b - co, -b))
-    if row_tiles * -(-co // bn) < sms:
-        narrower = [b for b in dividing if b < bn]
-        if narrower:
-            bn = next((b for b in narrower if row_tiles * (co // b) >= sms), narrower[-1])
+    col_tiles = -(-co // bn)
+    slices = -(-k * k * (-(-c // 8) * 8) // _K1_BK)
+    tiles = row_tiles * col_tiles
+    splits = max(1, min(-(-sms // tiles), slices // _K1_MIN_SPLIT_SLICES))
     smem = _K1_STAGES * (_K1_BM + bn) * _K1_BK * 2 + _K1_ALIGN
-    return SpatialPlan(bn, _K1_STAGES, smem, row_tiles, -(-co // bn))
+    return SpatialPlan(bn, _K1_STAGES, smem, row_tiles, col_tiles, splits)
 
 
-def _k1_operands(x: torch.Tensor, w: torch.Tensor, dx: bool):
-    """x and the weight as K1 takes them: the weight K-major, (out channel,
-    tap, in channel) contiguous, and the contraction's channels zero-padded
-    to a multiple of 8 in both (a 16-byte chunk of A then lies in one tap).
+def _pad_channels(x: torch.Tensor) -> torch.Tensor:
+    """x with its channels zero-padded to a multiple of 8, as K1 takes its
+    contraction (a 16-byte chunk of A then lies in one tap)."""
+    pad = -x.shape[-1] % 8
+    return F.pad(x, (0, pad)) if pad else x
 
-    Forward: w (k, k, C, Co) -> (Co, k*k, C). dx (x is the incoming
-    gradient, with Co channels): (C, k*k, Co) in the forward's tap order,
-    one copy of w with no flipped intermediate; the kernel reads the taps
-    in reverse (``flip``)."""
+
+def spatial_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
+    """The plain version of K1's weight layout (csrc/spatial_conv.cu,
+    ``spatial_conv_weight_kernel``): the weight K-major, (out channel, tap,
+    in channel) contiguous, the in channels zero-padded to a multiple of 8.
+
+    Forward: w (k, k, C, Co) -> (Co, k*k, C). dx: (C, k*k, Co) in the
+    forward's tap order, one copy of w with no flipped intermediate; K1
+    reads the taps in reverse."""
     k, _, c, co = w.shape
     wk = (w.reshape(k * k, c, co).permute(1, 0, 2) if dx
           else w.permute(3, 0, 1, 2).reshape(co, k * k, c))
-    pad = -x.shape[-1] % 8
-    if pad:
-        return F.pad(x, (0, pad)), F.pad(wk, (0, pad))
-    return x, wk.contiguous()
+    return _pad_channels(wk).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,20 +243,31 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _k1_launch(x: torch.Tensor, wk: torch.Tensor, co: int, k: int, flip: bool) -> torch.Tensor:
-    n, h, wd, c = x.shape
-    if x.data_ptr() % 16:  # a view into a larger buffer: the kernel reads 16 bytes at a time
-        x = x.clone()
-    plan = spatial_plan(x.shape, co, k, _sm_count(x.device))
-    y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
+def _k1_launch(x: torch.Tensor, w: torch.Tensor, dx: bool):
+    """K1 on x with the forward weight w (k, k, C, Co): the conv (x has C
+    channels) or its dx (x has Co). Returns y and the K-major weight the
+    kernel laid out (its scratch)."""
+    k, _, cw, cow = w.shape
+    c_out = cw if dx else cow
+    x = _pad_channels(x)
+    # a view into a larger buffer: the kernels read 16 bytes at a time
+    x = x.clone() if x.data_ptr() % 16 else x
+    w = w.clone() if w.data_ptr() % 16 else w
+    n, h, wd, cp = x.shape
+    plan = spatial_plan(x.shape, c_out, k, _sm_count(x.device))
+    wk = torch.empty((c_out, k * k, cp), dtype=x.dtype, device=x.device)
+    y = torch.empty((n, h, wd, c_out), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((plan.splits, n * h * wd, c_out), dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernels().fvt_spatial_conv_bf16(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, wd, c, co, k, int(flip), plan.bn,
-        plan.stages, plan.smem_bytes, x.device.index, stream)
+        x.data_ptr(), w.data_ptr(), wk.data_ptr(), y.data_ptr(),
+        ws.data_ptr() if ws is not None else None, n, h, wd, cp, cw, cow, k, int(dx),
+        plan.bn, plan.stages, plan.splits, plan.smem_bytes, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_spatial_conv_bf16 launch failed: CUDA error {rc}")
     launch_counts["spatial_conv"] += 1
-    return y
+    return y, wk
 
 
 def spatial_conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -250,7 +276,7 @@ def spatial_conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     n, h, wd, c = x.shape
     _check_kernel_args(x, w, 4, (k, k, c, w.shape[-1]))
-    return _k1_launch(*_k1_operands(x, w, dx=False), w.shape[-1], k, flip=False)
+    return _k1_launch(x, w, dx=False)[0]
 
 
 def spatial_conv_dx_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -259,7 +285,7 @@ def spatial_conv_dx_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     conv as ``spatial_conv_cuda(g, w.flip(0, 1).transpose(2, 3))``."""
     k = w.shape[0]
     _check_kernel_args(g, w, 4, (k, k, w.shape[2], g.shape[-1]))
-    return _k1_launch(*_k1_operands(g, w, dx=True), w.shape[2], k, flip=True)
+    return _k1_launch(g, w, dx=True)[0]
 
 
 def spatial_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,9 @@ from fastvideotagging_tpu_torch.models.zoo import get_model
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
-    ("K1 spatial_conv_hopper_kernel", ("spatial_conv_hopper_kernel",)),
+    ("K1 spatial_conv_hopper_kernel (+ weight layout, reduce)",
+     ("spatial_conv_hopper_kernel", "spatial_conv_weight_kernel",
+      "spatial_conv_reduce_kernel")),
     ("K2 temporal_conv_kernel", ("temporal_conv_kernel",)),
     ("K3 temporal_dw_kernel (+ reduce)", ("temporal_dw",)),
     ("K4 fused_block_kernel", ("fused_block_kernel",)),

@@ -38,7 +38,7 @@ SPATIAL = [  # x (N, H, W, C), Co, k
     ((32, 14, 14, 256), 576, 3), ((16, 7, 7, 512), 1152, 3),
     ((3, 9, 11, 45), 40, 3), ((2, 10, 7, 36), 21, 5), ((1, 5, 5, 32), 8, 3),
     ((128, 56, 56, 144), 64, 3), ((16, 7, 7, 1152), 512, 3),  # dx widths
-    ((3, 9, 11, 48), 200, 3),   # M = 297, Co > 192 and divided by no tile
+    ((3, 9, 11, 48), 200, 3),   # M = 297, Co > 144 and divided by no tile
     ((1, 6, 5, 40), 8, 5),      # N = 1, H and W < 8, Co = 8
 ]
 TEMPORAL = [  # x (B, T, S, C), Co, k
@@ -103,6 +103,43 @@ def test_spatial_dx_kernel_matches_plain(cuda, x_shape, co, k):
     # the same conv through the forward wrapper, on the flipped weights
     fwd = ops.spatial_conv_cuda(gy, w.flip(0, 1).transpose(2, 3).contiguous())
     assert torch.equal(got, fwd)
+
+
+@pytest.mark.parametrize("x_shape,co,dx", [
+    ((16, 7, 7, 512), 1152, False), ((16, 7, 7, 1152), 512, True),  # stage 4 at 8 clips
+    ((1, 9, 9, 256), 21, False), ((1, 9, 9, 256), 40, True)])       # one tile, ragged Co
+def test_spatial_split_kappa_is_bitwise_deterministic(cuda, x_shape, co, dx):
+    """Where the plan splits the contraction, the f32 partial sums are added
+    in chunk order by a second kernel: two launches are bitwise equal."""
+    n, h, w, c = x_shape
+    assert ops.spatial_plan(x_shape, co, 3).splits > 1
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w_shape = (3, 3, co, c) if dx else (3, 3, c, co)
+    w = (torch.randn(w_shape, generator=g, device=cuda) / (9 * c) ** 0.5).to(torch.bfloat16)
+    run, plain = ((ops.spatial_conv_dx_cuda, ops.spatial_conv_dx_plain) if dx
+                  else (ops.spatial_conv_cuda, ops.spatial_conv_plain))
+    before = ops.launch_counts["spatial_conv"]
+    got, again = run(x, w), run(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["spatial_conv"] == before + 2  # the reduce is part of a launch
+    assert torch.equal(got, again)
+    _close(got, plain(x, w))
+
+
+@pytest.mark.parametrize("w_shape,dx", [
+    ((3, 3, 512, 1152), False), ((3, 3, 512, 1152), True), ((3, 3, 45, 40), False),
+    ((5, 5, 36, 21), True), ((3, 3, 64, 144), True)])
+def test_spatial_weight_layout_kernel_matches_plain(cuda, w_shape, dx):
+    """The weight layout K1 writes into its scratch: bit for bit the plain
+    version's (a transpose per tap forward, a row copy for dx, zero pads)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    w = torch.randn(w_shape, generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((1, 5, 6, w_shape[3] if dx else w_shape[2]), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    _, wk = ops._k1_launch(x, w, dx=dx)
+    torch.cuda.synchronize()
+    assert torch.equal(wk, ops.spatial_weight_layout_plain(w, dx=dx))
 
 
 def test_spatial_kernel_takes_a_misaligned_view(cuda):

@@ -119,7 +119,7 @@ def test_spatial_conv_is_built_with_its_wrappers_ring_depth(tmp_path, monkeypatc
     assert f"-DFVT_K1_STAGES={conv2plus1d.spatial_plan((1, 8, 8, 64), 64, 3).stages}" in flags
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     a = _build._so_path("spatial_conv")
-    monkeypatch.setattr(conv2plus1d, "NVCC_DEFINES", ("-DFVT_K1_STAGES=3",))
+    monkeypatch.setattr(conv2plus1d, "NVCC_DEFINES", ("-DFVT_K1_STAGES=4",))
     assert _build._so_path("spatial_conv") != a
 
 
@@ -201,3 +201,23 @@ def _bound_forward(rows, taps, pairs, c, co):
     t_ops = 2.0 * pairs * c * co / 989e12
     t_bytes = 2.0 * (rows * (c + co) + taps * c * co) / 3.35e12
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def test_spatial_conv_argtypes_match_its_c_signature():
+    """The ctypes binding of K1's entry point has one type per parameter of
+    the C function, in the same kinds (pointers, 64-bit and 32-bit ints)."""
+    import ctypes
+    import re
+
+    from fastvideotagging_tpu_torch.ops import conv2plus1d
+
+    with open(os.path.join(_build.CSRC, "spatial_conv.cu")) as f:
+        src = f.read()
+    params = re.search(r"int fvt_spatial_conv_bf16\(([^)]*)\)", src).group(1).split(",")
+
+    def kind(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return ctypes.c_longlong if "long long" in param else ctypes.c_int
+
+    assert conv2plus1d._K1_ARGTYPES == [kind(q) for q in params]

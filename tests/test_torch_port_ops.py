@@ -123,37 +123,45 @@ def _k1_sites(b):
         yield "dx", (b * t, hw, hw, m), c
 
 
-# the column tile where the grid fills the card: Co covered or divided
-# with as few tiles as the kernel's instances allow
-_K1_DEFAULT_BN = {144: 144, 288: 144, 576: 192, 1152: 192, 64: 64, 128: 128, 256: 128,
-                  512: 128}
+# the column tile: Co covered or divided with as few tiles as the kernel's
+# instances allow
+_K1_BN = {144: 144, 288: 144, 576: 144, 1152: 144, 64: 64, 128: 128, 256: 128, 512: 128}
 
 
 @pytest.mark.parametrize("b", [8, 32])
 def test_spatial_plan_at_every_path_site(b):
     for role, xs, co in _k1_sites(b):
         plan = tops.spatial_plan(xs, co, 3)
-        assert plan.smem_bytes <= tops.SMEM_LIMIT, (role, xs)
-        assert plan.bn % 8 == 0 and plan.bn <= 256 and plan.bn in tops._K1_BNS
+        # two blocks share an SM: its 228 KB, 1 KB of it reserved per block
+        assert 2 * (plan.smem_bytes + 1024) <= 233_472, (role, xs)
+        assert plan.bn % 8 == 0 and plan.bn <= 256 and plan.bn == _K1_BN[co]
         rows = xs[0] * xs[1] * xs[2]
         assert (plan.row_tiles - 1) * 128 < rows <= plan.row_tiles * 128
         assert (plan.col_tiles - 1) * plan.bn < co <= plan.col_tiles * plan.bn
         assert co % plan.bn == 0 and xs[-1] % 8 == 0  # no path site is ragged or padded
-        assert plan.grid == plan.row_tiles * plan.col_tiles
-        # on a card the default plan fills, or one narrower tile that divides Co
-        assert tops.spatial_plan(xs, co, 3, sms=1).bn == _K1_DEFAULT_BN[co]
-        if plan.bn != _K1_DEFAULT_BN[co]:
-            assert plan.bn < _K1_DEFAULT_BN[co]
-            assert plan.grid >= 132 or plan.bn == 64
-    # stage 4 at 8 clips has 7 row tiles: narrower column tiles fill the card
-    assert tops.spatial_plan((16, 7, 7, 512), 1152, 3).bn == 64
-    assert tops.spatial_plan((16, 7, 7, 512), 1152, 3, sms=40).bn == 192
+        tiles = plan.row_tiles * plan.col_tiles
+        assert plan.grid == tiles * plan.splits
+        slices = -(-9 * xs[-1] // 64)
+        if tiles >= 132:
+            assert plan.splits == 1
+        else:  # the contraction split until the card is full, in chunks of >= 8 slices
+            assert plan.grid >= 132 or slices // (plan.splits + 1) < 8
+            assert slices // plan.splits >= 8
+    # stage 4 at 8 clips: 7 row tiles x 8 column tiles, the 72 slices in 3 chunks
+    assert tops.spatial_plan((16, 7, 7, 512), 1152, 3).splits == 3
+    assert tops.spatial_plan((16, 7, 7, 512), 1152, 3, sms=56).splits == 1
 
 
-@pytest.mark.parametrize("co,k", [(40, 3), (21, 5), (8, 3), (300, 3)])
-def test_spatial_plan_takes_ragged_widths(co, k):
-    plan = tops.spatial_plan((2, 9, 11, 48), co, k)
+@pytest.mark.parametrize("shape,co,k,splits", [
+    ((2, 9, 11, 48), 40, 3, 1),   # 7 slices: too few to split
+    ((1, 9, 9, 256), 21, 3, 4),   # 36 slices, one tile
+    ((1, 6, 5, 40), 8, 5, 2),     # k = 5: 25 taps of 40 channels, 16 slices
+    ((2, 9, 11, 48), 300, 3, 1),  # Co divided by no tile
+])
+def test_spatial_plan_takes_ragged_widths(shape, co, k, splits):
+    plan = tops.spatial_plan(shape, co, k)
     assert plan.col_tiles * plan.bn >= co and plan.smem_bytes <= tops.SMEM_LIMIT
+    assert plan.splits == splits
 
 
 def _k1_emulated(x, wk, co, k, flip):
@@ -175,13 +183,13 @@ def _k1_emulated(x, wk, co, k, flip):
 ])
 @pytest.mark.parametrize("dx", [False, True])
 def test_k1_operands_match_plain(shape, co, k, dx):
-    """The wrapper's K-major weights (for dx straight from the forward
-    weight, taps read in reverse) and zero-padded channels give the plain
-    version's result through K1's indexing."""
+    """K1's K-major weights (for dx straight from the forward weight, taps
+    read in reverse) and zero-padded channels give the plain version's
+    result through K1's indexing."""
     n, h, w, c = shape
     x, wt = _inputs((n, h, w, co if dx else c), (k, k, c, co), seed=3)
     x, wt = torch.from_numpy(x), torch.from_numpy(wt)
-    xk, wk = tops._k1_operands(x, wt, dx=dx)
+    xk, wk = tops._pad_channels(x), tops.spatial_weight_layout_plain(wt, dx=dx)
     out = c if dx else co
     assert xk.shape[-1] % 8 == 0 and wk.shape == (out, k * k, xk.shape[-1])
     assert wk.is_contiguous() and torch.equal(xk[..., :x.shape[-1]], x)
