@@ -157,7 +157,8 @@ def _launch(fn, x, w, y, dims, k) -> None:
 
 # K1's tile plan (csrc/spatial_conv.cu), its one source: the ring depth is
 # compiled in (NVCC_DEFINES, through _build), and each launch passes the
-# column tile and the shared-memory bytes that spatial_plan sized.
+# column tile, the kappa split and the shared-memory bytes that
+# spatial_plan sized.
 _K1_BM = 128  # output rows per block
 _K1_BK = 64  # contraction slice (128 bytes of bf16 a row)
 _K1_STAGES = 3  # slices in the cp.async ring (two blocks fit an SM)
@@ -182,7 +183,6 @@ class SpatialPlan(NamedTuple):
         return self.row_tiles * self.col_tiles * self.splits
 
 
-@functools.lru_cache(maxsize=256)
 def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
     """K1's launch plan for x (N, H, W, C) -> Co channels.
 
@@ -194,8 +194,9 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
     with its ring fits one). A Co that no tile divides is covered by the
     least wasteful one.
 
-    Where those tiles are fewer than the ``sms`` the card has (stages 3-4
-    at 8 clips: 49 and 7 row tiles), the contraction is split into chunks
+    Where those tiles are fewer than the ``sms`` the card has (at 8 clips:
+    stage 4, 7 row tiles, and the dx of stage 3, 49 x 2 tiles), the
+    contraction is split into chunks
     of at least 8 slices, enough to fill the card: each block writes f32
     partial sums, and a second kernel adds them in chunk order (no atomics:
     two launches are bitwise equal)."""
