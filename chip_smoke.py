@@ -17,7 +17,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             its tile plan, TFLOP/s and share of the bound printed, no path
             site padded, and two launches bitwise equal where the plan
             splits the contraction), K3 (the temporal
-            weight gradient, two launches bitwise equal) — each against its
+            weight gradient, two launches bitwise equal, with its plan,
+            GB/s or TFLOP/s and share of the bound printed, and at the
+            stem the time of its channel pad pass) — each against its
             plain PyTorch version, with the times of the kernel, the plain
             version and the library call for the same function (F.conv3d,
             torch.nn.grad.conv3d_input / conv3d_weight; cuDNN, TF32 off)
@@ -136,7 +138,7 @@ KERNELS = {
         source="fastvideotagging_tpu_torch/csrc/conv2plus1d.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:225 (_temporal_pallas)"),
     "temporal_dw": dict(
-        name="temporal_dw_kernel", route="cuda",
+        name="temporal_dw_hopper_kernel", route="cuda",
         source="fastvideotagging_tpu_torch/csrc/temporal_dw.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:284 (_temporal_dw)"),
     "fused_block": dict(
@@ -192,10 +194,10 @@ def _min_time(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def bound(kernel: str, x_shape, co: int, k: int = K):
-    """The least time (ms) the card could take, and what bounds it: each
-    input read once, each output written once, against the operations of
-    the taps that fall inside the input (none into its zero padding)."""
+def work(kernel: str, x_shape, co: int, k: int = K):
+    """(operations, bytes) of one call: each input read once, each output
+    written once, and the operations of the taps that fall inside the input
+    (none into its zero padding)."""
     b, t, h, w, c = x_shape
     rows = b * t * h * w
     if kernel == "spatial_conv":
@@ -207,7 +209,13 @@ def bound(kernel: str, x_shape, co: int, k: int = K):
     else:
         taps = k * k if kernel == "spatial_conv" else k
         nbytes = 2.0 * (rows * (c + co) + taps * c * co)
-    return _min_time(flops, nbytes)
+    return flops, nbytes
+
+
+def bound(kernel: str, x_shape, co: int, k: int = K):
+    """The least time (ms) the card could take, and what bounds it (see
+    ``work``)."""
+    return _min_time(*work(kernel, x_shape, co, k))
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -253,7 +261,9 @@ def _ncdhw(x5: torch.Tensor) -> torch.Tensor:
 def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     """The kernel calls one conv site makes in a training step, each with
     its plain version and the library call for the same function:
-    (role, kernel key, run, plain, library, (bound ms, bound by))."""
+    (role, kernel key, run, plain, library, (bound ms, bound by), the run
+    on channels padded beforehand or None). The last is K3's at a C that
+    its pad pass pads (the stem's 45)."""
     b, t, h, w, c = xs
     dev = torch.device(DEV)
     x5 = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
@@ -278,18 +288,20 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     w_lib = w5.permute(4, 3, 0, 1, 2)  # (Co, C, kt, kh, kw)
     cases = [
         ("fwd", kernel, lambda: run(x, wt), lambda: plain(x, wt),
-         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co)),
+         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co), None),
         ("dx", kernel, lambda: run_dx(g, w_dx), lambda: plain_dx(g, w_dx),
          lambda: torch.nn.grad.conv3d_input(_ncdhw(x5).shape, w_lib, _ncdhw(g5), padding=pad),
-         bound(kernel, (b, t, h, w, co), c)),
+         bound(kernel, (b, t, h, w, co), c), None),
     ]
     if kernel == "temporal_conv":
+        xpad = torch.nn.functional.pad(x, (0, -c % 8)) if c % 8 else None
         cases.append(
             ("dw", "temporal_dw", lambda: ops.temporal_dw_cuda(x, g, K),
              lambda: ops.temporal_dw_plain(x, g, K),
              lambda: torch.nn.grad.conv3d_weight(_ncdhw(x5), w_lib.shape, _ncdhw(g5),
                                                  padding=pad),
-             bound("temporal_dw", xs, co)))
+             bound("temporal_dw", xs, co),
+             (lambda: ops.temporal_dw_cuda(xpad, g, K)) if c % 8 else None))
     return cases
 
 
@@ -318,7 +330,8 @@ def phase_kernels(card: str) -> dict:
     failures = []
     for batch in (CLIP_BATCH, TRAIN_BATCH):
         for site, kernel, xs, co, n in path_sites(batch):
-            for role, key, run, plain, lib, (bound_ms, by) in site_cases(kernel, xs, co, gen):
+            for role, key, run, plain, lib, (bound_ms, by), prepadded in site_cases(
+                    kernel, xs, co, gen):
                 tol = DW_TOL if role == "dw" else KERNEL_TOL
                 got = run()
                 torch.cuda.synchronize()
@@ -330,7 +343,7 @@ def phase_kernels(card: str) -> dict:
                 max_rel = max_abs / scale
                 lib_rel = (libout.float() - ref.float()).abs().max().item() / scale
                 ok = bool(torch.isfinite(got).all().item()) and max_rel <= tol
-                note, plan = "", None
+                note, plan, pad_ms = "", None, None
                 if key == "spatial_conv":
                     # the (N, H, W, C) K1 reads and the channels it writes
                     cin, cout = (xs[-1], co) if role == "fwd" else (co, xs[-1])
@@ -343,15 +356,29 @@ def phase_kernels(card: str) -> dict:
                     same = torch.equal(got, run())
                     ok = ok and same
                     note += f" two launches bitwise equal={same}"
+                if key == "temporal_dw":
+                    plan = ops.temporal_dw_plan((xs[0], xs[1], xs[2] * xs[3], xs[4]), co, K)
                 del got, ref, libout
                 ms = time_ms(run, iters=20)
                 plain_ms = time_ms(plain, iters=3, warmup=1)
                 library_ms = time_ms(lib, iters=20)
-                if plan:
+                if key == "spatial_conv":
                     rate = spatial_flops(xs[:-1] + (cin,), cout) / ms / 1e9
                     note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles x{plan.splits} "
                              f"kappa chunks, {plan.grid} blocks, {plan.smem_bytes} B shared; "
                              f"{rate:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
+                elif plan:  # K3: the plan, the rate of what bounds it, the share
+                    flops, nbytes = work(key, xs, co)
+                    rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
+                            else f"{nbytes / ms / 1e6:.1f} GB/s")
+                    note += (f" plan: BN={plan.bn} x{plan.c_tiles} c tiles x{plan.co_tiles} co "
+                             f"tiles x{plan.tap_groups} tap groups x{plan.chunks} chunks of "
+                             f"{plan.steps_per_chunk} slabs of {plan.tile_s} rows, {plan.grid} "
+                             f"blocks, {plan.smem_bytes} B shared, x read {plan.x_reads}x, g "
+                             f"{plan.g_reads}x; {rate}, {bound_ms / ms:.3f} of the bound")
+                    if prepadded:  # K3's pad pass: the same call on x padded beforehand
+                        pad_ms = ms - time_ms(prepadded, iters=20)
+                        note += f"; of which the channel pad pass {pad_ms:.4f} ms"
                 print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
                       f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
                       f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "
@@ -377,7 +404,8 @@ def phase_kernels(card: str) -> dict:
                     site=site, role=role, batch=batch, x=list(xs), co=co, launches=n,
                     max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
-                    **({"plan": plan._asdict()} if plan else {})))
+                    **({"plan": plan._asdict()} if plan else {}),
+                    **({"pad_pass_ms": pad_ms} if pad_ms is not None else {})))
             torch.cuda.empty_cache()
     print(f"sums over launches ({card}):")
     for key, a in agg.items():

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 _BUILD_TIMEOUT_S = 600
 # source -> the wrapper module whose NVCC_DEFINES (its tile plan) it takes
 _PLANNED = {"fused_block": "fastvideotagging_tpu_torch.ops.fused_block",
-            "spatial_conv": "fastvideotagging_tpu_torch.ops.conv2plus1d"}
+            "spatial_conv": "fastvideotagging_tpu_torch.ops.conv2plus1d",
+            "temporal_dw": "fastvideotagging_tpu_torch.ops.conv2plus1d"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

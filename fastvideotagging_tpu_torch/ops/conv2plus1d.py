@@ -7,9 +7,9 @@ package's ``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
   1 x k x k conv. Its tile plan has one source, ``spatial_plan``.
 - ``temporal_conv_kernel`` (K2, csrc/conv2plus1d.cu) replaces
   ``_temporal_kernel`` / ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
-- ``temporal_dw_kernel`` (K3, csrc/temporal_dw.cu) replaces
+- ``temporal_dw_hopper_kernel`` (K3, csrc/temporal_dw.cu) replaces
   ``_temporal_dw_kernel`` / ``_temporal_dw``: the temporal conv's weight
-  gradient.
+  gradient. Its launch plan has one source, ``temporal_dw_plan``.
 
 Each wrapper (``spatial_conv_cuda`` / ``temporal_conv_cuda`` /
 ``temporal_dw_cuda``) takes bf16 contiguous CUDA tensors, launches its
@@ -89,15 +89,18 @@ def _kernels() -> types.SimpleNamespace:
     return _lib
 
 
+# fvt_temporal_dw_bf16(x, g, xp, gp, dw, ws, b, t, s, c, co, k, bn, rows, ahead,
+# chunks, steps_per_chunk, smem_bytes, device, stream)
+_K3_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 12
+                + [ctypes.c_void_p])
+
+
 def _dw_kernels() -> ctypes.CDLL:
+    """K3's entry point (csrc/temporal_dw.cu)."""
     global _dw_lib
     if _dw_lib is None:
         lib = _build.load("temporal_dw")
-        lib.fvt_temporal_dw_bf16.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_void_p]
+        lib.fvt_temporal_dw_bf16.argtypes = _K3_ARGTYPES
         lib.fvt_temporal_dw_bf16.restype = ctypes.c_int
         _dw_lib = lib
     return _dw_lib
@@ -165,7 +168,6 @@ _K1_STAGES = 3  # slices in the cp.async ring (two blocks fit an SM)
 _K1_BNS = (144, 128, 64)  # column tiles the kernel is built for, widest first
 _K1_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle's period
 _K1_MIN_SPLIT_SLICES = 8  # a kappa chunk of a split contraction is at least this deep
-NVCC_DEFINES = (f"-DFVT_K1_STAGES={_K1_STAGES}",)
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use (227 KB)
 SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made off the card
 
@@ -414,29 +416,118 @@ def temporal_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-_DW_TILE = 64  # csrc/temporal_dw.cu: BM, BN
-_DW_SLAB = 32  # BK
-_DW_MIN_ROWS = 256
-_DW_TARGET_BLOCKS = 8 * 132
+# K3's launch plan (csrc/temporal_dw.cu), its one source: the slab depth
+# and the loads in flight are compiled in (NVCC_DEFINES, through _build),
+# and each launch passes the input tile, the chunks and the shared-memory
+# bytes that temporal_dw_plan sized.
+_K3_ROWS = 64  # (b, s) rows of a slab: the contraction of one step
+_K3_AHEAD = 3  # steps of loads in flight
+_K3_TAPS = 3  # taps of a block, one warpgroup (128 threads) each
+_K3_BM = 64  # output channels of a block (wgmma's M)
+_K3_BNS = (144, 48)  # input-channel tiles (wgmma's N) the kernel is built for
+_K3_ST_LD = _K3_BM + 4  # f32 a row of the epilogue's staging tile
+_K3_MIN_STEPS = 8  # a chunk walks at least this many slabs
+NVCC_DEFINES = (f"-DFVT_K1_STAGES={_K1_STAGES}", f"-DFVT_K3_ROWS={_K3_ROWS}",
+                f"-DFVT_K3_AHEAD={_K3_AHEAD}")
 
 
-def _dw_split(m: int, k: int, c: int, co: int) -> tuple[int, int]:
-    """How K3 splits its m contraction rows: (chunks, rows per chunk).
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
 
-    One block computes a 64 x 64 tile of one tap over one chunk. With few
-    tiles (stage 1: 9) the rows are cut into enough chunks for about eight
-    blocks per SM; with many tiles (stage 4: 432) into few. A chunk is a
-    multiple of the kernel's 32-row slab and at least 256 rows."""
-    tiles = k * -(-c // _DW_TILE) * -(-co // _DW_TILE)
-    chunks = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), -(-m // _DW_MIN_ROWS)))
-    rows = -(-(-(-m // chunks)) // _DW_SLAB) * _DW_SLAB
-    return -(-m // rows), rows
+
+class TemporalDwPlan(NamedTuple):
+    bn: int  # input channels of a block (wgmma's N; 64 output channels are its M)
+    c_tiles: int  # blocks along the input channels (rounded up to 8)
+    co_tiles: int  # blocks along the output channels (64 each)
+    tap_groups: int  # blocks along the taps (3 each)
+    tile_s: int  # (b, s) rows of a slab, taken in order over b * S + s
+    columns: int  # slabs along the (b, s) rows: ceil(B * S / tile_s)
+    steps: int  # slabs of the contraction, columns x T (t fastest)
+    chunks: int  # runs of steps, each a block writing f32 partial sums (1: none)
+    steps_per_chunk: int
+    ahead: int  # steps of loads in flight
+    smem_bytes: int  # dynamic shared memory of one block
+
+    @property
+    def tiles(self) -> int:
+        return self.tap_groups * self.co_tiles * self.c_tiles
+
+    @property
+    def grid(self) -> int:
+        return self.tiles * self.chunks
+
+    @property
+    def x_slots(self) -> int:  # x slabs in the ring: a step's taps and the loads ahead
+        return self.ahead + _K3_TAPS
+
+    @property
+    def g_slots(self) -> int:
+        return self.ahead + 1
+
+    @property
+    def acc_registers(self) -> int:  # f32 accumulators a thread holds (one tap's tile)
+        return self.bn // 2
+
+    @property
+    def x_reads(self) -> int:  # times each x row is read: once per output and tap tile
+        return self.co_tiles * self.tap_groups
+
+    @property
+    def g_reads(self) -> int:  # times each g row is read: once per input and tap tile
+        return self.c_tiles * self.tap_groups
+
+
+def _k3_smem(bn: int) -> int:
+    ring = ((_K3_AHEAD + _K3_TAPS) * -(-bn // 64) + _K3_AHEAD + 1) * _K3_ROWS * 128
+    staging = _K3_TAPS * bn * _K3_ST_LD * 4
+    return max(ring, staging) + _K1_ALIGN
+
+
+@functools.lru_cache(maxsize=256)
+def temporal_dw_plan(x_shape, co: int, k: int, sms: int = SMS) -> TemporalDwPlan:
+    """K3's launch plan for x (B, T, S, C) and g (B, T, S, Co), k taps.
+
+    A block holds every tap of one output tile (three taps a block, one
+    warpgroup each, so a k > 3 conv takes ceil(k / 3) tap groups): 64
+    output channels by an input tile that covers C where it fits (the
+    narrowest that does) and otherwise divides it (the widest that does):
+    C = 45 -> 48 (padded), 144 -> 144, 288 / 576 / 1152 -> 144 x 2 / 4 / 8.
+    The register file bounds the tile: 3 x 64 x 144 f32 take 72 registers a
+    thread. The contraction is a stream of slabs, tile_s (b, s) rows at one
+    t, t fastest; where the tiles cannot fill the card (stage 1 has one)
+    the stream is cut into chunks for about ``sms`` blocks (one per SM),
+    each of at least 8 slabs. Each chunk writes f32 partial sums, and a
+    second kernel adds them in chunk order (no atomics: two launches are
+    bitwise equal)."""
+    b, t, s, c = x_shape
+    if k <= 0 or k % 2 == 0:
+        raise ValueError(f"kernel size must be odd, got {k}")
+    cp = _ceil8(c)
+    covering = [bn for bn in _K3_BNS if bn >= cp]
+    dividing = [bn for bn in _K3_BNS if cp % bn == 0]
+    if covering:
+        bn = covering[-1]
+    elif dividing:
+        bn = dividing[0]
+    else:
+        bn = min(_K3_BNS, key=lambda n: (-(-cp // n) * n - cp, -n))
+    c_tiles, co_tiles, tap_groups = -(-cp // bn), -(-_ceil8(co) // _K3_BM), -(-k // _K3_TAPS)
+    columns = -(-b * s // _K3_ROWS)
+    steps = columns * t
+    tiles = c_tiles * co_tiles * tap_groups
+    chunks = max(1, min(round(sms / tiles), steps // _K3_MIN_STEPS))
+    per_chunk = max(1, -(-steps // chunks))
+    return TemporalDwPlan(bn, c_tiles, co_tiles, tap_groups, _K3_ROWS, columns, steps,
+                          -(-steps // per_chunk), per_chunk, _K3_AHEAD, _k3_smem(bn))
 
 
 def temporal_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     """K3: x (B, T, S, C), g (B, T, S, Co), both bf16 contiguous on CUDA ->
     dw (k, C, Co) f32, dw[dt] = sum over rows of x[t+dt-k//2]^T g[t].
-    Deterministic: partial sums per row chunk, added in chunk order."""
+    Deterministic: partial sums per chunk, added in chunk order. A tensor
+    whose channels are not a multiple of 8, or that is not 16-byte aligned,
+    is first copied zero-padded by the kernel's pad pass into a scratch
+    tensor allocated here (the stem's C = 45)."""
     _check_kernel_tensors(x=x, g=g)
     if x.ndim != 4 or g.ndim != 4 or g.shape[:3] != x.shape[:3]:
         raise ValueError(
@@ -446,14 +537,24 @@ def temporal_dw_cuda(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"kernel size must be odd, got {k}")
     b, t, s, c = x.shape
     co = g.shape[-1]
-    chunks, rows = _dw_split(b * t * s, k, c, co)
+    plan = temporal_dw_plan(x.shape, co, k, _sm_count(x.device))
+
+    def scratch(a: torch.Tensor):
+        n = a.shape[-1]
+        if n % 8 == 0 and a.data_ptr() % 16 == 0:
+            return None
+        return torch.empty((b * t * s, _ceil8(n)), dtype=a.dtype, device=a.device)
+
+    xp, gp = scratch(x), scratch(g)
     dw = torch.empty((k, c, co), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((chunks, k, c, co), dtype=torch.float32, device=x.device)
-          if chunks > 1 else dw)
-    fn = _dw_kernels().fvt_temporal_dw_bf16
+    ws = (torch.empty((plan.chunks, k, c, co), dtype=torch.float32, device=x.device)
+          if plan.chunks > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), g.data_ptr(), dw.data_ptr(), ws.data_ptr(), b, t, s, c,
-            co, k, chunks, rows, x.device.index, stream)
+    rc = _dw_kernels().fvt_temporal_dw_bf16(
+        x.data_ptr(), g.data_ptr(), *(a.data_ptr() if a is not None else None
+                                      for a in (xp, gp, dw, ws)),
+        b, t, s, c, co, k, plan.bn, plan.tile_s, plan.ahead, plan.chunks,
+        plan.steps_per_chunk, plan.smem_bytes, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_temporal_dw_bf16 launch failed: CUDA error {rc}")
     launch_counts["temporal_dw"] += 1

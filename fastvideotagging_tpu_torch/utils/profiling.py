@@ -36,7 +36,7 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
      ("spatial_conv_hopper_kernel", "spatial_conv_weight_kernel",
       "spatial_conv_reduce_kernel")),
     ("K2 temporal_conv_kernel", ("temporal_conv_kernel",)),
-    ("K3 temporal_dw_kernel (+ reduce)", ("temporal_dw",)),
+    ("K3 temporal_dw_hopper_kernel (+ pad, reduce)", ("temporal_dw",)),
     ("K4 fused_block_kernel", ("fused_block_kernel",)),
     ("library matmul (cuBLAS)", ("nvjet", "xmma_gemm", "gemv", "s16816gemm", "s1688gemm",
                                  "sgemm", "splitkreduce", "cublas")),

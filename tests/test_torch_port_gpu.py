@@ -54,6 +54,11 @@ DW = [  # x (B, T, S, C), Co, k
     ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 1, 33), 8, 3),
     ((2, 2, 50, 72), 130, 5),   # T = 2 with k = 5: the outer taps have no rows
     ((1, 3, 700, 64), 64, 3),   # several chunks, the last one ragged
+    # K3's path sites at B = 2: the stem (C = 45, padded by the kernel's pad
+    # pass), stage 1 (C = 144 in one tile), stages 2-4 (2 x 2 to 8 x 8 tiles,
+    # T down to 2)
+    ((2, 16, 3136, 45), 64, 3), ((2, 16, 3136, 144), 64, 3), ((2, 8, 784, 288), 128, 3),
+    ((2, 4, 196, 576), 256, 3), ((2, 2, 49, 1152), 512, 3),
 ]
 DW_TOL = 1e-3
 
@@ -182,6 +187,44 @@ def test_temporal_dw_kernel_matches_plain_and_is_deterministic(cuda, x_shape, co
     assert torch.equal(got, again)  # bitwise: no atomics, fixed reduction order
     err = (got - ref).abs().max().item()
     assert err <= DW_TOL * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("x_shape,co,k,split", [
+    ((2, 16, 3136, 144), 64, 3, True),   # one tile over the card: 131 chunks
+    ((1, 3, 700, 64), 64, 3, True),      # 4 chunks, the last one short
+    ((2, 2, 49, 1152), 512, 3, False),   # 64 tiles, 4 slabs: one chunk, no reduce
+    ((1, 7, 9, 40), 24, 5, False),       # k = 5: two tap groups, one chunk
+])
+def test_temporal_dw_split_and_single_chunk_plans(cuda, x_shape, co, k, split):
+    """K3 with its contraction split over blocks (f32 partials added in
+    chunk order by the reduce) and with one chunk (the blocks write dw):
+    both match the plain version, and two launches are bitwise equal."""
+    plan = ops.temporal_dw_plan(x_shape, co, k, ops._sm_count(torch.device(cuda)))
+    assert (plan.chunks > 1) == split
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    gy = torch.randn(x_shape[:3] + (co,), generator=g, device=cuda).to(torch.bfloat16)
+    got, again = ops.temporal_dw_cuda(x, gy, k), ops.temporal_dw_cuda(x, gy, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    ref = ops.temporal_dw_plain(x, gy, k)
+    assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+def test_temporal_dw_kernel_takes_misaligned_views(cuda):
+    """Contiguous views that start 2 bytes into their buffers (x with 8 | C,
+    g with Co = 45): the kernel's pad pass copies each to an aligned,
+    channel-padded scratch tensor for the 16-byte copies."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    shape = (2, 6, 50, 64)
+    flat = torch.randn(1 + 2 * 6 * 50 * 64, generator=g, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(shape)
+    flat_g = torch.randn(1 + 2 * 6 * 50 * 45, generator=g, device=cuda).to(torch.bfloat16)
+    gy = flat_g[1:].view(2, 6, 50, 45)
+    assert x.data_ptr() % 16 != 0 and gy.data_ptr() % 16 != 0 and x.is_contiguous()
+    got = ops.temporal_dw_cuda(x, gy, 3)
+    ref = ops.temporal_dw_plain(x, gy, 3)
+    assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
 
 
 def _grads(fn, x, w, gy):

@@ -131,10 +131,15 @@ def test_dw_kernel_wrapper_rejects_cpu_tensors_and_split_covers_the_rows():
     with pytest.raises(ValueError, match="CUDA"):
         tops.temporal_dw_cuda(x, torch.zeros((1, 4, 4, 8), dtype=torch.bfloat16), 3)
     assert tops.launch_counts == before
-    # the split K3 is launched with: chunks of whole 32-row slabs that cover
-    # every row, the last chunk not empty
-    for m, k, c, co in [(401408, 3, 45, 64), (1605632, 3, 144, 64), (784, 3, 1152, 512),
-                        (6, 3, 33, 8), (2100, 5, 64, 64), (255, 3, 40, 24), (257, 3, 40, 24)]:
-        chunks, rows = tops._dw_split(m, k, c, co)
-        assert rows % 32 == 0 and chunks >= 1
-        assert chunks * rows >= m > (chunks - 1) * rows
+    # the split K3 is launched with: chunks of whole slabs (tile_s rows of
+    # the (b, s) pairs at one t) that cover every slab, the last chunk not
+    # empty
+    for shape, co, k in [((8, 16, 3136, 45), 64, 3), ((32, 16, 3136, 144), 64, 3),
+                         ((8, 2, 49, 1152), 512, 3), ((3, 2, 1, 33), 8, 3),
+                         ((1, 7, 300, 64), 64, 5), ((1, 5, 51, 40), 24, 3),
+                         ((1, 5, 52, 40), 24, 3)]:
+        plan = tops.temporal_dw_plan(shape, co, k)
+        b, t, s, _ = shape
+        assert plan.steps == -(-b * s // plan.tile_s) * t and plan.chunks >= 1
+        assert plan.chunks * plan.steps_per_chunk >= plan.steps
+        assert plan.steps > (plan.chunks - 1) * plan.steps_per_chunk

@@ -221,3 +221,40 @@ def test_spatial_conv_argtypes_match_its_c_signature():
         return ctypes.c_longlong if "long long" in param else ctypes.c_int
 
     assert conv2plus1d._K1_ARGTYPES == [kind(q) for q in params]
+
+
+def test_temporal_dw_argtypes_match_its_c_signature():
+    """The ctypes binding of K3's entry point has one type per parameter of
+    the C function, in the same kinds (pointers, 64-bit and 32-bit ints)."""
+    import ctypes
+    import re
+
+    from fastvideotagging_tpu_torch.ops import conv2plus1d
+
+    with open(os.path.join(_build.CSRC, "temporal_dw.cu")) as f:
+        src = f.read()
+    params = re.search(r"int fvt_temporal_dw_bf16\(([^)]*)\)", src).group(1).split(",")
+
+    def kind(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return ctypes.c_longlong if "long long" in param else ctypes.c_int
+
+    assert conv2plus1d._K3_ARGTYPES == [kind(q) for q in params]
+
+
+def test_temporal_dw_is_built_with_its_wrappers_plan(tmp_path, monkeypatch):
+    """K3's slab depth and loads in flight have one source,
+    ops/conv2plus1d.py: nvcc gets them as -D flags, each launch passes the
+    plan's values (which the kernel checks), and a changed plan is a new
+    build."""
+    from fastvideotagging_tpu_torch.ops import conv2plus1d
+
+    plan = conv2plus1d.temporal_dw_plan((2, 8, 64, 144), 64, 3)
+    flags = _build._flags("temporal_dw")
+    assert flags[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+    assert f"-DFVT_K3_ROWS={plan.tile_s}" in flags and f"-DFVT_K3_AHEAD={plan.ahead}" in flags
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    a = _build._so_path("temporal_dw")
+    monkeypatch.setattr(conv2plus1d, "NVCC_DEFINES", ("-DFVT_K3_ROWS=64", "-DFVT_K3_AHEAD=2"))
+    assert _build._so_path("temporal_dw") != a
