@@ -2,7 +2,7 @@
 on the card.
 
     python -m fastvideotagging_tpu_torch.utils.profiling [--model r2plus1d_18]
-        [--clip-batch 8] [--iters 5] [--train [--batch 32]]
+        [--clip-batch 8] [--iters 5] [--steps 20] [--train [--batch 32]]
 
 Without ``--train``: the eval forward of a seeded random-weight model
 (16x112x112 clips, bf16) with ``kernels='cuda'``, ``kernels='torch'`` and
@@ -13,7 +13,9 @@ one seeded random batch of ``--batch`` clips, with ``kernels='cuda'`` and
 ``kernels='torch'``. Each traces ``--iters`` iterations with
 ``torch.profiler`` after a warm-up, and prints one JSON line per backend:
 device time per iteration by kernel group, the device's busy time, the host
-wall time and the idle share (1 - busy / wall).
+wall time and the idle share (1 - busy / wall). Then ``--steps`` more
+iterations, untraced, each timed alone between two CUDA events and a
+synchronize: the median, least and greatest time of one iteration.
 """
 
 from __future__ import annotations
@@ -104,6 +106,21 @@ def breakdown(run: Callable[[], object], iters: int) -> dict:
     )
 
 
+def event_ms(run: Callable[[], object], iters: int) -> dict:
+    """``iters`` calls of ``run``, each between two CUDA events and followed
+    by a synchronize: the spread of one call's time on the card, untraced."""
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return dict(median=times[len(times) // 2], min=times[0], max=times[-1])
+
+
 def _forward_runs(args):
     g = torch.Generator().manual_seed(0)
     state = get_model(args.model, num_classes=400, device="cpu", generator=g).state_dict()
@@ -160,11 +177,13 @@ def main() -> None:
     ap.add_argument("--model", default="r2plus1d_18")
     ap.add_argument("--clip-batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
     args = ap.parse_args()
     for backend, what, run in (_train_runs if args.train else _forward_runs)(args):
         res = breakdown(run, args.iters)
+        res["event_ms_per_iter"] = event_ms(run, args.steps)
         print(json.dumps(dict(model=args.model, kernels=backend, **what,
                               device=torch.cuda.get_device_name(0), **res)), flush=True)
 
