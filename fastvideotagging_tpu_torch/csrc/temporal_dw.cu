@@ -153,13 +153,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 // between 64-channel atoms along M or N); stride byte offset = 1024 (the
 // stride between 8-row groups along K); layout type 1 (128B swizzle).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-#if defined(FVT_K3_SWAP_OFFSETS)
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(ATOM >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-#else
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(ATOM >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-#endif
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B both MN-major in
