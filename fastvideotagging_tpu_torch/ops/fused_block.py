@@ -25,6 +25,7 @@ k - 1`` term belongs to the TPU's halo scheme, which K4 does not have.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -32,18 +33,24 @@ import torch.nn.functional as F
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 
-# K4's tile plan, its one source: csrc/fused_block.cu is compiled with these
-# as -D flags (NVCC_DEFINES) and takes each launch's shared-memory layout
-# (ring width, bytes) from fused_block_cuda, which sizes it here.
-_ROWS = (128, 64, 32)  # pixel rows per block, largest first (the kernel's instances)
-_NT = 64  # mid / output channels per GEMM pass
-_BK = 32  # contraction slice
-_PAD = 8  # bf16 columns of padding per shared row (x and weight slices, ring)
-_PAD_F32 = 4  # f32 columns of padding per accumulator row
-NVCC_DEFINES = tuple(f"-DFVT_{n}={v}" for n, v in
-                     (("NT", _NT), ("BK", _BK), ("PAD", _PAD), ("PAD_F32", _PAD_F32)))
-_SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use (227 KB)
-_SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made off the card
+# K4's tile plan, its one source: csrc/fused_block.cu is compiled with the
+# deepest ring it takes as a -D flag (NVCC_DEFINES, through _build), and
+# each launch passes the rows, group width, Co tile, ring depth and
+# shared-memory bytes that fused_plan chose.
+_K4_MAX_STAGES = 8  # slices the cp.async ring may hold
+_K4_BK = 64  # contraction slice (128 bytes of bf16 a row)
+_K4_BMS = (128, 64)  # rows of the flattened B*H*W plane per block (a warpgroup per 64)
+_K4_MGS = (144, 64)  # mid channels of a group: the spatial GEMM's N
+_K4_CTS = (64, 128, 256)  # output channels of a temporal pass
+_K4_RING_PAD = 8  # bf16 of padding per ring row (conflict-free ldmatrix)
+_K4_ALIGN = 1024  # slack to align the slices to the 128-byte swizzle's period
+_SM_SMEM = 233_472  # shared memory of one SM; each resident block also reserves 1 KB
+NVCC_DEFINES = (f"-DFVT_K4_MAX_STAGES={_K4_MAX_STAGES}",)
+
+# fvt_fused_block_bf16(x, w_sp, scale, bias, w_tmp, wsp_k, wt_k, y, ws, b, t, h, w,
+# cp, c, m, co, k, bm, mg, groups, ct, stages, smem_bytes, device, stream)
+_K4_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 15
+                + [ctypes.c_void_p])
 
 _lib = None
 
@@ -52,9 +59,7 @@ def _kernels() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("fused_block")
-        lib.fvt_fused_block_bf16.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 12
-            + [ctypes.c_void_p])
+        lib.fvt_fused_block_bf16.argtypes = _K4_ARGTYPES
         lib.fvt_fused_block_bf16.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -68,37 +73,104 @@ def fold_bn(gamma, beta, mean, var, eps: float = 1e-5):
     return scale, bias
 
 
-def _ring_cols(m: int) -> int:
-    """Mid channels a ring row holds: M rounded up to the contraction slice."""
-    return -(-m // _BK) * _BK
+class FusedPlan(NamedTuple):
+    bm: int  # rows of the flattened B*H*W plane per block
+    mg: int  # mid channels of a group (the spatial GEMM's N)
+    groups: int  # ceil(M / mg) groups; > 1: f32 partials of y, added in group order
+    ct: int  # output channels of a temporal pass (its accumulators: ct / 2 f32 a thread)
+    co_passes: int  # temporal passes over the ring per frame, ceil(Co / ct)
+    row_tiles: int  # ceil(B*H*W / bm)
+    stages: int  # slices in the cp.async ring
+    ring_bytes: int  # k mid frames of bm x (mg + 8) bf16
+    smem_bytes: int  # dynamic shared memory of one block
+    blocks_per_sm: int  # resident at once, by shared memory and registers
+    waves: int  # ceil(grid / (SMs x blocks_per_sm))
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.groups
+
+    @property
+    def threads(self) -> int:
+        return 2 * self.bm
+
+    @property
+    def acc_registers(self) -> int:
+        """f32 accumulators a thread holds: the spatial (mg / 2) and the
+        temporal (ct / 2) ones are never live together."""
+        return max(self.mg, self.ct) // 2
 
 
-def _smem_bytes(rows: int, k: int, m: int) -> int:
-    """Shared memory of one K4 block, in the kernel's order: the per-row
-    pixel coordinates, the ring of k mid frames in bf16, and the staging
-    area (x and weight slices, or the f32 accumulator tile)."""
-    coords = 2 * rows * 4
-    ring = k * rows * (_ring_cols(m) + _PAD) * 2
-    stage = max(rows * (_BK + _PAD) * 2 + _BK * (_NT + _PAD) * 2, rows * (_NT + _PAD_F32) * 4)
-    return coords + ring + stage
+def _k4_stage(bm: int, mg: int, ct: int) -> int:
+    """Bytes of one slice of the cp.async ring: an x and a Wsp slice, or as
+    many 64-channel atoms of a Wtmp slice as fit in that room."""
+    return max((bm + mg) * _K4_BK * 2, ct * _K4_BK * 2)
 
 
-def fused_plan(x_shape, k: int, m: int, co: int, sms: int = _SMS) -> tuple[int, int] | None:
-    """K4's launch plan: (pixel rows per block, 64-wide Co tiles per block),
+def _k4_smem(bm: int, mg: int, ct: int, k: int, stages: int) -> tuple[int, int]:
+    """(ring bytes, shared bytes) of one K4 block, in the kernel's order:
+    the slices, the ring of k mid frames, the group's scale and bias."""
+    ring = k * bm * (mg + _K4_RING_PAD) * 2
+    return ring, stages * _k4_stage(bm, mg, ct) + ring + 2 * mg * 4 + _K4_ALIGN
+
+
+def _taps_inside(t: int, k: int) -> int:
+    """Temporal (output frame, tap) pairs whose input frame lies in [0, T)."""
+    p = k // 2
+    return sum(min(k - 1, t - 1 - to + p) - max(0, p - to) + 1 for to in range(t))
+
+
+def _make_plan(x_shape, k: int, m: int, co: int, sms: int, bm: int, mg: int, ct: int,
+               stages: int | None = None) -> FusedPlan | None:
+    """The plan of one tiling; ``stages`` None: the deepest ring that fits."""
+    b, _, h, w, _ = x_shape
+    if stages is None:
+        fits = [s for s in range(2, _K4_MAX_STAGES + 1)
+                if _k4_smem(bm, mg, ct, k, s)[1] <= ops.SMEM_LIMIT]
+        if not fits:
+            return None
+        stages = fits[-1]
+    ring, smem = _k4_smem(bm, mg, ct, k, stages)
+    if smem > ops.SMEM_LIMIT:
+        return None
+    row_tiles, groups = -(-b * h * w // bm), -(-m // mg)
+    per_sm = min(_SM_SMEM // (smem + 1024), 2 if bm == 64 else 1)  # 255 registers a thread
+    waves = -(-row_tiles * groups // (sms * per_sm))
+    return FusedPlan(bm, mg, groups, ct, -(-co // ct), row_tiles, stages, ring, smem,
+                     per_sm, waves)
+
+
+def _plan_cost(plan: FusedPlan, x_shape, k: int, co: int, sms: int) -> float:
+    """Seconds the plan should take on an H100: the busiest SM's products
+    (the operations each block issues, mid-channel and Co padding
+    included) at half the tensor-core peak, plus the f32 partials written
+    and read once at the memory rate."""
+    b, t, h, w, c = x_shape
+    slices = -(-k * k * ops._ceil8(c) // _K4_BK)
+    macs = plan.bm * plan.mg * (t * slices * _K4_BK
+                                + _taps_inside(t, k) * plan.ct * plan.co_passes)
+    compute = -(-plan.grid // sms) * 2 * macs / (989e12 / 132 * 0.5)
+    partials = 8.0 * plan.groups * b * t * h * w * co / 3.35e12 if plan.groups > 1 else 0.0
+    return compute + partials
+
+
+def fused_plan(x_shape, k: int, m: int, co: int, sms: int = ops.SMS) -> FusedPlan | None:
+    """K4's launch plan for x (B, T, H, W, C), M mid and Co output channels,
     or None when no block fits in shared memory.
 
-    The largest tile that fits and still gives one block per SM (``sms`` of
-    them); else the smallest that fits, with Co split over blocks until the
-    card is full (each Co group recomputes mid for its pixels)."""
-    b, _, h, w, _ = x_shape
-    fits = [r for r in _ROWS if _smem_bytes(r, k, m) <= _SMEM_LIMIT]
-    if not fits:
+    Rows are the flattened B*H*W plane in tiles of bm (128 or 64); mid
+    channels go in groups of mg (144 or 64), a block per (row tile, group)
+    that computes its group's mid once (no block recomputes another's);
+    the temporal conv runs in passes of ct (the smallest of 64 / 128 / 256
+    that covers Co, else 256) output channels. Among the tiles that fit
+    the 227 KB a block may use, the plan takes the one with the least
+    modelled time (``_plan_cost``)."""
+    ct = next((n for n in _K4_CTS if n >= co), _K4_CTS[-1])
+    plans = [p for bm in _K4_BMS for mg in _K4_MGS
+             if (p := _make_plan(x_shape, k, m, co, sms, bm, mg, ct)) is not None]
+    if not plans:
         return None
-    blocks = {r: -(-h * w // r) * b for r in fits}
-    rows = next((r for r in fits if blocks[r] >= sms), fits[-1])
-    co_tiles = -(-co // _NT)
-    groups = min(co_tiles, max(1, -(-sms // blocks[rows])))
-    return rows, -(-co_tiles // groups)
+    return min(plans, key=lambda p: _plan_cost(p, x_shape, k, co, sms))
 
 
 def fused_supported(x_shape, k: int, m: int, co: int) -> bool:
@@ -109,10 +181,12 @@ def fused_supported(x_shape, k: int, m: int, co: int) -> bool:
 
 
 def fused_block_cuda(x: torch.Tensor, w_sp: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, w_tmp: torch.Tensor) -> torch.Tensor:
+                     bias: torch.Tensor, w_tmp: torch.Tensor,
+                     plan: FusedPlan | None = None) -> torch.Tensor:
     """K4: x (B, T, H, W, C), w_sp (k, k, C, M), w_tmp (k, M, Co), all bf16
     contiguous on CUDA; scale, bias (M,) f32 contiguous on the same device
-    -> (B, T, H, W, Co) bf16."""
+    -> (B, T, H, W, Co) bf16. ``plan`` (default ``fused_plan`` for the
+    device's SMs) may be given to run another tiling of the same function."""
     ops._check_kernel_tensors(x=x, w_sp=w_sp, w_tmp=w_tmp)
     if x.ndim != 5:
         raise ValueError(f"x must be (B, T, H, W, C), got {tuple(x.shape)}")
@@ -129,21 +203,38 @@ def fused_block_cuda(x: torch.Tensor, w_sp: torch.Tensor, scale: torch.Tensor,
             raise ValueError(f"{name} must be ({m},) float32 contiguous on {x.device}")
     if k % 2 == 0:
         raise ValueError(f"kernel size must be odd, got {k}")
-    plan = fused_plan(x.shape, k, m, co,
-                      torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan is None:
+        plan = fused_plan(x.shape, k, m, co, ops._sm_count(x.device))
     if plan is None:
         raise ValueError(f"no K4 block fits shared memory at k={k}, M={m}")
-    rows, per_group = plan
+    # the kernel reads x 16 bytes at a time: channels padded to 8, aligned
+    x = ops._pad_channels(x)
+    x = x.clone() if x.data_ptr() % 16 else x
+    cp = x.shape[-1]
+    wsp_k = torch.empty((m, k * k, cp), dtype=x.dtype, device=x.device)
+    wt_k = torch.empty((co, k, ops._ceil8(m)), dtype=x.dtype, device=x.device)
     y = torch.empty((b, t, h, wd, co), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((plan.groups, b * t * h * wd, co), dtype=torch.float32, device=x.device)
+          if plan.groups > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernels().fvt_fused_block_bf16(
         x.data_ptr(), w_sp.data_ptr(), scale.data_ptr(), bias.data_ptr(), w_tmp.data_ptr(),
-        y.data_ptr(), b, t, h, wd, c, m, co, k, rows, per_group, _ring_cols(m),
-        _smem_bytes(rows, k, m), x.device.index, stream)
+        wsp_k.data_ptr(), wt_k.data_ptr(), y.data_ptr(),
+        ws.data_ptr() if ws is not None else None, b, t, h, wd, cp, c, m, co, k, plan.bm,
+        plan.mg, plan.groups, plan.ct, plan.stages, plan.smem_bytes, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_fused_block_bf16 launch failed: CUDA error {rc}")
     ops.launch_counts["fused_block"] += 1
     return y
+
+
+def fused_weight_layout_plain(w_sp: torch.Tensor, w_tmp: torch.Tensor):
+    """The plain version of K4's weight layouts (``fused_block_weight_kernel``):
+    w_sp (k, k, C, M) -> (M, k*k, Cp) and w_tmp (k, M, Co) -> (Co, k, Mp),
+    K-major, the contraction's channels zero-padded to a multiple of 8."""
+    k, _, c, m = w_sp.shape
+    wsp = ops._pad_channels(w_sp.permute(3, 0, 1, 2).reshape(m, k * k, c))
+    return wsp.contiguous(), ops._pad_channels(w_tmp.permute(2, 0, 1)).contiguous()
 
 
 def fused_block_plain(x: torch.Tensor, w_sp: torch.Tensor, scale: torch.Tensor,

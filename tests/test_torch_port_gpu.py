@@ -368,6 +368,46 @@ def test_fused_block_kernel_matches_plain(cuda, x_shape, m, co, k):
     _close(got, fused.fused_block_plain(*args))
 
 
+# K4 with its plan forced: (x shape, M, Co, k, rows per block, mid channels
+# per group). Several groups (f32 partials added in group order by the
+# reduce) and one group (the block writes y), at the path's stage-4 and
+# stage-2 shapes and at ragged widths (M = 50 in one group of 64; M = 297
+# in 3 groups of 144, the last ragged; Co = 70 past one 64-wide tile).
+FORCED = [
+    ((2, 2, 7, 7, 512), 1152, 512, 3, 64, 64), ((2, 2, 7, 7, 512), 1152, 512, 3, 128, 144),
+    ((2, 8, 28, 28, 128), 288, 128, 3, 64, 144), ((2, 8, 28, 28, 128), 288, 128, 3, 128, 64),
+    ((1, 3, 9, 11, 40), 50, 24, 3, 128, 64), ((2, 3, 6, 5, 48), 297, 70, 3, 64, 144),
+    ((1, 4, 6, 7, 40), 144, 64, 5, 64, 144),
+]
+
+
+@pytest.mark.parametrize("x_shape,m,co,k,bm,mg", FORCED)
+def test_fused_block_forced_plans_match_plain_and_repeat_bitwise(cuda, x_shape, m, co, k, bm,
+                                                                 mg):
+    ct = next((n for n in (64, 128, 256) if n >= co), 256)
+    plan = fused._make_plan(x_shape, k, m, co, 132, bm, mg, ct)
+    assert plan is not None and (plan.bm, plan.mg) == (bm, mg)
+    args = _fused_inputs(cuda, x_shape, m, co, k, seed=11)
+    got = fused.fused_block_cuda(*args, plan=plan)
+    again = fused.fused_block_cuda(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # bitwise: partials added in group order, no atomics
+    _close(got, fused.fused_block_plain(*args))
+
+
+def test_fused_block_takes_a_misaligned_view(cuda):
+    """A contiguous x that starts 2 bytes into its buffer, C = 36: the
+    wrapper pads the channels and copies to an aligned tensor for the
+    kernel's 16-byte loads."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    _, w_sp, scale, bias, w_tmp = _fused_inputs(cuda, (1, 3, 6, 7, 36), 40, 24, 3)
+    flat = torch.randn(1 + 3 * 6 * 7 * 36, generator=g, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(1, 3, 6, 7, 36)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    _close(fused.fused_block_cuda(x, w_sp, scale, bias, w_tmp),
+           fused.fused_block_plain(x, w_sp, scale, bias, w_tmp))
+
+
 def test_fused_block_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     x, w_sp, scale, bias, w_tmp = _fused_inputs(cuda, (1, 2, 6, 6, 32), 40, 16, 3)
     with pytest.raises(ValueError, match="bfloat16"):
