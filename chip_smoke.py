@@ -31,7 +31,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             its plain version (two launches bitwise equal), timed beside
             the library chain (F.conv3d -> affine -> ReLU -> F.conv3d),
             the port's unfused chain (K1 -> affine -> ReLU -> K2) and the
-            least time the card could take;
+            least time the card could take, with its plan (rows x mid
+            channels x groups, blocks, waves, shared memory), TFLOP/s,
+            share of the bound, the split of its device time between its
+            weight layouts, fused kernel and reduce (torch.profiler), and
+            the times of the tilings the plan did not choose;
 4. path   — the port's Tagger (r2plus1d_18, 400 classes, multilabel, bf16,
             kernels='cuda', seeded random weights) on seeded synthetic
             frames through ``scores_from``: launch counts per forward,
@@ -96,6 +100,7 @@ from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.loop import make_train_step
 from fastvideotagging_tpu_torch.train.state import create_train_state
+from fastvideotagging_tpu_torch.utils.profiling import breakdown
 
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
 PEAK_BF16_FLOPS = 989e12
@@ -142,7 +147,7 @@ KERNELS = {
         source="fastvideotagging_tpu_torch/csrc/temporal_dw.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:284 (_temporal_dw)"),
     "fused_block": dict(
-        name="fused_block_kernel", route="cuda",
+        name="fused_block_hopper_kernel", route="cuda",
         source="fastvideotagging_tpu_torch/csrc/fused_block.cu",
         replaces="fastvideotagging_tpu/ops/fused_block.py:99 (_fused_pallas)"),
 }
@@ -490,29 +495,64 @@ def fused_sites(b: int = CLIP_BATCH):
     return sites
 
 
+def fused_flops(x_shape, m: int, co: int, k: int = K) -> float:
+    """Operations of K4's two GEMMs over the taps that fall inside the frame
+    (spatial) and inside [0, T) (temporal)."""
+    b, t, h, w, c = x_shape
+    return 2.0 * (b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * m
+                  + b * h * w * tap_pairs(t, k) * m * co)
+
+
 def fused_bound(x_shape, m: int, co: int, k: int = K):
-    """K4's least time (ms) and what bounds it: the operations of both
-    GEMMs over the taps that fall inside the frame (spatial) and inside
-    [0, T) (temporal), against x, y, the weights and the folded BN read or
-    written once (mid stays on chip, which is the kernel's point)."""
+    """K4's least time (ms) and what bounds it: ``fused_flops`` against x,
+    y, the weights and the folded BN read or written once (mid stays on
+    chip, which is the kernel's point)."""
     b, t, h, w, c = x_shape
     rows = b * t * h * w
-    flops = 2.0 * (b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * m
-                   + b * h * w * tap_pairs(t, k) * m * co)
     nbytes = 2.0 * (rows * (c + co) + k * k * c * m + k * m * co) + 8.0 * m
-    return _min_time(flops, nbytes)
+    return _min_time(fused_flops(x_shape, m, co, k), nbytes)
+
+
+def k4_split(run) -> dict:
+    """K4's device time per call by kernel (torch.profiler over 5 calls):
+    the weight layouts, the fused kernel and, with several groups, the
+    reduce of the partials."""
+    split = dict(layout_ms=0.0, main_ms=0.0, reduce_ms=0.0)
+    for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
+        for part, key in (("weight", "layout_ms"), ("hopper", "main_ms"), ("reduce", "reduce_ms")):
+            if f"fused_block_{part}_kernel" in name:
+                split[key] += ms
+    return split
+
+
+def k4_alternatives(xs, m: int, co: int, args, chosen) -> list:
+    """Every other tiling the plan chose among (rows per block x mid
+    channels per group, the same Co tile), each timed on the same inputs:
+    the plan's choice, measured."""
+    out = []
+    for bm in fused._K4_BMS:
+        for mg in fused._K4_MGS:
+            plan = fused._make_plan(xs, K, m, co, ops._sm_count(torch.device(DEV)), bm, mg,
+                                    chosen.ct)
+            if plan is None or (bm, mg) == (chosen.bm, chosen.mg):
+                continue
+            ms = time_ms(lambda plan=plan: fused.fused_block_cuda(*args, plan=plan), iters=10)
+            out.append(dict(bm=bm, mg=mg, groups=plan.groups, blocks=plan.grid, ms=ms))
+    return out
 
 
 def phase_fused_kernel(card: str) -> dict:
     """K4 at its four sites (clip_batch 8) against its plain version, with
-    the library chain and the port's unfused chain for the same function."""
+    the library chain and the port's unfused chain for the same function,
+    its plan, rate, share of the bound, the split of its time between its
+    kernels, and the tilings the plan did not choose."""
     print("== phase 3c: K4 (fused block)", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     dev = torch.device(DEV)
     sums = dict(ms=0.0, plain_ms=0.0, library_chain_ms=0.0, unfused_chain_ms=0.0, bound_ms=0.0,
-                ops_ms=0.0, bytes_ms=0.0)
+                ops_ms=0.0, bytes_ms=0.0, layout_ms=0.0, reduce_ms=0.0)
     agg = dict(max_abs_err=0.0, max_rel_err=0.0, ok=True, serving=sums, sites=[])
     failures = []
     for site, xs, m, co, n in fused_sites():
@@ -561,14 +601,25 @@ def phase_fused_kernel(card: str) -> dict:
         lib_ms = time_ms(library, iters=20)
         unf_ms = time_ms(unfused, iters=20)
         bound_ms, by = fused_bound(xs, m, co)
-        rows, per_group = fused.fused_plan(xs, K, m, co)
-        print(f"B={b} {site} fused_block x={xs} M={m} Co={co} x{n} (plan: {rows} pixels "
-              f"per block, {per_group} Co tiles per block)  max_abs_err={max_abs:.3e} "
+        plan = fused.fused_plan(xs, K, m, co, ops._sm_count(dev))
+        split = k4_split(run)
+        alts = k4_alternatives(xs, m, co, (x, w_sp, scale, bias, w_tmp), plan)
+        tflops = fused_flops(xs, m, co) / (ms * 1e-3) / 1e12
+        print(f"B={b} {site} fused_block x={xs} M={m} Co={co} x{n} (plan: {plan.bm} rows x "
+              f"{plan.mg} mid channels x {plan.groups} groups, Co tile {plan.ct} x "
+              f"{plan.co_passes}, {plan.stages} slices, {plan.grid} blocks, {plan.waves} "
+              f"wave(s), {plan.smem_bytes} B shared)  max_abs_err={max_abs:.3e} "
               f"max_rel_err={max_rel:.3e} (tol {KERNEL_TOL}; library chain vs plain "
               f"{lib_rel:.3e}, unfused chain vs plain {unf_rel:.3e}) two launches bitwise "
-              f"equal={same} kernel={ms:.4f} ms plain={plain_ms:.4f} ms library "
+              f"equal={same} kernel={ms:.4f} ms ({tflops:.1f} TFLOP/s, "
+              f"{bound_ms / ms:.3f} of the bound; device split: weight layout "
+              f"{split['layout_ms']:.4f}, fused {split['main_ms']:.4f}, reduce "
+              f"{split['reduce_ms']:.4f} ms) plain={plain_ms:.4f} ms library "
               f"chain={lib_ms:.4f} ms unfused K1+K2 chain={unf_ms:.4f} ms "
               f"bound={bound_ms * 1e3:.1f} us ({by}) ok={ok}", flush=True)
+        print("    other tilings: " + ", ".join(
+            f"{a['bm']}x{a['mg']} ({a['groups']} groups, {a['blocks']} blocks) {a['ms']:.4f} ms"
+            for a in alts), flush=True)
         if not ok:
             failures.append(site)
         agg["max_abs_err"] = max(agg["max_abs_err"], max_abs)
@@ -578,9 +629,12 @@ def phase_fused_kernel(card: str) -> dict:
                         ("unfused_chain_ms", unf_ms), ("bound_ms", bound_ms)):
             sums[name] += n * v
         sums["ops_ms" if by == "operations" else "bytes_ms"] += n * bound_ms
+        sums["layout_ms"] += n * split["layout_ms"]
+        sums["reduce_ms"] += n * split["reduce_ms"]
         agg["sites"].append(dict(
-            site=site, batch=b, x=list(xs), m=m, co=co, launches=n, rows_per_block=rows,
-            co_tiles_per_block=per_group, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
+            site=site, batch=b, x=list(xs), m=m, co=co, launches=n, plan=plan._asdict(),
+            blocks=plan.grid, tflops=tflops, share_of_bound=bound_ms / ms, split=split,
+            other_tilings=alts, max_abs_err=max_abs, max_rel_err=max_rel, ms=ms,
             plain_ms=plain_ms, library_chain_ms=lib_ms, unfused_chain_ms=unf_ms,
             bound_ms=bound_ms, bound_by=by))
         del x, w_sp, w_tmp
@@ -588,7 +642,9 @@ def phase_fused_kernel(card: str) -> dict:
     print(f"  fused_block per one forward at clip_batch {CLIP_BATCH} (13 launches; {card}): "
           f"kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, library chain "
           f"{sums['library_chain_ms']:.4f} ms, unfused K1+K2 chain "
-          f"{sums['unfused_chain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
+          f"{sums['unfused_chain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms; of K4's device "
+          f"time the weight layouts take {sums['layout_ms']:.4f} ms and the reduces "
+          f"{sums['reduce_ms']:.4f} ms")
     if failures:
         raise SystemExit(f"K4 disagrees with its plain version at {failures}")
     return agg

@@ -43,18 +43,22 @@
 // that holds an f32 accumulator applies scale and bias (__fmul_rn then
 // __fadd_rn, as the plain version rounds), ReLU, rounds to bf16 and writes
 // its slot of the ring, which holds the last k frames of the group's mid,
-// BM rows of MG channels (+ 8 of padding, so that ldmatrix reads it
-// without bank conflicts). Channels past M are written as 0.
+// BM rows of MG channels. Channels past M are written as 0. The ring is
+// K-major in the no-swizzle ("interleave") layout that a wgmma descriptor
+// names: core matrices of 8 rows x 8 channels (128 contiguous bytes), so
+// MG = 144 takes exactly 144 channels (the 128-byte swizzle would round a
+// row up to 192) and the epilogue's stores are conflict-free.
 //
-// The temporal GEMM (rung 1: ldmatrix + mma.sync m16n8k16) reads A from
-// the ring and B, Wtmp's rows of the group for a tile of CT <= 256 output
-// channels, from the same cp.async ring of slices that feeds the spatial
-// GEMM: its contraction, the taps whose frame lies in [0, T) times the
-// group's MG channels, runs in BK slices straight through. The 8 (or 4)
-// warps hold 32 rows x CT/2 columns each. Co = 512 takes two passes over
-// the ring. The spatial and temporal accumulators are never live at the
-// same time. All slices of a block, spatial and temporal, form one
-// stream that the loads walk stages-1 slices ahead of the products.
+// The temporal GEMM (rung 2) is wgmma m64nCTk16 too, A from the ring and
+// B, Wtmp's rows of the group for a tile of CT <= 256 output channels,
+// from the same cp.async ring of slices that feeds the spatial GEMM: its
+// contraction, the taps whose frame lies in [0, T) times the group's MG
+// channels, runs in slices of as many 64-channel atoms as a stage holds.
+// Co = 512 takes two passes over the ring. The spatial and temporal
+// accumulators are never live at the same time. All slices of a block,
+// spatial and temporal, form one stream that the loads walk stages-1
+// slices ahead of the products. (Rung 1, the temporal GEMM on ldmatrix +
+// mma.sync from a padded ring, is in the history of this file.)
 //
 // The plan (BM, MG, groups, CT, ring depth, shared memory) has one
 // source, ops/fused_block.py::fused_plan; the deepest ring it may ask for
@@ -86,7 +90,6 @@ namespace {
 constexpr int BK = 64;                 // contraction slice: 64 bf16 = 128 bytes a row
 constexpr int MAX_STAGES = FVT_K4_MAX_STAGES;  // slices the cp.async ring may hold
 constexpr int ALIGN = 1024;            // the 128-byte swizzle repeats every 8 rows
-constexpr int RING_PAD = 8;            // bf16 of padding per ring row
 constexpr int kOutside = -(1 << 28);   // pixel coordinate of a row past B*H*W
 constexpr int kMaxDevices = 64;
 static_assert(MAX_STAGES >= 2 && MAX_STAGES <= 10, "a ring of 2 to 10 stages");
@@ -102,14 +105,11 @@ struct Tile {
   static constexpr int TM_ATOM = CT * 128;       // Wtmp rows of 64 channels
   static constexpr int STAGE = SP_STAGE > TM_ATOM ? SP_STAGE : TM_ATOM;
   static constexpr int TA = STAGE / TM_ATOM;     // 64-channel atoms of a Wtmp slice
-  static constexpr int LDR = MG + RING_PAD;      // bf16 a ring row
-  static constexpr int SLOT = BM * LDR * 2;      // bytes of one ring frame
-  static constexpr int WARPS_M = BM / 32;        // temporal: warps of 32 rows ...
-  static constexpr int WN = CT / 2;              // ... by CT / 2 columns
-  static constexpr int NJ = WN / 8;              // n8 tiles of a warp
+  static constexpr int KCHUNK = BM * 16;         // bytes of a ring frame's 8 channels
+  static constexpr int SLOT = MG / 8 * KCHUNK;   // bytes of one ring frame
   static_assert(BM == 64 || BM == 128, "a warpgroup per 64 rows");
   static_assert(MG % 16 == 0 && MG <= 256 && STAGE % ALIGN == 0, "wgmma's N");
-  static_assert(NJ % 2 == 0 && CT % RPP == 0 && CT <= 256, "temporal tile");
+  static_assert(CT % RPP == 0 && (CT == 64 || CT == 128 || CT == 256), "temporal tile");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -187,6 +187,16 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// Descriptor of a K-major operand in the no-swizzle ("interleave") layout:
+// core matrices of 8 rows x 16 bytes stored as 128 contiguous bytes;
+// leading offset = the bytes between core matrices along K, stride offset
+// = the bytes between 8-row groups along M (here 128: rows are 16 bytes
+// apart within a K chunk), layout type 0.
+__device__ __forceinline__ uint64_t smem_desc_interleave(uint32_t addr, uint32_t k_stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(k_stride >> 4) << 16) | (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B both K-major in
 // shared memory; d += A B.
 __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da, uint64_t db) {
@@ -203,6 +213,31 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
 }
 
@@ -232,24 +267,53 @@ __device__ __forceinline__ void wgmma_144(float (&d)[72], uint64_t da, uint64_t 
       : "l"(da), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tile(float (&d)[N / 2], uint64_t da, uint64_t db) {
   if constexpr (N == 64) wgmma_64(d, da, db);
-  else wgmma_144(d, da, db);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else if constexpr (N == 128) wgmma_128(d, da, db);
+  else if constexpr (N == 144) wgmma_144(d, da, db);
+  else wgmma_256(d, da, db);
 }
 
 // A position in a block's stream of slices. For t_in = 0 .. T-1+p: the
@@ -325,7 +389,7 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
                           int stages) {
   using Tl = Tile<BM, MG, CT>;
   constexpr int TK = Tl::TA * BK;  // channels of a temporal slice
-  // [stages slices (1024-aligned) | ring: k frames of BM x LDR bf16 |
+  // [stages slices (1024-aligned) | ring: k frames of BM x MG bf16 |
   //  the group's scale, bias: MG f32 each]
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -439,8 +503,8 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   // Epilogue 1: warp w of the warpgroup holds rows 16 (w % 4) .. +15 of
   // the group's 64, n8 block jn in acc[4jn .. 4jn+3] (columns lane % 4 * 2,
   // +1; rows lane / 4 and lane / 4 + 8) -> scale, bias, ReLU, bf16 into the
-  // ring slot, 4 bytes a store. Conflict-free: a ring row is LDR / 2 = 4
-  // mod 8 words, so 8 rows x 4 words cover the 32 banks.
+  // ring slot, 4 bytes a store: the 8 rows x 4 lanes of a store cover one
+  // 128-byte core-matrix column, conflict-free.
   auto to_ring = [&](const float (&acc)[MG / 2], int slot) {
     unsigned char* sl = ring_p + slot * Tl::SLOT;
     const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
@@ -454,89 +518,75 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
         float v1 = fmaxf(__fadd_rn(__fmul_rn(acc[4 * jn + 2 * h8 + 1], af.y), af.w), 0.0f);
         if (col >= mv) v0 = 0.0f;
         if (col + 1 >= mv) v1 = 0.0f;
-        *reinterpret_cast<__nv_bfloat162*>(sl + ((row + 8 * h8) * Tl::LDR + col) * 2) =
-            __floats2bfloat162_rn(v0, v1);
+        *reinterpret_cast<__nv_bfloat162*>(sl + jn * Tl::KCHUNK + (row + 8 * h8) * 16 +
+                                           (lane & 3) * 4) = __floats2bfloat162_rn(v0, v1);
       }
     }
   };
 
-  // Temporal product (rung 1): warp (wm, wn) owns rows 32 wm .. +31 and
-  // columns WN wn .. +WN-1 of the pass; A (the ring, rows of MG channels)
-  // and B (the Wtmp slice: TA atoms of CT rows x 64 channels, K-major,
-  // swizzled) through ldmatrix.x4. Only the k16 steps inside the pass's
-  // contraction are issued.
-  const int wm = warp % Tl::WARPS_M, wn = warp / Tl::WARPS_M;
-  auto compute_tm = [&](int s, int kt, int t_out, int dt0, int ntaps,
-                        float (&acc)[2][Tl::NJ][4]) {
+  // Temporal product (rung 2, wgmma): warpgroup wg owns rows 64 wg .. +63
+  // and the pass's CT columns; A is the ring slot of frame t_out + dt - p
+  // (K-major, interleave layout: k16 step m starts at chunk m / 8), B the
+  // Wtmp slice (TA atoms of CT rows x 64 channels, K-major, 128-byte
+  // swizzle). Only the k16 steps inside the pass's contraction are issued.
+  auto compute_tm = [&](int s, int kt, int t_out, int dt0, int ntaps, float (&acc)[CT / 2]) {
     const int kv = min(TK / 16, (ntaps * MG - kt * TK) / 16);
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
     for (int kq = 0; kq < TK / 16; ++kq) {
       if (kq < kv) {
-        const int ks = kq % (BK / 16);
-        const uint32_t sb = base + s * Tl::STAGE + (kq / (BK / 16)) * Tl::TM_ATOM;
+        const uint32_t sb = base + s * Tl::STAGE + (kq / (BK / 16)) * Tl::TM_ATOM +
+                            (kq % (BK / 16)) * 32;
         const int kap = kt * TK + kq * 16;
         const int dtt = kap / MG;
         const int m = kap - dtt * MG;
         const int f = t_out + dt0 + dtt - p;  // in [0, T)
-        const uint32_t ra = ring + (f % k) * Tl::SLOT +
-                            ((wm * 32 + (lane & 15)) * Tl::LDR + m + ((lane >> 4) << 3)) * 2;
-        uint32_t a[2][4];
-        ldmatrix_x4(a[0], ra);
-        ldmatrix_x4(a[1], ra + 16 * Tl::LDR * 2);
-#pragma unroll
-        for (int jj = 0; jj < Tl::NJ / 2; ++jj) {
-          uint32_t b[4];
-          ldmatrix_x4(b, sb + swz(wn * Tl::WN + jj * 16 + (lane & 7) + ((lane >> 4) << 3),
-                                  ks * 2 + ((lane >> 3) & 1)));
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma_bf16(acc[i][2 * jj], a[i], b[0], b[1]);
-            mma_bf16(acc[i][2 * jj + 1], a[i], b[2], b[3]);
-          }
-        }
+        const uint32_t sa = ring + (f % k) * Tl::SLOT + (m / 8) * Tl::KCHUNK + wg * 64 * 16;
+        wgmma_tile<CT>(acc, smem_desc_interleave(sa, Tl::KCHUNK), smem_desc(sb));
       }
     }
+    wgmma_commit();
+    fence_acc(acc);
   };
 
-  // Epilogue 2: the m16n8 accumulators (rows lane / 4 and lane / 4 + 8,
-  // columns lane % 4 * 2, +1) straight from registers to y (bf16) or to
-  // this group's f32 partial, masked at the row and Co edges.
-  int64_t orow[4];  // y row of (b, 0, s), or -1 past B*H*W
+  // Epilogue 2: the accumulators (warp w of the warpgroup: rows 16 (w % 4)
+  // + lane / 4, +8; n8 block jn in acc[4jn .. 4jn+3], columns lane % 4 * 2,
+  // +1) straight from registers to y (bf16) or to this group's f32 partial,
+  // masked at the row and Co edges.
+  int64_t orow[2];  // y row of (b, 0, s), or -1 past B*H*W
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + wm * 32 + (i >> 1) * 16 + (i & 1) * 8 + (lane >> 2);
+  for (int i = 0; i < 2; ++i) {
+    const int n = n0 + wg * 64 + (warp & 3) * 16 + 8 * i + (lane >> 2);
     const int b = n / HW;
     orow[i] = n < R ? static_cast<int64_t>(b) * T * HW + (n - b * HW) : -1;
   }
   const int64_t total = static_cast<int64_t>(R) * T * Co;
-  auto store_y = [&](const float (&acc)[2][Tl::NJ][4], int t_out, int co0) {
+  auto store_y = [&](const float (&acc)[CT / 2], int t_out, int co0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int64_t o = orow[h8];
+      if (o < 0) continue;
+      const int64_t at = (o + static_cast<int64_t>(t_out) * HW) * Co;
 #pragma unroll
-      for (int h8 = 0; h8 < 2; ++h8) {
-        const int64_t o = orow[2 * i + h8];
-        if (o < 0) continue;
-        const int64_t at = (o + static_cast<int64_t>(t_out) * HW) * Co;
-#pragma unroll
-        for (int nj = 0; nj < Tl::NJ; ++nj) {
-          const int col = co0 + wn * Tl::WN + nj * 8 + (lane & 3) * 2;
-          if (col >= Co) continue;
-          const float v0 = acc[i][nj][2 * h8], v1 = acc[i][nj][2 * h8 + 1];
-          if (groups == 1) {
-            if ((Co & 1) == 0) {
-              *reinterpret_cast<__nv_bfloat162*>(y + at + col) = __floats2bfloat162_rn(v0, v1);
-            } else {
-              y[at + col] = __float2bfloat16_rn(v0);
-              if (col + 1 < Co) y[at + col + 1] = __float2bfloat16_rn(v1);
-            }
+      for (int jn = 0; jn < CT / 8; ++jn) {
+        const int col = co0 + jn * 8 + (lane & 3) * 2;
+        if (col >= Co) continue;
+        const float v0 = acc[4 * jn + 2 * h8], v1 = acc[4 * jn + 2 * h8 + 1];
+        if (groups == 1) {
+          if ((Co & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(y + at + col) = __floats2bfloat162_rn(v0, v1);
           } else {
-            float* out = ws + group * total + at + col;
-            if ((Co & 1) == 0) {
-              *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
-            } else {
-              out[0] = v0;
-              if (col + 1 < Co) out[1] = v1;
-            }
+            y[at + col] = __float2bfloat16_rn(v0);
+            if (col + 1 < Co) y[at + col + 1] = __float2bfloat16_rn(v1);
+          }
+        } else {
+          float* out = ws + group * total + at + col;
+          if ((Co & 1) == 0) {
+            *reinterpret_cast<float2*>(out) = make_float2(v0, v1);
+          } else {
+            out[0] = v0;
+            if (col + 1 < Co) out[1] = v1;
           }
         }
       }
@@ -588,17 +638,15 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
     const int ntaps = min(k - 1, T - 1 - t_out + p) - dt0 + 1;
     const int nts = (ntaps * MG + TK - 1) / TK;
     for (int pass = 0; pass < walk.npass; ++pass) {
-      float acc[2][Tl::NJ][4];
+      float acc[CT / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < Tl::NJ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+      for (int i = 0; i < CT / 2; ++i) acc[i] = 0.0f;
       for (int kt = 0; kt < nts; ++kt) {
         arrive();
         compute_tm(cs, kt, t_out, dt0, ntaps, acc);
         issue_next();
+        wgmma_wait<0>();
+        fence_acc(acc);
       }
       store_y(acc, t_out, pass * CT);
     }

@@ -42,7 +42,6 @@ _K4_BK = 64  # contraction slice (128 bytes of bf16 a row)
 _K4_BMS = (128, 64)  # rows of the flattened B*H*W plane per block (a warpgroup per 64)
 _K4_MGS = (144, 64)  # mid channels of a group: the spatial GEMM's N
 _K4_CTS = (64, 128, 256)  # output channels of a temporal pass
-_K4_RING_PAD = 8  # bf16 of padding per ring row (conflict-free ldmatrix)
 _K4_ALIGN = 1024  # slack to align the slices to the 128-byte swizzle's period
 _SM_SMEM = 233_472  # shared memory of one SM; each resident block also reserves 1 KB
 NVCC_DEFINES = (f"-DFVT_K4_MAX_STAGES={_K4_MAX_STAGES}",)
@@ -81,7 +80,7 @@ class FusedPlan(NamedTuple):
     co_passes: int  # temporal passes over the ring per frame, ceil(Co / ct)
     row_tiles: int  # ceil(B*H*W / bm)
     stages: int  # slices in the cp.async ring
-    ring_bytes: int  # k mid frames of bm x (mg + 8) bf16
+    ring_bytes: int  # k mid frames of bm x mg bf16
     smem_bytes: int  # dynamic shared memory of one block
     blocks_per_sm: int  # resident at once, by shared memory and registers
     waves: int  # ceil(grid / (SMs x blocks_per_sm))
@@ -110,48 +109,64 @@ def _k4_stage(bm: int, mg: int, ct: int) -> int:
 def _k4_smem(bm: int, mg: int, ct: int, k: int, stages: int) -> tuple[int, int]:
     """(ring bytes, shared bytes) of one K4 block, in the kernel's order:
     the slices, the ring of k mid frames, the group's scale and bias."""
-    ring = k * bm * (mg + _K4_RING_PAD) * 2
+    ring = k * bm * mg * 2
     return ring, stages * _k4_stage(bm, mg, ct) + ring + 2 * mg * 4 + _K4_ALIGN
-
-
-def _taps_inside(t: int, k: int) -> int:
-    """Temporal (output frame, tap) pairs whose input frame lies in [0, T)."""
-    p = k // 2
-    return sum(min(k - 1, t - 1 - to + p) - max(0, p - to) + 1 for to in range(t))
 
 
 def _make_plan(x_shape, k: int, m: int, co: int, sms: int, bm: int, mg: int, ct: int,
                stages: int | None = None) -> FusedPlan | None:
-    """The plan of one tiling; ``stages`` None: the deepest ring that fits."""
+    """The plan of one tiling, or None if it does not fit; ``stages`` None:
+    a ring of 3 slices, or 2 where 3 do not fit (deeper rings were no
+    faster on the card)."""
     b, _, h, w, _ = x_shape
-    if stages is None:
-        fits = [s for s in range(2, _K4_MAX_STAGES + 1)
-                if _k4_smem(bm, mg, ct, k, s)[1] <= ops.SMEM_LIMIT]
-        if not fits:
-            return None
-        stages = fits[-1]
-    ring, smem = _k4_smem(bm, mg, ct, k, stages)
-    if smem > ops.SMEM_LIMIT:
+    for st in ((stages,) if stages else (3, 2)):
+        ring, smem = _k4_smem(bm, mg, ct, k, st)
+        if smem <= ops.SMEM_LIMIT:
+            break
+    else:
         return None
     row_tiles, groups = -(-b * h * w // bm), -(-m // mg)
     per_sm = min(_SM_SMEM // (smem + 1024), 2 if bm == 64 else 1)  # 255 registers a thread
     waves = -(-row_tiles * groups // (sms * per_sm))
-    return FusedPlan(bm, mg, groups, ct, -(-co // ct), row_tiles, stages, ring, smem,
-                     per_sm, waves)
+    return FusedPlan(bm, mg, groups, ct, -(-co // ct), row_tiles, st, ring, smem, per_sm,
+                     waves)
+
+
+def _ring_steps(plan: FusedPlan, x_shape, k: int) -> tuple[int, int]:
+    """(spatial, temporal) slices a block's ring walks: T frames of
+    ceil(k*k*Cp / 64) spatial slices, and per output frame and Co pass its
+    taps inside [0, T) times mg channels, in slices of as many 64-channel
+    Wtmp atoms as a stage holds."""
+    _, t, _, _, c = x_shape
+    tk = _k4_stage(plan.bm, plan.mg, plan.ct) // (plan.ct * _K4_BK * 2) * _K4_BK
+    p = k // 2
+    temporal = sum(-(-(min(k - 1, t - 1 - to + p) - max(0, p - to) + 1) * plan.mg // tk)
+                   for to in range(t))
+    return t * -(-k * k * ops._ceil8(c) // _K4_BK), temporal * plan.co_passes
+
+
+# The cost model's constants, fitted on an H100 SXM (700 W) to a sweep of
+# every tiling at r2plus1d_18's four sites (chip_smoke.py phase 3c prints
+# the alternatives): a ring step costs a fixed time (its barrier, waits and
+# address arithmetic) plus its bytes at the rate one SM draws from L2, and
+# the blocks that share an SM share that rate.
+_STEP_S = 0.2e-6
+_SM_L2_BYTES_S = 26e9
+_HBM_BYTES_S = 3.0e12
 
 
 def _plan_cost(plan: FusedPlan, x_shape, k: int, co: int, sms: int) -> float:
-    """Seconds the plan should take on an H100: the busiest SM's products
-    (the operations each block issues, mid-channel and Co padding
-    included) at half the tensor-core peak, plus the f32 partials written
-    and read once at the memory rate."""
-    b, t, h, w, c = x_shape
-    slices = -(-k * k * ops._ceil8(c) // _K4_BK)
-    macs = plan.bm * plan.mg * (t * slices * _K4_BK
-                                + _taps_inside(t, k) * plan.ct * plan.co_passes)
-    compute = -(-plan.grid // sms) * 2 * macs / (989e12 / 132 * 0.5)
-    partials = 8.0 * plan.groups * b * t * h * w * co / 3.35e12 if plan.groups > 1 else 0.0
-    return compute + partials
+    """Seconds the plan should take on an H100: the busiest SM's ring steps
+    (its blocks one after another), plus the f32 partials written and read
+    once where there are several groups."""
+    b, t, h, w, _ = x_shape
+    spatial, temporal = _ring_steps(plan, x_shape, k)
+    stage = _k4_stage(plan.bm, plan.mg, plan.ct)
+    tm_bytes = stage // (plan.ct * _K4_BK * 2) * plan.ct * _K4_BK * 2
+    block = (spatial * (_STEP_S + (plan.bm + plan.mg) * _K4_BK * 2 / _SM_L2_BYTES_S)
+             + temporal * (_STEP_S + tm_bytes / _SM_L2_BYTES_S))
+    partials = 8.0 * plan.groups * b * t * h * w * co / _HBM_BYTES_S if plan.groups > 1 else 0.0
+    return -(-plan.grid // sms) * block + partials
 
 
 def fused_plan(x_shape, k: int, m: int, co: int, sms: int = ops.SMS) -> FusedPlan | None:
@@ -164,7 +179,10 @@ def fused_plan(x_shape, k: int, m: int, co: int, sms: int = ops.SMS) -> FusedPla
     the temporal conv runs in passes of ct (the smallest of 64 / 128 / 256
     that covers Co, else 256) output channels. Among the tiles that fit
     the 227 KB a block may use, the plan takes the one with the least
-    modelled time (``_plan_cost``)."""
+    modelled time (``_plan_cost``): at r2plus1d_18's sites at 8 clips,
+    128 x 144 (stage 1, one group), 128 x 144 (stage 2, two groups), 128 x
+    64 (stage 3, nine groups), 64 x 64 (stage 4, 18 groups, 126 blocks),
+    each the fastest tiling measured on the card."""
     ct = next((n for n in _K4_CTS if n >= co), _K4_CTS[-1])
     plans = [p for bm in _K4_BMS for mg in _K4_MGS
              if (p := _make_plan(x_shape, k, m, co, sms, bm, mg, ct)) is not None]

@@ -39,7 +39,7 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
       "spatial_conv_reduce_kernel")),
     ("K2 temporal_conv_kernel", ("temporal_conv_kernel",)),
     ("K3 temporal_dw_hopper_kernel (+ pad, reduce)", ("temporal_dw",)),
-    ("K4 fused_block_kernel", ("fused_block_kernel",)),
+    ("K4 fused_block_hopper_kernel (+ weight layout, reduce)", ("fused_block",)),
     ("library matmul (cuBLAS)", ("nvjet", "xmma_gemm", "gemv", "s16816gemm", "s1688gemm",
                                  "sgemm", "splitkreduce", "cublas")),
     ("library conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90",

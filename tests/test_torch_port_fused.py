@@ -106,9 +106,11 @@ def test_rejects_unsupported():
     with pytest.raises(ValueError, match="fused block requires"):
         tfused.conv2plus1d_fused(x, torch.zeros((2, 2, 32, 16)), torch.zeros(16),
                                  torch.zeros(16), torch.zeros((2, 16, 8)))
-    # a mid width whose k-frame ring fits no block's shared memory
-    assert tfused.fused_plan((1, 4, 8, 8, 32), 3, 4096, 64) is None
-    assert not tfused.fused_supported((1, 4, 8, 8, 32), 3, 4096, 64)
+    # a kernel size whose k-frame ring fits no block's shared memory even at
+    # the smallest tile (a wide M now takes more mid-channel groups instead)
+    assert tfused.fused_plan((1, 4, 32, 32, 32), 25, 64, 64) is None
+    assert not tfused.fused_supported((1, 4, 32, 32, 32), 25, 64, 64)
+    assert tfused.fused_plan((1, 4, 8, 8, 32), 3, 4096, 64).groups == 64
 
 
 @pytest.mark.parametrize("b", [8, 32])
@@ -123,14 +125,15 @@ def test_fused_supported_at_every_r2plus1d18_site(b):
         m = r2plus1d_mid_channels(c, c)
         shape = (b, t, hw, hw, c)
         assert tfused.fused_supported(shape, 3, m, c), shape
-        rows, per_group = tfused.fused_plan(shape, 3, m, c)
-        assert rows in (32, 64, 128) and 1 <= per_group <= -(-c // 64)
-        assert tfused._smem_bytes(rows, 3, m) <= tfused._SMEM_LIMIT
-    # stage 4's ring (3 frames x 1152 channels) fits only 32-pixel tiles,
-    # and its 49-pixel planes need Co split over blocks to fill the card
-    assert tfused.fused_plan((8, 2, 7, 7, 512), 3, 1152, 512) == (32, 1)
-    # the plan fills the card it is given: with fewer SMs, fewer Co groups
-    assert tfused.fused_plan((8, 2, 7, 7, 512), 3, 1152, 512, sms=16) == (32, 8)
+        plan = tfused.fused_plan(shape, 3, m, c)
+        assert plan.bm in (64, 128) and plan.groups * plan.mg >= m
+        assert plan.smem_bytes <= ops.SMEM_LIMIT
+    # stage 4's mid channels go in groups, each block computing its own
+    # group's mid once: no block recomputes mid for a Co split
+    plan = tfused.fused_plan((8, 2, 7, 7, 512), 3, 1152, 512)
+    assert plan.grid == plan.row_tiles * plan.groups and plan.groups > 1
+    # the plan fills the card it is given: with fewer SMs, fewer blocks
+    assert tfused.fused_plan((8, 2, 7, 7, 512), 3, 1152, 512, sms=16).grid < plan.grid
 
 
 def _engine_case(stage_blocks=(1, 1), num_classes=7, shape=(2, 4, 32, 32, 3)):

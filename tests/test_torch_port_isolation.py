@@ -100,7 +100,7 @@ def test_fused_block_is_built_with_its_wrappers_tile_plan(tmp_path, monkeypatch)
     flags = _build._flags("fused_block")
     assert flags[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
     assert set(fused_block.NVCC_DEFINES) <= set(flags)
-    assert "-DFVT_NT=64" in flags and "-DFVT_BK=32" in flags
+    assert f"-DFVT_K4_MAX_STAGES={fused_block._K4_MAX_STAGES}" in flags
     assert _build._flags("conv2plus1d") == _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     a = _build._so_path("fused_block")
@@ -221,6 +221,27 @@ def test_spatial_conv_argtypes_match_its_c_signature():
         return ctypes.c_longlong if "long long" in param else ctypes.c_int
 
     assert conv2plus1d._K1_ARGTYPES == [kind(q) for q in params]
+
+
+def test_fused_block_argtypes_match_its_c_signature():
+    """The ctypes binding of K4's entry point has one type per parameter of
+    the C function, in the same kinds (pointers, 64-bit and 32-bit ints)."""
+    import ctypes
+    import re
+
+    from fastvideotagging_tpu_torch.ops import fused_block
+
+    with open(os.path.join(_build.CSRC, "fused_block.cu")) as f:
+        src = f.read()
+    params = re.search(r"int fvt_fused_block_bf16\(([^)]*)\)", src).group(1).split(",")
+
+    def kind(param):
+        if "*" in param:
+            return ctypes.c_void_p
+        return ctypes.c_longlong if "long long" in param else ctypes.c_int
+
+    assert fused_block._K4_ARGTYPES == [kind(q) for q in params]
+    assert len(params) == 26
 
 
 def test_temporal_dw_argtypes_match_its_c_signature():
