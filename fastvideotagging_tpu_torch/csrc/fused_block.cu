@@ -75,6 +75,15 @@
 // epilogues): wgmma on a cp.async ring, mid-channel groups, rows over the
 // flattened plane, the group's width as the GEMM's N, and epilogues from
 // registers.
+//
+// On an H100 SXM at 700 W it is still far from that bound (chip_smoke.py
+// phase 3c: about 4 ms per r2plus1d_18 forward at 8 clips, 7x the bound):
+// a ring step costs about 0.2 us plus its bytes at the ~26 GB/s one SM
+// draws from L2, and the steps of a block run one after another (loads,
+// products, epilogues). Two producer warps or a producer warpgroup on
+// mbarriers did not change that. What to cut next are bytes: the x rows
+// gathered once per tap, and the weights read again by every row tile and
+// frame.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,7 +101,7 @@ constexpr int MAX_STAGES = FVT_K4_MAX_STAGES;  // slices the cp.async ring may h
 constexpr int ALIGN = 1024;            // the 128-byte swizzle repeats every 8 rows
 constexpr int kOutside = -(1 << 28);   // pixel coordinate of a row past B*H*W
 constexpr int kMaxDevices = 64;
-static_assert(MAX_STAGES >= 2 && MAX_STAGES <= 10, "a ring of 2 to 10 stages");
+static_assert(MAX_STAGES == 2 || MAX_STAGES == 3, "a ring of 2 or 3 stages");
 
 // BM rows (a warpgroup per 64), MG mid channels a group, CT output
 // channels a temporal pass.
@@ -136,19 +145,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Waits until at most n groups are pending (n < MAX_STAGES - 1, uniform).
+// Waits until at most n groups are pending (n = stages - 2: 0 or 1, uniform).
 __device__ __forceinline__ void cp_async_wait_n(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<7>(); break;
-    default: cp_async_wait<8>(); break;
-  }
+  if (n == 0) cp_async_wait<0>();
+  else cp_async_wait<1>();
 }
 
 // The async proxy (wgmma) reads what cp.async wrote through the generic

@@ -6,12 +6,16 @@ kernel ``_kernel`` / ``_fused_pallas`` K4 replaces. The mid tensor between
 the two convs (B, T, H, W, M), the widest of the network, stays in the
 kernel's shared memory: the folded BatchNorm (``fold_bn``) and ReLU are
 applied to the spatial conv's f32 accumulator, rounded to bf16 into a ring of
-the last k frames, and the temporal conv reads that ring. Inference only:
-BN's running statistics are folded as constants (training needs batch
-statistics over the whole mid tensor).
+the last k frames, and the temporal conv reads that ring. A block owns a
+tile of the flattened B*H*W rows and one group of mid channels
+(``fused_plan``); with several groups, each writes an f32 partial of y that
+a second kernel adds in group order. Inference only: BN's running
+statistics are folded as constants (training needs batch statistics over
+the whole mid tensor).
 
-``fused_block_cuda`` takes bf16 contiguous CUDA tensors, launches K4 on the
-current stream, raises if the launch fails, and adds one to
+``fused_block_cuda`` takes bf16 contiguous CUDA tensors, launches K4 (the
+weight layouts, the fused kernel and, with several groups, the reduce) on
+the current stream, raises if a launch fails, and adds one to
 ``conv2plus1d.launch_counts['fused_block']``. ``fused_block_plain`` is the
 same arithmetic in plain PyTorch, in K4's order. ``conv2plus1d_fused`` routes
 between them as the other kernels do: a CUDA tensor goes to the kernel, a
@@ -37,7 +41,7 @@ from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 # deepest ring it takes as a -D flag (NVCC_DEFINES, through _build), and
 # each launch passes the rows, group width, Co tile, ring depth and
 # shared-memory bytes that fused_plan chose.
-_K4_MAX_STAGES = 8  # slices the cp.async ring may hold
+_K4_MAX_STAGES = 3  # slices the cp.async ring may hold (deeper rings were no faster)
 _K4_BK = 64  # contraction slice (128 bytes of bf16 a row)
 _K4_BMS = (128, 64)  # rows of the flattened B*H*W plane per block (a warpgroup per 64)
 _K4_MGS = (144, 64)  # mid channels of a group: the spatial GEMM's N
@@ -90,7 +94,7 @@ class FusedPlan(NamedTuple):
         return self.row_tiles * self.groups
 
     @property
-    def threads(self) -> int:
+    def threads(self) -> int:  # a warpgroup per 64 rows
         return 2 * self.bm
 
     @property
@@ -113,13 +117,12 @@ def _k4_smem(bm: int, mg: int, ct: int, k: int, stages: int) -> tuple[int, int]:
     return ring, stages * _k4_stage(bm, mg, ct) + ring + 2 * mg * 4 + _K4_ALIGN
 
 
-def _make_plan(x_shape, k: int, m: int, co: int, sms: int, bm: int, mg: int, ct: int,
-               stages: int | None = None) -> FusedPlan | None:
-    """The plan of one tiling, or None if it does not fit; ``stages`` None:
-    a ring of 3 slices, or 2 where 3 do not fit (deeper rings were no
-    faster on the card)."""
+def _make_plan(x_shape, k: int, m: int, co: int, sms: int, bm: int, mg: int,
+               ct: int) -> FusedPlan | None:
+    """The plan of one tiling, or None if it does not fit: a ring of 3
+    slices, or 2 where 3 do not fit."""
     b, _, h, w, _ = x_shape
-    for st in ((stages,) if stages else (3, 2)):
+    for st in range(_K4_MAX_STAGES, 1, -1):
         ring, smem = _k4_smem(bm, mg, ct, k, st)
         if smem <= ops.SMEM_LIMIT:
             break
