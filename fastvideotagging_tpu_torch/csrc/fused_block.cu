@@ -56,13 +56,13 @@
 // channels, runs in slices of as many 64-channel atoms as a stage holds.
 // Co = 512 takes two passes over the ring. The spatial and temporal
 // accumulators are never live at the same time. All slices of a block,
-// spatial and temporal, form one stream that the loads walk stages-1
-// slices ahead of the products. (Rung 1, the temporal GEMM on ldmatrix +
+// spatial and temporal, form one stream that the loads walk one slice
+// ahead of the products, with one group of products left in flight. (Rung 1, the temporal GEMM on ldmatrix +
 // mma.sync from a padded ring, is in the history of this file.)
 //
 // The plan (BM, MG, groups, CT, ring depth, shared memory) has one
-// source, ops/fused_block.py::fused_plan; the deepest ring it may ask for
-// is compiled in.
+// source, ops/fused_block.py::fused_plan; the ring's depth is compiled in
+// from it.
 //
 // What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): operations
 // at every r2plus1d_18 site (stage 1, clip_batch 8: 86.3 GFLOP of taps
@@ -92,16 +92,16 @@
 
 namespace {
 
-#if !defined(FVT_K4_MAX_STAGES)
+#if !defined(FVT_K4_STAGES)
 #error "build through ops/_build.py, which passes ops/fused_block.py's tile plan"
 #endif
 
 constexpr int BK = 64;                 // contraction slice: 64 bf16 = 128 bytes a row
-constexpr int MAX_STAGES = FVT_K4_MAX_STAGES;  // slices the cp.async ring may hold
+constexpr int STAGES = FVT_K4_STAGES;  // slices in the cp.async ring
 constexpr int ALIGN = 1024;            // the 128-byte swizzle repeats every 8 rows
 constexpr int kOutside = -(1 << 28);   // pixel coordinate of a row past B*H*W
 constexpr int kMaxDevices = 64;
-static_assert(MAX_STAGES == 2 || MAX_STAGES == 3, "a ring of 2 or 3 stages");
+static_assert(STAGES == 3, "the ring's schedule is written for three stages");
 
 // BM rows (a warpgroup per 64), MG mid channels a group, CT output
 // channels a temporal pass.
@@ -145,11 +145,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Waits until at most n groups are pending (n = stages - 2: 0 or 1, uniform).
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if (n == 0) cp_async_wait<0>();
-  else cp_async_wait<1>();
-}
 
 // The async proxy (wgmma) reads what cp.async wrote through the generic
 // proxy: each thread fences its own copies before the barrier.
@@ -385,18 +380,17 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
                           const float* __restrict__ scale, const float* __restrict__ bias,
                           const __nv_bfloat16* __restrict__ wt,
                           __nv_bfloat16* __restrict__ y, float* __restrict__ ws, int R, int T,
-                          int H, int W, int Cp, int M, int Mp, int Co, int k, int groups,
-                          int stages) {
+                          int H, int W, int Cp, int M, int Mp, int Co, int k, int groups) {
   using Tl = Tile<BM, MG, CT>;
   constexpr int TK = Tl::TA * BK;  // channels of a temporal slice
-  // [stages slices (1024-aligned) | ring: k frames of BM x MG bf16 |
+  // [STAGES slices (1024-aligned) | ring: k frames of BM x MG bf16 |
   //  the group's scale, bias: MG f32 each]
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t ring = base + stages * Tl::STAGE;
-  unsigned char* ring_p = smem + stages * Tl::STAGE;
+  const uint32_t ring = base + STAGES * Tl::STAGE;
+  unsigned char* ring_p = smem + STAGES * Tl::STAGE;
   // per channel pair: {scale[2i], scale[2i+1], bias[2i], bias[2i+1]}
   float4* s_affine = reinterpret_cast<float4*>(ring_p + k * Tl::SLOT);
 
@@ -593,29 +587,30 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
 
-  // The ring of slices: stages-1 loads in flight along the block's stream.
-  // Each slice: wait for its loads, one barrier (the slice before it is
-  // done in every warp), its product, the load stages-1 slices ahead into
-  // the stage the slice before used, and for wgmma the warpgroup's wait.
+  // The ring of slices (three stages): one wgmma group stays in flight
+  // across slices, so the tensor cores are not drained at every slice.
+  // Slice i: wait for its loads and one barrier (every warpgroup has waited
+  // for the products of slice i-2), the load of slice i+1 into the stage
+  // slice i-2 used, the product of slice i, and a wait that leaves it in
+  // flight (slice i-1's products are done). The last slice of a frame or a
+  // pass waits for all before its epilogue.
   Cursor ld;
   walk.begin(ld);
-  for (int s = 0; s < stages - 1; ++s) {
-    if (ld.n != 0) load(ld, s);
-    cp_async_commit();
-    walk.next(ld);
-  }
-  int cs = 0, ls = stages - 1;  // stages of the next product and the next load
-  auto issue_next = [&]() {
+  if (ld.n != 0) load(ld, 0);
+  cp_async_commit();
+  walk.next(ld);
+  int cs = 0, ls = 1;  // stages of the next product and the next load
+  auto begin_slice = [&]() {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
     if (ld.n != 0) load(ld, ls);
     cp_async_commit();
     walk.next(ld);
-    if (++ls == stages) ls = 0;
-    if (++cs == stages) cs = 0;
   };
-  auto arrive = [&]() {
-    cp_async_wait_n(stages - 2);
-    fence_proxy_async();
-    __syncthreads();
+  auto end_slice = [&]() {
+    if (++ls == STAGES) ls = 0;
+    if (++cs == STAGES) cs = 0;
   };
 
   for (int t_in = 0; t_in < T + p; ++t_in) {
@@ -624,12 +619,14 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < MG / 2; ++i) acc[i] = 0.0f;
       for (int kt = 0; kt < walk.KT; ++kt) {
-        arrive();
+        begin_slice();
         compute_sp(cs, acc);
-        issue_next();
-        wgmma_wait<0>();
+        wgmma_wait<1>();
         fence_acc(acc);
+        end_slice();
       }
+      wgmma_wait<0>();
+      fence_acc(acc);
       to_ring(acc, t_in % k);  // read after the next barrier
     }
     const int t_out = t_in - p;
@@ -642,12 +639,14 @@ fused_block_hopper_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < CT / 2; ++i) acc[i] = 0.0f;
       for (int kt = 0; kt < nts; ++kt) {
-        arrive();
+        begin_slice();
         compute_tm(cs, kt, t_out, dt0, ntaps, acc);
-        issue_next();
-        wgmma_wait<0>();
+        wgmma_wait<1>();
         fence_acc(acc);
+        end_slice();
       }
+      wgmma_wait<0>();
+      fence_acc(acc);
       store_y(acc, t_out, pass * CT);
     }
   }
@@ -724,7 +723,7 @@ struct Args {
   const __nv_bfloat16* wt;
   __nv_bfloat16* y;
   float* ws;
-  int R, T, H, W, Cp, M, Mp, Co, k, groups, stages;
+  int R, T, H, W, Cp, M, Mp, Co, k, groups;
   unsigned blocks;
   int smem_bytes, device;
   cudaStream_t stream;
@@ -733,16 +732,16 @@ struct Args {
 // Bytes of shared memory an instance needs (the wrapper's fused_plan
 // computes the same).
 template <int BM, int MG, int CT>
-int smem_needed(int k, int stages) {
+int smem_needed(int k) {
   using Tl = Tile<BM, MG, CT>;
-  return stages * Tl::STAGE + k * Tl::SLOT + 2 * MG * 4 + ALIGN;
+  return STAGES * Tl::STAGE + k * Tl::SLOT + 2 * MG * 4 + ALIGN;
 }
 
 // Opts the instance in to its shared memory once per device and size (a
 // host call, not free), then launches it.
 template <int BM, int MG, int CT>
 cudaError_t start(const Args& a) {
-  if (a.smem_bytes < smem_needed<BM, MG, CT>(a.k, a.stages)) return cudaErrorInvalidValue;
+  if (a.smem_bytes < smem_needed<BM, MG, CT>(a.k)) return cudaErrorInvalidValue;
   auto kern = fused_block_hopper_kernel<BM, MG, CT>;
   static int opted_in[kMaxDevices] = {};
   if (opted_in[a.device] < a.smem_bytes) {
@@ -753,7 +752,7 @@ cudaError_t start(const Args& a) {
   }
   kern<<<a.blocks, 2 * BM, a.smem_bytes, a.stream>>>(a.x, a.wsp, a.scale, a.bias, a.wt, a.y,
                                                       a.ws, a.R, a.T, a.H, a.W, a.Cp, a.M,
-                                                      a.Mp, a.Co, a.k, a.groups, a.stages);
+                                                      a.Mp, a.Co, a.k, a.groups);
   return cudaGetLastError();
 }
 
@@ -801,8 +800,7 @@ int fvt_fused_block_bf16(const void* x, const void* w_sp, const void* scale,
   const int64_t rows = static_cast<int64_t>(b) * h * w;
   if (b <= 0 || t <= 0 || h <= 0 || w <= 0 || c <= 0 || m <= 0 || co <= 0 || k <= 0 ||
       (k % 2) == 0 || (cp % 8) != 0 || cp < c || cp >= c + 8 || mg <= 0 ||
-      groups != (m + mg - 1) / mg || stages < 2 || stages > MAX_STAGES || smem_bytes > 232448 ||
-      device < 0 ||
+      groups != (m + mg - 1) / mg || stages != STAGES || smem_bytes > 232448 || device < 0 ||
       device >= kMaxDevices || rows * t > INT_MAX || !aligned16(x) || !aligned16(wsp_k) ||
       !aligned16(wt_k) || !aligned16(y) || (groups > 1 && (ws == nullptr || !aligned16(ws))))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -819,7 +817,7 @@ int fvt_fused_block_bf16(const void* x, const void* w_sp, const void* scale,
                static_cast<const float*>(scale), static_cast<const float*>(bias),
                static_cast<const __nv_bfloat16*>(wt_k), static_cast<__nv_bfloat16*>(y),
                static_cast<float*>(ws), static_cast<int>(rows), t, h, w, cp, m, mp, co, k,
-               groups, stages, static_cast<unsigned>(blocks), smem_bytes, device, s};
+               groups, static_cast<unsigned>(blocks), smem_bytes, device, s};
   switch (bm) {
     case 64: err = start_mg<64>(mg, ct, a); break;
     case 128: err = start_mg<128>(mg, ct, a); break;

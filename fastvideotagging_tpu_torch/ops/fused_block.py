@@ -38,17 +38,17 @@ from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 
 # K4's tile plan, its one source: csrc/fused_block.cu is compiled with the
-# deepest ring it takes as a -D flag (NVCC_DEFINES, through _build), and
-# each launch passes the rows, group width, Co tile, ring depth and
+# ring's depth as a -D flag (NVCC_DEFINES, through _build), and each launch
+# passes the rows, group width, Co tile, depth (which the kernel checks) and
 # shared-memory bytes that fused_plan chose.
-_K4_MAX_STAGES = 3  # slices the cp.async ring may hold (deeper rings were no faster)
+_K4_STAGES = 3  # slices in the cp.async ring (deeper rings were no faster on the card)
 _K4_BK = 64  # contraction slice (128 bytes of bf16 a row)
 _K4_BMS = (128, 64)  # rows of the flattened B*H*W plane per block (a warpgroup per 64)
 _K4_MGS = (144, 64)  # mid channels of a group: the spatial GEMM's N
 _K4_CTS = (64, 128, 256)  # output channels of a temporal pass
 _K4_ALIGN = 1024  # slack to align the slices to the 128-byte swizzle's period
 _SM_SMEM = 233_472  # shared memory of one SM; each resident block also reserves 1 KB
-NVCC_DEFINES = (f"-DFVT_K4_MAX_STAGES={_K4_MAX_STAGES}",)
+NVCC_DEFINES = (f"-DFVT_K4_STAGES={_K4_STAGES}",)
 
 # fvt_fused_block_bf16(x, w_sp, scale, bias, w_tmp, wsp_k, wt_k, y, ws, b, t, h, w,
 # cp, c, m, co, k, bm, mg, groups, ct, stages, smem_bytes, device, stream)
@@ -119,20 +119,16 @@ def _k4_smem(bm: int, mg: int, ct: int, k: int, stages: int) -> tuple[int, int]:
 
 def _make_plan(x_shape, k: int, m: int, co: int, sms: int, bm: int, mg: int,
                ct: int) -> FusedPlan | None:
-    """The plan of one tiling, or None if it does not fit: a ring of 3
-    slices, or 2 where 3 do not fit."""
+    """The plan of one tiling, or None if it does not fit."""
     b, _, h, w, _ = x_shape
-    for st in range(_K4_MAX_STAGES, 1, -1):
-        ring, smem = _k4_smem(bm, mg, ct, k, st)
-        if smem <= ops.SMEM_LIMIT:
-            break
-    else:
+    ring, smem = _k4_smem(bm, mg, ct, k, _K4_STAGES)
+    if smem > ops.SMEM_LIMIT:
         return None
     row_tiles, groups = -(-b * h * w // bm), -(-m // mg)
     per_sm = min(_SM_SMEM // (smem + 1024), 2 if bm == 64 else 1)  # 255 registers a thread
     waves = -(-row_tiles * groups // (sms * per_sm))
-    return FusedPlan(bm, mg, groups, ct, -(-co // ct), row_tiles, st, ring, smem, per_sm,
-                     waves)
+    return FusedPlan(bm, mg, groups, ct, -(-co // ct), row_tiles, _K4_STAGES, ring, smem,
+                     per_sm, waves)
 
 
 def _ring_steps(plan: FusedPlan, x_shape, k: int) -> tuple[int, int]:

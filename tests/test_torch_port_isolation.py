@@ -100,7 +100,7 @@ def test_fused_block_is_built_with_its_wrappers_tile_plan(tmp_path, monkeypatch)
     flags = _build._flags("fused_block")
     assert flags[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
     assert set(fused_block.NVCC_DEFINES) <= set(flags)
-    assert f"-DFVT_K4_MAX_STAGES={fused_block._K4_MAX_STAGES}" in flags
+    assert f"-DFVT_K4_STAGES={fused_block._K4_STAGES}" in flags
     assert _build._flags("conv2plus1d") == _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     a = _build._so_path("fused_block")

@@ -61,7 +61,7 @@ def _check_plan(plan, x_shape, k, m, co):
     ring, smem = fused._k4_smem(plan.bm, plan.mg, plan.ct, k, plan.stages)
     assert plan.ring_bytes == ring == k * plan.bm * plan.mg * 2
     assert plan.smem_bytes == smem <= ops.SMEM_LIMIT
-    assert 2 <= plan.stages <= fused._K4_MAX_STAGES
+    assert plan.stages == fused._K4_STAGES
 
 
 @pytest.mark.parametrize("x_shape,m,co,k", _all_plan_cases())
@@ -211,8 +211,8 @@ def test_plain_walk_in_the_plans_order_matches_plain_and_jax(shape, m, co, k, ti
 
 
 def test_no_plan_where_the_smallest_ring_exceeds_shared_memory():
-    """k = 25: even 64 rows x 64 channels x 25 frames (200 KB) and two
-    slices exceed the 227 KB a block may use."""
-    assert fused._k4_smem(64, 64, 64, 25, 2)[1] > ops.SMEM_LIMIT
+    """k = 25: even 64 rows x 64 channels x 25 frames (200 KB) and the
+    ring's slices exceed the 227 KB a block may use."""
+    assert fused._k4_smem(64, 64, 64, 25, fused._K4_STAGES)[1] > ops.SMEM_LIMIT
     assert fused.fused_plan((1, 4, 32, 32, 32), 25, 64, 64) is None
     assert not fused.fused_supported((1, 4, 32, 32, 32), 25, 64, 64)
