@@ -125,7 +125,8 @@ def _make_plan(x_shape, k: int, m: int, co: int, sms: int, bm: int, mg: int,
     if smem > ops.SMEM_LIMIT:
         return None
     row_tiles, groups = -(-b * h * w // bm), -(-m // mg)
-    per_sm = min(_SM_SMEM // (smem + 1024), 2 if bm == 64 else 1)  # 255 registers a thread
+    # registers: __launch_bounds__ lets two 64-row blocks share an SM, one 128-row block
+    per_sm = min(_SM_SMEM // (smem + 1024), 2 if bm == 64 else 1)
     waves = -(-row_tiles * groups // (sms * per_sm))
     return FusedPlan(bm, mg, groups, ct, -(-co // ct), row_tiles, _K4_STAGES, ring, smem,
                      per_sm, waves)
