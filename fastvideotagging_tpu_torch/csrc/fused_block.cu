@@ -76,8 +76,9 @@
 // flattened plane, the group's width as the GEMM's N, and epilogues from
 // registers.
 //
-// On an H100 SXM at 700 W it is still far from that bound (chip_smoke.py
-// phase 3c: about 4 ms per r2plus1d_18 forward at 8 clips, 7x the bound):
+// On an NVIDIA H100 80GB HBM3 at a 700 W limit it is still far from that
+// bound (chip_smoke.py phase 3c: 3.7-3.8 ms per r2plus1d_18 forward at 8
+// clips, 6.7x the bound):
 // a ring step costs about 0.2 us plus its bytes at the ~26 GB/s one SM
 // draws from L2, and the steps of a block run one after another (loads,
 // products, epilogues). Two producer warps or a producer warpgroup on

@@ -145,11 +145,12 @@ def _ring_steps(plan: FusedPlan, x_shape, k: int) -> tuple[int, int]:
     return t * -(-k * k * ops._ceil8(c) // _K4_BK), temporal * plan.co_passes
 
 
-# The cost model's constants, fitted on an H100 SXM (700 W) to a sweep of
-# every tiling at r2plus1d_18's four sites (chip_smoke.py phase 3c prints
-# the alternatives): a ring step costs a fixed time (its barrier, waits and
-# address arithmetic) plus its bytes at the rate one SM draws from L2, and
-# the blocks that share an SM share that rate.
+# The cost model's constants, fitted on an NVIDIA H100 80GB HBM3 (700 W
+# limit) to a sweep of every tiling at r2plus1d_18's four sites
+# (chip_smoke.py phase 3c prints the alternatives): a ring step costs a
+# fixed time (its barrier, waits and address arithmetic) plus its bytes at
+# the rate one SM draws from L2, and the blocks that share an SM share that
+# rate.
 _STEP_S = 0.2e-6
 _SM_L2_BYTES_S = 26e9
 _HBM_BYTES_S = 3.0e12
