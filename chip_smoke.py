@@ -12,11 +12,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             (16x112x112, bf16), at the serving clip batch (8) and the
             training batch (32): K1 (spatial 1xkxk) and K2 (temporal kx1x1)
             forward and as dx (the same kernels on the flipped,
-            channel-transposed weights, C and Co swapped; K1's dx as the
-            training step runs it, through ``spatial_conv_dx_cuda``, with
-            its tile plan, TFLOP/s and share of the bound printed, no path
-            site padded, and two launches bitwise equal where the plan
-            splits the contraction), K3 (the temporal
+            channel-transposed weights, C and Co swapped, as the training
+            step runs them, through ``spatial_conv_dx_cuda`` /
+            ``temporal_conv_dx_cuda``), each with its tile plan, TFLOP/s or
+            GB/s and share of the bound printed, no K1 path site padded,
+            two launches bitwise equal where the plan splits the
+            contraction, and at K2's stem (C = 45) the three ways to read
+            its 90-byte rows timed: the flat path, the kernel's pad pass and
+            F.pad before the launch, each beside the main kernel on
+            channels padded beforehand), K3 (the temporal
             weight gradient, two launches bitwise equal, with its plan,
             GB/s or TFLOP/s and share of the bound printed, and at the
             stem the time of its channel pad pass) — each against its
@@ -139,8 +143,8 @@ KERNELS = {
         source="fastvideotagging_tpu_torch/csrc/spatial_conv.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:94 (_spatial_pallas)"),
     "temporal_conv": dict(
-        name="temporal_conv_kernel", route="cuda",
-        source="fastvideotagging_tpu_torch/csrc/conv2plus1d.cu",
+        name="temporal_conv_hopper_kernel", route="cuda",
+        source="fastvideotagging_tpu_torch/csrc/spatial_conv.cu",
         replaces="fastvideotagging_tpu/ops/conv2plus1d.py:225 (_temporal_pallas)"),
     "temporal_dw": dict(
         name="temporal_dw_hopper_kernel", route="cuda",
@@ -266,9 +270,11 @@ def _ncdhw(x5: torch.Tensor) -> torch.Tensor:
 def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     """The kernel calls one conv site makes in a training step, each with
     its plain version and the library call for the same function:
-    (role, kernel key, run, plain, library, (bound ms, bound by), the run
-    on channels padded beforehand or None). The last is K3's at a C that
-    its pad pass pads (the stem's 45)."""
+    (role, kernel key, run, plain, library, (bound ms, bound by), other
+    runs of the same call by name). The last is filled at a C that is not a
+    multiple of 8 (the stem's 45): "prepadded", the same kernel on channels
+    padded beforehand (K3 and K2), and for K2 its other ways to read such
+    rows, "kernel" (its pad pass) and "torch" (F.pad before the launch)."""
     b, t, h, w, c = xs
     dev = torch.device(DEV)
     x5 = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
@@ -286,27 +292,33 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
         x, g = x5.reshape(b, t, h * w, c), g5.reshape(b, t, h * w, co)
         wt = (torch.randn((K, c, co), generator=gen, device=dev)
               / (K * c) ** 0.5).to(torch.bfloat16)
-        w_t = wt.flip(0).transpose(1, 2).contiguous()
         run, plain = ops.temporal_conv_cuda, ops.temporal_conv_plain
-        run_dx, plain_dx, w_dx = run, plain, w_t
+        # dx as the training step runs it: K2's weight layout built straight
+        # from the forward weight, the taps read in reverse
+        run_dx, plain_dx, w_dx = ops.temporal_conv_dx_cuda, ops.temporal_conv_dx_plain, wt
         w5, pad = wt[:, None, None], (K // 2, 0, 0)
     w_lib = w5.permute(4, 3, 0, 1, 2)  # (Co, C, kt, kh, kw)
+    xpad = torch.nn.functional.pad(x, (0, -c % 8)) if c % 8 else None
+    ragged = {}
+    if kernel == "temporal_conv" and c % 8:
+        ragged = {"prepadded": lambda: ops._k2_launch(xpad, wt, False)[0],
+                  **{way: (lambda way=way: ops._k2_launch(x, wt, False, way)[0])
+                     for way in ops.K2_RAGGED if way != "flat"}}
     cases = [
         ("fwd", kernel, lambda: run(x, wt), lambda: plain(x, wt),
-         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co), None),
+         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co), ragged),
         ("dx", kernel, lambda: run_dx(g, w_dx), lambda: plain_dx(g, w_dx),
          lambda: torch.nn.grad.conv3d_input(_ncdhw(x5).shape, w_lib, _ncdhw(g5), padding=pad),
-         bound(kernel, (b, t, h, w, co), c), None),
+         bound(kernel, (b, t, h, w, co), c), {}),
     ]
     if kernel == "temporal_conv":
-        xpad = torch.nn.functional.pad(x, (0, -c % 8)) if c % 8 else None
         cases.append(
             ("dw", "temporal_dw", lambda: ops.temporal_dw_cuda(x, g, K),
              lambda: ops.temporal_dw_plain(x, g, K),
              lambda: torch.nn.grad.conv3d_weight(_ncdhw(x5), w_lib.shape, _ncdhw(g5),
                                                  padding=pad),
              bound("temporal_dw", xs, co),
-             (lambda: ops.temporal_dw_cuda(xpad, g, K)) if c % 8 else None))
+             {"prepadded": lambda: ops.temporal_dw_cuda(xpad, g, K)} if c % 8 else {}))
     return cases
 
 
@@ -335,7 +347,7 @@ def phase_kernels(card: str) -> dict:
     failures = []
     for batch in (CLIP_BATCH, TRAIN_BATCH):
         for site, kernel, xs, co, n in path_sites(batch):
-            for role, key, run, plain, lib, (bound_ms, by), prepadded in site_cases(
+            for role, key, run, plain, lib, (bound_ms, by), others in site_cases(
                     kernel, xs, co, gen):
                 tol = DW_TOL if role == "dw" else KERNEL_TOL
                 got = run()
@@ -348,42 +360,59 @@ def phase_kernels(card: str) -> dict:
                 max_rel = max_abs / scale
                 lib_rel = (libout.float() - ref.float()).abs().max().item() / scale
                 ok = bool(torch.isfinite(got).all().item()) and max_rel <= tol
-                note, plan, pad_ms = "", None, None
-                if key == "spatial_conv":
-                    # the (N, H, W, C) K1 reads and the channels it writes
-                    cin, cout = (xs[-1], co) if role == "fwd" else (co, xs[-1])
+                note, plan, pad_ms, ragged_ms = "", None, None, None
+                # the channels the kernel reads and writes, and its work
+                cin, cout = (xs[-1], co) if role != "dx" else (co, xs[-1])
+                flops, nbytes = work(key, xs[:-1] + (cin,), cout)
+                if key == "spatial_conv":  # x as (N, H, W, C)
                     plan = ops.spatial_plan((xs[0] * xs[1], xs[2], xs[3], cin), cout, K)
                     if cin % 8:  # a path site the wrapper would pad
                         ok = False
                         note += " PADDED"
+                elif key == "temporal_conv":  # x as (B, T, S, C)
+                    plan = ops.temporal_plan((xs[0], xs[1], xs[2] * xs[3], cin), cout, K)
+                elif key == "temporal_dw":
+                    plan = ops.temporal_dw_plan((xs[0], xs[1], xs[2] * xs[3], xs[4]), co, K)
                 # deterministic: no atomics, partial sums added in a fixed order
-                if role == "dw" or (plan and plan.splits > 1):
+                if key == "temporal_dw" or plan.splits > 1:
                     same = torch.equal(got, run())
                     ok = ok and same
                     note += f" two launches bitwise equal={same}"
-                if key == "temporal_dw":
-                    plan = ops.temporal_dw_plan((xs[0], xs[1], xs[2] * xs[3], xs[4]), co, K)
+                for way, other in others.items():  # the other ways agree with the plain version
+                    out = other()[tuple(slice(0, n) for n in ref.shape)]  # K3's padded C
+                    err = (out.float() - ref.float()).abs().max().item() / scale
+                    ok = ok and err <= tol
+                    note += f" {way} max_rel_err={err:.3e}"
                 del got, ref, libout
                 ms = time_ms(run, iters=20)
                 plain_ms = time_ms(plain, iters=3, warmup=1)
                 library_ms = time_ms(lib, iters=20)
-                if key == "spatial_conv":
-                    rate = spatial_flops(xs[:-1] + (cin,), cout) / ms / 1e9
+                rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
+                        else f"{nbytes / ms / 1e6:.1f} GB/s")
+                if key in ("spatial_conv", "temporal_conv"):
                     note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles x{plan.splits} "
-                             f"kappa chunks, {plan.grid} blocks, {plan.smem_bytes} B shared; "
-                             f"{rate:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound")
-                elif plan:  # K3: the plan, the rate of what bounds it, the share
-                    flops, nbytes = work(key, xs, co)
-                    rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
-                            else f"{nbytes / ms / 1e6:.1f} GB/s")
+                             f"kappa chunks, {plan.grid} blocks, {plan.blocks_per_sm} a SM, "
+                             f"{plan.smem_bytes} B shared, {plan.cp} channels a tap"
+                             f"{' (flat)' if plan.flat else ''}; {rate}, "
+                             f"{bound_ms / ms:.3f} of the bound")
+                else:  # K3: the plan, the rate of what bounds it, the share
                     note += (f" plan: BN={plan.bn} x{plan.c_tiles} c tiles x{plan.co_tiles} co "
                              f"tiles x{plan.tap_groups} tap groups x{plan.chunks} chunks of "
                              f"{plan.steps_per_chunk} slabs of {plan.tile_s} rows, {plan.grid} "
                              f"blocks, {plan.smem_bytes} B shared, x read {plan.x_reads}x, g "
                              f"{plan.g_reads}x; {rate}, {bound_ms / ms:.3f} of the bound")
-                    if prepadded:  # K3's pad pass: the same call on x padded beforehand
-                        pad_ms = ms - time_ms(prepadded, iters=20)
+                if others:  # the same call on channels padded beforehand, and the other ways
+                    other_ms = {way: time_ms(fn, iters=20) for way, fn in others.items()}
+                    pre = other_ms.pop("prepadded")
+                    if key == "temporal_dw":
+                        pad_ms = ms - pre
                         note += f"; of which the channel pad pass {pad_ms:.4f} ms"
+                    else:
+                        ragged_ms = dict(flat=ms, prepadded=pre, **other_ms)
+                        note += (f"; 90-byte rows: flat {ms:.4f} ms (repack {ms - pre:.4f}), "
+                                 + ", ".join(f"{way} {t:.4f} ms ({way} pad {t - pre:.4f})"
+                                             for way, t in other_ms.items())
+                                 + f", main kernel on x padded beforehand {pre:.4f} ms")
                 print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
                       f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
                       f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "
@@ -409,8 +438,8 @@ def phase_kernels(card: str) -> dict:
                     site=site, role=role, batch=batch, x=list(xs), co=co, launches=n,
                     max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
-                    **({"plan": plan._asdict()} if plan else {}),
-                    **({"pad_pass_ms": pad_ms} if pad_ms is not None else {})))
+                    plan=plan._asdict(), **({"pad_pass_ms": pad_ms} if pad_ms is not None else {}),
+                    **({"ragged_ms": ragged_ms} if ragged_ms else {})))
             torch.cuda.empty_cache()
     print(f"sums over launches ({card}):")
     for key, a in agg.items():

@@ -1,74 +1,96 @@
-// K1: the spatial 1 x k x k conv on Hopper, forward and dx.
+// K1 and K2: the spatial 1 x k x k and the temporal k x 1 x 1 conv on
+// Hopper, forward and dx, as one implicit GEMM over a general row geometry.
 //
-//   spatial_conv_hopper_kernel  replaces fastvideotagging_tpu/ops/conv2plus1d.py
+//   spatial_conv_hopper_kernel  (K1) replaces fastvideotagging_tpu/ops/conv2plus1d.py
 //                               _spatial_kernel / _spatial_pallas (TPU Pallas):
 //       y[n,h,w,co] = sum_{dh,dw,c} x[n, h+dh-p, w+dw-p, c] * W[dh,dw,c,co]
-//       x (N, H, W, C) bf16 -> y (N, H, W, Co) bf16, f32 accumulation,
-//       zeros outside the frame, p = k/2 (stride 1, odd k). dx is the same
-//       kernel on the incoming gradient with the taps flipped and the
-//       channels transposed (``flip``, below).
+//       x (N, H, W, C) bf16 -> y (N, H, W, Co) bf16.
+//   temporal_conv_hopper_kernel (K2) replaces fastvideotagging_tpu/ops/conv2plus1d.py
+//                               _temporal_kernel / _temporal_pallas (:200-248):
+//       y[b,t,s,co] = sum_{dt,c} x[b, t+dt-p, s, c] * W[dt,c,co]
+//       x (B, T, S, C) bf16 -> y (B, T, S, Co) bf16.
+//   Both: f32 accumulation, zeros outside the frame, p = k/2 (stride 1, odd
+//   k). dx is the same kernel on the incoming gradient with the taps read in
+//   reverse and the channels transposed (``flip``, below).
 //
-// One implicit GEMM. Rows are output pixels m = (n*H + h)*W + w, columns
-// output channels, and the contraction runs over kappa = tap*C + c with
-// tap = dh*k + dw. A first small kernel (spatial_conv_weight_kernel) lays
-// the forward weight out K-major, wk[co][tap][c], for dx straight from the
-// forward weight with the tap order reversed in the main kernel, and C is
-// zero-padded to a multiple of 8 (the wrapper pads x, this kernel wk), so a
-// 16-byte chunk of A (8 channels) lies inside one tap: each chunk works out
-// its own (tap, c) and source row m + (dh-p)*W + (dw-p). Slices of BK = 64
-// run over kappa straight through, with no per-tap rounding; only the last
-// slice of the whole contraction is ragged. Where the grid of tiles cannot
-// fill the card, the contraction is split over blocks into f32 partial
-// sums that spatial_conv_reduce_kernel adds in a fixed order.
+// Rows are m = (outer*A + a)*Bd + b with kA x kB taps; tap (da, db) reads
+// row m + (da-pA)*Bd + (db-pB), zero outside [0, A) x [0, Bd). K1 is
+// (A, Bd, kA, kB) = (H, W, k, k), K2 is (T, S, k, 1). Columns are output
+// channels, and the contraction runs over kappa = tap*cp + c, tap = da*kB +
+// db. A first small kernel (*_weight_kernel) lays the forward weight out
+// K-major, wk[co][tap][c] with c zero-padded to cp, a multiple of 8; for dx
+// straight from the forward weight, the main kernel reading the taps in
+// reverse. A 16-byte chunk of A (8 channels) then lies inside one tap: each
+// chunk works out its own (tap, c) and source row. Slices of BK = 64 run
+// over kappa straight through, with no per-tap rounding; only the last slice
+// of the whole contraction is ragged. Where the grid of tiles cannot fill
+// the card, the contraction is split over blocks into f32 partial sums that
+// *_reduce_kernel adds in a fixed order.
 //
 // Tile and ring. One block of 256 threads (two warpgroups) owns BM = 128
 // output rows and BN output channels, BN in {64, 128, 144}: the plan
-// (ops/conv2plus1d.py::spatial_plan) takes BN to cover Co or to divide it,
-// so that A is gathered as few times as the grid allows. Loads are 16-byte
-// cp.async.cg into a ring of STAGES = 3 slices (compiled in from the
-// plan), two of them in flight while the tensor cores work on the third;
-// a row outside the frame or past M, a slice past the contraction and a
-// weight row past Co load with src-size 0, so the hardware writes zeros
-// with no branch around the store. A and W slices are K-major, 128 bytes a
-// row, in the 128-byte swizzle (chunk ^ row % 8) that a wgmma shared-memory
-// descriptor names; the stages are 1024-byte aligned. At BN = 144 a block
-// takes 103 KB and at most 128 registers a thread, so two blocks share an
-// SM (three at BN = 64): one block's prologue, epilogue and waits overlap
-// the other's products. On the card this beat a 4- or 5-slice ring with
-// one block per SM and one product group left running across slices.
+// (ops/conv2plus1d.py::spatial_plan / temporal_plan, one rule) takes BN to
+// cover Co or to divide it, so that A is gathered as few times as the grid
+// allows. Loads are 16-byte cp.async.cg into a ring of STAGES = 3 slices
+// (compiled in from the plan), two of them in flight while the tensor cores
+// work on the third; a row outside the frame or past M, a slice past the
+// contraction and a weight row past Co load with src-size 0, so the
+// hardware writes zeros with no branch around the store. A and W slices are
+// K-major, 128 bytes a row, in the 128-byte swizzle (chunk ^ row % 8) that a
+// wgmma shared-memory descriptor names; the stages are 1024-byte aligned.
+// At BN = 144 a block takes 103 KB and at most 128 registers a thread, so
+// two blocks share an SM (three at BN = 64): one block's prologue, epilogue
+// and waits overlap the other's products. The geometry changes only the
+// global addresses of the loads: the shared layout and the descriptors are
+// K1's for every (kA, kB).
 //
-// The product (rung 2, wgmma): each warpgroup owns 64 of the 128 rows and
-// issues wgmma.mma_async.m64nBNk16 (bf16 x bf16 -> f32) with A and B both
-// read from the swizzled slices through shared-memory descriptors: fence,
-// the four k16 steps of a slice, commit, issue the next load, wait. The
-// epilogue rounds the f32 accumulators to bf16 in registers, stages them
-// in shared memory once every load has landed and every product is done,
-// and stores 16 bytes at a time (2 where Co % 8 != 0), masked at the M and
-// Co edges.
+// The product: each warpgroup owns 64 of the 128 rows and issues
+// wgmma.mma_async.m64nBNk16 (bf16 x bf16 -> f32) with A and B both read from
+// the swizzled slices through shared-memory descriptors: fence, the four k16
+// steps of a slice, commit, issue the next load, wait. The epilogue rounds
+// the f32 accumulators to bf16 in registers, stages them in shared memory
+// once every load has landed and every product is done, and stores 16 bytes
+// at a time, masked at the M and Co edges. Where Co is not a multiple of 8
+// and one column tile covers it (the dx of K2's stem, Co = 45), the output
+// tile is one contiguous span of 128 * Co values, 16-byte aligned because m0
+// is a multiple of 128: it is staged packed and stored 16 bytes at a time.
 //
-// What the redesign does about the first K1 (the WMMA tile that K2 keeps
-// in csrc/conv2plus1d.cu), item by item: (1) WMMA 16x16x16 through
-// mma.sync -> wgmma, the only way to Hopper's full tensor-core rate; (2)
-// one register-staged shared stage with a barrier on each side of every
-// slice -> a cp.async ring with two slices loading and two blocks per SM;
-// (3) 128 x 64 tiles -> BN covers Co = 144 in one tile (was 3 tiles, 192
-// columns computed) and 1152 in 8 (was 18), so A is gathered once or a
-// few times; (4) 32-deep slices rounded up per tap -> kappa runs straight
-// through (dx at C = 144 computed 160 channels a tap); (5) an f32 epilogue
-// aliasing the stage -> bf16 rounded in registers, staged in the ring only
-// after the last product. Rung 1 of the same design (ldmatrix + mma.sync
-// m16n8k16 on the same ring and layout, 8 warps of 32 x BN/2) is in the
-// history of this file; wgmma replaced only its inner product.
+// Rows of C % 8 != 0 channels (K2's stem, C = 45: 90-byte rows that
+// cp.async cannot read 16 bytes at a time), the flat path (FLAT): cp = BK,
+// so a slice is one tap, and a tap's 128 shifted rows are one contiguous
+// span of 128 * C values. The block copies the span, from the 16-byte
+// boundary at or below its start, with 16-byte cp.async into the ring's A
+// slot (src-size 0 before the tensor, short at its end), and just before the
+// slice's product repacks it into a separate A tile in the swizzled layout,
+// zeroing channels C..63 and the rows outside the frame. x is read once per
+// tap with no padded copy; the contraction runs 64 channels a tap, but the
+// stem is bound by bytes. ``temporal_conv_pad_kernel`` (x padded into a
+// scratch tensor first) is the other way, kept for measuring it.
 //
-// What bounds it on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): operations,
-// at every r2plus1d_18 site, forward and dx. At clip_batch 8, counting the
-// taps that fall inside the frame: stage 1 (8x16x56x56, 64 -> 144) 65.0
-// GFLOP -> 65.7 us; stage 2 (28x28, 128 -> 288) 31.7 GFLOP -> 32.1 us;
-// stage 3 (14x14, 256 -> 576) 15.1 GFLOP -> 15.3 us; stage 4 (7x7, 512 ->
-// 1152) 6.8 GFLOP -> 6.9 us (x 4 / 3 / 3 / 3 launches a forward: 0.426 ms);
-// dx the same operations with C and Co swapped. The kernel also computes
-// the taps that fall into the zero padding (2.4 % more at stage 1, 22 % at
-// stage 4).
+// What bounds them on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s), counting
+// the taps inside the input and each input and output byte once, at
+// r2plus1d_18's sites at clip_batch 8: K1, operations at every site: stage 1
+// (8x16x56x56, 64 -> 144) 65.7 us, stage 2 32.1, stage 3 15.3, stage 4 6.9
+// (x 4 / 3 / 3 / 3 a forward: 0.426 ms); dx the same with C and Co swapped.
+// K2: bytes at the stem (8x16x3136, 45 -> 64) 26.1 us, stage 1 (144 -> 64)
+// 49.9 and stage 2 (8x8x784, 288 -> 128) 12.5; operations at stage 3
+// (8x4x196, 576 -> 256) 4.7 and stage 4 (8x2x49, 1152 -> 512) 1.9 (x 1 / 4 /
+// 3 / 3 / 3 a forward: 0.283 ms).
+//
+// What K2's design does about its first version (PR 2's WMMA tile, in the
+// history of csrc/conv2plus1d.cu), item by item: (1) WMMA 16x16x16 through
+// mma.sync -> wgmma; (2) one register-staged shared stage with a barrier on
+// each side of every slice -> the cp.async ring, two slices loading, two or
+// three blocks per SM; (3) BN = 64 fixed -> BN covers or divides Co (A
+// gathered once at Co <= 144, was 2x at 128, 4x at 256, 8x at 512; the dx
+// at Co = 144 in one tile, was 3 tiles and 192 columns), and the contraction
+// split over blocks where the tiles cannot fill the card (stage 4 at 8
+// clips: 28 tiles); (4) BK = 32 rounded up per tap -> kappa straight
+// through; (5) 2-byte scalar paths at C = 45 / Co = 45 -> the flat span and
+// the packed 16-byte store; (6) an f32 epilogue through shared memory ->
+// bf16 rounded in registers; (7) every x row read k times, once per tap ->
+// still so: the tile re-reads its rows per tap, mostly from L2 (a block that
+// walks t and reads each frame once is the next rung).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,14 +111,29 @@ constexpr int ALIGN = 1024;             // the 128-byte swizzle repeats every 8 
 constexpr int kOutside = -(1 << 28);    // pixel coordinate of a row past M
 static_assert(STAGES >= 2, "a ring needs two stages");
 
-template <int BN>
+template <int BN, bool FLAT>
 struct Tile {
   static constexpr int B_STAGE = BN * BK * 2;
   static constexpr int STAGE = A_STAGE + B_STAGE;  // a multiple of ALIGN (BN % 8 == 0)
-  static constexpr int SMEM = STAGES * STAGE + ALIGN;  // + slack to align the base
+  static constexpr int RING = STAGES * STAGE;
+  // + the flat path's repacked A tile, + slack to align the base
+  static constexpr int SMEM = RING + (FLAT ? A_STAGE : 0) + ALIGN;
   static constexpr int LDS = BN + 8;    // bf16 per row of the epilogue's staging tile
   static_assert(BN % 16 == 0 && STAGE % ALIGN == 0, "BN must be a multiple of 16");
-  static_assert(BM * LDS * 2 <= STAGES * STAGE, "the staging tile fits the ring");
+  static_assert(BM * LDS * 2 <= RING, "the staging tile fits the ring");
+};
+
+// One launch: x (M, cx) rows, wk (Co, kA*kB, cp) K-major, y (M, Co); see
+// conv_taps_tile.
+struct TapsArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* wk;
+  __nv_bfloat16* y;
+  float* ws;
+  int64_t M;
+  int A, Bd, kA, kB;  // row geometry and taps
+  int cx, cp;         // channels of an x row; contraction width of a tap
+  int co, flip, n_tiles, splits;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -109,9 +146,15 @@ __device__ __forceinline__ uint32_t swz(int r, int j) {
   return static_cast<uint32_t>(r * 128 + ((j ^ (r & 7)) << 4));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+// 16 bytes to shared memory, the first `bytes` of them from src, the rest
+// zero.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+               :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  cp_async16(dst, src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -123,8 +166,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// The async proxy (wgmma) reads what cp.async wrote through the generic
-// proxy: each thread fences its own copies before the barrier.
+// The async proxy (wgmma) reads what cp.async and st.shared wrote through
+// the generic proxy: each thread fences its own writes before the barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -237,22 +280,21 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
   else wgmma_144(d, da, db);
 }
 
-// x (M, C) rows of pixels, wk (Co, k*k, C) K-major; y (M, Co). Block b
-// computes kappa chunk b % splits of column tile (b / splits) % n_tiles of
-// row tile b / (splits * n_tiles): the chunks and column tiles of one row
-// tile run side by side and share its A rows in L2. With one chunk the
-// block writes bf16 y; with more it writes its f32 partial sums to ws
-// (splits, M, Co), which spatial_conv_reduce_kernel adds up in chunk order.
-// SPLIT is splits > 1, so that the common case carries none of its code.
-// At BN = 64 the block fits 80 registers a thread and three blocks an SM.
-template <int BN, bool SPLIT>
-__global__ void __launch_bounds__(THREADS, (BN <= 64 ? 3 : 2))
-spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ wk,
-                           __nv_bfloat16* __restrict__ y, float* __restrict__ ws, int64_t M,
-                           int H, int W, int C, int Co, int k, int flip, int n_tiles,
-                           int splits) {
-  using T = Tile<BN>;
+// Block b computes kappa chunk b % splits of column tile (b / splits) %
+// n_tiles of row tile b / (splits * n_tiles): the chunks and column tiles
+// of one row tile run side by side and share its A rows in L2. With one
+// chunk the block writes bf16 y; with more it writes its f32 partial sums
+// to ws (splits, M, Co), which the reduce kernel adds up in chunk order.
+// SPLIT is splits > 1 and FLAT the flat path (cx % 8 != 0, cp == BK), so
+// that the common case carries none of their code.
+template <int BN, bool SPLIT, bool FLAT>
+__device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
+  using T = Tile<BN, FLAT>;
+  const __nv_bfloat16* __restrict__ x = args.x;
+  const __nv_bfloat16* __restrict__ wk = args.wk;
+  const int64_t M = args.M;
+  const int A = args.A, Bd = args.Bd, kB = args.kB, cx = args.cx, C = args.cp;
+  const int Co = args.co, n_tiles = args.n_tiles, splits = args.splits;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
@@ -265,7 +307,7 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   const int tile = SPLIT ? blockIdx.x / splits : blockIdx.x;
   const int64_t m0 = static_cast<int64_t>(tile / n_tiles) * BM;
   const int n0 = (tile % n_tiles) * BN;
-  const int kk = k * k, p = k / 2;
+  const int kk = args.kA * kB, pA = args.kA / 2, pB = kB / 2;
   const int K = kk * C;
   const int KT = (K + BK - 1) / BK;
   // this block's slices of the contraction: [kt0, kt0 + NK)
@@ -274,43 +316,65 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
       SPLIT ? static_cast<int>(static_cast<int64_t>(split + 1) * KT / splits) - kt0 : KT;
 
   // Loader: thread tid moves chunk j = tid % 8 of rows tid / 8 + 32 q, in
-  // A (4 rows) and in the weight slice (BN / 32 rows, rounded up).
+  // A (4 rows) and in the weight slice (BN / 32 rows, rounded up); the flat
+  // path repacks the same chunks. (pa, pb): the row's coordinates along the
+  // two axes of the geometry.
   const int j = tid & 7;
   const int r0 = tid >> 3;
-  int ph[4], pw[4];
+  int pa[4], pb[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int64_t m = m0 + r0 + 32 * q;
     if (m < M) {
-      pw[q] = static_cast<int>(m % W);
-      ph[q] = static_cast<int>((m / W) % H);
+      pb[q] = static_cast<int>(m % Bd);
+      pa[q] = static_cast<int>((m / Bd) % A);
     } else {
-      ph[q] = pw[q] = kOutside;
+      pa[q] = pb[q] = kOutside;
     }
   }
-  const __nv_bfloat16* xrow = x + (m0 + r0) * C;        // row r0's pixel
+  const __nv_bfloat16* xrow = x + (m0 + r0) * cx;        // row r0's pixel
   const __nv_bfloat16* wrow = wk + static_cast<int64_t>(n0 + r0) * K;
 
   // The loads walk kappa in order, one slice a call: this thread's chunk
   // starts at kappa = kt0 * BK + j * 8 and moves on by BK, its (tap, c) and
-  // the tap's (dh, dw) carried along instead of divided out again.
+  // the tap's (da, db) carried along instead of divided out again.
   const int kap0 = kt0 * BK + j * 8;
   int ld_tap = kap0 / C;
   int ld_c = kap0 - ld_tap * C;
-  int ld_dh = ld_tap / k, ld_dw = ld_tap % k;
+  int ld_da = ld_tap / kB, ld_db = ld_tap % kB;
+  // The flat path's span of slice kt (= tap kt): x's values from e0 on, 128
+  // rows of cx, copied from the 16-byte boundary ea <= e0.
+  auto flat_span = [&](int kt, int64_t& e0, int64_t& ea) {
+    const int da = kt / kB - pA, db = kt % kB - pB;
+    e0 = (m0 + static_cast<int64_t>(da) * Bd + db) * cx;
+    ea = (e0 >> 3) << 3;  // floor, also below 0
+  };
   auto load = [&](int s) {
     const bool kin = ld_tap < kk;
-    const int dh = ld_dh - p, dw = ld_dw - p;
-    const int64_t shift = (static_cast<int64_t>(dh) * W + dw) * C + ld_c;
+    const int da = ld_da - pA, db = ld_db - pB;
     const uint32_t sa = base + s * T::STAGE;
+    if constexpr (FLAT) {  // the span into the A slot, 16 bytes a chunk
+      int64_t e0, ea;
+      flat_span(ld_tap, e0, ea);
+      const int64_t total = M * cx;
+      const int chunks = static_cast<int>((e0 - ea + BM * cx + 7) >> 3);
+      for (int i = tid; i < chunks; i += THREADS) {
+        const int64_t e = ea + 8 * i;
+        const int64_t left = total - e;
+        const int bytes = (e < 0 || left <= 0) ? 0 : (left >= 8 ? 16 : static_cast<int>(2 * left));
+        cp_async16(sa + 16 * i, bytes ? x + e : x, bytes);
+      }
+    } else {
+      const int64_t shift = (static_cast<int64_t>(da) * Bd + db) * C + ld_c;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int hh = ph[q] + dh, ww = pw[q] + dw;
-      const bool ok = kin && hh >= 0 && hh < H && ww >= 0 && ww < W;
-      const __nv_bfloat16* src = ok ? xrow + static_cast<int64_t>(32 * q) * C + shift : x;
-      cp_async16(sa + swz(r0 + 32 * q, j), src, ok);
+      for (int q = 0; q < 4; ++q) {
+        const int aa = pa[q] + da, bb = pb[q] + db;
+        const bool ok = kin && aa >= 0 && aa < A && bb >= 0 && bb < Bd;
+        const __nv_bfloat16* src = ok ? xrow + static_cast<int64_t>(32 * q) * C + shift : x;
+        cp_async16(sa + swz(r0 + 32 * q, j), src, ok);
+      }
     }
-    const int wcol = (flip ? kk - 1 - ld_tap : ld_tap) * C + ld_c;
+    const int wcol = (args.flip ? kk - 1 - ld_tap : ld_tap) * C + ld_c;
     const uint32_t sb = sa + A_STAGE;
 #pragma unroll
     for (int q = 0; q < (BN + 31) / 32; ++q) {
@@ -323,10 +387,39 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
     }
     for (ld_c += BK; ld_c >= C; ld_c -= C) {
       ++ld_tap;
-      if (++ld_dw == k) {
-        ld_dw = 0;
-        ++ld_dh;
+      if (++ld_db == kB) {
+        ld_db = 0;
+        ++ld_da;
       }
+    }
+  };
+
+  // The flat path's A tile of slice kt from its span in stage s: chunk j
+  // (channels 8j .. 8j+7) of rows r0 + 32 q, zero past cx and outside the
+  // frame.
+  const uint32_t flat_a = base + T::RING;
+  auto repack = [&](int s, int kt) {
+    int64_t e0, ea;
+    flat_span(kt, e0, ea);
+    const int da = kt / kB - pA, db = kt % kB - pB;
+    const unsigned short* span =
+        reinterpret_cast<const unsigned short*>(smem + s * T::STAGE) + (e0 - ea);
+    unsigned char* dst = smem + T::RING;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = r0 + 32 * q;
+      const int aa = pa[q] + da, bb = pb[q] + db;
+      const bool ok = aa >= 0 && aa < A && bb >= 0 && bb < Bd;
+      const unsigned short* src = span + r * cx + j * 8;
+      uint32_t v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = j * 8 + 2 * u;
+        const uint32_t lo = (ok && c < cx) ? src[2 * u] : 0u;
+        const uint32_t hi = (ok && c + 1 < cx) ? src[2 * u + 1] : 0u;
+        v[u] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(dst + swz(r, j)) = make_uint4(v[0], v[1], v[2], v[3]);
     }
   };
 
@@ -338,7 +431,7 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
 
   auto compute = [&](int s) {
-    const uint32_t sa = base + s * T::STAGE + wg * 64 * 128;
+    const uint32_t sa = (FLAT ? flat_a : base + s * T::STAGE) + wg * 64 * 128;
     const uint32_t sb = base + s * T::STAGE + A_STAGE;
     fence_acc(acc);
     wgmma_fence();
@@ -355,7 +448,9 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   // before the barrier), then the warpgroup waits for its group. The other
   // block on the SM keeps the tensor cores busy over that wait and over
   // this block's prologue and epilogue. An empty commit keeps the cp.async
-  // group count steady at the tail.
+  // group count steady at the tail. The flat path repacks slice kt between
+  // two barriers (the first: its span has landed and the last product is
+  // done; the second: the A tile is written).
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < NK) load(s);
@@ -363,6 +458,10 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   }
   for (int kt = 0; kt < NK; ++kt) {
     cp_async_wait<STAGES - 2>();
+    if constexpr (FLAT) {
+      __syncthreads();
+      repack(kt % STAGES, kt0 + kt);
+    }
     fence_proxy_async();
     __syncthreads();
     compute(kt % STAGES);
@@ -378,8 +477,9 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   // Epilogue. Warp w of the warpgroup holds rows 16 (w % 4) .. +15 of the
   // group's 64: n8 block j in acc[4j .. 4j+3], rows lane/4 and lane/4 + 8.
   const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  __nv_bfloat16* __restrict__ y = args.y;
   if constexpr (SPLIT) {  // f32 partial sums, 8 bytes a store, straight from registers
-    float* out = ws + static_cast<int64_t>(split) * M * Co;
+    float* out = args.ws + static_cast<int64_t>(split) * M * Co;
 #pragma unroll
     for (int jn = 0; jn < BN / 8; ++jn) {
       const int col = n0 + jn * 8 + (lane & 3) * 2;
@@ -396,6 +496,26 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     }
+  } else if (Co % 8 != 0 && n_tiles == 1) {
+    // One column tile covers a ragged Co: rows m0.. of y are one span of
+    // rows * Co values, 16-byte aligned (m0 * Co * 2 is a multiple of 256).
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int col = jn * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = col + (u & 1), r = row + 8 * (u >> 1);
+        if (c < Co) st[r * Co + c] = __float2bfloat16_rn(acc[4 * jn + u]);
+      }
+    }
+    __syncthreads();
+    const int64_t left = M - m0;
+    const int n = static_cast<int>(left < BM ? left : BM) * Co;
+    __nv_bfloat16* out = y + m0 * Co;
+    for (int i = tid; i < n / 8; i += THREADS)
+      reinterpret_cast<uint4*>(out)[i] = reinterpret_cast<const uint4*>(st)[i];
+    for (int i = (n / 8) * 8 + tid; i < n; i += THREADS) out[i] = st[i];
   } else {  // bf16 in registers -> staging tile -> 16-byte stores
     __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
 #pragma unroll
@@ -425,11 +545,25 @@ spatial_conv_hopper_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// At BN = 64 a block fits 80 registers a thread and three blocks an SM
+// (two on the flat path, whose repacked A tile adds 16 KB).
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, (BN <= 64 ? 3 : 2))
+spatial_conv_hopper_kernel(const TapsArgs args) {
+  conv_taps_tile<BN, SPLIT, false>(args);
+}
+
+template <int BN, bool SPLIT, bool FLAT>
+__global__ void __launch_bounds__(THREADS, (BN <= 64 && !FLAT ? 3 : 2))
+temporal_conv_hopper_kernel(const TapsArgs args) {
+  conv_taps_tile<BN, SPLIT, FLAT>(args);
+}
+
 // y = bf16(sum over s of ws[s]), s in order: the same sums, bit for bit,
 // on every launch (no atomics). total = M * Co.
-__global__ void __launch_bounds__(THREADS)
-spatial_conv_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y,
-                           int64_t total, int splits) {
+__device__ __forceinline__ void reduce_partials(const float* __restrict__ ws,
+                                                __nv_bfloat16* __restrict__ y, int64_t total,
+                                                int splits) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
   if ((total & 3) == 0) {
@@ -454,20 +588,31 @@ spatial_conv_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restri
   }
 }
 
-// K1's weight layout, K-major with the contraction's channels zero-padded
-// to cp: wk[a][t][b], a < A out channels, t < k*k taps, b < cp, from the
-// forward weight w (k*k, cw, cow).
+__global__ void __launch_bounds__(THREADS)
+spatial_conv_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y,
+                           int64_t total, int splits) {
+  reduce_partials(ws, y, total, splits);
+}
+
+__global__ void __launch_bounds__(THREADS)
+temporal_conv_reduce_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ y,
+                            int64_t total, int splits) {
+  reduce_partials(ws, y, total, splits);
+}
+
+// The weight layout, K-major with the contraction's channels zero-padded
+// to cp: wk[a][t][b], a < A out channels, t < kk taps, b < cp, from the
+// forward weight w (kk, cw, cow).
 //   forward (dx = 0): A = cow, wk[a][t][b] = b < cw ? w[t][b][a] : 0, a
 //     transpose of each tap, through a 32 x 32 shared tile so that both
 //     sides move whole rows;
 //   dx (dx = 1): A = cw, wk[a][t][b] = b < cow ? w[t][a][b] : 0, rows
-//     copied as they are (the kernel reads the taps in reverse), 16 bytes
-//     a thread where cow % 8 == 0.
-// Grid (cp / 32, A / 32, k*k) rounded up, 32 x 8 threads.
-__global__ void __launch_bounds__(256)
-spatial_conv_weight_kernel(const unsigned short* __restrict__ w,
-                           unsigned short* __restrict__ wk, int kk, int cw, int cow, int cp,
-                           int dx) {
+//     copied as they are (the main kernel reads the taps in reverse), 16
+//     bytes a thread where cp == cow.
+// Grid (cp / 32, A / 32, kk) rounded up, 32 x 8 threads.
+__device__ __forceinline__ void weight_layout(const unsigned short* __restrict__ w,
+                                              unsigned short* __restrict__ wk, int kk, int cw,
+                                              int cow, int cp, int dx) {
   __shared__ unsigned short tile[32][33];
   const int t = blockIdx.z;
   const int b0 = blockIdx.x * 32, a0 = blockIdx.y * 32;
@@ -479,7 +624,7 @@ spatial_conv_weight_kernel(const unsigned short* __restrict__ w,
     const int64_t first =
         ((static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
             256 + threadIdx.x;
-    const int vec = cow % 8 == 0 ? 8 : 1;  // then cp == cow
+    const int vec = cp == cow ? 8 : 1;  // cp is a multiple of 8
     const int per_row = cp / vec;
     for (int64_t i = first; i < static_cast<int64_t>(A) * kk * per_row; i += threads) {
       const int64_t row = i / per_row;  // (a, t) of wk
@@ -506,15 +651,51 @@ spatial_conv_weight_kernel(const unsigned short* __restrict__ w,
   }
 }
 
+__global__ void __launch_bounds__(256)
+spatial_conv_weight_kernel(const unsigned short* __restrict__ w, unsigned short* __restrict__ wk,
+                           int kk, int cw, int cow, int cp, int dx) {
+  weight_layout(w, wk, kk, cw, cow, cp, dx);
+}
+
+__global__ void __launch_bounds__(256)
+temporal_conv_weight_kernel(const unsigned short* __restrict__ w, unsigned short* __restrict__ wk,
+                            int kk, int cw, int cow, int cp, int dx) {
+  weight_layout(w, wk, kk, cw, cow, cp, dx);
+}
+
+// x (rows, c) -> xp (rows, cp), channels c..cp-1 zero: one 16-byte store
+// a thread (the other way to take C % 8 != 0, beside the flat path).
+__global__ void __launch_bounds__(THREADS)
+temporal_conv_pad_kernel(const unsigned short* __restrict__ x, unsigned short* __restrict__ xp,
+                         int64_t rows, int c, int cp) {
+  const int per_row = cp / 8;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+       i < rows * per_row; i += stride) {
+    const int64_t r = i / per_row;
+    const int c0 = static_cast<int>(i - r * per_row) * 8;
+    uint32_t v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t lo = c0 + 2 * u < c ? x[r * c + c0 + 2 * u] : 0u;
+      const uint32_t hi = c0 + 2 * u + 1 < c ? x[r * c + c0 + 2 * u + 1] : 0u;
+      v[u] = lo | (hi << 16);
+    }
+    reinterpret_cast<uint4*>(xp)[i] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
 constexpr int kMaxDevices = 64;
+enum Kind { kSpatial, kTemporal };
 
 // Opts the instance in to its shared memory once per device and size (a
 // host call, not free), then launches it.
-template <int BN, bool SPLIT>
+template <Kind KIND, int BN, bool SPLIT, bool FLAT>
 cudaError_t start(unsigned blocks, int smem_bytes, int device, cudaStream_t s,
-                  const void* x, const void* w, void* y, void* ws, int64_t M, int h, int wd,
-                  int c, int co, int k, int flip, int n_tiles, int splits) {
-  auto kern = spatial_conv_hopper_kernel<BN, SPLIT>;
+                  const TapsArgs& args) {
+  void (*kern)(const TapsArgs);
+  if constexpr (KIND == kSpatial) kern = spatial_conv_hopper_kernel<BN, SPLIT>;
+  else kern = temporal_conv_hopper_kernel<BN, SPLIT, FLAT>;
   static int opted_in[kMaxDevices] = {};
   if (opted_in[device] < smem_bytes) {
     cudaError_t err =
@@ -522,38 +703,53 @@ cudaError_t start(unsigned blocks, int smem_bytes, int device, cudaStream_t s,
     if (err != cudaSuccess) return err;
     opted_in[device] = smem_bytes;
   }
-  kern<<<blocks, THREADS, smem_bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws), M, h, wd, c, co, k, flip,
-      n_tiles, splits);
+  kern<<<blocks, THREADS, smem_bytes, s>>>(args);
   return cudaGetLastError();
 }
 
-template <int BN>
-int launch(const void* x, const void* w, void* y, void* ws, int64_t M, int h, int wd, int c,
-           int co, int k, int flip, int splits, int smem_bytes, int device, cudaStream_t s) {
-  if (smem_bytes < Tile<BN>::SMEM || device < 0 || device >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (co + BN - 1) / BN;
-  const int64_t blocks = (M + BM - 1) / BM * n_tiles * splits;
+template <Kind KIND, int BN, bool FLAT>
+int launch(const TapsArgs& args, int smem_bytes, int device, cudaStream_t s) {
+  if (smem_bytes < Tile<BN, FLAT>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (args.M + BM - 1) / BM * args.n_tiles * args.splits;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const unsigned nb = static_cast<unsigned>(blocks);
-  cudaError_t err =
-      splits > 1 ? start<BN, true>(nb, smem_bytes, device, s, x, w, y, ws, M, h, wd, c, co, k,
-                                   flip, n_tiles, splits)
-                 : start<BN, false>(nb, smem_bytes, device, s, x, w, y, ws, M, h, wd, c, co,
-                                    k, flip, n_tiles, splits);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t total = M * co;
+  cudaError_t err = args.splits > 1 ? start<KIND, BN, true, FLAT>(nb, smem_bytes, device, s, args)
+                                    : start<KIND, BN, false, FLAT>(nb, smem_bytes, device, s, args);
+  if (err != cudaSuccess || args.splits == 1) return static_cast<int>(err);
+  const int64_t total = args.M * args.co;
   const int64_t items = (total & 3) == 0 ? total / 4 : total;  // float4s or floats
   const int64_t want = (items + THREADS - 1) / THREADS;
   const int reduce_blocks = static_cast<int>(want < 4096 ? want : 4096);
-  spatial_conv_reduce_kernel<<<reduce_blocks, THREADS, 0, s>>>(
-      static_cast<const float*>(ws), static_cast<__nv_bfloat16*>(y), total, splits);
+  auto reduce = KIND == kSpatial ? spatial_conv_reduce_kernel : temporal_conv_reduce_kernel;
+  reduce<<<reduce_blocks, THREADS, 0, s>>>(args.ws, args.y, total, args.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The weight layout into wk, then the implicit GEMM (and the reduce) with
+// the plan's column tile; args.wk is wk, args.co the output channels.
+template <Kind KIND, bool FLAT>
+int run(const void* w, TapsArgs args, int cw, int cow, int dx, int bn, int smem_bytes,
+        int device, cudaStream_t s) {
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
+  const int kk = args.kA * args.kB;
+  const dim3 wgrid((args.cp + 31) / 32, (args.co + 31) / 32, kk);
+  auto layout = KIND == kSpatial ? spatial_conv_weight_kernel : temporal_conv_weight_kernel;
+  layout<<<wgrid, 256, 0, s>>>(static_cast<const unsigned short*>(w),
+                               reinterpret_cast<unsigned short*>(
+                                   const_cast<__nv_bfloat16*>(args.wk)),
+                               kk, cw, cow, args.cp, dx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  args.n_tiles = (args.co + bn - 1) / bn;
+  switch (bn) {
+    case 64: return launch<KIND, 64, FLAT>(args, smem_bytes, device, s);
+    case 128: return launch<KIND, 128, FLAT>(args, smem_bytes, device, s);
+    case 144: return launch<KIND, 144, FLAT>(args, smem_bytes, device, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
@@ -584,24 +780,53 @@ int fvt_spatial_conv_bf16(const void* x, const void* w, void* wk, void* y, void*
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t M = static_cast<int64_t>(n) * h * wd;
-  const int c = cp, flip = dx;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 wgrid((cp + 31) / 32, (co + 31) / 32, k * k);
-  spatial_conv_weight_kernel<<<wgrid, 256, 0, s>>>(static_cast<const unsigned short*>(w),
-                                                  static_cast<unsigned short*>(wk), k * k, cw,
-                                                  cow, cp, dx);
-  err = cudaGetLastError();
+  const TapsArgs args{static_cast<const __nv_bfloat16*>(x),
+                      static_cast<const __nv_bfloat16*>(wk),
+                      static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+                      static_cast<int64_t>(n) * h * wd, h, wd, k, k, cp, cp, co, dx, 1, splits};
+  return run<kSpatial, false>(w, args, cw, cow, dx, bn, smem_bytes, device,
+                              reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Launches K2 the same way: w (k, cw, cow) the forward weight; dx = 0: y =
+// conv(x, w), x (b, t, s, cx) with cw channels (cx = cw, or cw zero-padded
+// to a multiple of 8), y (b, t, s, cow); dx = 1: x the incoming gradient
+// with cow channels, y (b, t, s, cw). cp is the contraction
+// width of a tap: cp = cx where cx % 8 == 0; else either the flat path (xp
+// null, cp = 64, cx < 64) or the pad pass (xp a (b*t*s, cp) scratch, cp =
+// cx rounded up to 8, which x is copied into first). wk (out channels, k,
+// cp) bf16 scratch; ws as for K1. The plan comes from
+// ops/conv2plus1d.py::temporal_plan.
+int fvt_temporal_conv_bf16(const void* x, const void* w, void* wk, void* xp, void* y, void* ws,
+                           long long b, int t, int s, int cx, int cp, int cw, int cow, int k,
+                           int dx, int bn, int stages, int splits, int smem_bytes, int device,
+                           void* stream) {
+  const int c_in = dx ? cow : cw, co = dx ? cw : cow;
+  const bool ragged = cx % 8 != 0;
+  const bool flat = ragged && xp == nullptr;
+  if (b <= 0 || t <= 0 || s <= 0 || cw <= 0 || cow <= 0 || k <= 0 || (k % 2) == 0 ||
+      cx < c_in || cx >= c_in + 8 || (cp % 8) != 0 || stages != STAGES || splits < 1 ||
+      (flat ? cp != BK || cx >= BK : cp != (cx + 7) / 8 * 8) || (!ragged && xp != nullptr) ||
+      (splits > 1 && !aligned16(ws)) || !aligned16(x) || !aligned16(w) || !aligned16(wk) ||
+      !aligned16(y) || !aligned16(xp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  switch (bn) {
-    case 64:
-      return launch<64>(x, wk, y, ws, M, h, wd, c, co, k, flip, splits, smem_bytes, device, s);
-    case 128:
-      return launch<128>(x, wk, y, ws, M, h, wd, c, co, k, flip, splits, smem_bytes, device, s);
-    case 144:
-      return launch<144>(x, wk, y, ws, M, h, wd, c, co, k, flip, splits, smem_bytes, device, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int64_t M = static_cast<int64_t>(b) * t * s;
+  if (xp != nullptr) {
+    const int64_t want = (M * (cp / 8) + THREADS - 1) / THREADS;
+    temporal_conv_pad_kernel<<<static_cast<int>(want < 8192 ? want : 8192), THREADS, 0, st>>>(
+        static_cast<const unsigned short*>(x), static_cast<unsigned short*>(xp), M, cx, cp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  const TapsArgs args{static_cast<const __nv_bfloat16*>(xp ? xp : x),
+                      static_cast<const __nv_bfloat16*>(wk),
+                      static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
+                      M, t, s, k, 1, flat ? cx : cp, cp, co, dx, 1, splits};
+  return flat ? run<kTemporal, true>(w, args, cw, cow, dx, bn, smem_bytes, device, st)
+              : run<kTemporal, false>(w, args, cw, cow, dx, bn, smem_bytes, device, st);
 }
 
 }  // extern "C"

@@ -4,9 +4,11 @@ package's ``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
 
 - ``spatial_conv_hopper_kernel`` (K1, csrc/spatial_conv.cu) replaces the
   TPU kernel ``_spatial_kernel`` / ``_spatial_pallas``: a stride-1
-  1 x k x k conv. Its tile plan has one source, ``spatial_plan``.
-- ``temporal_conv_kernel`` (K2, csrc/conv2plus1d.cu) replaces
+  1 x k x k conv.
+- ``temporal_conv_hopper_kernel`` (K2, csrc/spatial_conv.cu) replaces
   ``_temporal_kernel`` / ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
+  K1 and K2 are one implicit GEMM over a general row geometry; their tile
+  plans have one rule, ``_taps_plan`` (``spatial_plan`` / ``temporal_plan``).
 - ``temporal_dw_hopper_kernel`` (K3, csrc/temporal_dw.cu) replaces
   ``_temporal_dw_kernel`` / ``_temporal_dw``: the temporal conv's weight
   gradient. Its launch plan has one source, ``temporal_dw_plan``.
@@ -22,11 +24,10 @@ version.
 ``spatial_conv`` / ``temporal_conv`` are differentiable through two
 ``torch.autograd.Function``s, the counterparts of the JAX package's
 ``_spatial_op`` / ``_temporal_op``: dx is the same forward kernel on the
-flipped, channel-transposed weights (``spatial_conv_dx_cuda`` builds K1's
-weight layout for it straight from the forward weight); the temporal dw is
-K3; the spatial dw
-is k*k tap-sliced matmuls (XLA's in the JAX package, the matmul library's
-here).
+flipped, channel-transposed weights (``spatial_conv_dx_cuda`` /
+``temporal_conv_dx_cuda`` lay the weight out for it straight from the
+forward weight); the temporal dw is K3; the spatial dw is k*k tap-sliced
+matmuls (XLA's in the JAX package, the matmul library's here).
 
 Convs the kernels do not take (strided stage entries, the 3-channel stem,
 C < MIN_C) go to ``F.conv3d``, as the JAX package sends them to
@@ -70,21 +71,20 @@ _dw_lib = None
 # stages, splits, smem_bytes, device, stream)
 _K1_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 12
                 + [ctypes.c_void_p])
+# fvt_temporal_conv_bf16(x, w, wk, xp, y, ws, b, t, s, cx, cp, cw, cow, k, dx,
+# bn, stages, splits, smem_bytes, device, stream)
+_K2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 13
+                + [ctypes.c_void_p])
 
 
 def _kernels() -> types.SimpleNamespace:
-    """K1's entry point (csrc/spatial_conv.cu) and K2's (csrc/conv2plus1d.cu)."""
+    """K1's and K2's entry points (csrc/spatial_conv.cu)."""
     global _lib
     if _lib is None:
-        k1 = _build.load("spatial_conv").fvt_spatial_conv_bf16
-        k1.argtypes = _K1_ARGTYPES
-        k1.restype = ctypes.c_int
-        k2 = _build.load("conv2plus1d").fvt_temporal_conv_bf16
-        k2.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        k2.restype = ctypes.c_int
+        lib = _build.load("spatial_conv")
+        k1, k2 = lib.fvt_spatial_conv_bf16, lib.fvt_temporal_conv_bf16
+        k1.argtypes, k2.argtypes = _K1_ARGTYPES, _K2_ARGTYPES
+        k1.restype = k2.restype = ctypes.c_int
         _lib = types.SimpleNamespace(fvt_spatial_conv_bf16=k1, fvt_temporal_conv_bf16=k2)
     return _lib
 
@@ -145,23 +145,15 @@ def _route(kernel, plain, x: torch.Tensor, *args):
     return plain(x, *args)
 
 
-def _launch(fn, x, w, y, dims, k) -> None:
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), *dims, k,
-            x.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
-
-
 # ---------------------------------------------------------------------------
 # Spatial 1 x k x k conv
 # ---------------------------------------------------------------------------
 
 
-# K1's tile plan (csrc/spatial_conv.cu), its one source: the ring depth is
-# compiled in (NVCC_DEFINES, through _build), and each launch passes the
-# column tile, the kappa split and the shared-memory bytes that
-# spatial_plan sized.
+# K1's and K2's tile plan (csrc/spatial_conv.cu), its one source: the ring
+# depth is compiled in (NVCC_DEFINES, through _build), and each launch
+# passes the column tile, the kappa split and the shared-memory bytes that
+# _taps_plan sized.
 _K1_BM = 128  # output rows per block
 _K1_BK = 64  # contraction slice (128 bytes of bf16 a row)
 _K1_STAGES = 3  # slices in the cp.async ring (two blocks fit an SM)
@@ -169,24 +161,37 @@ _K1_BNS = (144, 128, 64)  # column tiles the kernel is built for, widest first
 _K1_ALIGN = 1024  # slack to align the ring to the 128-byte swizzle's period
 _K1_MIN_SPLIT_SLICES = 8  # a kappa chunk of a split contraction is at least this deep
 SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block may use (227 KB)
+SMEM_PER_SM = 233_472  # bytes of shared memory of one H100 SM for blocks (228 KB)
 SMS = 132  # streaming multiprocessors of an H100 SXM, for plans made off the card
 
 
-class SpatialPlan(NamedTuple):
+def _ceil8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+class TapsPlan(NamedTuple):
     bn: int  # output channels per block
     stages: int  # slices in the ring
     smem_bytes: int  # dynamic shared memory of one block
-    row_tiles: int  # blocks along the output pixels (128 rows each)
+    row_tiles: int  # blocks along the output rows (128 each)
     col_tiles: int  # blocks along the output channels (bn each)
     splits: int  # kappa chunks, each a block writing f32 partial sums (1: none)
+    cp: int  # contraction width of a tap: the input channels rounded up to 8 (64 when flat)
+    flat: bool  # K2's flat path: rows of C % 8 != 0 channels read as one span a tap
 
     @property
     def grid(self) -> int:
         return self.row_tiles * self.col_tiles * self.splits
 
+    @property
+    def blocks_per_sm(self) -> int:  # as the shared memory and the launch bounds allow
+        return min(3 if self.bn <= 64 and not self.flat else 2,
+                   SMEM_PER_SM // (self.smem_bytes + 1024))
 
-def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
-    """K1's launch plan for x (N, H, W, C) -> Co channels.
+
+def _taps_plan(rows: int, cp: int, co: int, taps: int, sms: int, flat: bool = False) -> TapsPlan:
+    """The launch plan of K1 or K2: ``rows`` output rows, a contraction of
+    ``taps`` taps of ``cp`` channels, ``co`` output channels.
 
     The column tile covers Co where it fits (the narrowest that does) and
     otherwise divides it (the widest that does), so that the A rows are
@@ -197,13 +202,12 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
     least wasteful one.
 
     Where those tiles are fewer than the ``sms`` the card has (at 8 clips:
-    stage 4, 7 row tiles, and the dx of stage 3, 49 x 2 tiles), the
-    contraction is split into chunks
-    of at least 8 slices, enough to fill the card: each block writes f32
-    partial sums, and a second kernel adds them in chunk order (no atomics:
-    two launches are bitwise equal)."""
-    n, h, w, c = x_shape
-    row_tiles = -(-n * h * w // _K1_BM)
+    K1's stage 4, 7 row tiles, and the dx of stage 3, 49 x 2 tiles; K2's
+    stages 3-4), the contraction is split into chunks of at least 8 slices,
+    enough to fill the card: each block writes f32 partial sums, and a
+    second kernel adds them in chunk order (no atomics: two launches are
+    bitwise equal)."""
+    row_tiles = -(-rows // _K1_BM)
     covering = [bn for bn in _K1_BNS if bn >= co]
     dividing = [bn for bn in _K1_BNS if co % bn == 0]
     if covering:
@@ -213,11 +217,35 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> SpatialPlan:
     else:
         bn = min(_K1_BNS, key=lambda b: (-(-co // b) * b - co, -b))
     col_tiles = -(-co // bn)
-    slices = -(-k * k * (-(-c // 8) * 8) // _K1_BK)
+    slices = -(-taps * cp // _K1_BK)
     tiles = row_tiles * col_tiles
     splits = max(1, min(-(-sms // tiles), slices // _K1_MIN_SPLIT_SLICES))
-    smem = _K1_STAGES * (_K1_BM + bn) * _K1_BK * 2 + _K1_ALIGN
-    return SpatialPlan(bn, _K1_STAGES, smem, row_tiles, col_tiles, splits)
+    smem = (_K1_STAGES * (_K1_BM + bn) + (_K1_BM if flat else 0)) * _K1_BK * 2 + _K1_ALIGN
+    return TapsPlan(bn, _K1_STAGES, smem, row_tiles, col_tiles, splits, cp, flat)
+
+
+def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> TapsPlan:
+    """K1's launch plan for x (N, H, W, C) -> Co channels (``_taps_plan``):
+    k*k taps of C rounded up to 8."""
+    n, h, w, c = x_shape
+    return _taps_plan(n * h * w, _ceil8(c), co, k * k, sms)
+
+
+# K2 reads rows whose channels are not a multiple of 8 (the stem's C = 45)
+# as one span a tap where C < 64 ("flat"); "kernel" copies x channel-padded
+# into a scratch tensor first (the kernel's pad pass), "torch" pads it with
+# F.pad before the launch. The flat path was the fastest at the stem (PERF.md).
+K2_RAGGED = ("flat", "kernel", "torch")
+
+
+def temporal_plan(x_shape, co: int, k: int, sms: int = SMS, ragged: str = "flat") -> TapsPlan:
+    """K2's launch plan for x (B, T, S, C) -> Co channels (``_taps_plan``):
+    k taps of C rounded up to 8, or, on the flat path (C % 8 != 0, C < 64),
+    of 64 channels: a slice is one tap, and the block repacks its span into
+    a fourth A tile of shared memory."""
+    b, t, s, c = x_shape
+    flat = ragged == "flat" and c % 8 != 0 and c < _K1_BK
+    return _taps_plan(b * t * s, _K1_BK if flat else _ceil8(c), co, k, sms, flat)
 
 
 def _pad_channels(x: torch.Tensor) -> torch.Tensor:
@@ -227,18 +255,31 @@ def _pad_channels(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, pad)) if pad else x
 
 
-def spatial_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
-    """The plain version of K1's weight layout (csrc/spatial_conv.cu,
-    ``spatial_conv_weight_kernel``): the weight K-major, (out channel, tap,
-    in channel) contiguous, the in channels zero-padded to a multiple of 8.
+def _weight_layout_plain(w: torch.Tensor, dx: bool, cp: int | None = None) -> torch.Tensor:
+    """The plain version of K1's and K2's weight layout (csrc/spatial_conv.cu,
+    ``weight_layout``): w (taps, C, Co) K-major, (out channel, tap, in
+    channel) contiguous, the in channels zero-padded to cp (a multiple of 8
+    by default).
 
-    Forward: w (k, k, C, Co) -> (Co, k*k, C). dx: (C, k*k, Co) in the
-    forward's tap order, one copy of w with no flipped intermediate; K1
-    reads the taps in reverse."""
+    Forward: (Co, taps, C). dx: (C, taps, Co) in the forward's tap order,
+    one copy of w with no flipped intermediate; the kernel reads the taps in
+    reverse."""
+    wk = w.permute(1, 0, 2) if dx else w.permute(2, 0, 1)
+    pad = (cp if cp is not None else _ceil8(wk.shape[-1])) - wk.shape[-1]
+    return F.pad(wk, (0, pad)).contiguous()
+
+
+def spatial_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
+    """K1's weight layout: w (k, k, C, Co) -> (Co, k*k, C) forward, (C,
+    k*k, Co) for dx (``_weight_layout_plain``)."""
     k, _, c, co = w.shape
-    wk = (w.reshape(k * k, c, co).permute(1, 0, 2) if dx
-          else w.permute(3, 0, 1, 2).reshape(co, k * k, c))
-    return _pad_channels(wk).contiguous()
+    return _weight_layout_plain(w.reshape(k * k, c, co), dx)
+
+
+def temporal_weight_layout_plain(w: torch.Tensor, dx: bool, cp: int | None = None) -> torch.Tensor:
+    """K2's weight layout: w (k, C, Co) -> (Co, k, cp) forward, (C, k, cp)
+    for dx (``_weight_layout_plain``); cp = 64 on the flat path."""
+    return _weight_layout_plain(w, dx, cp)
 
 
 @functools.lru_cache(maxsize=None)
@@ -391,16 +432,54 @@ def spatial_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
+def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool, ragged: str = "flat"):
+    """K2 on x (B, T, S, ·) with the forward weight w (k, C, Co): the conv
+    (x has C channels) or its dx (x has Co). ``ragged`` picks how channels
+    that are not a multiple of 8 are read (``K2_RAGGED``). Returns y and the
+    K-major weight the kernel laid out (its scratch)."""
+    k, cw, cow = w.shape
+    c_out = cw if dx else cow
+    if ragged == "torch":
+        x = _pad_channels(x)
+    # a view into a larger buffer: the kernel reads 16 bytes at a time
+    x = x.clone() if x.data_ptr() % 16 else x
+    w = w.clone() if w.data_ptr() % 16 else w
+    b, t, s, cx = x.shape
+    plan = temporal_plan(x.shape, c_out, k, _sm_count(x.device), ragged)
+    xp = (torch.empty((b * t * s, plan.cp), dtype=x.dtype, device=x.device)
+          if cx % 8 and not plan.flat else None)
+    wk = torch.empty((c_out, k, plan.cp), dtype=x.dtype, device=x.device)
+    y = torch.empty((b, t, s, c_out), dtype=x.dtype, device=x.device)
+    ws = (torch.empty((plan.splits, b * t * s, c_out), dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _kernels().fvt_temporal_conv_bf16(
+        x.data_ptr(), w.data_ptr(), wk.data_ptr(), *(a.data_ptr() if a is not None else None
+                                                     for a in (xp, y, ws)),
+        b, t, s, cx, plan.cp, cw, cow, k, int(dx), plan.bn, plan.stages, plan.splits,
+        plan.smem_bytes, x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"fvt_temporal_conv_bf16 launch failed: CUDA error {rc}")
+    launch_counts["temporal_conv"] += 1
+    return y, wk
+
+
 def temporal_conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K2: x (B, T, S, C), w (k, C, Co), both bf16 contiguous on CUDA ->
     (B, T, S, Co) bf16. Stride 1, zero rows beyond the T edges."""
     k = w.shape[0]
-    b, t, s, c = x.shape
-    _check_kernel_args(x, w, 4, (k, c, w.shape[-1]))
-    y = torch.empty((b, t, s, w.shape[-1]), dtype=x.dtype, device=x.device)
-    _launch(_kernels().fvt_temporal_conv_bf16, x, w, y, (b, t, s, c, w.shape[-1]), k)
-    launch_counts["temporal_conv"] += 1
-    return y
+    _check_kernel_args(x, w, 4, (k, x.shape[-1], w.shape[-1]))
+    return _k2_launch(x, w, dx=False)[0]
+
+
+def temporal_conv_dx_cuda(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx of K2's forward with weight w (k, C, Co), on K2: g (B, T, S, Co),
+    w, both bf16 contiguous on CUDA -> (B, T, S, C) bf16. The same conv as
+    ``temporal_conv_cuda(g, w.flip(0).transpose(1, 2))``, with no flipped
+    copy of w."""
+    k = w.shape[0]
+    _check_kernel_args(g, w, 4, (k, w.shape[1], g.shape[-1]))
+    return _k2_launch(g, w, dx=True)[0]
 
 
 def temporal_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -416,6 +495,12 @@ def temporal_conv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def temporal_conv_dx_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``temporal_conv_dx_cuda``: the forward's plain
+    version on the flipped, channel-transposed weights."""
+    return temporal_conv_plain(g, w.flip(0).transpose(1, 2))
+
+
 # K3's launch plan (csrc/temporal_dw.cu), its one source: the slab depth
 # and the loads in flight are compiled in (NVCC_DEFINES, through _build),
 # and each launch passes the input tile, the chunks and the shared-memory
@@ -429,10 +514,6 @@ _K3_ST_LD = _K3_BM + 4  # f32 a row of the epilogue's staging tile
 _K3_MIN_STEPS = 8  # a chunk walks at least this many slabs
 NVCC_DEFINES = (f"-DFVT_K1_STAGES={_K1_STAGES}", f"-DFVT_K3_ROWS={_K3_ROWS}",
                 f"-DFVT_K3_AHEAD={_K3_AHEAD}")
-
-
-def _ceil8(n: int) -> int:
-    return -(-n // 8) * 8
 
 
 class TemporalDwPlan(NamedTuple):
@@ -597,8 +678,8 @@ class _TemporalOp(torch.autograd.Function):
         g = g.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            w_t = w.flip(0).transpose(1, 2).contiguous()
-            dx = _route(temporal_conv_cuda, temporal_conv_plain, g, w_t)
+            # dx: correlate g with flipped, channel-transposed weights.
+            dx = _route(temporal_conv_dx_cuda, temporal_conv_dx_plain, g, w)
         if ctx.needs_input_grad[1]:
             dw = _route(temporal_dw_cuda, temporal_dw_plain, x, g, w.shape[0]).to(w.dtype)
         return dx, dw

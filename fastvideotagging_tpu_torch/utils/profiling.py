@@ -37,7 +37,7 @@ GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("K1 spatial_conv_hopper_kernel (+ weight layout, reduce)",
      ("spatial_conv_hopper_kernel", "spatial_conv_weight_kernel",
       "spatial_conv_reduce_kernel")),
-    ("K2 temporal_conv_kernel", ("temporal_conv_kernel",)),
+    ("K2 temporal_conv_hopper_kernel (+ weight layout, pad, reduce)", ("temporal_conv_",)),
     ("K3 temporal_dw_hopper_kernel (+ pad, reduce)", ("temporal_dw",)),
     ("K4 fused_block_hopper_kernel (+ weight layout, reduce)", ("fused_block",)),
     ("library matmul (cuBLAS)", ("nvjet", "xmma_gemm", "gemv", "s16816gemm", "s1688gemm",

@@ -12,7 +12,8 @@ Shapes: the R(2+1)D-18 serving path's (clip_batch 8, 16x112x112) and ragged
 ones (C or Co not a multiple of 8, k = 5, row counts that are not a multiple
 of the 128-row tile); for K1 also the dx widths (C = 144 -> 64, 1152 -> 512:
 contractions that are not a multiple of the 64-deep slice), one clip of
-frames smaller than 8 x 8, and Co = 8. Kernel and plain version take the same bf16 inputs and
+frames smaller than 8 x 8, and Co = 8; for K2 the dx widths, split plans,
+and its three ways to read rows of C % 8 != 0 channels. Kernel and plain version take the same bf16 inputs and
 sum in f32, so they agree within 1e-2 of the output's largest magnitude
 (bf16 output rounding). K3's output is f32 and differs from its plain
 version by summation order only: 1e-3 of the largest magnitude. The dx
@@ -45,6 +46,8 @@ TEMPORAL = [  # x (B, T, S, C), Co, k
     ((8, 16, 3136, 45), 64, 3), ((8, 16, 3136, 144), 64, 3),
     ((8, 8, 784, 288), 128, 3), ((8, 4, 196, 576), 256, 3), ((8, 2, 49, 1152), 512, 3),
     ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 1, 33), 8, 3),
+    ((2, 3, 50, 70), 200, 3),   # C = 70: ragged past the flat path's 64 (the pad pass)
+    ((1, 4, 33, 63), 45, 5),    # flat with k = 5, Co = 45 (the packed store)
 ]
 
 
@@ -169,6 +172,100 @@ def test_temporal_kernel_matches_plain(cuda, x_shape, co, k):
     torch.cuda.synchronize()
     assert ops.launch_counts["temporal_conv"] == before + 1
     _close(got, ops.temporal_conv_plain(x, w))
+
+
+@pytest.mark.parametrize("x_shape,co,k", [
+    ((8, 16, 3136, 64), 45, 3), ((8, 16, 3136, 64), 144, 3), ((8, 8, 784, 128), 288, 3),
+    ((8, 2, 49, 512), 1152, 3), ((2, 5, 13, 19), 45, 3), ((1, 7, 9, 24), 40, 5),
+    ((2, 3, 5, 45), 21, 3)])
+def test_temporal_dx_kernel_matches_plain(cuda, x_shape, co, k):
+    """K2 as dx: g (B, T, S, Co) -> (B, T, S, C) with x_shape's C = Co of the
+    forward weight (k, co, C): the weight laid out straight from the forward
+    weight, the taps read in reverse; Co = 45 outputs take the packed
+    16-byte store, a ragged g the flat path."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    gy = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, co, x_shape[-1]), generator=g, device=cuda)
+         / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    before = ops.launch_counts["temporal_conv"]
+    got = ops.temporal_conv_dx_cuda(gy, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["temporal_conv"] == before + 1
+    assert got.shape == x_shape[:3] + (co,)
+    _close(got, ops.temporal_conv_dx_plain(gy, w))
+    # the same conv through the forward wrapper, on the flipped weights
+    fwd = ops.temporal_conv_cuda(gy, w.flip(0).transpose(1, 2).contiguous())
+    assert torch.equal(got, fwd)
+
+
+@pytest.mark.parametrize("x_shape,co,dx", [
+    ((8, 2, 49, 1152), 512, False), ((8, 2, 49, 512), 1152, True),  # stage 4 at 8 clips
+    ((8, 4, 196, 576), 256, False),                                # stage 3 at 8 clips
+    ((1, 3, 40, 512), 45, True)])                                  # one tile, Co = 45
+def test_temporal_split_kappa_is_bitwise_deterministic(cuda, x_shape, co, dx):
+    """Where K2's plan splits the contraction, two launches are bitwise
+    equal (partials added in chunk order by the reduce)."""
+    c = x_shape[-1]
+    assert ops.temporal_plan(x_shape, co, 3).splits > 1
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w_shape = (3, co, c) if dx else (3, c, co)
+    w = (torch.randn(w_shape, generator=g, device=cuda) / (3 * c) ** 0.5).to(torch.bfloat16)
+    run, plain = ((ops.temporal_conv_dx_cuda, ops.temporal_conv_dx_plain) if dx
+                  else (ops.temporal_conv_cuda, ops.temporal_conv_plain))
+    before = ops.launch_counts["temporal_conv"]
+    got, again = run(x, w), run(x, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["temporal_conv"] == before + 2  # the reduce is part of a launch
+    assert torch.equal(got, again)
+    _close(got, plain(x, w))
+
+
+@pytest.mark.parametrize("ragged", ["flat", "kernel", "torch"])
+@pytest.mark.parametrize("x_shape,co,k", [
+    ((2, 16, 3136, 45), 64, 3), ((2, 5, 13, 45), 19, 3), ((3, 2, 1, 33), 8, 3),
+    ((1, 9, 7, 63), 45, 5)])
+def test_temporal_ragged_channel_ways_match_plain(cuda, x_shape, co, k, ragged):
+    """The three ways K2 reads rows of C % 8 != 0 channels (the flat span,
+    the kernel's pad pass, F.pad before the launch) give the plain
+    version's result, forward and dx."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, x_shape[-1], co), generator=g, device=cuda)
+         / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    plan = ops.temporal_plan(x_shape, co, k, ragged=ragged)
+    assert plan.flat == (ragged == "flat")
+    _close(ops._k2_launch(x, w, False, ragged)[0], ops.temporal_conv_plain(x, w))
+    w_dx = (torch.randn((k, co, x_shape[-1]), generator=g, device=cuda)
+            / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    _close(ops._k2_launch(x, w_dx, True, ragged)[0], ops.temporal_conv_dx_plain(x, w_dx))
+
+
+@pytest.mark.parametrize("w_shape,dx,c_in", [
+    ((3, 45, 64), False, 45), ((3, 64, 45), True, 45), ((3, 1152, 512), False, 1152),
+    ((3, 512, 1152), True, 1152), ((5, 36, 21), True, 21), ((3, 70, 8), False, 70)])
+def test_temporal_weight_layout_kernel_matches_plain(cuda, w_shape, dx, c_in):
+    """The weight layout K2 writes into its scratch: bit for bit the plain
+    version's, 64 channels a tap on the flat path."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    w = torch.randn(w_shape, generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn((1, 5, 6, c_in), generator=g, device=cuda).to(torch.bfloat16)
+    _, wk = ops._k2_launch(x, w, dx=dx)
+    torch.cuda.synchronize()
+    cp = ops.temporal_plan(x.shape, w_shape[1] if dx else w_shape[2], w_shape[0]).cp
+    assert torch.equal(wk, ops.temporal_weight_layout_plain(w, dx=dx, cp=cp))
+
+
+def test_temporal_kernel_takes_a_misaligned_view(cuda):
+    """Contiguous views that start 2 bytes into their buffers (C = 45, the
+    flat path, and C = 64): the wrapper copies each to an aligned tensor."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for c in (45, 64):
+        flat = torch.randn(1 + 2 * 6 * 50 * c, generator=g, device=cuda).to(torch.bfloat16)
+        x = flat[1:].view(2, 6, 50, c)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+        w = torch.randn((3, c, 24), generator=g, device=cuda).to(torch.bfloat16)
+        _close(ops.temporal_conv_cuda(x, w), ops.temporal_conv_plain(x, w))
 
 
 @pytest.mark.parametrize("x_shape,co,k", DW)
@@ -300,6 +397,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ops.spatial_conv_cuda(x, w[:, :, :16])
     with pytest.raises(ValueError, match="odd"):
         ops.temporal_conv_cuda(x, torch.zeros((2, 32, 8), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="w must be"):
+        ops.temporal_conv_dx_cuda(x, torch.zeros((3, 8, 16), device=cuda, dtype=torch.bfloat16))
     gy = torch.zeros((1, 4, 4, 8), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bfloat16"):
         ops.temporal_dw_cuda(x, gy.float(), 3)

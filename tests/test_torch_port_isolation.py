@@ -81,15 +81,15 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["conv2plus1d", "fused_block", "spatial_conv", "temporal_dw"]
+    assert _build.sources() == ["fused_block", "spatial_conv", "temporal_dw"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
-    a = _build._so_path("conv2plus1d")
+    a = _build._so_path("spatial_conv")
     assert a.startswith(str(tmp_path)) and a.endswith(".so")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
-    assert _build._so_path("conv2plus1d") != a
+    assert _build._so_path("spatial_conv") != a
 
 
 def test_fused_block_is_built_with_its_wrappers_tile_plan(tmp_path, monkeypatch):
@@ -101,7 +101,7 @@ def test_fused_block_is_built_with_its_wrappers_tile_plan(tmp_path, monkeypatch)
     assert flags[: len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
     assert set(fused_block.NVCC_DEFINES) <= set(flags)
     assert f"-DFVT_K4_STAGES={fused_block._K4_STAGES}" in flags
-    assert _build._flags("conv2plus1d") == _build.NVCC_FLAGS
+    assert _build._flags("unplanned") == _build.NVCC_FLAGS  # a source with no plan
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     a = _build._so_path("fused_block")
     monkeypatch.setattr(fused_block, "NVCC_DEFINES", fused_block.NVCC_DEFINES + ("-DFVT_X=1",))
