@@ -14,13 +14,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             forward and as dx (the same kernels on the flipped,
             channel-transposed weights, C and Co swapped, as the training
             step runs them, through ``spatial_conv_dx_cuda`` /
-            ``temporal_conv_dx_cuda``), each with its tile plan, TFLOP/s or
-            GB/s and share of the bound printed, no K1 path site padded,
-            two launches bitwise equal where the plan splits the
-            contraction, and at K2's stem (C = 45) the three ways to read
-            its 90-byte rows timed: the flat path, the kernel's pad pass and
-            F.pad before the launch, each beside the main kernel on
-            channels padded beforehand), K3 (the temporal
+            ``temporal_conv_dx_cuda``), each with its plan, TFLOP/s or GB/s
+            and share of the bound printed, no K1 path site padded, two
+            launches bitwise equal where the plan splits the contraction;
+            where K2 walks t, the tile GEMM timed beside it, and at K2's
+            stem (C = 45) its pad pass and F.pad before the launch timed
+            against the kernel on channels padded beforehand), K3 (the temporal
             weight gradient, two launches bitwise equal, with its plan,
             GB/s or TFLOP/s and share of the bound printed, and at the
             stem the time of its channel pad pass) — each against its
@@ -271,10 +270,11 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     """The kernel calls one conv site makes in a training step, each with
     its plain version and the library call for the same function:
     (role, kernel key, run, plain, library, (bound ms, bound by), other
-    runs of the same call by name). The last is filled at a C that is not a
-    multiple of 8 (the stem's 45): "prepadded", the same kernel on channels
-    padded beforehand (K3 and K2), and for K2 its other ways to read such
-    rows, "kernel" (its pad pass) and "torch" (F.pad before the launch)."""
+    runs of the same call by name). The last holds, at a C that is not a
+    multiple of 8 (the stem's 45), "prepadded": the same kernel on channels
+    padded beforehand (K3 and K2), and for K2 "F.pad": F.pad before the
+    launch instead of the kernel's pad pass; where K2 walks t, "tile GEMM":
+    its tile plan on the same call."""
     b, t, h, w, c = xs
     dev = torch.device(DEV)
     x5 = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
@@ -298,18 +298,24 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
         run_dx, plain_dx, w_dx = ops.temporal_conv_dx_cuda, ops.temporal_conv_dx_plain, wt
         w5, pad = wt[:, None, None], (K // 2, 0, 0)
     w_lib = w5.permute(4, 3, 0, 1, 2)  # (Co, C, kt, kh, kw)
-    xpad = torch.nn.functional.pad(x, (0, -c % 8)) if c % 8 else None
-    ragged = {}
-    if kernel == "temporal_conv" and c % 8:
-        ragged = {"prepadded": lambda: ops._k2_launch(xpad, wt, False)[0],
-                  **{way: (lambda way=way: ops._k2_launch(x, wt, False, way)[0])
-                     for way in ops.K2_RAGGED if way != "flat"}}
+    xpad = ops._pad_channels(x) if c % 8 else None
+    others = {"fwd": {}, "dx": {}}
+    if kernel == "temporal_conv":
+        sms = ops._sm_count(dev)
+        for role, xk, cout, dx in (("fwd", x, co, False), ("dx", g, c, True)):
+            if isinstance(ops.temporal_plan(xk.shape, cout, K, sms), ops.TemporalWalkPlan):
+                tile = ops.temporal_plan(xk.shape, cout, K, sms, walk=False)
+                others[role]["tile GEMM"] = (
+                    lambda xk=xk, dx=dx, tile=tile: ops._k2_launch(xk, wt, dx, tile)[0])
+        if c % 8:
+            others["fwd"]["prepadded"] = lambda: ops._k2_launch(xpad, wt, False)[0]
+            others["fwd"]["F.pad"] = lambda: ops._k2_launch(ops._pad_channels(x), wt, False)[0]
     cases = [
         ("fwd", kernel, lambda: run(x, wt), lambda: plain(x, wt),
-         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co), ragged),
+         lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co), others["fwd"]),
         ("dx", kernel, lambda: run_dx(g, w_dx), lambda: plain_dx(g, w_dx),
          lambda: torch.nn.grad.conv3d_input(_ncdhw(x5).shape, w_lib, _ncdhw(g5), padding=pad),
-         bound(kernel, (b, t, h, w, co), c), {}),
+         bound(kernel, (b, t, h, w, co), c), others["dx"]),
     ]
     if kernel == "temporal_conv":
         cases.append(
@@ -320,6 +326,18 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
              bound("temporal_dw", xs, co),
              {"prepadded": lambda: ops.temporal_dw_cuda(xpad, g, K)} if c % 8 else {}))
     return cases
+
+
+def k2_split(run) -> dict:
+    """K2's device time per call by kernel (torch.profiler over 5 calls):
+    the weight layout, the pad pass, the walk or the tile GEMM, the reduce."""
+    split = dict(layout_ms=0.0, pad_ms=0.0, main_ms=0.0, reduce_ms=0.0)
+    for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
+        for part, key in (("weight", "layout_ms"), ("pad", "pad_ms"), ("walk", "main_ms"),
+                          ("hopper", "main_ms"), ("reduce", "reduce_ms")):
+            if f"temporal_conv_{part}_kernel" in name:
+                split[key] += ms
+    return split
 
 
 def _lib_as(role: str, out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -360,7 +378,7 @@ def phase_kernels(card: str) -> dict:
                 max_rel = max_abs / scale
                 lib_rel = (libout.float() - ref.float()).abs().max().item() / scale
                 ok = bool(torch.isfinite(got).all().item()) and max_rel <= tol
-                note, plan, pad_ms, ragged_ms = "", None, None, None
+                note, plan, pad_ms, other_ms, split = "", None, None, {}, None
                 # the channels the kernel reads and writes, and its work
                 cin, cout = (xs[-1], co) if role != "dx" else (co, xs[-1])
                 flops, nbytes = work(key, xs[:-1] + (cin,), cout)
@@ -370,7 +388,8 @@ def phase_kernels(card: str) -> dict:
                         ok = False
                         note += " PADDED"
                 elif key == "temporal_conv":  # x as (B, T, S, C)
-                    plan = ops.temporal_plan((xs[0], xs[1], xs[2] * xs[3], cin), cout, K)
+                    plan = ops.temporal_plan((xs[0], xs[1], xs[2] * xs[3], cin), cout, K,
+                                             ops._sm_count(torch.device(DEV)))
                 elif key == "temporal_dw":
                     plan = ops.temporal_dw_plan((xs[0], xs[1], xs[2] * xs[3], xs[4]), co, K)
                 # deterministic: no atomics, partial sums added in a fixed order
@@ -389,30 +408,36 @@ def phase_kernels(card: str) -> dict:
                 library_ms = time_ms(lib, iters=20)
                 rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
                         else f"{nbytes / ms / 1e6:.1f} GB/s")
-                if key in ("spatial_conv", "temporal_conv"):
+                if isinstance(plan, ops.TemporalWalkPlan):
+                    note += (f" plan: walk over t, BN={plan.bn}, {plan.ahead} frame(s) ahead, "
+                             f"chunks of {plan.tc} frames x{plan.chunks}, {plan.grid} blocks, "
+                             f"{plan.blocks_per_sm} a SM, {plan.smem_bytes} B shared; {rate}, "
+                             f"{bound_ms / ms:.3f} of the bound")
+                elif key in ("spatial_conv", "temporal_conv"):
                     note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles x{plan.splits} "
                              f"kappa chunks, {plan.grid} blocks, {plan.blocks_per_sm} a SM, "
-                             f"{plan.smem_bytes} B shared, {plan.cp} channels a tap"
-                             f"{' (flat)' if plan.flat else ''}; {rate}, "
-                             f"{bound_ms / ms:.3f} of the bound")
+                             f"{plan.smem_bytes} B shared; {rate}, {bound_ms / ms:.3f} of the "
+                             f"bound")
                 else:  # K3: the plan, the rate of what bounds it, the share
                     note += (f" plan: BN={plan.bn} x{plan.c_tiles} c tiles x{plan.co_tiles} co "
                              f"tiles x{plan.tap_groups} tap groups x{plan.chunks} chunks of "
                              f"{plan.steps_per_chunk} slabs of {plan.tile_s} rows, {plan.grid} "
                              f"blocks, {plan.smem_bytes} B shared, x read {plan.x_reads}x, g "
                              f"{plan.g_reads}x; {rate}, {bound_ms / ms:.3f} of the bound")
-                if others:  # the same call on channels padded beforehand, and the other ways
-                    other_ms = {way: time_ms(fn, iters=20) for way, fn in others.items()}
-                    pre = other_ms.pop("prepadded")
-                    if key == "temporal_dw":
-                        pad_ms = ms - pre
-                        note += f"; of which the channel pad pass {pad_ms:.4f} ms"
-                    else:
-                        ragged_ms = dict(flat=ms, prepadded=pre, **other_ms)
-                        note += (f"; 90-byte rows: flat {ms:.4f} ms (repack {ms - pre:.4f}), "
-                                 + ", ".join(f"{way} {t:.4f} ms ({way} pad {t - pre:.4f})"
-                                             for way, t in other_ms.items())
-                                 + f", main kernel on x padded beforehand {pre:.4f} ms")
+                # the same call another way: on channels padded beforehand (the
+                # pad pass's cost), with F.pad, on the tile GEMM
+                other_ms = {way: time_ms(fn, iters=20) for way, fn in others.items()}
+                if "prepadded" in other_ms:
+                    pad_ms = ms - other_ms["prepadded"]
+                    note += f"; of which the channel pad pass {pad_ms:.4f} ms"
+                if other_ms:
+                    note += "; the same call " + ", ".join(
+                        f"{way} {t:.4f} ms" for way, t in other_ms.items())
+                if key == "temporal_conv" and batch == CLIP_BATCH:
+                    split = k2_split(run)
+                    note += ("; device split: " + ", ".join(
+                        f"{part[:-3]} {v:.4f}" for part, v in split.items())
+                        + f" ms (device {sum(split.values()):.4f} of the call's {ms:.4f})")
                 print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
                       f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
                       f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "
@@ -438,8 +463,10 @@ def phase_kernels(card: str) -> dict:
                     site=site, role=role, batch=batch, x=list(xs), co=co, launches=n,
                     max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
-                    plan=plan._asdict(), **({"pad_pass_ms": pad_ms} if pad_ms is not None else {}),
-                    **({"ragged_ms": ragged_ms} if ragged_ms else {})))
+                    plan=dict(plan._asdict(), kind=type(plan).__name__),
+                    **({"pad_pass_ms": pad_ms} if pad_ms is not None else {}),
+                    **({"other_ways_ms": other_ms} if other_ms else {}),
+                    **({"device_split": split} if split else {})))
             torch.cuda.empty_cache()
     print(f"sums over launches ({card}):")
     for key, a in agg.items():

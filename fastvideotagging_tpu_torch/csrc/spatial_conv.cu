@@ -56,16 +56,10 @@
 // is a multiple of 128: it is staged packed and stored 16 bytes at a time.
 //
 // Rows of C % 8 != 0 channels (K2's stem, C = 45: 90-byte rows that
-// cp.async cannot read 16 bytes at a time), the flat path (FLAT): cp = BK,
-// so a slice is one tap, and a tap's 128 shifted rows are one contiguous
-// span of 128 * C values. The block copies the span, from the 16-byte
-// boundary at or below its start, with 16-byte cp.async into the ring's A
-// slot (src-size 0 before the tensor, short at its end), and just before the
-// slice's product repacks it into a separate A tile in the swizzled layout,
-// zeroing channels C..63 and the rows outside the frame. x is read once per
-// tap with no padded copy; the contraction runs 64 channels a tap, but the
-// stem is bound by bytes. ``temporal_conv_pad_kernel`` (x padded into a
-// scratch tensor first) is the other way, kept for measuring it.
+// cp.async cannot read 16 bytes at a time) are first copied, zero-padded to
+// a multiple of 8, into a scratch tensor by temporal_conv_pad_kernel: on an
+// H100 that beat reading each tap's 128 rows as one contiguous span and
+// repacking it in shared memory, and F.pad before the launch.
 //
 // What bounds them on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s), counting
 // the taps inside the input and each input and output byte once, at
@@ -86,11 +80,10 @@
 // at Co = 144 in one tile, was 3 tiles and 192 columns), and the contraction
 // split over blocks where the tiles cannot fill the card (stage 4 at 8
 // clips: 28 tiles); (4) BK = 32 rounded up per tap -> kappa straight
-// through; (5) 2-byte scalar paths at C = 45 / Co = 45 -> the flat span and
+// through; (5) 2-byte scalar paths at C = 45 / Co = 45 -> the pad pass and
 // the packed 16-byte store; (6) an f32 epilogue through shared memory ->
 // bf16 rounded in registers; (7) every x row read k times, once per tap ->
-// still so: the tile re-reads its rows per tap, mostly from L2 (a block that
-// walks t and reads each frame once is the next rung).
+// the walk over t below (temporal_conv_walk_kernel) reads each frame once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,19 +104,18 @@ constexpr int ALIGN = 1024;             // the 128-byte swizzle repeats every 8 
 constexpr int kOutside = -(1 << 28);    // pixel coordinate of a row past M
 static_assert(STAGES >= 2, "a ring needs two stages");
 
-template <int BN, bool FLAT>
+template <int BN>
 struct Tile {
   static constexpr int B_STAGE = BN * BK * 2;
   static constexpr int STAGE = A_STAGE + B_STAGE;  // a multiple of ALIGN (BN % 8 == 0)
   static constexpr int RING = STAGES * STAGE;
-  // + the flat path's repacked A tile, + slack to align the base
-  static constexpr int SMEM = RING + (FLAT ? A_STAGE : 0) + ALIGN;
+  static constexpr int SMEM = RING + ALIGN;  // + slack to align the base
   static constexpr int LDS = BN + 8;    // bf16 per row of the epilogue's staging tile
   static_assert(BN % 16 == 0 && STAGE % ALIGN == 0, "BN must be a multiple of 16");
   static_assert(BM * LDS * 2 <= RING, "the staging tile fits the ring");
 };
 
-// One launch: x (M, cx) rows, wk (Co, kA*kB, cp) K-major, y (M, Co); see
+// One launch: x (M, cp) rows, wk (Co, kA*kB, cp) K-major, y (M, Co); see
 // conv_taps_tile.
 struct TapsArgs {
   const __nv_bfloat16* x;
@@ -132,7 +124,7 @@ struct TapsArgs {
   float* ws;
   int64_t M;
   int A, Bd, kA, kB;  // row geometry and taps
-  int cx, cp;         // channels of an x row; contraction width of a tap
+  int cp;             // channels of an x row, the contraction width of a tap
   int co, flip, n_tiles, splits;
 };
 
@@ -146,15 +138,9 @@ __device__ __forceinline__ uint32_t swz(int r, int j) {
   return static_cast<uint32_t>(r * 128 + ((j ^ (r & 7)) << 4));
 }
 
-// 16 bytes to shared memory, the first `bytes` of them from src, the rest
-// zero.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  cp_async16(dst, src, valid ? 16 : 0);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -166,8 +152,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// The async proxy (wgmma) reads what cp.async and st.shared wrote through
-// the generic proxy: each thread fences its own writes before the barrier.
+// The async proxy (wgmma) reads what cp.async wrote through the generic
+// proxy: each thread fences its own writes before the barrier.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -200,6 +186,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// Descriptor of a K-major operand in the no-swizzle ("interleave") layout
+// (K4's, csrc/fused_block.cu): core matrices of 8 rows x 16 bytes stored as
+// 128 contiguous bytes; leading offset = the bytes between core matrices
+// along K, stride offset = the bytes between 8-row groups (128: rows are 16
+// bytes apart within a K chunk), layout type 0.
+__device__ __forceinline__ uint64_t smem_desc_interleave(uint32_t addr, uint32_t k_stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(k_stride >> 4) << 16) | (static_cast<uint64_t>(128 >> 4) << 32);
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B both K-major in
@@ -285,15 +281,14 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
 // of one row tile run side by side and share its A rows in L2. With one
 // chunk the block writes bf16 y; with more it writes its f32 partial sums
 // to ws (splits, M, Co), which the reduce kernel adds up in chunk order.
-// SPLIT is splits > 1 and FLAT the flat path (cx % 8 != 0, cp == BK), so
-// that the common case carries none of their code.
-template <int BN, bool SPLIT, bool FLAT>
+// SPLIT is splits > 1, so that the common case carries none of its code.
+template <int BN, bool SPLIT>
 __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
-  using T = Tile<BN, FLAT>;
+  using T = Tile<BN>;
   const __nv_bfloat16* __restrict__ x = args.x;
   const __nv_bfloat16* __restrict__ wk = args.wk;
   const int64_t M = args.M;
-  const int A = args.A, Bd = args.Bd, kB = args.kB, cx = args.cx, C = args.cp;
+  const int A = args.A, Bd = args.Bd, kB = args.kB, C = args.cp;
   const int Co = args.co, n_tiles = args.n_tiles, splits = args.splits;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -316,9 +311,8 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
       SPLIT ? static_cast<int>(static_cast<int64_t>(split + 1) * KT / splits) - kt0 : KT;
 
   // Loader: thread tid moves chunk j = tid % 8 of rows tid / 8 + 32 q, in
-  // A (4 rows) and in the weight slice (BN / 32 rows, rounded up); the flat
-  // path repacks the same chunks. (pa, pb): the row's coordinates along the
-  // two axes of the geometry.
+  // A (4 rows) and in the weight slice (BN / 32 rows, rounded up). (pa,
+  // pb): the row's coordinates along the two axes of the geometry.
   const int j = tid & 7;
   const int r0 = tid >> 3;
   int pa[4], pb[4];
@@ -332,7 +326,7 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
       pa[q] = pb[q] = kOutside;
     }
   }
-  const __nv_bfloat16* xrow = x + (m0 + r0) * cx;        // row r0's pixel
+  const __nv_bfloat16* xrow = x + (m0 + r0) * C;         // row r0's pixel
   const __nv_bfloat16* wrow = wk + static_cast<int64_t>(n0 + r0) * K;
 
   // The loads walk kappa in order, one slice a call: this thread's chunk
@@ -342,37 +336,17 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   int ld_tap = kap0 / C;
   int ld_c = kap0 - ld_tap * C;
   int ld_da = ld_tap / kB, ld_db = ld_tap % kB;
-  // The flat path's span of slice kt (= tap kt): x's values from e0 on, 128
-  // rows of cx, copied from the 16-byte boundary ea <= e0.
-  auto flat_span = [&](int kt, int64_t& e0, int64_t& ea) {
-    const int da = kt / kB - pA, db = kt % kB - pB;
-    e0 = (m0 + static_cast<int64_t>(da) * Bd + db) * cx;
-    ea = (e0 >> 3) << 3;  // floor, also below 0
-  };
   auto load = [&](int s) {
     const bool kin = ld_tap < kk;
     const int da = ld_da - pA, db = ld_db - pB;
     const uint32_t sa = base + s * T::STAGE;
-    if constexpr (FLAT) {  // the span into the A slot, 16 bytes a chunk
-      int64_t e0, ea;
-      flat_span(ld_tap, e0, ea);
-      const int64_t total = M * cx;
-      const int chunks = static_cast<int>((e0 - ea + BM * cx + 7) >> 3);
-      for (int i = tid; i < chunks; i += THREADS) {
-        const int64_t e = ea + 8 * i;
-        const int64_t left = total - e;
-        const int bytes = (e < 0 || left <= 0) ? 0 : (left >= 8 ? 16 : static_cast<int>(2 * left));
-        cp_async16(sa + 16 * i, bytes ? x + e : x, bytes);
-      }
-    } else {
-      const int64_t shift = (static_cast<int64_t>(da) * Bd + db) * C + ld_c;
+    const int64_t shift = (static_cast<int64_t>(da) * Bd + db) * C + ld_c;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int aa = pa[q] + da, bb = pb[q] + db;
-        const bool ok = kin && aa >= 0 && aa < A && bb >= 0 && bb < Bd;
-        const __nv_bfloat16* src = ok ? xrow + static_cast<int64_t>(32 * q) * C + shift : x;
-        cp_async16(sa + swz(r0 + 32 * q, j), src, ok);
-      }
+    for (int q = 0; q < 4; ++q) {
+      const int aa = pa[q] + da, bb = pb[q] + db;
+      const bool ok = kin && aa >= 0 && aa < A && bb >= 0 && bb < Bd;
+      const __nv_bfloat16* src = ok ? xrow + static_cast<int64_t>(32 * q) * C + shift : x;
+      cp_async16(sa + swz(r0 + 32 * q, j), src, ok);
     }
     const int wcol = (args.flip ? kk - 1 - ld_tap : ld_tap) * C + ld_c;
     const uint32_t sb = sa + A_STAGE;
@@ -394,35 +368,6 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
     }
   };
 
-  // The flat path's A tile of slice kt from its span in stage s: chunk j
-  // (channels 8j .. 8j+7) of rows r0 + 32 q, zero past cx and outside the
-  // frame.
-  const uint32_t flat_a = base + T::RING;
-  auto repack = [&](int s, int kt) {
-    int64_t e0, ea;
-    flat_span(kt, e0, ea);
-    const int da = kt / kB - pA, db = kt % kB - pB;
-    const unsigned short* span =
-        reinterpret_cast<const unsigned short*>(smem + s * T::STAGE) + (e0 - ea);
-    unsigned char* dst = smem + T::RING;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int r = r0 + 32 * q;
-      const int aa = pa[q] + da, bb = pb[q] + db;
-      const bool ok = aa >= 0 && aa < A && bb >= 0 && bb < Bd;
-      const unsigned short* src = span + r * cx + j * 8;
-      uint32_t v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int c = j * 8 + 2 * u;
-        const uint32_t lo = (ok && c < cx) ? src[2 * u] : 0u;
-        const uint32_t hi = (ok && c + 1 < cx) ? src[2 * u + 1] : 0u;
-        v[u] = lo | (hi << 16);
-      }
-      *reinterpret_cast<uint4*>(dst + swz(r, j)) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
-  };
-
   // Product: warpgroup wg owns rows 64 wg .. +63 and all BN columns; its
   // accumulator is BN / 2 f32 a thread.
   const int wg = warp >> 2;
@@ -431,7 +376,7 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
 
   auto compute = [&](int s) {
-    const uint32_t sa = (FLAT ? flat_a : base + s * T::STAGE) + wg * 64 * 128;
+    const uint32_t sa = base + s * T::STAGE + wg * 64 * 128;
     const uint32_t sb = base + s * T::STAGE + A_STAGE;
     fence_acc(acc);
     wgmma_fence();
@@ -448,9 +393,7 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   // before the barrier), then the warpgroup waits for its group. The other
   // block on the SM keeps the tensor cores busy over that wait and over
   // this block's prologue and epilogue. An empty commit keeps the cp.async
-  // group count steady at the tail. The flat path repacks slice kt between
-  // two barriers (the first: its span has landed and the last product is
-  // done; the second: the A tile is written).
+  // group count steady at the tail.
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < NK) load(s);
@@ -458,10 +401,6 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   }
   for (int kt = 0; kt < NK; ++kt) {
     cp_async_wait<STAGES - 2>();
-    if constexpr (FLAT) {
-      __syncthreads();
-      repack(kt % STAGES, kt0 + kt);
-    }
     fence_proxy_async();
     __syncthreads();
     compute(kt % STAGES);
@@ -545,18 +484,17 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   }
 }
 
-// At BN = 64 a block fits 80 registers a thread and three blocks an SM
-// (two on the flat path, whose repacked A tile adds 16 KB).
+// At BN = 64 a block fits 80 registers a thread and three blocks an SM.
 template <int BN, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, (BN <= 64 ? 3 : 2))
 spatial_conv_hopper_kernel(const TapsArgs args) {
-  conv_taps_tile<BN, SPLIT, false>(args);
+  conv_taps_tile<BN, SPLIT>(args);
 }
 
-template <int BN, bool SPLIT, bool FLAT>
-__global__ void __launch_bounds__(THREADS, (BN <= 64 && !FLAT ? 3 : 2))
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, (BN <= 64 ? 3 : 2))
 temporal_conv_hopper_kernel(const TapsArgs args) {
-  conv_taps_tile<BN, SPLIT, FLAT>(args);
+  conv_taps_tile<BN, SPLIT>(args);
 }
 
 // y = bf16(sum over s of ws[s]), s in order: the same sums, bit for bit,
@@ -664,7 +602,7 @@ temporal_conv_weight_kernel(const unsigned short* __restrict__ w, unsigned short
 }
 
 // x (rows, c) -> xp (rows, cp), channels c..cp-1 zero: one 16-byte store
-// a thread (the other way to take C % 8 != 0, beside the flat path).
+// a thread: how K2 takes rows of C % 8 != 0 channels (the stem's 45).
 __global__ void __launch_bounds__(THREADS)
 temporal_conv_pad_kernel(const unsigned short* __restrict__ x, unsigned short* __restrict__ xp,
                          int64_t rows, int c, int cp) {
@@ -685,17 +623,158 @@ temporal_conv_pad_kernel(const unsigned short* __restrict__ x, unsigned short* _
   }
 }
 
+// K2's walk over t (rung 2), for the sites that bytes bound and whose
+// weights fit beside a ring of frames (the stem and stage 1, forward and
+// dx): a block owns 128 (b, s) rows of the B*S plane and every output
+// channel (Co <= 144, a multiple of 8), keeps all k taps of the weight in shared memory, and
+// walks t over a chunk [t0, t1) of the frames. Frame f's 128 rows (all cp
+// channels) are loaded once into a ring of k + AHEAD slots, AHEAD frames
+// ahead of the products, so each x row is read once per chunk (plus the
+// chunk's 2p halo frames), not k times. Output frame t is one wgmma group:
+// for each tap whose frame t + dt - p lies in [0, T), ck / 16 steps of
+// m64nBNk16 with A the frame's slot and B the tap's weight, both K-major in
+// the interleave layout (no 64-channel rounding: 144 channels take 144).
+// Then the accumulators go through a staging tile to 16-byte stores, the
+// slot of frame t - p is refilled with frame t + p + AHEAD + 1, and the next
+// frame starts. Shared memory: [k taps x ck / 8 chunks x BN rows x 16 B |
+// k + AHEAD frames x ck / 8 chunks x 128 rows x 16 B | staging 128 x (BN + 8)
+// bf16 | 128 row offsets]; ops/conv2plus1d.py::temporal_walk_plan sizes it.
+struct WalkArgs {
+  const __nv_bfloat16* x;   // (B, T, S, cp)
+  const __nv_bfloat16* wk;  // (Co, k, cp), K-major
+  __nv_bfloat16* y;         // (B, T, S, Co)
+  int Q, T, S, k, cp, co, flip, tc, chunks;  // Q = B*S rows a frame
+};
+
+constexpr int kWalkRows = 128;                 // (b, s) rows of a block
+constexpr int kWalkChunk = kWalkRows * 16;     // bytes of 8 channels of a frame
+
+template <int BN, int AHEAD>
+__global__ void __launch_bounds__(THREADS, (BN <= 64 ? 2 : 1))
+temporal_conv_walk_kernel(const WalkArgs args) {
+  constexpr int LDS = BN + 8;  // bf16 per row of the staging tile
+  const __nv_bfloat16* __restrict__ x = args.x;
+  const __nv_bfloat16* __restrict__ wk = args.wk;
+  __nv_bfloat16* __restrict__ y = args.y;
+  const int T = args.T, S = args.S, k = args.k, p = args.k / 2, cp = args.cp, Co = args.co;
+  const int c8 = (cp + 15) / 16 * 2;  // 8-channel chunks of a row, a whole number of k16 steps
+  const int nslot = k + AHEAD;
+  const uint32_t wtap = c8 * BN * 16;        // bytes of one tap's weight
+  const uint32_t frame = c8 * kWalkChunk;    // bytes of one frame
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t wsm = base, ring = base + k * wtap;
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem + k * wtap + nslot * frame);
+  int64_t* rowbase = reinterpret_cast<int64_t*>(st + kWalkRows * LDS);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+  const int q0 = (blockIdx.x / args.chunks) * kWalkRows;
+  const int t0 = (blockIdx.x % args.chunks) * args.tc;
+  const int t1 = min(T, t0 + args.tc);
+  const int fa = max(0, t0 - p), fb = min(T - 1, t1 - 1 + p);  // the frames the chunk reads
+  if (tid < kWalkRows) {  // y row of (b, 0, s), or -1 past B*S; read after the first barrier
+    const int q = q0 + tid;
+    rowbase[tid] = q < args.Q ? static_cast<int64_t>(q / S) * T * S + q % S : -1;
+  }
+
+  // Loader: thread tid moves row tid % 128 of a frame, chunks tid / 128,
+  // +2, ...: consecutive threads fill consecutive 16 bytes of a chunk.
+  const int r = tid & (kWalkRows - 1);
+  const int q = q0 + r;
+  const bool row_ok = q < args.Q;
+  const __nv_bfloat16* xrow =
+      x + (row_ok ? (static_cast<int64_t>(q / S) * T * S + q % S) * cp : 0);
+  const int64_t frame_x = static_cast<int64_t>(S) * cp;
+  auto load_frame = [&](int f) {
+    const uint32_t dst = ring + ((f - fa) % nslot) * frame + r * 16;
+    for (int c = tid / kWalkRows; c < c8; c += THREADS / kWalkRows) {
+      const bool ok = row_ok && c * 8 < cp;
+      cp_async16(dst + c * kWalkChunk, ok ? xrow + f * frame_x + c * 8 : x, ok);
+    }
+  };
+  // All k taps of the weight: chunk e is row n = e % BN, chunk c of tap dt
+  // (for dx the forward's tap k-1-dt), zero past Co and cp.
+  for (int e = tid; e < k * c8 * BN; e += THREADS) {
+    const int n = e % BN, c = (e / BN) % c8, dt = e / (BN * c8);
+    const int tap = args.flip ? k - 1 - dt : dt;
+    const bool ok = n < Co && c * 8 < cp;
+    cp_async16(wsm + dt * wtap + c * (BN * 16) + n * 16,
+               ok ? wk + (static_cast<int64_t>(n) * k + tap) * cp + c * 8 : wk, ok);
+  }
+  for (int f = fa; f <= min(fb, t0 + p); ++f) load_frame(f);
+  cp_async_commit();
+#pragma unroll
+  for (int a = 1; a <= AHEAD; ++a) {
+    if (t0 + p + a <= fb) load_frame(t0 + p + a);
+    cp_async_commit();
+  }
+
+  float acc[BN / 2];
+  const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<AHEAD>();  // the frames of output t have landed
+    fence_proxy_async();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    // One wgmma group per k16 step of a tap, all in flight until the one
+    // wait (the same time as groups of four steps, on the card).
+    for (int dt = 0; dt < k; ++dt) {
+      const int f = t + dt - p;
+      if (f < 0 || f >= T) continue;
+      const uint32_t sa = ring + ((f - fa) % nslot) * frame + wg * 64 * 16;
+      const uint32_t sb = wsm + dt * wtap;
+      for (int c = 0; c < c8; c += 2) {
+        fence_acc(acc);
+        wgmma_fence();
+        wgmma_tile<BN>(acc, smem_desc_interleave(sa + c * kWalkChunk, kWalkChunk),
+                       smem_desc_interleave(sb + c * (BN * 16), BN * 16));
+        wgmma_commit();
+        fence_acc(acc);
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    // Warp w of the warpgroup holds rows 16 (w % 4) .. +15 of the group's
+    // 64: n8 block jn in acc[4jn .. 4jn+3], rows lane/4 and lane/4 + 8.
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int col = jn * 8 + (lane & 3) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(st + row * LDS + col) =
+          __floats2bfloat162_rn(acc[4 * jn], acc[4 * jn + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(st + (row + 8) * LDS + col) =
+          __floats2bfloat162_rn(acc[4 * jn + 2], acc[4 * jn + 3]);
+    }
+    __syncthreads();  // every product of frame t is done, and its tile staged
+    if (t + p + AHEAD + 1 <= fb) load_frame(t + p + AHEAD + 1);  // into frame t - p's slot
+    cp_async_commit();
+    const int64_t ts = static_cast<int64_t>(t) * S;
+    for (int e = tid; e < kWalkRows * (BN / 8); e += THREADS) {  // Co % 8 == 0
+      const int rr = e / (BN / 8), cc = (e % (BN / 8)) * 8;
+      const int64_t o = rowbase[rr];
+      if (o >= 0 && cc < Co)
+        *reinterpret_cast<uint4*>(y + (o + ts) * Co + cc) =
+            *reinterpret_cast<const uint4*>(st + rr * LDS + cc);
+    }
+  }
+  cp_async_wait<0>();  // the groups past the last frame are empty; none outlives the block
+}
+
 constexpr int kMaxDevices = 64;
 enum Kind { kSpatial, kTemporal };
 
 // Opts the instance in to its shared memory once per device and size (a
 // host call, not free), then launches it.
-template <Kind KIND, int BN, bool SPLIT, bool FLAT>
+template <Kind KIND, int BN, bool SPLIT>
 cudaError_t start(unsigned blocks, int smem_bytes, int device, cudaStream_t s,
                   const TapsArgs& args) {
-  void (*kern)(const TapsArgs);
-  if constexpr (KIND == kSpatial) kern = spatial_conv_hopper_kernel<BN, SPLIT>;
-  else kern = temporal_conv_hopper_kernel<BN, SPLIT, FLAT>;
+  auto kern = KIND == kSpatial ? spatial_conv_hopper_kernel<BN, SPLIT>
+                               : temporal_conv_hopper_kernel<BN, SPLIT>;
   static int opted_in[kMaxDevices] = {};
   if (opted_in[device] < smem_bytes) {
     cudaError_t err =
@@ -707,14 +786,14 @@ cudaError_t start(unsigned blocks, int smem_bytes, int device, cudaStream_t s,
   return cudaGetLastError();
 }
 
-template <Kind KIND, int BN, bool FLAT>
+template <Kind KIND, int BN>
 int launch(const TapsArgs& args, int smem_bytes, int device, cudaStream_t s) {
-  if (smem_bytes < Tile<BN, FLAT>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem_bytes < Tile<BN>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks = (args.M + BM - 1) / BM * args.n_tiles * args.splits;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
   const unsigned nb = static_cast<unsigned>(blocks);
-  cudaError_t err = args.splits > 1 ? start<KIND, BN, true, FLAT>(nb, smem_bytes, device, s, args)
-                                    : start<KIND, BN, false, FLAT>(nb, smem_bytes, device, s, args);
+  cudaError_t err = args.splits > 1 ? start<KIND, BN, true>(nb, smem_bytes, device, s, args)
+                                    : start<KIND, BN, false>(nb, smem_bytes, device, s, args);
   if (err != cudaSuccess || args.splits == 1) return static_cast<int>(err);
   const int64_t total = args.M * args.co;
   const int64_t items = (total & 3) == 0 ? total / 4 : total;  // float4s or floats
@@ -729,7 +808,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 // The weight layout into wk, then the implicit GEMM (and the reduce) with
 // the plan's column tile; args.wk is wk, args.co the output channels.
-template <Kind KIND, bool FLAT>
+template <Kind KIND>
 int run(const void* w, TapsArgs args, int cw, int cow, int dx, int bn, int smem_bytes,
         int device, cudaStream_t s) {
   if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
@@ -744,11 +823,59 @@ int run(const void* w, TapsArgs args, int cw, int cow, int dx, int bn, int smem_
   if (err != cudaSuccess) return static_cast<int>(err);
   args.n_tiles = (args.co + bn - 1) / bn;
   switch (bn) {
-    case 64: return launch<KIND, 64, FLAT>(args, smem_bytes, device, s);
-    case 128: return launch<KIND, 128, FLAT>(args, smem_bytes, device, s);
-    case 144: return launch<KIND, 144, FLAT>(args, smem_bytes, device, s);
+    case 64: return launch<KIND, 64>(args, smem_bytes, device, s);
+    case 128: return launch<KIND, 128>(args, smem_bytes, device, s);
+    case 144: return launch<KIND, 144>(args, smem_bytes, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int BN, int AHEAD>
+cudaError_t start_walk(const WalkArgs& args, unsigned blocks, int smem_bytes, int device,
+                       cudaStream_t s) {
+  auto kern = temporal_conv_walk_kernel<BN, AHEAD>;
+  static int opted_in[kMaxDevices] = {};
+  if (opted_in[device] < smem_bytes) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+    opted_in[device] = smem_bytes;
+  }
+  kern<<<blocks, THREADS, smem_bytes, s>>>(args);
+  return cudaGetLastError();
+}
+
+// K2's walk: the weight layout into wk, then the walk kernel with the
+// plan's Co tile (bn), frames ahead and chunk of t.
+int run_walk(const void* w, const WalkArgs& args, int cw, int cow, int bn, int ahead,
+             int smem_bytes, int device, cudaStream_t s) {
+  const int c8 = (args.cp + 15) / 16 * 2;
+  const int64_t need = static_cast<int64_t>(args.k) * c8 * bn * 16 +
+                       static_cast<int64_t>(args.k + ahead) * c8 * kWalkChunk +
+                       kWalkRows * (bn + 8) * 2 + kWalkRows * 8 + ALIGN;
+  if (device < 0 || device >= kMaxDevices || args.co > bn || args.co % 8 != 0 || args.tc < 1 ||
+      args.chunks != (args.T + args.tc - 1) / args.tc || smem_bytes < need)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 wgrid((args.cp + 31) / 32, (args.co + 31) / 32, args.k);
+  temporal_conv_weight_kernel<<<wgrid, 256, 0, s>>>(
+      static_cast<const unsigned short*>(w),
+      reinterpret_cast<unsigned short*>(const_cast<__nv_bfloat16*>(args.wk)), args.k, cw, cow,
+      args.cp, args.flip);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks =
+      static_cast<unsigned>((args.Q + kWalkRows - 1) / kWalkRows * args.chunks);
+  const int key = bn * 10 + ahead;
+  switch (key) {
+    case 641: err = start_walk<64, 1>(args, blocks, smem_bytes, device, s); break;
+    case 642: err = start_walk<64, 2>(args, blocks, smem_bytes, device, s); break;
+    case 1281: err = start_walk<128, 1>(args, blocks, smem_bytes, device, s); break;
+    case 1282: err = start_walk<128, 2>(args, blocks, smem_bytes, device, s); break;
+    case 1441: err = start_walk<144, 1>(args, blocks, smem_bytes, device, s); break;
+    case 1442: err = start_walk<144, 2>(args, blocks, smem_bytes, device, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -783,50 +910,56 @@ int fvt_spatial_conv_bf16(const void* x, const void* w, void* wk, void* y, void*
   const TapsArgs args{static_cast<const __nv_bfloat16*>(x),
                       static_cast<const __nv_bfloat16*>(wk),
                       static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
-                      static_cast<int64_t>(n) * h * wd, h, wd, k, k, cp, cp, co, dx, 1, splits};
-  return run<kSpatial, false>(w, args, cw, cow, dx, bn, smem_bytes, device,
+                      static_cast<int64_t>(n) * h * wd, h, wd, k, k, cp, co, dx, 1, splits};
+  return run<kSpatial>(w, args, cw, cow, dx, bn, smem_bytes, device,
                               reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Launches K2 the same way: w (k, cw, cow) the forward weight; dx = 0: y =
 // conv(x, w), x (b, t, s, cx) with cw channels (cx = cw, or cw zero-padded
 // to a multiple of 8), y (b, t, s, cow); dx = 1: x the incoming gradient
-// with cow channels, y (b, t, s, cw). cp is the contraction
-// width of a tap: cp = cx where cx % 8 == 0; else either the flat path (xp
-// null, cp = 64, cx < 64) or the pad pass (xp a (b*t*s, cp) scratch, cp =
-// cx rounded up to 8, which x is copied into first). wk (out channels, k,
-// cp) bf16 scratch; ws as for K1. The plan comes from
+// with cow channels, y (b, t, s, cw). cp = cx rounded up to 8 is the
+// contraction width of a tap; where cx % 8 != 0, xp is a (b*t*s, cp)
+// scratch that the pad kernel copies x into first (else null). wk (out
+// channels, k, cp) bf16 scratch. ahead = 0: the tile GEMM with the plan's
+// bn, stages and splits (ws as for K1); ahead > 0: the walk over t, bn the
+// Co tile, ahead frames in flight, t in chunks of tc (stages and splits
+// unused, splits = 1). The plan comes from
 // ops/conv2plus1d.py::temporal_plan.
 int fvt_temporal_conv_bf16(const void* x, const void* w, void* wk, void* xp, void* y, void* ws,
                            long long b, int t, int s, int cx, int cp, int cw, int cow, int k,
-                           int dx, int bn, int stages, int splits, int smem_bytes, int device,
-                           void* stream) {
+                           int dx, int bn, int stages, int splits, int ahead, int tc,
+                           int smem_bytes, int device, void* stream) {
   const int c_in = dx ? cow : cw, co = dx ? cw : cow;
   const bool ragged = cx % 8 != 0;
-  const bool flat = ragged && xp == nullptr;
   if (b <= 0 || t <= 0 || s <= 0 || cw <= 0 || cow <= 0 || k <= 0 || (k % 2) == 0 ||
-      cx < c_in || cx >= c_in + 8 || (cp % 8) != 0 || stages != STAGES || splits < 1 ||
-      (flat ? cp != BK || cx >= BK : cp != (cx + 7) / 8 * 8) || (!ragged && xp != nullptr) ||
-      (splits > 1 && !aligned16(ws)) || !aligned16(x) || !aligned16(w) || !aligned16(wk) ||
-      !aligned16(y) || !aligned16(xp))
+      cx < c_in || cx >= c_in + 8 || cp != (cx + 7) / 8 * 8 || ragged != (xp != nullptr) ||
+      stages != STAGES || splits < 1 || ahead < 0 || ahead > 2 || (ahead > 0 && splits != 1) ||
+      static_cast<long long>(b) * s > 0x7fffffff || (splits > 1 && !aligned16(ws)) ||
+      !aligned16(x) || !aligned16(w) || !aligned16(wk) || !aligned16(y) || !aligned16(xp))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int64_t M = static_cast<int64_t>(b) * t * s;
-  if (xp != nullptr) {
+  if (ragged) {
     const int64_t want = (M * (cp / 8) + THREADS - 1) / THREADS;
     temporal_conv_pad_kernel<<<static_cast<int>(want < 8192 ? want : 8192), THREADS, 0, st>>>(
         static_cast<const unsigned short*>(x), static_cast<unsigned short*>(xp), M, cx, cp);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const TapsArgs args{static_cast<const __nv_bfloat16*>(xp ? xp : x),
-                      static_cast<const __nv_bfloat16*>(wk),
+  const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(ragged ? xp : x);
+  if (ahead > 0) {
+    const WalkArgs args{xin, static_cast<const __nv_bfloat16*>(wk),
+                        static_cast<__nv_bfloat16*>(y), static_cast<int>(b * s), t, s, k, cp, co,
+                        dx, tc, tc > 0 ? (t + tc - 1) / tc : 0};
+    return run_walk(w, args, cw, cow, bn, ahead, smem_bytes, device, st);
+  }
+  const TapsArgs args{xin, static_cast<const __nv_bfloat16*>(wk),
                       static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
-                      M, t, s, k, 1, flat ? cx : cp, cp, co, dx, 1, splits};
-  return flat ? run<kTemporal, true>(w, args, cw, cow, dx, bn, smem_bytes, device, st)
-              : run<kTemporal, false>(w, args, cw, cow, dx, bn, smem_bytes, device, st);
+                      M, t, s, k, 1, cp, co, dx, 1, splits};
+  return run<kTemporal>(w, args, cw, cow, dx, bn, smem_bytes, device, st);
 }
 
 }  // extern "C"

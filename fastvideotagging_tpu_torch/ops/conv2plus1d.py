@@ -9,6 +9,9 @@ package's ``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
   ``_temporal_kernel`` / ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
   K1 and K2 are one implicit GEMM over a general row geometry; their tile
   plans have one rule, ``_taps_plan`` (``spatial_plan`` / ``temporal_plan``).
+  Where K2 is bound by bytes and its weights fit beside a ring of frames
+  (the stem and stage 1), ``temporal_conv_walk_kernel`` walks t instead
+  and reads each x frame once (``temporal_walk_plan``).
 - ``temporal_dw_hopper_kernel`` (K3, csrc/temporal_dw.cu) replaces
   ``_temporal_dw_kernel`` / ``_temporal_dw``: the temporal conv's weight
   gradient. Its launch plan has one source, ``temporal_dw_plan``.
@@ -72,8 +75,8 @@ _dw_lib = None
 _K1_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 12
                 + [ctypes.c_void_p])
 # fvt_temporal_conv_bf16(x, w, wk, xp, y, ws, b, t, s, cx, cp, cw, cow, k, dx,
-# bn, stages, splits, smem_bytes, device, stream)
-_K2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 13
+# bn, stages, splits, ahead, tc, smem_bytes, device, stream)
+_K2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 15
                 + [ctypes.c_void_p])
 
 
@@ -176,8 +179,7 @@ class TapsPlan(NamedTuple):
     row_tiles: int  # blocks along the output rows (128 each)
     col_tiles: int  # blocks along the output channels (bn each)
     splits: int  # kappa chunks, each a block writing f32 partial sums (1: none)
-    cp: int  # contraction width of a tap: the input channels rounded up to 8 (64 when flat)
-    flat: bool  # K2's flat path: rows of C % 8 != 0 channels read as one span a tap
+    cp: int  # contraction width of a tap: the input channels rounded up to 8
 
     @property
     def grid(self) -> int:
@@ -185,11 +187,10 @@ class TapsPlan(NamedTuple):
 
     @property
     def blocks_per_sm(self) -> int:  # as the shared memory and the launch bounds allow
-        return min(3 if self.bn <= 64 and not self.flat else 2,
-                   SMEM_PER_SM // (self.smem_bytes + 1024))
+        return min(3 if self.bn <= 64 else 2, SMEM_PER_SM // (self.smem_bytes + 1024))
 
 
-def _taps_plan(rows: int, cp: int, co: int, taps: int, sms: int, flat: bool = False) -> TapsPlan:
+def _taps_plan(rows: int, cp: int, co: int, taps: int, sms: int) -> TapsPlan:
     """The launch plan of K1 or K2: ``rows`` output rows, a contraction of
     ``taps`` taps of ``cp`` channels, ``co`` output channels.
 
@@ -220,10 +221,11 @@ def _taps_plan(rows: int, cp: int, co: int, taps: int, sms: int, flat: bool = Fa
     slices = -(-taps * cp // _K1_BK)
     tiles = row_tiles * col_tiles
     splits = max(1, min(-(-sms // tiles), slices // _K1_MIN_SPLIT_SLICES))
-    smem = (_K1_STAGES * (_K1_BM + bn) + (_K1_BM if flat else 0)) * _K1_BK * 2 + _K1_ALIGN
-    return TapsPlan(bn, _K1_STAGES, smem, row_tiles, col_tiles, splits, cp, flat)
+    smem = _K1_STAGES * (_K1_BM + bn) * _K1_BK * 2 + _K1_ALIGN
+    return TapsPlan(bn, _K1_STAGES, smem, row_tiles, col_tiles, splits, cp)
 
 
+@functools.lru_cache(maxsize=256)
 def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> TapsPlan:
     """K1's launch plan for x (N, H, W, C) -> Co channels (``_taps_plan``):
     k*k taps of C rounded up to 8."""
@@ -231,21 +233,81 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> TapsPlan:
     return _taps_plan(n * h * w, _ceil8(c), co, k * k, sms)
 
 
-# K2 reads rows whose channels are not a multiple of 8 (the stem's C = 45)
-# as one span a tap where C < 64 ("flat"); "kernel" copies x channel-padded
-# into a scratch tensor first (the kernel's pad pass), "torch" pads it with
-# F.pad before the launch. The flat path was the fastest at the stem (PERF.md).
-K2_RAGGED = ("flat", "kernel", "torch")
+# K2's walk over t (csrc/spatial_conv.cu, temporal_conv_walk_kernel): a
+# block of 128 (b, s) rows, every output channel, all taps' weights resident
+# and a ring of k + ahead frames, in the interleave layout.
+_K2_WALK_ROWS = 128
+_K2_WALK_AHEADS = (1, 2)  # frames in flight the kernel is built for
 
 
-def temporal_plan(x_shape, co: int, k: int, sms: int = SMS, ragged: str = "flat") -> TapsPlan:
-    """K2's launch plan for x (B, T, S, C) -> Co channels (``_taps_plan``):
-    k taps of C rounded up to 8, or, on the flat path (C % 8 != 0, C < 64),
-    of 64 channels: a slice is one tap, and the block repacks its span into
-    a fourth A tile of shared memory."""
+class TemporalWalkPlan(NamedTuple):
+    bn: int  # output channels of a block: Co rounded up to a tile
+    cp: int  # channels of an x row: C rounded up to 8
+    ahead: int  # frames loading while the products of one run
+    tc: int  # output frames of a chunk
+    chunks: int  # chunks along t: ceil(T / tc)
+    row_tiles: int  # blocks along the B*S plane (128 rows each)
+    smem_bytes: int  # dynamic shared memory of one block
+    blocks_per_sm: int  # as the shared memory and the launch bounds allow
+    stages: int = _K1_STAGES  # unused by the walk; the entry point checks it
+    splits: int = 1  # the walk never splits its contraction
+
+    @property
+    def grid(self) -> int:
+        return self.row_tiles * self.chunks
+
+
+def _walk_smem(k: int, cp: int, bn: int, ahead: int) -> int:
+    ck = -(-cp // 16) * 16  # a whole number of k16 steps
+    return (k * ck * bn * 2 + (k + ahead) * ck * _K2_WALK_ROWS * 2
+            + _K2_WALK_ROWS * (bn + 8) * 2 + _K2_WALK_ROWS * 8 + _K1_ALIGN)
+
+
+def temporal_walk_plan(x_shape, co: int, k: int, sms: int = SMS) -> TemporalWalkPlan | None:
+    """K2's walk over t for x (B, T, S, C) -> Co channels, or None where
+    Co > 144, Co % 8 != 0 (its stores are 16 bytes) or the weights and a
+    ring of k + 1 frames do not fit one block (stages 2-4 of r2plus1d_18,
+    and the stem's dx, Co = 45).
+
+    The ring takes the frames in flight (1 or 2) that keep the most bytes
+    loading per SM, blocks an SM times frames, the more blocks on a tie:
+    stem 2 frames (2 blocks an SM), stage 1 1 (1 block), its dx 2 (1
+    block). The chunk of t (T, T/2 or T/4) is the one
+    with the least waves times frames a block loads (its tc plus the 2p halo
+    frames): stage 1 at 8 clips, 196 row tiles on 132 SMs, takes chunks of
+    8 (3 waves of 10 frames, against 2 of 18)."""
     b, t, s, c = x_shape
-    flat = ragged == "flat" and c % 8 != 0 and c < _K1_BK
-    return _taps_plan(b * t * s, _K1_BK if flat else _ceil8(c), co, k, sms, flat)
+    covering = [bn for bn in reversed(_K1_BNS) if bn >= co]
+    if not covering or co % 8 or k <= 0 or k % 2 == 0:
+        return None
+    bn, cp = covering[0], _ceil8(c)
+    fits = []
+    for ahead in _K2_WALK_AHEADS:
+        smem = _walk_smem(k, cp, bn, ahead)
+        if smem <= SMEM_LIMIT:
+            per_sm = min(2 if bn <= 64 else 1, SMEM_PER_SM // (smem + 1024))
+            fits.append(((per_sm * ahead, per_sm), ahead, smem, per_sm))
+    if not fits:
+        return None
+    _, ahead, smem, per_sm = max(fits)
+    row_tiles = -(-b * s // _K2_WALK_ROWS)
+
+    def cost(tc):
+        return -(-row_tiles * -(-t // tc) // (sms * per_sm)) * (tc + k - 1)
+
+    tc = min(dict.fromkeys((t, -(-t // 2), -(-t // 4))), key=lambda n: (cost(n), -n))
+    return TemporalWalkPlan(bn, cp, ahead, tc, -(-t // tc), row_tiles, smem, per_sm)
+
+
+@functools.lru_cache(maxsize=256)
+def temporal_plan(x_shape, co: int, k: int, sms: int = SMS, walk: bool = True):
+    """K2's launch plan for x (B, T, S, C) -> Co channels: the walk over t
+    where it fits (``temporal_walk_plan``), else the tile GEMM
+    (``_taps_plan``, k taps of C rounded up to 8); ``walk=False`` takes the
+    tile GEMM everywhere."""
+    b, t, s, c = x_shape
+    plan = temporal_walk_plan(x_shape, co, k, sms) if walk else None
+    return plan or _taps_plan(b * t * s, _ceil8(c), co, k, sms)
 
 
 def _pad_channels(x: torch.Tensor) -> torch.Tensor:
@@ -255,18 +317,15 @@ def _pad_channels(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, pad)) if pad else x
 
 
-def _weight_layout_plain(w: torch.Tensor, dx: bool, cp: int | None = None) -> torch.Tensor:
+def _weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
     """The plain version of K1's and K2's weight layout (csrc/spatial_conv.cu,
     ``weight_layout``): w (taps, C, Co) K-major, (out channel, tap, in
-    channel) contiguous, the in channels zero-padded to cp (a multiple of 8
-    by default).
+    channel) contiguous, the in channels zero-padded to a multiple of 8.
 
     Forward: (Co, taps, C). dx: (C, taps, Co) in the forward's tap order,
     one copy of w with no flipped intermediate; the kernel reads the taps in
     reverse."""
-    wk = w.permute(1, 0, 2) if dx else w.permute(2, 0, 1)
-    pad = (cp if cp is not None else _ceil8(wk.shape[-1])) - wk.shape[-1]
-    return F.pad(wk, (0, pad)).contiguous()
+    return _pad_channels(w.permute(1, 0, 2) if dx else w.permute(2, 0, 1)).contiguous()
 
 
 def spatial_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
@@ -276,10 +335,10 @@ def spatial_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
     return _weight_layout_plain(w.reshape(k * k, c, co), dx)
 
 
-def temporal_weight_layout_plain(w: torch.Tensor, dx: bool, cp: int | None = None) -> torch.Tensor:
-    """K2's weight layout: w (k, C, Co) -> (Co, k, cp) forward, (C, k, cp)
-    for dx (``_weight_layout_plain``); cp = 64 on the flat path."""
-    return _weight_layout_plain(w, dx, cp)
+def temporal_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
+    """K2's weight layout: w (k, C, Co) -> (Co, k, C) forward, (C, k, Co)
+    for dx (``_weight_layout_plain``)."""
+    return _weight_layout_plain(w, dx)
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,7 +357,7 @@ def _k1_launch(x: torch.Tensor, w: torch.Tensor, dx: bool):
     x = x.clone() if x.data_ptr() % 16 else x
     w = w.clone() if w.data_ptr() % 16 else w
     n, h, wd, cp = x.shape
-    plan = spatial_plan(x.shape, c_out, k, _sm_count(x.device))
+    plan = spatial_plan(tuple(x.shape), c_out, k, _sm_count(x.device))
     wk = torch.empty((c_out, k * k, cp), dtype=x.dtype, device=x.device)
     y = torch.empty((n, h, wd, c_out), dtype=x.dtype, device=x.device)
     ws = (torch.empty((plan.splits, n * h * wd, c_out), dtype=torch.float32, device=x.device)
@@ -432,22 +491,22 @@ def spatial_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool, ragged: str = "flat"):
+def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool, plan=None):
     """K2 on x (B, T, S, ·) with the forward weight w (k, C, Co): the conv
-    (x has C channels) or its dx (x has Co). ``ragged`` picks how channels
-    that are not a multiple of 8 are read (``K2_RAGGED``). Returns y and the
-    K-major weight the kernel laid out (its scratch)."""
+    (x has C channels, or C zero-padded to a multiple of 8) or its dx (x
+    has Co). Channels that are not a multiple of 8 (the stem's 45) go
+    through the kernel's pad pass into a scratch tensor. ``plan`` defaults to
+    ``temporal_plan``'s. Returns y and the K-major weight the kernel laid
+    out (its scratch)."""
     k, cw, cow = w.shape
     c_out = cw if dx else cow
-    if ragged == "torch":
-        x = _pad_channels(x)
     # a view into a larger buffer: the kernel reads 16 bytes at a time
     x = x.clone() if x.data_ptr() % 16 else x
     w = w.clone() if w.data_ptr() % 16 else w
     b, t, s, cx = x.shape
-    plan = temporal_plan(x.shape, c_out, k, _sm_count(x.device), ragged)
-    xp = (torch.empty((b * t * s, plan.cp), dtype=x.dtype, device=x.device)
-          if cx % 8 and not plan.flat else None)
+    plan = plan or temporal_plan(tuple(x.shape), c_out, k, _sm_count(x.device))
+    walk = isinstance(plan, TemporalWalkPlan)
+    xp = torch.empty((b * t * s, plan.cp), dtype=x.dtype, device=x.device) if cx % 8 else None
     wk = torch.empty((c_out, k, plan.cp), dtype=x.dtype, device=x.device)
     y = torch.empty((b, t, s, c_out), dtype=x.dtype, device=x.device)
     ws = (torch.empty((plan.splits, b * t * s, c_out), dtype=torch.float32, device=x.device)
@@ -457,7 +516,8 @@ def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool, ragged: str = "flat")
         x.data_ptr(), w.data_ptr(), wk.data_ptr(), *(a.data_ptr() if a is not None else None
                                                      for a in (xp, y, ws)),
         b, t, s, cx, plan.cp, cw, cow, k, int(dx), plan.bn, plan.stages, plan.splits,
-        plan.smem_bytes, x.device.index, stream)
+        plan.ahead if walk else 0, plan.tc if walk else 0, plan.smem_bytes, x.device.index,
+        stream)
     if rc != 0:
         raise RuntimeError(f"fvt_temporal_conv_bf16 launch failed: CUDA error {rc}")
     launch_counts["temporal_conv"] += 1

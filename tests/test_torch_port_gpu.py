@@ -13,7 +13,7 @@ ones (C or Co not a multiple of 8, k = 5, row counts that are not a multiple
 of the 128-row tile); for K1 also the dx widths (C = 144 -> 64, 1152 -> 512:
 contractions that are not a multiple of the 64-deep slice), one clip of
 frames smaller than 8 x 8, and Co = 8; for K2 the dx widths, split plans,
-and its three ways to read rows of C % 8 != 0 channels. Kernel and plain version take the same bf16 inputs and
+and its walk over t against its tile GEMM. Kernel and plain version take the same bf16 inputs and
 sum in f32, so they agree within 1e-2 of the output's largest magnitude
 (bf16 output rounding). K3's output is f32 and differs from its plain
 version by summation order only: 1e-3 of the largest magnitude. The dx
@@ -46,8 +46,8 @@ TEMPORAL = [  # x (B, T, S, C), Co, k
     ((8, 16, 3136, 45), 64, 3), ((8, 16, 3136, 144), 64, 3),
     ((8, 8, 784, 288), 128, 3), ((8, 4, 196, 576), 256, 3), ((8, 2, 49, 1152), 512, 3),
     ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 1, 33), 8, 3),
-    ((2, 3, 50, 70), 200, 3),   # C = 70: ragged past the flat path's 64 (the pad pass)
-    ((1, 4, 33, 63), 45, 5),    # flat with k = 5, Co = 45 (the packed store)
+    ((2, 3, 50, 70), 200, 3),   # C = 70: the pad pass, Co > 144 (the tile GEMM)
+    ((1, 4, 33, 63), 45, 5),    # the pad pass with k = 5, Co = 45
 ]
 
 
@@ -181,8 +181,7 @@ def test_temporal_kernel_matches_plain(cuda, x_shape, co, k):
 def test_temporal_dx_kernel_matches_plain(cuda, x_shape, co, k):
     """K2 as dx: g (B, T, S, Co) -> (B, T, S, C) with x_shape's C = Co of the
     forward weight (k, co, C): the weight laid out straight from the forward
-    weight, the taps read in reverse; Co = 45 outputs take the packed
-    16-byte store, a ragged g the flat path."""
+    weight, the taps read in reverse; a ragged g goes through the pad pass."""
     g = torch.Generator(device=cuda).manual_seed(13)
     gy = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
     w = (torch.randn((k, co, x_shape[-1]), generator=g, device=cuda)
@@ -221,24 +220,51 @@ def test_temporal_split_kappa_is_bitwise_deterministic(cuda, x_shape, co, dx):
     _close(got, plain(x, w))
 
 
-@pytest.mark.parametrize("ragged", ["flat", "kernel", "torch"])
-@pytest.mark.parametrize("x_shape,co,k", [
-    ((2, 16, 3136, 45), 64, 3), ((2, 5, 13, 45), 19, 3), ((3, 2, 1, 33), 8, 3),
-    ((1, 9, 7, 63), 45, 5)])
-def test_temporal_ragged_channel_ways_match_plain(cuda, x_shape, co, k, ragged):
-    """The three ways K2 reads rows of C % 8 != 0 channels (the flat span,
-    the kernel's pad pass, F.pad before the launch) give the plain
-    version's result, forward and dx."""
+def _walk_plan(x_shape, co, k, ahead, tc):
+    """K2's walk over t with its ring depth and chunk of t forced."""
+    b, t, s, c = x_shape
+    bn = next(n for n in (64, 128, 144) if n >= co)
+    cp = -(-c // 8) * 8
+    return ops.TemporalWalkPlan(bn, cp, ahead, tc, -(-t // tc), -(-b * s // 128),
+                                ops._walk_smem(k, cp, bn, ahead), 1)
+
+
+# K2's walk over t against the tile GEMM: (x shape, Co, k, frames ahead,
+# chunk of t). The stem and stage 1 at B = 2 (chunks of 8 and 16, both ring
+# depths), rows past B*S, C = 45 (the pad pass), k = 5 with T = 2 (taps
+# outside [0, T)), C = 40 (a k16 step half past C).
+WALK = [
+    ((2, 16, 3136, 45), 64, 3, 2, 16), ((2, 16, 3136, 144), 64, 3, 1, 8),
+    ((2, 16, 3136, 64), 144, 3, 2, 8), ((2, 16, 3136, 64), 64, 3, 1, 16),
+    ((3, 5, 50, 40), 24, 3, 2, 2), ((1, 2, 70, 64), 128, 5, 1, 2),
+    ((2, 7, 33, 48), 24, 5, 2, 3),
+]
+
+
+@pytest.mark.parametrize("x_shape,co,k,ahead,tc", WALK)
+@pytest.mark.parametrize("dx", [False, True])
+def test_temporal_walk_and_tile_plans_match_plain(cuda, x_shape, co, k, ahead, tc, dx):
+    """K2's walk over t (ring depth and chunk of t forced) and its tile GEMM
+    on the same call give the plain version's result, forward and dx."""
     g = torch.Generator(device=cuda).manual_seed(15)
+    c = x_shape[-1]
     x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
-    w = (torch.randn((k, x_shape[-1], co), generator=g, device=cuda)
-         / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
-    plan = ops.temporal_plan(x_shape, co, k, ragged=ragged)
-    assert plan.flat == (ragged == "flat")
-    _close(ops._k2_launch(x, w, False, ragged)[0], ops.temporal_conv_plain(x, w))
-    w_dx = (torch.randn((k, co, x_shape[-1]), generator=g, device=cuda)
-            / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
-    _close(ops._k2_launch(x, w_dx, True, ragged)[0], ops.temporal_conv_dx_plain(x, w_dx))
+    w_shape = (k, co, c) if dx else (k, c, co)
+    w = (torch.randn(w_shape, generator=g, device=cuda) / (k * c) ** 0.5).to(torch.bfloat16)
+    ref = (ops.temporal_conv_dx_plain if dx else ops.temporal_conv_plain)(x, w)
+    walk = _walk_plan(x_shape, co, k, ahead, tc)
+    tile = ops.temporal_plan(x_shape, co, k, walk=False)
+    got = ops._k2_launch(x, w, dx, walk)[0]
+    _close(got, ref)
+    _close(ops._k2_launch(x, w, dx, tile)[0], ref)
+    assert torch.equal(got, ops._k2_launch(x, w, dx, walk)[0])
+
+
+def test_temporal_walk_is_planned_at_the_stem_and_stage_1(cuda):
+    sms = ops._sm_count(torch.device(cuda))
+    for xs, co, walk in [((8, 16, 3136, 45), 64, True), ((8, 16, 3136, 64), 144, True),
+                         ((8, 8, 784, 288), 128, False), ((8, 2, 49, 1152), 512, False)]:
+        assert isinstance(ops.temporal_plan(xs, co, 3, sms), ops.TemporalWalkPlan) == walk
 
 
 @pytest.mark.parametrize("w_shape,dx,c_in", [
@@ -246,19 +272,18 @@ def test_temporal_ragged_channel_ways_match_plain(cuda, x_shape, co, k, ragged):
     ((3, 512, 1152), True, 1152), ((5, 36, 21), True, 21), ((3, 70, 8), False, 70)])
 def test_temporal_weight_layout_kernel_matches_plain(cuda, w_shape, dx, c_in):
     """The weight layout K2 writes into its scratch: bit for bit the plain
-    version's, 64 channels a tap on the flat path."""
+    version's (zero-padded to a multiple of 8 channels)."""
     g = torch.Generator(device=cuda).manual_seed(16)
     w = torch.randn(w_shape, generator=g, device=cuda).to(torch.bfloat16)
     x = torch.randn((1, 5, 6, c_in), generator=g, device=cuda).to(torch.bfloat16)
     _, wk = ops._k2_launch(x, w, dx=dx)
     torch.cuda.synchronize()
-    cp = ops.temporal_plan(x.shape, w_shape[1] if dx else w_shape[2], w_shape[0]).cp
-    assert torch.equal(wk, ops.temporal_weight_layout_plain(w, dx=dx, cp=cp))
+    assert torch.equal(wk, ops.temporal_weight_layout_plain(w, dx=dx))
 
 
 def test_temporal_kernel_takes_a_misaligned_view(cuda):
     """Contiguous views that start 2 bytes into their buffers (C = 45, the
-    flat path, and C = 64): the wrapper copies each to an aligned tensor."""
+    pad pass, and C = 64): the wrapper copies each to an aligned tensor."""
     g = torch.Generator(device=cuda).manual_seed(17)
     for c in (45, 64):
         flat = torch.randn(1 + 2 * 6 * 50 * c, generator=g, device=cuda).to(torch.bfloat16)

@@ -1,13 +1,14 @@
 """K2 (the temporal k x 1 x 1 conv, csrc/spatial_conv.cu) off the card: its
-launch plan at every path site, its arithmetic as the kernel indexes it, its
+launch plans at every path site, its arithmetic as the kernels index it, its
 ctypes binding, and the even-k convs that the kernels refuse.
 
-K2 shares K1's implicit GEMM: rows m = (b*T + t)*S + s, kappa = tap*cp + c,
-the weight K-major (``temporal_weight_layout_plain``), the taps read in
-reverse for dx. Rows of C % 8 != 0 channels (the stem's 45) are read on the
-flat path: a tap's 128 rows are one span of x, element (m + (dt - p)*S)*C + c.
-The emulation below indexes x that way and is held to the plain version and
-to the library's conv, in f32, tolerance 1e-4 (tests/test_ops_pallas.py:51).
+K2's tile GEMM is K1's implicit GEMM: rows m = (b*T + t)*S + s, kappa =
+tap*cp + c, the weight K-major (``temporal_weight_layout_plain``), the taps
+read in reverse for dx. Its walk over t (the stem and stage 1) keeps 128
+(b, s) rows of every frame in a ring of k + ahead slots and sums, for
+output frame t, frame t + dt - p against tap dt. The emulations below index
+x and the ring that way and are held to the plain version and to the
+library's conv, in f32, tolerance 1e-4 (tests/test_ops_pallas.py:51).
 """
 
 import ctypes
@@ -54,15 +55,22 @@ def test_temporal_plan_at_every_path_site(b):
     for role, xs, co in _k2_sites(b):
         plan = tops.temporal_plan(xs, co, 3)
         # the blocks the plan counts on fit an SM's 228 KB, 1 KB reserved each
-        assert plan.blocks_per_sm >= 2, (role, xs)
+        assert plan.blocks_per_sm >= 1 and plan.smem_bytes <= tops.SMEM_LIMIT, (role, xs)
         assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= tops.SMEM_PER_SM
-        assert plan.smem_bytes <= tops.SMEM_LIMIT
+        assert plan.cp == -(-xs[-1] // 8) * 8  # the stem's 45 padded to 48, the rest as they are
+        rows = xs[0] * xs[1] * xs[2]
+        if isinstance(plan, tops.TemporalWalkPlan):
+            # the stem and stage 1 (not the stem's dx, Co = 45): x read
+            # once, every Co in one block
+            assert xs[2] == 3136 and co % 8 == 0 and co <= plan.bn < co + 64
+            assert plan.row_tiles == -(-xs[0] * xs[2] // 128)
+            assert plan.chunks == -(-xs[1] // plan.tc) and plan.grid >= 132
+            continue
+        assert xs[2] < 3136 or co == 45, (role, xs)  # stages 2-4 and the stem's dx
         # the column tile covers Co in one tile or divides it
         assert (plan.col_tiles == 1 and co <= plan.bn) or co % plan.bn == 0, (role, xs, co)
-        rows = xs[0] * xs[1] * xs[2]
+        assert plan.blocks_per_sm >= 2
         assert (plan.row_tiles - 1) * 128 < rows <= plan.row_tiles * 128
-        # the stem's 45 channels on the flat path, one tap a slice; the rest unpadded
-        assert plan.flat == (xs[-1] == 45) and plan.cp == (64 if plan.flat else xs[-1])
         tiles = plan.row_tiles * plan.col_tiles
         assert plan.grid == tiles * plan.splits
         slices = -(-3 * plan.cp // 64)
@@ -74,28 +82,35 @@ def test_temporal_plan_at_every_path_site(b):
     # stage 4 at 8 clips: 7 row tiles x 4 column tiles, its 54 slices in 5 chunks
     plan = tops.temporal_plan((8, 2, 49, 1152), 512, 3)
     assert (plan.row_tiles, plan.col_tiles, plan.splits) == (7, 4, 5)
-    # the dx of stage 1: Co = 144 in one tile (the WMMA K2 ran 3 tiles of 64)
-    plan = tops.temporal_plan((8, 16, 3136, 64), 144, 3)
+    # the dx of stage 1 on the tile GEMM: Co = 144 in one tile (the WMMA K2
+    # ran 3 tiles of 64)
+    plan = tops.temporal_plan((8, 16, 3136, 64), 144, 3, walk=False)
     assert (plan.bn, plan.col_tiles) == (144, 1)
 
 
-@pytest.mark.parametrize("ragged,flat,cp", [("flat", True, 64), ("kernel", False, 48),
-                                            ("torch", False, 48)])
-def test_temporal_plan_ragged_ways(ragged, flat, cp):
-    plan = tops.temporal_plan((8, 16, 3136, 45), 64, 3, ragged=ragged)
-    assert (plan.flat, plan.cp) == (flat, cp)
-    # the flat path's repacked A tile: 16 KB more, two blocks an SM
-    assert plan.smem_bytes - tops.temporal_plan((8, 16, 3136, 48), 64, 3).smem_bytes == (
-        128 * 64 * 2 if flat else 0)
-    # past 63 channels a ragged C is padded, whatever the way
-    assert not tops.temporal_plan((1, 4, 9, 70), 8, 3).flat
+def test_temporal_walk_plan_rules():
+    """Frames in flight and chunks of t: the most bytes loading per SM (the
+    more blocks on a tie), and the fewest waves times frames a block loads."""
+    walk = tops.temporal_walk_plan
+    assert walk((8, 16, 3136, 45), 64, 3)[2:5] == (2, 16, 1)      # stem: 2 blocks an SM
+    assert walk((8, 16, 3136, 64), 45, 3) is None                 # its dx: Co % 8 != 0
+    assert walk((8, 16, 3136, 144), 64, 3)[2:5] == (1, 8, 2)      # stage 1: 196 tiles, T / 2
+    assert walk((32, 16, 3136, 144), 64, 3)[2:5] == (1, 16, 1)    # 784 tiles: no split of t
+    assert walk((8, 16, 3136, 64), 144, 3)[2:5] == (2, 8, 2)
+    assert walk((8, 8, 784, 288), 128, 3) is None                 # stage 2: 221 KB of weights
+    assert walk((8, 8, 784, 128), 288, 3) is None                 # Co > 144
+    assert walk((1, 4, 9, 32), 8, 2) is None                      # even k
+    plan = walk((8, 16, 3136, 144), 64, 3)
+    assert plan.smem_bytes == tops._walk_smem(3, 144, 64, 1) <= tops.SMEM_LIMIT
+    assert tops._walk_smem(3, 144, 64, 2) > tops.SMEM_LIMIT
+    assert tops._walk_smem(3, 40, 64, 1) == tops._walk_smem(3, 48, 64, 1)  # k16 steps
 
 
 def _k2_emulated(x, wk, co, k, flip):
-    """K2's arithmetic as the kernel indexes it, in plain tensors: row m =
-    (b*T + t)*S + s, kappa = tap*cp + c; A[m, kappa] is element (m + (tap -
-    p)*S)*C + c of the flat x (the tap's span), zero where t + tap - p falls
-    outside [0, T) and for c >= C; B[kappa, n] = wk[n, tap (reversed when
+    """K2's tile GEMM as the kernel indexes it, in plain tensors: row m =
+    (b*T + t)*S + s, kappa = tap*cp + c; A[m, kappa] is x's row m + (tap -
+    p)*S (element (m + (tap - p)*S)*cp + c of the flat x), zero where t +
+    tap - p falls outside [0, T); B[kappa, n] = wk[n, tap (reversed when
     flip), c]."""
     b, t, s, c = x.shape
     cp = wk.shape[-1]
@@ -113,15 +128,50 @@ def _k2_emulated(x, wk, co, k, flip):
     return (a @ w.T).reshape(b, t, s, co)
 
 
-@pytest.mark.parametrize("shape,co,k,ragged", [
-    ((2, 5, 13, 45), 64, 3, "flat"),    # the stem's C = 45: one span a tap, 64 channels
-    ((2, 5, 13, 45), 64, 3, "kernel"),  # the same, padded to 48 by the pad pass
-    ((2, 6, 7, 144), 64, 3, "flat"),    # stage 1's widths: no padding
-    ((1, 7, 9, 40), 24, 5, "flat"),     # k = 5
-    ((2, 4, 5, 36), 19, 3, "flat"),     # Co ragged
+def _walk_emulated(x, wk, co, k, flip, tc, ahead):
+    """K2's walk over t as the kernel schedules it: per chunk [t0, t1) of t,
+    frame f's (b, s) rows go into slot (f - fa) % (k + ahead) of a ring (the
+    chunk's first k frames, then ahead more, then one after each output
+    frame, into the slot of frame t - p); output frame t sums frame t + dt -
+    p (inside [0, T)) against tap dt, each read from its slot, which must
+    still hold it."""
+    b, t_len, s, c = x.shape
+    p, slots = k // 2, k + ahead
+    frames = x.permute(1, 0, 2, 3).reshape(t_len, b * s, c)  # row q = b*S + s
+    w = (wk.flip(1) if flip else wk)[..., :c]
+    y = torch.zeros((t_len, b * s, co), dtype=x.dtype)
+    for t0 in range(0, t_len, tc):
+        t1 = min(t_len, t0 + tc)
+        fa, fb = max(0, t0 - p), min(t_len - 1, t1 - 1 + p)
+        ring = [None] * slots
+
+        def load(f, fa=fa, fb=fb, ring=ring):
+            if f <= fb:
+                ring[(f - fa) % slots] = (f, frames[f])
+
+        for f in range(fa, min(fb, t0 + p) + 1):
+            load(f)
+        for a in range(1, ahead + 1):
+            load(t0 + p + a)
+        for t in range(t0, t1):
+            for dt in range(k):
+                f = t + dt - p
+                if 0 <= f < t_len:
+                    held, rows = ring[(f - fa) % slots]
+                    assert held == f, (t, dt, held)
+                    y[t] += rows @ w[:, dt].T
+            load(t + p + ahead + 1)
+    return y.reshape(t_len, b, s, co).permute(1, 0, 2, 3)
+
+
+@pytest.mark.parametrize("shape,co,k", [
+    ((2, 5, 13, 45), 64, 3),    # the stem's C = 45, padded to 48
+    ((2, 6, 7, 144), 64, 3),    # stage 1's widths: no padding
+    ((1, 7, 9, 40), 24, 5),     # k = 5
+    ((2, 4, 5, 36), 19, 3),     # Co ragged
 ])
 @pytest.mark.parametrize("dx", [False, True])
-def test_k2_arithmetic_matches_plain(shape, co, k, ragged, dx):
+def test_k2_arithmetic_matches_plain(shape, co, k, dx):
     """K2's K-major weights (for dx straight from the forward weight, taps
     read in reverse) and its indexing of x give the plain version's result,
     and the library's conv and conv3d_input; the dx cases take Co = 45 as
@@ -129,10 +179,9 @@ def test_k2_arithmetic_matches_plain(shape, co, k, ragged, dx):
     b, t, s, c = shape
     x, w = _inputs((b, t, s, co if dx else c), (k, c, co), seed=3)
     out = c if dx else co
-    plan = tops.temporal_plan(x.shape, out, k, ragged=ragged)
-    wk = tops.temporal_weight_layout_plain(w, dx=dx, cp=plan.cp)
-    assert wk.shape == (out, k, plan.cp) and wk.is_contiguous()
-    xk = tops._pad_channels(x) if ragged == "torch" else x
+    wk = tops.temporal_weight_layout_plain(w, dx=dx)
+    xk = tops._pad_channels(x)  # what the kernel's pad pass writes
+    assert wk.shape == (out, k, xk.shape[-1]) and wk.is_contiguous()
     got = _k2_emulated(xk, wk, out, k, flip=dx)
     conv_w = w.permute(2, 1, 0)[..., None, None]  # (Co, C, k, 1, 1)
     if dx:
@@ -145,6 +194,25 @@ def test_k2_arithmetic_matches_plain(shape, co, k, ragged, dx):
                                          padding=(k // 2, 0, 0))
     torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
     torch.testing.assert_close(ref, lib[..., 0].permute(0, 2, 3, 1), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("shape,co,k,tc,ahead", [
+    ((2, 16, 6, 48), 64, 3, 16, 2),   # the stem's plan: one chunk, two frames ahead
+    ((2, 16, 6, 144), 64, 3, 8, 1),   # stage 1's at 8 clips: two chunks, one ahead
+    ((1, 5, 7, 40), 24, 3, 2, 2),     # chunks of 2, the last one short
+    ((1, 7, 5, 36), 19, 5, 3, 1),     # k = 5: halos of 2 frames
+    ((2, 2, 9, 32), 16, 5, 2, 2),     # T = 2 < k: taps outside [0, T)
+])
+@pytest.mark.parametrize("dx", [False, True])
+def test_k2_walk_schedule_matches_plain(shape, co, k, tc, ahead, dx):
+    """The walk's ring never overwrites a frame an output frame still reads,
+    and its sums are the plain version's, forward and dx."""
+    b, t, s, c = shape
+    x, w = _inputs((b, t, s, co if dx else c), (k, c, co), seed=6)
+    out = c if dx else co
+    got = _walk_emulated(x, tops.temporal_weight_layout_plain(w, dx=dx), out, k, dx, tc, ahead)
+    ref = tops.temporal_conv_dx_plain(x, w) if dx else tops.temporal_conv_plain(x, w)
+    torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
 
 
 def test_temporal_conv_argtypes_match_its_c_signature():
@@ -160,7 +228,7 @@ def test_temporal_conv_argtypes_match_its_c_signature():
         return ctypes.c_longlong if "long long" in param else ctypes.c_int
 
     assert tops._K2_ARGTYPES == [kind(q) for q in params]
-    assert len(params) == 21
+    assert len(params) == 23
 
 
 # Even k: the kernels take odd k only, and the port sends an even k to the
