@@ -16,10 +16,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             step runs them, through ``spatial_conv_dx_cuda`` /
             ``temporal_conv_dx_cuda``), each with its plan, TFLOP/s or GB/s
             and share of the bound printed, no K1 path site padded, two
-            launches bitwise equal where the plan splits the contraction;
-            where K2 walks t, the tile GEMM timed beside it, and at K2's
-            stem (C = 45) its pad pass and F.pad before the launch timed
-            against the kernel on channels padded beforehand), K3 (the temporal
+            launches bitwise equal where the plan splits the contraction,
+            K2's device time split between its kernels at clip_batch 8, and
+            at K2's stem (C = 45) its pad pass and F.pad before the launch
+            timed against the kernel on channels padded beforehand), K3 (the temporal
             weight gradient, two launches bitwise equal, with its plan,
             GB/s or TFLOP/s and share of the bound printed, and at the
             stem the time of its channel pad pass) — each against its
@@ -273,8 +273,7 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     runs of the same call by name). The last holds, at a C that is not a
     multiple of 8 (the stem's 45), "prepadded": the same kernel on channels
     padded beforehand (K3 and K2), and for K2 "F.pad": F.pad before the
-    launch instead of the kernel's pad pass; where K2 walks t, "tile GEMM":
-    its tile plan on the same call."""
+    launch instead of the kernel's pad pass."""
     b, t, h, w, c = xs
     dev = torch.device(DEV)
     x5 = torch.randn(xs, generator=gen, device=dev).to(torch.bfloat16)
@@ -300,16 +299,9 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     w_lib = w5.permute(4, 3, 0, 1, 2)  # (Co, C, kt, kh, kw)
     xpad = ops._pad_channels(x) if c % 8 else None
     others = {"fwd": {}, "dx": {}}
-    if kernel == "temporal_conv":
-        sms = ops._sm_count(dev)
-        for role, xk, cout, dx in (("fwd", x, co, False), ("dx", g, c, True)):
-            if isinstance(ops.temporal_plan(xk.shape, cout, K, sms), ops.TemporalWalkPlan):
-                tile = ops.temporal_plan(xk.shape, cout, K, sms, walk=False)
-                others[role]["tile GEMM"] = (
-                    lambda xk=xk, dx=dx, tile=tile: ops._k2_launch(xk, wt, dx, tile)[0])
-        if c % 8:
-            others["fwd"]["prepadded"] = lambda: ops._k2_launch(xpad, wt, False)[0]
-            others["fwd"]["F.pad"] = lambda: ops._k2_launch(ops._pad_channels(x), wt, False)[0]
+    if kernel == "temporal_conv" and c % 8:
+        others["fwd"]["prepadded"] = lambda: ops._k2_launch(xpad, wt, False)[0]
+        others["fwd"]["F.pad"] = lambda: ops._k2_launch(ops._pad_channels(x), wt, False)[0]
     cases = [
         ("fwd", kernel, lambda: run(x, wt), lambda: plain(x, wt),
          lambda: ops.conv3d_nthwc(x5, w5, (1, 1, 1), pad), bound(kernel, xs, co), others["fwd"]),
@@ -330,11 +322,11 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
 
 def k2_split(run) -> dict:
     """K2's device time per call by kernel (torch.profiler over 5 calls):
-    the weight layout, the pad pass, the walk or the tile GEMM, the reduce."""
+    the weight layout, the pad pass, the GEMM, the reduce."""
     split = dict(layout_ms=0.0, pad_ms=0.0, main_ms=0.0, reduce_ms=0.0)
     for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
-        for part, key in (("weight", "layout_ms"), ("pad", "pad_ms"), ("walk", "main_ms"),
-                          ("hopper", "main_ms"), ("reduce", "reduce_ms")):
+        for part, key in (("weight", "layout_ms"), ("pad", "pad_ms"), ("hopper", "main_ms"),
+                          ("reduce", "reduce_ms")):
             if f"temporal_conv_{part}_kernel" in name:
                 split[key] += ms
     return split
@@ -408,12 +400,7 @@ def phase_kernels(card: str) -> dict:
                 library_ms = time_ms(lib, iters=20)
                 rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
                         else f"{nbytes / ms / 1e6:.1f} GB/s")
-                if isinstance(plan, ops.TemporalWalkPlan):
-                    note += (f" plan: walk over t, BN={plan.bn}, {plan.ahead} frame(s) ahead, "
-                             f"chunks of {plan.tc} frames x{plan.chunks}, {plan.grid} blocks, "
-                             f"{plan.blocks_per_sm} a SM, {plan.smem_bytes} B shared; {rate}, "
-                             f"{bound_ms / ms:.3f} of the bound")
-                elif key in ("spatial_conv", "temporal_conv"):
+                if key in ("spatial_conv", "temporal_conv"):
                     note += (f" plan: BN={plan.bn} x{plan.col_tiles} col tiles x{plan.splits} "
                              f"kappa chunks, {plan.grid} blocks, {plan.blocks_per_sm} a SM, "
                              f"{plan.smem_bytes} B shared; {rate}, {bound_ms / ms:.3f} of the "
@@ -425,7 +412,7 @@ def phase_kernels(card: str) -> dict:
                              f"blocks, {plan.smem_bytes} B shared, x read {plan.x_reads}x, g "
                              f"{plan.g_reads}x; {rate}, {bound_ms / ms:.3f} of the bound")
                 # the same call another way: on channels padded beforehand (the
-                # pad pass's cost), with F.pad, on the tile GEMM
+                # pad pass's cost), with F.pad
                 other_ms = {way: time_ms(fn, iters=20) for way, fn in others.items()}
                 if "prepadded" in other_ms:
                     pad_ms = ms - other_ms["prepadded"]
@@ -463,7 +450,7 @@ def phase_kernels(card: str) -> dict:
                     site=site, role=role, batch=batch, x=list(xs), co=co, launches=n,
                     max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
                     library_ms=library_ms, bound_ms=bound_ms, bound_by=by,
-                    plan=dict(plan._asdict(), kind=type(plan).__name__),
+                    plan=plan._asdict(),
                     **({"pad_pass_ms": pad_ms} if pad_ms is not None else {}),
                     **({"other_ways_ms": other_ms} if other_ms else {}),
                     **({"device_split": split} if split else {})))

@@ -79,11 +79,14 @@
 // gathered once at Co <= 144, was 2x at 128, 4x at 256, 8x at 512; the dx
 // at Co = 144 in one tile, was 3 tiles and 192 columns), and the contraction
 // split over blocks where the tiles cannot fill the card (stage 4 at 8
-// clips: 28 tiles); (4) BK = 32 rounded up per tap -> kappa straight
+// clips: 7 x 4 tiles, 5 chunks); (4) BK = 32 rounded up per tap -> kappa straight
 // through; (5) 2-byte scalar paths at C = 45 / Co = 45 -> the pad pass and
 // the packed 16-byte store; (6) an f32 epilogue through shared memory ->
 // bf16 rounded in registers; (7) every x row read k times, once per tap ->
-// the walk over t below (temporal_conv_walk_kernel) reads each frame once.
+// still so: the tile re-reads a frame's rows once per tap, mostly from L2.
+// A walk over t that read each frame once (all taps' weights resident, a
+// ring of frames, one or two blocks an SM) was slower at stage 1 and is in
+// the history of this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,16 +189,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-// Descriptor of a K-major operand in the no-swizzle ("interleave") layout
-// (K4's, csrc/fused_block.cu): core matrices of 8 rows x 16 bytes stored as
-// 128 contiguous bytes; leading offset = the bytes between core matrices
-// along K, stride offset = the bytes between 8-row groups (128: rows are 16
-// bytes apart within a K chunk), layout type 0.
-__device__ __forceinline__ uint64_t smem_desc_interleave(uint32_t addr, uint32_t k_stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(k_stride >> 4) << 16) | (static_cast<uint64_t>(128 >> 4) << 32);
 }
 
 // wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B both K-major in
@@ -623,148 +616,6 @@ temporal_conv_pad_kernel(const unsigned short* __restrict__ x, unsigned short* _
   }
 }
 
-// K2's walk over t (rung 2), for the sites that bytes bound and whose
-// weights fit beside a ring of frames (the stem and stage 1, forward and
-// dx): a block owns 128 (b, s) rows of the B*S plane and every output
-// channel (Co <= 144, a multiple of 8), keeps all k taps of the weight in shared memory, and
-// walks t over a chunk [t0, t1) of the frames. Frame f's 128 rows (all cp
-// channels) are loaded once into a ring of k + AHEAD slots, AHEAD frames
-// ahead of the products, so each x row is read once per chunk (plus the
-// chunk's 2p halo frames), not k times. Output frame t is one wgmma group:
-// for each tap whose frame t + dt - p lies in [0, T), ck / 16 steps of
-// m64nBNk16 with A the frame's slot and B the tap's weight, both K-major in
-// the interleave layout (no 64-channel rounding: 144 channels take 144).
-// Then the accumulators go through a staging tile to 16-byte stores, the
-// slot of frame t - p is refilled with frame t + p + AHEAD + 1, and the next
-// frame starts. Shared memory: [k taps x ck / 8 chunks x BN rows x 16 B |
-// k + AHEAD frames x ck / 8 chunks x 128 rows x 16 B | staging 128 x (BN + 8)
-// bf16 | 128 row offsets]; ops/conv2plus1d.py::temporal_walk_plan sizes it.
-struct WalkArgs {
-  const __nv_bfloat16* x;   // (B, T, S, cp)
-  const __nv_bfloat16* wk;  // (Co, k, cp), K-major
-  __nv_bfloat16* y;         // (B, T, S, Co)
-  int Q, T, S, k, cp, co, flip, tc, chunks;  // Q = B*S rows a frame
-};
-
-constexpr int kWalkRows = 128;                 // (b, s) rows of a block
-constexpr int kWalkChunk = kWalkRows * 16;     // bytes of 8 channels of a frame
-
-template <int BN, int AHEAD>
-__global__ void __launch_bounds__(THREADS, (BN <= 64 ? 2 : 1))
-temporal_conv_walk_kernel(const WalkArgs args) {
-  constexpr int LDS = BN + 8;  // bf16 per row of the staging tile
-  const __nv_bfloat16* __restrict__ x = args.x;
-  const __nv_bfloat16* __restrict__ wk = args.wk;
-  __nv_bfloat16* __restrict__ y = args.y;
-  const int T = args.T, S = args.S, k = args.k, p = args.k / 2, cp = args.cp, Co = args.co;
-  const int c8 = (cp + 15) / 16 * 2;  // 8-channel chunks of a row, a whole number of k16 steps
-  const int nslot = k + AHEAD;
-  const uint32_t wtap = c8 * BN * 16;        // bytes of one tap's weight
-  const uint32_t frame = c8 * kWalkChunk;    // bytes of one frame
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
-  unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t wsm = base, ring = base + k * wtap;
-  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem + k * wtap + nslot * frame);
-  int64_t* rowbase = reinterpret_cast<int64_t*>(st + kWalkRows * LDS);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wg = warp >> 2;
-  const int q0 = (blockIdx.x / args.chunks) * kWalkRows;
-  const int t0 = (blockIdx.x % args.chunks) * args.tc;
-  const int t1 = min(T, t0 + args.tc);
-  const int fa = max(0, t0 - p), fb = min(T - 1, t1 - 1 + p);  // the frames the chunk reads
-  if (tid < kWalkRows) {  // y row of (b, 0, s), or -1 past B*S; read after the first barrier
-    const int q = q0 + tid;
-    rowbase[tid] = q < args.Q ? static_cast<int64_t>(q / S) * T * S + q % S : -1;
-  }
-
-  // Loader: thread tid moves row tid % 128 of a frame, chunks tid / 128,
-  // +2, ...: consecutive threads fill consecutive 16 bytes of a chunk.
-  const int r = tid & (kWalkRows - 1);
-  const int q = q0 + r;
-  const bool row_ok = q < args.Q;
-  const __nv_bfloat16* xrow =
-      x + (row_ok ? (static_cast<int64_t>(q / S) * T * S + q % S) * cp : 0);
-  const int64_t frame_x = static_cast<int64_t>(S) * cp;
-  auto load_frame = [&](int f) {
-    const uint32_t dst = ring + ((f - fa) % nslot) * frame + r * 16;
-    for (int c = tid / kWalkRows; c < c8; c += THREADS / kWalkRows) {
-      const bool ok = row_ok && c * 8 < cp;
-      cp_async16(dst + c * kWalkChunk, ok ? xrow + f * frame_x + c * 8 : x, ok);
-    }
-  };
-  // All k taps of the weight: chunk e is row n = e % BN, chunk c of tap dt
-  // (for dx the forward's tap k-1-dt), zero past Co and cp.
-  for (int e = tid; e < k * c8 * BN; e += THREADS) {
-    const int n = e % BN, c = (e / BN) % c8, dt = e / (BN * c8);
-    const int tap = args.flip ? k - 1 - dt : dt;
-    const bool ok = n < Co && c * 8 < cp;
-    cp_async16(wsm + dt * wtap + c * (BN * 16) + n * 16,
-               ok ? wk + (static_cast<int64_t>(n) * k + tap) * cp + c * 8 : wk, ok);
-  }
-  for (int f = fa; f <= min(fb, t0 + p); ++f) load_frame(f);
-  cp_async_commit();
-#pragma unroll
-  for (int a = 1; a <= AHEAD; ++a) {
-    if (t0 + p + a <= fb) load_frame(t0 + p + a);
-    cp_async_commit();
-  }
-
-  float acc[BN / 2];
-  const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
-  for (int t = t0; t < t1; ++t) {
-    cp_async_wait<AHEAD>();  // the frames of output t have landed
-    fence_proxy_async();
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-    // One wgmma group per k16 step of a tap, all in flight until the one
-    // wait (the same time as groups of four steps, on the card).
-    for (int dt = 0; dt < k; ++dt) {
-      const int f = t + dt - p;
-      if (f < 0 || f >= T) continue;
-      const uint32_t sa = ring + ((f - fa) % nslot) * frame + wg * 64 * 16;
-      const uint32_t sb = wsm + dt * wtap;
-      for (int c = 0; c < c8; c += 2) {
-        fence_acc(acc);
-        wgmma_fence();
-        wgmma_tile<BN>(acc, smem_desc_interleave(sa + c * kWalkChunk, kWalkChunk),
-                       smem_desc_interleave(sb + c * (BN * 16), BN * 16));
-        wgmma_commit();
-        fence_acc(acc);
-      }
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    // Warp w of the warpgroup holds rows 16 (w % 4) .. +15 of the group's
-    // 64: n8 block jn in acc[4jn .. 4jn+3], rows lane/4 and lane/4 + 8.
-#pragma unroll
-    for (int jn = 0; jn < BN / 8; ++jn) {
-      const int col = jn * 8 + (lane & 3) * 2;
-      *reinterpret_cast<__nv_bfloat162*>(st + row * LDS + col) =
-          __floats2bfloat162_rn(acc[4 * jn], acc[4 * jn + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(st + (row + 8) * LDS + col) =
-          __floats2bfloat162_rn(acc[4 * jn + 2], acc[4 * jn + 3]);
-    }
-    __syncthreads();  // every product of frame t is done, and its tile staged
-    if (t + p + AHEAD + 1 <= fb) load_frame(t + p + AHEAD + 1);  // into frame t - p's slot
-    cp_async_commit();
-    const int64_t ts = static_cast<int64_t>(t) * S;
-    for (int e = tid; e < kWalkRows * (BN / 8); e += THREADS) {  // Co % 8 == 0
-      const int rr = e / (BN / 8), cc = (e % (BN / 8)) * 8;
-      const int64_t o = rowbase[rr];
-      if (o >= 0 && cc < Co)
-        *reinterpret_cast<uint4*>(y + (o + ts) * Co + cc) =
-            *reinterpret_cast<const uint4*>(st + rr * LDS + cc);
-    }
-  }
-  cp_async_wait<0>();  // the groups past the last frame are empty; none outlives the block
-}
-
 constexpr int kMaxDevices = 64;
 enum Kind { kSpatial, kTemporal };
 
@@ -830,54 +681,6 @@ int run(const void* w, TapsArgs args, int cw, int cow, int dx, int bn, int smem_
   }
 }
 
-template <int BN, int AHEAD>
-cudaError_t start_walk(const WalkArgs& args, unsigned blocks, int smem_bytes, int device,
-                       cudaStream_t s) {
-  auto kern = temporal_conv_walk_kernel<BN, AHEAD>;
-  static int opted_in[kMaxDevices] = {};
-  if (opted_in[device] < smem_bytes) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-    opted_in[device] = smem_bytes;
-  }
-  kern<<<blocks, THREADS, smem_bytes, s>>>(args);
-  return cudaGetLastError();
-}
-
-// K2's walk: the weight layout into wk, then the walk kernel with the
-// plan's Co tile (bn), frames ahead and chunk of t.
-int run_walk(const void* w, const WalkArgs& args, int cw, int cow, int bn, int ahead,
-             int smem_bytes, int device, cudaStream_t s) {
-  const int c8 = (args.cp + 15) / 16 * 2;
-  const int64_t need = static_cast<int64_t>(args.k) * c8 * bn * 16 +
-                       static_cast<int64_t>(args.k + ahead) * c8 * kWalkChunk +
-                       kWalkRows * (bn + 8) * 2 + kWalkRows * 8 + ALIGN;
-  if (device < 0 || device >= kMaxDevices || args.co > bn || args.co % 8 != 0 || args.tc < 1 ||
-      args.chunks != (args.T + args.tc - 1) / args.tc || smem_bytes < need)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 wgrid((args.cp + 31) / 32, (args.co + 31) / 32, args.k);
-  temporal_conv_weight_kernel<<<wgrid, 256, 0, s>>>(
-      static_cast<const unsigned short*>(w),
-      reinterpret_cast<unsigned short*>(const_cast<__nv_bfloat16*>(args.wk)), args.k, cw, cow,
-      args.cp, args.flip);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks =
-      static_cast<unsigned>((args.Q + kWalkRows - 1) / kWalkRows * args.chunks);
-  const int key = bn * 10 + ahead;
-  switch (key) {
-    case 641: err = start_walk<64, 1>(args, blocks, smem_bytes, device, s); break;
-    case 642: err = start_walk<64, 2>(args, blocks, smem_bytes, device, s); break;
-    case 1281: err = start_walk<128, 1>(args, blocks, smem_bytes, device, s); break;
-    case 1282: err = start_walk<128, 2>(args, blocks, smem_bytes, device, s); break;
-    case 1441: err = start_walk<144, 1>(args, blocks, smem_bytes, device, s); break;
-    case 1442: err = start_walk<144, 2>(args, blocks, smem_bytes, device, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
-}
-
 }  // namespace
 
 extern "C" {
@@ -921,22 +724,18 @@ int fvt_spatial_conv_bf16(const void* x, const void* w, void* wk, void* y, void*
 // with cow channels, y (b, t, s, cw). cp = cx rounded up to 8 is the
 // contraction width of a tap; where cx % 8 != 0, xp is a (b*t*s, cp)
 // scratch that the pad kernel copies x into first (else null). wk (out
-// channels, k, cp) bf16 scratch. ahead = 0: the tile GEMM with the plan's
-// bn, stages and splits (ws as for K1); ahead > 0: the walk over t, bn the
-// Co tile, ahead frames in flight, t in chunks of tc (stages and splits
-// unused, splits = 1). The plan comes from
-// ops/conv2plus1d.py::temporal_plan.
+// channels, k, cp) bf16 scratch; ws as for K1. The plan (bn, stages,
+// splits, smem_bytes) comes from ops/conv2plus1d.py::temporal_plan.
 int fvt_temporal_conv_bf16(const void* x, const void* w, void* wk, void* xp, void* y, void* ws,
                            long long b, int t, int s, int cx, int cp, int cw, int cow, int k,
-                           int dx, int bn, int stages, int splits, int ahead, int tc,
-                           int smem_bytes, int device, void* stream) {
+                           int dx, int bn, int stages, int splits, int smem_bytes, int device,
+                           void* stream) {
   const int c_in = dx ? cow : cw, co = dx ? cw : cow;
   const bool ragged = cx % 8 != 0;
   if (b <= 0 || t <= 0 || s <= 0 || cw <= 0 || cow <= 0 || k <= 0 || (k % 2) == 0 ||
       cx < c_in || cx >= c_in + 8 || cp != (cx + 7) / 8 * 8 || ragged != (xp != nullptr) ||
-      stages != STAGES || splits < 1 || ahead < 0 || ahead > 2 || (ahead > 0 && splits != 1) ||
-      static_cast<long long>(b) * s > 0x7fffffff || (splits > 1 && !aligned16(ws)) ||
-      !aligned16(x) || !aligned16(w) || !aligned16(wk) || !aligned16(y) || !aligned16(xp))
+      stages != STAGES || splits < 1 || (splits > 1 && !aligned16(ws)) || !aligned16(x) ||
+      !aligned16(w) || !aligned16(wk) || !aligned16(y) || !aligned16(xp))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -949,14 +748,7 @@ int fvt_temporal_conv_bf16(const void* x, const void* w, void* wk, void* xp, voi
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const __nv_bfloat16* xin = static_cast<const __nv_bfloat16*>(ragged ? xp : x);
-  if (ahead > 0) {
-    const WalkArgs args{xin, static_cast<const __nv_bfloat16*>(wk),
-                        static_cast<__nv_bfloat16*>(y), static_cast<int>(b * s), t, s, k, cp, co,
-                        dx, tc, tc > 0 ? (t + tc - 1) / tc : 0};
-    return run_walk(w, args, cw, cow, bn, ahead, smem_bytes, device, st);
-  }
-  const TapsArgs args{xin, static_cast<const __nv_bfloat16*>(wk),
+  const TapsArgs args{static_cast<const __nv_bfloat16*>(ragged ? xp : x), static_cast<const __nv_bfloat16*>(wk),
                       static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
                       M, t, s, k, 1, cp, co, dx, 1, splits};
   return run<kTemporal>(w, args, cw, cow, dx, bn, smem_bytes, device, st);

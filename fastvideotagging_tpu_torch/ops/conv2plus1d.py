@@ -9,9 +9,6 @@ package's ``ops/conv2plus1d.py`` (``spatial_conv`` / ``temporal_conv``).
   ``_temporal_kernel`` / ``_temporal_pallas``: a stride-1 k x 1 x 1 conv.
   K1 and K2 are one implicit GEMM over a general row geometry; their tile
   plans have one rule, ``_taps_plan`` (``spatial_plan`` / ``temporal_plan``).
-  Where K2 is bound by bytes and its weights fit beside a ring of frames
-  (the stem and stage 1), ``temporal_conv_walk_kernel`` walks t instead
-  and reads each x frame once (``temporal_walk_plan``).
 - ``temporal_dw_hopper_kernel`` (K3, csrc/temporal_dw.cu) replaces
   ``_temporal_dw_kernel`` / ``_temporal_dw``: the temporal conv's weight
   gradient. Its launch plan has one source, ``temporal_dw_plan``.
@@ -75,8 +72,8 @@ _dw_lib = None
 _K1_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 12
                 + [ctypes.c_void_p])
 # fvt_temporal_conv_bf16(x, w, wk, xp, y, ws, b, t, s, cx, cp, cw, cow, k, dx,
-# bn, stages, splits, ahead, tc, smem_bytes, device, stream)
-_K2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 15
+# bn, stages, splits, smem_bytes, device, stream)
+_K2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 13
                 + [ctypes.c_void_p])
 
 
@@ -233,81 +230,12 @@ def spatial_plan(x_shape, co: int, k: int, sms: int = SMS) -> TapsPlan:
     return _taps_plan(n * h * w, _ceil8(c), co, k * k, sms)
 
 
-# K2's walk over t (csrc/spatial_conv.cu, temporal_conv_walk_kernel): a
-# block of 128 (b, s) rows, every output channel, all taps' weights resident
-# and a ring of k + ahead frames, in the interleave layout.
-_K2_WALK_ROWS = 128
-_K2_WALK_AHEADS = (1, 2)  # frames in flight the kernel is built for
-
-
-class TemporalWalkPlan(NamedTuple):
-    bn: int  # output channels of a block: Co rounded up to a tile
-    cp: int  # channels of an x row: C rounded up to 8
-    ahead: int  # frames loading while the products of one run
-    tc: int  # output frames of a chunk
-    chunks: int  # chunks along t: ceil(T / tc)
-    row_tiles: int  # blocks along the B*S plane (128 rows each)
-    smem_bytes: int  # dynamic shared memory of one block
-    blocks_per_sm: int  # as the shared memory and the launch bounds allow
-    stages: int = _K1_STAGES  # unused by the walk; the entry point checks it
-    splits: int = 1  # the walk never splits its contraction
-
-    @property
-    def grid(self) -> int:
-        return self.row_tiles * self.chunks
-
-
-def _walk_smem(k: int, cp: int, bn: int, ahead: int) -> int:
-    ck = -(-cp // 16) * 16  # a whole number of k16 steps
-    return (k * ck * bn * 2 + (k + ahead) * ck * _K2_WALK_ROWS * 2
-            + _K2_WALK_ROWS * (bn + 8) * 2 + _K2_WALK_ROWS * 8 + _K1_ALIGN)
-
-
-def temporal_walk_plan(x_shape, co: int, k: int, sms: int = SMS) -> TemporalWalkPlan | None:
-    """K2's walk over t for x (B, T, S, C) -> Co channels, or None where
-    Co > 144, Co % 8 != 0 (its stores are 16 bytes) or the weights and a
-    ring of k + 1 frames do not fit one block (stages 2-4 of r2plus1d_18,
-    and the stem's dx, Co = 45).
-
-    The ring takes the frames in flight (1 or 2) that keep the most bytes
-    loading per SM, blocks an SM times frames, the more blocks on a tie:
-    stem 2 frames (2 blocks an SM), stage 1 1 (1 block), its dx 2 (1
-    block). The chunk of t (T, T/2 or T/4) is the one
-    with the least waves times frames a block loads (its tc plus the 2p halo
-    frames): stage 1 at 8 clips, 196 row tiles on 132 SMs, takes chunks of
-    8 (3 waves of 10 frames, against 2 of 18)."""
-    b, t, s, c = x_shape
-    covering = [bn for bn in reversed(_K1_BNS) if bn >= co]
-    if not covering or co % 8 or k <= 0 or k % 2 == 0:
-        return None
-    bn, cp = covering[0], _ceil8(c)
-    fits = []
-    for ahead in _K2_WALK_AHEADS:
-        smem = _walk_smem(k, cp, bn, ahead)
-        if smem <= SMEM_LIMIT:
-            per_sm = min(2 if bn <= 64 else 1, SMEM_PER_SM // (smem + 1024))
-            fits.append(((per_sm * ahead, per_sm), ahead, smem, per_sm))
-    if not fits:
-        return None
-    _, ahead, smem, per_sm = max(fits)
-    row_tiles = -(-b * s // _K2_WALK_ROWS)
-
-    def cost(tc):
-        return -(-row_tiles * -(-t // tc) // (sms * per_sm)) * (tc + k - 1)
-
-    tc = min(dict.fromkeys((t, -(-t // 2), -(-t // 4))), key=lambda n: (cost(n), -n))
-    return TemporalWalkPlan(bn, cp, ahead, tc, -(-t // tc), row_tiles, smem, per_sm)
-
-
 @functools.lru_cache(maxsize=256)
-def temporal_plan(x_shape, co: int, k: int, sms: int = SMS, walk: bool = True):
-    """K2's launch plan for x (B, T, S, C) -> Co channels: the walk over t
-    where it fits (``temporal_walk_plan``), else the tile GEMM
-    (``_taps_plan``, k taps of C rounded up to 8); ``walk=False`` takes the
-    tile GEMM everywhere."""
+def temporal_plan(x_shape, co: int, k: int, sms: int = SMS) -> TapsPlan:
+    """K2's launch plan for x (B, T, S, C) -> Co channels (``_taps_plan``):
+    k taps of C rounded up to 8."""
     b, t, s, c = x_shape
-    plan = temporal_walk_plan(x_shape, co, k, sms) if walk else None
-    return plan or _taps_plan(b * t * s, _ceil8(c), co, k, sms)
+    return _taps_plan(b * t * s, _ceil8(c), co, k, sms)
 
 
 def _pad_channels(x: torch.Tensor) -> torch.Tensor:
@@ -491,21 +419,19 @@ def spatial_conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool, plan=None):
+def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool):
     """K2 on x (B, T, S, ·) with the forward weight w (k, C, Co): the conv
     (x has C channels, or C zero-padded to a multiple of 8) or its dx (x
     has Co). Channels that are not a multiple of 8 (the stem's 45) go
-    through the kernel's pad pass into a scratch tensor. ``plan`` defaults to
-    ``temporal_plan``'s. Returns y and the K-major weight the kernel laid
-    out (its scratch)."""
+    through the kernel's pad pass into a scratch tensor. Returns y and the
+    K-major weight the kernel laid out (its scratch)."""
     k, cw, cow = w.shape
     c_out = cw if dx else cow
     # a view into a larger buffer: the kernel reads 16 bytes at a time
     x = x.clone() if x.data_ptr() % 16 else x
     w = w.clone() if w.data_ptr() % 16 else w
     b, t, s, cx = x.shape
-    plan = plan or temporal_plan(tuple(x.shape), c_out, k, _sm_count(x.device))
-    walk = isinstance(plan, TemporalWalkPlan)
+    plan = temporal_plan(tuple(x.shape), c_out, k, _sm_count(x.device))
     xp = torch.empty((b * t * s, plan.cp), dtype=x.dtype, device=x.device) if cx % 8 else None
     wk = torch.empty((c_out, k, plan.cp), dtype=x.dtype, device=x.device)
     y = torch.empty((b, t, s, c_out), dtype=x.dtype, device=x.device)
@@ -516,8 +442,7 @@ def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool, plan=None):
         x.data_ptr(), w.data_ptr(), wk.data_ptr(), *(a.data_ptr() if a is not None else None
                                                      for a in (xp, y, ws)),
         b, t, s, cx, plan.cp, cw, cow, k, int(dx), plan.bn, plan.stages, plan.splits,
-        plan.ahead if walk else 0, plan.tc if walk else 0, plan.smem_bytes, x.device.index,
-        stream)
+        plan.smem_bytes, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_temporal_conv_bf16 launch failed: CUDA error {rc}")
     launch_counts["temporal_conv"] += 1

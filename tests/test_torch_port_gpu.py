@@ -12,8 +12,8 @@ Shapes: the R(2+1)D-18 serving path's (clip_batch 8, 16x112x112) and ragged
 ones (C or Co not a multiple of 8, k = 5, row counts that are not a multiple
 of the 128-row tile); for K1 also the dx widths (C = 144 -> 64, 1152 -> 512:
 contractions that are not a multiple of the 64-deep slice), one clip of
-frames smaller than 8 x 8, and Co = 8; for K2 the dx widths, split plans,
-and its walk over t against its tile GEMM. Kernel and plain version take the same bf16 inputs and
+frames smaller than 8 x 8, and Co = 8; for K2 the dx widths, split plans
+and its pad pass. Kernel and plain version take the same bf16 inputs and
 sum in f32, so they agree within 1e-2 of the output's largest magnitude
 (bf16 output rounding). K3's output is f32 and differs from its plain
 version by summation order only: 1e-3 of the largest magnitude. The dx
@@ -220,51 +220,22 @@ def test_temporal_split_kappa_is_bitwise_deterministic(cuda, x_shape, co, dx):
     _close(got, plain(x, w))
 
 
-def _walk_plan(x_shape, co, k, ahead, tc):
-    """K2's walk over t with its ring depth and chunk of t forced."""
-    b, t, s, c = x_shape
-    bn = next(n for n in (64, 128, 144) if n >= co)
-    cp = -(-c // 8) * 8
-    return ops.TemporalWalkPlan(bn, cp, ahead, tc, -(-t // tc), -(-b * s // 128),
-                                ops._walk_smem(k, cp, bn, ahead), 1)
-
-
-# K2's walk over t against the tile GEMM: (x shape, Co, k, frames ahead,
-# chunk of t). The stem and stage 1 at B = 2 (chunks of 8 and 16, both ring
-# depths), rows past B*S, C = 45 (the pad pass), k = 5 with T = 2 (taps
-# outside [0, T)), C = 40 (a k16 step half past C).
-WALK = [
-    ((2, 16, 3136, 45), 64, 3, 2, 16), ((2, 16, 3136, 144), 64, 3, 1, 8),
-    ((2, 16, 3136, 64), 144, 3, 2, 8), ((2, 16, 3136, 64), 64, 3, 1, 16),
-    ((3, 5, 50, 40), 24, 3, 2, 2), ((1, 2, 70, 64), 128, 5, 1, 2),
-    ((2, 7, 33, 48), 24, 5, 2, 3),
-]
-
-
-@pytest.mark.parametrize("x_shape,co,k,ahead,tc", WALK)
-@pytest.mark.parametrize("dx", [False, True])
-def test_temporal_walk_and_tile_plans_match_plain(cuda, x_shape, co, k, ahead, tc, dx):
-    """K2's walk over t (ring depth and chunk of t forced) and its tile GEMM
-    on the same call give the plain version's result, forward and dx."""
+@pytest.mark.parametrize("x_shape,co,k", [
+    ((2, 16, 3136, 45), 64, 3), ((2, 5, 13, 45), 19, 3), ((3, 2, 1, 33), 8, 3),
+    ((1, 9, 7, 63), 45, 5)])
+def test_temporal_pad_pass_matches_plain_and_prepadded(cuda, x_shape, co, k):
+    """Rows of C % 8 != 0 channels go through K2's pad pass: the result is
+    the plain version's, forward and dx, and bit for bit the same call's on
+    channels padded beforehand (the same contraction, in the same order)."""
     g = torch.Generator(device=cuda).manual_seed(15)
     c = x_shape[-1]
     x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
-    w_shape = (k, co, c) if dx else (k, c, co)
-    w = (torch.randn(w_shape, generator=g, device=cuda) / (k * c) ** 0.5).to(torch.bfloat16)
-    ref = (ops.temporal_conv_dx_plain if dx else ops.temporal_conv_plain)(x, w)
-    walk = _walk_plan(x_shape, co, k, ahead, tc)
-    tile = ops.temporal_plan(x_shape, co, k, walk=False)
-    got = ops._k2_launch(x, w, dx, walk)[0]
-    _close(got, ref)
-    _close(ops._k2_launch(x, w, dx, tile)[0], ref)
-    assert torch.equal(got, ops._k2_launch(x, w, dx, walk)[0])
-
-
-def test_temporal_walk_is_planned_at_the_stem_and_stage_1(cuda):
-    sms = ops._sm_count(torch.device(cuda))
-    for xs, co, walk in [((8, 16, 3136, 45), 64, True), ((8, 16, 3136, 64), 144, True),
-                         ((8, 8, 784, 288), 128, False), ((8, 2, 49, 1152), 512, False)]:
-        assert isinstance(ops.temporal_plan(xs, co, 3, sms), ops.TemporalWalkPlan) == walk
+    w = (torch.randn((k, c, co), generator=g, device=cuda) / (k * c) ** 0.5).to(torch.bfloat16)
+    got = ops.temporal_conv_cuda(x, w)
+    _close(got, ops.temporal_conv_plain(x, w))
+    assert torch.equal(got, ops._k2_launch(ops._pad_channels(x), w, False)[0])
+    w_dx = (torch.randn((k, co, c), generator=g, device=cuda) / (k * c) ** 0.5).to(torch.bfloat16)
+    _close(ops.temporal_conv_dx_cuda(x, w_dx), ops.temporal_conv_dx_plain(x, w_dx))
 
 
 @pytest.mark.parametrize("w_shape,dx,c_in", [

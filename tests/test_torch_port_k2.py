@@ -2,13 +2,12 @@
 launch plans at every path site, its arithmetic as the kernels index it, its
 ctypes binding, and the even-k convs that the kernels refuse.
 
-K2's tile GEMM is K1's implicit GEMM: rows m = (b*T + t)*S + s, kappa =
-tap*cp + c, the weight K-major (``temporal_weight_layout_plain``), the taps
-read in reverse for dx. Its walk over t (the stem and stage 1) keeps 128
-(b, s) rows of every frame in a ring of k + ahead slots and sums, for
-output frame t, frame t + dt - p against tap dt. The emulations below index
-x and the ring that way and are held to the plain version and to the
-library's conv, in f32, tolerance 1e-4 (tests/test_ops_pallas.py:51).
+K2 is K1's implicit GEMM: rows m = (b*T + t)*S + s, kappa = tap*cp + c,
+the weight K-major (``temporal_weight_layout_plain``), the taps read in
+reverse for dx, x's channels zero-padded to cp (a multiple of 8) by the
+kernel's pad pass where they are not. The emulation below indexes x that
+way and is held to the plain version and to the library's conv, in f32,
+tolerance 1e-4 (tests/test_ops_pallas.py:51).
 """
 
 import ctypes
@@ -55,22 +54,14 @@ def test_temporal_plan_at_every_path_site(b):
     for role, xs, co in _k2_sites(b):
         plan = tops.temporal_plan(xs, co, 3)
         # the blocks the plan counts on fit an SM's 228 KB, 1 KB reserved each
-        assert plan.blocks_per_sm >= 1 and plan.smem_bytes <= tops.SMEM_LIMIT, (role, xs)
+        assert plan.blocks_per_sm >= 2, (role, xs)
         assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= tops.SMEM_PER_SM
-        assert plan.cp == -(-xs[-1] // 8) * 8  # the stem's 45 padded to 48, the rest as they are
-        rows = xs[0] * xs[1] * xs[2]
-        if isinstance(plan, tops.TemporalWalkPlan):
-            # the stem and stage 1 (not the stem's dx, Co = 45): x read
-            # once, every Co in one block
-            assert xs[2] == 3136 and co % 8 == 0 and co <= plan.bn < co + 64
-            assert plan.row_tiles == -(-xs[0] * xs[2] // 128)
-            assert plan.chunks == -(-xs[1] // plan.tc) and plan.grid >= 132
-            continue
-        assert xs[2] < 3136 or co == 45, (role, xs)  # stages 2-4 and the stem's dx
+        assert plan.smem_bytes <= tops.SMEM_LIMIT
         # the column tile covers Co in one tile or divides it
         assert (plan.col_tiles == 1 and co <= plan.bn) or co % plan.bn == 0, (role, xs, co)
-        assert plan.blocks_per_sm >= 2
+        rows = xs[0] * xs[1] * xs[2]
         assert (plan.row_tiles - 1) * 128 < rows <= plan.row_tiles * 128
+        assert plan.cp == -(-xs[-1] // 8) * 8  # the stem's 45 padded to 48, the rest as they are
         tiles = plan.row_tiles * plan.col_tiles
         assert plan.grid == tiles * plan.splits
         slices = -(-3 * plan.cp // 64)
@@ -82,28 +73,12 @@ def test_temporal_plan_at_every_path_site(b):
     # stage 4 at 8 clips: 7 row tiles x 4 column tiles, its 54 slices in 5 chunks
     plan = tops.temporal_plan((8, 2, 49, 1152), 512, 3)
     assert (plan.row_tiles, plan.col_tiles, plan.splits) == (7, 4, 5)
-    # the dx of stage 1 on the tile GEMM: Co = 144 in one tile (the WMMA K2
-    # ran 3 tiles of 64)
-    plan = tops.temporal_plan((8, 16, 3136, 64), 144, 3, walk=False)
+    # the dx of stage 1: Co = 144 in one tile (the WMMA K2 ran 3 tiles of 64)
+    plan = tops.temporal_plan((8, 16, 3136, 64), 144, 3)
     assert (plan.bn, plan.col_tiles) == (144, 1)
-
-
-def test_temporal_walk_plan_rules():
-    """Frames in flight and chunks of t: the most bytes loading per SM (the
-    more blocks on a tie), and the fewest waves times frames a block loads."""
-    walk = tops.temporal_walk_plan
-    assert walk((8, 16, 3136, 45), 64, 3)[2:5] == (2, 16, 1)      # stem: 2 blocks an SM
-    assert walk((8, 16, 3136, 64), 45, 3) is None                 # its dx: Co % 8 != 0
-    assert walk((8, 16, 3136, 144), 64, 3)[2:5] == (1, 8, 2)      # stage 1: 196 tiles, T / 2
-    assert walk((32, 16, 3136, 144), 64, 3)[2:5] == (1, 16, 1)    # 784 tiles: no split of t
-    assert walk((8, 16, 3136, 64), 144, 3)[2:5] == (2, 8, 2)
-    assert walk((8, 8, 784, 288), 128, 3) is None                 # stage 2: 221 KB of weights
-    assert walk((8, 8, 784, 128), 288, 3) is None                 # Co > 144
-    assert walk((1, 4, 9, 32), 8, 2) is None                      # even k
-    plan = walk((8, 16, 3136, 144), 64, 3)
-    assert plan.smem_bytes == tops._walk_smem(3, 144, 64, 1) <= tops.SMEM_LIMIT
-    assert tops._walk_smem(3, 144, 64, 2) > tops.SMEM_LIMIT
-    assert tops._walk_smem(3, 40, 64, 1) == tops._walk_smem(3, 48, 64, 1)  # k16 steps
+    # K1 and K2 share the rule: the same rows, taps and widths, the same plan
+    assert tops.temporal_plan((8, 16, 3136, 64), 144, 3) == tops._taps_plan(
+        8 * 16 * 3136, 64, 144, 3, tops.SMS)
 
 
 def _k2_emulated(x, wk, co, k, flip):
@@ -126,42 +101,6 @@ def _k2_emulated(x, wk, co, k, flip):
         a[inside, tap * cp: tap * cp + c] = xf[start[:, None] + torch.arange(c)]
     w = (wk.flip(1) if flip else wk).reshape(co, k * cp)
     return (a @ w.T).reshape(b, t, s, co)
-
-
-def _walk_emulated(x, wk, co, k, flip, tc, ahead):
-    """K2's walk over t as the kernel schedules it: per chunk [t0, t1) of t,
-    frame f's (b, s) rows go into slot (f - fa) % (k + ahead) of a ring (the
-    chunk's first k frames, then ahead more, then one after each output
-    frame, into the slot of frame t - p); output frame t sums frame t + dt -
-    p (inside [0, T)) against tap dt, each read from its slot, which must
-    still hold it."""
-    b, t_len, s, c = x.shape
-    p, slots = k // 2, k + ahead
-    frames = x.permute(1, 0, 2, 3).reshape(t_len, b * s, c)  # row q = b*S + s
-    w = (wk.flip(1) if flip else wk)[..., :c]
-    y = torch.zeros((t_len, b * s, co), dtype=x.dtype)
-    for t0 in range(0, t_len, tc):
-        t1 = min(t_len, t0 + tc)
-        fa, fb = max(0, t0 - p), min(t_len - 1, t1 - 1 + p)
-        ring = [None] * slots
-
-        def load(f, fa=fa, fb=fb, ring=ring):
-            if f <= fb:
-                ring[(f - fa) % slots] = (f, frames[f])
-
-        for f in range(fa, min(fb, t0 + p) + 1):
-            load(f)
-        for a in range(1, ahead + 1):
-            load(t0 + p + a)
-        for t in range(t0, t1):
-            for dt in range(k):
-                f = t + dt - p
-                if 0 <= f < t_len:
-                    held, rows = ring[(f - fa) % slots]
-                    assert held == f, (t, dt, held)
-                    y[t] += rows @ w[:, dt].T
-            load(t + p + ahead + 1)
-    return y.reshape(t_len, b, s, co).permute(1, 0, 2, 3)
 
 
 @pytest.mark.parametrize("shape,co,k", [
@@ -196,25 +135,6 @@ def test_k2_arithmetic_matches_plain(shape, co, k, dx):
     torch.testing.assert_close(ref, lib[..., 0].permute(0, 2, 3, 1), rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("shape,co,k,tc,ahead", [
-    ((2, 16, 6, 48), 64, 3, 16, 2),   # the stem's plan: one chunk, two frames ahead
-    ((2, 16, 6, 144), 64, 3, 8, 1),   # stage 1's at 8 clips: two chunks, one ahead
-    ((1, 5, 7, 40), 24, 3, 2, 2),     # chunks of 2, the last one short
-    ((1, 7, 5, 36), 19, 5, 3, 1),     # k = 5: halos of 2 frames
-    ((2, 2, 9, 32), 16, 5, 2, 2),     # T = 2 < k: taps outside [0, T)
-])
-@pytest.mark.parametrize("dx", [False, True])
-def test_k2_walk_schedule_matches_plain(shape, co, k, tc, ahead, dx):
-    """The walk's ring never overwrites a frame an output frame still reads,
-    and its sums are the plain version's, forward and dx."""
-    b, t, s, c = shape
-    x, w = _inputs((b, t, s, co if dx else c), (k, c, co), seed=6)
-    out = c if dx else co
-    got = _walk_emulated(x, tops.temporal_weight_layout_plain(w, dx=dx), out, k, dx, tc, ahead)
-    ref = tops.temporal_conv_dx_plain(x, w) if dx else tops.temporal_conv_plain(x, w)
-    torch.testing.assert_close(got, ref, rtol=TOL, atol=TOL)
-
-
 def test_temporal_conv_argtypes_match_its_c_signature():
     """The ctypes binding of K2's entry point has one type per parameter of
     the C function, in the same kinds (pointers, 64-bit and 32-bit ints)."""
@@ -228,7 +148,7 @@ def test_temporal_conv_argtypes_match_its_c_signature():
         return ctypes.c_longlong if "long long" in param else ctypes.c_int
 
     assert tops._K2_ARGTYPES == [kind(q) for q in params]
-    assert len(params) == 23
+    assert len(params) == 21
 
 
 # Even k: the kernels take odd k only, and the port sends an even k to the
