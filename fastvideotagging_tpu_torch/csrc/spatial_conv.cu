@@ -274,14 +274,16 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint
 // of one row tile run side by side and share its A rows in L2. With one
 // chunk the block writes bf16 y; with more it writes its f32 partial sums
 // to ws (splits, M, Co), which the reduce kernel adds up in chunk order.
-// SPLIT is splits > 1, so that the common case carries none of its code.
-template <int BN, bool SPLIT>
+// SPLIT is splits > 1, so that the common case carries none of its code;
+// SQUARE is K1's kA x kA taps (K2's are kA x 1), fixed at compile time: a
+// runtime kB made K1's widest tiles measurably slower on the card.
+template <int BN, bool SPLIT, bool SQUARE>
 __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   using T = Tile<BN>;
   const __nv_bfloat16* __restrict__ x = args.x;
   const __nv_bfloat16* __restrict__ wk = args.wk;
   const int64_t M = args.M;
-  const int A = args.A, Bd = args.Bd, kB = args.kB, C = args.cp;
+  const int A = args.A, Bd = args.Bd, kB = SQUARE ? args.kA : 1, C = args.cp;
   const int Co = args.co, n_tiles = args.n_tiles, splits = args.splits;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -295,7 +297,7 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
   const int tile = SPLIT ? blockIdx.x / splits : blockIdx.x;
   const int64_t m0 = static_cast<int64_t>(tile / n_tiles) * BM;
   const int n0 = (tile % n_tiles) * BN;
-  const int kk = args.kA * kB, pA = args.kA / 2, pB = kB / 2;
+  const int kk = args.kA * kB, pA = args.kA / 2, pB = SQUARE ? pA : 0;
   const int K = kk * C;
   const int KT = (K + BK - 1) / BK;
   // this block's slices of the contraction: [kt0, kt0 + NK)
@@ -428,9 +430,10 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
         }
       }
     }
-  } else if (Co % 8 != 0 && n_tiles == 1) {
-    // One column tile covers a ragged Co: rows m0.. of y are one span of
-    // rows * Co values, 16-byte aligned (m0 * Co * 2 is a multiple of 256).
+  } else if (BN == 64 && Co % 8 != 0 && n_tiles == 1) {
+    // One 64-wide column tile covers a ragged Co (K2's stem dx, Co = 45):
+    // rows m0.. of y are one span of rows * Co values, 16-byte aligned (m0 *
+    // Co * 2 is a multiple of 256). The wider instances carry none of it.
     __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
 #pragma unroll
     for (int jn = 0; jn < BN / 8; ++jn) {
@@ -481,13 +484,13 @@ __device__ __forceinline__ void conv_taps_tile(const TapsArgs& args) {
 template <int BN, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, (BN <= 64 ? 3 : 2))
 spatial_conv_hopper_kernel(const TapsArgs args) {
-  conv_taps_tile<BN, SPLIT>(args);
+  conv_taps_tile<BN, SPLIT, true>(args);
 }
 
 template <int BN, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, (BN <= 64 ? 3 : 2))
 temporal_conv_hopper_kernel(const TapsArgs args) {
-  conv_taps_tile<BN, SPLIT>(args);
+  conv_taps_tile<BN, SPLIT, false>(args);
 }
 
 // y = bf16(sum over s of ws[s]), s in order: the same sums, bit for bit,
@@ -715,7 +718,7 @@ int fvt_spatial_conv_bf16(const void* x, const void* w, void* wk, void* y, void*
                       static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
                       static_cast<int64_t>(n) * h * wd, h, wd, k, k, cp, co, dx, 1, splits};
   return run<kSpatial>(w, args, cw, cow, dx, bn, smem_bytes, device,
-                              reinterpret_cast<cudaStream_t>(stream));
+                       reinterpret_cast<cudaStream_t>(stream));
 }
 
 // Launches K2 the same way: w (k, cw, cow) the forward weight; dx = 0: y =
@@ -748,9 +751,9 @@ int fvt_temporal_conv_bf16(const void* x, const void* w, void* wk, void* xp, voi
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const TapsArgs args{static_cast<const __nv_bfloat16*>(ragged ? xp : x), static_cast<const __nv_bfloat16*>(wk),
-                      static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws),
-                      M, t, s, k, 1, cp, co, dx, 1, splits};
+  const TapsArgs args{static_cast<const __nv_bfloat16*>(ragged ? xp : x),
+                      static_cast<const __nv_bfloat16*>(wk), static_cast<__nv_bfloat16*>(y),
+                      static_cast<float*>(ws), M, t, s, k, 1, cp, co, dx, 1, splits};
   return run<kTemporal>(w, args, cw, cow, dx, bn, smem_bytes, device, st);
 }
 

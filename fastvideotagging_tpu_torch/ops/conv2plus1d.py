@@ -245,7 +245,7 @@ def _pad_channels(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, pad)) if pad else x
 
 
-def _weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
+def temporal_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
     """The plain version of K1's and K2's weight layout (csrc/spatial_conv.cu,
     ``weight_layout``): w (taps, C, Co) K-major, (out channel, tap, in
     channel) contiguous, the in channels zero-padded to a multiple of 8.
@@ -257,16 +257,10 @@ def _weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
 
 
 def spatial_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
-    """K1's weight layout: w (k, k, C, Co) -> (Co, k*k, C) forward, (C,
-    k*k, Co) for dx (``_weight_layout_plain``)."""
+    """K1's weight layout: w (k, k, C, Co) as k*k taps
+    (``temporal_weight_layout_plain``)."""
     k, _, c, co = w.shape
-    return _weight_layout_plain(w.reshape(k * k, c, co), dx)
-
-
-def temporal_weight_layout_plain(w: torch.Tensor, dx: bool) -> torch.Tensor:
-    """K2's weight layout: w (k, C, Co) -> (Co, k, C) forward, (C, k, Co)
-    for dx (``_weight_layout_plain``)."""
-    return _weight_layout_plain(w, dx)
+    return temporal_weight_layout_plain(w.reshape(k * k, c, co), dx)
 
 
 @functools.lru_cache(maxsize=None)
@@ -423,30 +417,35 @@ def _k2_launch(x: torch.Tensor, w: torch.Tensor, dx: bool):
     """K2 on x (B, T, S, ·) with the forward weight w (k, C, Co): the conv
     (x has C channels, or C zero-padded to a multiple of 8) or its dx (x
     has Co). Channels that are not a multiple of 8 (the stem's 45) go
-    through the kernel's pad pass into a scratch tensor. Returns y and the
-    K-major weight the kernel laid out (its scratch)."""
+    through the kernel's pad pass. Returns y and the K-major weight the
+    kernel laid out.
+
+    The kernel's scratch is one allocation (a host cost per call that the
+    small sites feel): the K-major weight, the padded x where there is one,
+    and the f32 partial sums of a split plan, each 16-byte aligned."""
     k, cw, cow = w.shape
     c_out = cw if dx else cow
     # a view into a larger buffer: the kernel reads 16 bytes at a time
     x = x.clone() if x.data_ptr() % 16 else x
     w = w.clone() if w.data_ptr() % 16 else w
     b, t, s, cx = x.shape
+    rows = b * t * s
     plan = temporal_plan(tuple(x.shape), c_out, k, _sm_count(x.device))
-    xp = torch.empty((b * t * s, plan.cp), dtype=x.dtype, device=x.device) if cx % 8 else None
-    wk = torch.empty((c_out, k, plan.cp), dtype=x.dtype, device=x.device)
+    n_wk = c_out * k * plan.cp  # bf16 values; cp % 8 == 0, so each part ends 16-byte aligned
+    n_xp = rows * plan.cp if cx % 8 else 0
+    n_ws = 2 * plan.splits * rows * c_out if plan.splits > 1 else 0  # f32 as bf16 pairs
+    scratch = torch.empty(n_wk + n_xp + n_ws, dtype=x.dtype, device=x.device)
     y = torch.empty((b, t, s, c_out), dtype=x.dtype, device=x.device)
-    ws = (torch.empty((plan.splits, b * t * s, c_out), dtype=torch.float32, device=x.device)
-          if plan.splits > 1 else None)
+    base = scratch.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernels().fvt_temporal_conv_bf16(
-        x.data_ptr(), w.data_ptr(), wk.data_ptr(), *(a.data_ptr() if a is not None else None
-                                                     for a in (xp, y, ws)),
-        b, t, s, cx, plan.cp, cw, cow, k, int(dx), plan.bn, plan.stages, plan.splits,
-        plan.smem_bytes, x.device.index, stream)
+        x.data_ptr(), w.data_ptr(), base, base + 2 * n_wk if n_xp else None, y.data_ptr(),
+        base + 2 * (n_wk + n_xp) if n_ws else None, b, t, s, cx, plan.cp, cw, cow, k,
+        int(dx), plan.bn, plan.stages, plan.splits, plan.smem_bytes, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_temporal_conv_bf16 launch failed: CUDA error {rc}")
     launch_counts["temporal_conv"] += 1
-    return y, wk
+    return y, scratch[:n_wk].view(c_out, k, plan.cp)
 
 
 def temporal_conv_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

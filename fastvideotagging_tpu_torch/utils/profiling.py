@@ -2,7 +2,7 @@
 on the card.
 
     python -m fastvideotagging_tpu_torch.utils.profiling [--model r2plus1d_18]
-        [--clip-batch 8] [--iters 5] [--steps 20] [--train [--batch 32]]
+        [--clip-batch 8] [--iters 5] [--steps 20] [--train [--batch 32]] [--sites]
 
 Without ``--train``: the eval forward of a seeded random-weight model
 (16x112x112 clips, bf16) with ``kernels='cuda'``, ``kernels='torch'`` and
@@ -10,7 +10,12 @@ the fused engine on K4 (``ops/fused_infer.py``, R(2+1)D only). With
 ``--train``: the training step of ``train/loop.py`` (preprocess, forward in
 train mode, loss, backward, SGD) for the ``r2plus1d18_ucf101`` preset on
 one seeded random batch of ``--batch`` clips, with ``kernels='cuda'`` and
-``kernels='torch'``. Each traces ``--iters`` iterations with
+``kernels='torch'``. With ``--sites``: K1 and K2 alone at each (2+1)D conv
+site of r2plus1d_18 at ``--clip-batch`` clips, forward through the routed
+``ops.spatial_conv`` / ``ops.temporal_conv`` and dx through autograd with
+only x requiring its gradient (the backward runs the dx and no dw): the
+device time of one call by kernel group, beside its CUDA-event time, which
+also holds the host's work per call. Each traces ``--iters`` iterations with
 ``torch.profiler`` after a warm-up, and prints one JSON line per backend:
 device time per iteration by kernel group, the device's busy time, the host
 wall time and the idle share (1 - busy / wall). Then ``--steps`` more
@@ -172,6 +177,44 @@ def _train_runs(args):
         torch.cuda.empty_cache()
 
 
+def _site_runs(args):
+    from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
+    from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+
+    b = args.clip_batch
+    sites = [("stem", ops.temporal_conv, (b, 16, 56, 56, 45), 64)]
+    t, hw = 16, 56
+    for stage in range(4):
+        c = 64 * 2 ** stage
+        if stage:
+            t, hw = t // 2, hw // 2
+        m = r2plus1d_mid_channels(c, c)
+        sites += [(f"stage{stage + 1}", ops.spatial_conv, (b, t, hw, hw, c), m),
+                  (f"stage{stage + 1}", ops.temporal_conv, (b, t, hw, hw, m), c)]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for name, conv, xs, co in sites:
+        c = xs[-1]
+        taps = (3, 3) if conv is ops.spatial_conv else (3,)
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(taps + (c, co), generator=gen, device="cuda")
+             / (9 * c) ** 0.5).to(torch.bfloat16)
+        g = torch.randn(xs[:-1] + (co,), generator=gen, device="cuda").to(torch.bfloat16)
+        xg = x.clone().requires_grad_(True)
+        y = conv(xg, w)
+
+        def fwd(conv=conv, x=x, w=w):
+            with torch.inference_mode():
+                conv(x, w)
+
+        def dx(y=y, xg=xg, g=g):
+            torch.autograd.grad(y, xg, g, retain_graph=True)
+        what = dict(what=f"{conv.__name__} at {name}", x=list(xs), co=co, clip_batch=b)
+        yield "cuda", dict(what, role="fwd"), fwd
+        yield "cuda", dict(what, role="dx"), dx
+        del x, w, g, xg, y, fwd, dx
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="r2plus1d_18")
@@ -180,8 +223,10 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--sites", action="store_true")
     args = ap.parse_args()
-    for backend, what, run in (_train_runs if args.train else _forward_runs)(args):
+    runs = _train_runs if args.train else _site_runs if args.sites else _forward_runs
+    for backend, what, run in runs(args):
         res = breakdown(run, args.iters)
         res["event_ms_per_iter"] = event_ms(run, args.steps)
         print(json.dumps(dict(model=args.model, kernels=backend, **what,
