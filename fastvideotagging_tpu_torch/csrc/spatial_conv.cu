@@ -71,7 +71,7 @@
 // (8x4x196, 576 -> 256) 4.7 and stage 4 (8x2x49, 1152 -> 512) 1.9 (x 1 / 4 /
 // 3 / 3 / 3 a forward: 0.283 ms).
 //
-// What K2's design does about its first version (PR 2's WMMA tile, in the
+// What K2's design does about its first version (the WMMA tile, in the
 // history of csrc/conv2plus1d.cu), item by item: (1) WMMA 16x16x16 through
 // mma.sync -> wgmma; (2) one register-staged shared stage with a barrier on
 // each side of every slice -> the cp.async ring, two slices loading, two or
