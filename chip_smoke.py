@@ -39,6 +39,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             share of the bound, the split of its device time between its
             weight layouts, fused kernel and reduce (torch.profiler), and
             the times of the tilings the plan did not choose;
+   3d. K5-K9, the temporal-conv micro-benchmark's designs
+            (ops/temporal_micro.py: v2, v3 at tiles <= 448 and <= 224 and
+            its dx, dw v3, v3p at both tiles, dw v2) at its three shapes
+            (``benchmarks.kernel_micro.SHAPES``, B = 32, k = 3) against
+            their plain versions (K7, K9: two launches bitwise equal), each
+            timed beside its plain version, the library call for the same
+            function and the least time the card could take; K2 and K3 at
+            the same shapes, timed; then the micro-benchmark's entry point
+            ``kernel_micro.main(["--shape", "tpu1"])`` end to end, its
+            launches counted from 0 (every design at least once);
 4. path   — the port's Tagger (r2plus1d_18, 400 classes, multilabel, bf16,
             kernels='cuda', seeded random weights) on seeded synthetic
             frames through ``scores_from``: launch counts per forward,
@@ -66,7 +76,9 @@ The line before the last is a JSON object with one entry per kernel. Its
 ``launches`` is the kernel's launches over the main path's runs, phases 4 to
 6 (each run counted from 0 just before it and read just after), and
 ``launches_by_run`` splits them by run; its times are per training step for
-K1-K3 and per serving forward for K4 (inference only). The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
+micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
+times are one call at the tpu1 shape (K6, K8 at tiles <= 448). The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when no CUDA device is present.
 """
 
@@ -84,6 +96,7 @@ import numpy as np
 import torch
 
 from fastvideotagging_tpu_torch import Tagger, get_model
+from fastvideotagging_tpu_torch.benchmarks import kernel_micro
 from fastvideotagging_tpu_torch.config import (
     PRESETS,
     ClipSamplerConfig,
@@ -99,6 +112,7 @@ from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 from fastvideotagging_tpu_torch.ops import fused_block as fused
+from fastvideotagging_tpu_torch.ops import temporal_micro as micro
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.loop import make_train_step
@@ -165,6 +179,28 @@ FORWARD_LAUNCHES = {
     "fused": {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0, "fused_block": 13},
 }
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_CLASSES = 8, 160, 400
+# K5-K9, the micro-benchmark's designs, by their launch-count key; their
+# path is the micro-benchmark (phase 3d), not phases 4-6
+_MICRO_SOURCE = "fastvideotagging_tpu_torch/csrc/temporal_micro.cu"
+MICRO_KERNELS = {
+    "v2": dict(name="micro_fwd_kernel<kV2> (K5, after micro_pad_kernel)", route="cuda",
+               source=_MICRO_SOURCE,
+               replaces="benchmarks/kernel_micro.py:91 (pallas_temporal_v2)"),
+    "v3": dict(name="micro_fwd_kernel<kV3> (K6)", route="cuda", source=_MICRO_SOURCE,
+               replaces="benchmarks/kernel_micro.py:155 (pallas_temporal_v3; its dx "
+                        "pallas_temporal_dx_v3 :267)"),
+    "dw_v3": dict(name="micro_dw_kernel<kDwV3> (K7, + micro_reduce_kernel)", route="cuda",
+                  source=_MICRO_SOURCE,
+                  replaces="benchmarks/kernel_micro.py:200 (pallas_temporal_dw_v3)"),
+    "v3p": dict(name="micro_fwd_kernel<kV3P> (K8)", route="cuda", source=_MICRO_SOURCE,
+                replaces="benchmarks/kernel_micro.py:241 (pallas_temporal_v3p)"),
+    "dw_v2": dict(name="micro_dw_kernel<kDwV2> (K9, after micro_pad_kernel, + "
+                       "micro_reduce_kernel)", route="cuda", source=_MICRO_SOURCE,
+                  replaces="benchmarks/kernel_micro.py:297 (pallas_temporal_dw)"),
+}
+# the micro-benchmark call whose time stands in a design's kernels entry
+MICRO_HEADLINE = {"v2": "v2 fwd", "v3": "v3 fwd tile<=448", "dw_v3": "dw v3",
+                  "v3p": "v3p fwd tile<=448", "dw_v2": "dw v2"}
 
 
 def path_sites(b: int = CLIP_BATCH):
@@ -693,6 +729,132 @@ def phase_fused_kernel(card: str) -> dict:
     return agg
 
 
+def micro_cases(x, w, g):
+    """The calls of phase 3d on x (B, T, S, C), w (k, C, Co), g (B, T, S,
+    Co): (label as in the micro-benchmark, launch-count key, run, plain,
+    library, role, plan as a string)."""
+    b, t, s, c = x.shape
+    co = w.shape[-1]
+
+    def lib_fwd():
+        return kernel_micro.library_temporal(x, w)
+
+    def lib_dw():
+        return kernel_micro.library_temporal_dw(x, w, g)
+
+    def fwd_plan(tile_s, c_out=co):
+        p = micro.forward_plan((b, t, s, c), c_out, tile_s)
+        return (f"{p.slabs} slabs of {tile_s} columns x {p.row_tiles} row tiles x "
+                f"{p.co_tiles} Co tiles = {p.grid} blocks")
+
+    def dw_plan(tile_s):
+        p = micro.dw_plan((b, t, s, c), co, tile_s, micro._sms(x))
+        return (f"{p.steps} steps of {tile_s} columns in {p.chunks} chunks of "
+                f"{p.steps_per_chunk}, {K * p.c_tiles * p.co_tiles * p.chunks} blocks")
+
+    halved = micro._halved_tile(s)
+    cases = [("v2 fwd", "v2", lambda: micro.temporal_v2_cuda(x, w, K),
+              lambda: micro.temporal_v2_plain(x, w, K), lib_fwd, "fwd", fwd_plan(halved))]
+    for mt in (448, 224):
+        cases.append((f"v3 fwd tile<={mt}", "v3",
+                      lambda mt=mt: micro.temporal_v3_cuda(x, w, K, mt),
+                      lambda mt=mt: micro.temporal_v3_plain(x, w, K, mt), lib_fwd, "fwd",
+                      fwd_plan(micro._pick_tile(s, mt))))
+    cases += [("v3 dx", "v3", lambda: micro.temporal_dx_v3_cuda(g, w, K),
+               lambda: micro.temporal_dx_v3_plain(g, w, K),
+               lambda: kernel_micro.library_temporal_dx(g, w), "dx",
+               fwd_plan(micro._pick_tile(s, 448), c)),
+              ("dw v3", "dw_v3", lambda: micro.temporal_dw_v3_cuda(x, g, K),
+               lambda: micro.temporal_dw_v3_plain(x, g, K), lib_dw, "dw",
+               dw_plan(micro._pick_tile(s, 448)))]
+    for mt in (448, 224):
+        cases.append((f"v3p fwd tile<={mt}", "v3p",
+                      lambda mt=mt: micro.temporal_v3p_cuda(x, w, K, mt),
+                      lambda mt=mt: micro.temporal_v3p_plain(x, w, K, mt), lib_fwd, "fwd",
+                      fwd_plan(micro._pick_tile(s, mt))))
+    cases.append(("dw v2", "dw_v2", lambda: micro.temporal_dw_v2_cuda(x, g, K),
+                  lambda: micro.temporal_dw_v2_plain(x, g, K), lib_dw, "dw", dw_plan(halved)))
+    return cases
+
+
+def phase_micro(card: str) -> dict:
+    """K5-K9 at the micro-benchmark's three shapes against their plain
+    versions, timed beside the plain version, the library call and the
+    bound, with K2 / K3 at the same shapes; then the micro-benchmark itself
+    at tpu1, its launches counted from 0."""
+    print("== phase 3d: micro kernels (K5-K9)", flush=True)
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    dev = torch.device(DEV)
+    agg = {key: dict(max_abs_err=0.0, max_rel_err=0.0, ok=True, sites=[])
+           for key in MICRO_KERNELS}
+    failures = []
+    for shape, (b, t, s, c, co) in kernel_micro.SHAPES.items():
+        x = torch.randn((b, t, s, c), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((K, c, co), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        g = torch.randn((b, t, s, co), generator=gen, device=dev).to(torch.bfloat16)
+        xs = (b, t, s, 1, c)  # S as H x W = S x 1 for the bounds
+        bounds = {"fwd": bound("temporal_conv", xs, co), "dx": bound("temporal_conv",
+                  (b, t, s, 1, co), c), "dw": bound("temporal_dw", xs, co)}
+        for label, key, run, plain, lib, role, plan in micro_cases(x, w, g):
+            tol = DW_TOL if role == "dw" else KERNEL_TOL
+            got = run()
+            torch.cuda.synchronize()
+            ref = plain()
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            max_abs = (got.float() - ref.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all().item()) and max_abs <= tol * scale
+            note = ""
+            if role == "dw":  # partials added in chunk order, no atomics
+                same = torch.equal(got, run())
+                ok = ok and same
+                note = f" two launches bitwise equal={same}"
+            del got, ref
+            ms = time_ms(run, iters=10)
+            plain_ms = time_ms(plain, iters=2, warmup=1)
+            library_ms = time_ms(lib, iters=10)
+            bound_ms, by = bounds[role]
+            print(f"{shape:9s} {label:18s} {key:5s} x=({b},{t},{s},{c}) Co={co} (plan: {plan}) "
+                  f"max_abs_err={max_abs:.3e} max_rel_err={max_abs / scale:.3e} (tol {tol})"
+                  f"{note} kernel={ms:.4f} ms plain={plain_ms:.4f} ms library={library_ms:.4f} "
+                  f"ms bound={bound_ms:.4f} ms ({by}) share={bound_ms / ms:.3f} ok={ok}",
+                  flush=True)
+            if not ok:
+                failures.append((shape, label))
+            a = agg[key]
+            a["max_abs_err"] = max(a["max_abs_err"], max_abs)
+            a["max_rel_err"] = max(a["max_rel_err"], max_abs / scale)
+            a["ok"] = a["ok"] and ok
+            a["sites"].append(dict(shape=shape, call=label, role=role, x=[b, t, s, c], co=co,
+                                   plan=plan, max_abs_err=max_abs, max_rel_err=max_abs / scale, ms=ms,
+                                   plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=bound_ms, bound_by=by))
+        # the production kernels at the same shape, for the designs' comparison
+        prod = {"K2 fwd": lambda: ops.temporal_conv_cuda(x, w),
+                "K2 dx": lambda: ops.temporal_conv_dx_cuda(g, w),
+                "K3 dw": lambda: ops.temporal_dw_cuda(x, g, K)}
+        print(f"{shape:9s} production kernels: " + ", ".join(
+            f"{name} {time_ms(fn, iters=10):.4f} ms" for name, fn in prod.items())
+            + f" ({card})", flush=True)
+        del x, w, g
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"a micro kernel disagrees with its plain version at {failures}")
+    # the path: the micro-benchmark's entry point, its launches from 0
+    micro.reset_launch_counts()
+    bench = kernel_micro.main(["--shape", "tpu1"])
+    launches = dict(micro.launch_counts)
+    print(f"launches of kernel_micro.main(['--shape', 'tpu1']): {launches}", flush=True)
+    if not all(launches.values()):
+        raise SystemExit(f"a micro kernel was not launched by the micro-benchmark: {launches}")
+    torch.cuda.empty_cache()
+    print(f"phase 3d took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(agg=agg, launches=launches, bench=bench)
+
+
 def _cfg(kernels: str, compute_dtype: str = "bfloat16") -> ExperimentConfig:
     return ExperimentConfig(
         model=ModelConfig(name="r2plus1d_18", num_classes=400, multilabel=True,
@@ -1076,6 +1238,7 @@ def main() -> int:
     agg = phase_kernels(card)
     phase_functions()
     k4 = phase_fused_kernel(card)
+    micro_run = phase_micro(card)
     serving = phase_path(card)
     train = phase_train(card)
     ev = phase_eval(card)
@@ -1104,7 +1267,20 @@ def main() -> int:
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
             library_ms=s.get("library_ms"), ok=a["ok"], **extra, sites=a["sites"]))
-    print(json.dumps({"train": train["routes"], "eval": ev, "card": card}))
+    for key, meta in MICRO_KERNELS.items():  # K5-K9: the micro-benchmark's run
+        a = micro_run["agg"][key]
+        head = next(site for site in a["sites"]
+                    if site["shape"] == "tpu1" and site["call"] == MICRO_HEADLINE[key])
+        entries.append(dict(
+            meta, launches=micro_run["launches"][key],
+            launches_by_run={"micro": micro_run["launches"][key]},
+            max_abs_err=a["max_abs_err"], max_rel_err=a["max_rel_err"], ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+            library_ms=head["library_ms"], ok=a["ok"],
+            per=f"one {MICRO_HEADLINE[key]} call at the micro-benchmark's tpu1 shape",
+            sites=a["sites"]))
+    print(json.dumps({"train": train["routes"], "eval": ev, "micro": micro_run["bench"],
+                      "card": card}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

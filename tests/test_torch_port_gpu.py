@@ -1,5 +1,6 @@
-"""K1 / K2 / K3 / K4 against their plain versions on the card (marker ``gpu``),
-and the fused serving engine on K4 against the model forward.
+"""K1 / K2 / K3 / K4 and the micro-benchmark's K5-K9 against their plain
+versions on the card (marker ``gpu``), and the fused serving engine on K4
+against the model forward.
 
 Skipped without a CUDA card (decided inside the fixture, so every pytest
 worker collects the same tests). On the card, from the repository root —
@@ -19,7 +20,10 @@ sum in f32, so they agree within 1e-2 of the output's largest magnitude
 version by summation order only: 1e-3 of the largest magnitude. The dx
 routes run K1 / K2 on the flipped, channel-transposed weights (C and Co
 swapped, so the ragged side is the output's) and are held to autograd
-through the plain versions.
+through the plain versions. K5-K9 (ops/temporal_micro.py) at small ragged
+shapes, with their default tiles and with 8-column tiles (several S tiles
+a clip), T = 1 and 2 among them; K7 and K9 write f32 and are held to 1e-3
+and to two bitwise-equal launches.
 """
 
 import pytest
@@ -28,6 +32,7 @@ import torch
 from fastvideotagging_tpu_torch import get_model
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 from fastvideotagging_tpu_torch.ops import fused_block as fused
+from fastvideotagging_tpu_torch.ops import temporal_micro as micro
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 
 pytestmark = pytest.mark.gpu
@@ -544,3 +549,138 @@ def test_fused_engine_on_the_card_matches_the_model(cuda):
         ref = net(x)
     assert torch.equal(got, again) and torch.isfinite(got).all()
     assert (got - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+
+
+# K5-K9: x (B, T, S, C), Co, k. Ragged C and Co, k = 5, T = 1 and 2 (taps
+# with no rows), S prime (v2's halving ends at a 1-column tile), a stage-1
+# width at 2 clips.
+MICRO = [
+    ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 24, 32), 8, 3),
+    ((2, 1, 24, 40), 24, 3), ((1, 4, 33, 63), 45, 5), ((2, 16, 196, 144), 64, 3),
+]
+# (launch-count key, forward or dw wrapper, plain version)
+MICRO_FWD = {
+    "v2": (micro.temporal_v2_cuda, micro.temporal_v2_plain),
+    "v3": (micro.temporal_v3_cuda, micro.temporal_v3_plain),
+    "v3p": (micro.temporal_v3p_cuda, micro.temporal_v3p_plain),
+    "dx_v3": (micro.temporal_dx_v3_cuda, micro.temporal_dx_v3_plain),
+}
+MICRO_DW = {
+    "dw_v3": (micro.temporal_dw_v3_cuda, micro.temporal_dw_v3_plain),
+    "dw_v2": (micro.temporal_dw_v2_cuda, micro.temporal_dw_v2_plain),
+}
+
+
+def _micro_inputs(cuda, x_shape, co, k, seed=8):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(x_shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((k, x_shape[-1], co), generator=g, device=cuda)
+         / (k * x_shape[-1]) ** 0.5).to(torch.bfloat16)
+    gy = torch.randn(x_shape[:3] + (co,), generator=g, device=cuda).to(torch.bfloat16)
+    return x, w, gy
+
+
+@pytest.mark.parametrize("tile", [None, 8])
+@pytest.mark.parametrize("design", list(MICRO_FWD))
+@pytest.mark.parametrize("x_shape,co,k", MICRO)
+def test_micro_forward_kernels_match_plain(cuda, x_shape, co, k, design, tile):
+    """K5, K6 (and its dx), K8 against their plain versions; a tile of 8
+    (``tile_s`` / ``max_tile``) cuts each clip into several S tiles."""
+    x, w, gy = _micro_inputs(cuda, x_shape, co, k)
+    run, plain = MICRO_FWD[design]
+    key = "v3" if design == "dx_v3" else design
+    args = (gy, w, k) if design == "dx_v3" else (x, w, k)
+    args += (tile,) if tile else ()
+    before = dict(micro.launch_counts)
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert micro.launch_counts == dict(before, **{key: before[key] + 1})
+    want = x_shape if design == "dx_v3" else x_shape[:3] + (co,)
+    assert got.shape == want
+    _close(got, plain(*args))
+
+
+@pytest.mark.parametrize("tile", [None, 8])
+@pytest.mark.parametrize("design", list(MICRO_DW))
+@pytest.mark.parametrize("x_shape,co,k", MICRO)
+def test_micro_dw_kernels_match_plain_and_repeat_bitwise(cuda, x_shape, co, k, design, tile):
+    """K7 and K9 against their plain versions (f32, summation order only:
+    1e-3 of the largest |dw|); two launches bitwise equal (partials added in
+    chunk order, no atomics)."""
+    x, _, gy = _micro_inputs(cuda, x_shape, co, k)
+    run, plain = MICRO_DW[design]
+    args = (x, gy, k) + ((tile,) if tile else ())
+    before = micro.launch_counts[design]
+    got = run(*args)
+    again = run(*args)
+    torch.cuda.synchronize()
+    assert micro.launch_counts[design] == before + 2
+    ref = plain(*args)
+    assert got.dtype == torch.float32 and got.shape == (k, x_shape[-1], co)
+    assert torch.equal(got, again)
+    assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+def test_micro_dw_kernels_split_into_chunks(cuda):
+    """More (b, s-tile) steps than twice the SMs: several steps a chunk,
+    the last chunk shorter; one step: a single chunk written directly."""
+    for x_shape, co, tile in (((300, 2, 8, 16), 16, 1), ((1, 3, 32, 24), 8, 32)):
+        x, _, gy = _micro_inputs(cuda, x_shape, co, 3)
+        # both tile rules give `tile` here
+        plan = micro.dw_plan(x_shape, co, tile, ops._sm_count(cuda))
+        assert (plan.chunks > 1) == (x_shape[0] == 300)
+        for run, plain in MICRO_DW.values():
+            got = run(x, gy, 3, tile)
+            ref = plain(x, gy, 3, tile)
+            assert torch.equal(got, run(x, gy, 3, tile))
+            assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+def test_micro_kernels_take_a_misaligned_view(cuda):
+    flat = torch.randn(1 + 2 * 4 * 24 * 40, device=cuda).to(torch.bfloat16)
+    x = flat[1:].view(2, 4, 24, 40)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    _, w, gy = _micro_inputs(cuda, (2, 4, 24, 40), 24, 3)
+    for run, plain in MICRO_FWD.values():
+        if run is not micro.temporal_dx_v3_cuda:
+            _close(run(x, w, 3, 8), plain(x, w, 3, 8))
+    for run, plain in MICRO_DW.values():
+        ref = plain(x, gy, 3, 8)
+        assert (run(x, gy, 3, 8) - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+def test_micro_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x, w, gy = _micro_inputs(cuda, (1, 4, 6, 32), 8, 3)
+    for run in (micro.temporal_v2_cuda, micro.temporal_v3_cuda, micro.temporal_v3p_cuda):
+        with pytest.raises(ValueError, match="bfloat16"):
+            run(x.float(), w, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            run(x.transpose(1, 2), w, 3)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            run(x, w.cpu(), 3)
+        with pytest.raises(ValueError, match="odd"):
+            run(x, w[:2].contiguous(), 2)
+        with pytest.raises(ValueError, match="w must be"):
+            run(x, w[:, :16].contiguous(), 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        micro.temporal_dx_v3_cuda(gy.float(), w, 3)
+    for run in (micro.temporal_dw_v3_cuda, micro.temporal_dw_v2_cuda):
+        with pytest.raises(ValueError, match="bfloat16"):
+            run(x, gy.float(), 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            run(x.transpose(1, 2), gy.transpose(1, 2), 3)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            run(x.cpu(), gy, 3)
+        with pytest.raises(ValueError, match="share B, T, S"):
+            run(x, gy[:, :2].contiguous(), 3)
+        with pytest.raises(ValueError, match="odd"):
+            run(x, gy, 2)
+    # the routed entry points send a CUDA tensor to the kernel
+    micro.reset_launch_counts()
+    micro.temporal_v2(x, w, 3)
+    micro.temporal_v3(x, w, 3)
+    micro.temporal_dx_v3(gy, w, 3)
+    micro.temporal_v3p(x, w, 3)
+    micro.temporal_dw_v3(x, gy, 3)
+    micro.temporal_dw_v2(x, gy, 3)
+    assert micro.launch_counts == {"v2": 1, "v3": 2, "dw_v3": 1, "v3p": 1, "dw_v2": 1}

@@ -45,7 +45,9 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.data.packed",
             "fastvideotagging_tpu_torch.ops.fused_block",
             "fastvideotagging_tpu_torch.ops.fused_infer",
-            "fastvideotagging_tpu_torch.evaluation.evaluate"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.evaluation.evaluate",
+            "fastvideotagging_tpu_torch.ops.temporal_micro",
+            "fastvideotagging_tpu_torch.benchmarks.kernel_micro"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -81,7 +83,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["fused_block", "spatial_conv", "temporal_dw"]
+    assert _build.sources() == ["fused_block", "spatial_conv", "temporal_dw", "temporal_micro"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
