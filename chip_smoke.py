@@ -45,8 +45,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             (``benchmarks.kernel_micro.SHAPES``, B = 32, k = 3) against
             their plain versions (K7, K9: two launches bitwise equal), each
             timed beside its plain version, the library call for the same
-            function and the least time the card could take; K2 and K3 at
-            the same shapes, timed; then the micro-benchmark's entry point
+            function and the least time the card could take, its device
+            time split between its kernels (pad pass, GEMM, reduce); K2 and
+            K3 at the same shapes, timed; then the micro-benchmark's entry point
             ``kernel_micro.main(["--shape", "tpu1"])`` end to end, its
             launches counted from 0 (every design at least once);
 4. path   — the port's Tagger (r2plus1d_18, 400 classes, multilabel, bf16,
@@ -78,7 +79,8 @@ The line before the last is a JSON object with one entry per kernel. Its
 ``launches_by_run`` splits them by run; its times are per training step for
 K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
-times are one call at the tpu1 shape (K6, K8 at tiles <= 448). The last line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+times are one call at the tpu1 shape (K6, K8 at tiles <= 448). The last
+line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when no CUDA device is present.
 """
 
@@ -777,6 +779,19 @@ def micro_cases(x, w, g):
     return cases
 
 
+def micro_split(run) -> dict:
+    """A micro design's device time per call by kernel (torch.profiler over
+    5 calls): the pad pass, the GEMM, the reduce of the dw partials, and
+    anything else (the dx's weight flip)."""
+    split = dict(pad_ms=0.0, main_ms=0.0, reduce_ms=0.0, other_ms=0.0)
+    for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
+        part = ("pad_ms" if "micro_pad_kernel" in name else
+                "reduce_ms" if "micro_reduce_kernel" in name else
+                "main_ms" if "micro_" in name else "other_ms")
+        split[part] += ms
+    return split
+
+
 def phase_micro(card: str) -> dict:
     """K5-K9 at the micro-benchmark's three shapes against their plain
     versions, timed beside the plain version, the library call and the
@@ -816,6 +831,9 @@ def phase_micro(card: str) -> dict:
             ms = time_ms(run, iters=10)
             plain_ms = time_ms(plain, iters=2, warmup=1)
             library_ms = time_ms(lib, iters=10)
+            split = micro_split(run)
+            note += "; device split: " + ", ".join(f"{part[:-3]} {v:.4f}"
+                                                  for part, v in split.items() if v) + " ms"
             bound_ms, by = bounds[role]
             print(f"{shape:9s} {label:18s} {key:5s} x=({b},{t},{s},{c}) Co={co} (plan: {plan}) "
                   f"max_abs_err={max_abs:.3e} max_rel_err={max_abs / scale:.3e} (tol {tol})"
@@ -829,7 +847,8 @@ def phase_micro(card: str) -> dict:
             a["max_rel_err"] = max(a["max_rel_err"], max_abs / scale)
             a["ok"] = a["ok"] and ok
             a["sites"].append(dict(shape=shape, call=label, role=role, x=[b, t, s, c], co=co,
-                                   plan=plan, max_abs_err=max_abs, max_rel_err=max_abs / scale, ms=ms,
+                                   plan=plan, max_abs_err=max_abs,
+                                   max_rel_err=max_abs / scale, ms=ms, device_split=split,
                                    plain_ms=plain_ms, library_ms=library_ms,
                                    bound_ms=bound_ms, bound_by=by))
         # the production kernels at the same shape, for the designs' comparison

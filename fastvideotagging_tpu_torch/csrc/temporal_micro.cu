@@ -640,8 +640,8 @@ cudaError_t launch_pad(const void* x, void* xp, int b, int t, int s, int c, int 
     const int64_t units = elems / 8;
     const dim3 grid((unsigned)std::min<int64_t>((units + 255) / 256, 64),
                     (unsigned)std::min<int64_t>(frames, 65535));
-    micro_pad_kernel<uint4><<<grid, block, 0, stream>>>(static_cast<const uint4*>(x),
-                                                         static_cast<uint4*>(xp), frames, units, t, p);
+    micro_pad_kernel<uint4><<<grid, block, 0, stream>>>(
+        static_cast<const uint4*>(x), static_cast<uint4*>(xp), frames, units, t, p);
   } else {
     const dim3 grid((unsigned)std::min<int64_t>((elems + 255) / 256, 64),
                     (unsigned)std::min<int64_t>(frames, 65535));

@@ -274,7 +274,8 @@ def temporal_v3_cuda(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 4
     return _forward_launch("v3", x, w, k, _pick_tile(x.shape[2], max_tile))
 
 
-def temporal_v3_plain(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_v3_plain(x: torch.Tensor, w: torch.Tensor,
+                      k: int, max_tile: int = 448) -> torch.Tensor:
     """K6's arithmetic: the centre tap's product over every row starts the
     f32 accumulator; each other tap (offset off) adds its product to the
     output frames [max(0, -off), T - max(0, off)) from the input frames
@@ -303,14 +304,16 @@ def _dx_weight(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).transpose(1, 2).contiguous()
 
 
-def temporal_dx_v3_cuda(g: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_dx_v3_cuda(g: torch.Tensor, w: torch.Tensor,
+                        k: int, max_tile: int = 448) -> torch.Tensor:
     """dx of the stride-1 temporal conv with weight w (k, C, Co): K6 on the
     flipped, io-transposed weight. g (B, T, S, Co) -> (B, T, S, C)."""
     _check_kernel_tensors(g=g, w=w)
     return temporal_v3_cuda(g, _dx_weight(w), k, max_tile)
 
 
-def temporal_dx_v3_plain(g: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_dx_v3_plain(g: torch.Tensor, w: torch.Tensor,
+                         k: int, max_tile: int = 448) -> torch.Tensor:
     return temporal_v3_plain(g, _dx_weight(w), k, max_tile)
 
 
@@ -323,12 +326,14 @@ def temporal_dx_v3(g: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448
 # ---------------------------------------------------------------------------
 
 
-def temporal_v3p_cuda(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_v3p_cuda(x: torch.Tensor, w: torch.Tensor,
+                      k: int, max_tile: int = 448) -> torch.Tensor:
     _check_forward(x, w, k)
     return _forward_launch("v3p", x, w, k, _pick_tile(x.shape[2], max_tile))
 
 
-def temporal_v3p_plain(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_v3p_plain(x: torch.Tensor, w: torch.Tensor,
+                       k: int, max_tile: int = 448) -> torch.Tensor:
     """K8's arithmetic: zero frames around x, the k shifted taps
     concatenated along channels into one (rows, k * C) operand, one product
     with w as (k * C, Co) in f32."""
@@ -388,12 +393,14 @@ def _dw_by_chunks(x_steps: torch.Tensor, g_steps: torch.Tensor, k: int, plan: Dw
     return dw
 
 
-def temporal_dw_v3_cuda(x: torch.Tensor, g: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_dw_v3_cuda(x: torch.Tensor, g: torch.Tensor,
+                        k: int, max_tile: int = 448) -> torch.Tensor:
     _check_dw(x, g, k)
     return _dw_launch("dw_v3", x, g, k, _pick_tile(x.shape[2], max_tile))
 
 
-def temporal_dw_v3_plain(x: torch.Tensor, g: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+def temporal_dw_v3_plain(x: torch.Tensor, g: torch.Tensor,
+                         k: int, max_tile: int = 448) -> torch.Tensor:
     """K7's arithmetic: dw[dt] = sum over rows of x[t + dt - p]^T g[t],
     over the rows where t + dt - p lies in [0, T), in f32, one partial per
     chunk of ``dw_plan``, the partials added in chunk order -> (k, C, Co)."""
@@ -406,12 +413,14 @@ def temporal_dw_v3(x: torch.Tensor, g: torch.Tensor, k: int, max_tile: int = 448
     return _route(temporal_dw_v3_cuda, temporal_dw_v3_plain, x, g, k, max_tile)
 
 
-def temporal_dw_v2_cuda(x: torch.Tensor, g: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:
+def temporal_dw_v2_cuda(x: torch.Tensor, g: torch.Tensor,
+                        k: int, tile_s: int = 512) -> torch.Tensor:
     _check_dw(x, g, k)
     return _dw_launch("dw_v2", x, g, k, _halved_tile(x.shape[2], tile_s))
 
 
-def temporal_dw_v2_plain(x: torch.Tensor, g: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:
+def temporal_dw_v2_plain(x: torch.Tensor, g: torch.Tensor,
+                         k: int, tile_s: int = 512) -> torch.Tensor:
     """K9's arithmetic: x zero-padded by k // 2 frames on T, then per chunk
     of ``dw_plan`` each tap's x_pad[t + dt]^T g[t] over every row, in f32;
     the partials added in chunk order -> (k, C, Co)."""
