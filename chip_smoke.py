@@ -71,11 +71,33 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             the fused engine on K4 as ``apply_fn``: launch counts per
             chunk (fused: 13 K4, no K1/K2), finite video scores, fused
             scores against kernels='cuda', fused logits against an f32
-            reference forward, metrics, clips/s and forward ms.
+            reference forward, metrics, clips/s and forward ms;
+7. fit    — the loader-fed training path through its entry point,
+            ``cli.train.main``, with the ``r2plus1d18_ucf101`` preset on a
+            seeded ``.fvtpack`` (64 synthetic videos x 40 frames at 128x171,
+            101 classes: 2 steps an epoch) and a 4-video val pack (an eval
+            after each epoch): run A (2 epochs, checkpoints), run B (A's
+            directory, ``--resume`` to 3 epochs), run C (3 epochs unbroken)
+            and run L (run A on a 320-video pack, 10 steps an epoch, for
+            the loader's steady state). Launches of each run (steps x (26,
+            28, 14) plus eval chunks x (13, 14, 0)), finite losses, steps,
+            epochs, evals and checkpoint saves per run; a restore of A's
+            last checkpoint bitwise equal to A's final state; B's batches
+            equal to C's (sha256, hashed after the runs); B's and C's final
+            weights bitwise or within 1e-2 of each tensor's largest |value|
+            (which of the two is printed); ms per step, clips/s and
+            ``data_wait_frac`` from the metrics lines and the loader's time
+            per batch, on run L's steps that pull a batch from a running
+            loader, against phase 5; checkpoint save ms and size, peak
+            memory.
+
+The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
+records no device activity in three traces, a split is printed as not
+measured: no check and no time in the ``kernels`` line depends on one.
 
 The line before the last is a JSON object with one entry per kernel. Its
 ``launches`` is the kernel's launches over the main path's runs, phases 4 to
-6 (each run counted from 0 just before it and read just after), and
+7 (each run counted from 0 just before it and read just after), and
 ``launches_by_run`` splits them by run; its times are per training step for
 K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
@@ -87,6 +109,7 @@ result, when no CUDA device is present.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -99,6 +122,7 @@ import torch
 
 from fastvideotagging_tpu_torch import Tagger, get_model
 from fastvideotagging_tpu_torch.benchmarks import kernel_micro
+from fastvideotagging_tpu_torch.cli import train as cli_train
 from fastvideotagging_tpu_torch.config import (
     PRESETS,
     ClipSamplerConfig,
@@ -117,6 +141,8 @@ from fastvideotagging_tpu_torch.ops import fused_block as fused
 from fastvideotagging_tpu_torch.ops import temporal_micro as micro
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
+from fastvideotagging_tpu_torch.train import fit as fit_module
+from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
 from fastvideotagging_tpu_torch.train.loop import make_train_step
 from fastvideotagging_tpu_torch.train.state import create_train_state
 from fastvideotagging_tpu_torch.utils.profiling import breakdown
@@ -181,6 +207,16 @@ FORWARD_LAUNCHES = {
     "fused": {"spatial_conv": 0, "temporal_conv": 0, "temporal_dw": 0, "fused_block": 13},
 }
 EVAL_VIDEOS, EVAL_FRAMES, EVAL_CLASSES = 8, 160, 400
+# phase 7: the train pack (64 videos = 2 steps an epoch at B = 32) and the
+# val pack, 101 classes; run A trains 2 epochs, B resumes A to 3, C trains 3
+FIT_VIDEOS, FIT_VAL_VIDEOS, FIT_FRAMES, FIT_CLASSES = 64, 4, 40, 101
+FIT_EPOCHS_A, FIT_EPOCHS = 2, 3
+# run L: run A on a pack of 5 copies of the train pack's videos (10 steps an
+# epoch, 5x the prefetch depth), so most steps find the loader steady
+FIT_LOADER_COPIES = 5
+# B's and C's final weights when the step is not bitwise repeatable on the
+# card: within 1e-2 of each tensor's largest |value|
+FIT_TOL = 1e-2
 # K5-K9, the micro-benchmark's designs, by their launch-count key; their
 # path is the micro-benchmark (phase 3d), not phases 4-6
 _MICRO_SOURCE = "fastvideotagging_tpu_torch/csrc/temporal_micro.cu"
@@ -358,11 +394,41 @@ def site_cases(kernel: str, xs, co: int, gen: torch.Generator):
     return cases
 
 
-def k2_split(run) -> dict:
+def traced_kernels_ms(run, attempts: int = 3):
+    """Device time per call of each kernel that ``run`` launches
+    (torch.profiler over 5 calls), or None when the profiler records no
+    device activity in any of ``attempts`` traces: the splits it feeds are
+    then printed as not measured, and the checks and CUDA-event times that
+    decide the run do not depend on them."""
+    for _ in range(attempts):
+        try:
+            return breakdown(run, iters=5)["top_kernels_ms_per_iter"]
+        except RuntimeError as e:
+            if "no device activity" not in str(e):
+                raise
+    print(f"    the profiler recorded no device activity in {attempts} traces: "
+          "device split not measured", flush=True)
+    return None
+
+
+def _split_note(split: dict | None, ms: float | None = None) -> str:
+    """A split for a kernel's line; with ``ms``, every part and the device's
+    sum against the call's time, else the parts that ran."""
+    if split is None:
+        return "; device split not measured"
+    parts = ", ".join(f"{part[:-3]} {v:.4f}" for part, v in split.items() if v or ms)
+    total = f" (device {sum(split.values()):.4f} of the call's {ms:.4f})" if ms else ""
+    return f"; device split: {parts} ms{total}"
+
+
+def k2_split(run) -> dict | None:
     """K2's device time per call by kernel (torch.profiler over 5 calls):
     the weight layout, the pad pass, the GEMM, the reduce."""
+    kernels = traced_kernels_ms(run)
+    if kernels is None:
+        return None
     split = dict(layout_ms=0.0, pad_ms=0.0, main_ms=0.0, reduce_ms=0.0)
-    for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
+    for name, ms in kernels:
         for part, key in (("weight", "layout_ms"), ("pad", "pad_ms"), ("hopper", "main_ms"),
                           ("reduce", "reduce_ms")):
             if f"temporal_conv_{part}_kernel" in name:
@@ -460,9 +526,7 @@ def phase_kernels(card: str) -> dict:
                         f"{way} {t:.4f} ms" for way, t in other_ms.items())
                 if key == "temporal_conv" and batch == CLIP_BATCH:
                     split = k2_split(run)
-                    note += ("; device split: " + ", ".join(
-                        f"{part[:-3]} {v:.4f}" for part, v in split.items())
-                        + f" ms (device {sum(split.values()):.4f} of the call's {ms:.4f})")
+                    note += _split_note(split, ms)
                 print(f"B={batch:<2d} {site:16s} {role:3s} {key:13s} x={xs} Co={co} x{n}  "
                       f"max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} (tol {tol}; "
                       f"library vs plain {lib_rel:.3e}){note} kernel={ms:.4f} ms "
@@ -594,12 +658,15 @@ def fused_bound(x_shape, m: int, co: int, k: int = K):
     return _min_time(fused_flops(x_shape, m, co, k), nbytes)
 
 
-def k4_split(run) -> dict:
+def k4_split(run) -> dict | None:
     """K4's device time per call by kernel (torch.profiler over 5 calls):
     the weight layouts, the fused kernel and, with several groups, the
     reduce of the partials."""
+    kernels = traced_kernels_ms(run)
+    if kernels is None:
+        return None
     split = dict(layout_ms=0.0, main_ms=0.0, reduce_ms=0.0)
-    for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
+    for name, ms in kernels:
         for part, key in (("weight", "layout_ms"), ("hopper", "main_ms"), ("reduce", "reduce_ms")):
             if f"fused_block_{part}_kernel" in name:
                 split[key] += ms
@@ -693,10 +760,8 @@ def phase_fused_kernel(card: str) -> dict:
               f"max_rel_err={max_rel:.3e} (tol {KERNEL_TOL}; library chain vs plain "
               f"{lib_rel:.3e}, unfused chain vs plain {unf_rel:.3e}) two launches bitwise "
               f"equal={same} kernel={ms:.4f} ms ({tflops:.1f} TFLOP/s, "
-              f"{bound_ms / ms:.3f} of the bound; device split: weight layout "
-              f"{split['layout_ms']:.4f}, fused {split['main_ms']:.4f}, reduce "
-              f"{split['reduce_ms']:.4f} ms) plain={plain_ms:.4f} ms library "
-              f"chain={lib_ms:.4f} ms unfused K1+K2 chain={unf_ms:.4f} ms "
+              f"{bound_ms / ms:.3f} of the bound{_split_note(split)}) plain={plain_ms:.4f} "
+              f"ms library chain={lib_ms:.4f} ms unfused K1+K2 chain={unf_ms:.4f} ms "
               f"bound={bound_ms * 1e3:.1f} us ({by}) ok={ok}", flush=True)
         print("    other tilings: " + ", ".join(
             f"{a['bm']}x{a['mg']} ({a['groups']} groups, {a['blocks']} blocks) {a['ms']:.4f} ms"
@@ -710,8 +775,9 @@ def phase_fused_kernel(card: str) -> dict:
                         ("unfused_chain_ms", unf_ms), ("bound_ms", bound_ms)):
             sums[name] += n * v
         sums["ops_ms" if by == "operations" else "bytes_ms"] += n * bound_ms
-        sums["layout_ms"] += n * split["layout_ms"]
-        sums["reduce_ms"] += n * split["reduce_ms"]
+        for part in ("layout_ms", "reduce_ms"):  # None once a split is not measured
+            sums[part] = None if split is None or sums[part] is None else (
+                sums[part] + n * split[part])
         agg["sites"].append(dict(
             site=site, batch=b, x=list(xs), m=m, co=co, launches=n, plan=plan._asdict(),
             blocks=plan.grid, tflops=tflops, share_of_bound=bound_ms / ms, split=split,
@@ -724,8 +790,10 @@ def phase_fused_kernel(card: str) -> dict:
           f"kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, library chain "
           f"{sums['library_chain_ms']:.4f} ms, unfused K1+K2 chain "
           f"{sums['unfused_chain_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms; of K4's device "
-          f"time the weight layouts take {sums['layout_ms']:.4f} ms and the reduces "
-          f"{sums['reduce_ms']:.4f} ms")
+          + ("time the weight layouts and the reduces: not measured"
+             if sums["layout_ms"] is None else
+             f"time the weight layouts take {sums['layout_ms']:.4f} ms and the reduces "
+             f"{sums['reduce_ms']:.4f} ms"))
     if failures:
         raise SystemExit(f"K4 disagrees with its plain version at {failures}")
     return agg
@@ -779,12 +847,15 @@ def micro_cases(x, w, g):
     return cases
 
 
-def micro_split(run) -> dict:
+def micro_split(run) -> dict | None:
     """A micro design's device time per call by kernel (torch.profiler over
     5 calls): the pad pass, the GEMM, the reduce of the dw partials, and
     anything else (the dx's weight flip)."""
+    kernels = traced_kernels_ms(run)
+    if kernels is None:
+        return None
     split = dict(pad_ms=0.0, main_ms=0.0, reduce_ms=0.0, other_ms=0.0)
-    for name, ms in breakdown(run, iters=5)["top_kernels_ms_per_iter"]:
+    for name, ms in kernels:
         part = ("pad_ms" if "micro_pad_kernel" in name else
                 "reduce_ms" if "micro_reduce_kernel" in name else
                 "main_ms" if "micro_" in name else "other_ms")
@@ -832,8 +903,7 @@ def phase_micro(card: str) -> dict:
             plain_ms = time_ms(plain, iters=2, warmup=1)
             library_ms = time_ms(lib, iters=10)
             split = micro_split(run)
-            note += "; device split: " + ", ".join(f"{part[:-3]} {v:.4f}"
-                                                  for part, v in split.items() if v) + " ms"
+            note += _split_note(split)
             bound_ms, by = bounds[role]
             print(f"{shape:9s} {label:18s} {key:5s} x=({b},{t},{s},{c}) Co={co} (plan: {plan}) "
                   f"max_abs_err={max_abs:.3e} max_rel_err={max_abs / scale:.3e} (tol {tol})"
@@ -1247,6 +1317,251 @@ def phase_eval(card: str) -> dict:
     return result
 
 
+def _fit_items(n: int, seed: int):
+    """Seeded synthetic videos at 128x171 for a pack, labels over the 101
+    classes."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        label = int(rng.integers(FIT_CLASSES))
+        yield (f"video{i}.mp4", label, (),
+               make_frames(label, num_frames=FIT_FRAMES, height=128, width=171, seed=seed + i))
+
+
+def _batch_digest(batch: dict) -> str:
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def _fit_state(state):
+    """Model state_dict and momentum buffers of a TrainState (on the card)."""
+    opt = state.optimizer.state_dict()["state"]
+    return ({k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            {i: s["momentum_buffer"].clone() for i, s in opt.items()})
+
+
+def phase_fit(card: str, train_result: dict) -> dict:
+    """The loader-fed training path through its entry point,
+    ``cli.train.main``: the r2plus1d18_ucf101 preset on a .fvtpack, run A
+    (2 epochs, checkpoints, an eval after each epoch), B (A resumed to 3
+    epochs), C (3 epochs unbroken) and L (A's run on a pack of 5x the
+    videos: the loader in its steady state)."""
+    print("== phase 7: fit", flush=True)
+    t_phase = time.perf_counter()
+    saves, kept, pulls = [], {}, {}
+    orig_batches = fit_module.train_batches
+
+    class TimedCheckpoints(CheckpointManager):
+        def save(self, step, state, extra=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().save(step, state, extra)
+            ms = (time.perf_counter() - t0) * 1e3
+            saves.append(dict(dir=os.path.basename(self._dir), step=step,
+                              epoch=extra["epoch"], ms=ms,
+                              bytes=os.path.getsize(self._path(step))))
+
+    def recorded_batches(run):
+        """train_batches, timing each pull (the pool's wait and the
+        collate, on device_prefetch's thread) and keeping B's and C's
+        shared epoch by reference: they are hashed after the runs, off the
+        timed path."""
+        def batches(dataset, batch_size, epoch, **kw):
+            source = orig_batches(dataset, batch_size, epoch, **kw)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    b = next(source, None)
+                    if b is None:
+                        return
+                    pulls.setdefault(run, []).append((time.perf_counter() - t0) * 1e3)
+                    if epoch == FIT_EPOCHS - 1:
+                        kept.setdefault(run, []).append(b)
+                    yield b
+            finally:
+                source.close()
+        return batches
+
+    result = {}
+    cfg = PRESETS["r2plus1d18_ucf101"]
+    batch, depth = cfg.train.batch_size, cfg.data.prefetch_depth
+    with tempfile.TemporaryDirectory() as tmp:
+        train, val = os.path.join(tmp, "train.fvtpack"), os.path.join(tmp, "val.fvtpack")
+        loader = os.path.join(tmp, "loader.fvtpack")
+        t0 = time.perf_counter()
+        items = list(_fit_items(FIT_VIDEOS, SEED + 100))
+        summary = write_pack_from_arrays(items, train, (128, 171))
+        big = write_pack_from_arrays(
+            ((f"copy{c}_{name}", label, tags, frames) for c in range(FIT_LOADER_COPIES)
+             for name, label, tags, frames in items), loader, (128, 171))
+        del items
+        write_pack_from_arrays(_fit_items(FIT_VAL_VIDEOS, SEED + 300), val, (128, 171))
+        val_ds = open_dataset(val, cfg.data, mode="eval")
+        eval_chunks = sum(-(-len(val_ds.get_eval_clips(i)[0]) // CLIP_BATCH)
+                          for i in range(len(val_ds)))
+        print(f"train pack: {summary['videos']} videos x {FIT_FRAMES} frames at 128x171, "
+              f"{summary['bytes'] / 1e6:.1f} MB; run L's pack {big['videos']} videos "
+              f"({FIT_LOADER_COPIES} copies), {big['bytes'] / 1e6:.1f} MB; written in "
+              f"{time.perf_counter() - t0:.2f} s; val pack {FIT_VAL_VIDEOS} videos, "
+              f"{eval_chunks} eval chunks of {CLIP_BATCH}; B={batch}, prefetch depth {depth}")
+        base = ["--preset", "r2plus1d18_ucf101", "--val-list", val, "--log-every", "1"]
+        runs = {  # argv, first and last epoch, videos of the pack
+            "A": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS_A),
+                          "--checkpoint-dir", os.path.join(tmp, "a")],
+                  0, FIT_EPOCHS_A, FIT_VIDEOS),
+            "B": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS),
+                          "--checkpoint-dir", os.path.join(tmp, "a"), "--resume"],
+                  FIT_EPOCHS_A, FIT_EPOCHS, FIT_VIDEOS),
+            "C": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS),
+                          "--checkpoint-dir", os.path.join(tmp, "c")],
+                  0, FIT_EPOCHS, FIT_VIDEOS),
+            "L": (base + ["--train-list", loader, "--epochs", str(FIT_EPOCHS_A),
+                          "--checkpoint-dir", os.path.join(tmp, "l")],
+                  0, FIT_EPOCHS_A, FIT_VIDEOS * FIT_LOADER_COPIES),
+        }
+        states, launches = {}, {}
+        fit_module.CheckpointManager = TimedCheckpoints
+        try:
+            for name, (argv, first_epoch, last_epoch, videos) in runs.items():
+                metrics_path = os.path.join(tmp, f"{name}.jsonl")
+                fit_module.train_batches = recorded_batches(name)
+                n_saves = len(saves)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                t0 = time.perf_counter()
+                state = cli_train.main(argv + ["--metrics-jsonl", metrics_path])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(ops.launch_counts)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                with open(metrics_path) as f:
+                    lines = [json.loads(line) for line in f if line.strip()]
+                steps = [r for r in lines if "loss" in r]
+                evals = [r for r in lines if "eval_top1" in r]
+                steps_per_epoch = videos // batch
+                epochs = last_epoch - first_epoch
+                n_steps = epochs * steps_per_epoch
+                want = {"spatial_conv": 26 * n_steps + 13 * eval_chunks * epochs,
+                        "temporal_conv": 28 * n_steps + 14 * eval_chunks * epochs,
+                        "temporal_dw": 14 * n_steps, "fused_block": 0}
+                step_ms = [batch / r["samples_per_sec"] * 1e3 for r in steps]
+                print(f"run {name}: {' '.join(argv[argv.index('--epochs'):])}: "
+                      f"{steps_per_epoch} steps an epoch, step {state.step}, {wall:.2f} s; "
+                      f"launches {counts}")
+                print(f"run {name}: losses {[round(r['loss'], 4) for r in steps]}, epochs "
+                      f"{[r['epoch'] for r in steps]}; eval top1 "
+                      f"{[r['eval_top1'] for r in evals]}")
+                print(f"run {name}: ms per step {[round(x, 2) for x in step_ms]}, clips/s "
+                      f"{[round(r['samples_per_sec'], 2) for r in steps]}, data_wait_frac "
+                      f"{[r['data_wait_frac'] for r in steps]}; loader pull ms "
+                      f"{[round(x, 2) for x in pulls[name]]}; peak memory {peak_gb:.2f} GB "
+                      f"on {card}")
+                for sv in saves[n_saves:]:
+                    print(f"run {name}: checkpoint step {sv['step']} (epoch {sv['epoch']}) "
+                          f"{sv['bytes'] / 1e6:.1f} MB in {sv['ms']:.1f} ms")
+                if counts != want:
+                    raise SystemExit(f"run {name}: launch counts {counts} != {want}")
+                if not all(np.isfinite(r["loss"]) for r in steps):
+                    raise SystemExit(f"run {name}: a loss is not finite")
+                want_epochs = [e for e in range(first_epoch, last_epoch)
+                               for _ in range(steps_per_epoch)]
+                want_saves = [((e + 1) * steps_per_epoch, e)
+                              for e in range(first_epoch, last_epoch)]
+                got_saves = [(sv["step"], sv["epoch"]) for sv in saves[n_saves:]]
+                if (state.step != last_epoch * steps_per_epoch
+                        or [r["epoch"] for r in steps] != want_epochs
+                        or [r["step"] for r in steps] != list(range(
+                            first_epoch * steps_per_epoch + 1, state.step + 1))
+                        or len(evals) != epochs or got_saves != want_saves):
+                    raise SystemExit(f"run {name}: steps, epochs, evals or saves are wrong: "
+                                     f"step {state.step}, saves {got_saves}")
+                launches[name] = counts
+                result[name] = dict(
+                    steps=len(steps), steps_per_epoch=steps_per_epoch, wall_s=wall,
+                    losses=[r["loss"] for r in steps], ms_per_step=step_ms,
+                    clips_per_s=[r["samples_per_sec"] for r in steps],
+                    data_wait_frac=[r["data_wait_frac"] for r in steps],
+                    loader_pull_ms=pulls[name],
+                    eval_top1=[r["eval_top1"] for r in evals], peak_memory_gb=peak_gb,
+                    saves=saves[n_saves:])
+                if name == "A":
+                    # what a resume of A restores, on the card, against A's
+                    # final state (the one its last checkpoint saved)
+                    fresh = create_train_state(cfg, steps_per_epoch, device=DEV)
+                    _, extra = CheckpointManager(os.path.join(tmp, "a")).restore(fresh)
+                    (sd_a, opt_a), (sd_r, opt_r) = _fit_state(state), _fit_state(fresh)
+                    same = (fresh.step == state.step and extra["epoch"] == FIT_EPOCHS_A - 1
+                            and all(torch.equal(sd_r[k], v) for k, v in sd_a.items())
+                            and set(opt_r) == set(opt_a)
+                            and all(torch.equal(opt_r[i], v) for i, v in opt_a.items()))
+                    print(f"restore of A's last checkpoint (step {fresh.step}, epoch "
+                          f"{extra['epoch']}) equals A's final state bitwise: {same}")
+                    if not same:
+                        raise SystemExit("the restored state differs from A's final state")
+                    del fresh, sd_a, opt_a, sd_r, opt_r
+                elif name in ("B", "C"):
+                    states[name] = _fit_state(state)
+                del state
+        finally:
+            fit_module.CheckpointManager = CheckpointManager
+            fit_module.train_batches = orig_batches
+    digests = {run: [_batch_digest(b) for b in kept.get(run, [])] for run in ("B", "C")}
+    del kept
+    if not digests["B"] or digests["B"] != digests["C"]:
+        raise SystemExit("run B's batches differ from run C's at the same steps")
+    print(f"B's {len(digests['B'])} batches equal C's (sha256 of every array, "
+          f"hashed after the runs)")
+    (sd_b, opt_b), (sd_c, opt_c) = states["B"], states["C"]
+    per = sorted((((sd_b[k].float() - v.float()).abs().max().item(), k,
+                   v.float().abs().max().item()) for k, v in sd_c.items()), reverse=True)
+    bitwise = all(torch.equal(sd_b[k], v) for k, v in sd_c.items()) and all(
+        torch.equal(opt_b[i], v) for i, v in opt_c.items())
+    worst = max(d / max(m, 1e-30) for d, _, m in per)
+    print(f"B vs C final weights: max abs diff per tensor, largest first: "
+          + ", ".join(f"{k} {d:.3e}" for d, k, _ in per[:5])
+          + f"; worst / max|value| {worst:.3e}")
+    held = "bitwise" if bitwise else f"within {FIT_TOL} of each tensor's largest |value|"
+    if not bitwise and worst > FIT_TOL:
+        raise SystemExit("runs B and C end with different weights")
+    print(f"B and C agree {held}")
+    run_l = result["L"]
+    n = run_l["steps_per_epoch"]
+    # run L's steady steps: device_prefetch's thread gathers up to depth + 1
+    # batches ahead, so at most the first `depth` steps of an epoch wait for the
+    # loader's start and in the last `depth` the epoch's batches are all
+    # gathered; the steps between find the loader running
+    idx = [e * n + k - 1 for e in range(FIT_EPOCHS_A) for k in range(depth + 1, n - depth + 1)]
+    steady = dict(
+        steps=[i + 1 for i in idx], ms_per_step=[run_l["ms_per_step"][i] for i in idx],
+        data_wait_frac=[run_l["data_wait_frac"][i] for i in idx],
+        data_wait_ms=[run_l["data_wait_frac"][i] * run_l["ms_per_step"][i] for i in idx],
+        loader_pull_ms=[run_l["loader_pull_ms"][i] for i in idx])
+    med = float(np.median(steady["ms_per_step"]))
+    firsts = {r: [v["data_wait_frac"][i] for i in range(0, v["steps"], v["steps_per_epoch"])]
+              for r, v in result.items()}
+    saves_ms = [sv["ms"] for r in result.values() for sv in r["saves"]]
+    print(f"fit, steady state (run L, {n} steps an epoch, steps {depth + 1}-{n - depth} of "
+          f"each): {med:.2f} ms per step median ({min(steady['ms_per_step']):.2f}-"
+          f"{max(steady['ms_per_step']):.2f}), {batch / med * 1e3:.1f} clips/s; "
+          f"data_wait_frac {steady['data_wait_frac']} = "
+          f"{[round(x, 2) for x in steady['data_wait_ms']]} ms; the loader's pull (pool "
+          f"wait and collate, on device_prefetch's thread) of those batches "
+          f"{[round(x, 2) for x in steady['loader_pull_ms']]} ms; "
+          f"each epoch's first step's data_wait_frac {firsts}; phase 5, frames on the card: "
+          f"{train_result['cuda']['wall_ms_per_step']:.2f} ms per step (wall), "
+          f"{train_result['cuda']['ms_per_step']:.2f} (CUDA events); checkpoint save "
+          f"{float(np.median(saves_ms)):.1f} ms median of {len(saves_ms)}, "
+          f"{saves[0]['bytes'] / 1e6:.1f} MB; on {card}")
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches={k: sum(launches[r][k] for r in launches) for k in KERNELS},
+                runs=result, bitwise_b_vs_c=bitwise, b_vs_c_worst=worst,
+                steady=steady, steady_ms_per_step=med)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1261,10 +1576,12 @@ def main() -> int:
     serving = phase_path(card)
     train = phase_train(card)
     ev = phase_eval(card)
+    fit_run = phase_fit(card, train["routes"])
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
-                **{f"eval_{e}": ev[e]["launches"][kernel] for e in FORWARD_LAUNCHES}}
+                **{f"eval_{e}": ev[e]["launches"][kernel] for e in FORWARD_LAUNCHES},
+                "fit": fit_run["launches"][kernel]}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -1299,6 +1616,7 @@ def main() -> int:
             per=f"one {MICRO_HEADLINE[key]} call at the micro-benchmark's tpu1 shape",
             sites=a["sites"]))
     print(json.dumps({"train": train["routes"], "eval": ev, "micro": micro_run["bench"],
+                      "fit": {k: v for k, v in fit_run.items() if k != "launches"},
                       "card": card}))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@
 It serves (the R(2+1)D eval forward, ``tag(video)`` and
 ``evaluation.tagger.iter_pack_tags``), evaluates (``evaluation.evaluate.
 evaluate`` over a ``ClipDataset`` or a decode-once ``.fvtpack`` pack) and
-trains (``train.state.create_train_state`` / ``train.loop.make_train_step``),
+trains (``python -m fastvideotagging_tpu_torch.cli.train`` / ``train.fit.fit``:
+the loader, device prefetch, the train step, checkpoints and resume),
 with the factorized (2+1)D convs and their gradients on hand-written Hopper
 kernels (csrc/). ``ops.fused_infer.r2plus1d_fused_infer``, the fused serving
 engine, runs each stride-1 (2+1)D pair with its BatchNorm and ReLU as one

@@ -1,7 +1,8 @@
 """Video decode via cv2's bundled FFmpeg.
 
 A copy of ``fastvideotagging_tpu/data/decode.py``'s ``probe_video``,
-``read_frames_at``, ``SequentialReader`` and ``iter_frame_chunks``, with the
+``read_frames_at``, ``SequentialReader``, ``iter_frame_chunks`` and
+``read_all_frames``, with the
 same corrupt-frame fill policy: an undecodable frame is served as the nearest
 previously decoded frame, frames before the first decodable one as the first
 decodable frame, indices past the end of the stream as the last one.
@@ -273,3 +274,23 @@ def iter_frame_chunks(path: str, chunk_size: int = 256):
             raise DecodeError(f"no decodable frames in: {path}")
     finally:
         cap.release()
+
+
+def read_all_frames(path: str, max_frames: int | None = None) -> np.ndarray:
+    """Decode every frame (up to max_frames). Returns RGB uint8 (N, H, W, 3)."""
+    _require_cv2()
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        if not cap.isOpened():
+            raise DecodeError(f"cannot open video: {path}")
+        while max_frames is None or len(frames) < max_frames:
+            ok, frame = cap.read()
+            if not ok or frame is None:
+                break
+            frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    finally:
+        cap.release()
+    if not frames:
+        raise DecodeError(f"no decodable frames in: {path}")
+    return np.stack(frames)

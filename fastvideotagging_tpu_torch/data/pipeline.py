@@ -14,18 +14,26 @@ The counterpart of ``ClipSample`` and ``ClipDataset`` in
   deterministically replaced by the next record.
 * An optional decode-once frame cache (``DataConfig.cache_mb``).
 
-Host resizing to the ship geometry is data/frames.py's numpy spec. The
-batching loader (``train_batches``) and the device prefetch come with the
-``fit`` slice.
+Host resizing to the ship geometry is data/frames.py's numpy spec.
+
+``train_batches`` collates shuffled, worker-decoded clips into uint8 numpy
+batches for one epoch (the same Philox permutation per (seed, epoch) and the
+same bounded thread-pool window as the JAX package, so the two yield equal
+batches); ``device_prefetch`` keeps ``depth`` of them in flight to the card.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
+import queue
 import threading
+from typing import Iterator
 
 import numpy as np
+import torch
 
+from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.config import DataConfig
 from fastvideotagging_tpu_torch.data import decode, sampler
 from fastvideotagging_tpu_torch.data.frames import _ensure_size
@@ -224,3 +232,161 @@ class ClipDataset:
         if self.num_tags is None:
             return None
         return rec.multihot(self.num_tags)
+
+
+def _collate(samples: list[ClipSample]) -> dict[str, np.ndarray]:
+    batch = {
+        "frames": np.stack([s.frames for s in samples]),
+        "labels": np.asarray([s.label for s in samples], np.int32),
+        "crop_tops": np.asarray([s.crop_top for s in samples], np.int32),
+        "crop_lefts": np.asarray([s.crop_left for s in samples], np.int32),
+        "flips": np.asarray([s.flip for s in samples], bool),
+        "weights": np.ones((len(samples),), np.float32),
+    }
+    if samples[0].multihot is not None:
+        batch["multihot"] = np.stack([s.multihot for s in samples])
+    return batch
+
+
+def train_batches(
+    dataset: ClipDataset,
+    batch_size: int,
+    epoch: int,
+    num_workers: int = 8,
+    drop_last: bool = True,
+    rows: list[int] | None = None,
+) -> Iterator[dict[str, np.ndarray]]:
+    """Shuffled, worker-decoded training batches for one epoch.
+
+    The shuffle permutation is seeded by (seed, epoch); decode runs in a
+    thread pool with a bounded window so at most ~2 batches of futures are in
+    flight (backpressure), and results are consumed in deterministic order.
+
+    ``rows``: positions within each global batch to materialize. Every
+    sample's content is a pure function of (seed, epoch, dataset index), so
+    a subset of rows reproduces exactly those rows of the full batch;
+    yielded batches then have len(rows) samples, in global row order.
+    """
+    order = np.random.Generator(
+        np.random.Philox(key=np.uint64(dataset.seed), counter=[0, 0, 0, epoch])
+    ).permutation(len(dataset))
+    usable = len(order) - (len(order) % batch_size) if drop_last else len(order)
+    if usable == 0:
+        # drop_last with len(dataset) < batch_size: no full batch can ever be
+        # formed — yield nothing rather than decoding the whole set for free.
+        return
+    indices = order[:usable]
+    if rows is not None:
+        if not drop_last:
+            raise ValueError("rows= requires drop_last")
+        if not rows or any(r < 0 or r >= batch_size for r in rows):
+            raise ValueError(f"rows must be within [0, {batch_size}): {rows}")
+        sel = np.concatenate([
+            np.asarray(rows, np.int64) + b * batch_size
+            for b in range(usable // batch_size)
+        ])
+        indices = indices[sel]
+        batch_size = len(rows)
+
+    with cf.ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
+        window = max(2 * batch_size, num_workers * 2)
+        futures: dict[int, cf.Future] = {}
+        submitted = 0
+
+        def submit_upto(k):
+            nonlocal submitted
+            while submitted < min(k, len(indices)):
+                i = int(indices[submitted])
+                futures[submitted] = pool.submit(dataset.get_train, i, epoch)
+                submitted += 1
+
+        submit_upto(window)
+        buf: list[ClipSample] = []
+        for pos in range(len(indices)):
+            sample = futures.pop(pos).result()
+            submit_upto(pos + 1 + window)
+            buf.append(sample)
+            if len(buf) == batch_size:
+                yield _collate(buf)
+                buf = []
+        if buf and not drop_last:
+            yield _collate(buf)
+
+
+_END = object()
+
+
+def device_prefetch(batches, device: str | torch.device = "cuda",
+                    depth: int = 2) -> Iterator[dict[str, torch.Tensor]]:
+    """Keep ``depth`` batches in flight to ``device`` ahead of the consumer.
+
+    A producer thread pulls each batch from ``batches`` (on the train path
+    that is where the loader gathers and collates it) and, on the card,
+    copies it into freshly pinned host memory and sends it with
+    ``non_blocking=True`` on a side stream, so the host work and the copies
+    of the next batches overlap the steps on the current one, even when
+    the consumer syncs every step. A batch is yielded only after the
+    consumer's stream has been made to wait for its copy, and each tensor
+    is recorded on that stream, so the caching allocator does not hand its
+    memory to a later copy while a step still reads it. The pinned blocks
+    are allocated per batch (the pinned allocator keeps each one until its
+    copy has finished), so no copy in flight shares a buffer with a newer
+    batch.
+
+    On ``device='cpu'`` (the caller's choice) the same thread yields host
+    tensors, in order. The card is the default; without one this raises
+    unless the caller passes ``device='cpu'``. An error in ``batches`` is
+    raised to the consumer. Closing this generator stops the thread and
+    waits for it; ``batches`` itself is left for its owner to close.
+    """
+    dev = resolve_device(device)
+    ready: queue.Queue = queue.Queue(maxsize=max(1, depth))
+    stop = threading.Event()
+    copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                ready.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def produce():
+        try:
+            for b in batches:
+                if copy_stream is None:
+                    item = ({k: torch.as_tensor(v) for k, v in b.items()}, None)
+                else:
+                    with torch.cuda.stream(copy_stream):
+                        out = {k: torch.as_tensor(v).pin_memory().to(dev, non_blocking=True)
+                               for k, v in b.items()}
+                        done = torch.cuda.Event()
+                        done.record(copy_stream)
+                    item = (out, done)
+                if not put(item):
+                    return
+            put(_END)
+        except BaseException as e:  # raised again on the consumer's thread
+            put(e)
+
+    producer = threading.Thread(target=produce, name="device_prefetch", daemon=True)
+    producer.start()
+    try:
+        while True:
+            item = ready.get()
+            if item is _END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            out, done = item
+            if done is not None:
+                consumer = torch.cuda.current_stream(dev)
+                consumer.wait_event(done)
+                for t in out.values():
+                    t.record_stream(consumer)
+            yield out
+    finally:
+        stop.set()
+        producer.join()

@@ -1,12 +1,17 @@
 """Synthetic video for tests and the chip smoke run.
 
-A copy of ``fastvideotagging_tpu/data/synthetic.py::make_frames`` and
-``write_video``: deterministic frames whose content encodes a class id (a
-square moving with a class-derived direction and speed over a
-class-colored background), made from a seed with numpy's Philox.
+A copy of ``fastvideotagging_tpu/data/synthetic.py`` (``make_frames``,
+``write_video``, ``make_dataset``): deterministic frames whose content
+encodes a class id (a square moving with a class-derived direction and
+speed over a class-colored background), made from a seed with numpy's
+Philox. cv2 is needed only to write ``.mp4`` files; without it,
+``write_video`` and ``make_dataset`` raise, and frames go into packs
+(data/packed.py::write_pack_from_arrays) instead.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -56,3 +61,33 @@ def write_video(path: str, frames: np.ndarray, fps: float = 25.0) -> None:
             writer.write(cv2.cvtColor(frames[i], cv2.COLOR_RGB2BGR))
     finally:
         writer.release()
+
+
+def make_dataset(
+    root: str,
+    num_classes: int = 4,
+    videos_per_class: int = 2,
+    num_frames: int = 32,
+    height: int = 64,
+    width: int = 64,
+    seed: int = 0,
+) -> str:
+    """Generate a tiny single-label dataset on disk. Returns the list-file path.
+
+    Layout mirrors UCF101: ``root/class_k/v_k_i.mp4`` plus ``list.txt`` with
+    ``relative/path label`` rows (0-based labels).
+    """
+    os.makedirs(root, exist_ok=True)
+    lines = []
+    for k in range(num_classes):
+        cls_dir = os.path.join(root, f"class_{k}")
+        os.makedirs(cls_dir, exist_ok=True)
+        for i in range(videos_per_class):
+            frames = make_frames(k, num_frames, height, width, seed=seed + i)
+            rel = f"class_{k}/v_{k}_{i}.mp4"
+            write_video(os.path.join(root, rel), frames)
+            lines.append(f"{rel} {k}")
+    list_path = os.path.join(root, "list.txt")
+    with open(list_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return list_path

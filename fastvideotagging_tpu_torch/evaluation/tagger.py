@@ -30,6 +30,7 @@ from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
 from fastvideotagging_tpu_torch.models.zoo import model_from_config
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
+from fastvideotagging_tpu_torch.train.checkpoint import load_weights
 
 
 @dataclasses.dataclass
@@ -229,6 +230,7 @@ def iter_pack_tags(engine, pack, threshold: float = 0.5,
 
 def tag(
     video_path: str,
+    checkpoint: str | None = None,
     variables: dict | None = None,
     state_dict: dict | None = None,
     model_name: str = "r2plus1d_18",
@@ -243,10 +245,13 @@ def tag(
     cfg: ExperimentConfig | None = None,
     device: str | torch.device = "cuda",
 ) -> list[TagResult]:
-    """One-call API. Weights are either the JAX package's ``variables``
+    """One-call API, in the JAX package's parameter order. The weights are
+    exactly one of: a ``checkpoint`` path (a weights export of
+    ``train.checkpoint.export_weights``), the JAX package's ``variables``
     (nested dicts of arrays) or a port ``state_dict``."""
-    if (variables is None) == (state_dict is None):
-        raise ValueError("provide exactly one of `variables` or `state_dict`")
+    if sum(w is not None for w in (checkpoint, variables, state_dict)) != 1:
+        raise ValueError(
+            "provide exactly one of `checkpoint`, `variables` or `state_dict`")
     if cfg is None:
         cfg = ExperimentConfig(
             model=ModelConfig(name=model_name, num_classes=num_classes,
@@ -254,7 +259,9 @@ def tag(
             data=DataConfig(sampler=ClipSamplerConfig(
                 clip_len=clip_len, stride=stride, eval_mode=eval_mode)),
         )
-    if state_dict is None:
+    if checkpoint is not None:
+        state_dict = load_weights(checkpoint)
+    elif variables is not None:
         state_dict = from_jax_variables(variables)
     tagger = Tagger(cfg, state_dict, tag_names, device=device)
     return tagger.tag(video_path, threshold=threshold, top_k=top_k)

@@ -1,9 +1,9 @@
 """Weights carried across from and to the JAX package.
 
-``from_jax_variables`` maps the JAX package's R(2+1)D variables — nested
-dicts of numpy arrays, ``{'params': ..., 'batch_stats': ...}`` — onto the
-port model's ``state_dict``. Both trees share module names, so the map is by
-name:
+``from_jax_variables`` maps the JAX package's R(2+1)D or tiny3d variables —
+nested dicts of numpy arrays, ``{'params': ..., 'batch_stats': ...}`` — onto
+the port model's ``state_dict``. Both trees share module names, so the map
+is by name:
 
 - conv kernels ``.../<conv>/kernel`` (kt, kh, kw, Cin, Cout) are kept as
   they are (the port keeps the JAX layout);

@@ -1,5 +1,6 @@
 """Model zoo: constructor-by-name registry (counterpart of
-``fastvideotagging_tpu/models/zoo.py``; the R(2+1)D family for now).
+``fastvideotagging_tpu/models/zoo.py``; the R(2+1)D family and the
+tiny3d debug backbone for now).
 
     net = get_model("r2plus1d_18", num_classes=101)   # on the card, eval mode
     logits = net(clips)                                # clips (B, T, H, W, 3)
@@ -19,6 +20,7 @@ from torch import nn
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.models.layers import mxu_aligned_mid_channels
 from fastvideotagging_tpu_torch.models.r2plus1d import R2Plus1D
+from fastvideotagging_tpu_torch.models.tiny3d import Tiny3D
 
 _REGISTRY: dict[str, Callable[..., nn.Module]] = {}
 
@@ -85,3 +87,12 @@ def _r2plus1d_18_tpu(num_classes: int, **kw) -> nn.Module:
 def _r2plus1d_34_tpu(num_classes: int, **kw) -> nn.Module:
     return R2Plus1D(stage_blocks=(3, 4, 6, 3), num_classes=num_classes,
                     mid_channels_fn=mxu_aligned_mid_channels, stem_mid=128, **kw)
+
+
+@register("tiny3d")
+def _tiny3d(num_classes: int, **kw) -> nn.Module:
+    """Small debug backbone for the fit and pipeline tests (library convs
+    only: ``backend`` and ``dropout`` do not apply)."""
+    kw.pop("backend", None)
+    kw.pop("dropout", None)
+    return Tiny3D(num_classes=num_classes, **kw)

@@ -1,1 +1,2 @@
-"""Training: optimizer and schedule, train state, the train step, metrics."""
+"""Training: optimizer and schedule, train state, the train step, metrics,
+checkpoints and the fit loop."""

@@ -1,0 +1,147 @@
+"""Checkpoint / resume (the counterpart of
+``fastvideotagging_tpu/train/checkpoint.py``, whose orbax becomes
+``torch.save``).
+
+A checkpoint holds the full train state: the model's ``state_dict`` (params
+and BatchNorm statistics), the optimizer's state (its momentum buffers),
+``step`` and ``{"epoch"}``, all on the host. One file per step,
+``step_<n>.pt`` in the checkpoint directory. Each save is atomic (a temp
+file, then ``os.replace``), the newest ``max_to_keep`` are kept, and a
+second save at the same step replaces the first. Saves are synchronous:
+``save`` returns when the file is in place, so ``wait`` and ``close`` have
+nothing to wait for. ``export_weights`` / ``load_weights`` write and read a
+weights-only ``state_dict`` for the tag()/serving path.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import torch
+
+from fastvideotagging_tpu_torch.train.state import TrainState
+
+_NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+def _to_host(tree):
+    """A copy of ``tree`` with every tensor on the host (a device-to-host
+    copy, which waits for the card)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _atomic_save(obj, path: str) -> None:
+    """``torch.save`` into a temp file beside ``path``, then rename; an
+    interrupted save leaves no partial file and the old one untouched."""
+    tmp = f"{path}.tmp"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+class NullCheckpointManager:
+    """Checkpointing disabled (TrainConfig.checkpoint_dir == ""), for
+    throwaway and benchmark runs."""
+
+    def save(self, step, state, extra=None):
+        pass
+
+    def latest_step(self):
+        return None
+
+    def restore(self, target_state, step=None):
+        return None, None
+
+    def restore_weights(self, step=None):
+        return None, None
+
+    def wait(self):
+        pass
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self._dir = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self._dir, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self._dir, f"step_{step}.pt")
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for name in os.listdir(self._dir)
+                      if (m := _NAME.match(name)))
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState, extra: dict | None = None) -> None:
+        """extra: {"epoch": int}. A second save at the same step replaces
+        the first: when checkpoint_every_steps divides the epoch length, the
+        mid-epoch save records epoch - 1 and the epoch-end save at the same
+        step records epoch, and a resume must take the latter (or it would
+        replay the whole completed epoch)."""
+        payload = {
+            "model": _to_host(state.model.state_dict()),
+            "optimizer": _to_host(state.optimizer.state_dict()),
+            "step": int(state.step),
+            "epoch": int((extra or {}).get("epoch", 0)),
+        }
+        _atomic_save(payload, self._path(step))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def _load(self, step: int | None):
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+    def restore(self, target_state: TrainState, step: int | None = None):
+        """Load the checkpoint at ``step`` (the latest by default) into
+        ``target_state`` in place — model and optimizer state go to the
+        model's device — and return ``(state, {"epoch": e})``, or
+        ``(None, None)`` when there is none."""
+        payload = self._load(step)
+        if payload is None:
+            return None, None
+        target_state.model.load_state_dict(payload["model"])
+        target_state.optimizer.load_state_dict(payload["optimizer"])
+        target_state.step = payload["step"]
+        return target_state, {"epoch": payload["epoch"]}
+
+    def restore_weights(self, step: int | None = None):
+        """Weights only, for eval/serving consumers: ``(state_dict, step)``
+        or ``(None, None)``. Needs no optimizer of the matching structure
+        (a clipped or accumulated optimizer would not have one)."""
+        payload = self._load(step)
+        if payload is None:
+            return None, None
+        return payload["model"], payload["step"]
+
+    def wait(self) -> None:
+        pass  # saves are synchronous
+
+    def close(self) -> None:
+        pass
+
+
+def export_weights(path: str, state_dict: dict) -> None:
+    """Weights-only export for inference (the tag() path), atomic."""
+    _atomic_save(_to_host(dict(state_dict)), os.path.abspath(path))
+
+
+def load_weights(path: str) -> dict:
+    """A ``state_dict`` written by ``export_weights``, on the host."""
+    return torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)

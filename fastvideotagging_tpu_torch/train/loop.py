@@ -46,6 +46,7 @@ def make_train_step(
         if state.model is not model:
             raise ValueError("the state holds another model than this step was built for")
         dev = next(model.parameters()).device
+        # a no-op for batches that data.pipeline.device_prefetch put on the card
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
         clips = preprocess_batch(
             batch["frames"], batch["crop_tops"], batch["crop_lefts"], batch["flips"],

@@ -24,8 +24,17 @@ through the plain versions. K5-K9 (ops/temporal_micro.py) at small ragged
 shapes, with their default tiles and with 8-column tiles (several S tiles
 a clip), T = 1 and 2 among them; K7 and K9 write f32 and are held to 1e-3
 and to two bitwise-equal launches.
+
+The loader-fed training path: ``device_prefetch`` returns the host batches
+bitwise at depths 1-3 (the consumer overwriting each batch before the
+next) and its producer thread has ended, a checkpoint of a train state on the card restores onto the card
+bitwise, and ``fit`` on the card takes two r2plus1d_18 steps from a pack.
 """
 
+import os
+import threading
+
+import numpy as np
 import pytest
 import torch
 
@@ -684,3 +693,95 @@ def test_micro_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     micro.temporal_dw_v3(x, gy, 3)
     micro.temporal_dw_v2(x, gy, 3)
     assert micro.launch_counts == {"v2": 1, "v3": 2, "dw_v3": 1, "v3p": 1, "dw_v2": 1}
+
+
+# --------------------------------------------------------------------------
+# the loader-fed training path: device prefetch, checkpoints, fit
+# --------------------------------------------------------------------------
+
+
+def _host_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"frames": rng.integers(0, 256, (2, 4, 40, 56, 3), dtype=np.uint8),
+             "labels": rng.integers(0, 3, (2,)).astype(np.int32),
+             "flips": rng.uniform(size=2) < 0.5,
+             "weights": rng.uniform(size=2).astype(np.float32)} for _ in range(n)]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_prefetch_returns_the_host_batches(cuda, depth):
+    """Bitwise the host batches, in order, on the card. The consumer writes
+    into each batch (on its stream) before it takes the next one, so a
+    buffer shared with a copy still in flight would show in a later batch."""
+    from fastvideotagging_tpu_torch.data.pipeline import device_prefetch
+
+    host = _host_batches(7)
+    seen = []
+    for batch in device_prefetch(iter(host), device=cuda, depth=depth):
+        assert all(t.device.type == "cuda" for t in batch.values())
+        seen.append({k: v.cpu().numpy().copy() for k, v in batch.items()})
+        for t in batch.values():
+            t.zero_()
+        batch["frames"].add_(255)  # a long pass on the consumer's stream
+    assert len(seen) == len(host)
+    assert not any(t.name == "device_prefetch" for t in threading.enumerate())
+    for got, want in zip(seen, host):
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert (got[k] == want[k]).all(), k
+
+
+def test_checkpoint_round_trip_restores_onto_the_card(cuda, tmp_path):
+    from fastvideotagging_tpu_torch import config as tconfig
+    from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
+    from fastvideotagging_tpu_torch.train.loop import make_train_step
+    from fastvideotagging_tpu_torch.train.state import create_train_state
+
+    cfg = tconfig.ExperimentConfig(
+        model=tconfig.ModelConfig(name="tiny3d", num_classes=3),
+        data=tconfig.DataConfig(resize_hw=(40, 56), crop_hw=(32, 32),
+                                sampler=tconfig.ClipSamplerConfig(clip_len=4)))
+    state = create_train_state(cfg, 2, device=cuda, generator=torch.Generator().manual_seed(0))
+    batch = _host_batches(1)[0]
+    batch.update(crop_tops=np.zeros(2, np.int32), crop_lefts=np.zeros(2, np.int32))
+    state, _ = make_train_step(state.model, cfg)(state, batch)
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(state.step, state, {"epoch": 0})
+    fresh = create_train_state(cfg, 2, device=cuda, generator=torch.Generator().manual_seed(1))
+    _, extra = mgr.restore(fresh)
+    assert extra == {"epoch": 0} and fresh.step == 1
+    for k, v in state.model.state_dict().items():
+        got = fresh.model.state_dict()[k]
+        assert got.device.type == "cuda" and torch.equal(got, v), k
+    want = state.optimizer.state_dict()["state"]
+    for i, s in fresh.optimizer.state_dict()["state"].items():
+        assert s["momentum_buffer"].device.type == "cuda"
+        assert torch.equal(s["momentum_buffer"], want[i]["momentum_buffer"])
+
+
+def test_fit_runs_two_steps_on_the_card(cuda, tmp_path):
+    from fastvideotagging_tpu_torch import config as tconfig
+    from fastvideotagging_tpu_torch.data.packed import write_pack_from_arrays
+    from fastvideotagging_tpu_torch.data.synthetic import make_frames
+    from fastvideotagging_tpu_torch.train.fit import fit
+
+    pack = str(tmp_path / "train.fvtpack")
+    write_pack_from_arrays([(f"v{i}.mp4", i % 3, (), make_frames(i % 3, 20, 128, 171, seed=i))
+                            for i in range(4)], pack, (128, 171))
+    cfg = tconfig.ExperimentConfig(
+        model=tconfig.ModelConfig(name="r2plus1d_18", num_classes=3),
+        data=tconfig.DataConfig(num_workers=2),
+        train=tconfig.TrainConfig(batch_size=2, num_epochs=1, log_every=1,
+                                  checkpoint_dir=str(tmp_path / "ckpt")))
+    ops.reset_launch_counts()
+    state = fit(cfg, pack, metrics_path=str(tmp_path / "m.jsonl"))
+    assert state.step == 2
+    assert next(state.model.parameters()).device.type == "cuda"
+    # one r2plus1d_18 step launches K1 / K2 / K3 26 / 28 / 14 times
+    assert ops.launch_counts["spatial_conv"] == 2 * 26
+    assert ops.launch_counts["temporal_conv"] == 2 * 28
+    assert ops.launch_counts["temporal_dw"] == 2 * 14
+    with open(tmp_path / "m.jsonl") as f:
+        assert sum('"loss"' in line for line in f) == 2
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_2.pt"]

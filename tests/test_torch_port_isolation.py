@@ -47,7 +47,18 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.ops.fused_infer",
             "fastvideotagging_tpu_torch.evaluation.evaluate",
             "fastvideotagging_tpu_torch.ops.temporal_micro",
-            "fastvideotagging_tpu_torch.benchmarks.kernel_micro"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.benchmarks.kernel_micro",
+            "fastvideotagging_tpu_torch.cli.common",
+            "fastvideotagging_tpu_torch.cli.train",
+            "fastvideotagging_tpu_torch.data.decode",
+            "fastvideotagging_tpu_torch.data.synthetic",
+            "fastvideotagging_tpu_torch.data.synthetic_motion",
+            "fastvideotagging_tpu_torch.models.tiny3d",
+            "fastvideotagging_tpu_torch.train.checkpoint",
+            "fastvideotagging_tpu_torch.train.fit",
+            "fastvideotagging_tpu_torch.utils.debug",
+            "fastvideotagging_tpu_torch.utils.interrupt",
+            "fastvideotagging_tpu_torch.utils.layout"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -75,6 +86,33 @@ def test_entry_points_raise_without_cuda():
     # an explicit CPU request runs
     tagger = Tagger(cfg, state, device="cpu")
     assert tagger.model.fc.weight.device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path):
+    """fit, the train CLI (which builds the state through fit), the device
+    prefetch and tag(checkpoint=...) run on the card unless told otherwise."""
+    _needs_no_card()
+    from fastvideotagging_tpu_torch.cli import train as cli_train
+    from fastvideotagging_tpu_torch.data.packed import write_pack_from_arrays
+    from fastvideotagging_tpu_torch.data.pipeline import device_prefetch
+    from fastvideotagging_tpu_torch.data.synthetic import make_frames
+    from fastvideotagging_tpu_torch.train.checkpoint import export_weights
+    from fastvideotagging_tpu_torch.train.fit import fit
+
+    pack = str(tmp_path / "t.fvtpack")
+    write_pack_from_arrays([("v.mp4", 0, (), make_frames(0, 4, 40, 56))], pack, (40, 56))
+    cfg = ExperimentConfig(model=ModelConfig(name="tiny3d", num_classes=3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit(cfg, pack)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_train.main(["--model", "tiny3d", "--num-classes", "3", "--train-list", pack,
+                        "--resize", "40", "56", "--batch-size", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(device_prefetch(iter([{"x": np.zeros(2)}])))
+    weights = str(tmp_path / "w.pt")
+    export_weights(weights, get_model("tiny3d", num_classes=3, device="cpu").state_dict())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tag("unused.mp4", weights, model_name="tiny3d", num_classes=3)
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -112,7 +112,7 @@ def test_pool_and_heads_match_jax():
 
 def test_zoo_registry_and_config():
     assert list_models() == ["r2plus1d_18", "r2plus1d_18_tpu", "r2plus1d_34",
-                             "r2plus1d_34_tpu"]
+                             "r2plus1d_34_tpu", "tiny3d"]
     with pytest.raises(ValueError, match="unknown model"):
         get_model("c3d", device="cpu")
     m = model_from_config(ModelConfig(name="r2plus1d_34", num_classes=3, kernels="torch",
