@@ -89,7 +89,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             ``data_wait_frac`` from the metrics lines and the loader's time
             per batch, on run L's steps that pull a batch from a running
             loader, against phase 5; checkpoint save ms and size, peak
-            memory.
+            memory;
+8. entry points and knobs, on phase 7's packs with the same preset:
+            (a) ``cli.train.main --cache-on-device`` on run L's pack (the
+            pack copied to the card once, batches of cache rows gathered
+            there): build seconds and bytes, ms per step of steps 2-10 of
+            each epoch against run L's and phase 5's, ``data_wait_frac``,
+            its first batch gathered on the card bitwise equal to
+            ``train_batches``' first; (b) ``--grad-accum 2 --batch-size 16``
+            (4 micro steps): ms per update, the parameters unchanged after
+            micro step 1 and changed after micro step 2; (c) each remat
+            policy ('full', 'dots', 'mid', 'conv') against 'none' on phase
+            5's batch and weights: step-0 loss, gradients and BN statistics
+            against 'none''s, ms per step, peak memory, K1-K3 launches per
+            step (the recompute relaunches the forwards); (d)
+            ``cli.evaluate`` on the val pack from (a)'s checkpoint
+            directory, equal to ``evaluate()`` with the same weights; (e)
+            ``cli.tag`` on the val pack from an ``export_weights`` file,
+            equal to ``iter_pack_tags``; each run's launches counted; (f)
+            K1-K3 (forward, dx, dw) against their plain versions at the
+            hard accuracy benchmark's sites (B = 64, 8x32x32 clips, every
+            stage, K2 and K3 at T = 1 included).
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -97,7 +117,7 @@ measured: no check and no time in the ``kernels`` line depends on one.
 
 The line before the last is a JSON object with one entry per kernel. Its
 ``launches`` is the kernel's launches over the main path's runs, phases 4 to
-7 (each run counted from 0 just before it and read just after), and
+8 (each run counted from 0 just before it and read just after), and
 ``launches_by_run`` splits them by run; its times are per training step for
 K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
@@ -108,8 +128,10 @@ result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -122,6 +144,8 @@ import torch
 
 from fastvideotagging_tpu_torch import Tagger, get_model
 from fastvideotagging_tpu_torch.benchmarks import kernel_micro
+from fastvideotagging_tpu_torch.cli import evaluate as cli_evaluate
+from fastvideotagging_tpu_torch.cli import tag as cli_tag
 from fastvideotagging_tpu_torch.cli import train as cli_train
 from fastvideotagging_tpu_torch.config import (
     PRESETS,
@@ -130,11 +154,15 @@ from fastvideotagging_tpu_torch.config import (
     ExperimentConfig,
     ModelConfig,
 )
+from fastvideotagging_tpu_torch.data.device_cache import train_index_batches
 from fastvideotagging_tpu_torch.data.packed import open_dataset, write_pack_from_arrays
+from fastvideotagging_tpu_torch.data.pipeline import train_batches
 from fastvideotagging_tpu_torch.data.synthetic import make_frames
 from fastvideotagging_tpu_torch.evaluation import evaluate as evaluation
+from fastvideotagging_tpu_torch.evaluation.tagger import iter_pack_tags
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
+from fastvideotagging_tpu_torch.models.zoo import model_from_config
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 from fastvideotagging_tpu_torch.ops import fused_block as fused
@@ -142,7 +170,11 @@ from fastvideotagging_tpu_torch.ops import temporal_micro as micro
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train import fit as fit_module
-from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
+from fastvideotagging_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    export_weights,
+    load_weights,
+)
 from fastvideotagging_tpu_torch.train.loop import make_train_step
 from fastvideotagging_tpu_torch.train.state import create_train_state
 from fastvideotagging_tpu_torch.utils.profiling import breakdown
@@ -217,6 +249,16 @@ FIT_LOADER_COPIES = 5
 # B's and C's final weights when the step is not bitwise repeatable on the
 # card: within 1e-2 of each tensor's largest |value|
 FIT_TOL = 1e-2
+# phase 8: gradient accumulation's micro batch and k (B = 16 x 2 = one
+# update of the preset's 32 clips), the remat policies against 'none' (3
+# steps each on phase 5's batch), the accuracy run's batch and clip
+ACCUM_BATCH, ACCUM_K = 16, 2
+REMAT_STEPS = 3
+ACC_BATCH, ACC_T, ACC_HW = 64, 8, 32
+# remat against 'none': the same math recomputed, so the step-0 loss, the
+# gradients (||g - g_none|| / ||g_none||) and the BN statistics agree
+# within PATH_TOL; the BN statistics within 1e-6 of their largest |value|
+BN_TOL = 1e-6
 # K5-K9, the micro-benchmark's designs, by their launch-count key; their
 # path is the micro-benchmark (phase 3d), not phases 4-6
 _MICRO_SOURCE = "fastvideotagging_tpu_torch/csrc/temporal_micro.cu"
@@ -1187,7 +1229,7 @@ def phase_train(card: str) -> dict:
     result["step0"] = dict(loss_cuda=lc.item(), loss_torch=lt.item(), loss_f32=l32.item(),
                            logits_cuda_vs_torch=logit_err, grad_dist_cuda_vs_f32=err_c,
                            grad_dist_torch_vs_f32=err_t, grad_dist_cuda_vs_torch=err_ct)
-    return dict(launches=launches, routes=result)
+    return dict(launches=launches, routes=result, batch=host_batch, init=init)
 
 
 def _eval_items():
@@ -1342,12 +1384,13 @@ def _fit_state(state):
             {i: s["momentum_buffer"].clone() for i, s in opt.items()})
 
 
-def phase_fit(card: str, train_result: dict) -> dict:
+def phase_fit(card: str, train_result: dict, tmp: str) -> dict:
     """The loader-fed training path through its entry point,
     ``cli.train.main``: the r2plus1d18_ucf101 preset on a .fvtpack, run A
     (2 epochs, checkpoints, an eval after each epoch), B (A resumed to 3
     epochs), C (3 epochs unbroken) and L (A's run on a pack of 5x the
-    videos: the loader in its steady state)."""
+    videos: the loader in its steady state). The packs stay in ``tmp`` for
+    phase 8."""
     print("== phase 7: fit", flush=True)
     t_phase = time.perf_counter()
     saves, kept, pulls = [], {}, {}
@@ -1387,128 +1430,127 @@ def phase_fit(card: str, train_result: dict) -> dict:
     result = {}
     cfg = PRESETS["r2plus1d18_ucf101"]
     batch, depth = cfg.train.batch_size, cfg.data.prefetch_depth
-    with tempfile.TemporaryDirectory() as tmp:
-        train, val = os.path.join(tmp, "train.fvtpack"), os.path.join(tmp, "val.fvtpack")
-        loader = os.path.join(tmp, "loader.fvtpack")
-        t0 = time.perf_counter()
-        items = list(_fit_items(FIT_VIDEOS, SEED + 100))
-        summary = write_pack_from_arrays(items, train, (128, 171))
-        big = write_pack_from_arrays(
-            ((f"copy{c}_{name}", label, tags, frames) for c in range(FIT_LOADER_COPIES)
-             for name, label, tags, frames in items), loader, (128, 171))
-        del items
-        write_pack_from_arrays(_fit_items(FIT_VAL_VIDEOS, SEED + 300), val, (128, 171))
-        val_ds = open_dataset(val, cfg.data, mode="eval")
-        eval_chunks = sum(-(-len(val_ds.get_eval_clips(i)[0]) // CLIP_BATCH)
-                          for i in range(len(val_ds)))
-        print(f"train pack: {summary['videos']} videos x {FIT_FRAMES} frames at 128x171, "
-              f"{summary['bytes'] / 1e6:.1f} MB; run L's pack {big['videos']} videos "
-              f"({FIT_LOADER_COPIES} copies), {big['bytes'] / 1e6:.1f} MB; written in "
-              f"{time.perf_counter() - t0:.2f} s; val pack {FIT_VAL_VIDEOS} videos, "
-              f"{eval_chunks} eval chunks of {CLIP_BATCH}; B={batch}, prefetch depth {depth}")
-        base = ["--preset", "r2plus1d18_ucf101", "--val-list", val, "--log-every", "1"]
-        runs = {  # argv, first and last epoch, videos of the pack
-            "A": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS_A),
-                          "--checkpoint-dir", os.path.join(tmp, "a")],
-                  0, FIT_EPOCHS_A, FIT_VIDEOS),
-            "B": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS),
-                          "--checkpoint-dir", os.path.join(tmp, "a"), "--resume"],
-                  FIT_EPOCHS_A, FIT_EPOCHS, FIT_VIDEOS),
-            "C": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS),
-                          "--checkpoint-dir", os.path.join(tmp, "c")],
-                  0, FIT_EPOCHS, FIT_VIDEOS),
-            "L": (base + ["--train-list", loader, "--epochs", str(FIT_EPOCHS_A),
-                          "--checkpoint-dir", os.path.join(tmp, "l")],
-                  0, FIT_EPOCHS_A, FIT_VIDEOS * FIT_LOADER_COPIES),
-        }
-        states, launches = {}, {}
-        fit_module.CheckpointManager = TimedCheckpoints
-        try:
-            for name, (argv, first_epoch, last_epoch, videos) in runs.items():
-                metrics_path = os.path.join(tmp, f"{name}.jsonl")
-                fit_module.train_batches = recorded_batches(name)
-                n_saves = len(saves)
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-                ops.reset_launch_counts()
-                t0 = time.perf_counter()
-                state = cli_train.main(argv + ["--metrics-jsonl", metrics_path])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                counts = dict(ops.launch_counts)
-                peak_gb = torch.cuda.max_memory_allocated() / 1e9
-                with open(metrics_path) as f:
-                    lines = [json.loads(line) for line in f if line.strip()]
-                steps = [r for r in lines if "loss" in r]
-                evals = [r for r in lines if "eval_top1" in r]
-                steps_per_epoch = videos // batch
-                epochs = last_epoch - first_epoch
-                n_steps = epochs * steps_per_epoch
-                want = {"spatial_conv": 26 * n_steps + 13 * eval_chunks * epochs,
-                        "temporal_conv": 28 * n_steps + 14 * eval_chunks * epochs,
-                        "temporal_dw": 14 * n_steps, "fused_block": 0}
-                step_ms = [batch / r["samples_per_sec"] * 1e3 for r in steps]
-                print(f"run {name}: {' '.join(argv[argv.index('--epochs'):])}: "
-                      f"{steps_per_epoch} steps an epoch, step {state.step}, {wall:.2f} s; "
-                      f"launches {counts}")
-                print(f"run {name}: losses {[round(r['loss'], 4) for r in steps]}, epochs "
-                      f"{[r['epoch'] for r in steps]}; eval top1 "
-                      f"{[r['eval_top1'] for r in evals]}")
-                print(f"run {name}: ms per step {[round(x, 2) for x in step_ms]}, clips/s "
-                      f"{[round(r['samples_per_sec'], 2) for r in steps]}, data_wait_frac "
-                      f"{[r['data_wait_frac'] for r in steps]}; loader pull ms "
-                      f"{[round(x, 2) for x in pulls[name]]}; peak memory {peak_gb:.2f} GB "
-                      f"on {card}")
-                for sv in saves[n_saves:]:
-                    print(f"run {name}: checkpoint step {sv['step']} (epoch {sv['epoch']}) "
-                          f"{sv['bytes'] / 1e6:.1f} MB in {sv['ms']:.1f} ms")
-                if counts != want:
-                    raise SystemExit(f"run {name}: launch counts {counts} != {want}")
-                if not all(np.isfinite(r["loss"]) for r in steps):
-                    raise SystemExit(f"run {name}: a loss is not finite")
-                want_epochs = [e for e in range(first_epoch, last_epoch)
-                               for _ in range(steps_per_epoch)]
-                want_saves = [((e + 1) * steps_per_epoch, e)
-                              for e in range(first_epoch, last_epoch)]
-                got_saves = [(sv["step"], sv["epoch"]) for sv in saves[n_saves:]]
-                if (state.step != last_epoch * steps_per_epoch
-                        or [r["epoch"] for r in steps] != want_epochs
-                        or [r["step"] for r in steps] != list(range(
-                            first_epoch * steps_per_epoch + 1, state.step + 1))
-                        or len(evals) != epochs or got_saves != want_saves):
-                    raise SystemExit(f"run {name}: steps, epochs, evals or saves are wrong: "
-                                     f"step {state.step}, saves {got_saves}")
-                launches[name] = counts
-                result[name] = dict(
-                    steps=len(steps), steps_per_epoch=steps_per_epoch, wall_s=wall,
-                    losses=[r["loss"] for r in steps], ms_per_step=step_ms,
-                    clips_per_s=[r["samples_per_sec"] for r in steps],
-                    data_wait_frac=[r["data_wait_frac"] for r in steps],
-                    loader_pull_ms=pulls[name],
-                    eval_top1=[r["eval_top1"] for r in evals], peak_memory_gb=peak_gb,
-                    saves=saves[n_saves:])
-                if name == "A":
-                    # what a resume of A restores, on the card, against A's
-                    # final state (the one its last checkpoint saved)
-                    fresh = create_train_state(cfg, steps_per_epoch, device=DEV)
-                    _, extra = CheckpointManager(os.path.join(tmp, "a")).restore(fresh)
-                    (sd_a, opt_a), (sd_r, opt_r) = _fit_state(state), _fit_state(fresh)
-                    same = (fresh.step == state.step and extra["epoch"] == FIT_EPOCHS_A - 1
-                            and all(torch.equal(sd_r[k], v) for k, v in sd_a.items())
-                            and set(opt_r) == set(opt_a)
-                            and all(torch.equal(opt_r[i], v) for i, v in opt_a.items()))
-                    print(f"restore of A's last checkpoint (step {fresh.step}, epoch "
-                          f"{extra['epoch']}) equals A's final state bitwise: {same}")
-                    if not same:
-                        raise SystemExit("the restored state differs from A's final state")
-                    del fresh, sd_a, opt_a, sd_r, opt_r
-                elif name in ("B", "C"):
-                    states[name] = _fit_state(state)
-                del state
-        finally:
-            fit_module.CheckpointManager = CheckpointManager
-            fit_module.train_batches = orig_batches
+    train, val = os.path.join(tmp, "train.fvtpack"), os.path.join(tmp, "val.fvtpack")
+    loader = os.path.join(tmp, "loader.fvtpack")
+    t0 = time.perf_counter()
+    items = list(_fit_items(FIT_VIDEOS, SEED + 100))
+    summary = write_pack_from_arrays(items, train, (128, 171))
+    big = write_pack_from_arrays(
+        ((f"copy{c}_{name}", label, tags, frames) for c in range(FIT_LOADER_COPIES)
+         for name, label, tags, frames in items), loader, (128, 171))
+    del items
+    write_pack_from_arrays(_fit_items(FIT_VAL_VIDEOS, SEED + 300), val, (128, 171))
+    val_ds = open_dataset(val, cfg.data, mode="eval")
+    eval_chunks = sum(-(-len(val_ds.get_eval_clips(i)[0]) // CLIP_BATCH)
+                      for i in range(len(val_ds)))
+    print(f"train pack: {summary['videos']} videos x {FIT_FRAMES} frames at 128x171, "
+          f"{summary['bytes'] / 1e6:.1f} MB; run L's pack {big['videos']} videos "
+          f"({FIT_LOADER_COPIES} copies), {big['bytes'] / 1e6:.1f} MB; written in "
+          f"{time.perf_counter() - t0:.2f} s; val pack {FIT_VAL_VIDEOS} videos, "
+          f"{eval_chunks} eval chunks of {CLIP_BATCH}; B={batch}, prefetch depth {depth}")
+    base = ["--preset", "r2plus1d18_ucf101", "--val-list", val, "--log-every", "1"]
+    runs = {  # argv, first and last epoch, videos of the pack
+        "A": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS_A),
+                      "--checkpoint-dir", os.path.join(tmp, "a")],
+              0, FIT_EPOCHS_A, FIT_VIDEOS),
+        "B": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS),
+                      "--checkpoint-dir", os.path.join(tmp, "a"), "--resume"],
+              FIT_EPOCHS_A, FIT_EPOCHS, FIT_VIDEOS),
+        "C": (base + ["--train-list", train, "--epochs", str(FIT_EPOCHS),
+                      "--checkpoint-dir", os.path.join(tmp, "c")],
+              0, FIT_EPOCHS, FIT_VIDEOS),
+        "L": (base + ["--train-list", loader, "--epochs", str(FIT_EPOCHS_A),
+                      "--checkpoint-dir", os.path.join(tmp, "l")],
+              0, FIT_EPOCHS_A, FIT_VIDEOS * FIT_LOADER_COPIES),
+    }
+    states, launches = {}, {}
+    fit_module.CheckpointManager = TimedCheckpoints
+    try:
+        for name, (argv, first_epoch, last_epoch, videos) in runs.items():
+            metrics_path = os.path.join(tmp, f"{name}.jsonl")
+            fit_module.train_batches = recorded_batches(name)
+            n_saves = len(saves)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = cli_train.main(argv + ["--metrics-jsonl", metrics_path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(ops.launch_counts)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            with open(metrics_path) as f:
+                lines = [json.loads(line) for line in f if line.strip()]
+            steps = [r for r in lines if "loss" in r]
+            evals = [r for r in lines if "eval_top1" in r]
+            steps_per_epoch = videos // batch
+            epochs = last_epoch - first_epoch
+            n_steps = epochs * steps_per_epoch
+            want = {"spatial_conv": 26 * n_steps + 13 * eval_chunks * epochs,
+                    "temporal_conv": 28 * n_steps + 14 * eval_chunks * epochs,
+                    "temporal_dw": 14 * n_steps, "fused_block": 0}
+            step_ms = [batch / r["samples_per_sec"] * 1e3 for r in steps]
+            print(f"run {name}: {' '.join(argv[argv.index('--epochs'):])}: "
+                  f"{steps_per_epoch} steps an epoch, step {state.step}, {wall:.2f} s; "
+                  f"launches {counts}")
+            print(f"run {name}: losses {[round(r['loss'], 4) for r in steps]}, epochs "
+                  f"{[r['epoch'] for r in steps]}; eval top1 "
+                  f"{[r['eval_top1'] for r in evals]}")
+            print(f"run {name}: ms per step {[round(x, 2) for x in step_ms]}, clips/s "
+                  f"{[round(r['samples_per_sec'], 2) for r in steps]}, data_wait_frac "
+                  f"{[r['data_wait_frac'] for r in steps]}; loader pull ms "
+                  f"{[round(x, 2) for x in pulls[name]]}; peak memory {peak_gb:.2f} GB "
+                  f"on {card}")
+            for sv in saves[n_saves:]:
+                print(f"run {name}: checkpoint step {sv['step']} (epoch {sv['epoch']}) "
+                      f"{sv['bytes'] / 1e6:.1f} MB in {sv['ms']:.1f} ms")
+            if counts != want:
+                raise SystemExit(f"run {name}: launch counts {counts} != {want}")
+            if not all(np.isfinite(r["loss"]) for r in steps):
+                raise SystemExit(f"run {name}: a loss is not finite")
+            want_epochs = [e for e in range(first_epoch, last_epoch)
+                           for _ in range(steps_per_epoch)]
+            want_saves = [((e + 1) * steps_per_epoch, e)
+                          for e in range(first_epoch, last_epoch)]
+            got_saves = [(sv["step"], sv["epoch"]) for sv in saves[n_saves:]]
+            if (state.step != last_epoch * steps_per_epoch
+                    or [r["epoch"] for r in steps] != want_epochs
+                    or [r["step"] for r in steps] != list(range(
+                        first_epoch * steps_per_epoch + 1, state.step + 1))
+                    or len(evals) != epochs or got_saves != want_saves):
+                raise SystemExit(f"run {name}: steps, epochs, evals or saves are wrong: "
+                                 f"step {state.step}, saves {got_saves}")
+            launches[name] = counts
+            result[name] = dict(
+                steps=len(steps), steps_per_epoch=steps_per_epoch, wall_s=wall,
+                losses=[r["loss"] for r in steps], ms_per_step=step_ms,
+                clips_per_s=[r["samples_per_sec"] for r in steps],
+                data_wait_frac=[r["data_wait_frac"] for r in steps],
+                loader_pull_ms=pulls[name],
+                eval_top1=[r["eval_top1"] for r in evals], peak_memory_gb=peak_gb,
+                saves=saves[n_saves:])
+            if name == "A":
+                # what a resume of A restores, on the card, against A's
+                # final state (the one its last checkpoint saved)
+                fresh = create_train_state(cfg, steps_per_epoch, device=DEV)
+                _, extra = CheckpointManager(os.path.join(tmp, "a")).restore(fresh)
+                (sd_a, opt_a), (sd_r, opt_r) = _fit_state(state), _fit_state(fresh)
+                same = (fresh.step == state.step and extra["epoch"] == FIT_EPOCHS_A - 1
+                        and all(torch.equal(sd_r[k], v) for k, v in sd_a.items())
+                        and set(opt_r) == set(opt_a)
+                        and all(torch.equal(opt_r[i], v) for i, v in opt_a.items()))
+                print(f"restore of A's last checkpoint (step {fresh.step}, epoch "
+                      f"{extra['epoch']}) equals A's final state bitwise: {same}")
+                if not same:
+                    raise SystemExit("the restored state differs from A's final state")
+                del fresh, sd_a, opt_a, sd_r, opt_r
+            elif name in ("B", "C"):
+                states[name] = _fit_state(state)
+            del state
+    finally:
+        fit_module.CheckpointManager = CheckpointManager
+        fit_module.train_batches = orig_batches
     digests = {run: [_batch_digest(b) for b in kept.get(run, [])] for run in ("B", "C")}
     del kept
     if not digests["B"] or digests["B"] != digests["C"]:
@@ -1559,7 +1601,317 @@ def phase_fit(card: str, train_result: dict) -> dict:
     print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(launches={k: sum(launches[r][k] for r in launches) for k in KERNELS},
                 runs=result, bitwise_b_vs_c=bitwise, b_vs_c_worst=worst,
-                steady=steady, steady_ms_per_step=med)
+                steady=steady, steady_ms_per_step=med,
+                packs=dict(train=train, loader=loader, val=val, eval_chunks=eval_chunks))
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` and what it printed to stdout, kept off the script's."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def _counted(fn, *args):
+    """``fn(*args)`` with the kernels' launches counted from 0, and its
+    wall seconds (to the card's last op)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(ops.launch_counts), time.perf_counter() - t0
+
+
+def _step_ms(metrics_path: str, batch: int) -> tuple[list, list]:
+    with open(metrics_path) as f:
+        steps = [r for r in map(json.loads, f) if "loss" in r]
+    return [batch / r["samples_per_sec"] * 1e3 for r in steps], steps
+
+
+def _train_want(steps: int, eval_chunks: int = 0) -> dict:
+    return {"spatial_conv": 26 * steps + 13 * eval_chunks,
+            "temporal_conv": 28 * steps + 14 * eval_chunks,
+            "temporal_dw": 14 * steps, "fused_block": 0}
+
+
+def phase_entry_points(card: str, tmp: str, train: dict, fit_run: dict) -> dict:
+    """Phase 8: the train step's knobs and the entry points of the last
+    slice, on phase 7's packs with the r2plus1d18_ucf101 preset: (a) the
+    device cache through ``cli.train.main``, (b) gradient accumulation,
+    (c) each remat policy against 'none', (d) ``cli.evaluate`` against
+    ``evaluate()``, (e) ``cli.tag`` against ``iter_pack_tags``."""
+    print("== phase 8: entry points and knobs", flush=True)
+    t_phase = time.perf_counter()
+    cfg = PRESETS["r2plus1d18_ucf101"]
+    packs, b = fit_run["packs"], cfg.train.batch_size
+    launches, result = {}, {}
+    base = ["--preset", "r2plus1d18_ucf101", "--log-every", "1"]
+
+    # (a) the device cache: run L's pack and epochs with --cache-on-device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    built, firsts = [], []
+    orig_build, orig_index = fit_module.build_cache, fit_module.train_index_batches
+
+    def timed_build(dataset, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = orig_build(dataset, **kw)
+        torch.cuda.synchronize()
+        built.append((time.perf_counter() - t0, cache))
+        return cache
+
+    def first_batch(dataset, cache, batch_size, epoch, **kw):
+        for i, batch in enumerate(orig_index(dataset, cache, batch_size, epoch, **kw)):
+            if epoch == 0 and i == 0:
+                firsts.append({k: v.copy() for k, v in batch.items()})
+            yield batch
+
+    ckpt_a = os.path.join(tmp, "cache")
+    metrics = os.path.join(tmp, "cache.jsonl")
+    fit_module.build_cache, fit_module.train_index_batches = timed_build, first_batch
+    try:
+        state, counts, wall = _counted(cli_train.main, base + [
+            "--train-list", packs["loader"], "--epochs", str(FIT_EPOCHS_A),
+            "--checkpoint-dir", ckpt_a, "--cache-on-device", "--metrics-jsonl", metrics])
+    finally:
+        fit_module.build_cache, fit_module.train_index_batches = orig_build, orig_index
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = FIT_VIDEOS * FIT_LOADER_COPIES // b
+    ms, steps = _step_ms(metrics, b)
+    launches["cache"] = counts
+    build_s, cache = built[0]
+    later = [ms[e * n + k] for e in range(FIT_EPOCHS_A) for k in range(1, n)]
+    run_l = fit_run["runs"]["L"]["ms_per_step"]
+    later_l = [run_l[e * n + k] for e in range(FIT_EPOCHS_A) for k in range(1, n)]
+    p5 = train["routes"]["cuda"]["wall_ms_per_step"]
+    print(f"(a) --cache-on-device on run L's pack: cache {cache.nbytes / 1e6:.1f} MB built in "
+          f"{build_s:.3f} s; {len(steps)} steps in {wall:.2f} s; launches {counts}; peak "
+          f"memory {peak_gb:.2f} GB on {card}")
+    print(f"(a) ms per step, steps 2-{n} of each epoch: median {np.median(later):.2f} "
+          f"({min(later):.2f}-{max(later):.2f}) against run L's loader-fed "
+          f"{np.median(later_l):.2f} ({min(later_l):.2f}-{max(later_l):.2f}) and phase 5's "
+          f"{p5:.2f} (wall, frames on the card); all steps {[round(x, 2) for x in ms]}; "
+          f"data_wait_frac {[r['data_wait_frac'] for r in steps]}")
+    if counts != _train_want(len(steps)) or len(steps) != FIT_EPOCHS_A * n:
+        raise SystemExit(f"(a) steps {len(steps)} or launches {counts} are wrong")
+    if not all(np.isfinite(r["loss"]) for r in steps) or state.step != FIT_EPOCHS_A * n:
+        raise SystemExit("(a) a loss is not finite or the step count is wrong")
+    # its first batch, gathered on the card, against the loader's first batch
+    ds = open_dataset(packs["loader"], cfg.data, mode="train", seed=cfg.train.seed)
+    want = next(iter(train_batches(ds, b, 0, num_workers=cfg.data.num_workers)))
+    got = firsts[0]
+    frames = cache.frames[torch.as_tensor(got["rows"], device=DEV).long()].cpu().numpy()
+    same = np.array_equal(frames, want["frames"]) and all(
+        np.array_equal(got[k], want[k]) for k in want if k != "frames")
+    print(f"(a) the first batch gathered on the card equals train_batches' first batch "
+          f"(seed {cfg.train.seed}, epoch 0) bitwise: {same}")
+    if not same:
+        raise SystemExit("(a) the device cache's batch differs from the loader's")
+    result["cache"] = dict(build_s=build_s, bytes=cache.nbytes, ms_per_step=ms,
+                           data_wait_frac=[r["data_wait_frac"] for r in steps],
+                           median_ms_steps_2_on=float(np.median(later)),
+                           run_l_median_ms_steps_2_on=float(np.median(later_l)),
+                           phase5_wall_ms=p5, peak_memory_gb=peak_gb)
+    del cache, built, state
+    torch.cuda.empty_cache()
+
+    # (b) gradient accumulation: 2 epochs of 4 micro steps of 16 at k = 2 on
+    # the train pack (the first update takes the B = 16 shapes' first calls)
+    snaps, orig_step = [], fit_module.make_train_step
+
+    def snapshot_step(model, cfg_, **kw):
+        step = orig_step(model, cfg_, **kw)
+
+        def run(state_, batch, gen, *rest):
+            if not snaps:
+                snaps.append([p.detach().clone() for p in model.parameters()])
+            out = step(state_, batch, gen, *rest)
+            if len(snaps) < 3:
+                snaps.append([p.detach().clone() for p in model.parameters()])
+            return out
+        return run
+
+    metrics = os.path.join(tmp, "accum.jsonl")
+    fit_module.make_train_step = snapshot_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state, counts, wall = _counted(cli_train.main, base + [
+            "--train-list", packs["train"], "--epochs", "2", "--checkpoint-dir", "",
+            "--batch-size", str(ACCUM_BATCH), "--grad-accum", str(ACCUM_K),
+            "--metrics-jsonl", metrics])
+    finally:
+        fit_module.make_train_step = orig_step
+    ms, steps = _step_ms(metrics, ACCUM_BATCH)
+    micro = 2 * FIT_VIDEOS // ACCUM_BATCH
+    launches["grad_accum"] = counts
+    frozen = all(torch.equal(a, c) for a, c in zip(snaps[0], snaps[1]))
+    moved = any(not torch.equal(a, c) for a, c in zip(snaps[1], snaps[2]))
+    updates = [ms[i] + ms[i + 1] for i in range(0, len(ms) - 1, ACCUM_K)]
+    print(f"(b) --grad-accum {ACCUM_K} --batch-size {ACCUM_BATCH}: {len(steps)} micro steps, "
+          f"state.step {state.step}, launches {counts}; ms per micro step "
+          f"{[round(x, 2) for x in ms]}, per update {[round(x, 2) for x in updates]} (median "
+          f"of the later {float(np.median(updates[1:])):.2f}) against phase 5's {p5:.2f} for "
+          f"one step of {b}; params unchanged after micro step 1: {frozen}, changed after "
+          f"micro step 2: {moved}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if counts != _train_want(micro) or state.step != micro or not (frozen and moved):
+        raise SystemExit("(b) gradient accumulation: launches, steps or the update are wrong")
+    if not all(np.isfinite(r["loss"]) for r in steps):
+        raise SystemExit("(b) a loss is not finite")
+    result["grad_accum"] = dict(ms_per_micro_step=ms, ms_per_update=updates,
+                                median_ms_per_later_update=float(np.median(updates[1:])),
+                                frozen_after_micro_1=frozen, moved_after_micro_2=moved)
+    del snaps, state
+    torch.cuda.empty_cache()
+
+    # (c) remat: each policy against 'none' on phase 5's batch and weights
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in train["batch"].items()}
+    ref, remat, launches["remat"] = None, {}, {k: 0 for k in KERNELS}
+    for policy in ("none", "full", "dots", "mid", "conv"):
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=policy))
+        state = create_train_state(rcfg, steps_per_epoch=100, device=DEV)
+        state.model.load_state_dict(train["init"])
+        loss, _logits, grads = _first_step_by_hand(state, rcfg, batch)
+        stats = {k: v.clone() for k, v in state.model.state_dict().items()
+                 if k.endswith((".mean", ".var"))}
+        state.model.load_state_dict(train["init"])
+        step = make_train_step(state.model, rcfg)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+        step(state, batch, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REMAT_STEPS):
+            state, m = step(state, batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts)
+        for k in KERNELS:
+            launches["remat"][k] += counts[k]
+        r = dict(ms_per_step=start.elapsed_time(end) / REMAT_STEPS,
+                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches_per_step={k: v / REMAT_STEPS for k, v in counts.items()},
+                 loss=loss.item(), last_loss=float(m["loss"]))
+        if ref is None:
+            ref = (loss, grads, stats)
+        else:
+            num = sum((grads[k].float() - ref[1][k].float()).pow(2).sum().item() for k in grads)
+            den = sum(ref[1][k].float().pow(2).sum().item() for k in grads)
+            r["loss_rel_diff"] = abs(loss.item() - ref[0].item()) / abs(ref[0].item())
+            r["grad_dist"] = (num / den) ** 0.5
+            r["bn_max_rel"] = max((stats[k] - v).abs().max().item() / v.abs().max().item()
+                                  for k, v in ref[2].items())
+            r["bitwise"] = (torch.equal(loss, ref[0]) and all(
+                torch.equal(grads[k], ref[1][k]) for k in grads) and all(
+                torch.equal(stats[k], v) for k, v in ref[2].items()))
+        remat[policy] = r
+        print(f"(c) remat={policy!r}: {r['ms_per_step']:.2f} ms per step, peak memory "
+              f"{r['peak_memory_gb']:.2f} GB, K1 / K2 / K3 launches per step "
+              f"{counts['spatial_conv'] / REMAT_STEPS:g} / "
+              f"{counts['temporal_conv'] / REMAT_STEPS:g} / "
+              f"{counts['temporal_dw'] / REMAT_STEPS:g}; step-0 loss {r['loss']:.5f}"
+              + ("" if policy == "none" else
+                 f", against 'none': loss {r['loss_rel_diff']:.3e}, gradients "
+                 f"{r['grad_dist']:.3e}, BN statistics {r['bn_max_rel']:.3e} (tol {PATH_TOL}, "
+                 f"BN {BN_TOL}), bitwise {r['bitwise']}"), flush=True)
+        if policy != "none" and not (r["loss_rel_diff"] <= PATH_TOL and r["grad_dist"] <= PATH_TOL
+                                     and r["bn_max_rel"] <= BN_TOL):
+            raise SystemExit(f"(c) remat={policy!r} differs from 'none'")
+        if not np.isfinite(r["last_loss"]):
+            raise SystemExit(f"(c) remat={policy!r}: the loss is not finite")
+        del state, step, grads, stats
+        torch.cuda.empty_cache()
+    result["remat"] = remat
+    del ref, batch
+
+    # (d) cli.evaluate from (a)'s checkpoint directory against evaluate()
+    argv = ["--preset", "r2plus1d18_ucf101", "--val-list", packs["val"],
+            "--checkpoint-dir", ckpt_a]
+    (out, printed), counts, wall = _counted(_quiet, cli_evaluate.main, argv)
+    launches["cli_evaluate"] = counts
+    sd, _ = CheckpointManager(ckpt_a).restore_weights()
+    sd = {k: v.to(DEV) for k, v in sd.items()}
+    model = model_from_config(cfg.model, device=DEV)
+    direct = evaluation.evaluate(model, sd, open_dataset(packs["val"], cfg.data, mode="eval"),
+                                 cfg)
+    same = json.loads(printed.strip().splitlines()[-1]) == direct == out
+    print(f"(d) cli.evaluate: {printed.strip()} in {wall:.2f} s, launches {counts}; equals "
+          f"evaluate() with the same weights: {same}")
+    if not same or counts != _train_want(0, packs["eval_chunks"]):
+        raise SystemExit("(d) cli.evaluate differs from evaluate() or its launches are wrong")
+
+    # (e) cli.tag from an export_weights file against iter_pack_tags
+    weights = os.path.join(tmp, "weights.pt")
+    export_weights(weights, sd)
+    argv = [packs["val"], "--preset", "r2plus1d18_ucf101", "--weights", weights,
+            "--threshold", "0.0", "--top-k", "5"]
+    (_, printed), counts, wall = _counted(_quiet, cli_tag.main, argv)
+    launches["cli_tag"] = counts
+    tagger = Tagger(cfg, load_weights(weights), device=DEV)
+    direct = [json.dumps({"video": path, "tags": [{"tag": r.tag, "score": round(r.score, 5)}
+                                                  for r in results]})
+              for path, results in iter_pack_tags(tagger, packs["val"], threshold=0.0,
+                                                  top_k=5)]
+    lines = printed.strip().splitlines()
+    same = lines == direct
+    print(f"(e) cli.tag: {len(lines)} lines in {wall:.2f} s, launches {counts}; the first "
+          f"{lines[0]}; equal to iter_pack_tags: {same}")
+    # the preset's 'center' eval: one clip, one chunk a video
+    if not same or counts != _train_want(0, len(lines)):
+        raise SystemExit("(e) cli.tag differs from iter_pack_tags or its launches are wrong")
+    result["cli"] = dict(evaluate=out, tag_lines=len(lines))
+    del model, sd, tagger
+    torch.cuda.empty_cache()
+    print(f"phase 8 (a-e) took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches=launches, result=result)
+
+
+def accuracy_sites(b: int = ACC_BATCH):
+    """r2plus1d_18's (2+1)D conv sites at the accuracy run's 8x32x32 clips:
+    (site, kernel, x shape, Co). Stage 4 (T = 1, 2x2) is on the list though
+    the model sends it to F.conv3d (the kernels take T >= 2 and H, W >= k,
+    as the JAX routing does)."""
+    sites = [("stem_temporal", "temporal_conv", (b, ACC_T, ACC_HW // 2, ACC_HW // 2, 45), 64)]
+    t, hw = ACC_T, ACC_HW // 2
+    for stage in range(4):
+        c = 64 * 2 ** stage
+        if stage:
+            t, hw = max(1, t // 2), hw // 2
+        m = r2plus1d_mid_channels(c, c)
+        sites.append((f"stage{stage + 1}_spatial", "spatial_conv", (b, t, hw, hw, c), m))
+        sites.append((f"stage{stage + 1}_temporal", "temporal_conv", (b, t, hw, hw, m), c))
+    return sites
+
+
+def phase_accuracy_sites() -> dict:
+    """Phase 8f: K1-K3 (forward, dx, temporal dw) against their plain
+    versions at the accuracy run's sites, bf16 on the card."""
+    print("== phase 8f: K1-K3 at the accuracy run's sites (B = 64, 8x32x32)", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    worst, failures = {}, []
+    for site, kernel, xs, co in accuracy_sites():
+        on_path = (ops.spatial_eligible(xs, K, 1) if kernel == "spatial_conv"
+                   else ops.temporal_eligible(xs, K, 1))
+        for role, key, run, plain, _lib, _bound, _others in site_cases(kernel, xs, co, gen):
+            tol = DW_TOL if role == "dw" else KERNEL_TOL
+            got = run()
+            ref = plain()
+            scale = max(ref.float().abs().max().item(), 1e-30)
+            err = (got.float() - ref.float()).abs().max().item() / scale
+            ok = bool(torch.isfinite(got).all().item()) and err <= tol
+            worst[key] = max(worst.get(key, 0.0), err)
+            print(f"  {site:16s} {role:3s} {key:13s} x={xs} Co={co} max_rel_err={err:.3e} "
+                  f"(tol {tol}){'' if on_path else ' (F.conv3d on the path)'} ok={ok}")
+            if not ok:
+                failures.append((site, role))
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"a kernel disagrees with its plain version at {failures}")
+    return worst
 
 
 def main() -> int:
@@ -1567,6 +1919,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     agg = phase_kernels(card)
@@ -1576,12 +1929,16 @@ def main() -> int:
     serving = phase_path(card)
     train = phase_train(card)
     ev = phase_eval(card)
-    fit_run = phase_fit(card, train["routes"])
+    with tempfile.TemporaryDirectory() as tmp:
+        fit_run = phase_fit(card, train["routes"], tmp)
+        entry = phase_entry_points(card, tmp, train, fit_run)
+    acc_sites = phase_accuracy_sites()
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
                 **{f"eval_{e}": ev[e]["launches"][kernel] for e in FORWARD_LAUNCHES},
-                "fit": fit_run["launches"][kernel]}
+                "fit": fit_run["launches"][kernel],
+                **{run: c[kernel] for run, c in entry["launches"].items()}}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -1602,7 +1959,9 @@ def main() -> int:
             max_abs_err=a["max_abs_err"], max_rel_err=a["max_rel_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
             bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
-            library_ms=s.get("library_ms"), ok=a["ok"], **extra, sites=a["sites"]))
+            library_ms=s.get("library_ms"), ok=a["ok"], **extra, sites=a["sites"],
+            **({"accuracy_sites_max_rel_err": acc_sites[kernel]} if kernel in acc_sites
+               else {})))
     for key, meta in MICRO_KERNELS.items():  # K5-K9: the micro-benchmark's run
         a = micro_run["agg"][key]
         head = next(site for site in a["sites"]
@@ -1616,8 +1975,9 @@ def main() -> int:
             per=f"one {MICRO_HEADLINE[key]} call at the micro-benchmark's tpu1 shape",
             sites=a["sites"]))
     print(json.dumps({"train": train["routes"], "eval": ev, "micro": micro_run["bench"],
-                      "fit": {k: v for k, v in fit_run.items() if k != "launches"},
-                      "card": card}))
+                      "fit": {k: v for k, v in fit_run.items() if k not in ("launches", "packs")},
+                      "entry_points": entry["result"], "card": card}))
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

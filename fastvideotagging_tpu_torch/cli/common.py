@@ -1,13 +1,15 @@
 """Shared argparse plumbing: flags -> frozen config tree (the counterpart of
-``fastvideotagging_tpu/cli/common.py``, the part that ``cli/train.py``
-needs).
+``fastvideotagging_tpu/cli/common.py``).
 
 ``--preset`` selects one of the BASELINE configs and flags override its
 fields. The JAX package's ``--platform`` / ``--cpu-devices`` become
-``--device cuda|cpu`` (the card by default). Flags of knobs the port does
-not have yet are accepted and raise ``NotImplementedError`` naming their
-ROADMAP.md Queue A item: ``--cache-on-device`` (item 3), ``--grad-accum``
-> 1 (item 3) and the multi-host flags (item 7).
+``--device cuda|cpu`` (the card by default; ``apply_platform``). Flags of
+knobs the port does not have yet are accepted and raise
+``NotImplementedError`` naming their ROADMAP.md Queue A item: the
+multi-host flags (``--coordinator``, ``--num-processes``, ``--process-id``;
+item 7). Training raises for ``--data-parallel`` / ``--model-parallel`` > 1
+(item 7) and the entry points for their own flags (``--pretrained`` item 4,
+``--int8`` item 5, ``--engine native`` item 6).
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+import torch
+
+from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.config import PRESETS, ExperimentConfig
 
 
@@ -53,7 +58,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="crop on the host before the copy to the card "
                         "(needs frames shipped at resize_hw)")
     p.add_argument("--cache-on-device", action=argparse.BooleanOptionalAction,
-                   default=None, help="not ported yet (ROADMAP.md Queue A item 3)")
+                   default=None,
+                   help="copy the whole .fvtpack to the card once and gather clips "
+                        "there: a step copies a few KB of indices (needs a packed "
+                        "--train-list; batches bitwise the streaming loader's)")
 
 
 def add_train_flags(p: argparse.ArgumentParser) -> None:
@@ -68,7 +76,8 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--clip-grad-norm", type=float, default=None,
                    help=">0 clips gradients to this global L2 norm")
     p.add_argument("--grad-accum", type=int, default=None,
-                   help="only 1 is ported (ROADMAP.md Queue A item 3)")
+                   help="k > 1: update every k-th micro step on the mean of the k "
+                        "gradients (--batch-size is the micro batch)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--resume", action=argparse.BooleanOptionalAction, default=None,
@@ -77,21 +86,29 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-parallel", type=int, default=None)
     p.add_argument("--model-parallel", type=int, default=None)
     p.add_argument("--metrics-jsonl", default=None)
-    # multi-host: not ported yet (ROADMAP.md Queue A item 7)
-    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    add_multihost_flags(p)
+
+
+def add_multihost_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX package's multi-host flags; not ported yet (ROADMAP.md Queue A
+    item 7): ``check_ported`` raises when one is given."""
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="not ported yet (ROADMAP.md Queue A item 7)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="not ported yet (ROADMAP.md Queue A item 7)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="not ported yet (ROADMAP.md Queue A item 7)")
+
+
+def apply_platform(args: argparse.Namespace) -> torch.device:
+    """The device of ``--device`` (the JAX package's ``--platform``): the
+    card unless ``--device cpu``; raises without a card."""
+    return resolve_device(getattr(args, "device", None) or "cuda")
 
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise for a flag whose knob the port does not have yet."""
     g = lambda name: getattr(args, name, None)  # noqa: E731
-    if g("cache_on_device"):
-        raise NotImplementedError(
-            "--cache-on-device is not ported yet (ROADMAP.md Queue A item 3)")
-    if (g("grad_accum") or 1) > 1:
-        raise NotImplementedError(
-            "--grad-accum > 1 is not ported yet (ROADMAP.md Queue A item 3)")
     if any(g(name) is not None for name in ("coordinator", "num_processes", "process_id")):
         raise NotImplementedError(
             "multi-host runs (--coordinator, --num-processes, --process-id) are "

@@ -76,7 +76,10 @@ class ModelConfig:
     # 'frozen' -> running averages always (scale/bias still train)
     # ('group' and 'scaleonly' are not ported yet)
     norm: str = "batch"
-    # Activation rematerialization: only 'none' is ported.
+    # Activation rematerialization on the residual blocks (r2plus1d family;
+    # models/r2plus1d.py, REMAT_POLICIES): 'none'|'full'|'dots'|'mid'|'conv'.
+    # Numerics-identical to 'none' (the same math, recomputed); a
+    # training-memory knob only.
     remat: str = "none"
 
 
@@ -94,7 +97,9 @@ class TrainConfig:
     # >0 clips gradients to this global L2 norm before SGD; 0 disables
     # (default: plain SGD).
     clip_grad_norm: float = 0.0
-    grad_accum_steps: int = 1  # only 1 is ported
+    # >1 averages the gradients of k micro steps and updates every k-th
+    # (optax.MultiSteps semantics; train/state.py)
+    grad_accum_steps: int = 1
     seed: int = 0
     log_every: int = 20
     checkpoint_dir: str = "checkpoints"  # "" disables checkpointing

@@ -248,6 +248,31 @@ def _collate(samples: list[ClipSample]) -> dict[str, np.ndarray]:
     return batch
 
 
+def epoch_order(dataset: ClipDataset, batch_size: int, epoch: int, drop_last: bool = True,
+                rows: list[int] | None = None) -> tuple[np.ndarray, int]:
+    """The dataset indices of one epoch's batches, in order, and the batch
+    size (``len(rows)`` when ``rows`` is given): the Philox (seed, epoch)
+    permutation, cut to whole batches when ``drop_last``, and with ``rows``
+    only those positions of each batch."""
+    order = np.random.Generator(
+        np.random.Philox(key=np.uint64(dataset.seed), counter=[0, 0, 0, epoch])
+    ).permutation(len(dataset))
+    usable = len(order) - (len(order) % batch_size) if drop_last else len(order)
+    indices = order[:usable]
+    if rows is not None and usable:
+        if not drop_last:
+            raise ValueError("rows= requires drop_last")
+        if not rows or any(r < 0 or r >= batch_size for r in rows):
+            raise ValueError(f"rows must be within [0, {batch_size}): {rows}")
+        sel = np.concatenate([
+            np.asarray(rows, np.int64) + b * batch_size
+            for b in range(usable // batch_size)
+        ])
+        indices = indices[sel]
+        batch_size = len(rows)
+    return indices, batch_size
+
+
 def train_batches(
     dataset: ClipDataset,
     batch_size: int,
@@ -267,26 +292,11 @@ def train_batches(
     a subset of rows reproduces exactly those rows of the full batch;
     yielded batches then have len(rows) samples, in global row order.
     """
-    order = np.random.Generator(
-        np.random.Philox(key=np.uint64(dataset.seed), counter=[0, 0, 0, epoch])
-    ).permutation(len(dataset))
-    usable = len(order) - (len(order) % batch_size) if drop_last else len(order)
-    if usable == 0:
+    indices, batch_size = epoch_order(dataset, batch_size, epoch, drop_last, rows)
+    if not len(indices):
         # drop_last with len(dataset) < batch_size: no full batch can ever be
         # formed — yield nothing rather than decoding the whole set for free.
         return
-    indices = order[:usable]
-    if rows is not None:
-        if not drop_last:
-            raise ValueError("rows= requires drop_last")
-        if not rows or any(r < 0 or r >= batch_size for r in rows):
-            raise ValueError(f"rows must be within [0, {batch_size}): {rows}")
-        sel = np.concatenate([
-            np.asarray(rows, np.int64) + b * batch_size
-            for b in range(usable // batch_size)
-        ])
-        indices = indices[sel]
-        batch_size = len(rows)
 
     with cf.ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
         window = max(2 * batch_size, num_workers * 2)

@@ -138,6 +138,32 @@ def make_multi_motion_frames(
     return frames
 
 
+def iter_tagging_videos(
+    num_classes: int = 24,
+    objects_per_video: int = 2,
+    train_videos: int = 600,
+    eval_videos: int = 150,
+    num_frames: int = 48,
+    height: int = 48,
+    width: int = 48,
+    seed: int = 0,
+):
+    """The videos of ``make_tagging_dataset`` in its order, in memory:
+    yields ``(split, relative path, tag ids, frames)``, split 'train' or
+    'eval'."""
+    if num_classes > MAX_CLASSES:
+        raise ValueError(f"at most {MAX_CLASSES} classes")
+    pick = np.random.Generator(
+        np.random.Philox(key=np.uint64(seed), counter=[0, 0, 2, 0]))
+    for i in range(train_videos + eval_videos):
+        labels = sorted(pick.choice(num_classes, size=objects_per_video,
+                                    replace=False).tolist())
+        frames = make_multi_motion_frames(
+            labels, instance=i, num_frames=num_frames, height=height,
+            width=width, seed=seed)
+        yield ("train" if i < train_videos else "eval"), f"tagged/v_{i:04d}.mp4", labels, frames
+
+
 def make_tagging_dataset(
     root: str,
     num_classes: int = 24,
@@ -156,20 +182,14 @@ def make_tagging_dataset(
     if num_classes > MAX_CLASSES:
         raise ValueError(f"at most {MAX_CLASSES} classes")
     os.makedirs(root, exist_ok=True)
-    pick = np.random.Generator(
-        np.random.Philox(key=np.uint64(seed), counter=[0, 0, 2, 0]))
     lines = {"train": [], "eval": []}
     os.makedirs(os.path.join(root, "tagged"), exist_ok=True)
-    for i in range(train_videos + eval_videos):
-        labels = sorted(pick.choice(num_classes, size=objects_per_video,
-                                    replace=False).tolist())
-        frames = make_multi_motion_frames(
-            labels, instance=i, num_frames=num_frames, height=height,
-            width=width, seed=seed)
-        rel = f"tagged/v_{i:04d}.mp4"
+    for split, rel, labels, frames in iter_tagging_videos(
+            num_classes, objects_per_video, train_videos, eval_videos,
+            num_frames, height, width, seed):
         write_video(os.path.join(root, rel), frames)
         tags = ",".join(f"motion_{k:02d}" for k in labels)
-        lines["train" if i < train_videos else "eval"].append(f"{rel} {tags}")
+        lines[split].append(f"{rel} {tags}")
     train_list = os.path.join(root, "tag_train_list.txt")
     eval_list = os.path.join(root, "tag_eval_list.txt")
     # Consumers should pass tag_index() to load_tag_list so the class->id
@@ -184,6 +204,28 @@ def make_tagging_dataset(
 def tag_index(num_classes: int = 24) -> dict[str, int]:
     """Canonical tag-name -> id mapping for make_tagging_dataset lists."""
     return {f"motion_{k:02d}": k for k in range(num_classes)}
+
+
+def iter_motion_videos(
+    num_classes: int = 50,
+    train_per_class: int = 16,
+    eval_per_class: int = 4,
+    num_frames: int = 48,
+    height: int = 48,
+    width: int = 48,
+    seed: int = 0,
+):
+    """The videos of ``make_motion_dataset`` in its order, in memory: yields
+    ``(split, relative path, label, frames)``, split 'train' or 'eval'."""
+    if num_classes > MAX_CLASSES:
+        raise ValueError(f"at most {MAX_CLASSES} classes ({num_classes} asked)")
+    for k in range(num_classes):
+        for i in range(train_per_class + eval_per_class):
+            frames = make_motion_frames(
+                k, instance=i, num_frames=num_frames, height=height,
+                width=width, seed=seed)
+            yield (("train" if i < train_per_class else "eval"),
+                   f"motion_{k:02d}/v_{k:02d}_{i:03d}.mp4", k, frames)
 
 
 def make_motion_dataset(
@@ -204,22 +246,18 @@ def make_motion_dataset(
     if num_classes > MAX_CLASSES:
         raise ValueError(f"at most {MAX_CLASSES} classes ({num_classes} asked)")
     os.makedirs(root, exist_ok=True)
-    train_lines, eval_lines = [], []
+    lines = {"train": [], "eval": []}
     for k in range(num_classes):
-        cls_dir = os.path.join(root, f"motion_{k:02d}")
-        os.makedirs(cls_dir, exist_ok=True)
-        for i in range(train_per_class + eval_per_class):
-            frames = make_motion_frames(
-                k, instance=i, num_frames=num_frames, height=height,
-                width=width, seed=seed)
-            rel = f"motion_{k:02d}/v_{k:02d}_{i:03d}.mp4"
-            write_video(os.path.join(root, rel), frames)
-            (train_lines if i < train_per_class else eval_lines).append(
-                f"{rel} {k}")
+        os.makedirs(os.path.join(root, f"motion_{k:02d}"), exist_ok=True)
+    for split, rel, k, frames in iter_motion_videos(
+            num_classes, train_per_class, eval_per_class, num_frames, height,
+            width, seed):
+        write_video(os.path.join(root, rel), frames)
+        lines[split].append(f"{rel} {k}")
     train_list = os.path.join(root, "train_list.txt")
     eval_list = os.path.join(root, "eval_list.txt")
     with open(train_list, "w") as f:
-        f.write("\n".join(train_lines) + "\n")
+        f.write("\n".join(lines["train"]) + "\n")
     with open(eval_list, "w") as f:
-        f.write("\n".join(eval_lines) + "\n")
+        f.write("\n".join(lines["eval"]) + "\n")
     return train_list, eval_list

@@ -46,8 +46,8 @@ def _device_of(variables) -> torch.device:
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "data-parallel evaluation (mesh=) is not ported yet; evaluate runs "
-            "on the device of its variables")
+            "data-parallel evaluation (mesh=) is not ported yet (ROADMAP.md "
+            "Queue A item 7); evaluate runs on the device of its variables")
 
 
 def _make_apply(model, multilabel: bool):

@@ -14,7 +14,9 @@ PyTorch's own autograd.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -37,6 +39,24 @@ def mxu_aligned_mid_channels(cin: int, cout: int, kt: int = 3, kd: int = 3) -> i
     multiple of 128 (>= 128). An architecture name, kept as it is."""
     m = r2plus1d_mid_channels(cin, cout, kt, kd)
     return max(128, int(round(m / 128)) * 128)
+
+
+# Set while torch.utils.checkpoint recomputes a segment of the forward for the
+# backward (models/r2plus1d.py, remat): Norm then leaves its running
+# statistics alone, so that they move once per forward, as with remat off.
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The recompute context that the remat segments hand to
+    ``torch.utils.checkpoint`` (``context_fn``)."""
+    before = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = before
 
 
 def symmetric_padding(kernel: tuple[int, int, int]) -> tuple[int, int, int]:
@@ -156,7 +176,8 @@ class Norm(nn.Module):
       (B, T, H, W) as ``var = max(0, mean(x^2) - mean(x)^2)`` (biased), and
       the running ``mean``/``var`` move to ``momentum * old + (1 - momentum)
       * batch`` (the running var from the biased batch var, unlike
-      ``nn.BatchNorm3d``); in eval mode the running averages.
+      ``nn.BatchNorm3d``), except while a remat segment is recomputed
+      (``recomputing``); in eval mode the running averages.
     - 'frozen': the running averages always (``scale``/``bias`` still
       train); the buffers never move.
 
@@ -170,7 +191,8 @@ class Norm(nn.Module):
         super().__init__()
         if kind not in self.KINDS:
             raise ValueError(
-                f"norm kind {kind!r} is not ported yet; expected one of {self.KINDS}")
+                f"norm kind {kind!r} is not ported yet (ROADMAP.md Queue A item 4); "
+                f"expected one of {self.KINDS}")
         self.kind = kind
         self.epsilon = epsilon
         self.momentum = momentum
@@ -187,9 +209,10 @@ class Norm(nn.Module):
             dims = tuple(range(x.ndim - 1))
             mean = xf.mean(dim=dims)
             var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-                self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+            if not getattr(_recompute, "active", False):
+                with torch.no_grad():
+                    self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+                    self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale

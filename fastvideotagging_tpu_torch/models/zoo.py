@@ -7,7 +7,8 @@ tiny3d debug backbone for now).
     net.train()                                        # batch-stat BN, dropout
 
 Every constructor takes ``num_classes``, ``backend`` ('cuda' | 'torch'),
-``dtype``, ``norm``, ``dropout`` and a ``generator`` for its seeded init.
+``dtype``, ``norm``, ``dropout`` and a ``generator`` for its seeded init;
+the R(2+1)D family also ``remat``.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def model_from_config(m_cfg, device: str | torch.device = "cuda",
                       **overrides) -> nn.Module:
     """Build the model exactly as a ``ModelConfig`` specifies: ``kernels``
     becomes the conv backend and ``compute_dtype`` the activation dtype.
-    ``remat`` is a training-memory knob with no effect on an eval forward
-    (train/state.py refuses values it cannot honour).
+    ``remat`` is passed only when it is not 'none', so a model without the
+    knob (tiny3d) fails loudly instead of ignoring it.
     ``overrides`` win over config fields."""
     kw = dict(
         num_classes=m_cfg.num_classes,
@@ -61,6 +62,8 @@ def model_from_config(m_cfg, device: str | torch.device = "cuda",
         dtype=getattr(torch, m_cfg.compute_dtype),
         norm=m_cfg.norm,
     )
+    if m_cfg.remat != "none":
+        kw["remat"] = m_cfg.remat
     kw.update(overrides)
     return get_model(m_cfg.name, device=device, **kw)
 

@@ -4,7 +4,9 @@
 
 A checkpoint holds the full train state: the model's ``state_dict`` (params
 and BatchNorm statistics), the optimizer's state (its momentum buffers),
-``step`` and ``{"epoch"}``, all on the host. One file per step,
+``step`` (micro steps), the running mean of the gradients of an update in
+progress with gradient accumulation (``acc_grads``, or None) and
+``{"epoch"}``, all on the host. One file per step,
 ``step_<n>.pt`` in the checkpoint directory. Each save is atomic (a temp
 file, then ``os.replace``), the newest ``max_to_keep`` are kept, and a
 second save at the same step replaces the first. Saves are synchronous:
@@ -96,6 +98,7 @@ class CheckpointManager:
             "model": _to_host(state.model.state_dict()),
             "optimizer": _to_host(state.optimizer.state_dict()),
             "step": int(state.step),
+            "acc_grads": _to_host(state.acc_grads),
             "epoch": int((extra or {}).get("epoch", 0)),
         }
         _atomic_save(payload, self._path(step))
@@ -119,6 +122,9 @@ class CheckpointManager:
         target_state.model.load_state_dict(payload["model"])
         target_state.optimizer.load_state_dict(payload["optimizer"])
         target_state.step = payload["step"]
+        acc = payload.get("acc_grads")
+        dev = next(target_state.model.parameters()).device
+        target_state.acc_grads = None if acc is None else [g.to(dev) for g in acc]
         return target_state, {"epoch": payload["epoch"]}
 
     def restore_weights(self, step: int | None = None):

@@ -5,7 +5,9 @@ Epoch/batch loop, periodic speed/loss logging, per-epoch checkpoint and
 eval: worker-decoded uint8 batches (``train_batches``) are prefetched onto
 the card (``device_prefetch``) and run through one eager train step
 (``make_train_step``: preprocess, forward, backward through the hand
-kernels, SGD); checkpoints hold the full state, so a resume is exact.
+kernels, SGD); checkpoints hold the full state, so a resume is exact. With
+``DataConfig.cache_on_device`` the whole pack is copied to the card once
+(data/device_cache.py) and the batches carry cache rows, gathered there.
 
 Dropout draws from a generator seeded from ``(seed, global_step)`` on the
 model's device (the counterpart of ``fold_in(rng, global_step)``), so a
@@ -21,7 +23,8 @@ import torch
 
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.config import ExperimentConfig
-from fastvideotagging_tpu_torch.data.packed import open_dataset
+from fastvideotagging_tpu_torch.data.device_cache import build_cache, train_index_batches
+from fastvideotagging_tpu_torch.data.packed import PackedDataset, open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import device_prefetch, train_batches
 from fastvideotagging_tpu_torch.evaluation.evaluate import make_eval_fn
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
@@ -49,10 +52,6 @@ def _check_single_card(cfg: ExperimentConfig, mesh) -> None:
         raise NotImplementedError(
             "fit runs on one card: mesh=, data_parallel > 1 and model_parallel > 1 "
             "are not ported yet (ROADMAP.md Queue A item 7, parallelism)")
-    if cfg.data.cache_on_device:
-        raise NotImplementedError(
-            "cache_on_device=True is not ported yet (ROADMAP.md Queue A item 3, "
-            "the device cache)")
 
 
 def fit(
@@ -110,12 +109,23 @@ def fit(
             start_epoch = int(extra["epoch"]) + 1
             log.info("resumed from step %d (epoch %d)", state.step, start_epoch)
 
-    step_fn = make_train_step(state.model, cfg)
+    cache = None
+    if d_cfg.cache_on_device:
+        if not isinstance(dataset, PackedDataset):
+            raise ValueError(
+                "cache_on_device=True needs a .fvtpack train source "
+                "(cli.prepare --pack); streaming records cannot be staged "
+                "into device memory")
+        cache = build_cache(dataset, device=dev)
+        raw_step = make_train_step(state.model, cfg, device_cache=True)
+        step_fn = lambda s, b, g: raw_step(s, b, g, cache.frames)  # noqa: E731
+    else:
+        step_fn = make_train_step(state.model, cfg)
     mlog = MetricsLogger(metrics_path)
     try:
         with GracefulStopper() as stopper:
             _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev,
-                        start_epoch, eval_fn, stopper)
+                        start_epoch, eval_fn, stopper, cache)
     finally:
         ckpt.wait()
         mlog.close()
@@ -147,16 +157,23 @@ def _apply_pretrained(state: TrainState, variables: dict) -> None:
 
 
 def _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev, start_epoch,
-                eval_fn, stopper) -> None:
+                eval_fn, stopper, cache=None) -> None:
     t_cfg, d_cfg = cfg.train, cfg.data
+
+    def make_batches(epoch):
+        if cache is not None:
+            # index-only batches: a few KB a step; the pixels are on the card
+            return train_index_batches(dataset, cache, t_cfg.batch_size, epoch)
+        return train_batches(dataset, t_cfg.batch_size, epoch,
+                             num_workers=d_cfg.num_workers)
+
     global_step = state.step
     for epoch in range(start_epoch, t_cfg.num_epochs):
         loss_avg, top1_avg = RunningMean(), RunningMean()
         metrics = None  # this epoch's last step; None if the epoch is empty
         epoch_start = time.time()
         tic = time.time()
-        source = train_batches(dataset, t_cfg.batch_size, epoch,
-                               num_workers=d_cfg.num_workers)
+        source = make_batches(epoch)
         batches = device_prefetch(source, dev, depth=d_cfg.prefetch_depth)
         data_wait = 0.0  # host-blocked-on-loader time this logging window
         try:

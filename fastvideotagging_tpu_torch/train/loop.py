@@ -1,6 +1,7 @@
 """The train step (counterpart of ``fastvideotagging_tpu/train/loop.py``):
 
-  uint8 frames -> device preprocess (resize, random crop, flip, normalize)
+  uint8 frames (or cache rows gathered on the device) -> device preprocess
+  (resize, random crop, flip, normalize)
   -> model forward in train mode (compute dtype) -> loss (f32) -> backward
   (through the hand kernels with ``kernels='cuda'``) -> clip -> SGD update.
 
@@ -23,7 +24,7 @@ from fastvideotagging_tpu_torch.train.state import TrainState
 
 def make_train_step(
     model: torch.nn.Module, cfg: ExperimentConfig, device_cache: bool = False,
-) -> Callable[[TrainState, dict, torch.Generator | None], tuple[TrainState, dict]]:
+) -> Callable[..., tuple[TrainState, dict]]:
     """Build the train step: ``(state, batch, generator) -> (state, metrics)``.
 
     batch: frames uint8 (B,T,H,W,3), labels int (B,) or multihot f32 (B,K),
@@ -32,9 +33,14 @@ def make_train_step(
     the model's device) draws the dropout mask. The state is updated in
     place and returned; ``metrics`` holds ``loss`` and, for single-label
     models, ``top1`` as 0-d device tensors.
+
+    ``device_cache=True`` (the device-resident pack, data/device_cache.py):
+    the step takes a fourth argument, the cache's (total_frames, H, W, 3)
+    uint8 tensor on the model's device, and the batch carries ``rows`` (B, T)
+    int cache rows in place of ``frames``; the clips' pixels are gathered
+    there (one gather over the leading axis), so a step copies a few KB of
+    indices to the device.
     """
-    if device_cache:
-        raise NotImplementedError("device_cache=True is not ported yet")
     d = cfg.data
     multilabel = cfg.model.multilabel
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
@@ -42,14 +48,19 @@ def make_train_step(
     # (crop_hw -> crop_hw) identity and only flip + normalize remain.
     resize_hw = d.crop_hw if d.host_crop else d.resize_hw
 
-    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None):
+    def step(state: TrainState, batch: dict, generator: torch.Generator | None = None,
+             cache_frames: torch.Tensor | None = None):
         if state.model is not model:
             raise ValueError("the state holds another model than this step was built for")
+        if device_cache != (cache_frames is not None):
+            raise ValueError("a device_cache step takes the cache's frames, and only it does")
         dev = next(model.parameters()).device
         # a no-op for batches that data.pipeline.device_prefetch put on the card
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
+        frames = (cache_frames[batch["rows"].long()] if device_cache
+                  else batch["frames"])
         clips = preprocess_batch(
-            batch["frames"], batch["crop_tops"], batch["crop_lefts"], batch["flips"],
+            frames, batch["crop_tops"], batch["crop_lefts"], batch["flips"],
             d.mean, d.std, resize_hw=resize_hw, crop_hw=d.crop_hw,
             out_dtype=compute_dtype)
         model.train()
@@ -72,21 +83,26 @@ def make_train_step(
 
 def make_sample_batch(cfg: ExperimentConfig, batch_size: int | None = None,
                       device_cache: bool = False) -> dict:
-    """A zeros batch (host tensors) with the config's exact shapes."""
-    if device_cache:
-        raise NotImplementedError("device_cache=True is not ported yet")
+    """A zeros batch (host tensors) with the config's exact shapes.
+
+    ``device_cache=True`` swaps the frames tensor for the (B, T) int32
+    cache-row indices of the device-resident tier (the caller gives the
+    step the cache itself)."""
     d = cfg.data
     b = batch_size or cfg.train.batch_size
     t = d.sampler.clip_len
     h, w = d.crop_hw if d.host_crop else (d.source_hw or d.resize_hw)
     batch = {
-        "frames": torch.zeros((b, t, h, w, 3), dtype=torch.uint8),
         "labels": torch.zeros((b,), dtype=torch.int32),
         "crop_tops": torch.zeros((b,), dtype=torch.int32),
         "crop_lefts": torch.zeros((b,), dtype=torch.int32),
         "flips": torch.zeros((b,), dtype=torch.bool),
         "weights": torch.ones((b,), dtype=torch.float32),
     }
+    if device_cache:
+        batch["rows"] = torch.zeros((b, t), dtype=torch.int32)
+    else:
+        batch["frames"] = torch.zeros((b, t, h, w, 3), dtype=torch.uint8)
     if cfg.model.multilabel:
         batch["multihot"] = torch.zeros((b, cfg.model.num_classes), dtype=torch.float32)
     return batch

@@ -7,6 +7,13 @@ The JAX package chains optax ``clip_by_global_norm`` -> ``add_decayed_weights``
 ``lr * buffer``: the same arithmetic once the gradient is clipped first and
 ``lr`` is set from the schedule before every step. The decay has no mask:
 BN scale/bias and the fc bias decay too, as in the optax chain.
+
+``grad_accum_steps = k > 1`` wraps that chain in ``optax.MultiSteps`` in the
+JAX package; train/state.py keeps its semantics (the chain runs every k-th
+micro step on the mean of the k gradients). The schedule counts the chain's
+updates but is built with ``steps_per_epoch`` in micro steps, as the JAX
+package builds it, so its warmup and decay epochs come k times later in
+epochs than the config says (ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -59,10 +66,11 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
                    steps_per_epoch: int) -> tuple[torch.optim.SGD, Callable[[int], float]]:
     """SGD + momentum + weight decay over ``params`` and the schedule that
-    sets its ``lr`` before every step (train/state.py applies it, after the
-    clip when ``clip_grad_norm > 0``)."""
-    if cfg.grad_accum_steps > 1:
-        raise NotImplementedError("grad_accum_steps > 1 is not ported yet")
+    sets its ``lr`` before every update (train/state.py applies it, after the
+    clip when ``clip_grad_norm > 0``, to the mean gradient of
+    ``grad_accum_steps`` micro steps)."""
+    if cfg.grad_accum_steps < 1:
+        raise ValueError(f"grad_accum_steps must be >= 1, got {cfg.grad_accum_steps}")
     schedule = multifactor_schedule(cfg, steps_per_epoch)
     sgd = torch.optim.SGD(params, lr=schedule(0), momentum=cfg.momentum,
                           weight_decay=cfg.weight_decay, dampening=0, nesterov=False)

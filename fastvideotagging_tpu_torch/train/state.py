@@ -1,6 +1,7 @@
 """Train state (counterpart of ``fastvideotagging_tpu/train/state.py``):
 the model (params and BatchNorm running statistics), the optimizer with its
-momentum buffers, the schedule and the step count, as one object.
+momentum buffers, the schedule, the step count and, with gradient
+accumulation, the running mean of the micro steps' gradients, as one object.
 """
 
 from __future__ import annotations
@@ -19,22 +20,48 @@ from fastvideotagging_tpu_torch.train.lr import clip_by_global_norm_, make_optim
 
 @dataclasses.dataclass
 class TrainState:
-    """Updated in place by ``apply_gradients`` (JAX states are replaced)."""
+    """Updated in place by ``apply_gradients`` (JAX states are replaced).
+
+    ``step`` counts micro steps (calls of ``apply_gradients``), as the JAX
+    state's ``step`` does. With ``grad_accum_steps = k > 1`` (``optax.
+    MultiSteps``): the micro step ``step % k`` of an update adds its
+    gradients to ``acc_grads``, their running mean; the k-th runs the
+    optimizer on that mean and clears it. The parameters and the momentum
+    move only then; the schedule sees the updates made so far, ``step //
+    k``. BatchNorm's statistics move in every micro step's forward."""
 
     model: nn.Module
     optimizer: torch.optim.SGD
     schedule: Callable[[int], float]
     clip_grad_norm: float = 0.0
     step: int = 0
+    grad_accum_steps: int = 1
+    acc_grads: list[torch.Tensor] | None = None
 
     def apply_gradients(self) -> None:
-        """One optimizer update from the ``.grad`` of the model's params:
-        clip by global norm (if set), lr from the schedule at ``step``,
-        SGD, ``step += 1``; the gradients are dropped afterwards."""
+        """One micro step from the ``.grad`` of the model's params; the
+        gradients are dropped afterwards. An update: clip by global norm (if
+        set), lr from the schedule, SGD. ``step += 1``."""
+        k = self.grad_accum_steps
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        if k > 1:
+            mini = self.step % k
+            grads = [p.grad for p in params]
+            if self.acc_grads is None:
+                self.acc_grads = [torch.zeros_like(g) for g in grads]
+            # optax's Welford mean: acc + (g - acc) / (n + 1)
+            torch._foreach_add_(self.acc_grads, torch._foreach_div(
+                torch._foreach_sub(grads, self.acc_grads), float(mini + 1)))
+            if mini < k - 1:
+                self.optimizer.zero_grad(set_to_none=True)
+                self.step += 1
+                return
+            for p, acc in zip(params, self.acc_grads):
+                p.grad = acc
+            self.acc_grads = None
         if self.clip_grad_norm > 0:
-            clip_by_global_norm_([p.grad for p in self.model.parameters()
-                                  if p.grad is not None], self.clip_grad_norm)
-        lr = self.schedule(self.step)
+            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm)
+        lr = self.schedule(self.step // k)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
@@ -51,12 +78,10 @@ def create_train_state(cfg: ExperimentConfig, steps_per_epoch: int,
     raises without one unless ``device='cpu'`` — and its optimizer. A
     ``model`` built elsewhere is taken as it is and moved to ``device``."""
     dev = resolve_device(device)
-    if cfg.model.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.model.remat!r} is not ported yet; only 'none'")
     if model is None:
         model = model_from_config(cfg.model, device=dev, generator=generator)
     model = model.to(dev).train()
     optimizer, schedule = make_optimizer(model.parameters(), cfg.train, steps_per_epoch)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule,
-                      clip_grad_norm=cfg.train.clip_grad_norm)
+                      clip_grad_norm=cfg.train.clip_grad_norm,
+                      grad_accum_steps=cfg.train.grad_accum_steps)

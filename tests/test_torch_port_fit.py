@@ -343,10 +343,13 @@ def test_fit_checks_its_inputs(records, tmp_path):
     big = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=7))
     with pytest.raises(ValueError, match="batch_size"):
         tfit.fit(big, trecs, device="cpu")
-    for bad in (dict(parallel=tconfig.ParallelConfig(data_parallel=2)),
-                dict(data=dataclasses.replace(cfg.data, cache_on_device=True))):
-        with pytest.raises(NotImplementedError, match="Queue A item"):
-            tfit.fit(dataclasses.replace(cfg, **bad), trecs, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        tfit.fit(dataclasses.replace(cfg, parallel=tconfig.ParallelConfig(data_parallel=2)),
+                 trecs, device="cpu")
+    # the device cache takes a pack, not streaming records (the JAX fit's ValueError)
+    with pytest.raises(ValueError, match="needs a .fvtpack"):
+        tfit.fit(dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, cache_on_device=True)),
+                 trecs, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         tfit.fit(cfg, trecs, mesh=object(), device="cpu")
     # pretrained variables: num_epochs=0 returns them untouched
@@ -489,8 +492,12 @@ def test_cli_train_on_a_pack_then_tag_from_its_export(tmp_path):
     assert len(a) == 3 and [(r.index, r.score) for r in a] == [(r.index, r.score) for r in b]
     with pytest.raises(ValueError, match="exactly one"):
         tag(video, export, state_dict=weights, device="cpu")
-    for extra, item in ((["--grad-accum", "2"], "item 3"), (["--cache-on-device"], "item 3"),
-                        (["--coordinator", "h:1"], "item 7"),
+    # the train step's knobs, ported: the device cache and gradient accumulation
+    knobs = cli_train.main(argv + ["--device", "cpu", "--cache-on-device", "--grad-accum", "2",
+                                   "--epochs", "1", "--checkpoint-dir", "",
+                                   "--metrics-jsonl", str(tmp_path / "knobs.jsonl")])
+    assert knobs.step == 2 and knobs.acc_grads is None
+    for extra, item in ((["--coordinator", "h:1"], "item 7"),
                         (["--pretrained", "w.pt"], "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             cli_train.main(argv + ["--device", "cpu"] + extra)

@@ -29,6 +29,12 @@ The loader-fed training path: ``device_prefetch`` returns the host batches
 bitwise at depths 1-3 (the consumer overwriting each batch before the
 next) and its producer thread has ended, a checkpoint of a train state on the card restores onto the card
 bitwise, and ``fit`` on the card takes two r2plus1d_18 steps from a pack.
+
+The train step's knobs: the device cache's rows gathered on the card equal
+the loader's frames bitwise and feed a step; each remat policy equals
+'none' on the kernels (loss, gradients, BN statistics within 1e-6); and
+K1-K3 at the hard accuracy benchmark's sites (B = 64, 8x32x32 clips, down to
+T = 1 and 2x2 frames).
 """
 
 import os
@@ -785,3 +791,114 @@ def test_fit_runs_two_steps_on_the_card(cuda, tmp_path):
     with open(tmp_path / "m.jsonl") as f:
         assert sum('"loss"' in line for line in f) == 2
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_2.pt"]
+
+
+# --------------------------------------------------------------------------
+# the train step's last knobs on the card, and the accuracy run's shapes
+# --------------------------------------------------------------------------
+
+
+def test_device_cache_gathers_the_loaders_frames_on_the_card(cuda, tmp_path):
+    """The pack copied to the card; the rows of its index batches gathered
+    there equal the loader's frames bitwise; a cache step runs the kernels."""
+    from fastvideotagging_tpu_torch import config as tconfig
+    from fastvideotagging_tpu_torch.data.device_cache import build_cache, train_index_batches
+    from fastvideotagging_tpu_torch.data.packed import PackedDataset, write_pack_from_arrays
+    from fastvideotagging_tpu_torch.data.pipeline import train_batches
+    from fastvideotagging_tpu_torch.data.synthetic import make_frames
+    from fastvideotagging_tpu_torch.train.loop import make_train_step
+    from fastvideotagging_tpu_torch.train.state import create_train_state
+
+    pack = str(tmp_path / "train.fvtpack")
+    write_pack_from_arrays([(f"v{i}.mp4", i % 3, (), make_frames(i % 3, 6 + i, 40, 56, seed=i))
+                            for i in range(5)], pack, (40, 56))
+    cfg = tconfig.ExperimentConfig(
+        model=tconfig.ModelConfig(name="r2plus1d_18", num_classes=3),
+        data=tconfig.DataConfig(resize_hw=(40, 56), crop_hw=(32, 32), num_workers=2,
+                                sampler=tconfig.ClipSamplerConfig(clip_len=4, stride=2)),
+        train=tconfig.TrainConfig(batch_size=2))
+    ds = PackedDataset(pack, cfg.data, mode="train", seed=3)
+    cache = build_cache(ds)
+    assert cache.frames.device.type == "cuda" and cache.frames.dtype == torch.uint8
+    for got, want in zip(train_index_batches(ds, cache, 2, 1), train_batches(ds, 2, 1,
+                                                                             num_workers=2)):
+        rows = torch.as_tensor(got["rows"], device=cuda).long()
+        assert np.array_equal(cache.frames[rows].cpu().numpy(), want["frames"])
+    counts = []
+    for device_cache in (True, False):  # the same launches as a step fed by frames
+        state = create_train_state(cfg, 2, device=cuda)
+        step = make_train_step(state.model, cfg, device_cache=device_cache)
+        ops.reset_launch_counts()
+        if device_cache:
+            state, metrics = step(state, next(train_index_batches(ds, cache, 2, 0)), None,
+                                  cache.frames)
+        else:
+            state, metrics = step(state, next(train_batches(ds, 2, 0, num_workers=2)))
+        assert np.isfinite(float(metrics["loss"]))
+        counts.append(dict(ops.launch_counts))
+    assert counts[0] == counts[1] and counts[0]["temporal_dw"] > 0
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "mid", "conv"])
+def test_remat_equals_none_on_the_card(cuda, policy):
+    """r2plus1d_18 with reduced depth ((1, 1, 1, 1) blocks), bf16 on the
+    kernels: one forward and backward under each policy against 'none' from
+    the same weights. The recompute repeats the same kernels on the same
+    inputs, so loss, gradients and BN statistics agree within 1e-6 of each
+    tensor's largest |value|."""
+    from fastvideotagging_tpu_torch.models.r2plus1d import R2Plus1D
+
+    x = torch.randn((2, 8, 32, 32, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    labels = torch.tensor([0, 2], device=cuda)
+    out = {}
+    for name in ("none", policy):
+        model = R2Plus1D((1, 1, 1, 1), num_classes=3, remat=name,
+                         generator=torch.Generator().manual_seed(1)).to(cuda).train()
+        loss = torch.nn.functional.cross_entropy(model(x), labels)
+        loss.backward()
+        out[name] = (loss.detach(), {k: p.grad for k, p in model.named_parameters()},
+                     {k: v for k, v in model.state_dict().items()
+                      if k.endswith((".mean", ".var"))})
+    (l0, g0, s0), (l1, g1, s1) = out["none"], out[policy]
+    assert torch.allclose(l1, l0, rtol=1e-6, atol=0)
+    for ref, got in ((g0, g1), (s0, s1)):
+        for k, v in ref.items():
+            assert (got[k].float() - v.float()).abs().max() <= 1e-6 * v.float().abs().max(), k
+
+
+ACCURACY_SITES = [  # r2plus1d_18 at the hard benchmark's B = 64, 8x32x32: (B, T, H, W, C), Co
+    ((64, 8, 16, 16, 64), 144), ((64, 4, 8, 8, 128), 288), ((64, 2, 4, 4, 256), 576),
+    ((64, 1, 2, 2, 512), 1152),
+]
+ACCURACY_TEMPORAL = [((64, 8, 16, 16, 45), 64), ((64, 8, 16, 16, 144), 64),
+                     ((64, 4, 8, 8, 288), 128), ((64, 2, 4, 4, 576), 256),
+                     ((64, 1, 2, 2, 1152), 512)]
+
+
+@pytest.mark.parametrize("x_shape,co", ACCURACY_SITES)
+def test_spatial_kernel_at_the_accuracy_sites(cuda, x_shape, co):
+    """K1 forward and dx at 16x16 to 2x2 frames (2x2, below k, is sent to
+    F.conv3d by the model, as by the JAX routing)."""
+    b, t, h, w, c = x_shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((b * t, h, w, c), generator=g, device=cuda).to(torch.bfloat16)
+    wt = (torch.randn((3, 3, c, co), generator=g, device=cuda) / (9 * c) ** 0.5).to(
+        torch.bfloat16)
+    _close(ops.spatial_conv_cuda(x, wt), ops.spatial_conv_plain(x, wt))
+    gy = torch.randn((b * t, h, w, co), generator=g, device=cuda).to(torch.bfloat16)
+    _close(ops.spatial_conv_dx_cuda(gy, wt), ops.spatial_conv_dx_plain(gy, wt))
+
+
+@pytest.mark.parametrize("x_shape,co", ACCURACY_TEMPORAL)
+def test_temporal_kernels_at_the_accuracy_sites(cuda, x_shape, co):
+    """K2 forward and dx and K3 at T = 8 down to T = 1 (where only the
+    centre tap is in range; the model sends T = 1 to F.conv3d)."""
+    b, t, h, w, c = x_shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((b, t, h * w, c), generator=g, device=cuda).to(torch.bfloat16)
+    wt = (torch.randn((3, c, co), generator=g, device=cuda) / (3 * c) ** 0.5).to(torch.bfloat16)
+    gy = torch.randn((b, t, h * w, co), generator=g, device=cuda).to(torch.bfloat16)
+    _close(ops.temporal_conv_cuda(x, wt), ops.temporal_conv_plain(x, wt))
+    _close(ops.temporal_conv_dx_cuda(gy, wt), ops.temporal_conv_dx_plain(gy, wt))
+    dw, ref = ops.temporal_dw_cuda(x, gy, 3), ops.temporal_dw_plain(x, gy, 3)
+    assert (dw - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()

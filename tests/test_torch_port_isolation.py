@@ -58,7 +58,13 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.train.fit",
             "fastvideotagging_tpu_torch.utils.debug",
             "fastvideotagging_tpu_torch.utils.interrupt",
-            "fastvideotagging_tpu_torch.utils.layout"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.utils.layout",
+            "fastvideotagging_tpu_torch.data.device_cache",
+            "fastvideotagging_tpu_torch.cli.prepare",
+            "fastvideotagging_tpu_torch.cli.evaluate",
+            "fastvideotagging_tpu_torch.cli.tag",
+            "fastvideotagging_tpu_torch.cli.bench_loader",
+            "fastvideotagging_tpu_torch.benchmarks.accuracy_hard"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -113,6 +119,33 @@ def test_training_entry_points_raise_without_cuda(tmp_path):
     export_weights(weights, get_model("tiny3d", num_classes=3, device="cpu").state_dict())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tag("unused.mp4", weights, model_name="tiny3d", num_classes=3)
+
+
+def test_entry_points_of_the_last_slice_raise_without_cuda(tmp_path):
+    """cli.evaluate, cli.tag, cli.bench_loader, the accuracy benchmark and
+    the device cache run on the card unless told otherwise."""
+    _needs_no_card()
+    from fastvideotagging_tpu_torch.benchmarks import accuracy_hard
+    from fastvideotagging_tpu_torch.cli import bench_loader
+    from fastvideotagging_tpu_torch.cli import evaluate as cli_evaluate
+    from fastvideotagging_tpu_torch.cli import tag as cli_tag
+    from fastvideotagging_tpu_torch.data.device_cache import build_cache
+    from fastvideotagging_tpu_torch.data.packed import PackedDataset, write_pack_from_arrays
+    from fastvideotagging_tpu_torch.data.synthetic import make_frames
+    from fastvideotagging_tpu_torch.config import DataConfig
+
+    pack = str(tmp_path / "t.fvtpack")
+    write_pack_from_arrays([("v.mp4", 0, (), make_frames(0, 4, 40, 56))], pack, (40, 56))
+    flags = ["--model", "tiny3d", "--num-classes", "3", "--resize", "40", "56"]
+    cases = [lambda: cli_evaluate.main(flags + ["--val-list", pack, "--checkpoint-dir",
+                                                str(tmp_path / "ck")]),
+             lambda: cli_tag.main(flags + [pack, "--weights", "w.pt"]),
+             lambda: bench_loader.measure(videos=1, frames=4),
+             lambda: accuracy_hard.run(num_classes=2, epochs=5, root=str(tmp_path / "a")),
+             lambda: build_cache(PackedDataset(pack, DataConfig(resize_hw=(40, 56))))]
+    for case in cases:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            case()
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -116,9 +116,14 @@ def test_schedule_matches_optax_at_every_step(kw, steps_per_epoch):
 def test_schedule_rejects_warmup_past_first_decay():
     with pytest.raises(ValueError, match="must end before"):
         tlr.multifactor_schedule(tconfig.TrainConfig(lr_steps=(2, 4), warmup_epochs=2), 5)
-    with pytest.raises(NotImplementedError, match="grad_accum_steps"):
+    # gradient accumulation keeps the schedule built in micro steps (the JAX
+    # package's MultiSteps wraps the same chain); k < 1 is refused
+    _, sched = tlr.make_optimizer([torch.nn.Parameter(torch.zeros(2))],
+                                  tconfig.TrainConfig(grad_accum_steps=2, lr_steps=(2,)), 5)
+    assert [sched(s) for s in (9, 10)] == [0.01, pytest.approx(0.001)]
+    with pytest.raises(ValueError, match="grad_accum_steps"):
         tlr.make_optimizer([torch.nn.Parameter(torch.zeros(2))],
-                           tconfig.TrainConfig(grad_accum_steps=2), 5)
+                           tconfig.TrainConfig(grad_accum_steps=0), 5)
 
 
 @pytest.mark.parametrize("clip", [0.0, 0.5, 1e6])
@@ -333,13 +338,25 @@ def test_state_and_step_entry_points():
     assert "multihot" not in sample
     hc = dataclasses.replace(tcfg, data=dataclasses.replace(tcfg.data, host_crop=True))
     assert tloop.make_sample_batch(hc, batch_size=2)["frames"].shape == (2, 16, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="device_cache"):
-        tloop.make_train_step(torch.nn.Linear(1, 1), tcfg, device_cache=True)
-    with pytest.raises(NotImplementedError, match="device_cache"):
-        tloop.make_sample_batch(tcfg, device_cache=True)
-    remat = dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, remat="full"))
-    with pytest.raises(NotImplementedError, match="remat"):
-        create_train_state(remat, 2, device="cpu")
+    # the device cache: index-only sample batches; its step takes the cache's frames
+    rows = tloop.make_sample_batch(tcfg, device_cache=True)
+    assert rows["rows"].shape == (4, 16) and "frames" not in rows
+    # remat: the r2plus1d family takes the policies (tests/test_torch_port_knobs.py
+    # holds each to 'none'); an unknown one and a model without the knob
+    # (tiny3d) raise
+    remat = dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, remat="conv"))
+    st = create_train_state(remat, 2, device="cpu")
+    assert all(getattr(st.model, n).remat == "conv" for n in st.model.block_names)
+    cache_step = tloop.make_train_step(st.model, remat, device_cache=True)
+    with pytest.raises(ValueError, match="cache's frames"):
+        cache_step(st, rows)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        create_train_state(dataclasses.replace(
+            tcfg, model=dataclasses.replace(tcfg.model, remat="some")), 2, device="cpu")
+    with pytest.raises(TypeError, match="remat"):
+        create_train_state(dataclasses.replace(
+            tcfg, model=dataclasses.replace(tcfg.model, name="tiny3d", remat="full")), 2,
+            device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             create_train_state(tcfg, 2)
