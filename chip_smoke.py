@@ -109,7 +109,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             equal to ``iter_pack_tags``; each run's launches counted; (f)
             K1-K3 (forward, dx, dw) against their plain versions at the
             hard accuracy benchmark's sites (B = 64, 8x32x32 clips, every
-            stage, K2 and K3 at T = 1 included).
+            stage, K2 and K3 at T = 1 included);
+9. the zoo's other backbones: (a) one bf16 forward of each of c3d,
+            p3d_63 / 131 / 199, r3d_18, mc3_18, s3d, s3d_g, i3d and both
+            SlowFast variants (400 classes, seeded) at its serving clip
+            (``ZOO_CLIPS``) and clip_batch 8, both routes: K1 / K2 launches
+            against the count the routing gives (forward pre-hooks; P3D-63
+            16 / 16), scores of 'cuda' against 'torch', ms per forward,
+            clips/s, peak memory; (b) ``cli.evaluate --preset
+            p3d63_kinetics`` equal to ``evaluate()`` and ``cli.tag --model
+            c3d`` equal to ``Tagger``, on a pack of 256x342 frames; (c)
+            ``cli.train --preset c3d_ucf101_smoke`` (B = 1), P3D-63 at
+            32x224x224 (B = 8: launches per step 32 / 32 / 16, step-0 loss
+            against 'torch', a falling loss, ms per step, peak memory) and
+            ``cli.train --pretrained`` from an export of that state onto 51
+            classes (the head re-initialized, every other tensor loaded
+            bitwise); (d) K1-K3 (forward, dx, dw) against their plain
+            versions at the K1 / K2 sites of (a)'s P3D-63 and S3D forwards,
+            timed beside the bound and cuDNN.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -117,7 +134,7 @@ measured: no check and no time in the ``kernels`` line depends on one.
 
 The line before the last is a JSON object with one entry per kernel. Its
 ``launches`` is the kernel's launches over the main path's runs, phases 4 to
-8 (each run counted from 0 just before it and read just after), and
+9 (each run counted from 0 just before it and read just after), and
 ``launches_by_run`` splits them by run; its times are per training step for
 K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
@@ -128,6 +145,7 @@ result, when no CUDA device is present.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import hashlib
@@ -1914,6 +1932,385 @@ def phase_accuracy_sites() -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the zoo's other backbones
+# ---------------------------------------------------------------------------
+
+# the zoo names this phase adds to the path, and each one's serving clip
+# (T, H, W): the preset's geometry where there is one (c3d_ucf101_smoke,
+# p3d63_kinetics, slowfast_stretch), else the one its JAX module's docstring
+# names: 16x112x112 for Tran'18's VideoResNets, the 224 geometry of the
+# S3D / I3D heads (at the Kinetics presets' 32 frames), and P3D-63's preset
+# for its deeper siblings
+ZOO_CLIPS = {
+    "c3d": (16, 112, 112), "p3d_63": (32, 224, 224), "p3d_131": (32, 224, 224),
+    "p3d_199": (32, 224, 224), "r3d_18": (16, 112, 112), "mc3_18": (16, 112, 112),
+    "s3d": (32, 224, 224), "s3d_g": (32, 224, 224), "i3d": (32, 224, 224),
+    "slowfast_r2plus1d": (32, 224, 224), "slowfast_r2plus1d_tpu": (32, 224, 224),
+}
+ZOO_CLASSES = 400
+# P3D-63's K1 / K2 launches per forward at 32 frames (every stage keeps
+# T = 16 and H, W >= 7) and per training step (forward + dx; K3 once per
+# temporal site)
+P3D63_FORWARD = {"spatial_conv": 16, "temporal_conv": 16}
+P3D63_STEP = {"spatial_conv": 32, "temporal_conv": 32, "temporal_dw": 16, "fused_block": 0}
+# phase 9c: P3D-63's training batch at 32x224x224 (bf16 activations, the
+# Norms' f32 copies kept for the backward: about 4 GB a clip), its steps;
+# the packs of 9b / 9c
+ZOO_TRAIN_BATCH, ZOO_TRAIN_STEPS = 8, 6
+ZOO_PACK_VIDEOS, ZOO_PACK_FRAMES = 2, 72
+# the packs' frames: the Kinetics presets' 256x342 (9b's val pack, also
+# cli.tag's for C3D, which center-crops 112x112 from it) and the C3D preset's
+# 128x171 (9c)
+ZOO_EVAL_HW, ZOO_C3D_CROP, ZOO_C3D_HW = (256, 342), (112, 112), (128, 171)
+
+
+class RoutedSites:
+    """Forward pre-hooks on a model's factorized convs: the calls the
+    routing of ops/conv2plus1d.py sends to K1 / K2 (``backend='cuda'`` and
+    eligible), counted, and their (kernel, x shape, Co) kept."""
+
+    def __init__(self, model):
+        from fastvideotagging_tpu_torch.models.layers import SpatialConv, TemporalConv
+
+        self.counts = {"spatial_conv": 0, "temporal_conv": 0}
+        self.sites = []
+        self.handles = []
+        for m in model.modules():
+            if isinstance(m, (SpatialConv, TemporalConv)):
+                self.handles.append(m.register_forward_pre_hook(self._hook))
+
+    def _hook(self, module, args):
+        from fastvideotagging_tpu_torch.models.layers import SpatialConv
+
+        xs = tuple(args[0].shape)
+        spatial = isinstance(module, SpatialConv)
+        eligible = (ops.spatial_eligible(xs, module.k, module.stride) if spatial
+                    else ops.temporal_eligible(xs, module.k, module.stride))
+        if module.backend == "cuda" and eligible:
+            kernel = "spatial_conv" if spatial else "temporal_conv"
+            self.counts[kernel] += 1
+            self.sites.append((kernel, xs, module.kernel.shape[-1]))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _zoo_model(name: str, backend: str = "cuda", state=None):
+    """``name`` on the card (seeded, 400 classes, bf16, eval mode); with
+    ``state``, those weights."""
+    kw = {"clip_shape": ZOO_CLIPS[name]} if name == "c3d" else {}
+    m = get_model(name, num_classes=ZOO_CLASSES, device="cpu", backend=backend,
+                  generator=torch.Generator().manual_seed(SEED), **kw)
+    if state is not None:
+        m.load_state_dict(state)
+    return m.to(DEV).eval()
+
+
+def phase_zoo_serving(card: str) -> dict:
+    """9a: one bf16 forward of every new zoo name at its serving clip and
+    clip_batch 8, both routes: K1 / K2 launches against the routing's
+    count, scores of 'cuda' against 'torch', ms per forward, clips/s and
+    peak memory."""
+    print("== phase 9a: the zoo's other backbones, one forward each", flush=True)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    result, sites, launches = {}, {}, {k: 0 for k in KERNELS}
+    for name, (t, h, w) in ZOO_CLIPS.items():
+        torch.cuda.empty_cache()
+        m_cuda = _zoo_model(name)
+        m_torch = _zoo_model(name, "torch", m_cuda.state_dict())
+        x = torch.randn((CLIP_BATCH, t, h, w, 3), generator=gen, device=DEV).to(torch.bfloat16)
+        routed = RoutedSites(m_cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            y_cuda = m_cuda(x)
+            torch.cuda.synchronize()
+            counts = dict(ops.launch_counts)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            y_torch = m_torch(x)
+        routed.remove()
+        for k in KERNELS:
+            launches[k] += counts[k]
+        want = dict(routed.counts, temporal_dw=0, fused_block=0)
+        s_cuda, s_torch = (torch.softmax(y.float(), -1) for y in (y_cuda, y_torch))
+        err = (s_cuda - s_torch).abs().max().item()
+        lerr = ((y_cuda.float() - y_torch.float()).abs().max()
+                / y_torch.float().abs().max().clamp_min(1e-30)).item()
+        with torch.inference_mode():
+            ms = {r: time_ms(lambda m=m: m(x), iters=3, warmup=1)
+                  for r, m in (("cuda", m_cuda), ("torch", m_torch))}
+        finite = bool(torch.isfinite(y_cuda).all().item())
+        ok = finite and counts == want and err <= PATH_TOL and y_cuda.shape == (
+            CLIP_BATCH, ZOO_CLASSES)
+        if name == "p3d_63":
+            ok = ok and {k: counts[k] for k in P3D63_FORWARD} == P3D63_FORWARD
+        result[name] = dict(
+            clip=[CLIP_BATCH, t, h, w], launches={k: counts[k] for k in P3D63_FORWARD},
+            routed=routed.counts, score_max_abs_diff=err, logit_rel_diff=lerr,
+            ms=ms, clips_per_s={r: CLIP_BATCH / v * 1e3 for r, v in ms.items()},
+            peak_memory_gb=peak_gb, ok=ok)
+        print(f"  {name:22s} {CLIP_BATCH}x{t}x{h}x{w}: K1/K2 launches "
+              f"{counts['spatial_conv']}/{counts['temporal_conv']} (routing "
+              f"{routed.counts['spatial_conv']}/{routed.counts['temporal_conv']}); scores cuda "
+              f"vs torch {err:.3e}, logits {lerr:.3e} (tol {PATH_TOL}); forward "
+              f"{ms['cuda']:.2f} ms cuda / {ms['torch']:.2f} ms torch = "
+              f"{CLIP_BATCH / ms['cuda'] * 1e3:.1f} / {CLIP_BATCH / ms['torch'] * 1e3:.1f} "
+              f"clips/s; peak {peak_gb:.2f} GB on {card} ok={ok}", flush=True)
+        if name in ("p3d_63", "s3d"):
+            sites[name] = sorted(set(routed.sites))
+        if not ok:
+            raise SystemExit(f"9a: {name} failed (launches {counts}, routing {want}, "
+                             f"score diff {err:.3e}, finite {finite})")
+        del m_cuda, m_torch, x, y_cuda, y_torch
+    return dict(result=result, sites=sites, launches=launches)
+
+
+def _zoo_pack(path: str, hw, n: int = ZOO_PACK_VIDEOS, frames: int = ZOO_PACK_FRAMES,
+              num_tags: int | None = None):
+    """A seeded pack of ``n`` synthetic videos at ``hw``, video i of class
+    i (with ``num_tags``, tagged {i})."""
+    items = [(f"zoo{i}.mp4", i, (i,) if num_tags else (),
+              make_frames(i, num_frames=frames, height=hw[0], width=hw[1], seed=SEED + 90 + i))
+             for i in range(n)]
+    return write_pack_from_arrays(items, path, hw, num_tags=num_tags)
+
+
+def phase_zoo_entry_points(card: str, tmp: str) -> dict:
+    """9b: ``cli.evaluate --preset p3d63_kinetics`` against ``evaluate()``
+    and ``cli.tag --model c3d`` against ``Tagger`` (iter_pack_tags), on a
+    pack of 256x342 frames."""
+    print("== phase 9b: cli.evaluate (p3d63_kinetics) and cli.tag (c3d)", flush=True)
+    from fastvideotagging_tpu_torch.cli.common import add_common_flags, build_config
+
+    launches = {}
+    pack = os.path.join(tmp, "zoo_val.fvtpack")
+    _zoo_pack(pack, ZOO_EVAL_HW)
+    cfg = PRESETS["p3d63_kinetics"]
+    state = create_train_state(cfg, 1, device=DEV, generator=torch.Generator().manual_seed(SEED))
+    ckpt = os.path.join(tmp, "zoo_p3d")
+    CheckpointManager(ckpt).save(0, state, {"epoch": 0})
+    sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    del state
+    argv = ["--preset", "p3d63_kinetics", "--val-list", pack, "--checkpoint-dir", ckpt]
+    (out, printed), counts, wall = _counted(_quiet, cli_evaluate.main, argv)
+    launches["zoo_cli_evaluate"] = counts
+    model = model_from_config(cfg.model, device=DEV)
+    direct = evaluation.evaluate(model, sd, open_dataset(pack, cfg.data, mode="eval"), cfg)
+    same = json.loads(printed.strip().splitlines()[-1]) == direct == out
+    chunks = counts["temporal_conv"] // P3D63_FORWARD["temporal_conv"]
+    want = {k: chunks * P3D63_FORWARD.get(k, 0) for k in KERNELS}
+    print(f"(b) cli.evaluate --preset p3d63_kinetics: {printed.strip()} in {wall:.2f} s, "
+          f"launches {counts} ({chunks} forwards of {P3D63_FORWARD}); equals evaluate(): "
+          f"{same}")
+    if not same or not chunks or counts != want:
+        raise SystemExit("9b: cli.evaluate differs from evaluate() or its launches are wrong")
+    del model, sd
+    torch.cuda.empty_cache()
+
+    weights = os.path.join(tmp, "zoo_c3d.pt")
+    export_weights(weights, _zoo_model("c3d").state_dict())
+    flags = ["--model", "c3d", "--num-classes", str(ZOO_CLASSES),
+             "--resize", *map(str, ZOO_EVAL_HW), "--crop", *map(str, ZOO_C3D_CROP)]
+    argv = [pack] + flags + ["--weights", weights, "--threshold", "0.0", "--top-k", "5"]
+    (_, printed), counts, wall = _counted(_quiet, cli_tag.main, argv)
+    launches["zoo_cli_tag"] = counts
+    p = argparse.ArgumentParser()
+    add_common_flags(p)
+    tcfg = build_config(p.parse_args(flags))
+    tagger = Tagger(tcfg, load_weights(weights), device=DEV)
+    direct = [json.dumps({"video": path, "tags": [{"tag": r.tag, "score": round(r.score, 5)}
+                                                  for r in results]})
+              for path, results in iter_pack_tags(tagger, pack, threshold=0.0, top_k=5)]
+    lines = printed.strip().splitlines()
+    same = lines == direct
+    print(f"(b) cli.tag --model c3d: {len(lines)} lines in {wall:.2f} s, launches {counts}; "
+          f"the first {lines[0]}; equal to Tagger: {same}")
+    if not same or any(counts.values()):
+        raise SystemExit("9b: cli.tag differs from Tagger or launched a hand kernel")
+    del tagger
+    torch.cuda.empty_cache()
+    return dict(launches=launches, pack=pack, evaluate=out, tag_lines=len(lines))
+
+
+def phase_zoo_train(card: str, tmp: str, val_pack: str) -> dict:
+    """9c: ``cli.train --preset c3d_ucf101_smoke``; P3D-63 at 32x224x224
+    (launches per step, step-0 loss against 'torch', a falling loss, ms
+    per step, peak memory); ``cli.train --pretrained`` from an export of
+    that state onto another class count."""
+    print("== phase 9c: training (c3d_ucf101_smoke, p3d_63, --pretrained)", flush=True)
+    launches, result = {}, {}
+
+    # cli.train with the C3D preset (B = 1) on a 128x171 pack
+    pack = os.path.join(tmp, "zoo_c3d.fvtpack")
+    _zoo_pack(pack, ZOO_C3D_HW, n=4, frames=24, num_tags=101)  # the preset is multilabel
+    metrics = os.path.join(tmp, "zoo_c3d.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    state, counts, wall = _counted(cli_train.main, [
+        "--preset", "c3d_ucf101_smoke", "--train-list", pack, "--tag-lists", "--epochs", "1",
+        "--log-every", "1", "--checkpoint-dir", "", "--metrics-jsonl", metrics])
+    launches["zoo_train_c3d"] = counts
+    ms, steps = _step_ms(metrics, 1)
+    result["c3d"] = dict(steps=len(steps), loss=[r["loss"] for r in steps], ms_per_step=ms,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"(c) cli.train --preset c3d_ucf101_smoke: {len(steps)} steps in {wall:.2f} s, "
+          f"losses {[round(r['loss'], 5) for r in steps]}, ms per step "
+          f"{[round(v, 2) for v in ms]}, launches {counts}, peak "
+          f"{result['c3d']['peak_memory_gb']:.2f} GB on {card}")
+    if len(steps) != 4 or state.step != 4 or any(counts.values()) or not all(
+            np.isfinite(r["loss"]) for r in steps):
+        raise SystemExit("9c: the C3D preset's run is wrong")
+    del state
+    torch.cuda.empty_cache()
+
+    # P3D-63 at the Kinetics geometry, both routes from the same weights
+    cfg = dataclasses.replace(PRESETS["p3d63_kinetics"], train=dataclasses.replace(
+        PRESETS["p3d63_kinetics"].train, batch_size=ZOO_TRAIN_BATCH))
+    batch = _train_batch(cfg)
+    routes = {}
+    start = None
+    for route in ("cuda", "torch"):
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, kernels=route))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_train_state(rcfg, 10, device=DEV,
+                                   generator=torch.Generator().manual_seed(SEED))
+        if start is None:
+            start = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        else:
+            state.model.load_state_dict(start)
+        step = make_train_step(state.model, rcfg)
+        routed = RoutedSites(state.model)
+        n_steps = ZOO_TRAIN_STEPS if route == "cuda" else 1
+        losses, per_step = [], []
+        for i in range(n_steps):
+            gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            state, m = step(state, batch, gen)
+            t1.record()
+            torch.cuda.synchronize()
+            losses.append(float(m["loss"]))
+            per_step.append(t0.elapsed_time(t1))
+            if i == 0:
+                step_counts = dict(ops.launch_counts)
+                rc = routed.counts  # forward + dx; K3 once per temporal site
+                want = {"spatial_conv": 2 * rc["spatial_conv"],
+                        "temporal_conv": 2 * rc["temporal_conv"],
+                        "temporal_dw": rc["temporal_conv"], "fused_block": 0}
+                routed.remove()
+        launches[f"zoo_train_p3d_{route}"] = dict(step_counts)
+        routes[route] = dict(losses=losses, ms_per_step=per_step,
+                             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             launches_step0=step_counts)
+        print(f"(c) p3d_63 kernels='{route}', B={ZOO_TRAIN_BATCH} at 32x224x224: losses "
+              f"{[round(v, 5) for v in losses]}, ms per step {[round(v, 1) for v in per_step]}, "
+              f"launches of step 0 {step_counts} (routing {want}), peak "
+              f"{routes[route]['peak_memory_gb']:.2f} GB on {card}", flush=True)
+        if route == "cuda":
+            if step_counts != want or step_counts != P3D63_STEP:
+                raise SystemExit(f"9c: P3D-63's launches {step_counts} != {want} / {P3D63_STEP}")
+            if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+                raise SystemExit(f"9c: P3D-63's loss does not fall: {losses}")
+            trained = {k: v.detach().to("cpu", copy=True)
+                       for k, v in state.model.state_dict().items()}
+        elif any(step_counts.values()):
+            raise SystemExit("9c: kernels='torch' launched a hand kernel")
+        del state, step
+    loss_diff = abs(routes["cuda"]["losses"][0] - routes["torch"]["losses"][0]) / abs(
+        routes["torch"]["losses"][0])
+    print(f"(c) p3d_63 step-0 loss cuda vs torch: {loss_diff:.3e} relative (tol {PATH_TOL})")
+    if loss_diff > PATH_TOL:
+        raise SystemExit("9c: P3D-63's step-0 loss differs between the routes")
+    result["p3d_63"] = dict(routes, step0_loss_rel_diff=loss_diff)
+    del batch, start
+    torch.cuda.empty_cache()
+
+    # --pretrained: the trained P3D-63 (400 classes) onto 51 classes
+    weights = os.path.join(tmp, "zoo_p3d.pt")
+    export_weights(weights, trained)
+    loaded = {}
+    orig_apply = fit_module._apply_pretrained
+
+    def spy(state, variables):
+        orig_apply(state, variables)
+        loaded.update({k: v.detach().to("cpu", copy=True)
+                       for k, v in state.model.state_dict().items()})
+
+    fit_module._apply_pretrained = spy
+    try:
+        state, counts, wall = _counted(cli_train.main, [
+            "--preset", "p3d63_kinetics", "--num-classes", "51", "--train-list", val_pack,
+            "--batch-size", str(ZOO_PACK_VIDEOS), "--epochs", "1", "--log-every", "1",
+            "--checkpoint-dir", "", "--pretrained", weights])
+    finally:
+        fit_module._apply_pretrained = orig_apply
+    launches["zoo_pretrained"] = counts
+    body = [k for k in trained if not k.startswith("fc.")]
+    bitwise = all(torch.equal(loaded[k], trained[k]) for k in body)
+    head = tuple(loaded["fc.weight"].shape)
+    print(f"(c) cli.train --pretrained (p3d_63, 400 -> 51 classes): {len(body)} tensors "
+          f"loaded bitwise: {bitwise}; head {head} re-initialized; 1 step in {wall:.2f} s, "
+          f"launches {counts}")
+    if not bitwise or head != (51, 2048) or state.step != 1 or counts != P3D63_STEP:
+        raise SystemExit("9c: --pretrained did not load the export as it should")
+    result["pretrained"] = dict(bitwise=bitwise, head=head, launches=counts)
+    del state, trained, loaded
+    torch.cuda.empty_cache()
+    return dict(launches=launches, result=result)
+
+
+def phase_zoo_sites(card: str, sites: dict) -> dict:
+    """9d: K1-K3 (forward, dx, temporal dw) against their plain versions at
+    the K1 / K2 sites of P3D-63 and S3D in 9a's forwards (clip_batch 8),
+    timed beside the bound and cuDNN."""
+    print("== phase 9d: K1-K3 at the P3D-63 and S3D sites (clip_batch 8)", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    worst, rows, failures = {}, [], []
+    for model, model_sites in sites.items():
+        for kernel, xs, co in model_sites:
+            for role, key, run, plain, lib, (b_ms, b_by), _ in site_cases(kernel, xs, co, gen):
+                tol = DW_TOL if role == "dw" else KERNEL_TOL
+                got, ref = run(), plain()
+                scale = max(ref.float().abs().max().item(), 1e-30)
+                err = (got.float() - ref.float()).abs().max().item() / scale
+                ok = bool(torch.isfinite(got).all().item()) and err <= tol
+                ms, lib_ms = time_ms(run, iters=3, warmup=1), time_ms(lib, iters=3, warmup=1)
+                worst[key] = max(worst.get(key, 0.0), err)
+                rows.append(dict(model=model, kernel=key, role=role, x=list(xs), co=co, err=err,
+                                 ms=ms, bound_ms=b_ms, bound_by=b_by, cudnn_ms=lib_ms, ok=ok))
+                print(f"  {model:6s} {role:3s} {key:13s} x={xs} Co={co} max_rel_err={err:.3e} "
+                      f"(tol {tol}) {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                      f"{b_ms / ms:.0%}), cuDNN {lib_ms:.4f} ms ok={ok}", flush=True)
+                if not ok:
+                    failures.append((model, xs, role))
+        torch.cuda.empty_cache()
+    print(f"9d on {card}: {len(rows)} calls")
+    if failures:
+        raise SystemExit(f"9d: a kernel disagrees with its plain version at {failures}")
+    return dict(worst=worst, rows=rows)
+
+
+def phase_zoo(card: str) -> dict:
+    t_phase = time.perf_counter()
+    serving = phase_zoo_serving(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        entry = phase_zoo_entry_points(card, tmp)
+        train = phase_zoo_train(card, tmp, entry["pack"])
+    sites = phase_zoo_sites(card, serving["sites"])
+    launches = {"zoo_serving": serving["launches"], **entry["launches"], **train["launches"]}
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return dict(launches=launches, serving=serving["result"], train=train["result"],
+                entry=dict(evaluate=entry["evaluate"], tag_lines=entry["tag_lines"]),
+                sites_worst=sites["worst"], sites=sites["rows"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1933,12 +2330,14 @@ def main() -> int:
         fit_run = phase_fit(card, train["routes"], tmp)
         entry = phase_entry_points(card, tmp, train, fit_run)
     acc_sites = phase_accuracy_sites()
+    zoo = phase_zoo(card)
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
                 **{f"eval_{e}": ev[e]["launches"][kernel] for e in FORWARD_LAUNCHES},
                 "fit": fit_run["launches"][kernel],
-                **{run: c[kernel] for run, c in entry["launches"].items()}}
+                **{run: c[kernel] for run, c in entry["launches"].items()},
+                **{run: c[kernel] for run, c in zoo["launches"].items()}}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -1961,7 +2360,9 @@ def main() -> int:
             bound_by="operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes",
             library_ms=s.get("library_ms"), ok=a["ok"], **extra, sites=a["sites"],
             **({"accuracy_sites_max_rel_err": acc_sites[kernel]} if kernel in acc_sites
-               else {})))
+               else {}),
+            **({"zoo_sites_max_rel_err": zoo["sites_worst"][kernel]}
+               if kernel in zoo["sites_worst"] else {})))
     for key, meta in MICRO_KERNELS.items():  # K5-K9: the micro-benchmark's run
         a = micro_run["agg"][key]
         head = next(site for site in a["sites"]
@@ -1976,7 +2377,9 @@ def main() -> int:
             sites=a["sites"]))
     print(json.dumps({"train": train["routes"], "eval": ev, "micro": micro_run["bench"],
                       "fit": {k: v for k, v in fit_run.items() if k not in ("launches", "packs")},
-                      "entry_points": entry["result"], "card": card}))
+                      "entry_points": entry["result"],
+                      "zoo": {k: zoo[k] for k in ("serving", "train", "entry", "sites")},
+                      "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -38,8 +38,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--kernels", choices=["cuda", "torch"], default=None,
                    help="cuda: the hand-written Hopper kernels (default); "
                         "torch: F.conv3d everywhere")
-    p.add_argument("--norm", choices=["batch", "frozen"], default=None,
-                   help="normalization: batch (faithful) | frozen (BN-lite)")
+    p.add_argument("--norm", choices=["batch", "frozen", "group", "scaleonly"], default=None,
+                   help="normalization: batch (faithful) | frozen (BN-lite) | group "
+                        "(GroupNorm) | scaleonly (stats-free affine + weight "
+                        "standardization + SkipInit)")
     p.add_argument("--compute-dtype", choices=["bfloat16", "float32"], default=None)
     # data
     p.add_argument("--data-root", default=None)

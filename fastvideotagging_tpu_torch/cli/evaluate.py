@@ -28,7 +28,7 @@ from fastvideotagging_tpu_torch.data import ucf101
 from fastvideotagging_tpu_torch.data.packed import is_pack, open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
 from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate
-from fastvideotagging_tpu_torch.models.zoo import model_from_config
+from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
 from fastvideotagging_tpu_torch.utils.logging import get_logger
 
@@ -63,7 +63,7 @@ def main(argv=None) -> dict:
         records = ucf101.load_video_list(cfg.data.val_list, cfg.data.root, cidx)
         dataset = ClipDataset(records, cfg.data, mode="eval", num_tags=num_tags)
 
-    model = model_from_config(cfg.model, device=dev)
+    model = model_from_config(cfg.model, device=dev, clip_shape=config_clip_shape(cfg.data))
     # Weights only: evaluation needs no optimizer state, so this CLI's
     # optimizer flags need not match the training run's.
     state_dict, _step = CheckpointManager(args.checkpoint_dir).restore_weights()

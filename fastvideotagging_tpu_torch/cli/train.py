@@ -21,6 +21,7 @@ from fastvideotagging_tpu_torch.cli.common import (
 )
 from fastvideotagging_tpu_torch.data import ucf101
 from fastvideotagging_tpu_torch.data.packed import Pack, is_pack
+from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, load_pretrained
 from fastvideotagging_tpu_torch.train.fit import fit
 
 
@@ -33,7 +34,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tag-lists", action="store_true",
                    help="parse lists as multi-label tag lists")
     p.add_argument("--pretrained", default=None,
-                   help="not ported yet (zoo.load_pretrained, ROADMAP.md Queue A item 4)")
+                   help="initial weights: an export of this port (export_weights) or a "
+                        "public torch checkpoint (.pth/.pt; models/torch_import.py); a "
+                        "head of another class count is re-initialized")
     return p.parse_args(argv)
 
 
@@ -78,14 +81,17 @@ def load_records(cfg, args):
 def main(argv=None):
     """Train per the flags; returns the final TrainState."""
     args = parse_args(argv)
-    if args.pretrained:
-        raise NotImplementedError(
-            "--pretrained needs zoo.load_pretrained, which is not ported yet "
-            "(ROADMAP.md Queue A item 4)")
     cfg = build_config(args)
     train_records, val_records, num_tags = load_records(cfg, args)
+    init_variables = None
+    if args.pretrained:
+        # on the host: fit moves the weights into its own model
+        _, init_variables = load_pretrained(
+            cfg.model.name, args.pretrained, num_classes=cfg.model.num_classes,
+            device="cpu", clip_shape=config_clip_shape(cfg.data))
     return fit(cfg, train_records, val_records=val_records, num_tags=num_tags,
-               metrics_path=args.metrics_jsonl, device=args.device)
+               metrics_path=args.metrics_jsonl, init_variables=init_variables,
+               device=args.device)
 
 
 if __name__ == "__main__":

@@ -72,9 +72,11 @@ class ModelConfig:
     # nothing about an H100; the port's default is its own kernels.
     kernels: str = "cuda"
     compute_dtype: str = "bfloat16"  # params stay f32; compute in bf16
-    # 'batch'  -> BatchNorm, batch statistics in train mode
-    # 'frozen' -> running averages always (scale/bias still train)
-    # ('group' and 'scaleonly' are not ported yet)
+    # 'batch'     -> BatchNorm, batch statistics in train mode
+    # 'frozen'    -> running averages always (scale/bias still train)
+    # 'group'     -> GroupNorm, no statistics (train == eval)
+    # 'scaleonly' -> affine only, with weight standardization and SkipInit
+    # (models/layers.py Norm; the r2plus1d family, tiny3d, r3d/mc3, S3D, I3D)
     norm: str = "batch"
     # Activation rematerialization on the residual blocks (r2plus1d family;
     # models/r2plus1d.py, REMAT_POLICIES): 'none'|'full'|'dots'|'mid'|'conv'.

@@ -24,7 +24,7 @@ from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.data.packed import open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
 from fastvideotagging_tpu_torch.models import heads
-from fastvideotagging_tpu_torch.models.zoo import model_from_config
+from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.metrics import (
     mean_average_precision,
@@ -168,7 +168,7 @@ def make_eval_fn(cfg: ExperimentConfig, val_records, num_tags=None,
     """
     _no_mesh(mesh)
     dataset = open_dataset(val_records, cfg.data, mode="eval", num_tags=num_tags)
-    model = model_from_config(cfg.model, device=device)
+    model = model_from_config(cfg.model, device=device, clip_shape=config_clip_shape(cfg.data))
     apply = _make_apply(model, cfg.model.multilabel)
 
     def eval_fn(state, epoch):

@@ -28,7 +28,7 @@ from fastvideotagging_tpu_torch.data.frames import _ensure_size
 from fastvideotagging_tpu_torch.data.packed import Pack
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
-from fastvideotagging_tpu_torch.models.zoo import model_from_config
+from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.checkpoint import load_weights
 
@@ -155,7 +155,8 @@ class Tagger:
             raise ValueError(
                 f"{len(self.tag_names)} tag names for {k} classes"
             )
-        self.model = model_from_config(cfg.model, device=self.device)
+        self.model = model_from_config(cfg.model, device=self.device,
+                                       clip_shape=config_clip_shape(cfg.data))
         self.model.load_state_dict(state_dict)
         self._dtype = getattr(torch, cfg.model.compute_dtype)
 

@@ -12,7 +12,9 @@ spatial.kernel``, ``...bn_mid.scale``), so models/convert.py maps one onto
 the other by name. ``module.train()`` / ``.eval()`` take the place of the
 JAX ``train`` argument: in train mode BatchNorm uses batch statistics and
 dropout (before ``fc``) is drawn from the ``generator`` given to
-``forward``. ``remat`` (``REMAT_POLICIES``) recomputes parts of each
+``forward``. ``norm`` takes every kind of ``layers.Norm``; 'scaleonly'
+also standardizes every conv kernel (``ws``) and starts each block's
+``bn2`` scale at zero (SkipInit), as the JAX modules do. ``remat`` (``REMAT_POLICIES``) recomputes parts of each
 residual block's forward in the backward instead of keeping them; its
 numerics are those of ``'none'``. ``time_axis`` is not ported.
 """
@@ -31,8 +33,9 @@ from fastvideotagging_tpu_torch.models.layers import (
     Norm,
     SpatialConv,
     TemporalConv,
+    dense,
+    dropout,
     global_avg_pool_3d,
-    lecun_normal,
     r2plus1d_mid_channels,
     recomputing,
 )
@@ -81,11 +84,12 @@ class Conv2Plus1D(nn.Module):
                  backend: str = "cuda", dtype: torch.dtype = torch.bfloat16,
                  norm: str = "batch", generator: torch.Generator | None = None):
         super().__init__()
+        ws = norm == "scaleonly"  # the stats-free mode standardizes kernels
         self.spatial = SpatialConv(cin, mid_features, 3, stride=spatial_stride,
-                                   backend=backend, dtype=dtype, generator=generator)
+                                   backend=backend, dtype=dtype, ws=ws, generator=generator)
         self.bn_mid = Norm(mid_features, kind=norm, dtype=dtype)
         self.temporal = TemporalConv(mid_features, features, 3, stride=temporal_stride,
-                                     backend=backend, dtype=dtype, generator=generator)
+                                     backend=backend, dtype=dtype, ws=ws, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mid_to_out(self.spatial(x))
@@ -109,11 +113,13 @@ class BasicBlock(nn.Module):
         self.bn1 = Norm(features, kind=norm, dtype=dtype)
         self.conv2 = Conv2Plus1D(features, features, mid_channels_fn(features, features),
                                  **kw)
-        self.bn2 = Norm(features, kind=norm, dtype=dtype)
+        # scaleonly: the branch's last scale starts at zero (SkipInit), so
+        # the block is the identity at init
+        self.bn2 = Norm(features, kind=norm, dtype=dtype, scale_init="zeros")
         self.downsample = self.bn_down = None
         if stride != 1 or cin != features:
             self.downsample = Conv3D(cin, features, (1, 1, 1), strides=stride,
-                                     dtype=dtype, generator=generator)
+                                     ws=norm == "scaleonly", dtype=dtype, generator=generator)
             self.bn_down = Norm(features, kind=norm, dtype=dtype)
 
     def _tail(self, t2: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -168,11 +174,12 @@ class R2Plus1D(nn.Module):
         self.dtype = dtype
         self.dropout = dropout
         g = generator
+        ws = norm == "scaleonly"
         self.stem_spatial = SpatialConv(3, stem_mid, 7, stride=2, backend=backend,
-                                        dtype=dtype, generator=g)
+                                        dtype=dtype, ws=ws, generator=g)
         self.stem_bn1 = Norm(stem_mid, kind=norm, dtype=dtype)
         self.stem_temporal = TemporalConv(stem_mid, 64, 3, backend=backend,
-                                          dtype=dtype, generator=g)
+                                          dtype=dtype, ws=ws, generator=g)
         self.stem_bn2 = Norm(64, kind=norm, dtype=dtype)
         cin = 64
         self.block_names = []
@@ -187,10 +194,7 @@ class R2Plus1D(nn.Module):
                     remat=remat))
                 self.block_names.append(name)
                 cin = features
-        self.fc = nn.Linear(cin, num_classes)
-        with torch.no_grad():  # Flax Dense init: lecun_normal kernel, zero bias
-            self.fc.weight.copy_(lecun_normal((cin, num_classes), g).T)
-            self.fc.bias.zero_()
+        self.fc = dense(cin, num_classes, g)
 
     def forward(self, x: torch.Tensor, features_only: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -203,9 +207,5 @@ class R2Plus1D(nn.Module):
             x = getattr(self, name)(x)
         if features_only:
             return x  # pre-pool feature map (B, T', H', W', C)
-        x = global_avg_pool_3d(x)
-        if self.training and self.dropout > 0:
-            keep = 1.0 - self.dropout
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-            x = x * mask / keep
+        x = dropout(global_avg_pool_3d(x), self.dropout, self.training, generator)
         return self.fc(x.float())

@@ -17,8 +17,8 @@ from torch import nn
 from fastvideotagging_tpu_torch.models.layers import (
     Conv3D,
     Norm,
+    dense,
     global_avg_pool_3d,
-    lecun_normal,
 )
 
 
@@ -28,16 +28,14 @@ class Tiny3D(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = Conv3D(3, width, (3, 3, 3), strides=(1, 2, 2), dtype=dtype,
+        ws = norm == "scaleonly"  # the stats-free mode standardizes kernels
+        self.conv1 = Conv3D(3, width, (3, 3, 3), strides=(1, 2, 2), ws=ws, dtype=dtype,
                             generator=generator)
         self.bn1 = Norm(width, kind=norm, dtype=dtype)
-        self.conv2 = Conv3D(width, width * 2, (3, 3, 3), strides=(2, 2, 2), dtype=dtype,
-                            generator=generator)
+        self.conv2 = Conv3D(width, width * 2, (3, 3, 3), strides=(2, 2, 2), ws=ws,
+                            dtype=dtype, generator=generator)
         self.bn2 = Norm(width * 2, kind=norm, dtype=dtype)
-        self.fc = nn.Linear(width * 2, num_classes)
-        with torch.no_grad():  # Flax Dense init: lecun_normal kernel, zero bias
-            self.fc.weight.copy_(lecun_normal((width * 2, num_classes), generator).T)
-            self.fc.bias.zero_()
+        self.fc = dense(width * 2, num_classes, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator`` is accepted for the train step's call and unused:

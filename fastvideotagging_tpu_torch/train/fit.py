@@ -72,9 +72,10 @@ def fit(
     eval_fn: optional callable (state, epoch) -> dict of eval scalars, run
     after each epoch. If absent and ``val_records`` is given, the standard
     multi-clip evaluator is built on the same device.
-    init_variables: optional pretrained JAX-package variables
-    ``{'params', 'batch_stats'}`` used instead of the seeded init;
-    structure and shape mismatches raise.
+    init_variables: optional pretrained weights used instead of the seeded
+    init: a state_dict of the port (``zoo.load_pretrained``, as the train
+    CLI's ``--pretrained`` gives it) or JAX-package variables ``{'params',
+    'batch_stats'}``; structure and shape mismatches raise.
     device: the card by default; raises without one unless ``'cpu'``.
     mesh: only None (one card).
     """
@@ -133,15 +134,19 @@ def fit(
 
 
 def _apply_pretrained(state: TrainState, variables: dict) -> None:
-    """Load the JAX package's variables into the state's model, after
-    checking their structure and shapes against it. Params are always
-    replaced; the BatchNorm statistics only when ``batch_stats`` is given."""
+    """Load pretrained weights into the state's model, after checking their
+    structure and shapes against it: a state_dict of the port replaces
+    every tensor; the JAX package's variables replace the params, and the
+    BatchNorm statistics only when ``batch_stats`` is given."""
     model = state.model
-    new = from_jax_variables(variables)
     current = model.state_dict()
-    want = {name for name, _ in model.named_parameters()}
-    if variables.get("batch_stats"):
-        want |= {name for name, _ in model.named_buffers()}
+    if "params" in variables:
+        new = from_jax_variables(variables)
+        want = {name for name, _ in model.named_parameters()}
+        if variables.get("batch_stats"):
+            want |= {name for name, _ in model.named_buffers()}
+    else:
+        new, want = dict(variables), set(current)
     if set(new) != want:
         missing = sorted(want - set(new))[:4]
         extra = sorted(set(new) - want)[:4]

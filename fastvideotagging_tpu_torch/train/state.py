@@ -14,7 +14,7 @@ from torch import nn
 
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.config import ExperimentConfig
-from fastvideotagging_tpu_torch.models.zoo import model_from_config
+from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.train.lr import clip_by_global_norm_, make_optimizer
 
 
@@ -79,7 +79,8 @@ def create_train_state(cfg: ExperimentConfig, steps_per_epoch: int,
     ``model`` built elsewhere is taken as it is and moved to ``device``."""
     dev = resolve_device(device)
     if model is None:
-        model = model_from_config(cfg.model, device=dev, generator=generator)
+        model = model_from_config(cfg.model, device=dev, generator=generator,
+                                  clip_shape=config_clip_shape(cfg.data))
     model = model.to(dev).train()
     optimizer, schedule = make_optimizer(model.parameters(), cfg.train, steps_per_epoch)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule,

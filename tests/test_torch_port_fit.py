@@ -497,10 +497,12 @@ def test_cli_train_on_a_pack_then_tag_from_its_export(tmp_path):
                                    "--epochs", "1", "--checkpoint-dir", "",
                                    "--metrics-jsonl", str(tmp_path / "knobs.jsonl")])
     assert knobs.step == 2 and knobs.acc_grads is None
-    for extra, item in ((["--coordinator", "h:1"], "item 7"),
-                        (["--pretrained", "w.pt"], "item 4")):
+    for extra, item in ((["--coordinator", "h:1"], "item 7"),):
         with pytest.raises(NotImplementedError, match=item):
             cli_train.main(argv + ["--device", "cpu"] + extra)
+    # --pretrained is ported (tests/test_torch_port_pretrained.py): a missing file raises
+    with pytest.raises(FileNotFoundError):
+        cli_train.main(argv + ["--device", "cpu", "--pretrained", str(tmp_path / "w.pt")])
     with pytest.raises(NotImplementedError, match="item 7"):
         cli_train.main(argv + ["--device", "cpu", "--data-parallel", "2"])
 

@@ -64,7 +64,16 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.cli.evaluate",
             "fastvideotagging_tpu_torch.cli.tag",
             "fastvideotagging_tpu_torch.cli.bench_loader",
-            "fastvideotagging_tpu_torch.benchmarks.accuracy_hard"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.benchmarks.accuracy_hard",
+            "fastvideotagging_tpu_torch.models.c3d",
+            "fastvideotagging_tpu_torch.models.p3d",
+            "fastvideotagging_tpu_torch.models.videoresnet",
+            "fastvideotagging_tpu_torch.models.s3d",
+            "fastvideotagging_tpu_torch.models.i3d",
+            "fastvideotagging_tpu_torch.models.slowfast",
+            "fastvideotagging_tpu_torch.models.torch_import",
+            "fastvideotagging_tpu_torch.ops.maxpool_grad",
+            "fastvideotagging_tpu_torch.ops.arch_spec"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod

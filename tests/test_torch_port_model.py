@@ -111,17 +111,18 @@ def test_pool_and_heads_match_jax():
 
 
 def test_zoo_registry_and_config():
-    assert list_models() == ["r2plus1d_18", "r2plus1d_18_tpu", "r2plus1d_34",
-                             "r2plus1d_34_tpu", "tiny3d"]
+    # the JAX zoo's 16 names (tests/test_torch_port_zoo_resnets.py compares)
+    assert {"r2plus1d_18", "r2plus1d_18_tpu", "r2plus1d_34", "r2plus1d_34_tpu", "tiny3d",
+            "c3d", "p3d_63", "s3d", "i3d"} <= set(list_models())
     with pytest.raises(ValueError, match="unknown model"):
-        get_model("c3d", device="cpu")
+        get_model("c4d", device="cpu")
     m = model_from_config(ModelConfig(name="r2plus1d_34", num_classes=3, kernels="torch",
                                       compute_dtype="float32"), device="cpu")
     assert m.stage_blocks == (3, 4, 6, 3) and m.dtype == torch.float32 and not m.training
     with pytest.raises(ValueError, match="kernels backend"):
         model_from_config(ModelConfig(kernels="pallas"), device="cpu")
     with pytest.raises(ValueError, match="norm kind"):
-        model_from_config(ModelConfig(norm="group"), device="cpu")
+        model_from_config(ModelConfig(norm="layer"), device="cpu")
     # train mode runs (batch statistics) and moves the running averages
     before = m.stem_bn1.mean.clone()
     out = m.train()(torch.ones(2, 4, 32, 32, 3))

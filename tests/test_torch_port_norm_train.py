@@ -135,5 +135,10 @@ def test_batch_norm_train_bf16_takes_statistics_in_f32():
 
 @pytest.mark.parametrize("kind", ["group", "scaleonly"])
 def test_unported_norm_kinds_raise(kind):
-    with pytest.raises(ValueError, match="not ported yet"):
-        TNorm(8, kind=kind)
+    """Once unported, these kinds now build: scale and bias, no statistics
+    (tests/test_torch_port_norms.py holds them against the JAX package);
+    an unknown kind still raises."""
+    norm = TNorm(8, kind=kind)
+    assert set(norm.state_dict()) == {"scale", "bias"}
+    with pytest.raises(ValueError, match="unknown norm kind"):
+        TNorm(8, kind=kind + "_x")
