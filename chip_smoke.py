@@ -45,9 +45,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             (``benchmarks.kernel_micro.SHAPES``, B = 32, k = 3) against
             their plain versions (K7, K9: two launches bitwise equal), each
             timed beside its plain version, the library call for the same
-            function and the least time the card could take, its device
-            time split between its kernels (pad pass, GEMM, reduce); K2 and
-            K3 at the same shapes, timed; then the micro-benchmark's entry point
+            function and the least time the card could take, with its plan
+            (K5 and K6: the frame ring's ``ring_plan``) and its device time
+            split between its kernels (pad pass, main kernel, reduce); K2
+            and K3 at the same shapes, timed, and K5's and K6's share of the
+            bound printed beside K2's (read x once against once per tap);
+            then the micro-benchmark's entry point
             ``kernel_micro.main(["--shape", "tpu1"])`` end to end, its
             launches counted from 0 (every design at least once);
 4. path   — the port's Tagger (r2plus1d_18, 400 classes, multilabel, bf16,
@@ -281,10 +284,9 @@ BN_TOL = 1e-6
 # path is the micro-benchmark (phase 3d), not phases 4-6
 _MICRO_SOURCE = "fastvideotagging_tpu_torch/csrc/temporal_micro.cu"
 MICRO_KERNELS = {
-    "v2": dict(name="micro_fwd_kernel<kV2> (K5, after micro_pad_kernel)", route="cuda",
-               source=_MICRO_SOURCE,
+    "v2": dict(name="micro_ring_kernel<kV2> (K5)", route="cuda", source=_MICRO_SOURCE,
                replaces="benchmarks/kernel_micro.py:91 (pallas_temporal_v2)"),
-    "v3": dict(name="micro_fwd_kernel<kV3> (K6)", route="cuda", source=_MICRO_SOURCE,
+    "v3": dict(name="micro_ring_kernel<kV3> (K6)", route="cuda", source=_MICRO_SOURCE,
                replaces="benchmarks/kernel_micro.py:155 (pallas_temporal_v3; its dx "
                         "pallas_temporal_dx_v3 :267)"),
     "dw_v3": dict(name="micro_dw_kernel<kDwV3> (K7, + micro_reduce_kernel)", route="cuda",
@@ -877,6 +879,14 @@ def micro_cases(x, w, g):
         return (f"{p.slabs} slabs of {tile_s} columns x {p.row_tiles} row tiles x "
                 f"{p.co_tiles} Co tiles = {p.grid} blocks")
 
+    def ring_plan(c_in=c, c_out=co):
+        p = micro.ring_plan((b, t, s, c_in), c_out, K, micro._sms(x))
+        return (f"ring: {p.items} items of {micro.RING_COLS} columns x {p.co_tiles} Co tiles "
+                f"of {p.bn} x {p.groups} channel groups of {p.chunks} boxes on {p.blocks} "
+                f"blocks, {p.slots} frame slots, "
+                + (f"y staged ({p.stage} bytes a warpgroup)" if p.stage else "y from registers")
+                + f", {p.smem} bytes of shared memory")
+
     def dw_plan(tile_s):
         p = micro.dw_plan((b, t, s, c), co, tile_s, micro._sms(x))
         return (f"{p.steps} steps of {tile_s} columns in {p.chunks} chunks of "
@@ -884,16 +894,15 @@ def micro_cases(x, w, g):
 
     halved = micro._halved_tile(s)
     cases = [("v2 fwd", "v2", lambda: micro.temporal_v2_cuda(x, w, K),
-              lambda: micro.temporal_v2_plain(x, w, K), lib_fwd, "fwd", fwd_plan(halved))]
-    for mt in (448, 224):
+              lambda: micro.temporal_v2_plain(x, w, K), lib_fwd, "fwd", ring_plan())]
+    for mt in (448, 224):  # the tile partitions only the plain version's rows
         cases.append((f"v3 fwd tile<={mt}", "v3",
                       lambda mt=mt: micro.temporal_v3_cuda(x, w, K, mt),
                       lambda mt=mt: micro.temporal_v3_plain(x, w, K, mt), lib_fwd, "fwd",
-                      fwd_plan(micro._pick_tile(s, mt))))
+                      ring_plan()))
     cases += [("v3 dx", "v3", lambda: micro.temporal_dx_v3_cuda(g, w, K),
                lambda: micro.temporal_dx_v3_plain(g, w, K),
-               lambda: kernel_micro.library_temporal_dx(g, w), "dx",
-               fwd_plan(micro._pick_tile(s, 448), c)),
+               lambda: kernel_micro.library_temporal_dx(g, w), "dx", ring_plan(co, c)),
               ("dw v3", "dw_v3", lambda: micro.temporal_dw_v3_cuda(x, g, K),
                lambda: micro.temporal_dw_v3_plain(x, g, K), lib_dw, "dw",
                dw_plan(micro._pick_tile(s, 448)))]
@@ -909,15 +918,16 @@ def micro_cases(x, w, g):
 
 def micro_split(run) -> dict | None:
     """A micro design's device time per call by kernel (torch.profiler over
-    5 calls): the pad pass, the GEMM, the reduce of the dw partials, and
-    anything else (the dx's weight flip)."""
+    5 calls): the pad passes (K9's frames, the ring's channels where C % 8
+    != 0), the main kernel, the reduce of the dw or channel-group partials,
+    and anything else (the dx's weight flip)."""
     kernels = traced_kernels_ms(run)
     if kernels is None:
         return None
     split = dict(pad_ms=0.0, main_ms=0.0, reduce_ms=0.0, other_ms=0.0)
     for name, ms in kernels:
-        part = ("pad_ms" if "micro_pad_kernel" in name else
-                "reduce_ms" if "micro_reduce_kernel" in name else
+        part = ("pad_ms" if "pad_kernel" in name else
+                "reduce_ms" if "reduce_kernel" in name else
                 "main_ms" if "micro_" in name else "other_ms")
         split[part] += ms
     return split
@@ -985,9 +995,22 @@ def phase_micro(card: str) -> dict:
         prod = {"K2 fwd": lambda: ops.temporal_conv_cuda(x, w),
                 "K2 dx": lambda: ops.temporal_conv_dx_cuda(g, w),
                 "K3 dw": lambda: ops.temporal_dw_cuda(x, g, K)}
+        prod_ms = {name: time_ms(fn, iters=10) for name, fn in prod.items()}
         print(f"{shape:9s} production kernels: " + ", ".join(
-            f"{name} {time_ms(fn, iters=10):.4f} ms" for name, fn in prod.items())
-            + f" ({card})", flush=True)
+            f"{name} {ms:.4f} ms" for name, ms in prod_ms.items()) + f" ({card})", flush=True)
+        # K5 and K6 read x once, K2 once per tap (mostly from L2): the shares
+        # of the same bound side by side
+        ring = []
+        for key in ("v2", "v3"):
+            for site in agg[key]["sites"]:
+                if site["shape"] == shape:
+                    k2 = prod_ms["K2 dx" if site["role"] == "dx" else "K2 fwd"]
+                    site["k2_ms"] = k2
+                    ring.append(f"{site['call']} {site['ms']:.4f} ms (share "
+                                f"{site['bound_ms'] / site['ms']:.3f}) against K2 {k2:.4f} "
+                                f"({site['bound_ms'] / k2:.3f})")
+        print(f"{shape:9s} read x once (ring) against once per tap (K2): " + "; ".join(ring),
+              flush=True)
         del x, w, g
         torch.cuda.empty_cache()
     if failures:

@@ -7,21 +7,29 @@ They are the counterparts of the Pallas kernels in the JAX package's
 conv's forward and two of its weight gradient, kept side by side so that
 the benchmark compares designs:
 
-- K5 ``temporal_v2`` (``pallas_temporal_v2``): x padded on T by a separate
-  pass (the counterpart of ``jnp.pad``), then per (b, s-tile) slab the k
-  taps' products over the halo'd (T + 2p, tile_s, C) slab, accumulated in
-  registers; tile_s halved from 512 until it divides S.
+- K5 ``temporal_v2`` (``pallas_temporal_v2``): the k taps' products over
+  the halo'd (T + 2p) frames, accumulated in f32; the pad exists only in
+  the kernel's shared memory (TMA fills frames outside [0, T) with zeros).
 - K6 ``temporal_v3`` (``pallas_temporal_v3``): no pad; the centre tap
   starts the f32 accumulator and each other tap adds its product over the
-  rows whose shifted input lies in [0, T) (each tap's row range clipped, an
-  empty one skipped); tile_s the largest divisor of S up to ``max_tile``.
-  ``temporal_dx_v3`` is K6 on the time-flipped, io-transposed weight.
+  output frames whose shifted input lies in [0, T) (a tap with none is
+  skipped). ``temporal_dx_v3`` is K6 on the time-flipped, io-transposed
+  weight.
 - K8 ``temporal_v3p`` (``pallas_temporal_v3p``): packed taps, one
   contraction over k * C per output tile; the A loader writes zeros for
   rows outside [0, T).
 - K7 ``temporal_dw_v3`` (``pallas_temporal_dw_v3``): dw without a pad, each
   tap's x^T g over its clipped rows.
 - K9 ``temporal_dw_v2`` (``pallas_temporal_dw``): dw over K5's padded x.
+
+K5 and K6 run on one kernel, ``micro_ring_kernel``: a work item is one
+clip, 64 columns of S, one Co tile, one group of input channels and one
+group of taps, and
+walks T with each input frame loaded once into a ring of frame slots
+(``ring_plan`` sizes it). Their tile arguments (``tile_s``, ``max_tile``)
+keep the JAX signatures and only partition the plain versions' rows: v2's
+tile_s is halved from 512 until it divides S, v3's is the largest divisor
+of S up to ``max_tile``.
 
 The TPU dw kernels add into one output block across a grid that runs in
 order; CUDA blocks run at once, so K7 and K9 write f32 partial sums per
@@ -30,7 +38,10 @@ atomics: two launches are bitwise equal). ``dw_plan`` sizes the chunks.
 
 Shapes follow the JAX file: x (B, T, S, C), w (k, C, Co), g (B, T, S, Co);
 the forward returns x's dtype, dw is f32 (k, C, Co). Odd k only; any C,
-Co >= 1 (ragged widths are masked in the kernels).
+Co >= 1 (ragged widths are masked in the kernels). Where the k taps'
+weights and k + 1 frame slots do not fit a block's shared memory (k >= 15
+at one 64-channel box), ``ring_plan`` splits the taps into groups whose
+f32 partials the reduce adds, as it splits C.
 
 Each public function routes as the port's other kernels do
 (``ops.conv2plus1d._route``): a CUDA tensor goes to the kernel wrapper
@@ -59,8 +70,9 @@ from fastvideotagging_tpu_torch.ops.conv2plus1d import (
     _sm_count,
 )
 
-# Kernel launches since the last reset, by design (a K5 / K9 launch counts
-# its pad pass, a K7 / K9 launch its reduce; ``v3`` counts the dx too).
+# Kernel launches since the last reset, by design (a K9 launch counts its
+# pad pass, a K5 / K6 launch its channel pad and group reduce where the
+# plan needs them, a K7 / K9 launch its reduce; ``v3`` counts the dx too).
 launch_counts = {"v2": 0, "v3": 0, "dw_v3": 0, "v3p": 0, "dw_v2": 0}
 
 
@@ -69,12 +81,24 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# The forward kernels' output tile (csrc/temporal_micro.cu: BM rows of a
-# slab by BN output channels) and the dw kernels' (DW_BM input by DW_BN
-# output channels of one tap).
+# K8's output tile (csrc/temporal_micro.cu: BM rows of a slab by BN output
+# channels) and the dw kernels' (DW_BM input by DW_BN output channels of one
+# tap).
 BM, BN = 128, 64
 DW_BM, DW_BN = 64, 64
 DW_CHUNKS_PER_SM = 2  # the dw chunk count is capped at this many a SM
+# K5's and K6's ring (csrc/temporal_micro.cu, micro_ring_kernel): an item's
+# S columns, the channels of one TMA box (128 bytes, the swizzle's row), the
+# Co tiles it can take, the shared memory of a block, the bytes of a box and
+# the alignment slack; frame slots past k + 1 (the fewest that cannot
+# deadlock: two output frames in flight) up to RING_AHEAD more.
+RING_COLS, RING_CH = 64, 64
+RING_BNS = (64, 128, 144)
+RING_SMEM_MAX = 232_448
+RING_BOX = RING_COLS * RING_CH * 2
+RING_ALIGN = 1024
+RING_AHEAD = 4
+RING_CONSUMERS = 2  # warpgroups, one output frame each
 
 
 def _pick_tile(total: int, max_tile: int) -> int:
@@ -114,10 +138,84 @@ class DwPlan(NamedTuple):
     co_tiles: int  # DW_BN-wide tiles of the output channels
 
 
+class RingPlan(NamedTuple):
+    bn: int  # Co tile
+    co_tiles: int
+    groups: int  # of input channels, each an f32 partial sum (1: y written directly)
+    chunks: int  # 64-channel boxes of a group
+    slots: int  # frame slots of the ring
+    stage: int  # bytes of a consumer warpgroup's y staging tile (0: stores from registers)
+    cols: int  # 64-column tiles of S, all clips: B * ceil(S / 64)
+    items: int  # cols * co_tiles * groups * tap_groups
+    blocks: int  # persistent, one an SM
+    smem: int  # dynamic shared memory of a block, bytes
+    taps: int  # taps of a tap group (k: one group)
+    tap_groups: int  # each an f32 partial sum beside the channel groups' (1: all k taps)
+
+    @property
+    def partials(self) -> int:
+        """The f32 partial sums the reduce adds (1: y written directly)."""
+        return self.groups * self.tap_groups
+
+
+def _ring_smem(taps: int, chunks: int, bn: int, slots: int, stage: int = 0) -> int:
+    """The weights (a tap group's taps of BN rows x the group's boxes), the
+    frame slots and their two mbarriers, the two consumer warpgroups' y
+    staging tiles, the slack to align the base."""
+    return (RING_ALIGN + taps * chunks * bn * 128 + slots * (chunks * RING_BOX + 16)
+            + RING_CONSUMERS * stage)
+
+
+@functools.lru_cache(maxsize=256)
+def ring_plan(x_shape, co: int, k: int, sms: int = SMS) -> RingPlan:
+    """K5's and K6's plan for x (B, T, S, C) -> Co channels. The Co tile
+    covers Co, or is the narrowest of RING_BNS with the fewest tiles; where
+    the k taps' weights and k + 1 frame slots do not fit a block's shared
+    memory, a narrower tile with more tiles, then C split into the fewest
+    groups that fit, then (k >= 15) the taps split into the fewest groups
+    that fit, each group an f32 partial that a second kernel adds. y goes
+    out through a staging tile and TMA stores where there is one partial,
+    Co % 8 == 0, the tile's 64-channel store boxes stay inside its Co tile
+    (BN = 144 only where it covers Co) and the tiles fit beside taps + 2
+    slots, else from registers. Blocks: one an SM, a multiple of the
+    (tap group, channel group, Co tile) count where there are as many SMs,
+    so that a block's weights never change."""
+    b, _, s, c = x_shape
+    boxes = -(-c // RING_CH)
+    by_tiles = sorted(RING_BNS, key=lambda bn: (-(-co // bn), bn))
+    for tap_groups in range(1, k + 1):
+        taps = -(-k // tap_groups)
+        if -(-k // taps) != tap_groups:
+            continue  # the same taps a group as fewer groups
+        for groups in range(1, boxes + 1):
+            chunks = -(-boxes // groups)
+            if -(-boxes // chunks) != groups:
+                continue  # the same boxes a group as fewer groups
+            for bn, stage in ((bn, stage) for bn in by_tiles
+                              for stage in (-(-bn // RING_CH) * RING_BOX, 0)):
+                if stage and (groups > 1 or tap_groups > 1 or co % 8
+                              or (bn % RING_CH and co > bn)):
+                    continue
+                room = RING_SMEM_MAX - _ring_smem(taps, chunks, bn, 0, stage)
+                slots = min(taps + 1 + RING_AHEAD, room // (chunks * RING_BOX + 16))
+                if slots < taps + 1 + (stage > 0):
+                    continue
+                co_tiles = -(-co // bn)
+                cols = b * -(-s // RING_COLS)
+                n_w = co_tiles * groups * tap_groups
+                blocks = min(cols * n_w, sms)
+                if blocks >= n_w:
+                    blocks -= blocks % n_w
+                return RingPlan(bn, co_tiles, groups, chunks, slots, stage, cols, cols * n_w,
+                                blocks, _ring_smem(taps, chunks, bn, slots, stage), taps,
+                                tap_groups)
+    raise AssertionError("one tap of one 64-channel box always fits")
+
+
 @functools.lru_cache(maxsize=256)
 def forward_plan(x_shape, co: int, tile_s: int) -> ForwardPlan:
-    """The forward kernels' grid for x (B, T, S, C) -> Co channels (the
-    kernel works it out from the same arguments)."""
+    """K8's grid for x (B, T, S, C) -> Co channels (the kernel works it out
+    from the same arguments)."""
     b, t, s, _ = x_shape
     return ForwardPlan(tile_s, b * (s // tile_s), -(-t * tile_s // BM), -(-co // BN))
 
@@ -144,15 +242,16 @@ def _sms(x: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 # The entry points, one a kernel, by launch-count key: fvt_micro_<key>_bf16.
-# fvt_micro_v2_bf16(x, w, xp, y, b, t, s, c, co, k, tile_s, device, stream)
-# fvt_micro_v3_bf16 / fvt_micro_v3p_bf16(x, w, y, b, t, s, c, co, k, tile_s, device, stream)
+# fvt_micro_v2_bf16 / fvt_micro_v3_bf16(x, w, xs, ws, y, b, t, s, c, co, k, bn, slots,
+#                                       groups, taps, stage, blocks, smem, device, stream)
+# fvt_micro_v3p_bf16(x, w, y, b, t, s, c, co, k, tile_s, device, stream)
 # fvt_micro_dw_v3_bf16(x, g, ws, dw, b, t, s, c, co, k, tile_s, chunks, steps_per_chunk,
 #                      device, stream)
 # fvt_micro_dw_v2_bf16(x, g, xp, ws, dw, b, t, s, c, co, k, tile_s, chunks,
 #                      steps_per_chunk, device, stream)
 _ARGTYPES = {
-    "v2": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    "v3": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "v2": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    "v3": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
     "v3p": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "dw_v3": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
     "dw_v2": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
@@ -170,6 +269,14 @@ def _entry(key: str):
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _entries[name] = fn
     return _entries[key]
+
+
+def pad_launches() -> int:
+    """The pad passes (``micro_pad_kernel``) the library has launched: K9's;
+    K5 and K6 launch none."""
+    fn = _build.load("temporal_micro").fvt_micro_pad_launches
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return fn()
 
 
 def _check_k(k: int) -> None:
@@ -199,19 +306,40 @@ def _padded_scratch(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.empty((b, t + 2 * (k // 2), s, c), dtype=x.dtype, device=x.device)
 
 
-def _forward_launch(key: str, x: torch.Tensor, w: torch.Tensor, k: int,
-                    tile_s: int) -> torch.Tensor:
+def _ring_launch(key: str, x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
+    """K5 / K6 with ``ring_plan``'s plan: y, and only where the plan or x
+    needs them, the channel-padded copy of x that TMA can read (C % 8 != 0,
+    or x not 16-byte aligned) and the groups' f32 partials; all held past
+    the launch."""
     b, t, s, c = x.shape
     co = w.shape[-1]
+    plan = ring_plan(tuple(x.shape), co, k, _sms(x))
     y = torch.empty((b, t, s, co), dtype=x.dtype, device=x.device)
-    xp = _padded_scratch(x, k) if key == "v2" else None  # K5's scratch, held past the launch
-    ptrs = [x.data_ptr(), w.data_ptr()] + ([xp.data_ptr()] if xp is not None else []) + [
-        y.data_ptr()]
+    xs = (torch.empty((b * t * s, -(-c // 8) * 8), dtype=x.dtype, device=x.device)
+          if c % 8 or x.data_ptr() % 16 else None)
+    ws = (torch.empty((plan.partials, b * t * s, co), dtype=torch.float32, device=x.device)
+          if plan.partials > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _entry(key)(*ptrs, b, t, s, c, co, k, tile_s, x.device.index, stream)
+    rc = _entry(key)(x.data_ptr(), w.data_ptr(), xs.data_ptr() if xs is not None else None,
+                     ws.data_ptr() if ws is not None else None, y.data_ptr(), b, t, s, c, co, k,
+                     plan.bn, plan.slots, plan.groups, plan.taps, plan.stage, plan.blocks,
+                     plan.smem, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_micro_{key}_bf16 launch failed: CUDA error {rc}")
     launch_counts[key] += 1
+    return y
+
+
+def _v3p_launch(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int) -> torch.Tensor:
+    b, t, s, c = x.shape
+    co = w.shape[-1]
+    y = torch.empty((b, t, s, co), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _entry("v3p")(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, s, c, co, k, tile_s,
+                       x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"fvt_micro_v3p_bf16 launch failed: CUDA error {rc}")
+    launch_counts["v3p"] += 1
     return y
 
 
@@ -236,13 +364,14 @@ def _dw_launch(key: str, x: torch.Tensor, g: torch.Tensor, k: int,
 
 
 # ---------------------------------------------------------------------------
-# K5: pad, then the k taps over the halo'd slab
+# K5: the k taps over the halo'd frames
 # ---------------------------------------------------------------------------
 
 
 def temporal_v2_cuda(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:
+    """K5 on the ring (``tile_s`` partitions only the plain version's rows)."""
     _check_forward(x, w, k)
-    return _forward_launch("v2", x, w, k, _halved_tile(x.shape[2], tile_s))
+    return _ring_launch("v2", x, w, k)
 
 
 def temporal_v2_plain(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:
@@ -270,8 +399,9 @@ def temporal_v2(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int = 512) -> 
 
 
 def temporal_v3_cuda(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
+    """K6 on the ring (``max_tile`` partitions only the plain version's rows)."""
     _check_forward(x, w, k)
-    return _forward_launch("v3", x, w, k, _pick_tile(x.shape[2], max_tile))
+    return _ring_launch("v3", x, w, k)
 
 
 def temporal_v3_plain(x: torch.Tensor, w: torch.Tensor,
@@ -329,7 +459,7 @@ def temporal_dx_v3(g: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448
 def temporal_v3p_cuda(x: torch.Tensor, w: torch.Tensor,
                       k: int, max_tile: int = 448) -> torch.Tensor:
     _check_forward(x, w, k)
-    return _forward_launch("v3p", x, w, k, _pick_tile(x.shape[2], max_tile))
+    return _v3p_launch(x, w, k, _pick_tile(x.shape[2], max_tile))
 
 
 def temporal_v3p_plain(x: torch.Tensor, w: torch.Tensor,

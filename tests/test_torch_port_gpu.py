@@ -568,10 +568,20 @@ def test_fused_engine_on_the_card_matches_the_model(cuda):
 
 # K5-K9: x (B, T, S, C), Co, k. Ragged C and Co, k = 5, T = 1 and 2 (taps
 # with no rows), S prime (v2's halving ends at a 1-column tile), a stage-1
-# width at 2 clips.
+# width at 2 clips. For K5's and K6's frame ring: S = 100 (a partial
+# 64-column tile), T = 16 at C = 256 (more frames than ring slots, two
+# 64-wide Co tiles), C = 144 (not a multiple of 64), Co = 200 (two Co
+# tiles), Co = 288 (two 144-wide Co tiles, stored from registers), C = 512
+# (two channel groups added by the reduce), k = 15 (two tap groups; at T =
+# 1 K6's second group reaches no frame), and each micro-benchmark shape's
+# widths at clip batch 2.
 MICRO = [
     ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 24, 32), 8, 3),
     ((2, 1, 24, 40), 24, 3), ((1, 4, 33, 63), 45, 5), ((2, 16, 196, 144), 64, 3),
+    ((2, 4, 100, 40), 72, 3), ((2, 16, 100, 256), 128, 3), ((2, 4, 100, 144), 64, 3),
+    ((2, 8, 100, 64), 200, 3), ((2, 4, 100, 64), 288, 3), ((1, 4, 70, 512), 64, 3),
+    ((2, 4, 100, 64), 72, 15), ((1, 1, 70, 40), 24, 15),
+    ((2, 16, 3136, 128), 128, 3), ((2, 16, 3136, 144), 64, 3), ((2, 8, 784, 256), 128, 3),
 ]
 # (launch-count key, forward or dw wrapper, plain version)
 MICRO_FWD = {
@@ -649,6 +659,47 @@ def test_micro_dw_kernels_split_into_chunks(cuda):
             ref = plain(x, gy, 3, tile)
             assert torch.equal(got, run(x, gy, 3, tile))
             assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+def test_micro_k5_and_k6_launch_no_pad_pass(cuda):
+    """K5 (v2) reads its halo frames as the TMA box's zero fill: no
+    ``micro_pad_kernel`` launch, while K9 (dw v2) still launches one; K5
+    and K6 agree with their plain versions there at T = 1, 2, 16."""
+    for x_shape, co in (((2, 1, 64, 64), 64), ((2, 2, 100, 128), 128), ((1, 16, 64, 256), 128)):
+        x, w, gy = _micro_inputs(cuda, x_shape, co, 3)
+        before = micro.pad_launches()
+        for run, plain in (MICRO_FWD["v2"], MICRO_FWD["v3"]):
+            _close(run(x, w, 3), plain(x, w, 3))
+        torch.cuda.synchronize()
+        assert micro.pad_launches() == before
+        micro.temporal_dw_v2_cuda(x, gy, 3)
+        torch.cuda.synchronize()
+        assert micro.pad_launches() == before + 1
+
+
+def test_micro_ring_plans_fit_the_card(cuda):
+    """The ring's plan at the micro-benchmark's shapes (forward and dx) and
+    the GPU tests' shapes: one block an SM, shared memory within the card's
+    opt-in limit, k + 1 frame slots at least, x in one channel group where
+    C <= 256; at k = 15 two tap groups of 8 and 7 taps with 9 slots at
+    least, and a 144-wide Co tile that does not cover Co stores from
+    registers."""
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    sms = ops._sm_count(cuda)
+    shapes = [(x_shape, co) for x_shape, co, _ in MICRO] + [
+        ((32, 16, 3136, 128), 128), ((32, 16, 3136, 144), 64), ((32, 8, 784, 256), 128),
+        ((32, 16, 3136, 64), 144), ((32, 8, 784, 128), 256)]
+    for x_shape, co in shapes:
+        plan = micro.ring_plan(x_shape, co, 3, sms)
+        assert plan.smem <= min(limit, micro.RING_SMEM_MAX) and plan.slots >= 4
+        assert plan.blocks <= sms and plan.groups == (1 if x_shape[-1] <= 256 else 2)
+        assert plan.tap_groups == 1
+    for x_shape, co, k in MICRO:
+        if k == 15:
+            plan = micro.ring_plan(x_shape, co, k, sms)
+            assert (plan.taps, plan.tap_groups) == (8, 2) and plan.slots >= 9
+            assert plan.smem <= min(limit, micro.RING_SMEM_MAX)
+    assert micro.ring_plan((2, 4, 100, 64), 288, 3, sms)[:6] == (144, 2, 1, 1, 8, 0)
 
 
 def test_micro_kernels_take_a_misaligned_view(cuda):
