@@ -46,10 +46,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             their plain versions (K7, K9: two launches bitwise equal), each
             timed beside its plain version, the library call for the same
             function and the least time the card could take, with its plan
-            (K5 and K6: the frame ring's ``ring_plan``) and its device time
-            split between its kernels (pad pass, main kernel, reduce); K2
-            and K3 at the same shapes, timed, and K5's and K6's share of the
-            bound printed beside K2's (read x once against once per tap);
+            (K5, K6 and K8: the frame ring's ``ring_plan``; K9: the dw
+            ring's ``dw_ring_plan``, with its x and g re-reads and partial
+            bytes) and its device time split between its kernels (pad
+            copies, main kernel, reduce); K2 and K3 at the same shapes,
+            timed, K5's, K6's and K8's share of the bound printed beside
+            K2's (read x once against once per tap) and K9's time and share
+            beside K3's (the TMA-fed dw ring against cp.async slabs);
             then the micro-benchmark's entry point
             ``kernel_micro.main(["--shape", "tpu1"])`` end to end, its
             launches counted from 0 (every design at least once);
@@ -292,10 +295,11 @@ MICRO_KERNELS = {
     "dw_v3": dict(name="micro_dw_kernel<kDwV3> (K7, + micro_reduce_kernel)", route="cuda",
                   source=_MICRO_SOURCE,
                   replaces="benchmarks/kernel_micro.py:200 (pallas_temporal_dw_v3)"),
-    "v3p": dict(name="micro_fwd_kernel<kV3P> (K8)", route="cuda", source=_MICRO_SOURCE,
+    "v3p": dict(name="micro_ring_kernel<kV3P> (K8, K5's walk)", route="cuda",
+                source=_MICRO_SOURCE,
                 replaces="benchmarks/kernel_micro.py:241 (pallas_temporal_v3p)"),
-    "dw_v2": dict(name="micro_dw_kernel<kDwV2> (K9, after micro_pad_kernel, + "
-                       "micro_reduce_kernel)", route="cuda", source=_MICRO_SOURCE,
+    "dw_v2": dict(name="micro_dw_ring_kernel<kDwV2> (K9, + micro_dw_ring_reduce_kernel)",
+                  route="cuda", source=_MICRO_SOURCE,
                   replaces="benchmarks/kernel_micro.py:297 (pallas_temporal_dw)"),
 }
 # the micro-benchmark call whose time stands in a design's kernels entry
@@ -874,11 +878,6 @@ def micro_cases(x, w, g):
     def lib_dw():
         return kernel_micro.library_temporal_dw(x, w, g)
 
-    def fwd_plan(tile_s, c_out=co):
-        p = micro.forward_plan((b, t, s, c), c_out, tile_s)
-        return (f"{p.slabs} slabs of {tile_s} columns x {p.row_tiles} row tiles x "
-                f"{p.co_tiles} Co tiles = {p.grid} blocks")
-
     def ring_plan(c_in=c, c_out=co):
         p = micro.ring_plan((b, t, s, c_in), c_out, K, micro._sms(x))
         return (f"ring: {p.items} items of {micro.RING_COLS} columns x {p.co_tiles} Co tiles "
@@ -892,7 +891,16 @@ def micro_cases(x, w, g):
         return (f"{p.steps} steps of {tile_s} columns in {p.chunks} chunks of "
                 f"{p.steps_per_chunk}, {K * p.c_tiles * p.co_tiles * p.chunks} blocks")
 
-    halved = micro._halved_tile(s)
+    def dw_ring_plan():
+        p = micro.dw_ring_plan((b, t, s, c), co, K, micro._sms(x))
+        return (f"dw ring: {p.tiles} tiles ({p.tap_groups} tap groups of {p.taps} x "
+                f"{p.c_tiles} C tiles of {p.bn} x {p.co_tiles} Co tiles of "
+                f"{micro.DW_RING_M}) x {p.chunks} chunks of {p.cols_per_chunk} of {p.cols} "
+                f"items = {p.blocks} blocks, {p.xslots} x / {p.gslots} g frame slots, "
+                f"{p.smem} bytes of shared memory; x read {p.co_tiles * p.tap_groups}x, g "
+                f"{p.c_tiles * p.tap_groups}x (re-reads from L2), partials "
+                f"{p.partial_bytes / 1e6:.2f} MB written and read")
+
     cases = [("v2 fwd", "v2", lambda: micro.temporal_v2_cuda(x, w, K),
               lambda: micro.temporal_v2_plain(x, w, K), lib_fwd, "fwd", ring_plan())]
     for mt in (448, 224):  # the tile partitions only the plain version's rows
@@ -906,21 +914,21 @@ def micro_cases(x, w, g):
               ("dw v3", "dw_v3", lambda: micro.temporal_dw_v3_cuda(x, g, K),
                lambda: micro.temporal_dw_v3_plain(x, g, K), lib_dw, "dw",
                dw_plan(micro._pick_tile(s, 448)))]
-    for mt in (448, 224):
+    for mt in (448, 224):  # the tile partitions only the plain version's rows
         cases.append((f"v3p fwd tile<={mt}", "v3p",
                       lambda mt=mt: micro.temporal_v3p_cuda(x, w, K, mt),
                       lambda mt=mt: micro.temporal_v3p_plain(x, w, K, mt), lib_fwd, "fwd",
-                      fwd_plan(micro._pick_tile(s, mt))))
+                      ring_plan()))
     cases.append(("dw v2", "dw_v2", lambda: micro.temporal_dw_v2_cuda(x, g, K),
-                  lambda: micro.temporal_dw_v2_plain(x, g, K), lib_dw, "dw", dw_plan(halved)))
+                  lambda: micro.temporal_dw_v2_plain(x, g, K), lib_dw, "dw", dw_ring_plan()))
     return cases
 
 
 def micro_split(run) -> dict | None:
     """A micro design's device time per call by kernel (torch.profiler over
-    5 calls): the pad passes (K9's frames, the ring's channels where C % 8
-    != 0), the main kernel, the reduce of the dw or channel-group partials,
-    and anything else (the dx's weight flip)."""
+    5 calls): the channel-pad copies (the rings', where C or Co % 8 != 0;
+    none at the benchmark's shapes), the main kernel, the reduce of the dw
+    or group partials, and anything else (the dx's weight flip)."""
     kernels = traced_kernels_ms(run)
     if kernels is None:
         return None
@@ -998,10 +1006,10 @@ def phase_micro(card: str) -> dict:
         prod_ms = {name: time_ms(fn, iters=10) for name, fn in prod.items()}
         print(f"{shape:9s} production kernels: " + ", ".join(
             f"{name} {ms:.4f} ms" for name, ms in prod_ms.items()) + f" ({card})", flush=True)
-        # K5 and K6 read x once, K2 once per tap (mostly from L2): the shares
-        # of the same bound side by side
+        # K5, K6 and K8 read x once, K2 once per tap (mostly from L2): the
+        # shares of the same bound side by side
         ring = []
-        for key in ("v2", "v3"):
+        for key in ("v2", "v3", "v3p"):
             for site in agg[key]["sites"]:
                 if site["shape"] == shape:
                     k2 = prod_ms["K2 dx" if site["role"] == "dx" else "K2 fwd"]
@@ -1011,6 +1019,15 @@ def phase_micro(card: str) -> dict:
                                 f"({site['bound_ms'] / k2:.3f})")
         print(f"{shape:9s} read x once (ring) against once per tap (K2): " + "; ".join(ring),
               flush=True)
+        # K9's TMA-fed dw ring against K3 (cp.async slabs) on the same inputs
+        for site in agg["dw_v2"]["sites"]:
+            if site["shape"] == shape:
+                k3 = prod_ms["K3 dw"]
+                site["k3_ms"] = k3
+                print(f"{shape:9s} dw ring (K9) against K3: K9 {site['ms']:.4f} ms (share "
+                      f"{site['bound_ms'] / site['ms']:.3f}) against K3 {k3:.4f} ms (share "
+                      f"{site['bound_ms'] / k3:.3f}): K9 / K3 = {site['ms'] / k3:.3f}",
+                      flush=True)
         del x, w, g
         torch.cuda.empty_cache()
     if failures:

@@ -17,21 +17,28 @@
 //           frame lies in [0, T) (v3's clipped ranges, at frame
 //           granularity). The dx is this kernel on the flipped,
 //           io-transposed weight (made by the Python wrapper).
-//   K8 v3p  (pallas_temporal_v3p, :241)    micro_fwd_kernel<kV3P>: one
-//           contraction over kappa = dt*C + c, k*C deep, in 32-deep slices
-//           that may straddle taps; the A loader writes zeros for rows whose
-//           frame lies outside [0, T).
+//   K8 v3p  (pallas_temporal_v3p, :241)    micro_ring_kernel<kV3P>: the
+//           packed contraction over kappa = dt*C + c, k*C deep. Its walk is
+//           K5's, and shares K5's code path: the padded frames [-p, T + p),
+//           every output frame all k taps, the k16 steps issued in kappa
+//           order as one accumulator chain (each tap's steps stop at C, where
+//           the box and the weights are zero: the packed operand's steps
+//           that straddle two taps add the same products); the zero rows of
+//           the packed operand are the halo frames' zero fill, and the tap
+//           weights the resident (k*C, Co) K-major operand.
 //   K7 dw_v3 (pallas_temporal_dw_v3, :200) micro_dw_kernel<kDwV3>: per tap,
 //           x^T g over the rows whose shifted frame lies in [0, T).
-//   K9 dw_v2 (pallas_temporal_dw, :297)    micro_pad_kernel, then
-//           micro_dw_kernel<kDwV2> over every row of the padded x.
+//   K9 dw_v2 (pallas_temporal_dw, :297)    micro_dw_ring_kernel<kDwV2>: a
+//           TMA ring of x and g frames (below); every row of the padded x,
+//           its halo frames the box's zero fill: no pad pass.
 //
 // What bounds them on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): bytes, at
 // every benchmark shape (tpu1: x and y 822 MB against 158 GFLOP, 0.245 ms).
 //
-// K5 and K6: the frame ring. The Pallas v2 kernel streams a halo'd (T + 2p,
-// tile_s, C) slab into VMEM and runs all k taps on it; v3 holds all T frames
-// of a tile and shifts rows inside the block. Both read x once. Their first
+// K5, K6 and K8: the frame ring. The Pallas v2 kernel streams a halo'd (T +
+// 2p, tile_s, C) slab into VMEM and runs all k taps on it (v3p packs them
+// into one operand); v3 holds all T frames of a tile and shifts rows inside
+// the block. All read x once. Their first
 // CUDA versions (WMMA, one shared stage; in the history of this file)
 // gathered A once per tap and once per 64-wide Co tile, and K5 padded x in a
 // separate pass that cost what it moved (0.29 of its 1.98 ms at tpu1). Here
@@ -79,24 +86,63 @@
 // fill the shared-memory bandwidth): that shape stays near 0.4 of its
 // bound.
 
-// K7, K8 and K9 are the first, simple designs: bf16 WMMA 16x16x16 products
-// into f32 accumulators in registers, one shared stage, the next slice's
-// global loads held in registers while the current slice's products run.
-// Rows are taken as the TPU grid cut them: a slab is one clip b and one
-// s-tile j of tile_s columns, its T * tile_s rows t-major (row r = t *
-// tile_s + s_local); tile_s is the largest divisor of S up to max_tile (v3
-// designs) or halved from 512 until it divides S (v2 designs). A K8 block
-// owns BM = 128 rows of one slab and BN = 64 output channels. A dw block
-// owns one tap and a 64 x 64 (C, Co) tile and walks a chunk of (b, s-tile)
+// K7 is the first, simple design: bf16 WMMA 16x16x16 products into f32
+// accumulators in registers, one shared stage, the next slice's global
+// loads held in registers while the current slice's products run. Rows are
+// taken as the TPU grid cut them: a slab is one clip b and one s-tile j of
+// tile_s columns, its T * tile_s rows t-major (row r = t * tile_s +
+// s_local), tile_s the largest divisor of S up to max_tile. A block owns
+// one tap and a 64 x 64 (C, Co) tile and walks a chunk of (b, s-tile)
 // slabs, 32 rows a slice. The TPU dw kernels add into one output block over
 // a grid that runs in order; here each chunk writes an f32 partial and
 // micro_reduce_kernel adds the partials in chunk order (no atomics: two
 // launches are bitwise equal). Channel rows are read 16 bytes at a time
-// where C (for x), Co (for w, g and y) is a multiple of 8 and the pointers
-// are 16-byte aligned, else 2 bytes at a time (ragged widths are masked).
-// They reach neither bound: WMMA peaks well below wgmma, one stage leaves
-// the loads exposed, each 64-wide Co tile re-reads its A rows, and K9 moves
-// x twice more through the pad pass.
+// where C (for x), Co (for g) is a multiple of 8 and the pointers are
+// 16-byte aligned, else 2 bytes at a time (ragged widths are masked). It
+// reaches neither bound: WMMA peaks well below wgmma and one stage leaves
+// the loads exposed. (micro_dw_kernel's kDwV2 branches, K9's first design
+// over a padded copy of x, are no longer instantiated.)
+//
+// K9: the dw ring. The Pallas kernel streams a halo'd (T + 2p, tile_s, C)
+// slab of the padded x and the (T, tile_s, Co) slab of g into VMEM and adds
+// every tap's x^T g into one (k, C, Co) block over a grid that runs in
+// order. Here a block owns one output tile, a tap group (up to three taps,
+// one consumer warpgroup each) x a C tile of BN channels (wgmma's N, 64,
+// 128 or 144) x a 64-wide Co tile (wgmma's M), and one chunk of the
+// (clip, 64-column) items; it walks each item over T:
+//   - A producer warp loads each g frame of the item once (one 64-channel x
+//     64-column box of the Co tile) and each x frame its taps read (the C
+//     tile's boxes), with TMA on tensor maps of x (B, T, S, C) and g (B, T,
+//     S, Co) in the 128-byte swizzle, into two rings of frame slots with a
+//     full and an empty mbarrier each. The x walk runs over the padded
+//     frames [d0 - p, T + d1 - 1 - p) of taps [d0, d1): the halo frames,
+//     columns past S and channels past C and Co are the box's zero fill, so
+//     there is no pad pass and no padded copy.
+//   - Consumer warpgroup dt, for every output frame t, issues four
+//     wgmma.mma_async m64nBNk16 (the item's 64 rows of the frame) with g
+//     frame t as A and x frame t + dt - p as B, both MN-major in shared
+//     memory (both transpose bits; the descriptors of csrc/temporal_dw.cu:
+//     one 64-channel box between atoms along M / N, 1024 bytes between
+//     8-row groups along K, a k16 step 16 rows = 2048 bytes). Every row is
+//     multiplied, the halo's zeros included, with no branch. The f32 tile
+//     dw^T[dt] (64 x BN) stays in registers across all items of the chunk.
+//     A warp releases a g frame after its step and an x frame once its
+//     next step no longer reads it (waiting first for a frame it never
+//     read, another tap's, to land). Keeping one step's products in flight
+//     (issuing step t's before waiting for step t - 1's) was no faster on
+//     the card.
+//   - At the end each block writes its tile into the chunk's f32 partial
+//     (k, C, Co), or into dw where the plan has one chunk;
+//     micro_dw_ring_reduce_kernel adds the partials in a fixed order (no
+//     atomics: two launches are bitwise equal).
+// Bytes: g once per C tile and tap group, x once per Co tile and tap
+// group (the tiles of a chunk are neighbouring blocks that walk the same
+// columns at about the same time, so the re-reads come mostly from L2), the
+// partials once written and once read. The plan (ops/temporal_micro.py::
+// dw_ring_plan) takes the fewest C tiles, then the narrowest, and as many
+// chunks as fill the SMs. Rows of C or Co % 8 != 0 channels (and a
+// misaligned x or g) are first copied, channels zero-padded to a multiple
+// of 8, by micro_ring_pad_kernel: TMA needs 16-byte global strides.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -114,300 +160,8 @@ namespace {
 enum Forward { kV2 = 0, kV3 = 1, kV3P = 2 };
 enum Grad { kDwV3 = 0, kDwV2 = 1 };
 
-constexpr int kOutside = -(1 << 28);  // frame of a row past the slab
-
-// ---------------------------------------------------------------------------
-// Forward core: a BM x BN tile of y, the contraction in BK-deep slices
-// ---------------------------------------------------------------------------
-// The first WMMA core of K5, K6 and K8, instantiated for K8 (kV3P) only:
-// K5 and K6 run on micro_ring_kernel below. Its v2 / v3 addressing stays as
-// it was, so that K8's code and time stay its first version's until K8's
-// own redesign.
-
-constexpr int BM = 128;       // output rows per block (of one slab)
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 32;        // contraction slice
-constexpr int THREADS = 256;  // 8 warps: 4 (rows) x 2 (channels), 32 x 32 each
-constexpr int A_LD = BK + 8;  // bf16 a staged A row (80 B)
-constexpr int B_LD = BN + 8;  // bf16 a staged W row (144 B)
-constexpr int C_LD = BN + 4;  // f32 a staged output row
-constexpr int A_BYTES = BM * A_LD * 2;
-constexpr int B_BYTES = BK * B_LD * 2;
-constexpr int C_BYTES = BM * C_LD * 4;
-constexpr int SMEM_BYTES = (A_BYTES + B_BYTES) > C_BYTES ? (A_BYTES + B_BYTES) : C_BYTES;
-constexpr int A_SCALARS = BM * BK / THREADS;     // 16
-constexpr int A_VECS = BM * BK / 8 / THREADS;    // 2
-constexpr int B_SCALARS = BK * BN / THREADS;     // 8
-constexpr int OUT_VECS = BM * BN / 8 / THREADS;  // 4
-constexpr int OUT_SCALARS = BM * BN / THREADS;   // 32
-static_assert(BK * BN / 8 == THREADS, "one 16-byte W load per thread");
-
-// One slice of the contraction: kappa = tap * C + c in [kbase, kbase + BK),
-// valid below klimit. W as (k * C, Co) has row kappa. For v2 / v3 a slice
-// lies in one tap (klimit = its end); for v3p it runs over k * C.
-struct Slice {
-  int kbase;
-  int klimit;
-  int lo, hi;  // v3: the tile's rows [lo, hi) that the slice's tap reaches
-};
-
-template <bool VA, bool VB>
-struct Stage {
-  uint4 av[VA ? A_VECS : 1];
-  unsigned short as[VA ? 1 : A_SCALARS];
-  uint4 bv;
-  unsigned short bs[VB ? 1 : B_SCALARS];
-};
-
-// The x element offset of A's (row r, kappa), or -1 where it is zero: a row
-// past the slab, kappa past the slice, or (v3, v3p) a frame outside [0, T).
-// v2 reads the padded x, whose frames t + dt all exist.
-template <int V>
-__device__ __forceinline__ int64_t a_offset(const int* s_t, const int64_t* s_x, int r,
-                                            int kappa, int klimit, int T, int S, int C,
-                                            int p) {
-  const int t = s_t[r];
-  if (t < 0 || kappa >= klimit) return -1;
-  const int tap = kappa / C;
-  const int c = kappa - tap * C;
-  const int frame = V == kV2 ? t + tap : t + tap - p;
-  if (V != kV2 && (frame < 0 || frame >= T)) return -1;
-  return (s_x[r] + (int64_t)frame * S) * C + c;
-}
-
-template <int V, bool VA, bool VB>
-__device__ __forceinline__ void load_stage(Stage<VA, VB>& st, const unsigned short* __restrict__ x,
-                                           const unsigned short* __restrict__ w, const int* s_t,
-                                           const int64_t* s_x, const Slice& sl, int n0, int T,
-                                           int S, int C, int Co, int p) {
-  const int tid = threadIdx.x;
-  if constexpr (VA) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int q = tid + i * THREADS;
-      const int r = q / (BK / 8);
-      const int cc = (q % (BK / 8)) * 8;
-      const int64_t off = a_offset<V>(s_t, s_x, r, sl.kbase + cc, sl.klimit, T, S, C, p);
-      st.av[i] = off >= 0 ? *reinterpret_cast<const uint4*>(x + off) : make_uint4(0, 0, 0, 0);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < A_SCALARS; ++i) {
-      const int e = tid + i * THREADS;
-      const int64_t off = a_offset<V>(s_t, s_x, e / BK, sl.kbase + e % BK, sl.klimit, T, S, C, p);
-      st.as[i] = off >= 0 ? x[off] : (unsigned short)0;
-    }
-  }
-  if constexpr (VB) {
-    const int kr = tid / (BN / 8);
-    const int nc = (tid % (BN / 8)) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (sl.kbase + kr < sl.klimit && n0 + nc < Co) {
-      v = *reinterpret_cast<const uint4*>(w + (int64_t)(sl.kbase + kr) * Co + n0 + nc);
-    }
-    st.bv = v;
-  } else {
-#pragma unroll
-    for (int i = 0; i < B_SCALARS; ++i) {
-      const int e = tid + i * THREADS;
-      const int kr = e / BN;
-      const int nc = e % BN;
-      unsigned short v = 0;
-      if (sl.kbase + kr < sl.klimit && n0 + nc < Co) {
-        v = w[(int64_t)(sl.kbase + kr) * Co + n0 + nc];
-      }
-      st.bs[i] = v;
-    }
-  }
-}
-
-template <bool VA, bool VB>
-__device__ __forceinline__ void store_stage(const Stage<VA, VB>& st, unsigned short* As,
-                                            unsigned short* Bs) {
-  const int tid = threadIdx.x;
-  if constexpr (VA) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int q = tid + i * THREADS;
-      *reinterpret_cast<uint4*>(As + (q / (BK / 8)) * A_LD + (q % (BK / 8)) * 8) = st.av[i];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < A_SCALARS; ++i) {
-      const int e = tid + i * THREADS;
-      As[(e / BK) * A_LD + e % BK] = st.as[i];
-    }
-  }
-  if constexpr (VB) {
-    *reinterpret_cast<uint4*>(Bs + (tid / (BN / 8)) * B_LD + (tid % (BN / 8)) * 8) = st.bv;
-  } else {
-#pragma unroll
-    for (int i = 0; i < B_SCALARS; ++i) {
-      const int e = tid + i * THREADS;
-      Bs[(e / BN) * B_LD + e % BN] = st.bs[i];
-    }
-  }
-}
-
 // The tap of v3's q-th position: the centre first, then the others in order.
 __device__ __forceinline__ int v3_tap(int q, int p) { return q == 0 ? p : (q - 1 < p ? q - 1 : q); }
-
-// The forward kernels. x is the padded x (Tx = T + 2p frames) for v2, else
-// x (Tx = T). Block x: slab * row_tiles + row tile; block y: Co tile.
-template <int V, bool VA, bool VB>
-__global__ void __launch_bounds__(THREADS)
-micro_fwd_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ w,
-                 unsigned short* __restrict__ y, int T, int Tx, int S, int C, int Co, int k,
-                 int tile_s, int row_tiles) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __shared__ int s_t[BM];
-  __shared__ int64_t s_x[BM];  // x row of (b, frame 0, s)
-  __shared__ int64_t s_y[BM];  // y row of (b, t, s)
-  unsigned short* As = reinterpret_cast<unsigned short*>(smem);
-  unsigned short* Bs = reinterpret_cast<unsigned short*>(smem + A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int slab = blockIdx.x / row_tiles;
-  const int r0 = (blockIdx.x % row_tiles) * BM;
-  const int nj = S / tile_s;
-  const int bb = slab / nj;
-  const int s0 = (slab % nj) * tile_s;
-  const int R = T * tile_s;  // rows of the slab
-  const int n0 = blockIdx.y * BN;
-  const int p = k / 2;
-  if (tid < BM) {
-    const int r = r0 + tid;
-    if (r < R) {
-      const int t = r / tile_s;
-      const int s = s0 + r % tile_s;
-      s_t[tid] = t;
-      s_x[tid] = (int64_t)bb * Tx * S + s;
-      s_y[tid] = ((int64_t)bb * T + t) * S + s;
-    } else {
-      s_t[tid] = kOutside;
-    }
-  }
-  __syncthreads();
-
-  // The slices: v2 k taps x kc, v3 the same in v3_tap's order less the
-  // taps whose rows miss the tile, v3p ceil(k * C / BK) over kappa.
-  const int kc = (C + BK - 1) / BK;
-  const int n_slices = V == kV3P ? (k * C + BK - 1) / BK : k * kc;
-  const int rows_end = min(R - r0, BM);
-  auto tap_rows = [&](int tap, int& lo, int& hi) {  // the tile's rows the tap reaches
-    const int off = tap - p;
-    lo = max(max(0, -off) * tile_s - r0, 0);
-    hi = min((T - max(0, off)) * tile_s - r0, rows_end);
-  };
-  auto slice_at = [&](int i) {
-    Slice sl{0, 0, 0, BM};
-    if constexpr (V == kV3P) {
-      sl.kbase = i * BK;
-      sl.klimit = k * C;
-    } else {
-      const int tap = V == kV3 ? v3_tap(i / kc, p) : i / kc;
-      sl.kbase = tap * C + (i % kc) * BK;
-      sl.klimit = tap * C + C;
-      if constexpr (V == kV3) tap_rows(tap, sl.lo, sl.hi);
-    }
-    return sl;
-  };
-  auto next_slice = [&](int i) {  // the slice after i (v3: skipping taps that miss the tile)
-    ++i;
-    if constexpr (V == kV3) {
-      while (i < n_slices) {
-        int lo, hi;
-        tap_rows(v3_tap(i / kc, p), lo, hi);
-        if (lo < hi) break;
-        i = (i / kc + 1) * kc;
-      }
-    }
-    return i;
-  };
-
-  const int warp = tid / 32;
-  const int wm = warp % 4;  // 32-row slab of the tile
-  const int wn = warp / 4;  // 32-channel slab of the tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  Stage<VA, VB> st;
-  int it = next_slice(-1);
-  Slice cur = slice_at(it < n_slices ? it : 0);
-  if (it < n_slices) load_stage<V, VA, VB>(st, x, w, s_t, s_x, cur, n0, T, S, C, Co, p);
-  while (it < n_slices) {
-    store_stage<VA, VB>(st, As, Bs);
-    __syncthreads();
-    const int nxt = next_slice(it);
-    const Slice sl = cur;
-    if (nxt < n_slices) {
-      cur = slice_at(nxt);
-      load_stage<V, VA, VB>(st, x, w, s_t, s_x, cur, n0, T, S, C, Co, p);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(
-            fb[j], reinterpret_cast<const __nv_bfloat16*>(Bs + kk * B_LD + wn * 32 + j * 16), B_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = wm * 32 + i * 16;
-        if (row + 16 <= sl.lo || row >= sl.hi) continue;  // rows the tap does not reach
-        wmma::load_matrix_sync(
-            fa[i], reinterpret_cast<const __nv_bfloat16*>(As + row * A_LD + kk), A_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-    it = nxt;
-  }
-
-  // Epilogue: the f32 tile through shared memory (aliasing the stage, free
-  // after the loop's last barrier), rounded to bf16, masked at the slab's
-  // end and at Co.
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + j * 16, acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  if constexpr (VB) {
-#pragma unroll
-    for (int i = 0; i < OUT_VECS; ++i) {
-      const int q = tid + i * THREADS;
-      const int r = q / (BN / 8);
-      const int nc = (q % (BN / 8)) * 8;
-      if (s_t[r] >= 0 && n0 + nc < Co) {
-        const float* src = Cs + r * C_LD + nc;
-        __nv_bfloat162 h[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) h[u] = __floats2bfloat162_rn(src[2 * u], src[2 * u + 1]);
-        *reinterpret_cast<uint4*>(y + s_y[r] * Co + n0 + nc) = *reinterpret_cast<const uint4*>(h);
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int i = 0; i < OUT_SCALARS; ++i) {
-      const int e = tid + i * THREADS;
-      const int r = e / BN;
-      const int nc = e % BN;
-      if (s_t[r] >= 0 && n0 + nc < Co) {
-        __nv_bfloat16 h = __float2bfloat16_rn(Cs[r * C_LD + nc]);
-        y[s_y[r] * Co + n0 + nc] = *reinterpret_cast<const unsigned short*>(&h);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dw core: one tap's DM x DN tile of dw over a chunk of slabs, DK rows a slice
@@ -653,30 +407,9 @@ __global__ void micro_reduce_kernel(const float* __restrict__ part, float* __res
   }
 }
 
-// xp (B, T + 2p, S, C) = x with p zero frames on each side of T, in units of
-// U (uint4 or 2 bytes); a frame is `units` units. Block y walks frames.
-template <typename U>
-__global__ void micro_pad_kernel(const U* __restrict__ x, U* __restrict__ xp, int64_t frames,
-                                 int64_t units, int T, int p) {
-  const int Tx = T + 2 * p;
-  for (int64_t f = blockIdx.y; f < frames; f += gridDim.y) {
-    const int64_t bb = f / Tx;
-    const int t = (int)(f % Tx) - p;
-    U* dst = xp + f * units;
-    const int64_t start = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    if (t >= 0 && t < T) {
-      const U* src = x + (bb * T + t) * units;
-      for (int64_t e = start; e < units; e += stride) dst[e] = src[e];
-    } else {
-      for (int64_t e = start; e < units; e += stride) dst[e] = U{};
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------------------
-// K5 and K6: the frame ring (see the top of this file)
+// K5, K6 and K8: the frame ring (see the top of this file)
 // ---------------------------------------------------------------------------
 
 constexpr int RING_COLS = 64;                        // S columns of an item
@@ -941,17 +674,18 @@ __device__ __forceinline__ void ring_weights(unsigned char* wts,
   }
 }
 
-// K5 (V = kV2) and K6 (V = kV3). Shared memory: the weights (taps * chunks
-// tiles of BN_ x 128 bytes), `slots` frame slots of `chunks` boxes, the two
-// consumer warpgroups' y staging tiles (a.stage bytes each, or none), then
-// a full and an empty mbarrier per slot. Item q of a.items is (column tile
+// K5 (V = kV2), K8 (V = kV3P: K5's walk) and K6 (V = kV3). Shared memory:
+// the weights (taps * chunks tiles of BN_ x 128 bytes), `slots` frame
+// slots of `chunks` boxes, the two consumer warpgroups' y staging tiles
+// (a.stage bytes each, or none), then a full and an empty mbarrier per
+// slot. Item q of a.items is (column tile
 // q / W, weights q % W), W = co_tiles * groups * tgroups, the weights
 // index (channel group, tap group, Co tile): a block takes items
 // blockIdx.x + i * gridDim.x, so where gridDim.x is a multiple of W its
 // weights never change, and blocks next to each other read the same
 // columns (each once per Co tile and tap group) at about the same time.
-// An item of taps [d0, d1) walks the frames its output frames read: K5
-// [d0 - p, T + d1 - 1 - p), K6 the same clipped to [0, T). TG: the taps
+// An item of taps [d0, d1) walks the frames its output frames read: K5 and
+// K8 [d0 - p, T + d1 - 1 - p), K6 the same clipped to [0, T). TG: the taps
 // are split (a.tgroups > 1); without it the tap-group arithmetic folds
 // away, so that the common plans' code is the same as with no groups.
 template <int V, int BN_, bool TG>
@@ -994,8 +728,8 @@ micro_ring_kernel(const __grid_constant__ CUtensorMap xmap,
       it.c0 = it.g * chunks * RING_CH;
       it.d0 = 0;
       it.d1 = k;
-      it.f_lo = V == kV2 ? -p : 0;
-      it.f_hi = V == kV2 ? T + p : T;
+      it.f_lo = V != kV3 ? -p : 0;  // K5 and K8: the padded frames
+      it.f_hi = V != kV3 ? T + p : T;
     }
     return it;
   };
@@ -1184,6 +918,33 @@ __global__ void micro_ring_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// dw = the K9 chunks' partials (chunks, n) added in a fixed order: group j
+// of DW_REDUCE_GROUPS adds chunks j, j + G, j + 2G, ... in order, then the
+// group sums are added in group order (no atomics: two launches are
+// bitwise equal). A block takes 32 elements, a warp a group: the chunk
+// loop is cut G ways, so that enough loads are in flight where n is small
+// beside the chunk count (faithful1: 27,648 elements x 131 chunks).
+constexpr int DW_REDUCE_GROUPS = 8;
+
+__global__ void __launch_bounds__(32 * DW_REDUCE_GROUPS)
+micro_dw_ring_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, int64_t n,
+                            int chunks) {
+  __shared__ float sums[DW_REDUCE_GROUPS][32];
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * 32 + threadIdx.x;
+  const int j = threadIdx.y;
+  float s = 0.f;
+  if (e < n)
+    for (int c = j; c < chunks; c += DW_REDUCE_GROUPS) s += part[static_cast<int64_t>(c) * n + e];
+  sums[j][threadIdx.x] = s;
+  __syncthreads();
+  if (j == 0 && e < n) {
+    float total = sums[0][threadIdx.x];
+#pragma unroll
+    for (int q = 1; q < DW_REDUCE_GROUPS; ++q) total += sums[q][threadIdx.x];
+    dw[e] = total;
+  }
+}
+
 // x (rows, c) -> xs (rows, cp), channels c..cp-1 zero, one 16-byte store a
 // thread: how the ring takes rows that TMA cannot (C % 8 != 0, or x not
 // 16-byte aligned; then cp = C rounded up to 8).
@@ -1207,61 +968,238 @@ __global__ void micro_ring_pad_kernel(const unsigned short* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K9: the dw ring (see the top of this file)
+// ---------------------------------------------------------------------------
+
+constexpr int DW_RING_TAPS = 3;                          // consumer warpgroups, one tap each
+constexpr int DW_RING_PRODUCER = DW_RING_TAPS * 4;       // warp index of the producer
+constexpr int DW_RING_THREADS = (DW_RING_PRODUCER + 1) * 32;
+constexpr int DW_RING_M = 64;                            // Co tile: wgmma's M, one g box
+
+struct DwRingArgs {
+  float* out;                  // the chunks' partials (chunks, k, C, Co), or dw (one chunk)
+  int T, S, C, Co, k;
+  int taps;                    // taps of a tap group (the last group may have fewer)
+  int c_tiles, co_tiles;       // BN-wide C tiles, 64-wide Co tiles
+  int boxes;                   // 64-channel x boxes of a C tile
+  int xslots, gslots;          // frame slots of the x and g rings
+  int cols_per_clip;           // ceil(S / RING_COLS)
+  int cols, cols_per_chunk;    // items (B * cols_per_clip), items of a chunk
+};
+
+// Shared-memory matrix descriptor of an MN-major operand of 64-channel
+// boxes in the 128-byte swizzle (as csrc/temporal_dw.cu's): start address
+// >> 4; leading offset one box (64 rows x 128 bytes, the stride between
+// 64-channel atoms along M or N); stride offset 1024 bytes (between 8-row
+// groups along K); layout type 1. A k16 step is 16 rows: +2048 bytes.
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(RING_BOX >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B both MN-major in
+// shared memory (both transpose bits set): d += A B (scale-d a predicate
+// that is always set).
+#define FVT_WGMMA_OUT8(i)                                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_mn_64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : FVT_WGMMA_OUT8(0), FVT_WGMMA_OUT8(8), FVT_WGMMA_OUT8(16), FVT_WGMMA_OUT8(24)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_mn_128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : FVT_WGMMA_OUT8(0), FVT_WGMMA_OUT8(8), FVT_WGMMA_OUT8(16), FVT_WGMMA_OUT8(24),
+        FVT_WGMMA_OUT8(32), FVT_WGMMA_OUT8(40), FVT_WGMMA_OUT8(48), FVT_WGMMA_OUT8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_mn_144(float (&d)[72], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+      "}, %72, %73, p, 1, 1, 1, 1;\n}\n"
+      : FVT_WGMMA_OUT8(0), FVT_WGMMA_OUT8(8), FVT_WGMMA_OUT8(16), FVT_WGMMA_OUT8(24),
+        FVT_WGMMA_OUT8(32), FVT_WGMMA_OUT8(40), FVT_WGMMA_OUT8(48), FVT_WGMMA_OUT8(56),
+        FVT_WGMMA_OUT8(64)
+      : "l"(da), "l"(db), "r"(1));
+}
+#undef FVT_WGMMA_OUT8
+
+template <int BN_>
+__device__ __forceinline__ void wgmma_mn_tile(float (&d)[BN_ / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN_ == 64) wgmma_mn_64(d, da, db);
+  else if constexpr (BN_ == 128) wgmma_mn_128(d, da, db);
+  else wgmma_mn_144(d, da, db);
+}
+
+// K9 (V = kDwV2: every row of the padded x, no branch). Block i is tile
+// i % W of chunk i / W, W = tap groups * c_tiles * co_tiles, the tile
+// (tap group, C tile, Co tile): the tiles of a chunk are neighbouring
+// blocks that walk the chunk's items, columns [chunk * cols_per_chunk, ...)
+// of all clips, in the same order. Shared memory: the x ring (xslots slots
+// of `boxes` boxes), the g ring (gslots slots of one box), then a full and
+// an empty mbarrier per slot, x's first.
+template <int V, int BN_>
+__global__ void __launch_bounds__(DW_RING_THREADS, 1)
+micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap gmap, const DwRingArgs a) {
+  static_assert(V == kDwV2, "K7's clipped walk (kDwV3) is not built on the ring yet");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + RING_ALIGN - 1) & ~static_cast<uint32_t>(RING_ALIGN - 1);
+  const int T = a.T, k = a.k, p = k / 2, NX = a.xslots, NG = a.gslots;
+  const uint32_t xslot_bytes = a.boxes * RING_BOX;
+  const uint32_t xring = base;
+  const uint32_t gring = xring + NX * xslot_bytes;
+  const uint32_t xfull = gring + NG * RING_BOX, xempty = xfull + 8 * NX;
+  const uint32_t gfull = xempty + 8 * NX, gempty = gfull + 8 * NG;
+  const int W = ((k + a.taps - 1) / a.taps) * a.c_tiles * a.co_tiles;
+  const int tile = static_cast<int>(blockIdx.x) % W;
+  const int chunk = static_cast<int>(blockIdx.x) / W;
+  const int n0 = (tile % a.co_tiles) * DW_RING_M;
+  const int c0 = (tile / a.co_tiles % a.c_tiles) * BN_;
+  const int d0 = tile / (a.co_tiles * a.c_tiles) * a.taps;
+  const int d1 = min(k, d0 + a.taps);
+  const int f_lo = d0 - p, f_hi = T + d1 - 1 - p;  // the x frames the taps read, halo included
+  const int col0 = chunk * a.cols_per_chunk;
+  const int col1 = min(a.cols, col0 + a.cols_per_chunk);
+  // the warp index broadcast from lane 0, so that the compiler knows the
+  // roles below (and a warpgroup's tap) are warp-uniform
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+
+  if (tid == 0) {
+    const int arrivals = (d1 - d0) * 4;  // each consumer warp of the tile's taps
+    for (int s = 0; s < NX; ++s) {
+      mbar_init(xfull + 8 * s, 1);
+      mbar_init(xempty + 8 * s, arrivals);
+    }
+    for (int s = 0; s < NG; ++s) {
+      mbar_init(gfull + 8 * s, 1);
+      mbar_init(gempty + 8 * s, arrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == DW_RING_PRODUCER) {  // one thread issues every load, in the consumers' order
+    if (lane == 0) {
+      int xs = 0, gs = 0;
+      for (int col = col0; col < col1; ++col) {
+        const int bb = col / a.cols_per_clip;
+        const int s0 = (col % a.cols_per_clip) * RING_COLS;
+        int f = f_lo;  // the next x frame
+        for (int t = 0; t < T; ++t, ++gs) {
+          // the x frames step t reads: up to t + d1 - 1 - p
+          for (const int need = min(f_hi, t + d1 - p); f < need; ++f, ++xs) {
+            const int slot = xs % NX;
+            mbar_wait(xempty + 8 * slot, ((xs / NX) & 1) ^ 1);
+            mbar_expect_tx(xfull + 8 * slot, xslot_bytes);
+            for (int i = 0; i < a.boxes; ++i)
+              tma_load_box(xring + slot * xslot_bytes + i * RING_BOX, &xmap, xfull + 8 * slot,
+                           c0 + i * RING_CH, s0, f, bb);
+          }
+          const int slot = gs % NG;
+          mbar_wait(gempty + 8 * slot, ((gs / NG) & 1) ^ 1);
+          mbar_expect_tx(gfull + 8 * slot, RING_BOX);
+          tma_load_box(gring + slot * RING_BOX, &gmap, gfull + 8 * slot, n0, s0, t, bb);
+        }
+      }
+    }
+    return;
+  }
+
+  const int dt = d0 + (warp >> 2);  // this warpgroup's tap
+  if (dt >= d1) return;             // the last tap group may have fewer taps
+  float acc[BN_ / 2];
+#pragma unroll
+  for (int i = 0; i < BN_ / 2; ++i) acc[i] = 0.f;
+  int xs0 = 0;  // x ring sequence number of the item's first frame
+  int gs = 0;
+  for (int col = col0; col < col1; ++col) {
+    // Each consumer warp arrives once on every x frame's empty barrier, in
+    // walk order, once its next step no longer reads the frame; it first
+    // waits for a frame it never read (another tap's) to have landed, so
+    // that it does not release the slot's previous round.
+    int rel = f_lo;  // frames below rel: released by this warp
+    auto release = [&](int upto) {
+      for (; rel < upto; ++rel) {
+        const int s = xs0 + rel - f_lo;
+        mbar_wait(xfull + 8 * (s % NX), (s / NX) & 1);
+        mbar_arrive_lane0(xempty + 8 * (s % NX), lane);
+      }
+    };
+    for (int t = 0; t < T; ++t, ++gs) {
+      const int gslot = gs % NG;
+      const int s = xs0 + t + dt - p - f_lo;
+      const int xslot = s % NX;
+      mbar_wait(gfull + 8 * gslot, (gs / NG) & 1);
+      mbar_wait(xfull + 8 * xslot, (s / NX) & 1);
+      const uint32_t ga = gring + gslot * RING_BOX;
+      const uint32_t xa = xring + xslot * xslot_bytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < RING_COLS / 16; ++ks)
+        wgmma_mn_tile<BN_>(acc, smem_desc_mn(ga + ks * 2048), smem_desc_mn(xa + ks * 2048));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_acc(acc);
+      mbar_arrive_lane0(gempty + 8 * gslot, lane);
+      release(t + 1 + dt - p);  // the next step reads from t + 1 + dt - p on
+    }
+    release(f_hi);  // the item's frames this warp has not released yet
+    xs0 += f_hi - f_lo;
+  }
+
+  // Epilogue: dw^T[dt] from registers into out[chunk] (k, C, Co). Warp w of
+  // the warpgroup holds output channels n0 + 16 (w % 4) + lane / 4 (and + 8),
+  // input channels c0 + 8 j + 2 (lane % 4) (and + 1) in acc[4j .. 4j + 3].
+  float* dst = a.out + (static_cast<int64_t>(chunk) * k + dt) * a.C * a.Co;
+  const int o = n0 + (warp & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN_ / 8; ++j) {
+    const int c = c0 + j * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int cc = c + (h & 1), oo = o + (h >> 1) * 8;
+      if (cc < a.C && oo < a.Co) dst[static_cast<int64_t>(cc) * a.Co + oo] = acc[4 * j + h];
+    }
+  }
+}
+
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 bool valid_shape(int b, int t, int s, int c, int co, int k, int tile_s) {
   return b > 0 && t > 0 && s > 0 && c > 0 && co > 0 && k > 0 && (k % 2) == 1 && tile_s > 0 &&
          s % tile_s == 0;
-}
-
-// K9's pad pass, counted for the tests that check which designs launch it.
-long long pad_launches = 0;
-
-cudaError_t launch_pad(const void* x, void* xp, int b, int t, int s, int c, int k,
-                       cudaStream_t stream) {
-  const int p = k / 2;
-  const int64_t frames = (int64_t)b * (t + 2 * p);
-  const int64_t elems = (int64_t)s * c;
-  const dim3 block(256);
-  ++pad_launches;
-  if (elems % 8 == 0 && aligned16(x) && aligned16(xp)) {
-    const int64_t units = elems / 8;
-    const dim3 grid((unsigned)std::min<int64_t>((units + 255) / 256, 64),
-                    (unsigned)std::min<int64_t>(frames, 65535));
-    micro_pad_kernel<uint4><<<grid, block, 0, stream>>>(
-        static_cast<const uint4*>(x), static_cast<uint4*>(xp), frames, units, t, p);
-  } else {
-    const dim3 grid((unsigned)std::min<int64_t>((elems + 255) / 256, 64),
-                    (unsigned)std::min<int64_t>(frames, 65535));
-    micro_pad_kernel<unsigned short><<<grid, block, 0, stream>>>(
-        static_cast<const unsigned short*>(x), static_cast<unsigned short*>(xp), frames, elems, t,
-        p);
-  }
-  return cudaGetLastError();
-}
-
-template <int V>
-int launch_fwd(const void* x, const void* w, void* y, int b, int t, int tx, int s, int c, int co,
-               int k, int tile_s, cudaStream_t stream) {
-  const int nj = s / tile_s;
-  const int row_tiles = (t * tile_s + BM - 1) / BM;
-  const int64_t blocks = (int64_t)b * nj * row_tiles;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)((co + BN - 1) / BN));
-  const bool va = (c % 8) == 0 && aligned16(x);
-  const bool vb = (co % 8) == 0 && aligned16(w) && aligned16(y);
-  auto xs = static_cast<const unsigned short*>(x);
-  auto ws = static_cast<const unsigned short*>(w);
-  auto ys = static_cast<unsigned short*>(y);
-#define FVT_FWD(VA, VB)                                                                       \
-  micro_fwd_kernel<V, VA, VB><<<grid, THREADS, 0, stream>>>(xs, ws, ys, t, tx, s, c, co, k, \
-                                                              tile_s, row_tiles)
-  if (va && vb) FVT_FWD(true, true);
-  else if (va) FVT_FWD(true, false);
-  else if (vb) FVT_FWD(false, true);
-  else FVT_FWD(false, false);
-#undef FVT_FWD
-  return (int)cudaGetLastError();
 }
 
 template <int V>
@@ -1295,6 +1233,20 @@ int launch_dw(const void* x, const void* g, void* ws, void* dw, int b, int t, in
   micro_reduce_kernel<<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<float*>(dw), n, chunks);
   return (int)cudaGetLastError();
+}
+
+// The channel-pad copies launched so far (micro_ring_pad_kernel, for x of
+// K5, K6 and K8 and for x and g of K9), counted for the tests that check
+// which inputs take one.
+long long channel_pad_launches = 0;
+
+cudaError_t channel_pad(const void* src, void* dst, int64_t rows, int c, int cp,
+                        cudaStream_t stream) {
+  const int64_t want = (rows * (cp / 8) + 255) / 256;
+  ++channel_pad_launches;
+  micro_ring_pad_kernel<<<(unsigned)std::min<int64_t>(want, 8192), 256, 0, stream>>>(
+      static_cast<const unsigned short*>(src), static_cast<unsigned short*>(dst), rows, c, cp);
+  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so that
@@ -1351,7 +1303,7 @@ bool frame_map(CUtensorMap* map, const void* ptr, int b, int t, int s, int c) {
          CUDA_SUCCESS;
 }
 
-// K5 / K6 with the plan of ops/temporal_micro.py::ring_plan (bn, slots,
+// K5 / K6 / K8 with the plan of ops/temporal_micro.py::ring_plan (bn, slots,
 // groups, taps, stage, blocks, smem_bytes), checked here against the
 // shape: x (b, t, s, c) bf16; xs a (b*t*s, cp) scratch where TMA cannot
 // read x (c % 8 != 0 or x not 16-byte aligned), else null; ws (groups *
@@ -1398,10 +1350,7 @@ int launch_ring(const void* x, const void* w, void* xs, void* ws, void* y, int b
   const void* src = x;
   const int cx = padded ? cp : c;
   if (padded) {
-    const int64_t want = (rows * (cp / 8) + 255) / 256;
-    micro_ring_pad_kernel<<<(unsigned)std::min<int64_t>(want, 8192), 256, 0, stream>>>(
-        static_cast<const unsigned short*>(x), static_cast<unsigned short*>(xs), rows, c, cp);
-    err = cudaGetLastError();
+    err = channel_pad(x, xs, rows, c, cp, stream);
     if (err != cudaSuccess) return (int)err;
     src = xs;
   }
@@ -1424,6 +1373,87 @@ int launch_ring(const void* x, const void* w, void* xs, void* ws, void* y, int b
   return (int)cudaGetLastError();
 }
 
+// Opts the instance in to the block's whole dynamic shared memory, once per
+// device (a host call, not free), then launches it.
+template <int V, int BN_>
+cudaError_t dw_ring_start(const CUtensorMap& xmap, const CUtensorMap& gmap,
+                          const DwRingArgs& args, int blocks, int smem_bytes, int device,
+                          cudaStream_t stream) {
+  static bool opted_in[kMaxDevices] = {};
+  if (!opted_in[device]) {
+    cudaError_t err = cudaFuncSetAttribute(micro_dw_ring_kernel<V, BN_>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           RING_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    opted_in[device] = true;
+  }
+  micro_dw_ring_kernel<V, BN_><<<blocks, DW_RING_THREADS, smem_bytes, stream>>>(xmap, gmap, args);
+  return cudaGetLastError();
+}
+
+// K9 with the plan of ops/temporal_micro.py::dw_ring_plan (bn, taps,
+// xslots, gslots, chunks, cols_per_chunk, smem_bytes), checked here against
+// the shape: x (b, t, s, c) and g (b, t, s, co) bf16; xs / gs a (b*t*s, c
+// or co rounded up to 8) scratch where TMA cannot read x / g (c or co % 8
+// != 0, or not 16-byte aligned), else null; ws (chunks, k, c, co) f32
+// where chunks > 1, else null; dw (k, c, co) f32. Blocks: tap groups x C
+// tiles x Co tiles x chunks.
+template <int V>
+int launch_dw_ring(const void* x, const void* g, void* xs, void* gs, void* ws, void* dw, int b,
+                   int t, int s, int c, int co, int k, int bn, int taps, int xslots, int gslots,
+                   int chunks, int cols_per_chunk, int smem_bytes, int device,
+                   cudaStream_t stream) {
+  const bool pad_x = (c % 8) != 0 || !aligned16(x);  // TMA cannot read them: copy them
+  const bool pad_g = (co % 8) != 0 || !aligned16(g);
+  const int cp = (c + 7) / 8 * 8, cop = (co + 7) / 8 * 8;
+  const int boxes = (bn + RING_CH - 1) / RING_CH;
+  const int cols_per_clip = (s + RING_COLS - 1) / RING_COLS;
+  const int64_t cols = (int64_t)b * cols_per_clip;
+  const int64_t rows = (int64_t)b * t * s;
+  if (b <= 0 || t <= 0 || s <= 0 || c <= 0 || co <= 0 || k <= 0 || (k % 2) == 0 ||
+      (bn != 64 && bn != 128 && bn != 144) || taps < 1 || taps > DW_RING_TAPS || taps > k ||
+      xslots < taps + 1 || gslots < 2 || chunks < 1 || cols_per_chunk < 1 ||
+      cols > 0x7fffffffLL || (int64_t)chunks * cols_per_chunk < cols ||
+      (int64_t)(chunks - 1) * cols_per_chunk >= cols || pad_x != (xs != nullptr) ||
+      pad_g != (gs != nullptr) || (xs != nullptr && !aligned16(xs)) ||
+      (gs != nullptr && !aligned16(gs)) || (chunks > 1) != (ws != nullptr) ||
+      (ws != nullptr && !aligned16(ws)) || !aligned16(dw) || device < 0 ||
+      device >= kMaxDevices)
+    return (int)cudaErrorInvalidValue;
+  const int64_t need = RING_ALIGN + ((int64_t)xslots * boxes + gslots) * RING_BOX +
+                       (int64_t)(xslots + gslots) * 16;
+  if (smem_bytes < need || smem_bytes > RING_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const int c_tiles = (c + bn - 1) / bn, co_tiles = (co + DW_RING_M - 1) / DW_RING_M;
+  const int64_t blocks = (int64_t)((k + taps - 1) / taps) * c_tiles * co_tiles * chunks;
+  // the rings' sequence numbers are ints: a block's frames must fit
+  if (blocks > 0x7fffffffLL || (int64_t)cols_per_chunk * (t + k) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (tensor_map_encoder() == nullptr) return (int)cudaErrorNotSupported;
+  if (pad_x && (err = channel_pad(x, xs, rows, c, cp, stream)) != cudaSuccess) return (int)err;
+  if (pad_g && (err = channel_pad(g, gs, rows, co, cop, stream)) != cudaSuccess) return (int)err;
+  CUtensorMap xmap, gmap;
+  if (!frame_map(&xmap, pad_x ? xs : x, b, t, s, pad_x ? cp : c) ||
+      !frame_map(&gmap, pad_g ? gs : g, b, t, s, pad_g ? cop : co))
+    return (int)cudaErrorInvalidValue;
+  DwRingArgs args{static_cast<float*>(chunks > 1 ? ws : dw), t, s, c, co, k, taps, c_tiles,
+                  co_tiles, boxes, xslots, gslots, cols_per_clip, (int)cols, cols_per_chunk};
+  const int nb = (int)blocks;
+  switch (bn) {
+    case 64: err = dw_ring_start<V, 64>(xmap, gmap, args, nb, smem_bytes, device, stream); break;
+    case 128: err = dw_ring_start<V, 128>(xmap, gmap, args, nb, smem_bytes, device, stream); break;
+    default: err = dw_ring_start<V, 144>(xmap, gmap, args, nb, smem_bytes, device, stream); break;
+  }
+  if (err != cudaSuccess || chunks == 1) return (int)err;
+  const int64_t n = (int64_t)k * c * co;
+  if ((n + 31) / 32 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  micro_dw_ring_reduce_kernel<<<(unsigned)((n + 31) / 32), dim3(32, DW_REDUCE_GROUPS), 0,
+                                stream>>>(static_cast<const float*>(ws), static_cast<float*>(dw),
+                                          n, chunks);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1431,10 +1461,10 @@ extern "C" {
 // Each entry point launches on `stream` of CUDA device `device` and returns
 // cudaGetLastError() after its launches (0 on success). Shapes are checked
 // here as well as in the Python wrappers (ops/temporal_micro.py), which
-// allocate every output and scratch tensor: for K5 / K6 xs and ws as
-// launch_ring says; xp (B, T + 2p, S, C) bf16 for K9's padded x; ws
-// (chunks, k, C, Co) f32 for K7's / K9's partials (unused, and may be null,
-// with one chunk).
+// allocate every output and scratch tensor: for K5, K6 and K8 xs and ws as
+// launch_ring says, for K9 xs, gs and ws as launch_dw_ring says; ws
+// (chunks, k, C, Co) f32 for K7's partials (unused, and may be null, with
+// one chunk).
 
 int fvt_micro_v2_bf16(const void* x, const void* w, void* xs, void* ws, void* y, int b, int t,
                       int s, int c, int co, int k, int bn, int slots, int groups, int taps,
@@ -1450,13 +1480,11 @@ int fvt_micro_v3_bf16(const void* x, const void* w, void* xs, void* ws, void* y,
                           blocks, smem_bytes, device, reinterpret_cast<cudaStream_t>(stream));
 }
 
-int fvt_micro_v3p_bf16(const void* x, const void* w, void* y, int b, int t, int s, int c, int co,
-                       int k, int tile_s, int device, void* stream) {
-  if (!valid_shape(b, t, s, c, co, k, tile_s)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return launch_fwd<kV3P>(x, w, y, b, t, t, s, c, co, k, tile_s,
-                          reinterpret_cast<cudaStream_t>(stream));
+int fvt_micro_v3p_bf16(const void* x, const void* w, void* xs, void* ws, void* y, int b, int t,
+                       int s, int c, int co, int k, int bn, int slots, int groups, int taps,
+                       int stage, int blocks, int smem_bytes, int device, void* stream) {
+  return launch_ring<kV3P>(x, w, xs, ws, y, b, t, s, c, co, k, bn, slots, groups, taps, stage,
+                           blocks, smem_bytes, device, reinterpret_cast<cudaStream_t>(stream));
 }
 
 int fvt_micro_dw_v3_bf16(const void* x, const void* g, void* ws, void* dw, int b, int t, int s,
@@ -1469,20 +1497,17 @@ int fvt_micro_dw_v3_bf16(const void* x, const void* g, void* ws, void* dw, int b
                           reinterpret_cast<cudaStream_t>(stream));
 }
 
-int fvt_micro_dw_v2_bf16(const void* x, const void* g, void* xp, void* ws, void* dw, int b, int t,
-                         int s, int c, int co, int k, int tile_s, int chunks, int steps_per_chunk,
-                         int device, void* stream) {
-  if (!valid_shape(b, t, s, c, co, k, tile_s) || xp == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  err = launch_pad(x, xp, b, t, s, c, k, st);
-  if (err != cudaSuccess) return (int)err;
-  return launch_dw<kDwV2>(xp, g, ws, dw, b, t, t + 2 * (k / 2), s, c, co, k, tile_s, chunks,
-                          steps_per_chunk, st);
+int fvt_micro_dw_v2_bf16(const void* x, const void* g, void* xs, void* gs, void* ws, void* dw,
+                         int b, int t, int s, int c, int co, int k, int bn, int taps, int xslots,
+                         int gslots, int chunks, int cols_per_chunk, int smem_bytes, int device,
+                         void* stream) {
+  return launch_dw_ring<kDwV2>(x, g, xs, gs, ws, dw, b, t, s, c, co, k, bn, taps, xslots, gslots,
+                               chunks, cols_per_chunk, smem_bytes, device,
+                               reinterpret_cast<cudaStream_t>(stream));
 }
 
-// The pad passes launched so far (K9's; K5 and K6 launch none).
-long long fvt_micro_pad_launches(void) { return pad_launches; }
+// The channel-pad copies launched so far (K5, K6 and K8: x where C % 8 !=
+// 0 or x is misaligned; K9: x and g likewise).
+long long fvt_micro_channel_pad_launches(void) { return channel_pad_launches; }
 
 }  // extern "C"

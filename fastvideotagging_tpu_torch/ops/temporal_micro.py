@@ -16,25 +16,31 @@ the benchmark compares designs:
   skipped). ``temporal_dx_v3`` is K6 on the time-flipped, io-transposed
   weight.
 - K8 ``temporal_v3p`` (``pallas_temporal_v3p``): packed taps, one
-  contraction over k * C per output tile; the A loader writes zeros for
-  rows outside [0, T).
+  contraction over kappa = dt * C + c, k * C deep; the packed operand's
+  zero rows are the halo frames (TMA's zero fill, as K5's).
 - K7 ``temporal_dw_v3`` (``pallas_temporal_dw_v3``): dw without a pad, each
   tap's x^T g over its clipped rows.
-- K9 ``temporal_dw_v2`` (``pallas_temporal_dw``): dw over K5's padded x.
+- K9 ``temporal_dw_v2`` (``pallas_temporal_dw``): dw over every row of the
+  padded x, the halo frames TMA's zero fill (no pad pass).
 
-K5 and K6 run on one kernel, ``micro_ring_kernel``: a work item is one
-clip, 64 columns of S, one Co tile, one group of input channels and one
-group of taps, and
-walks T with each input frame loaded once into a ring of frame slots
-(``ring_plan`` sizes it). Their tile arguments (``tile_s``, ``max_tile``)
-keep the JAX signatures and only partition the plain versions' rows: v2's
-tile_s is halved from 512 until it divides S, v3's is the largest divisor
-of S up to ``max_tile``.
+K5, K6 and K8 run on one kernel, ``micro_ring_kernel`` (K8 on K5's walk): a
+work item is one clip, 64 columns of S, one Co tile, one group of input
+channels and one group of taps, and walks T with each input frame loaded
+once into a ring of frame slots (``ring_plan`` sizes it). Their tile
+arguments (``tile_s``, ``max_tile``) keep the JAX signatures and only
+partition the plain versions' rows: v2's tile_s is halved from 512 until it
+divides S, v3's is the largest divisor of S up to ``max_tile``.
 
 The TPU dw kernels add into one output block across a grid that runs in
 order; CUDA blocks run at once, so K7 and K9 write f32 partial sums per
-chunk of (b, s-tile) steps and a second kernel adds them in chunk order (no
-atomics: two launches are bitwise equal). ``dw_plan`` sizes the chunks.
+chunk and a second kernel adds them in a fixed order (no atomics: two
+launches are bitwise equal): K7 chunk by chunk, K9 in DW_REDUCE_GROUPS
+interleaved groups. K7's chunks are runs of (b, s-tile) steps
+(``dw_plan``). K9 runs on ``micro_dw_ring_kernel``: a block owns a tap
+group, a C tile and a 64-wide Co tile of dw and keeps it in registers over
+a chunk of (clip, 64-column) items, each walked over T with each x and g
+frame loaded once into rings of frame slots (``dw_ring_plan`` sizes it;
+its ``tile_s`` argument keeps the JAX signature only).
 
 Shapes follow the JAX file: x (B, T, S, C), w (k, C, Co), g (B, T, S, Co);
 the forward returns x's dtype, dw is f32 (k, C, Co). Odd k only; any C,
@@ -70,9 +76,9 @@ from fastvideotagging_tpu_torch.ops.conv2plus1d import (
     _sm_count,
 )
 
-# Kernel launches since the last reset, by design (a K9 launch counts its
-# pad pass, a K5 / K6 launch its channel pad and group reduce where the
-# plan needs them, a K7 / K9 launch its reduce; ``v3`` counts the dx too).
+# Kernel launches since the last reset, by design (a K5, K6, K8 or K9
+# launch counts its channel pads and reduce where the plan or the inputs
+# need them, a K7 launch its reduce; ``v3`` counts the dx too).
 launch_counts = {"v2": 0, "v3": 0, "dw_v3": 0, "v3p": 0, "dw_v2": 0}
 
 
@@ -81,13 +87,11 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# K8's output tile (csrc/temporal_micro.cu: BM rows of a slab by BN output
-# channels) and the dw kernels' (DW_BM input by DW_BN output channels of one
-# tap).
-BM, BN = 128, 64
+# K7's tile (csrc/temporal_micro.cu: DW_BM input by DW_BN output channels
+# of one tap).
 DW_BM, DW_BN = 64, 64
-DW_CHUNKS_PER_SM = 2  # the dw chunk count is capped at this many a SM
-# K5's and K6's ring (csrc/temporal_micro.cu, micro_ring_kernel): an item's
+DW_CHUNKS_PER_SM = 2  # K7's chunk count is capped at this many a SM
+# K5's, K6's and K8's ring (csrc/temporal_micro.cu, micro_ring_kernel): an item's
 # S columns, the channels of one TMA box (128 bytes, the swizzle's row), the
 # Co tiles it can take, the shared memory of a block, the bytes of a box and
 # the alignment slack; frame slots past k + 1 (the fewest that cannot
@@ -99,6 +103,13 @@ RING_BOX = RING_COLS * RING_CH * 2
 RING_ALIGN = 1024
 RING_AHEAD = 4
 RING_CONSUMERS = 2  # warpgroups, one output frame each
+# K9's ring (micro_dw_ring_kernel): a consumer warpgroup per tap of a tap
+# group, a 64-wide Co tile (wgmma's M, one g box).
+DW_RING_TAPS = 3
+DW_RING_M = 64
+# K9's reduce (micro_dw_ring_reduce_kernel): group j adds chunks j, j + G,
+# ... in order, then the G group sums are added in group order.
+DW_REDUCE_GROUPS = 8
 
 
 def _pick_tile(total: int, max_tile: int) -> int:
@@ -116,17 +127,6 @@ def _halved_tile(total: int, tile_s: int = 512) -> int:
     while total % tile_s:
         tile_s //= 2
     return tile_s
-
-
-class ForwardPlan(NamedTuple):
-    tile_s: int  # (b, s) columns of a slab; a slab is (T, tile_s) rows of one clip
-    slabs: int  # B * S / tile_s
-    row_tiles: int  # BM-row tiles of a slab's T * tile_s rows
-    co_tiles: int  # BN-wide tiles of the output channels
-
-    @property
-    def grid(self) -> int:
-        return self.slabs * self.row_tiles * self.co_tiles
 
 
 class DwPlan(NamedTuple):
@@ -158,6 +158,27 @@ class RingPlan(NamedTuple):
         return self.groups * self.tap_groups
 
 
+class DwRingPlan(NamedTuple):
+    bn: int  # C tile (wgmma's N)
+    c_tiles: int
+    co_tiles: int  # DW_RING_M wide
+    taps: int  # of a tap group (the last may have fewer)
+    tap_groups: int
+    xslots: int  # x frame slots (taps + RING_AHEAD)
+    gslots: int  # g frame slots (1 + RING_AHEAD)
+    cols: int  # items: B * ceil(S / 64)
+    chunks: int  # runs of items, each an f32 partial (1: dw written directly)
+    cols_per_chunk: int
+    blocks: int  # tiles * chunks: one an SM where the tiles fit the SMs
+    smem: int  # dynamic shared memory of a block, bytes
+    partial_bytes: int  # f32 partials written and read again by the reduce (0: one chunk)
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles: (tap group, C tile, Co tile), one a block of a chunk."""
+        return self.tap_groups * self.c_tiles * self.co_tiles
+
+
 def _ring_smem(taps: int, chunks: int, bn: int, slots: int, stage: int = 0) -> int:
     """The weights (a tap group's taps of BN rows x the group's boxes), the
     frame slots and their two mbarriers, the two consumer warpgroups' y
@@ -168,7 +189,7 @@ def _ring_smem(taps: int, chunks: int, bn: int, slots: int, stage: int = 0) -> i
 
 @functools.lru_cache(maxsize=256)
 def ring_plan(x_shape, co: int, k: int, sms: int = SMS) -> RingPlan:
-    """K5's and K6's plan for x (B, T, S, C) -> Co channels. The Co tile
+    """K5's, K6's and K8's plan for x (B, T, S, C) -> Co channels. The Co tile
     covers Co, or is the narrowest of RING_BNS with the fewest tiles; where
     the k taps' weights and k + 1 frame slots do not fit a block's shared
     memory, a narrower tile with more tiles, then C split into the fewest
@@ -213,16 +234,8 @@ def ring_plan(x_shape, co: int, k: int, sms: int = SMS) -> RingPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def forward_plan(x_shape, co: int, tile_s: int) -> ForwardPlan:
-    """K8's grid for x (B, T, S, C) -> Co channels (the kernel works it out
-    from the same arguments)."""
-    b, t, s, _ = x_shape
-    return ForwardPlan(tile_s, b * (s // tile_s), -(-t * tile_s // BM), -(-co // BN))
-
-
-@functools.lru_cache(maxsize=256)
 def dw_plan(x_shape, co: int, tile_s: int, sms: int = SMS) -> DwPlan:
-    """K7's and K9's chunks: the (b, s-tile) steps cut into at most
+    """K7's chunks: the (b, s-tile) steps cut into at most
     ``DW_CHUNKS_PER_SM * sms`` runs of equal length (the last may be
     shorter), one f32 partial of (k, C, Co) each; a block per (tap, C tile,
     Co tile, chunk)."""
@@ -231,6 +244,40 @@ def dw_plan(x_shape, co: int, tile_s: int, sms: int = SMS) -> DwPlan:
     per_chunk = -(-steps // max(1, min(steps, DW_CHUNKS_PER_SM * sms)))
     return DwPlan(tile_s, steps, -(-steps // per_chunk), per_chunk, -(-c // DW_BM),
                   -(-co // DW_BN))
+
+
+def _dw_ring_smem(boxes: int, xslots: int, gslots: int) -> int:
+    """The x ring (xslots of a C tile's boxes), the g ring (gslots of one
+    box), their full and empty mbarriers, the slack to align the base."""
+    return RING_ALIGN + (xslots * boxes + gslots) * RING_BOX + (xslots + gslots) * 16
+
+
+@functools.lru_cache(maxsize=256)
+def dw_ring_plan(x_shape, co: int, k: int, sms: int = SMS) -> DwRingPlan:
+    """K9's plan for x (B, T, S, C), g (B, T, S, Co). A block owns one tile
+    of dw: a tap group (up to DW_RING_TAPS taps, a consumer warpgroup each),
+    a C tile (the fewest of RING_BNS, then the narrowest) and a 64-wide Co
+    tile; the (clip, 64-column) items are cut into as many runs ("chunks")
+    of equal length (the last may be shorter) as fill the SMs with every
+    tile once a chunk, each chunk an f32 partial of (k, C, Co) that a second
+    kernel adds in order (one chunk: dw written directly). x is read once
+    per Co tile and tap group, g once per C tile and tap group. The rings
+    hold taps + RING_AHEAD x frames and 1 + RING_AHEAD g frames."""
+    b, _, s, c = x_shape
+    bn = min(RING_BNS, key=lambda bn: (-(-c // bn), bn))
+    taps = min(k, DW_RING_TAPS)
+    tap_groups = -(-k // taps)
+    c_tiles, co_tiles = -(-c // bn), -(-co // DW_RING_M)
+    tiles = tap_groups * c_tiles * co_tiles
+    cols = b * -(-s // RING_COLS)
+    per_chunk = -(-cols // max(1, min(cols, sms // tiles)))
+    chunks = -(-cols // per_chunk)
+    xslots, gslots = taps + RING_AHEAD, 1 + RING_AHEAD
+    smem = _dw_ring_smem(-(-bn // RING_CH), xslots, gslots)
+    assert smem <= RING_SMEM_MAX
+    return DwRingPlan(bn, c_tiles, co_tiles, taps, tap_groups, xslots, gslots, cols, chunks,
+                      per_chunk, tiles * chunks, smem,
+                      chunks * k * c * co * 4 if chunks > 1 else 0)
 
 
 def _sms(x: torch.Tensor) -> int:
@@ -242,19 +289,20 @@ def _sms(x: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 # The entry points, one a kernel, by launch-count key: fvt_micro_<key>_bf16.
-# fvt_micro_v2_bf16 / fvt_micro_v3_bf16(x, w, xs, ws, y, b, t, s, c, co, k, bn, slots,
-#                                       groups, taps, stage, blocks, smem, device, stream)
-# fvt_micro_v3p_bf16(x, w, y, b, t, s, c, co, k, tile_s, device, stream)
+# fvt_micro_v2_bf16 / fvt_micro_v3_bf16 / fvt_micro_v3p_bf16(x, w, xs, ws, y, b, t, s, c, co,
+#                                    k, bn, slots, groups, taps, stage, blocks, smem, device,
+#                                    stream)
 # fvt_micro_dw_v3_bf16(x, g, ws, dw, b, t, s, c, co, k, tile_s, chunks, steps_per_chunk,
 #                      device, stream)
-# fvt_micro_dw_v2_bf16(x, g, xp, ws, dw, b, t, s, c, co, k, tile_s, chunks,
-#                      steps_per_chunk, device, stream)
+# fvt_micro_dw_v2_bf16(x, g, xs, gs, ws, dw, b, t, s, c, co, k, bn, taps, xslots, gslots,
+#                      chunks, cols_per_chunk, smem, device, stream)
+_RING_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _ARGTYPES = {
-    "v2": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
-    "v3": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
-    "v3p": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "v2": _RING_ARGTYPES,
+    "v3": _RING_ARGTYPES,
     "dw_v3": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
-    "dw_v2": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "v3p": _RING_ARGTYPES,
+    "dw_v2": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
 }
 
 _entries: dict = {}
@@ -271,10 +319,11 @@ def _entry(key: str):
     return _entries[key]
 
 
-def pad_launches() -> int:
-    """The pad passes (``micro_pad_kernel``) the library has launched: K9's;
-    K5 and K6 launch none."""
-    fn = _build.load("temporal_micro").fvt_micro_pad_launches
+def channel_pad_launches() -> int:
+    """The channel-pad copies (``micro_ring_pad_kernel``) the library has
+    launched: x of K5, K6 and K8, x and g of K9, where C (Co) % 8 != 0 or
+    the tensor is not 16-byte aligned; aligned inputs launch none."""
+    fn = _build.load("temporal_micro").fvt_micro_channel_pad_launches
     fn.argtypes, fn.restype = [], ctypes.c_longlong
     return fn()
 
@@ -301,13 +350,18 @@ def _check_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> None:
                          f"{tuple(x.shape)} and {tuple(g.shape)}")
 
 
-def _padded_scratch(x: torch.Tensor, k: int) -> torch.Tensor:
-    b, t, s, c = x.shape
-    return torch.empty((b, t + 2 * (k // 2), s, c), dtype=x.dtype, device=x.device)
+def _channel_padded(a: torch.Tensor) -> torch.Tensor | None:
+    """The scratch for a channel-padded copy of ``a`` that TMA can read
+    (channels rounded up to 8), where ``a``'s rows are not 16-byte rows at
+    a 16-byte aligned start; else None."""
+    c = a.shape[-1]
+    if c % 8 == 0 and a.data_ptr() % 16 == 0:
+        return None
+    return torch.empty((a.numel() // c, -(-c // 8) * 8), dtype=a.dtype, device=a.device)
 
 
 def _ring_launch(key: str, x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
-    """K5 / K6 with ``ring_plan``'s plan: y, and only where the plan or x
+    """K5 / K6 / K8 with ``ring_plan``'s plan: y, and only where the plan or x
     needs them, the channel-padded copy of x that TMA can read (C % 8 != 0,
     or x not 16-byte aligned) and the groups' f32 partials; all held past
     the launch."""
@@ -315,8 +369,7 @@ def _ring_launch(key: str, x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Te
     co = w.shape[-1]
     plan = ring_plan(tuple(x.shape), co, k, _sms(x))
     y = torch.empty((b, t, s, co), dtype=x.dtype, device=x.device)
-    xs = (torch.empty((b * t * s, -(-c // 8) * 8), dtype=x.dtype, device=x.device)
-          if c % 8 or x.data_ptr() % 16 else None)
+    xs = _channel_padded(x)
     ws = (torch.empty((plan.partials, b * t * s, co), dtype=torch.float32, device=x.device)
           if plan.partials > 1 else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -330,36 +383,42 @@ def _ring_launch(key: str, x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Te
     return y
 
 
-def _v3p_launch(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int) -> torch.Tensor:
-    b, t, s, c = x.shape
-    co = w.shape[-1]
-    y = torch.empty((b, t, s, co), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _entry("v3p")(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, s, c, co, k, tile_s,
-                       x.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"fvt_micro_v3p_bf16 launch failed: CUDA error {rc}")
-    launch_counts["v3p"] += 1
-    return y
-
-
-def _dw_launch(key: str, x: torch.Tensor, g: torch.Tensor, k: int,
-               tile_s: int) -> torch.Tensor:
+def _dw_launch(x: torch.Tensor, g: torch.Tensor, k: int, tile_s: int) -> torch.Tensor:
+    """K7 with ``dw_plan``'s chunks."""
     b, t, s, c = x.shape
     co = g.shape[-1]
     plan = dw_plan(tuple(x.shape), co, tile_s, _sms(x))
     dw = torch.empty((k, c, co), dtype=torch.float32, device=x.device)
     ws = (torch.empty((plan.chunks, k, c, co), dtype=torch.float32, device=x.device)
           if plan.chunks > 1 else None)
-    xp = _padded_scratch(x, k) if key == "dw_v2" else None  # K9's scratch, held past the launch
-    ptrs = [x.data_ptr(), g.data_ptr()] + ([xp.data_ptr()] if xp is not None else []) + [
-        ws.data_ptr() if ws is not None else None, dw.data_ptr()]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _entry(key)(*ptrs, b, t, s, c, co, k, tile_s, plan.chunks, plan.steps_per_chunk,
-                     x.device.index, stream)
+    rc = _entry("dw_v3")(x.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
+                         dw.data_ptr(), b, t, s, c, co, k, tile_s, plan.chunks,
+                         plan.steps_per_chunk, x.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"fvt_micro_{key}_bf16 launch failed: CUDA error {rc}")
-    launch_counts[key] += 1
+        raise RuntimeError(f"fvt_micro_dw_v3_bf16 launch failed: CUDA error {rc}")
+    launch_counts["dw_v3"] += 1
+    return dw
+
+
+def _dw_ring_launch(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """K9 with ``dw_ring_plan``'s plan: dw, and only where the plan or the
+    inputs need them, the channel-padded copies of x and g that TMA can
+    read and the chunks' f32 partials; all held past the launch."""
+    b, t, s, c = x.shape
+    co = g.shape[-1]
+    plan = dw_ring_plan(tuple(x.shape), co, k, _sms(x))
+    dw = torch.empty((k, c, co), dtype=torch.float32, device=x.device)
+    ws = (torch.empty((plan.chunks, k, c, co), dtype=torch.float32, device=x.device)
+          if plan.chunks > 1 else None)
+    xs, gs = _channel_padded(x), _channel_padded(g)
+    ptrs = [a.data_ptr() if a is not None else None for a in (x, g, xs, gs, ws, dw)]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _entry("dw_v2")(*ptrs, b, t, s, c, co, k, plan.bn, plan.taps, plan.xslots, plan.gslots,
+                         plan.chunks, plan.cols_per_chunk, plan.smem, x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"fvt_micro_dw_v2_bf16 launch failed: CUDA error {rc}")
+    launch_counts["dw_v2"] += 1
     return dw
 
 
@@ -458,8 +517,10 @@ def temporal_dx_v3(g: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448
 
 def temporal_v3p_cuda(x: torch.Tensor, w: torch.Tensor,
                       k: int, max_tile: int = 448) -> torch.Tensor:
+    """K8 on the ring, K5's walk (``max_tile`` partitions only the plain
+    version's rows)."""
     _check_forward(x, w, k)
-    return _v3p_launch(x, w, k, _pick_tile(x.shape[2], max_tile))
+    return _ring_launch("v3p", x, w, k)
 
 
 def temporal_v3p_plain(x: torch.Tensor, w: torch.Tensor,
@@ -491,18 +552,34 @@ def _by_step(a: torch.Tensor, tile_s: int) -> torch.Tensor:
     return a.reshape(b, t, s // tile_s, tile_s, c).transpose(1, 2).reshape(-1, t, tile_s, c)
 
 
-def _dw_by_chunks(x_steps: torch.Tensor, g_steps: torch.Tensor, k: int, plan: DwPlan,
-                  padded: bool) -> torch.Tensor:
-    """Per chunk of steps, each tap's x^T g over the chunk's rows (the rows
-    whose shifted input lies in [0, T), or every row of the padded x); the
-    partials added in chunk order."""
+def _add_in_groups(parts: list, groups: int) -> torch.Tensor:
+    """The partials added as K9's reduce adds them: group j sums partials
+    j, j + groups, ... in order, then the group sums in group order (one
+    group: the partials in order, as K7's reduce)."""
+    sums = [None] * groups
+    for i, part in enumerate(parts):
+        j = i % groups
+        sums[j] = part if sums[j] is None else sums[j] + part
+    dw = sums[0]
+    for part in sums[1:]:
+        if part is not None:
+            dw = dw + part
+    return dw
+
+
+def _dw_by_chunks(x_steps: torch.Tensor, g_steps: torch.Tensor, k: int, chunks: int,
+                  per_chunk: int, padded: bool, groups: int = 1) -> torch.Tensor:
+    """Per chunk of ``per_chunk`` steps, each tap's x^T g over the chunk's
+    rows (the rows whose shifted input lies in [0, T), or every row of the
+    padded x); the partials added in chunk order, or in ``groups`` as K9's
+    reduce adds them."""
     t = g_steps.shape[1]
     p = k // 2
     a = _acc_dtype(x_steps)
-    dw = None
+    parts = []
     with _f32_accumulation():
-        for chunk in range(plan.chunks):
-            steps = slice(chunk * plan.steps_per_chunk, (chunk + 1) * plan.steps_per_chunk)
+        for chunk in range(chunks):
+            steps = slice(chunk * per_chunk, (chunk + 1) * per_chunk)
             xc, gc = x_steps[steps], g_steps[steps]
             taps = []
             for dt in range(k):
@@ -518,15 +595,14 @@ def _dw_by_chunks(x_steps: torch.Tensor, g_steps: torch.Tensor, k: int, plan: Dw
                 xt = xc[:, lo_in : lo_in + rows].reshape(-1, xc.shape[-1]).to(a)
                 gt = gc[:, lo_out : lo_out + rows].reshape(-1, gc.shape[-1]).to(a)
                 taps.append(xt.T @ gt)
-            part = torch.stack(taps)
-            dw = part if dw is None else dw + part
-    return dw
+            parts.append(torch.stack(taps))
+        return _add_in_groups(parts, groups)
 
 
 def temporal_dw_v3_cuda(x: torch.Tensor, g: torch.Tensor,
                         k: int, max_tile: int = 448) -> torch.Tensor:
     _check_dw(x, g, k)
-    return _dw_launch("dw_v3", x, g, k, _pick_tile(x.shape[2], max_tile))
+    return _dw_launch(x, g, k, _pick_tile(x.shape[2], max_tile))
 
 
 def temporal_dw_v3_plain(x: torch.Tensor, g: torch.Tensor,
@@ -536,7 +612,8 @@ def temporal_dw_v3_plain(x: torch.Tensor, g: torch.Tensor,
     chunk of ``dw_plan``, the partials added in chunk order -> (k, C, Co)."""
     tile_s = _pick_tile(x.shape[2], max_tile)
     plan = dw_plan(tuple(x.shape), g.shape[-1], tile_s, _sms(x))
-    return _dw_by_chunks(_by_step(x, tile_s), _by_step(g, tile_s), k, plan, padded=False)
+    return _dw_by_chunks(_by_step(x, tile_s), _by_step(g, tile_s), k, plan.chunks,
+                         plan.steps_per_chunk, padded=False)
 
 
 def temporal_dw_v3(x: torch.Tensor, g: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
@@ -545,20 +622,27 @@ def temporal_dw_v3(x: torch.Tensor, g: torch.Tensor, k: int, max_tile: int = 448
 
 def temporal_dw_v2_cuda(x: torch.Tensor, g: torch.Tensor,
                         k: int, tile_s: int = 512) -> torch.Tensor:
+    """K9 on the dw ring (``tile_s`` keeps the JAX signature only)."""
     _check_dw(x, g, k)
-    return _dw_launch("dw_v2", x, g, k, _halved_tile(x.shape[2], tile_s))
+    return _dw_ring_launch(x, g, k)
 
 
 def temporal_dw_v2_plain(x: torch.Tensor, g: torch.Tensor,
                          k: int, tile_s: int = 512) -> torch.Tensor:
-    """K9's arithmetic: x zero-padded by k // 2 frames on T, then per chunk
-    of ``dw_plan`` each tap's x_pad[t + dt]^T g[t] over every row, in f32;
-    the partials added in chunk order -> (k, C, Co)."""
-    tile_s = _halved_tile(x.shape[2], tile_s)
-    plan = dw_plan(tuple(x.shape), g.shape[-1], tile_s, _sms(x))
+    """K9's arithmetic: x zero-padded by k // 2 frames on T; per chunk of
+    ``dw_ring_plan`` (a run of (clip, 64-column) items, S zero-padded to
+    whole items) each tap's x_pad[t + dt]^T g[t] over every row, in f32;
+    the partials added as the kernel's reduce adds them (in
+    DW_REDUCE_GROUPS interleaved groups, each in chunk order, then the
+    groups in order) -> (k, C, Co). ``tile_s`` keeps the JAX signature
+    only."""
+    plan = dw_ring_plan(tuple(x.shape), g.shape[-1], k, _sms(x))
     p = k // 2
-    xp = F.pad(x, (0, 0, 0, 0, p, p))
-    return _dw_by_chunks(_by_step(xp, tile_s), _by_step(g, tile_s), k, plan, padded=True)
+    cols = -(-x.shape[2] // RING_COLS) * RING_COLS - x.shape[2]
+    xp = F.pad(x, (0, 0, 0, cols, p, p))
+    gp = F.pad(g, (0, 0, 0, cols))
+    return _dw_by_chunks(_by_step(xp, RING_COLS), _by_step(gp, RING_COLS), k, plan.chunks,
+                         plan.cols_per_chunk, padded=True, groups=DW_REDUCE_GROUPS)
 
 
 def temporal_dw_v2(x: torch.Tensor, g: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:

@@ -568,13 +568,17 @@ def test_fused_engine_on_the_card_matches_the_model(cuda):
 
 # K5-K9: x (B, T, S, C), Co, k. Ragged C and Co, k = 5, T = 1 and 2 (taps
 # with no rows), S prime (v2's halving ends at a 1-column tile), a stage-1
-# width at 2 clips. For K5's and K6's frame ring: S = 100 (a partial
+# width at 2 clips. For the frame ring (K5, K6, K8): S = 100 (a partial
 # 64-column tile), T = 16 at C = 256 (more frames than ring slots, two
 # 64-wide Co tiles), C = 144 (not a multiple of 64), Co = 200 (two Co
 # tiles), Co = 288 (two 144-wide Co tiles, stored from registers), C = 512
 # (two channel groups added by the reduce), k = 15 (two tap groups; at T =
 # 1 K6's second group reaches no frame), and each micro-benchmark shape's
-# widths at clip batch 2.
+# widths at clip batch 2. The same shapes give K9's dw ring partial items,
+# one 144-wide C tile (C = 144), two and four 128-wide ones (C = 256, 512),
+# four and five 64-wide Co tiles (Co = 200, 288), channel-pad copies (C =
+# 45, 63; Co = 19, 45) and tap groups of 3 and 2 (k = 5) or five of 3 (k =
+# 15).
 MICRO = [
     ((2, 5, 13, 45), 19, 3), ((1, 7, 9, 40), 24, 5), ((3, 2, 24, 32), 8, 3),
     ((2, 1, 24, 40), 24, 3), ((1, 4, 33, 63), 45, 5), ((2, 16, 196, 144), 64, 3),
@@ -647,13 +651,18 @@ def test_micro_dw_kernels_match_plain_and_repeat_bitwise(cuda, x_shape, co, k, d
 
 
 def test_micro_dw_kernels_split_into_chunks(cuda):
-    """More (b, s-tile) steps than twice the SMs: several steps a chunk,
-    the last chunk shorter; one step: a single chunk written directly."""
+    """More chunks than one: K7's (b, s-tile) steps beyond twice the SMs,
+    several steps a chunk, and K9's (clip, 64-column) items beyond the SMs,
+    several items a chunk; one step (one item): a single chunk written
+    directly."""
+    sms = ops._sm_count(cuda)
     for x_shape, co, tile in (((300, 2, 8, 16), 16, 1), ((1, 3, 32, 24), 8, 32)):
         x, _, gy = _micro_inputs(cuda, x_shape, co, 3)
         # both tile rules give `tile` here
-        plan = micro.dw_plan(x_shape, co, tile, ops._sm_count(cuda))
-        assert (plan.chunks > 1) == (x_shape[0] == 300)
+        plan = micro.dw_plan(x_shape, co, tile, sms)
+        ring = micro.dw_ring_plan(x_shape, co, 3, sms)
+        assert (plan.chunks > 1) == (ring.chunks > 1) == (x_shape[0] == 300)
+        assert (ring.cols_per_chunk > 1) == (x_shape[0] == 300)
         for run, plain in MICRO_DW.values():
             got = run(x, gy, 3, tile)
             ref = plain(x, gy, 3, tile)
@@ -662,28 +671,56 @@ def test_micro_dw_kernels_split_into_chunks(cuda):
 
 
 def test_micro_k5_and_k6_launch_no_pad_pass(cuda):
-    """K5 (v2) reads its halo frames as the TMA box's zero fill: no
-    ``micro_pad_kernel`` launch, while K9 (dw v2) still launches one; K5
-    and K6 agree with their plain versions there at T = 1, 2, 16."""
+    """K5 (v2) reads its halo frames as the TMA box's zero fill: no pad
+    copy is launched for aligned inputs (nor by K6, K8 and K9, which has no
+    pad pass of its own any more); K5 and K6 agree with their plain
+    versions there at T = 1, 2, 16."""
     for x_shape, co in (((2, 1, 64, 64), 64), ((2, 2, 100, 128), 128), ((1, 16, 64, 256), 128)):
         x, w, gy = _micro_inputs(cuda, x_shape, co, 3)
-        before = micro.pad_launches()
+        before = micro.channel_pad_launches()
         for run, plain in (MICRO_FWD["v2"], MICRO_FWD["v3"]):
             _close(run(x, w, 3), plain(x, w, 3))
-        torch.cuda.synchronize()
-        assert micro.pad_launches() == before
+        micro.temporal_v3p_cuda(x, w, 3)
         micro.temporal_dw_v2_cuda(x, gy, 3)
         torch.cuda.synchronize()
-        assert micro.pad_launches() == before + 1
+        assert micro.channel_pad_launches() == before
+
+
+def test_micro_k9_launches_no_pad_pass(cuda):
+    """K9 (dw v2) reads its halo frames as the TMA box's zero fill: for
+    aligned x and g it launches the ring (and the reduce where it has
+    several chunks) and no pad copy, at T = 1, 2, 16 and k = 3, 5; a copy
+    only where TMA cannot read a tensor's rows (C or Co % 8 != 0), one a
+    tensor. Against the plain version each time."""
+    for x_shape, co, k in (((2, 1, 64, 64), 64, 3), ((2, 2, 100, 128), 128, 5),
+                           ((1, 16, 64, 256), 128, 3), ((2, 4, 70, 40), 24, 3)):
+        x, _, gy = _micro_inputs(cuda, x_shape, co, k)
+        before = micro.channel_pad_launches()
+        got = micro.temporal_dw_v2_cuda(x, gy, k)
+        torch.cuda.synchronize()
+        assert micro.channel_pad_launches() == before
+        ref = micro.temporal_dw_v2_plain(x, gy, k)
+        assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+    for x_shape, co, copies in (((2, 4, 70, 45), 24, 1), ((2, 4, 70, 40), 19, 1),
+                                ((2, 4, 70, 45), 19, 2)):
+        x, _, gy = _micro_inputs(cuda, x_shape, co, 3)
+        before = micro.channel_pad_launches()
+        got = micro.temporal_dw_v2_cuda(x, gy, 3)
+        torch.cuda.synchronize()
+        assert micro.channel_pad_launches() == before + copies
+        ref = micro.temporal_dw_v2_plain(x, gy, 3)
+        assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
 
 
 def test_micro_ring_plans_fit_the_card(cuda):
-    """The ring's plan at the micro-benchmark's shapes (forward and dx) and
-    the GPU tests' shapes: one block an SM, shared memory within the card's
-    opt-in limit, k + 1 frame slots at least, x in one channel group where
-    C <= 256; at k = 15 two tap groups of 8 and 7 taps with 9 slots at
-    least, and a 144-wide Co tile that does not cover Co stores from
-    registers."""
+    """The ring's plan (K5, K6 and its dx, and K8, which runs on K5's walk
+    with the same plan and the same entry-point arguments) at the
+    micro-benchmark's shapes (forward and dx) and the GPU tests' shapes:
+    one block an SM, shared memory within the card's opt-in limit, k + 1
+    frame slots at least, x in one channel group where C <= 256; at k = 15
+    two tap groups of 8 and 7 taps with 9 slots at least, and a 144-wide Co
+    tile that does not cover Co stores from registers."""
+    assert micro._ARGTYPES["v3p"] == micro._ARGTYPES["v2"] == micro._ARGTYPES["v3"]
     limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
     sms = ops._sm_count(cuda)
     shapes = [(x_shape, co) for x_shape, co, _ in MICRO] + [
@@ -700,6 +737,26 @@ def test_micro_ring_plans_fit_the_card(cuda):
             assert (plan.taps, plan.tap_groups) == (8, 2) and plan.slots >= 9
             assert plan.smem <= min(limit, micro.RING_SMEM_MAX)
     assert micro.ring_plan((2, 4, 100, 64), 288, 3, sms)[:6] == (144, 2, 1, 1, 8, 0)
+
+
+def test_micro_dw_ring_plans_fit_the_card(cuda):
+    """K9's plan at every MICRO shape and the micro-benchmark's: shared
+    memory within the card's opt-in limit, taps + 1 x slots and 2 g slots
+    at least, at most one block an SM where the tiles fit the SMs (else one
+    chunk), every tile once a chunk, and the chunks covering the items."""
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    sms = ops._sm_count(cuda)
+    shapes = MICRO + [((32, 16, 3136, 128), 128, 3), ((32, 16, 3136, 144), 64, 3),
+                      ((32, 8, 784, 256), 128, 3)]
+    for x_shape, co, k in shapes:
+        plan = micro.dw_ring_plan(x_shape, co, k, sms)
+        assert plan.smem <= min(limit, micro.RING_SMEM_MAX)
+        assert plan.xslots >= plan.taps + 1 and plan.gslots >= 2
+        assert plan.blocks == plan.tiles * plan.chunks
+        assert plan.blocks <= sms or plan.chunks == 1
+        assert plan.chunks * plan.cols_per_chunk >= plan.cols > (
+            plan.chunks - 1) * plan.cols_per_chunk
+        assert plan.tap_groups * plan.taps >= k > (plan.tap_groups - 1) * plan.taps
 
 
 def test_micro_kernels_take_a_misaligned_view(cuda):

@@ -12,13 +12,15 @@ instead: the JAX ``pallas_temporal_v3`` cannot run there (its +1 tap slices
 past a one-frame block), while the port computes the conv (a deliberate
 difference). The kernels' walks, written out here in plain tensors with
 the CUDA source's index arithmetic, are held to the plain versions and the
-JAX kernels: K5's and K6's frame ring (items of 64 columns x a Co tile x a
-channel group, frames in walk order, K5's zero halo frames, K6's
-centre-first and skipped taps, 16-channel k steps over 64-channel boxes,
-columns clipped at S, the groups' partials added in order), K8's slabs and
-slices across taps, the dw chunks added in order. Then the plans and tile
-rules, the ctypes bindings, the routing of CPU tensors and the entry point
-on the CPU.
+JAX kernels: K5's, K6's and K8's frame ring (items of 64 columns x a Co
+tile x a channel group, frames in walk order, K5's and K8's zero halo
+frames, K6's centre-first and skipped taps, 16-channel k steps over
+64-channel boxes, columns clipped at S, the groups' partials added in
+order), K9's dw ring (tiles of a tap group x a C tile x a 64-wide Co tile,
+chunks of 64-column items walked over T, 16-row k steps, the chunks'
+partials added in order) and K7's dw chunks added in order. Then the plans
+and tile rules, the ctypes bindings, the routing of CPU tensors and the
+entry point on the CPU.
 """
 
 import ctypes
@@ -127,60 +129,20 @@ def test_library_yardsticks_match_the_jax_references():
 # ---------------------------------------------------------------------------
 
 
-def _fwd_walk(x, w, k, tile_s):
-    """micro_fwd_kernel's arithmetic for K8 (v3p) in its order: per block
-    (slab, 128-row tile, 64-wide Co tile) 32-deep slices of kappa = tap * C
-    + c, across taps, A gathered as a_offset does (zeros for rows whose
-    frame lies outside [0, T)), an f32 accumulator per block."""
-    b, t, s, c = x.shape
-    co = w.shape[-1]
-    p = k // 2
-    bm, bn, bk = micro.BM, micro.BN, 32
-    xf = F.pad(x.reshape(-1, c), (0, 0, 0, 1))  # one zero row: the loader's zeros
-    zero_row = xf.shape[0] - 1
-    wf = F.pad(w.reshape(k * c, co), (0, 0, 0, bk))
-    y = torch.zeros((b, t, s, co))
-    plan = micro.forward_plan((b, t, s, c), co, tile_s)
-    slices = [(i * bk, k * c) for i in range(-(-k * c // bk))]
-    for slab in range(plan.slabs):
-        bb, s0 = divmod(slab, s // tile_s)
-        s0 *= tile_s
-        for rt in range(plan.row_tiles):
-            r = torch.arange(rt * bm, min((rt + 1) * bm, t * tile_s))
-            tt, ss = r // tile_s, s0 + r % tile_s
-            for n0 in range(0, co, bn):
-                acc = torch.zeros((len(r), bn))
-                for kbase, klimit in slices:
-                    kappa = torch.arange(kbase, kbase + bk)
-                    tap, ch = kappa // c, kappa % c
-                    frame = tt[:, None] + tap[None] - p
-                    ok = (kappa < klimit)[None] & (frame >= 0) & (frame < t)
-                    rows = torch.where(ok, (bb * t + frame) * s + ss[:, None], zero_row)
-                    a = xf[rows, torch.where(ok, ch[None], 0)]
-                    wb = wf[kbase : kbase + bk, n0 : n0 + bn] * (kappa < klimit)[:, None]
-                    acc[:, : wb.shape[1]] += a @ wb
-                y[bb, tt, ss, n0 : n0 + bn] = acc[:, : min(bn, co - n0)]
-    return y
-
-
-def _dw_walk(x, g, k, plan, padded):
-    """micro_dw_kernel's arithmetic in its order: per block (tap, 64 x 64
-    tile, chunk) the chunk's (b, s-tile) slabs in 32-row slices of the rows
-    [lo, hi) whose g row meets an x row of the tap (every row over the
-    padded x), one f32 partial per chunk; the partials added in chunk
-    order (micro_reduce_kernel)."""
+def _dw_walk(x, g, k, plan):
+    """micro_dw_kernel's arithmetic for K7 in its order: per block (tap, 64
+    x 64 tile, chunk) the chunk's (b, s-tile) slabs in 32-row slices of the
+    rows [lo, hi) whose g row meets an x row of the tap, one f32 partial per
+    chunk; the partials added in chunk order (micro_reduce_kernel)."""
     b, t, s, c = x.shape
     co = g.shape[-1]
     p = k // 2
     tile_s, dk = plan.tile_s, 32
-    src = F.pad(x, (0, 0, 0, 0, p, p)) if padded else x
-    tx = src.shape[1]
-    xf, gf = src.reshape(-1, c), g.reshape(-1, co)
+    xf, gf = x.reshape(-1, c), g.reshape(-1, co)
     parts = torch.zeros((plan.chunks, k, c, co))
     for tap in range(k):
         off = tap - p
-        lo, hi = (0, t * tile_s) if padded else (max(0, -off) * tile_s,
-                                                  (t - max(0, off)) * tile_s)
+        lo, hi = max(0, -off) * tile_s, (t - max(0, off)) * tile_s
         for chunk in range(plan.chunks):
             first = chunk * plan.steps_per_chunk
             for step in range(first, min(first + plan.steps_per_chunk, plan.steps)):
@@ -189,8 +151,7 @@ def _dw_walk(x, g, k, plan, padded):
                 for r0 in range(lo, hi, dk):
                     r = torch.arange(r0, min(r0 + dk, hi))
                     tt, ss = r // tile_s, s0 + r % tile_s
-                    frame = tt + tap if padded else tt + off
-                    xs, gs = xf[(bb * tx + frame) * s + ss], gf[(bb * t + tt) * s + ss]
+                    xs, gs = xf[(bb * t + tt + off) * s + ss], gf[(bb * t + tt) * s + ss]
                     parts[chunk, tap] += xs.T @ gs
     dw = parts[0].clone()
     for chunk in range(1, plan.chunks):
@@ -198,16 +159,89 @@ def _dw_walk(x, g, k, plan, padded):
     return dw
 
 
+def _dw_ring_walk(x, g, k, plan):
+    """micro_dw_ring_kernel's arithmetic (K9) in its order: block i is tile
+    i % W of chunk i // W, W = tap_groups * c_tiles * co_tiles, the tile
+    (tap group, C tile, 64-wide Co tile) in the kernel's index order. The
+    block walks its chunk's items (64-column tiles of all clips, runs of
+    cols_per_chunk) over T: each x frame of the padded walk [d0 - p, T + d1
+    - 1 - p) loaded once as a (64 columns, boxes * 64 channels) box, zero
+    past S and C and for the halo frames (TMA's fill), each g frame as a (64
+    columns, 64 channels) box, zero past S and Co; for output frame t the
+    tap dt's f32 tile (64 x BN) adds g[t]^T x[t + dt - p] in four 16-row k
+    steps, the halo's zeros included. The tiles, inside C and Co, go into
+    the chunk's partial (k, C, Co); the partials are added as
+    micro_dw_ring_reduce_kernel adds them (DW_REDUCE_GROUPS interleaved
+    groups of chunks, each in order, then the groups in order)."""
+    b, t, s, c = x.shape
+    co = g.shape[-1]
+    p = k // 2
+    m, cols_per_clip = micro.DW_RING_M, -(-s // micro.RING_COLS)
+    box_c = -(-plan.bn // micro.RING_CH) * micro.RING_CH
+    n_tiles = plan.tap_groups * plan.c_tiles * plan.co_tiles
+    assert plan.cols == b * cols_per_clip and plan.blocks == n_tiles * plan.chunks
+
+    def box(a, bb, f, s0, c0, width):
+        out = torch.zeros((micro.RING_COLS, width))
+        if 0 <= f < t:
+            blk = a[bb, f, s0 : s0 + micro.RING_COLS, c0 : c0 + width]
+            out[: blk.shape[0], : blk.shape[1]] = blk
+        return out
+
+    parts = torch.zeros((plan.chunks, k, c, co))
+    for blk in range(plan.blocks):
+        tile, chunk = blk % n_tiles, blk // n_tiles
+        n0 = (tile % plan.co_tiles) * m
+        c0 = (tile // plan.co_tiles % plan.c_tiles) * plan.bn
+        d0 = tile // (plan.co_tiles * plan.c_tiles) * plan.taps
+        d1 = min(k, d0 + plan.taps)
+        acc = torch.zeros((d1 - d0, m, plan.bn))
+        col0 = chunk * plan.cols_per_chunk
+        for col in range(col0, min(plan.cols, col0 + plan.cols_per_chunk)):
+            bb, j = divmod(col, cols_per_clip)
+            s0 = j * micro.RING_COLS
+            ring = {f: box(x, bb, f, s0, c0, box_c)[:, : plan.bn]
+                    for f in range(d0 - p, t + d1 - 1 - p)}
+            for tt in range(t):
+                gb = box(g, bb, tt, s0, n0, m)
+                for dt in range(d0, d1):
+                    for ks in range(micro.RING_COLS // 16):
+                        rows = slice(16 * ks, 16 * ks + 16)
+                        acc[dt - d0] += gb[rows].T @ ring[tt + dt - p][rows]
+        cw, ow = min(plan.bn, c - c0), min(m, co - n0)
+        parts[chunk, d0:d1, c0 : c0 + cw, n0 : n0 + ow] = acc[:, :ow, :cw].transpose(1, 2)
+    sums = torch.zeros((micro.DW_REDUCE_GROUPS, k, c, co))
+    for chunk in range(plan.chunks):
+        sums[chunk % micro.DW_REDUCE_GROUPS] += parts[chunk]
+    dw = sums[0].clone()
+    for j in range(1, micro.DW_REDUCE_GROUPS):
+        dw += sums[j]
+    return dw
+
+
+def _forced_dw_plan(x_shape, co, k, **kw):
+    """dw_ring_plan with some fields forced (a narrower C tile, more chunks),
+    its counts kept consistent."""
+    plan = micro.dw_ring_plan(tuple(x_shape), co, k)._replace(**kw)
+    c_tiles = -(-x_shape[-1] // plan.bn)
+    tap_groups = -(-k // plan.taps)
+    chunks = -(-plan.cols // plan.cols_per_chunk)
+    return plan._replace(c_tiles=c_tiles, tap_groups=tap_groups, chunks=chunks,
+                         blocks=tap_groups * c_tiles * plan.co_tiles * chunks,
+                         partial_bytes=chunks * k * x_shape[-1] * co * 4 if chunks > 1 else 0)
+
+
 def _ring_walk(x, w, k, variant, plan):
     """micro_ring_kernel's arithmetic in its order (K5: variant "v2", K6:
-    "v3"): item q of the plan is (64-column tile q // W, weights q % W), W
+    "v3", K8: "v3p", K5's walk): item q of the plan is (64-column tile q // W, weights q % W), W
     = co_tiles * groups * tap_groups, the weights index g = q % W //
     co_tiles (channel group g // tap_groups, tap group g % tap_groups) and
     the Co tile. An item of taps [d0, d1) loads each frame of its walk once
     as a (64 columns, chunks * 64 channels) box, zero past S and C (K5's
-    walk [d0 - p, T + d1 - 1 - p): its halo frames are all zeros, as the
-    TMA box's fill; K6's the same clipped to [0, T)); output frame t then
-    takes the group's taps in the kernel's order (K5 in order; K6 the
+    and K8's walk [d0 - p, T + d1 - 1 - p): its halo frames are all zeros,
+    as the TMA box's fill; K6's the same clipped to [0, T)); output frame t
+    then takes the group's taps in the kernel's order (K5 and K8 in order,
+    the k steps in kappa = dt * C + c order; K6 the
     centre first, then the others, a tap whose frame lies outside [0, T)
     skipped; no tap at all gives zeros), each in 16-channel k steps over the
     group's channels, into one f32 accumulator; the rows and columns inside
@@ -282,61 +316,61 @@ def _forced_plan(x_shape, co, k, **kw):
 @pytest.mark.parametrize("variant", ["v2", "v3", "v3p"])
 def test_forward_walk_matches_plain(variant, t, k):
     """The forward kernels' walks at ragged widths against the plain
-    versions: K5's and K6's frame ring (S = 24: one partial 64-column tile a
-    clip), K8's slabs of 8-column tiles (a row tile holds several frames'
-    rows) with slices that straddle taps (C = 40 is not a multiple of
-    32)."""
+    versions: K5's, K6's and K8's frame ring (S = 24: one partial 64-column
+    tile a clip; C = 40: K8's packed k steps of 16 would straddle taps, and
+    each tap's steps stop at C instead, over zeros past it)."""
     x, w, _ = _inputs(t, seed=2, k=k)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     plain = {"v2": micro.temporal_v2_plain, "v3": micro.temporal_v3_plain,
              "v3p": micro.temporal_v3p_plain}[variant]
-    if variant == "v3p":
-        got = _fwd_walk(xt, wt, k, 8)
-    else:
-        got = _ring_walk(xt, wt, k, variant, micro.ring_plan(tuple(x.shape), CO, k))
+    got = _ring_walk(xt, wt, k, variant, micro.ring_plan(tuple(x.shape), CO, k))
     _close(got, plain(xt, wt, k, 8), FWD_TOL)
 
 
 def test_forward_walk_with_row_tiles_across_frames():
-    """S = 384: K8's one 384-column tile takes nine 128-row tiles of a
-    slab's 3 * 384 rows, the outer taps' clipped ranges starting and ending
-    inside tiles; K5's and K6's ring walks six 64-column tiles a clip with
-    Co = 72 in one 128-wide tile and in two 64-wide ones."""
+    """S = 384: K5's, K6's and K8's ring walks six 64-column tiles a clip
+    (the outer taps' frames of a tile inside and past [0, T)) with Co = 72
+    in one 128-wide tile and in two 64-wide ones."""
     x, w, _ = _inputs(3, seed=3, s=384, c=16, co=72)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     ref = micro.temporal_v3_plain(xt, wt, K)
-    assert micro.forward_plan(tuple(x.shape), 72, 384).row_tiles == 9
-    _close(_fwd_walk(xt, wt, K, 384), ref, FWD_TOL)
+    _close(micro.temporal_v3p_plain(xt, wt, K, 384), ref, FWD_TOL)
     plan = micro.ring_plan(tuple(x.shape), 72, K)
     assert (plan.bn, plan.co_tiles, plan.cols) == (128, 1, 12)
-    for variant in ("v2", "v3"):
+    for variant in ("v2", "v3", "v3p"):
         _close(_ring_walk(xt, wt, K, variant, plan), ref, FWD_TOL)
         _close(_ring_walk(xt, wt, K, variant, _forced_plan(x.shape, 72, K, bn=64)), ref,
                FWD_TOL)
 
 
+# the forward designs on the ring: plain version, JAX kernel, its tile argument
+RING_DESIGNS = {
+    "v2": (micro.temporal_v2_plain, jkm.pallas_temporal_v2, "tile_s"),
+    "v3": (micro.temporal_v3_plain, jkm.pallas_temporal_v3, "max_tile"),
+    "v3p": (micro.temporal_v3p_plain, jkm.pallas_temporal_v3p, "max_tile"),
+}
+
+
 @pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("t", [1, 2, 4])
-@pytest.mark.parametrize("variant", ["v2", "v3"])
+@pytest.mark.parametrize("variant", ["v2", "v3", "v3p"])
 def test_ring_walk_matches_plain_and_jax(variant, t, k):
-    """K5's and K6's ring at S = 100 (a partial 64-column tile), C = 40,
-    Co = 72 over two 64-wide Co tiles: against the plain version and the JAX
-    Pallas kernel (interpret mode, one 100-column tile a clip; K6 at T <=
-    k // 2 against the library conv: the JAX kernel's outer taps slice past
-    its block there, as test_v3_at_one_frame says)."""
+    """K5's, K6's and K8's ring at S = 100 (a partial 64-column tile), C =
+    40, Co = 72 over two 64-wide Co tiles: against the plain version and the
+    JAX Pallas kernel (interpret mode, one 100-column tile a clip; K6 at T
+    <= k // 2 against the library conv: the JAX kernel's outer taps slice
+    past its block there, as test_v3_at_one_frame says)."""
     x, w, _ = _inputs(t, seed=6, s=100, co=72, k=k)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     plan = _forced_plan(x.shape, 72, k, bn=64)
     assert (plan.co_tiles, plan.groups, plan.cols) == (2, 1, 4)
     got = _ring_walk(xt, wt, k, variant, plan)
-    plain = micro.temporal_v2_plain if variant == "v2" else micro.temporal_v3_plain
+    plain, jax_fn, tile_arg = RING_DESIGNS[variant]
     _close(got, plain(xt, wt, k), FWD_TOL)
     if variant == "v3" and t <= k // 2:
         _close(got, tkm.library_temporal(xt, wt), FWD_TOL)
     else:
-        jax_fn = jkm.pallas_temporal_v2 if variant == "v2" else jkm.pallas_temporal_v3
-        tile = {"tile_s": 100} if variant == "v2" else {"max_tile": 100}
-        _close(got, jax_fn(jnp.asarray(x), jnp.asarray(w), k, **tile), FWD_TOL)
+        _close(got, jax_fn(jnp.asarray(x), jnp.asarray(w), k, **{tile_arg: 100}), FWD_TOL)
 
 
 @pytest.mark.parametrize("variant", ["v2", "v3"])
@@ -357,7 +391,7 @@ def test_ring_walk_adds_channel_groups_in_order(variant):
 
 
 @pytest.mark.parametrize("t", [1, 2, 4])
-@pytest.mark.parametrize("variant", ["v2", "v3"])
+@pytest.mark.parametrize("variant", ["v2", "v3", "v3p"])
 def test_ring_walk_adds_tap_groups_in_order(variant, t):
     """k = 15: the taps' weights and 16 frame slots of one 64-channel box
     overflow a block, so ring_plan splits the taps into two groups (8 and
@@ -372,13 +406,12 @@ def test_ring_walk_adds_tap_groups_in_order(variant, t):
     plan = micro.ring_plan(tuple(x.shape), CO, k)
     assert (plan.taps, plan.tap_groups, plan.groups, plan.partials) == (8, 2, 1, 2)
     got = _ring_walk(xt, wt, k, variant, plan)
-    plain = micro.temporal_v2_plain if variant == "v2" else micro.temporal_v3_plain
+    plain, jax_fn, tile_arg = RING_DESIGNS[variant]
     _close(got, plain(xt, wt, k), FWD_TOL)
     if variant == "v3":
         _close(got, tkm.library_temporal(xt, wt), FWD_TOL)
     else:
-        _close(got, jkm.pallas_temporal_v2(jnp.asarray(x), jnp.asarray(w), k, tile_s=70),
-               FWD_TOL)
+        _close(got, jax_fn(jnp.asarray(x), jnp.asarray(w), k, **{tile_arg: 70}), FWD_TOL)
     x5, w5, _ = _inputs(t, seed=10, s=70, k=5)
     x5, w5 = torch.from_numpy(x5), torch.from_numpy(w5)
     three = _forced_plan(tuple(x5.shape), CO, 5, taps=2)
@@ -389,18 +422,59 @@ def test_ring_walk_adds_tap_groups_in_order(variant, t):
 @pytest.mark.parametrize("t", [1, 2, 4])
 @pytest.mark.parametrize("design", ["dw_v3", "dw_v2"])
 def test_dw_walk_in_chunk_order_matches_plain_and_jax(design, t):
-    """K7's and K9's walk, with a plan of two steps a chunk (a card of two
-    SMs: four chunks at most, three here), against the plain version (the
-    same chunks) and the JAX kernel."""
+    """K7's walk, with a plan of two steps a chunk (a card of two SMs: four
+    chunks at most, three here), and K9's dw ring (a card of one SM: both
+    items in one chunk), against the plain version and the JAX kernel."""
     x, _, g = _inputs(t, seed=4)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
-    plan = micro.dw_plan(tuple(x.shape), CO, 8, sms=2)
-    assert (plan.steps, plan.chunks, plan.steps_per_chunk) == (6, 3, 2)
-    got = _dw_walk(xt, gt, K, plan, padded=design == "dw_v2")
+    if design == "dw_v3":
+        plan = micro.dw_plan(tuple(x.shape), CO, 8, sms=2)
+        assert (plan.steps, plan.chunks, plan.steps_per_chunk) == (6, 3, 2)
+        got = _dw_walk(xt, gt, K, plan)
+    else:
+        plan = micro.dw_ring_plan(tuple(x.shape), CO, K, sms=1)
+        assert (plan.cols, plan.chunks, plan.cols_per_chunk, plan.blocks) == (2, 1, 2, 1)
+        got = _dw_ring_walk(xt, gt, K, plan)
     ref = DESIGNS[design][1](jnp.asarray(x), jnp.asarray(g), K, **{DESIGNS[design][2]: 8})
     _close(got, ref, DW_TOL)
-    # the plain version's chunks are the card's (132 SMs off the card): one step each
+    # the plain version's chunks are the card's (132 SMs off the card): one
+    # step (K7) or one item (K9) each
     _close(DESIGNS[design][0](xt, gt, K, 8), got, DW_TOL)
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("t", [1, 2, 4])
+def test_dw_ring_walk_matches_plain_and_jax(t, k):
+    """K9's dw ring at S = 100 (a partial 64-column item a clip), C = 136
+    over three 64-wide C tiles (the last 8 channels wide) and Co = 72 over
+    two 64-wide Co tiles, k = 5 in two tap groups (3 and 2 taps), the four
+    items in chunks of 3 and 1: against the plain version (its own chunks)
+    and the JAX Pallas kernel (interpret mode); at T = 1 every outer tap
+    reads only halo frames."""
+    x, _, g = _inputs(t, seed=11, s=100, c=136, co=72, k=k)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    plan = _forced_dw_plan(x.shape, 72, k, bn=64, cols_per_chunk=3)
+    assert (plan.c_tiles, plan.co_tiles, plan.tap_groups, plan.cols, plan.chunks) == (
+        3, 2, k // 3 + 1 if k > 3 else 1, 4, 2)
+    got = _dw_ring_walk(xt, gt, k, plan)
+    _close(got, micro.temporal_dw_v2_plain(xt, gt, k), DW_TOL)
+    _close(got, jkm.pallas_temporal_dw(jnp.asarray(x), jnp.asarray(g), k, tile_s=100), DW_TOL)
+
+
+@pytest.mark.parametrize("t", [1, 2, 4])
+def test_dw_ring_walk_takes_tap_groups(t):
+    """k = 15: five tap groups of three taps, a block each (one warpgroup a
+    tap), every group walking only the frames its taps read (halo
+    included), at S = 70 (a 6-column second item): against the plain
+    version and the JAX kernel."""
+    k = 15
+    x, _, g = _inputs(t, seed=12, s=70, k=k)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    plan = micro.dw_ring_plan(tuple(x.shape), CO, k)
+    assert (plan.taps, plan.tap_groups, plan.tiles, plan.cols) == (3, 5, 5, 4)
+    got = _dw_ring_walk(xt, gt, k, plan)
+    _close(got, micro.temporal_dw_v2_plain(xt, gt, k), DW_TOL)
+    _close(got, jkm.pallas_temporal_dw(jnp.asarray(x), jnp.asarray(g), k, tile_s=70), DW_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -501,9 +575,62 @@ def test_dw_plan_caps_the_chunks_and_covers_the_steps():
         assert plan.chunks <= micro.DW_CHUNKS_PER_SM * micro.SMS
         spc = plan.steps_per_chunk
         assert plan.chunks * spc >= plan.steps > (plan.chunks - 1) * spc  # no empty chunk
-    # tpu1: K7 one 448-column step a chunk (224), K9 six 64-column steps (262 chunks)
+    # tpu1: K7 one 448-column step a chunk (224)
     assert micro.dw_plan((32, 16, 3136, 128), 128, 448)[1:4] == (224, 224, 1)
-    assert micro.dw_plan((32, 16, 3136, 128), 128, 64)[1:4] == (1568, 262, 6)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5, 15])
+def test_dw_ring_plan_covers_every_row_once_and_fits(k):
+    """dw_ring_plan at the micro-benchmark's shapes and at ragged ones:
+    shared memory within a block's 232,448 bytes (the x ring of taps + 4
+    slots of the C tile's boxes, the g ring of 5 one-box slots, their
+    barriers), every (clip, 64-column item, frame, tap, C tile, Co tile)
+    walked by exactly one block (each item walks all T frames of its tap
+    group), the C tiles covering C, the Co tiles Co, the tap groups k, one
+    block an SM at most where the tiles fit the SMs, and the partial bytes
+    it states: chunks x k x C x Co f32, none with one chunk."""
+    shapes = [((32, 16, 3136, 128), 128), ((32, 16, 3136, 144), 64), ((32, 8, 784, 256), 128),
+              ((2, 4, 100, 40), 72), ((3, 1, 13, 45), 19), ((1, 2, 64, 1152), 512),
+              ((300, 2, 8, 16), 16), ((2, 4, 100, 136), 288)]
+    for x_shape, co in shapes:
+        b, t, s, c = x_shape
+        plan = micro.dw_ring_plan(x_shape, co, k)
+        boxes = -(-plan.bn // micro.RING_CH)
+        assert plan.smem == micro._dw_ring_smem(boxes, plan.xslots, plan.gslots)
+        assert plan.smem <= micro.RING_SMEM_MAX
+        assert (plan.xslots, plan.gslots) == (plan.taps + micro.RING_AHEAD,
+                                              1 + micro.RING_AHEAD)
+        assert plan.bn in micro.RING_BNS
+        assert plan.c_tiles * plan.bn >= c > (plan.c_tiles - 1) * plan.bn
+        assert plan.co_tiles * micro.DW_RING_M >= co > (plan.co_tiles - 1) * micro.DW_RING_M
+        assert plan.taps == min(k, micro.DW_RING_TAPS)
+        assert plan.tap_groups * plan.taps >= k > (plan.tap_groups - 1) * plan.taps
+        assert plan.cols == b * -(-s // micro.RING_COLS)
+        assert plan.blocks == plan.tiles * plan.chunks
+        assert plan.blocks <= micro.SMS or plan.chunks == 1
+        assert plan.partial_bytes == (plan.chunks * k * c * co * 4 if plan.chunks > 1 else 0)
+        cover = np.zeros((plan.cols, t, k, plan.c_tiles, plan.co_tiles), dtype=np.int32)
+        for blk in range(plan.blocks):
+            tile, chunk = divmod(blk, plan.tiles)[::-1]
+            nt = tile % plan.co_tiles
+            ct = tile // plan.co_tiles % plan.c_tiles
+            d0 = tile // (plan.co_tiles * plan.c_tiles) * plan.taps
+            col0 = chunk * plan.cols_per_chunk
+            assert col0 < plan.cols  # no empty chunk
+            cover[col0 : col0 + plan.cols_per_chunk, :, d0 : d0 + plan.taps, ct, nt] += 1
+        assert (cover == 1).all()
+    # the micro-benchmark's shapes at k = 3: tpu1 a 128-wide C tile and two
+    # Co tiles (x read twice, g once), 66 chunks of 24 items on 132 blocks;
+    # faithful1 one 144-wide tile, 131 chunks; tpu2 2 x 2 tiles, 32 chunks
+    assert micro.dw_ring_plan((32, 16, 3136, 128), 128, 3)[:11] == (
+        128, 1, 2, 3, 1, 7, 5, 1568, 66, 24, 132)
+    assert micro.dw_ring_plan((32, 16, 3136, 144), 64, 3)[:11] == (
+        144, 1, 1, 3, 1, 7, 5, 1568, 131, 12, 131)
+    assert micro.dw_ring_plan((32, 8, 784, 256), 128, 3)[:11] == (
+        128, 2, 2, 3, 1, 7, 5, 416, 32, 13, 128)
+    # partials beside x + g: 13.0 of 822 MB at tpu1, 12.6 of 154 MB at tpu2
+    assert micro.dw_ring_plan((32, 16, 3136, 128), 128, 3).partial_bytes == 66 * 3 * 128 * 128 * 4
+    assert micro.dw_ring_plan((32, 8, 784, 256), 128, 3).partial_bytes == 32 * 3 * 256 * 128 * 4
 
 
 def _c_params(name):
@@ -597,11 +724,14 @@ def test_chip_smoke_lists_the_micro_kernels_apart_from_the_main_path():
     cases = {label: (key, plan) for label, key, *_, plan in cs.micro_cases(x, w, g)}
     assert set(cs.MICRO_HEADLINE.values()) <= set(cases)
     assert {key for key, _ in cases.values()} == set(micro.launch_counts)
-    # K5 and K6 on the ring (S = 24: one 64-column tile a clip), K8 on v3's
-    # 24-column tiles, K9 on v2's 8-column ones
+    # K5, K6 and K8 on the ring (S = 24: one 64-column tile a clip), K9 on
+    # the dw ring (two items, a chunk each)
     ring = ("ring: 2 items of 64 columns x 1 Co tiles of 64 x 1 channel groups of 1 boxes "
             "on 2 blocks, 8 frame slots, y staged (8192 bytes a warpgroup), 107648 bytes of "
             "shared memory")
     assert cases["v2 fwd"][1] == cases["v3 fwd tile<=448"][1] == ring
-    assert cases["v3p fwd tile<=448"][1].startswith("2 slabs of 24 columns")
-    assert cases["dw v2"][1] == "6 steps of 8 columns in 6 chunks of 1, 18 blocks"
+    assert cases["v3p fwd tile<=448"][1] == cases["v3p fwd tile<=224"][1] == ring
+    assert cases["dw v2"][1] == (
+        "dw ring: 1 tiles (1 tap groups of 3 x 1 C tiles of 64 x 1 Co tiles of 64) x 2 chunks "
+        "of 1 of 2 items = 2 blocks, 7 x / 5 g frame slots, 99520 bytes of shared memory; x "
+        "read 1x, g 1x (re-reads from L2), partials 0.02 MB written and read")
