@@ -46,13 +46,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             their plain versions (K7, K9: two launches bitwise equal), each
             timed beside its plain version, the library call for the same
             function and the least time the card could take, with its plan
-            (K5, K6 and K8: the frame ring's ``ring_plan``; K9: the dw
-            ring's ``dw_ring_plan``, with its x and g re-reads and partial
-            bytes) and its device time split between its kernels (pad
-            copies, main kernel, reduce); K2 and K3 at the same shapes,
+            (K5, K6 and K8: the frame ring's ``ring_plan``; K9 and K7: the
+            dw ring's ``dw_ring_plan``, with its x and g re-reads and
+            partial bytes) and its device time split between its kernels
+            (pad copies, main kernel, reduce); K2 and K3 at the same shapes,
             timed, K5's, K6's and K8's share of the bound printed beside
-            K2's (read x once against once per tap) and K9's time and share
-            beside K3's (the TMA-fed dw ring against cp.async slabs);
+            K2's (read x once against once per tap), K9's time and share
+            beside K3's (the TMA-fed dw ring against cp.async slabs) and
+            K7's beside K9's and K3's (the clipped walk against the padded);
             then the micro-benchmark's entry point
             ``kernel_micro.main(["--shape", "tpu1"])`` end to end, its
             launches counted from 0 (every design at least once);
@@ -292,8 +293,8 @@ MICRO_KERNELS = {
     "v3": dict(name="micro_ring_kernel<kV3> (K6)", route="cuda", source=_MICRO_SOURCE,
                replaces="benchmarks/kernel_micro.py:155 (pallas_temporal_v3; its dx "
                         "pallas_temporal_dx_v3 :267)"),
-    "dw_v3": dict(name="micro_dw_kernel<kDwV3> (K7, + micro_reduce_kernel)", route="cuda",
-                  source=_MICRO_SOURCE,
+    "dw_v3": dict(name="micro_dw_ring_kernel<kDwV3> (K7, + micro_dw_ring_reduce_kernel)",
+                  route="cuda", source=_MICRO_SOURCE,
                   replaces="benchmarks/kernel_micro.py:200 (pallas_temporal_dw_v3)"),
     "v3p": dict(name="micro_ring_kernel<kV3P> (K8, K5's walk)", route="cuda",
                 source=_MICRO_SOURCE,
@@ -886,11 +887,6 @@ def micro_cases(x, w, g):
                 + (f"y staged ({p.stage} bytes a warpgroup)" if p.stage else "y from registers")
                 + f", {p.smem} bytes of shared memory")
 
-    def dw_plan(tile_s):
-        p = micro.dw_plan((b, t, s, c), co, tile_s, micro._sms(x))
-        return (f"{p.steps} steps of {tile_s} columns in {p.chunks} chunks of "
-                f"{p.steps_per_chunk}, {K * p.c_tiles * p.co_tiles * p.chunks} blocks")
-
     def dw_ring_plan():
         p = micro.dw_ring_plan((b, t, s, c), co, K, micro._sms(x))
         return (f"dw ring: {p.tiles} tiles ({p.tap_groups} tap groups of {p.taps} x "
@@ -912,8 +908,7 @@ def micro_cases(x, w, g):
                lambda: micro.temporal_dx_v3_plain(g, w, K),
                lambda: kernel_micro.library_temporal_dx(g, w), "dx", ring_plan(co, c)),
               ("dw v3", "dw_v3", lambda: micro.temporal_dw_v3_cuda(x, g, K),
-               lambda: micro.temporal_dw_v3_plain(x, g, K), lib_dw, "dw",
-               dw_plan(micro._pick_tile(s, 448)))]
+               lambda: micro.temporal_dw_v3_plain(x, g, K), lib_dw, "dw", dw_ring_plan())]
     for mt in (448, 224):  # the tile partitions only the plain version's rows
         cases.append((f"v3p fwd tile<={mt}", "v3p",
                       lambda mt=mt: micro.temporal_v3p_cuda(x, w, K, mt),
@@ -1019,15 +1014,20 @@ def phase_micro(card: str) -> dict:
                                 f"({site['bound_ms'] / k2:.3f})")
         print(f"{shape:9s} read x once (ring) against once per tap (K2): " + "; ".join(ring),
               flush=True)
-        # K9's TMA-fed dw ring against K3 (cp.async slabs) on the same inputs
-        for site in agg["dw_v2"]["sites"]:
-            if site["shape"] == shape:
-                k3 = prod_ms["K3 dw"]
-                site["k3_ms"] = k3
-                print(f"{shape:9s} dw ring (K9) against K3: K9 {site['ms']:.4f} ms (share "
-                      f"{site['bound_ms'] / site['ms']:.3f}) against K3 {k3:.4f} ms (share "
-                      f"{site['bound_ms'] / k3:.3f}): K9 / K3 = {site['ms'] / k3:.3f}",
-                      flush=True)
+        # K9's TMA-fed dw ring against K3 (cp.async slabs) on the same inputs,
+        # and K7 (the ring's clipped walk) beside both
+        k3 = prod_ms["K3 dw"]
+        k9 = next(site for site in agg["dw_v2"]["sites"] if site["shape"] == shape)
+        k7 = next(site for site in agg["dw_v3"]["sites"] if site["shape"] == shape)
+        k9["k3_ms"] = k7["k3_ms"] = k3
+        k7["k9_ms"] = k9["ms"]
+        k7["k7_over_k9"] = k7["ms"] / k9["ms"]
+        print(f"{shape:9s} dw ring (K9) against K3: K9 {k9['ms']:.4f} ms (share "
+              f"{k9['bound_ms'] / k9['ms']:.3f}) against K3 {k3:.4f} ms (share "
+              f"{k9['bound_ms'] / k3:.3f}): K9 / K3 = {k9['ms'] / k3:.3f}", flush=True)
+        print(f"{shape:9s} clipped dw ring (K7) against K9 and K3: K7 {k7['ms']:.4f} ms (share "
+              f"{k7['bound_ms'] / k7['ms']:.3f}), K9 {k9['ms']:.4f}, K3 {k3:.4f}: K7 / K9 = "
+              f"{k7['k7_over_k9']:.3f}, K7 / K3 = {k7['ms'] / k3:.3f}", flush=True)
         del x, w, g
         torch.cuda.empty_cache()
     if failures:

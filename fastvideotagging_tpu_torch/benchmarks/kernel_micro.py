@@ -8,9 +8,9 @@ At one of three fixed shapes (``SHAPES``, B = 32) it runs the five designs
 of ``ops/temporal_micro.py`` (K5 v2: every tap over the halo'd frames; K6
 v3: no pad, taps outside [0, T) skipped, and its dx; K8 v3p: packed taps;
 all three on one frame ring that reads x once; K7 / K9: the dw without and
-with the pad, K9 on a ring of x and g frames) beside the library's conv
-(``F.conv3d``, ``torch.nn.grad.conv3d_input`` / ``conv3d_weight``; cuDNN,
-TF32 off).
+with the pad, both on one ring of x and g frames, K7 on its clipped walk)
+beside the library's conv (``F.conv3d``, ``torch.nn.grad.conv3d_input`` /
+``conv3d_weight``; cuDNN, TF32 off).
 Inputs come from numpy's ``default_rng(0)`` in the JAX file's order (x,
 w * 0.05, g), cast to bf16.
 

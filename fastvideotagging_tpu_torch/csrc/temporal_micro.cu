@@ -26,11 +26,12 @@
 //           that straddle two taps add the same products); the zero rows of
 //           the packed operand are the halo frames' zero fill, and the tap
 //           weights the resident (k*C, Co) K-major operand.
-//   K7 dw_v3 (pallas_temporal_dw_v3, :200) micro_dw_kernel<kDwV3>: per tap,
-//           x^T g over the rows whose shifted frame lies in [0, T).
 //   K9 dw_v2 (pallas_temporal_dw, :297)    micro_dw_ring_kernel<kDwV2>: a
 //           TMA ring of x and g frames (below); every row of the padded x,
 //           its halo frames the box's zero fill: no pad pass.
+//   K7 dw_v3 (pallas_temporal_dw_v3, :200) micro_dw_ring_kernel<kDwV3>: K9's
+//           ring on the clipped walk: x frames in [0, T) only, and each tap
+//           issued only for the output frames whose x frame lies there.
 //
 // What bounds them on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): bytes, at
 // every benchmark shape (tpu1: x and y 822 MB against 158 GFLOP, 0.245 ms).
@@ -86,30 +87,14 @@
 // fill the shared-memory bandwidth): that shape stays near 0.4 of its
 // bound.
 
-// K7 is the first, simple design: bf16 WMMA 16x16x16 products into f32
-// accumulators in registers, one shared stage, the next slice's global
-// loads held in registers while the current slice's products run. Rows are
-// taken as the TPU grid cut them: a slab is one clip b and one s-tile j of
-// tile_s columns, its T * tile_s rows t-major (row r = t * tile_s +
-// s_local), tile_s the largest divisor of S up to max_tile. A block owns
-// one tap and a 64 x 64 (C, Co) tile and walks a chunk of (b, s-tile)
-// slabs, 32 rows a slice. The TPU dw kernels add into one output block over
-// a grid that runs in order; here each chunk writes an f32 partial and
-// micro_reduce_kernel adds the partials in chunk order (no atomics: two
-// launches are bitwise equal). Channel rows are read 16 bytes at a time
-// where C (for x), Co (for g) is a multiple of 8 and the pointers are
-// 16-byte aligned, else 2 bytes at a time (ragged widths are masked). It
-// reaches neither bound: WMMA peaks well below wgmma and one stage leaves
-// the loads exposed. (micro_dw_kernel's kDwV2 branches, K9's first design
-// over a padded copy of x, are no longer instantiated.)
-//
-// K9: the dw ring. The Pallas kernel streams a halo'd (T + 2p, tile_s, C)
-// slab of the padded x and the (T, tile_s, Co) slab of g into VMEM and adds
-// every tap's x^T g into one (k, C, Co) block over a grid that runs in
-// order. Here a block owns one output tile, a tap group (up to three taps,
-// one consumer warpgroup each) x a C tile of BN channels (wgmma's N, 64,
-// 128 or 144) x a 64-wide Co tile (wgmma's M), and one chunk of the
-// (clip, 64-column) items; it walks each item over T:
+// K9 and K7: the dw ring. K9's Pallas kernel streams a halo'd (T + 2p,
+// tile_s, C) slab of the padded x and the (T, tile_s, Co) slab of g into
+// VMEM and adds every tap's x^T g into one (k, C, Co) block over a grid
+// that runs in order (K7's clips each tap's rows to [0, T) instead). Here
+// a block owns one output tile, a tap group (up to three taps, one
+// consumer warpgroup each) x a C tile of BN channels (wgmma's N, 64, 128
+// or 144) x a 64-wide Co tile (wgmma's M), and one chunk of the (clip,
+// 64-column) items; it walks each item over T:
 //   - A producer warp loads each g frame of the item once (one 64-channel x
 //     64-column box of the Co tile) and each x frame its taps read (the C
 //     tile's boxes), with TMA on tensor maps of x (B, T, S, C) and g (B, T,
@@ -117,16 +102,25 @@
 //     full and an empty mbarrier each. The x walk runs over the padded
 //     frames [d0 - p, T + d1 - 1 - p) of taps [d0, d1): the halo frames,
 //     columns past S and channels past C and Co are the box's zero fill, so
-//     there is no pad pass and no padded copy.
+//     there is no pad pass and no padded copy. K7's walk (kDwV3, v3's
+//     clipped ranges at frame granularity) loads only the x frames
+//     [max(0, d0 - p), min(T, T + d1 - 1 - p)) and the g frames some tap
+//     of the group reads; a group that reads none loads nothing.
 //   - Consumer warpgroup dt, for every output frame t, issues four
 //     wgmma.mma_async m64nBNk16 (the item's 64 rows of the frame) with g
 //     frame t as A and x frame t + dt - p as B, both MN-major in shared
 //     memory (both transpose bits; the descriptors of csrc/temporal_dw.cu:
 //     one 64-channel box between atoms along M / N, 1024 bytes between
-//     8-row groups along K, a k16 step 16 rows = 2048 bytes). Every row is
-//     multiplied, the halo's zeros included, with no branch. The f32 tile
-//     dw^T[dt] (64 x BN) stays in registers across all items of the chunk.
-//     A warp releases a g frame after its step and an x frame once its
+//     8-row groups along K, a k16 step 16 rows = 2048 bytes). K9 multiplies
+//     every row, the halo's zeros included, with no branch; K7's warpgroup
+//     issues only the output frames [max(0, p - dt), min(T, T + p - dt))
+//     of its tap, worked out once per tap, and passes the item's other g
+//     frames (waits for each to land and releases it) in loops of their
+//     own, outside the wgmma loop; a tap with no frame adds nothing and
+//     writes zeros. The f32 tile dw^T[dt] (64 x BN) stays in registers
+//     across all items of the chunk. Every consumer warp releases every
+//     frame the producer loaded, in walk order: a g frame after its step
+//     (or once it landed, where its tap skips it) and an x frame once its
 //     next step no longer reads it (waiting first for a frame it never
 //     read, another tap's, to land). Keeping one step's products in flight
 //     (issuing step t's before waiting for step t - 1's) was no faster on
@@ -148,12 +142,9 @@
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -162,251 +153,6 @@ enum Grad { kDwV3 = 0, kDwV2 = 1 };
 
 // The tap of v3's q-th position: the centre first, then the others in order.
 __device__ __forceinline__ int v3_tap(int q, int p) { return q == 0 ? p : (q - 1 < p ? q - 1 : q); }
-
-// ---------------------------------------------------------------------------
-// dw core: one tap's DM x DN tile of dw over a chunk of slabs, DK rows a slice
-// ---------------------------------------------------------------------------
-
-constexpr int DM = 64;         // input channels per block
-constexpr int DN = 64;         // output channels per block
-constexpr int DK = 32;         // rows per slice
-constexpr int DTHREADS = 128;  // 4 warps: 2 (C) x 2 (Co), 32 x 32 each
-constexpr int X_LD = DM + 8;
-constexpr int G_LD = DN + 8;
-constexpr int D_LD = DN + 4;
-constexpr int X_BYTES = DK * X_LD * 2;
-constexpr int G_BYTES = DK * G_LD * 2;
-constexpr int D_BYTES = DM * D_LD * 4;
-constexpr int DSMEM_BYTES = (X_BYTES + G_BYTES) > D_BYTES ? (X_BYTES + G_BYTES) : D_BYTES;
-constexpr int D_SCALARS = DK * DM / DTHREADS;    // 16 (DM == DN)
-constexpr int D_VECS = DK * DM / 8 / DTHREADS;   // 2
-constexpr int DOUT_SCALARS = DM * DN / DTHREADS; // 32
-static_assert(DM == DN, "x and g slices share their load counts");
-
-template <bool VX, bool VG>
-struct DwStage {
-  uint4 xv[VX ? D_VECS : 1];
-  unsigned short xs[VX ? 1 : D_SCALARS];
-  uint4 gv[VG ? D_VECS : 1];
-  unsigned short gs[VG ? 1 : D_SCALARS];
-};
-
-// One slice: rows [r, r + DK) of slab `step`, below hi.
-template <int V, bool VX, bool VG>
-__device__ __forceinline__ void load_dw_stage(DwStage<VX, VG>& st,
-                                              const unsigned short* __restrict__ x,
-                                              const unsigned short* __restrict__ g, int step,
-                                              int r, int hi, int tap, int c0, int n0, int T,
-                                              int Tx, int S, int C, int Co, int tile_s, int p) {
-  const int tid = threadIdx.x;
-  const int nj = S / tile_s;
-  const int64_t bb = step / nj;
-  const int s0 = (step % nj) * tile_s;
-  // the g row and the x row of slice row rr, or -1 past hi
-  auto rows = [&](int rr, int64_t& grow, int64_t& xrow) {
-    const int row = r + rr;
-    if (row >= hi) {
-      grow = xrow = -1;
-      return;
-    }
-    const int t = row / tile_s;
-    const int s = s0 + row % tile_s;
-    grow = (bb * T + t) * S + s;
-    xrow = (bb * Tx + (V == kDwV2 ? t + tap : t + tap - p)) * S + s;
-  };
-  if constexpr (VX && VG) {
-#pragma unroll
-    for (int i = 0; i < D_VECS; ++i) {
-      const int q = tid + i * DTHREADS;
-      const int rr = q / (DM / 8);
-      const int cc = (q % (DM / 8)) * 8;
-      int64_t grow, xrow;
-      rows(rr, grow, xrow);
-      st.xv[i] = xrow >= 0 && c0 + cc < C ? *reinterpret_cast<const uint4*>(x + xrow * C + c0 + cc)
-                                          : make_uint4(0, 0, 0, 0);
-      st.gv[i] = grow >= 0 && n0 + cc < Co
-                     ? *reinterpret_cast<const uint4*>(g + grow * Co + n0 + cc)
-                     : make_uint4(0, 0, 0, 0);
-    }
-  } else {
-    if constexpr (VX) {
-#pragma unroll
-      for (int i = 0; i < D_VECS; ++i) {
-        const int q = tid + i * DTHREADS;
-        const int cc = (q % (DM / 8)) * 8;
-        int64_t grow, xrow;
-        rows(q / (DM / 8), grow, xrow);
-        st.xv[i] = xrow >= 0 && c0 + cc < C
-                       ? *reinterpret_cast<const uint4*>(x + xrow * C + c0 + cc)
-                       : make_uint4(0, 0, 0, 0);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < D_SCALARS; ++i) {
-        const int e = tid + i * DTHREADS;
-        const int cc = e % DM;
-        int64_t grow, xrow;
-        rows(e / DM, grow, xrow);
-        st.xs[i] = xrow >= 0 && c0 + cc < C ? x[xrow * C + c0 + cc] : (unsigned short)0;
-      }
-    }
-    if constexpr (VG) {
-#pragma unroll
-      for (int i = 0; i < D_VECS; ++i) {
-        const int q = tid + i * DTHREADS;
-        const int nc = (q % (DN / 8)) * 8;
-        int64_t grow, xrow;
-        rows(q / (DN / 8), grow, xrow);
-        st.gv[i] = grow >= 0 && n0 + nc < Co
-                       ? *reinterpret_cast<const uint4*>(g + grow * Co + n0 + nc)
-                       : make_uint4(0, 0, 0, 0);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < D_SCALARS; ++i) {
-        const int e = tid + i * DTHREADS;
-        const int nc = e % DN;
-        int64_t grow, xrow;
-        rows(e / DN, grow, xrow);
-        st.gs[i] = grow >= 0 && n0 + nc < Co ? g[grow * Co + n0 + nc] : (unsigned short)0;
-      }
-    }
-  }
-}
-
-template <bool VX, bool VG>
-__device__ __forceinline__ void store_dw_stage(const DwStage<VX, VG>& st, unsigned short* Xs,
-                                               unsigned short* Gs) {
-  const int tid = threadIdx.x;
-  if constexpr (VX) {
-#pragma unroll
-    for (int i = 0; i < D_VECS; ++i) {
-      const int q = tid + i * DTHREADS;
-      *reinterpret_cast<uint4*>(Xs + (q / (DM / 8)) * X_LD + (q % (DM / 8)) * 8) = st.xv[i];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < D_SCALARS; ++i) {
-      const int e = tid + i * DTHREADS;
-      Xs[(e / DM) * X_LD + e % DM] = st.xs[i];
-    }
-  }
-  if constexpr (VG) {
-#pragma unroll
-    for (int i = 0; i < D_VECS; ++i) {
-      const int q = tid + i * DTHREADS;
-      *reinterpret_cast<uint4*>(Gs + (q / (DN / 8)) * G_LD + (q % (DN / 8)) * 8) = st.gv[i];
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < D_SCALARS; ++i) {
-      const int e = tid + i * DTHREADS;
-      Gs[(e / DN) * G_LD + e % DN] = st.gs[i];
-    }
-  }
-}
-
-// The dw kernels. x is the padded x (Tx = T + 2p frames) for dw_v2, else x
-// (Tx = T). Block x: (tap * c_tiles + C tile) * co_tiles + Co tile; block y:
-// chunk. Writes its tile of part[chunk] (k, C, Co), zero where no row
-// reaches it.
-template <int V, bool VX, bool VG>
-__global__ void __launch_bounds__(DTHREADS)
-micro_dw_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ g,
-                float* __restrict__ part, int T, int Tx, int S, int C, int Co, int k, int tile_s,
-                int steps, int steps_per_chunk) {
-  __shared__ __align__(128) unsigned char smem[DSMEM_BYTES];
-  unsigned short* Xs = reinterpret_cast<unsigned short*>(smem);
-  unsigned short* Gs = reinterpret_cast<unsigned short*>(smem + X_BYTES);
-  float* Ds = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int c_tiles = (C + DM - 1) / DM;
-  const int co_tiles = (Co + DN - 1) / DN;
-  const int tap = blockIdx.x / (c_tiles * co_tiles);
-  const int c0 = (blockIdx.x / co_tiles % c_tiles) * DM;
-  const int n0 = (blockIdx.x % co_tiles) * DN;
-  const int p = k / 2;
-  const int off = tap - p;
-  // the slab rows [lo, hi) whose g row meets an x row of this tap
-  const int lo = V == kDwV2 ? 0 : max(0, -off) * tile_s;
-  const int hi = V == kDwV2 ? T * tile_s : (T - max(0, off)) * tile_s;
-  const int per_step = hi > lo ? (hi - lo + DK - 1) / DK : 0;
-  const int first = blockIdx.y * steps_per_chunk;
-  const int n_slices = (min(first + steps_per_chunk, steps) - first) * per_step;
-
-  const int warp = tid / 32;
-  const int wm = warp % 2;  // 32 input channels of the tile
-  const int wn = warp / 2;  // 32 output channels of the tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  DwStage<VX, VG> st;
-  if (n_slices > 0) {
-    load_dw_stage<V, VX, VG>(st, x, g, first, lo, hi, tap, c0, n0, T, Tx, S, C, Co, tile_s, p);
-  }
-  for (int it = 0; it < n_slices; ++it) {
-    store_dw_stage<VX, VG>(st, Xs, Gs);
-    __syncthreads();
-    if (it + 1 < n_slices) {
-      const int step = first + (it + 1) / per_step;
-      const int r = lo + (it + 1) % per_step * DK;
-      load_dw_stage<V, VX, VG>(st, x, g, step, r, hi, tap, c0, n0, T, Tx, S, C, Co, tile_s, p);
-    }
-#pragma unroll
-    for (int kk = 0; kk < DK; kk += 16) {
-      // A = x^T: (C, rows), column-major over the staged (rows, C) slice
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(
-            fa[i], reinterpret_cast<const __nv_bfloat16*>(Xs + kk * X_LD + wm * 32 + i * 16), X_LD);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(
-            fb[j], reinterpret_cast<const __nv_bfloat16*>(Gs + kk * G_LD + wn * 32 + j * 16), G_LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Ds + (wm * 32 + i * 16) * D_LD + wn * 32 + j * 16, acc[i][j], D_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  float* out = part + ((int64_t)blockIdx.y * k + tap) * C * Co;
-#pragma unroll 4
-  for (int i = 0; i < DOUT_SCALARS; ++i) {
-    const int e = tid + i * DTHREADS;
-    const int cl = e / DN;
-    const int nl = e % DN;
-    if (c0 + cl < C && n0 + nl < Co) out[(int64_t)(c0 + cl) * Co + n0 + nl] = Ds[cl * D_LD + nl];
-  }
-}
-
-// dw = part[0] + part[1] + ... in chunk order.
-__global__ void micro_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                                    int64_t n, int chunks) {
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    float s = part[e];
-    for (int c = 1; c < chunks; ++c) s += part[c * n + e];
-    dw[e] = s;
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // K5, K6 and K8: the frame ring (see the top of this file)
@@ -918,9 +664,9 @@ __global__ void micro_ring_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-// dw = the K9 chunks' partials (chunks, n) added in a fixed order: group j
-// of DW_REDUCE_GROUPS adds chunks j, j + G, j + 2G, ... in order, then the
-// group sums are added in group order (no atomics: two launches are
+// dw = the K9 or K7 chunks' partials (chunks, n) added in a fixed order:
+// group j of DW_REDUCE_GROUPS adds chunks j, j + G, j + 2G, ... in order,
+// then the group sums are added in group order (no atomics: two launches are
 // bitwise equal). A block takes 32 elements, a warp a group: the chunk
 // loop is cut G ways, so that enough loads are in flight where n is small
 // beside the chunk count (faithful1: 27,648 elements x 131 chunks).
@@ -969,7 +715,7 @@ __global__ void micro_ring_pad_kernel(const unsigned short* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K9: the dw ring (see the top of this file)
+// K9 and K7: the dw ring (see the top of this file)
 // ---------------------------------------------------------------------------
 
 constexpr int DW_RING_TAPS = 3;                          // consumer warpgroups, one tap each
@@ -1059,18 +805,18 @@ __device__ __forceinline__ void wgmma_mn_tile(float (&d)[BN_ / 2], uint64_t da, 
   else wgmma_mn_144(d, da, db);
 }
 
-// K9 (V = kDwV2: every row of the padded x, no branch). Block i is tile
-// i % W of chunk i / W, W = tap groups * c_tiles * co_tiles, the tile
-// (tap group, C tile, Co tile): the tiles of a chunk are neighbouring
-// blocks that walk the chunk's items, columns [chunk * cols_per_chunk, ...)
-// of all clips, in the same order. Shared memory: the x ring (xslots slots
-// of `boxes` boxes), the g ring (gslots slots of one box), then a full and
-// an empty mbarrier per slot, x's first.
+// K9 (V = kDwV2: every row of the padded x, no branch) and K7 (V = kDwV3:
+// the clipped walk, each tap issued over its own output frames only).
+// Block i is tile i % W of chunk i / W, W = tap groups * c_tiles *
+// co_tiles, the tile (tap group, C tile, Co tile): the tiles of a chunk are
+// neighbouring blocks that walk the chunk's items, columns [chunk *
+// cols_per_chunk, ...) of all clips, in the same order. Shared memory:
+// the x ring (xslots slots of `boxes` boxes), the g ring (gslots slots of
+// one box), then a full and an empty mbarrier per slot, x's first.
 template <int V, int BN_>
 __global__ void __launch_bounds__(DW_RING_THREADS, 1)
 micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap gmap, const DwRingArgs a) {
-  static_assert(V == kDwV2, "K7's clipped walk (kDwV3) is not built on the ring yet");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + RING_ALIGN - 1) & ~static_cast<uint32_t>(RING_ALIGN - 1);
@@ -1087,7 +833,14 @@ micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
   const int c0 = (tile / a.co_tiles % a.c_tiles) * BN_;
   const int d0 = tile / (a.co_tiles * a.c_tiles) * a.taps;
   const int d1 = min(k, d0 + a.taps);
-  const int f_lo = d0 - p, f_hi = T + d1 - 1 - p;  // the x frames the taps read, halo included
+  // The walk of an item: the g frames [g_lo, g_hi) that some tap of the
+  // group reads and the x frames [f_lo, f_hi) they read (K9: every output
+  // frame, the halo's x frames included; K7: clipped to [0, T), both empty
+  // where no tap of the group reaches [0, T)).
+  const int g_lo = V == kDwV3 ? max(0, p - d1 + 1) : 0;
+  const int g_hi = V == kDwV3 ? max(g_lo, min(T, T + p - d0)) : T;
+  const int f_lo = V == kDwV3 ? max(0, d0 - p) : d0 - p;
+  const int f_hi = V == kDwV3 ? max(f_lo, min(T, T + d1 - 1 - p)) : T + d1 - 1 - p;
   const int col0 = chunk * a.cols_per_chunk;
   const int col1 = min(a.cols, col0 + a.cols_per_chunk);
   // the warp index broadcast from lane 0, so that the compiler knows the
@@ -1116,7 +869,7 @@ micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
         const int bb = col / a.cols_per_clip;
         const int s0 = (col % a.cols_per_clip) * RING_COLS;
         int f = f_lo;  // the next x frame
-        for (int t = 0; t < T; ++t, ++gs) {
+        for (int t = g_lo; t < g_hi; ++t, ++gs) {
           // the x frames step t reads: up to t + d1 - 1 - p
           for (const int need = min(f_hi, t + d1 - p); f < need; ++f, ++xs) {
             const int slot = xs % NX;
@@ -1138,6 +891,12 @@ micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
 
   const int dt = d0 + (warp >> 2);  // this warpgroup's tap
   if (dt >= d1) return;             // the last tap group may have fewer taps
+  // The output frames [t_lo, t_hi) whose x frame t + dt - p this tap reads
+  // (K9: all T; K7: those inside [0, T), none where |dt - p| >= T), and the
+  // first x frame it reads (f_hi: none).
+  const int t_lo = V == kDwV3 ? min(max(g_lo, p - dt), g_hi) : 0;
+  const int t_hi = V == kDwV3 ? max(t_lo, min(g_hi, T + p - dt)) : T;
+  const int first = t_lo < t_hi ? t_lo + dt - p : f_hi;
   float acc[BN_ / 2];
 #pragma unroll
   for (int i = 0; i < BN_ / 2; ++i) acc[i] = 0.f;
@@ -1156,7 +915,20 @@ micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
         mbar_arrive_lane0(xempty + 8 * (s % NX), lane);
       }
     };
-    for (int t = 0; t < T; ++t, ++gs) {
+    // K7: a g frame outside the tap's output frames is waited for and
+    // released with no product, and so are the x frames loaded before it
+    // that the tap does not read from then on (below `upto`): the producer
+    // needs their slots while the tap passes frames.
+    auto pass = [&](int t, int upto) {
+      const int slot = gs % NG;
+      mbar_wait(gfull + 8 * slot, (gs / NG) & 1);
+      mbar_arrive_lane0(gempty + 8 * slot, lane);
+      release(min(t + d1 - p, upto));
+    };
+    int t = g_lo;
+    if constexpr (V == kDwV3)
+      for (; t < t_lo; ++t, ++gs) pass(t, first);
+    for (; t < t_hi; ++t, ++gs) {
       const int gslot = gs % NG;
       const int s = xs0 + t + dt - p - f_lo;
       const int xslot = s % NX;
@@ -1175,6 +947,8 @@ micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_arrive_lane0(gempty + 8 * gslot, lane);
       release(t + 1 + dt - p);  // the next step reads from t + 1 + dt - p on
     }
+    if constexpr (V == kDwV3)
+      for (; t < g_hi; ++t, ++gs) pass(t, f_hi);
     release(f_hi);  // the item's frames this warp has not released yet
     xs0 += f_hi - f_lo;
   }
@@ -1197,47 +971,9 @@ micro_dw_ring_kernel(const __grid_constant__ CUtensorMap xmap,
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
-bool valid_shape(int b, int t, int s, int c, int co, int k, int tile_s) {
-  return b > 0 && t > 0 && s > 0 && c > 0 && co > 0 && k > 0 && (k % 2) == 1 && tile_s > 0 &&
-         s % tile_s == 0;
-}
-
-template <int V>
-int launch_dw(const void* x, const void* g, void* ws, void* dw, int b, int t, int tx, int s,
-              int c, int co, int k, int tile_s, int chunks, int steps_per_chunk,
-              cudaStream_t stream) {
-  const int steps = b * (s / tile_s);
-  if (chunks <= 0 || steps_per_chunk <= 0 || (int64_t)chunks * steps_per_chunk < steps ||
-      (int64_t)(chunks - 1) * steps_per_chunk >= steps || chunks > 65535 ||
-      (chunks > 1 && ws == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int64_t tiles = (int64_t)k * ((c + DM - 1) / DM) * ((co + DN - 1) / DN);
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)tiles, (unsigned)chunks);
-  const bool vx = (c % 8) == 0 && aligned16(x);
-  const bool vg = (co % 8) == 0 && aligned16(g);
-  auto xs = static_cast<const unsigned short*>(x);
-  auto gs = static_cast<const unsigned short*>(g);
-  float* part = static_cast<float*>(chunks > 1 ? ws : dw);
-#define FVT_DW(VX, VG)                                                                          \
-  micro_dw_kernel<V, VX, VG><<<grid, DTHREADS, 0, stream>>>(xs, gs, part, t, tx, s, c, co, k, \
-                                                             tile_s, steps, steps_per_chunk)
-  if (vx && vg) FVT_DW(true, true);
-  else if (vx) FVT_DW(true, false);
-  else if (vg) FVT_DW(false, true);
-  else FVT_DW(false, false);
-#undef FVT_DW
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || chunks == 1) return (int)err;
-  const int64_t n = (int64_t)k * c * co;
-  micro_reduce_kernel<<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<float*>(dw), n, chunks);
-  return (int)cudaGetLastError();
-}
-
 // The channel-pad copies launched so far (micro_ring_pad_kernel, for x of
-// K5, K6 and K8 and for x and g of K9), counted for the tests that check
-// which inputs take one.
+// K5, K6 and K8 and for x and g of K9 and K7), counted for the tests that
+// check which inputs take one.
 long long channel_pad_launches = 0;
 
 cudaError_t channel_pad(const void* src, void* dst, int64_t rows, int c, int cp,
@@ -1391,13 +1127,13 @@ cudaError_t dw_ring_start(const CUtensorMap& xmap, const CUtensorMap& gmap,
   return cudaGetLastError();
 }
 
-// K9 with the plan of ops/temporal_micro.py::dw_ring_plan (bn, taps,
-// xslots, gslots, chunks, cols_per_chunk, smem_bytes), checked here against
-// the shape: x (b, t, s, c) and g (b, t, s, co) bf16; xs / gs a (b*t*s, c
-// or co rounded up to 8) scratch where TMA cannot read x / g (c or co % 8
-// != 0, or not 16-byte aligned), else null; ws (chunks, k, c, co) f32
-// where chunks > 1, else null; dw (k, c, co) f32. Blocks: tap groups x C
-// tiles x Co tiles x chunks.
+// K9 (V = kDwV2) or K7 (V = kDwV3) with the plan of ops/temporal_micro.py::
+// dw_ring_plan (bn, taps, xslots, gslots, chunks, cols_per_chunk,
+// smem_bytes), checked here against the shape: x (b, t, s, c) and g (b,
+// t, s, co) bf16; xs / gs a (b*t*s, c or co rounded up to 8) scratch where
+// TMA cannot read x / g (c or co % 8 != 0, or not 16-byte aligned), else
+// null; ws (chunks, k, c, co) f32 where chunks > 1, else null; dw (k, c,
+// co) f32. Blocks: tap groups x C tiles x Co tiles x chunks.
 template <int V>
 int launch_dw_ring(const void* x, const void* g, void* xs, void* gs, void* ws, void* dw, int b,
                    int t, int s, int c, int co, int k, int bn, int taps, int xslots, int gslots,
@@ -1462,9 +1198,7 @@ extern "C" {
 // cudaGetLastError() after its launches (0 on success). Shapes are checked
 // here as well as in the Python wrappers (ops/temporal_micro.py), which
 // allocate every output and scratch tensor: for K5, K6 and K8 xs and ws as
-// launch_ring says, for K9 xs, gs and ws as launch_dw_ring says; ws
-// (chunks, k, C, Co) f32 for K7's partials (unused, and may be null, with
-// one chunk).
+// launch_ring says, for K9 and K7 xs, gs and ws as launch_dw_ring says.
 
 int fvt_micro_v2_bf16(const void* x, const void* w, void* xs, void* ws, void* y, int b, int t,
                       int s, int c, int co, int k, int bn, int slots, int groups, int taps,
@@ -1487,14 +1221,13 @@ int fvt_micro_v3p_bf16(const void* x, const void* w, void* xs, void* ws, void* y
                            blocks, smem_bytes, device, reinterpret_cast<cudaStream_t>(stream));
 }
 
-int fvt_micro_dw_v3_bf16(const void* x, const void* g, void* ws, void* dw, int b, int t, int s,
-                         int c, int co, int k, int tile_s, int chunks, int steps_per_chunk,
-                         int device, void* stream) {
-  if (!valid_shape(b, t, s, c, co, k, tile_s)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  return launch_dw<kDwV3>(x, g, ws, dw, b, t, t, s, c, co, k, tile_s, chunks, steps_per_chunk,
-                          reinterpret_cast<cudaStream_t>(stream));
+int fvt_micro_dw_v3_bf16(const void* x, const void* g, void* xs, void* gs, void* ws, void* dw,
+                         int b, int t, int s, int c, int co, int k, int bn, int taps, int xslots,
+                         int gslots, int chunks, int cols_per_chunk, int smem_bytes, int device,
+                         void* stream) {
+  return launch_dw_ring<kDwV3>(x, g, xs, gs, ws, dw, b, t, s, c, co, k, bn, taps, xslots, gslots,
+                               chunks, cols_per_chunk, smem_bytes, device,
+                               reinterpret_cast<cudaStream_t>(stream));
 }
 
 int fvt_micro_dw_v2_bf16(const void* x, const void* g, void* xs, void* gs, void* ws, void* dw,
@@ -1507,7 +1240,7 @@ int fvt_micro_dw_v2_bf16(const void* x, const void* g, void* xs, void* gs, void*
 }
 
 // The channel-pad copies launched so far (K5, K6 and K8: x where C % 8 !=
-// 0 or x is misaligned; K9: x and g likewise).
+// 0 or x is misaligned; K9 and K7: x and g likewise).
 long long fvt_micro_channel_pad_launches(void) { return channel_pad_launches; }
 
 }  // extern "C"

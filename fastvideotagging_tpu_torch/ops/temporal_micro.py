@@ -27,20 +27,20 @@ K5, K6 and K8 run on one kernel, ``micro_ring_kernel`` (K8 on K5's walk): a
 work item is one clip, 64 columns of S, one Co tile, one group of input
 channels and one group of taps, and walks T with each input frame loaded
 once into a ring of frame slots (``ring_plan`` sizes it). Their tile
-arguments (``tile_s``, ``max_tile``) keep the JAX signatures and only
-partition the plain versions' rows: v2's tile_s is halved from 512 until it
-divides S, v3's is the largest divisor of S up to ``max_tile``.
+arguments (``tile_s``, ``max_tile``) keep the JAX signatures and do
+nothing else.
 
 The TPU dw kernels add into one output block across a grid that runs in
-order; CUDA blocks run at once, so K7 and K9 write f32 partial sums per
-chunk and a second kernel adds them in a fixed order (no atomics: two
-launches are bitwise equal): K7 chunk by chunk, K9 in DW_REDUCE_GROUPS
-interleaved groups. K7's chunks are runs of (b, s-tile) steps
-(``dw_plan``). K9 runs on ``micro_dw_ring_kernel``: a block owns a tap
-group, a C tile and a 64-wide Co tile of dw and keeps it in registers over
-a chunk of (clip, 64-column) items, each walked over T with each x and g
-frame loaded once into rings of frame slots (``dw_ring_plan`` sizes it;
-its ``tile_s`` argument keeps the JAX signature only).
+order; CUDA blocks run at once, so K9 and K7 run on
+``micro_dw_ring_kernel``: a block owns a tap group, a C tile and a 64-wide
+Co tile of dw and keeps it in registers over a chunk of (clip, 64-column)
+items, each walked over T with each x and g frame loaded once into rings
+of frame slots (K9 every frame of the padded walk, K7 the walk clipped to
+[0, T), each tap issued only where its x frame lies there), and writes an
+f32 partial per chunk that a second kernel adds in DW_REDUCE_GROUPS
+interleaved groups, a fixed order (no atomics: two launches are bitwise
+equal). ``dw_ring_plan`` sizes both; their tile arguments keep the JAX
+signatures only.
 
 Shapes follow the JAX file: x (B, T, S, C), w (k, C, Co), g (B, T, S, Co);
 the forward returns x's dtype, dw is f32 (k, C, Co). Odd k only; any C,
@@ -76,9 +76,9 @@ from fastvideotagging_tpu_torch.ops.conv2plus1d import (
     _sm_count,
 )
 
-# Kernel launches since the last reset, by design (a K5, K6, K8 or K9
-# launch counts its channel pads and reduce where the plan or the inputs
-# need them, a K7 launch its reduce; ``v3`` counts the dx too).
+# Kernel launches since the last reset, by design (a launch counts its
+# channel pads and reduce where the plan or the inputs need them; ``v3``
+# counts the dx too).
 launch_counts = {"v2": 0, "v3": 0, "dw_v3": 0, "v3p": 0, "dw_v2": 0}
 
 
@@ -87,10 +87,6 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-# K7's tile (csrc/temporal_micro.cu: DW_BM input by DW_BN output channels
-# of one tap).
-DW_BM, DW_BN = 64, 64
-DW_CHUNKS_PER_SM = 2  # K7's chunk count is capped at this many a SM
 # K5's, K6's and K8's ring (csrc/temporal_micro.cu, micro_ring_kernel): an item's
 # S columns, the channels of one TMA box (128 bytes, the swizzle's row), the
 # Co tiles it can take, the shared memory of a block, the bytes of a box and
@@ -103,39 +99,13 @@ RING_BOX = RING_COLS * RING_CH * 2
 RING_ALIGN = 1024
 RING_AHEAD = 4
 RING_CONSUMERS = 2  # warpgroups, one output frame each
-# K9's ring (micro_dw_ring_kernel): a consumer warpgroup per tap of a tap
-# group, a 64-wide Co tile (wgmma's M, one g box).
+# K9's and K7's ring (micro_dw_ring_kernel): a consumer warpgroup per tap
+# of a tap group, a 64-wide Co tile (wgmma's M, one g box).
 DW_RING_TAPS = 3
 DW_RING_M = 64
-# K9's reduce (micro_dw_ring_reduce_kernel): group j adds chunks j, j + G,
+# Their reduce (micro_dw_ring_reduce_kernel): group j adds chunks j, j + G,
 # ... in order, then the G group sums are added in group order.
 DW_REDUCE_GROUPS = 8
-
-
-def _pick_tile(total: int, max_tile: int) -> int:
-    """Largest divisor of ``total`` that is <= max_tile (the JAX package's
-    ``ops/conv2plus1d.py::_pick_tile``, which the JAX benchmark imports as
-    ``_divisor_tile``)."""
-    for cand in range(min(max_tile, total), 0, -1):
-        if total % cand == 0:
-            return cand
-    return 1
-
-
-def _halved_tile(total: int, tile_s: int = 512) -> int:
-    """v2's tile rule: halve from ``tile_s`` until the tile divides S."""
-    while total % tile_s:
-        tile_s //= 2
-    return tile_s
-
-
-class DwPlan(NamedTuple):
-    tile_s: int
-    steps: int  # (b, s-tile) slabs, b-major as the TPU grid walks them
-    chunks: int  # runs of steps, each a partial sum (1: dw written directly)
-    steps_per_chunk: int
-    c_tiles: int  # DW_BM-wide tiles of the input channels
-    co_tiles: int  # DW_BN-wide tiles of the output channels
 
 
 class RingPlan(NamedTuple):
@@ -233,19 +203,6 @@ def ring_plan(x_shape, co: int, k: int, sms: int = SMS) -> RingPlan:
     raise AssertionError("one tap of one 64-channel box always fits")
 
 
-@functools.lru_cache(maxsize=256)
-def dw_plan(x_shape, co: int, tile_s: int, sms: int = SMS) -> DwPlan:
-    """K7's chunks: the (b, s-tile) steps cut into at most
-    ``DW_CHUNKS_PER_SM * sms`` runs of equal length (the last may be
-    shorter), one f32 partial of (k, C, Co) each; a block per (tap, C tile,
-    Co tile, chunk)."""
-    b, _, s, c = x_shape
-    steps = b * (s // tile_s)
-    per_chunk = -(-steps // max(1, min(steps, DW_CHUNKS_PER_SM * sms)))
-    return DwPlan(tile_s, steps, -(-steps // per_chunk), per_chunk, -(-c // DW_BM),
-                  -(-co // DW_BN))
-
-
 def _dw_ring_smem(boxes: int, xslots: int, gslots: int) -> int:
     """The x ring (xslots of a C tile's boxes), the g ring (gslots of one
     box), their full and empty mbarriers, the slack to align the base."""
@@ -254,7 +211,7 @@ def _dw_ring_smem(boxes: int, xslots: int, gslots: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def dw_ring_plan(x_shape, co: int, k: int, sms: int = SMS) -> DwRingPlan:
-    """K9's plan for x (B, T, S, C), g (B, T, S, Co). A block owns one tile
+    """K9's and K7's plan for x (B, T, S, C), g (B, T, S, Co). A block owns one tile
     of dw: a tap group (up to DW_RING_TAPS taps, a consumer warpgroup each),
     a C tile (the fewest of RING_BNS, then the narrowest) and a 64-wide Co
     tile; the (clip, 64-column) items are cut into as many runs ("chunks")
@@ -292,17 +249,17 @@ def _sms(x: torch.Tensor) -> int:
 # fvt_micro_v2_bf16 / fvt_micro_v3_bf16 / fvt_micro_v3p_bf16(x, w, xs, ws, y, b, t, s, c, co,
 #                                    k, bn, slots, groups, taps, stage, blocks, smem, device,
 #                                    stream)
-# fvt_micro_dw_v3_bf16(x, g, ws, dw, b, t, s, c, co, k, tile_s, chunks, steps_per_chunk,
-#                      device, stream)
-# fvt_micro_dw_v2_bf16(x, g, xs, gs, ws, dw, b, t, s, c, co, k, bn, taps, xslots, gslots,
-#                      chunks, cols_per_chunk, smem, device, stream)
+# fvt_micro_dw_v3_bf16 / fvt_micro_dw_v2_bf16(x, g, xs, gs, ws, dw, b, t, s, c, co, k, bn,
+#                                             taps, xslots, gslots, chunks, cols_per_chunk,
+#                                             smem, device, stream)
 _RING_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+_DW_RING_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 _ARGTYPES = {
     "v2": _RING_ARGTYPES,
     "v3": _RING_ARGTYPES,
-    "dw_v3": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "dw_v3": _DW_RING_ARGTYPES,
     "v3p": _RING_ARGTYPES,
-    "dw_v2": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    "dw_v2": _DW_RING_ARGTYPES,
 }
 
 _entries: dict = {}
@@ -321,7 +278,7 @@ def _entry(key: str):
 
 def channel_pad_launches() -> int:
     """The channel-pad copies (``micro_ring_pad_kernel``) the library has
-    launched: x of K5, K6 and K8, x and g of K9, where C (Co) % 8 != 0 or
+    launched: x of K5, K6 and K8, x and g of K9 and K7, where C (Co) % 8 != 0 or
     the tensor is not 16-byte aligned; aligned inputs launch none."""
     fn = _build.load("temporal_micro").fvt_micro_channel_pad_launches
     fn.argtypes, fn.restype = [], ctypes.c_longlong
@@ -383,26 +340,8 @@ def _ring_launch(key: str, x: torch.Tensor, w: torch.Tensor, k: int) -> torch.Te
     return y
 
 
-def _dw_launch(x: torch.Tensor, g: torch.Tensor, k: int, tile_s: int) -> torch.Tensor:
-    """K7 with ``dw_plan``'s chunks."""
-    b, t, s, c = x.shape
-    co = g.shape[-1]
-    plan = dw_plan(tuple(x.shape), co, tile_s, _sms(x))
-    dw = torch.empty((k, c, co), dtype=torch.float32, device=x.device)
-    ws = (torch.empty((plan.chunks, k, c, co), dtype=torch.float32, device=x.device)
-          if plan.chunks > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _entry("dw_v3")(x.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
-                         dw.data_ptr(), b, t, s, c, co, k, tile_s, plan.chunks,
-                         plan.steps_per_chunk, x.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f"fvt_micro_dw_v3_bf16 launch failed: CUDA error {rc}")
-    launch_counts["dw_v3"] += 1
-    return dw
-
-
-def _dw_ring_launch(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
-    """K9 with ``dw_ring_plan``'s plan: dw, and only where the plan or the
+def _dw_ring_launch(key: str, x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """K9 or K7 (``key``) with ``dw_ring_plan``'s plan: dw, and only where the plan or the
     inputs need them, the channel-padded copies of x and g that TMA can
     read and the chunks' f32 partials; all held past the launch."""
     b, t, s, c = x.shape
@@ -414,11 +353,11 @@ def _dw_ring_launch(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     xs, gs = _channel_padded(x), _channel_padded(g)
     ptrs = [a.data_ptr() if a is not None else None for a in (x, g, xs, gs, ws, dw)]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _entry("dw_v2")(*ptrs, b, t, s, c, co, k, plan.bn, plan.taps, plan.xslots, plan.gslots,
-                         plan.chunks, plan.cols_per_chunk, plan.smem, x.device.index, stream)
+    rc = _entry(key)(*ptrs, b, t, s, c, co, k, plan.bn, plan.taps, plan.xslots, plan.gslots,
+                     plan.chunks, plan.cols_per_chunk, plan.smem, x.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"fvt_micro_dw_v2_bf16 launch failed: CUDA error {rc}")
-    launch_counts["dw_v2"] += 1
+        raise RuntimeError(f"fvt_micro_{key}_bf16 launch failed: CUDA error {rc}")
+    launch_counts[key] += 1
     return dw
 
 
@@ -428,7 +367,7 @@ def _dw_ring_launch(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def temporal_v2_cuda(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:
-    """K5 on the ring (``tile_s`` partitions only the plain version's rows)."""
+    """K5 on the ring (``tile_s`` keeps the JAX signature only)."""
     _check_forward(x, w, k)
     return _ring_launch("v2", x, w, k)
 
@@ -458,7 +397,7 @@ def temporal_v2(x: torch.Tensor, w: torch.Tensor, k: int, tile_s: int = 512) -> 
 
 
 def temporal_v3_cuda(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
-    """K6 on the ring (``max_tile`` partitions only the plain version's rows)."""
+    """K6 on the ring (``max_tile`` keeps the JAX signature only)."""
     _check_forward(x, w, k)
     return _ring_launch("v3", x, w, k)
 
@@ -517,8 +456,8 @@ def temporal_dx_v3(g: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448
 
 def temporal_v3p_cuda(x: torch.Tensor, w: torch.Tensor,
                       k: int, max_tile: int = 448) -> torch.Tensor:
-    """K8 on the ring, K5's walk (``max_tile`` partitions only the plain
-    version's rows)."""
+    """K8 on the ring, K5's walk (``max_tile`` keeps the JAX signature
+    only)."""
     _check_forward(x, w, k)
     return _ring_launch("v3p", x, w, k)
 
@@ -542,7 +481,7 @@ def temporal_v3p(x: torch.Tensor, w: torch.Tensor, k: int, max_tile: int = 448) 
 
 
 # ---------------------------------------------------------------------------
-# K7 and K9: the weight gradient, partial sums per chunk added in order
+# K9 and K7: the weight gradient on the dw ring, partial sums per chunk
 # ---------------------------------------------------------------------------
 
 
@@ -552,13 +491,13 @@ def _by_step(a: torch.Tensor, tile_s: int) -> torch.Tensor:
     return a.reshape(b, t, s // tile_s, tile_s, c).transpose(1, 2).reshape(-1, t, tile_s, c)
 
 
-def _add_in_groups(parts: list, groups: int) -> torch.Tensor:
-    """The partials added as K9's reduce adds them: group j sums partials
-    j, j + groups, ... in order, then the group sums in group order (one
-    group: the partials in order, as K7's reduce)."""
-    sums = [None] * groups
+def _add_in_groups(parts: list) -> torch.Tensor:
+    """The partials added as the ring's reduce adds them: group j of
+    DW_REDUCE_GROUPS sums partials j, j + DW_REDUCE_GROUPS, ... in order,
+    then the group sums are added in group order."""
+    sums = [None] * DW_REDUCE_GROUPS
     for i, part in enumerate(parts):
-        j = i % groups
+        j = i % DW_REDUCE_GROUPS
         sums[j] = part if sums[j] is None else sums[j] + part
     dw = sums[0]
     for part in sums[1:]:
@@ -568,11 +507,10 @@ def _add_in_groups(parts: list, groups: int) -> torch.Tensor:
 
 
 def _dw_by_chunks(x_steps: torch.Tensor, g_steps: torch.Tensor, k: int, chunks: int,
-                  per_chunk: int, padded: bool, groups: int = 1) -> torch.Tensor:
+                  per_chunk: int, padded: bool) -> torch.Tensor:
     """Per chunk of ``per_chunk`` steps, each tap's x^T g over the chunk's
     rows (the rows whose shifted input lies in [0, T), or every row of the
-    padded x); the partials added in chunk order, or in ``groups`` as K9's
-    reduce adds them."""
+    padded x); the partials added as the ring's reduce adds them."""
     t = g_steps.shape[1]
     p = k // 2
     a = _acc_dtype(x_steps)
@@ -596,24 +534,40 @@ def _dw_by_chunks(x_steps: torch.Tensor, g_steps: torch.Tensor, k: int, chunks: 
                 gt = gc[:, lo_out : lo_out + rows].reshape(-1, gc.shape[-1]).to(a)
                 taps.append(xt.T @ gt)
             parts.append(torch.stack(taps))
-        return _add_in_groups(parts, groups)
+        return _add_in_groups(parts)
+
+
+def _dw_ring_plain(x: torch.Tensor, g: torch.Tensor, k: int, padded: bool) -> torch.Tensor:
+    """The dw ring's arithmetic: per chunk of ``dw_ring_plan`` (a run of
+    (clip, 64-column) items, S zero-padded to whole items) each tap's x^T g
+    in f32, over every row of x zero-padded by k // 2 frames on T (K9) or
+    over the rows whose shifted frame lies in [0, T) (K7); the partials
+    added as the kernel's reduce adds them (in DW_REDUCE_GROUPS interleaved
+    groups, each in chunk order, then the groups in order) -> (k, C, Co)."""
+    plan = dw_ring_plan(tuple(x.shape), g.shape[-1], k, _sms(x))
+    p = k // 2 if padded else 0
+    cols = -(-x.shape[2] // RING_COLS) * RING_COLS - x.shape[2]
+    xp = F.pad(x, (0, 0, 0, cols, p, p))
+    gp = F.pad(g, (0, 0, 0, cols))
+    return _dw_by_chunks(_by_step(xp, RING_COLS), _by_step(gp, RING_COLS), k, plan.chunks,
+                         plan.cols_per_chunk, padded)
 
 
 def temporal_dw_v3_cuda(x: torch.Tensor, g: torch.Tensor,
                         k: int, max_tile: int = 448) -> torch.Tensor:
+    """K7 on the dw ring, the clipped walk (``max_tile`` keeps the JAX
+    signature only)."""
     _check_dw(x, g, k)
-    return _dw_launch(x, g, k, _pick_tile(x.shape[2], max_tile))
+    return _dw_ring_launch("dw_v3", x, g, k)
 
 
 def temporal_dw_v3_plain(x: torch.Tensor, g: torch.Tensor,
                          k: int, max_tile: int = 448) -> torch.Tensor:
     """K7's arithmetic: dw[dt] = sum over rows of x[t + dt - p]^T g[t],
-    over the rows where t + dt - p lies in [0, T), in f32, one partial per
-    chunk of ``dw_plan``, the partials added in chunk order -> (k, C, Co)."""
-    tile_s = _pick_tile(x.shape[2], max_tile)
-    plan = dw_plan(tuple(x.shape), g.shape[-1], tile_s, _sms(x))
-    return _dw_by_chunks(_by_step(x, tile_s), _by_step(g, tile_s), k, plan.chunks,
-                         plan.steps_per_chunk, padded=False)
+    over the rows where t + dt - p lies in [0, T) (a tap with none: zeros),
+    chunk by chunk as the ring walks them (``_dw_ring_plain``). ``max_tile``
+    keeps the JAX signature only."""
+    return _dw_ring_plain(x, g, k, padded=False)
 
 
 def temporal_dw_v3(x: torch.Tensor, g: torch.Tensor, k: int, max_tile: int = 448) -> torch.Tensor:
@@ -624,25 +578,16 @@ def temporal_dw_v2_cuda(x: torch.Tensor, g: torch.Tensor,
                         k: int, tile_s: int = 512) -> torch.Tensor:
     """K9 on the dw ring (``tile_s`` keeps the JAX signature only)."""
     _check_dw(x, g, k)
-    return _dw_ring_launch(x, g, k)
+    return _dw_ring_launch("dw_v2", x, g, k)
 
 
 def temporal_dw_v2_plain(x: torch.Tensor, g: torch.Tensor,
                          k: int, tile_s: int = 512) -> torch.Tensor:
-    """K9's arithmetic: x zero-padded by k // 2 frames on T; per chunk of
-    ``dw_ring_plan`` (a run of (clip, 64-column) items, S zero-padded to
-    whole items) each tap's x_pad[t + dt]^T g[t] over every row, in f32;
-    the partials added as the kernel's reduce adds them (in
-    DW_REDUCE_GROUPS interleaved groups, each in chunk order, then the
-    groups in order) -> (k, C, Co). ``tile_s`` keeps the JAX signature
-    only."""
-    plan = dw_ring_plan(tuple(x.shape), g.shape[-1], k, _sms(x))
-    p = k // 2
-    cols = -(-x.shape[2] // RING_COLS) * RING_COLS - x.shape[2]
-    xp = F.pad(x, (0, 0, 0, cols, p, p))
-    gp = F.pad(g, (0, 0, 0, cols))
-    return _dw_by_chunks(_by_step(xp, RING_COLS), _by_step(gp, RING_COLS), k, plan.chunks,
-                         plan.cols_per_chunk, padded=True, groups=DW_REDUCE_GROUPS)
+    """K9's arithmetic: dw[dt] = sum over rows of x_pad[t + dt]^T g[t], x
+    zero-padded by k // 2 frames on T, every row, chunk by chunk as the
+    ring walks them (``_dw_ring_plain``). ``tile_s`` keeps the JAX
+    signature only."""
+    return _dw_ring_plain(x, g, k, padded=True)
 
 
 def temporal_dw_v2(x: torch.Tensor, g: torch.Tensor, k: int, tile_s: int = 512) -> torch.Tensor:

@@ -161,7 +161,9 @@ def test_dataset_guards_raise(packs, tmp_path):
 
 def _numpy_host_resize(monkeypatch):
     # the port resizes with the numpy spec; hold the JAX side to its numpy
-    # fallback (its C tier rounds half away from zero)
+    # fallback (its C tier also rounds half to even, with lrintf, but its
+    # f32 two-tap lerp can land one level off the numpy einsum's at a few
+    # pixels)
     monkeypatch.setattr(jnative, "_lib", None)
     monkeypatch.setattr(jnative, "_build_failed", True)
 

@@ -23,7 +23,8 @@ swapped, so the ragged side is the output's) and are held to autograd
 through the plain versions. K5-K9 (ops/temporal_micro.py) at small ragged
 shapes, with their default tiles and with 8-column tiles (several S tiles
 a clip), T = 1 and 2 among them; K7 and K9 write f32 and are held to 1e-3
-and to two bitwise-equal launches.
+and to two bitwise-equal launches, and K7 (the dw ring's clipped walk) to
+K9 at every shape.
 
 The loader-fed training path: ``device_prefetch`` returns the host batches
 bitwise at depths 1-3 (the consumer overwriting each batch before the
@@ -651,18 +652,14 @@ def test_micro_dw_kernels_match_plain_and_repeat_bitwise(cuda, x_shape, co, k, d
 
 
 def test_micro_dw_kernels_split_into_chunks(cuda):
-    """More chunks than one: K7's (b, s-tile) steps beyond twice the SMs,
-    several steps a chunk, and K9's (clip, 64-column) items beyond the SMs,
-    several items a chunk; one step (one item): a single chunk written
-    directly."""
+    """More chunks than one: K7's and K9's (clip, 64-column) items beyond
+    the SMs, several items a chunk (both take ``dw_ring_plan``); one item:
+    a single chunk written directly."""
     sms = ops._sm_count(cuda)
     for x_shape, co, tile in (((300, 2, 8, 16), 16, 1), ((1, 3, 32, 24), 8, 32)):
         x, _, gy = _micro_inputs(cuda, x_shape, co, 3)
-        # both tile rules give `tile` here
-        plan = micro.dw_plan(x_shape, co, tile, sms)
         ring = micro.dw_ring_plan(x_shape, co, 3, sms)
-        assert (plan.chunks > 1) == (ring.chunks > 1) == (x_shape[0] == 300)
-        assert (ring.cols_per_chunk > 1) == (x_shape[0] == 300)
+        assert (ring.chunks > 1) == (ring.cols_per_chunk > 1) == (x_shape[0] == 300)
         for run, plain in MICRO_DW.values():
             got = run(x, gy, 3, tile)
             ref = plain(x, gy, 3, tile)
@@ -710,6 +707,24 @@ def test_micro_k9_launches_no_pad_pass(cuda):
         assert micro.channel_pad_launches() == before + copies
         ref = micro.temporal_dw_v2_plain(x, gy, 3)
         assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("x_shape,co,k", MICRO)
+def test_micro_k7_matches_k9_and_pads_only_ragged_channels(cuda, x_shape, co, k):
+    """K7 (the dw ring's clipped walk) against K9 (the padded walk) on the
+    same inputs, within DW_TOL (summation order only: the padded walk's
+    extra products are zeros), at every MICRO shape; one channel-pad copy
+    a tensor whose channels are not a multiple of 8, none for aligned
+    inputs."""
+    x, _, gy = _micro_inputs(cuda, x_shape, co, k)
+    copies = (x_shape[-1] % 8 != 0) + (co % 8 != 0)
+    before = micro.channel_pad_launches()
+    got = micro.temporal_dw_v3_cuda(x, gy, k)
+    torch.cuda.synchronize()
+    assert micro.channel_pad_launches() == before + copies
+    ref = micro.temporal_dw_v2_cuda(x, gy, k)
+    assert got.shape == ref.shape == (k, x_shape[-1], co)
+    assert (got - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
 
 
 def test_micro_ring_plans_fit_the_card(cuda):

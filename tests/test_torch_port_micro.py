@@ -16,11 +16,11 @@ JAX kernels: K5's, K6's and K8's frame ring (items of 64 columns x a Co
 tile x a channel group, frames in walk order, K5's and K8's zero halo
 frames, K6's centre-first and skipped taps, 16-channel k steps over
 64-channel boxes, columns clipped at S, the groups' partials added in
-order), K9's dw ring (tiles of a tap group x a C tile x a 64-wide Co tile,
-chunks of 64-column items walked over T, 16-row k steps, the chunks'
-partials added in order) and K7's dw chunks added in order. Then the plans
-and tile rules, the ctypes bindings, the routing of CPU tensors and the
-entry point on the CPU.
+order) and the dw ring of K9 and K7 (tiles of a tap group x a C tile x a
+64-wide Co tile, chunks of 64-column items walked over T, 16-row k steps,
+the chunks' partials added in order; K9 over the padded frames, K7 on the
+clipped walk). Then the plans, the ctypes bindings, the routing of CPU
+tensors and the entry point on the CPU.
 """
 
 import ctypes
@@ -35,7 +35,6 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from fastvideotagging_tpu.ops.conv2plus1d import _pick_tile as jax_pick_tile
 from fastvideotagging_tpu_torch.benchmarks import kernel_micro as tkm
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import temporal_micro as micro
@@ -129,50 +128,42 @@ def test_library_yardsticks_match_the_jax_references():
 # ---------------------------------------------------------------------------
 
 
-def _dw_walk(x, g, k, plan):
-    """micro_dw_kernel's arithmetic for K7 in its order: per block (tap, 64
-    x 64 tile, chunk) the chunk's (b, s-tile) slabs in 32-row slices of the
-    rows [lo, hi) whose g row meets an x row of the tap, one f32 partial per
-    chunk; the partials added in chunk order (micro_reduce_kernel)."""
-    b, t, s, c = x.shape
-    co = g.shape[-1]
+def _dw_walk_ranges(t, k, d0, d1, clipped):
+    """micro_dw_ring_kernel's walk of one item for taps [d0, d1): the g
+    frames the producer loads, the x frames it loads, and per tap the
+    output frames whose steps its warpgroup issues (K9: every output frame
+    and the padded x frames [d0 - p, T + d1 - 1 - p); K7, ``clipped``: the
+    same clipped to [0, T), a tap issued only where t + dt - p lies there)."""
     p = k // 2
-    tile_s, dk = plan.tile_s, 32
-    xf, gf = x.reshape(-1, c), g.reshape(-1, co)
-    parts = torch.zeros((plan.chunks, k, c, co))
-    for tap in range(k):
-        off = tap - p
-        lo, hi = max(0, -off) * tile_s, (t - max(0, off)) * tile_s
-        for chunk in range(plan.chunks):
-            first = chunk * plan.steps_per_chunk
-            for step in range(first, min(first + plan.steps_per_chunk, plan.steps)):
-                bb, s0 = divmod(step, s // tile_s)
-                s0 *= tile_s
-                for r0 in range(lo, hi, dk):
-                    r = torch.arange(r0, min(r0 + dk, hi))
-                    tt, ss = r // tile_s, s0 + r % tile_s
-                    xs, gs = xf[(bb * t + tt + off) * s + ss], gf[(bb * t + tt) * s + ss]
-                    parts[chunk, tap] += xs.T @ gs
-    dw = parts[0].clone()
-    for chunk in range(1, plan.chunks):
-        dw += parts[chunk]
-    return dw
+    if not clipped:
+        return range(t), range(d0 - p, t + d1 - 1 - p), {dt: range(t) for dt in range(d0, d1)}
+    g_lo = max(0, p - d1 + 1)
+    g_hi = max(g_lo, min(t, t + p - d0))
+    f_lo = max(0, d0 - p)
+    f_hi = max(f_lo, min(t, t + d1 - 1 - p))
+    steps = {}
+    for dt in range(d0, d1):
+        t_lo = min(max(g_lo, p - dt), g_hi)
+        steps[dt] = range(t_lo, max(t_lo, min(g_hi, t + p - dt)))
+    return range(g_lo, g_hi), range(f_lo, f_hi), steps
 
 
-def _dw_ring_walk(x, g, k, plan):
-    """micro_dw_ring_kernel's arithmetic (K9) in its order: block i is tile
-    i % W of chunk i // W, W = tap_groups * c_tiles * co_tiles, the tile
-    (tap group, C tile, 64-wide Co tile) in the kernel's index order. The
-    block walks its chunk's items (64-column tiles of all clips, runs of
-    cols_per_chunk) over T: each x frame of the padded walk [d0 - p, T + d1
-    - 1 - p) loaded once as a (64 columns, boxes * 64 channels) box, zero
-    past S and C and for the halo frames (TMA's fill), each g frame as a (64
-    columns, 64 channels) box, zero past S and Co; for output frame t the
-    tap dt's f32 tile (64 x BN) adds g[t]^T x[t + dt - p] in four 16-row k
-    steps, the halo's zeros included. The tiles, inside C and Co, go into
-    the chunk's partial (k, C, Co); the partials are added as
+def _dw_ring_walk(x, g, k, plan, clipped=False, loads=None):
+    """micro_dw_ring_kernel's arithmetic in its order (K9; K7 where
+    ``clipped``): block i is tile i % W of chunk i // W, W = tap_groups *
+    c_tiles * co_tiles, the tile (tap group, C tile, 64-wide Co tile) in the
+    kernel's index order. The block walks its chunk's items (64-column tiles
+    of all clips, runs of cols_per_chunk) over T: each x frame of the walk
+    (``_dw_walk_ranges``) loaded once as a (64 columns, boxes * 64 channels)
+    box, zero past S and C and for K9's halo frames (TMA's fill), each g
+    frame as a (64 columns, 64 channels) box, zero past S and Co; for output
+    frame t the tap dt's f32 tile (64 x BN) adds g[t]^T x[t + dt - p] in four
+    16-row k steps where the tap issues step t (K9: always, the halo's zeros
+    included). The tiles, inside C and Co, go into the chunk's partial (k,
+    C, Co), zero for a tap that issued no step; the partials are added as
     micro_dw_ring_reduce_kernel adds them (DW_REDUCE_GROUPS interleaved
-    groups of chunks, each in order, then the groups in order)."""
+    groups of chunks, each in order, then the groups in order). ``loads``,
+    a dict, counts the frames loaded per (tap group, ring)."""
     b, t, s, c = x.shape
     co = g.shape[-1]
     p = k // 2
@@ -193,21 +184,27 @@ def _dw_ring_walk(x, g, k, plan):
         tile, chunk = blk % n_tiles, blk // n_tiles
         n0 = (tile % plan.co_tiles) * m
         c0 = (tile // plan.co_tiles % plan.c_tiles) * plan.bn
-        d0 = tile // (plan.co_tiles * plan.c_tiles) * plan.taps
+        tg = tile // (plan.co_tiles * plan.c_tiles)
+        d0 = tg * plan.taps
         d1 = min(k, d0 + plan.taps)
+        g_walk, x_walk, steps = _dw_walk_ranges(t, k, d0, d1, clipped)
         acc = torch.zeros((d1 - d0, m, plan.bn))
         col0 = chunk * plan.cols_per_chunk
         for col in range(col0, min(plan.cols, col0 + plan.cols_per_chunk)):
             bb, j = divmod(col, cols_per_clip)
             s0 = j * micro.RING_COLS
-            ring = {f: box(x, bb, f, s0, c0, box_c)[:, : plan.bn]
-                    for f in range(d0 - p, t + d1 - 1 - p)}
-            for tt in range(t):
+            ring = {f: box(x, bb, f, s0, c0, box_c)[:, : plan.bn] for f in x_walk}
+            for tt in g_walk:
                 gb = box(g, bb, tt, s0, n0, m)
                 for dt in range(d0, d1):
+                    if tt not in steps[dt]:
+                        continue
                     for ks in range(micro.RING_COLS // 16):
                         rows = slice(16 * ks, 16 * ks + 16)
                         acc[dt - d0] += gb[rows].T @ ring[tt + dt - p][rows]
+            if loads is not None:
+                for ring_name, walk in (("x", x_walk), ("g", g_walk)):
+                    loads[tg, ring_name] = loads.get((tg, ring_name), 0) + len(walk)
         cw, ow = min(plan.bn, c - c0), min(m, co - n0)
         parts[chunk, d0:d1, c0 : c0 + cw, n0 : n0 + ow] = acc[:, :ow, :cw].transpose(1, 2)
     sums = torch.zeros((micro.DW_REDUCE_GROUPS, k, c, co))
@@ -419,94 +416,124 @@ def test_ring_walk_adds_tap_groups_in_order(variant, t):
     _close(_ring_walk(x5, w5, 5, variant, three), plain(x5, w5, 5), FWD_TOL)
 
 
+# the dw designs on the ring: plain version, JAX kernel, its tile argument, K7's clipped walk?
+DW_RING_DESIGNS = {
+    "dw_v2": (micro.temporal_dw_v2_plain, jkm.pallas_temporal_dw, "tile_s", False),
+    "dw_v3": (micro.temporal_dw_v3_plain, jkm.pallas_temporal_dw_v3, "max_tile", True),
+}
+
+
 @pytest.mark.parametrize("t", [1, 2, 4])
 @pytest.mark.parametrize("design", ["dw_v3", "dw_v2"])
 def test_dw_walk_in_chunk_order_matches_plain_and_jax(design, t):
-    """K7's walk, with a plan of two steps a chunk (a card of two SMs: four
-    chunks at most, three here), and K9's dw ring (a card of one SM: both
-    items in one chunk), against the plain version and the JAX kernel."""
+    """The dw ring's walk, K7's clipped with a plan of one item a chunk (a
+    card of two SMs: two chunks added by the reduce) and K9's padded with
+    both items in one chunk (a card of one SM), against the plain version
+    and the JAX kernel."""
     x, _, g = _inputs(t, seed=4)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
-    if design == "dw_v3":
-        plan = micro.dw_plan(tuple(x.shape), CO, 8, sms=2)
-        assert (plan.steps, plan.chunks, plan.steps_per_chunk) == (6, 3, 2)
-        got = _dw_walk(xt, gt, K, plan)
-    else:
-        plan = micro.dw_ring_plan(tuple(x.shape), CO, K, sms=1)
-        assert (plan.cols, plan.chunks, plan.cols_per_chunk, plan.blocks) == (2, 1, 2, 1)
-        got = _dw_ring_walk(xt, gt, K, plan)
-    ref = DESIGNS[design][1](jnp.asarray(x), jnp.asarray(g), K, **{DESIGNS[design][2]: 8})
-    _close(got, ref, DW_TOL)
+    plain, jax_fn, tile_arg, clipped = DW_RING_DESIGNS[design]
+    plan = micro.dw_ring_plan(tuple(x.shape), CO, K, sms=2 if clipped else 1)
+    assert (plan.cols, plan.chunks, plan.cols_per_chunk, plan.blocks) == (
+        (2, 2, 1, 2) if clipped else (2, 1, 2, 1))
+    got = _dw_ring_walk(xt, gt, K, plan, clipped)
+    _close(got, jax_fn(jnp.asarray(x), jnp.asarray(g), K, **{tile_arg: 8}), DW_TOL)
     # the plain version's chunks are the card's (132 SMs off the card): one
-    # step (K7) or one item (K9) each
-    _close(DESIGNS[design][0](xt, gt, K, 8), got, DW_TOL)
+    # item each
+    _close(plain(xt, gt, K, 8), got, DW_TOL)
 
 
 @pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("t", [1, 2, 4])
-def test_dw_ring_walk_matches_plain_and_jax(t, k):
-    """K9's dw ring at S = 100 (a partial 64-column item a clip), C = 136
-    over three 64-wide C tiles (the last 8 channels wide) and Co = 72 over
-    two 64-wide Co tiles, k = 5 in two tap groups (3 and 2 taps), the four
-    items in chunks of 3 and 1: against the plain version (its own chunks)
-    and the JAX Pallas kernel (interpret mode); at T = 1 every outer tap
-    reads only halo frames."""
+@pytest.mark.parametrize("design", ["dw_v2", "dw_v3"])
+def test_dw_ring_walk_matches_plain_and_jax(design, t, k):
+    """The dw ring (K9 padded, K7 clipped) at S = 100 (a partial 64-column
+    item a clip), C = 136 over three 64-wide C tiles (the last 8 channels
+    wide) and Co = 72 over two 64-wide Co tiles, k = 5 in two tap groups (3
+    and 2 taps), the four items in chunks of 3 and 1: against the plain
+    version (its own chunks) and the JAX Pallas kernel (interpret mode); at
+    T = 1 every outer tap reads only halo frames (K9) or issues no step
+    (K7)."""
     x, _, g = _inputs(t, seed=11, s=100, c=136, co=72, k=k)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     plan = _forced_dw_plan(x.shape, 72, k, bn=64, cols_per_chunk=3)
     assert (plan.c_tiles, plan.co_tiles, plan.tap_groups, plan.cols, plan.chunks) == (
         3, 2, k // 3 + 1 if k > 3 else 1, 4, 2)
-    got = _dw_ring_walk(xt, gt, k, plan)
-    _close(got, micro.temporal_dw_v2_plain(xt, gt, k), DW_TOL)
-    _close(got, jkm.pallas_temporal_dw(jnp.asarray(x), jnp.asarray(g), k, tile_s=100), DW_TOL)
+    plain, jax_fn, tile_arg, clipped = DW_RING_DESIGNS[design]
+    got = _dw_ring_walk(xt, gt, k, plan, clipped)
+    _close(got, plain(xt, gt, k), DW_TOL)
+    _close(got, jax_fn(jnp.asarray(x), jnp.asarray(g), k, **{tile_arg: 100}), DW_TOL)
 
 
 @pytest.mark.parametrize("t", [1, 2, 4])
-def test_dw_ring_walk_takes_tap_groups(t):
+@pytest.mark.parametrize("design", ["dw_v2", "dw_v3"])
+def test_dw_ring_walk_takes_tap_groups(design, t):
     """k = 15: five tap groups of three taps, a block each (one warpgroup a
-    tap), every group walking only the frames its taps read (halo
-    included), at S = 70 (a 6-column second item): against the plain
-    version and the JAX kernel."""
+    tap), every group walking only the frames its taps read (K9 halo
+    included, K7 clipped to [0, T): at T = 1 only the centre tap has rows),
+    at S = 70 (a 6-column second item): against the plain version and the
+    JAX kernel. The JAX ``pallas_temporal_dw_v3`` raises where T < |dt -
+    p| < 2T (T = 2 and 4 here): its x and g row slices of such a tap differ
+    in length (benchmarks/kernel_micro.py:188-196). The port's K7 gives the
+    tap no rows and computes the dw: held there to the JAX file's XLA
+    reference instead."""
     k = 15
-    x, _, g = _inputs(t, seed=12, s=70, k=k)
+    x, w, g = _inputs(t, seed=12, s=70, k=k)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     plan = micro.dw_ring_plan(tuple(x.shape), CO, k)
     assert (plan.taps, plan.tap_groups, plan.tiles, plan.cols) == (3, 5, 5, 4)
-    got = _dw_ring_walk(xt, gt, k, plan)
-    _close(got, micro.temporal_dw_v2_plain(xt, gt, k), DW_TOL)
-    _close(got, jkm.pallas_temporal_dw(jnp.asarray(x), jnp.asarray(g), k, tile_s=70), DW_TOL)
+    plain, jax_fn, tile_arg, clipped = DW_RING_DESIGNS[design]
+    got = _dw_ring_walk(xt, gt, k, plan, clipped)
+    _close(got, plain(xt, gt, k), DW_TOL)
+    if clipped and t > 1:
+        with pytest.raises(TypeError, match="contracting dimensions"):
+            jax_fn(jnp.asarray(x), jnp.asarray(g), k, **{tile_arg: 70})
+        ref = jkm.xla_temporal_dw(jnp.asarray(x), jnp.asarray(w), jnp.asarray(g))
+    else:
+        ref = jax_fn(jnp.asarray(x), jnp.asarray(g), k, **{tile_arg: 70})
+    _close(got, ref, DW_TOL)
+
+
+@pytest.mark.parametrize("t", [1, 2, 4])
+def test_dw_clipped_walk_loads_only_what_its_taps_read(t):
+    """K7's clipped walk: at k = 15 a tap group whose taps reach no frame
+    of [0, T) (at T = 1 all but the centre tap's group; at T = 4 the outer
+    two) loads no x or g frame and writes zeros, and every group loads the
+    x frames [max(0, d0 - p), min(T, T + d1 - 1 - p)), at least taps - 1
+    fewer an item than K9's padded walk; at k = 3 and 5 the clipped walk
+    gives K9's dw bitwise on the same plan (one chunk, and chunks of 3 and
+    1 items): the padded walk's extra products are exact zeros."""
+    x, _, g = _inputs(t, seed=13, s=70, k=15)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    plan = micro.dw_ring_plan(tuple(x.shape), CO, 15)
+    clipped, padded = {}, {}
+    got = _dw_ring_walk(xt, gt, 15, plan, True, clipped)
+    _dw_ring_walk(xt, gt, 15, plan, False, padded)
+    p = 7
+    for tg in range(plan.tap_groups):
+        d0, d1 = 3 * tg, 3 * tg + 3
+        reads = [dt for dt in range(d0, d1) if abs(dt - p) < t]
+        x_frames = max(0, min(t, t + d1 - 1 - p) - max(0, d0 - p))
+        assert clipped[tg, "x"] == plan.cols * x_frames
+        assert padded[tg, "x"] - clipped[tg, "x"] >= plan.cols * (d1 - d0 - 1)
+        if not reads:
+            assert clipped[tg, "x"] == clipped[tg, "g"] == 0
+        else:
+            assert clipped[tg, "g"] > 0
+        for dt in range(d0, d1):
+            if dt not in reads:
+                assert not got[dt].any(), dt
+    _close(got, micro.temporal_dw_v3_plain(xt, gt, 15), DW_TOL)
+    for k in (3, 5):
+        xk, _, gk = map(torch.from_numpy, _inputs(t, seed=14, s=100, c=136, co=72, k=k))
+        for plan in (micro.dw_ring_plan(tuple(xk.shape), 72, k, sms=1),
+                     _forced_dw_plan(xk.shape, 72, k, bn=64, cols_per_chunk=3)):
+            assert torch.equal(_dw_ring_walk(xk, gk, k, plan, True), _dw_ring_walk(xk, gk, k, plan))
 
 
 # ---------------------------------------------------------------------------
 # Plans, tile rules, bindings, routing, the entry point
 # ---------------------------------------------------------------------------
-
-
-def test_pick_tile_matches_the_jax_packages_for_every_s():
-    for s in range(1, 4097):
-        for max_tile in (448, 224, 8):
-            assert micro._pick_tile(s, max_tile) == jax_pick_tile(s, max_tile), (s, max_tile)
-
-
-def test_halved_tile_matches_the_jax_v2s_for_every_s():
-    """v2's tile, read from the grid of the JAX kernel's pallas_call. The
-    tiles tried (512, 256, ..., 1) all divide 512, so the rule depends on S
-    mod 512 only: S = 1..512 traced covers every S in 1..4096."""
-    raw = jkm.pallas_temporal_v2.__wrapped__
-    w = jax.ShapeDtypeStruct((K, 1, 1), jnp.float32)
-
-    def jax_tile(s):
-        x = jax.ShapeDtypeStruct((1, 1, s, 1), jnp.float32)
-        eqn = next(e for e in jax.make_jaxpr(lambda x, w: raw(x, w, K))(x, w).jaxpr.eqns
-                   if e.primitive.name == "pallas_call")
-        return s // eqn.params["grid_mapping"].grid[1]
-
-    by_class = {s: jax_tile(s) for s in range(1, 513)}
-    for s in range(1, 4097):
-        assert micro._halved_tile(s) == by_class[(s - 1) % 512 + 1], s
-    # the benchmark shapes: 64 at S = 3136, 16 at S = 784
-    assert micro._halved_tile(3136) == 64 and micro._halved_tile(784) == 16
-    assert micro._pick_tile(3136, 448) == 448 and micro._pick_tile(784, 448) == 392
 
 
 @pytest.mark.parametrize("k", [1, 3, 5, 15])
@@ -567,28 +594,18 @@ def test_ring_plan_covers_every_item_once_and_fits(k):
     assert (plan.taps, plan.tap_groups, plan.slots, plan.stage) == (8, 2, 13, 0)
 
 
-def test_dw_plan_caps_the_chunks_and_covers_the_steps():
-    for shape, tile in (((32, 16, 3136, 128), 448), ((32, 16, 3136, 128), 64),
-                        ((32, 8, 784, 256), 16), ((1, 3, 7, 5), 7), ((300, 2, 8, 16), 1)):
-        plan = micro.dw_plan(shape, 64, tile)
-        assert plan.steps == shape[0] * shape[2] // tile
-        assert plan.chunks <= micro.DW_CHUNKS_PER_SM * micro.SMS
-        spc = plan.steps_per_chunk
-        assert plan.chunks * spc >= plan.steps > (plan.chunks - 1) * spc  # no empty chunk
-    # tpu1: K7 one 448-column step a chunk (224)
-    assert micro.dw_plan((32, 16, 3136, 128), 128, 448)[1:4] == (224, 224, 1)
-
-
 @pytest.mark.parametrize("k", [1, 3, 5, 15])
 def test_dw_ring_plan_covers_every_row_once_and_fits(k):
     """dw_ring_plan at the micro-benchmark's shapes and at ragged ones:
     shared memory within a block's 232,448 bytes (the x ring of taps + 4
     slots of the C tile's boxes, the g ring of 5 one-box slots, their
     barriers), every (clip, 64-column item, frame, tap, C tile, Co tile)
-    walked by exactly one block (each item walks all T frames of its tap
-    group), the C tiles covering C, the Co tiles Co, the tap groups k, one
-    block an SM at most where the tiles fit the SMs, and the partial bytes
-    it states: chunks x k x C x Co f32, none with one chunk."""
+    walked by exactly one block (K9: each item walks all T frames of its tap
+    group; K7's clipped walk: each tap's steps exactly the output frames
+    whose x frame lies in [0, T)), the C tiles covering C, the Co tiles Co,
+    the tap groups k, one block an SM at most where the tiles fit the SMs,
+    and the partial bytes it states: chunks x k x C x Co f32, none with one
+    chunk."""
     shapes = [((32, 16, 3136, 128), 128), ((32, 16, 3136, 144), 64), ((32, 8, 784, 256), 128),
               ((2, 4, 100, 40), 72), ((3, 1, 13, 45), 19), ((1, 2, 64, 1152), 512),
               ((300, 2, 8, 16), 16), ((2, 4, 100, 136), 288)]
@@ -610,6 +627,7 @@ def test_dw_ring_plan_covers_every_row_once_and_fits(k):
         assert plan.blocks <= micro.SMS or plan.chunks == 1
         assert plan.partial_bytes == (plan.chunks * k * c * co * 4 if plan.chunks > 1 else 0)
         cover = np.zeros((plan.cols, t, k, plan.c_tiles, plan.co_tiles), dtype=np.int32)
+        clipped = np.zeros_like(cover)
         for blk in range(plan.blocks):
             tile, chunk = divmod(blk, plan.tiles)[::-1]
             nt = tile % plan.co_tiles
@@ -617,8 +635,13 @@ def test_dw_ring_plan_covers_every_row_once_and_fits(k):
             d0 = tile // (plan.co_tiles * plan.c_tiles) * plan.taps
             col0 = chunk * plan.cols_per_chunk
             assert col0 < plan.cols  # no empty chunk
-            cover[col0 : col0 + plan.cols_per_chunk, :, d0 : d0 + plan.taps, ct, nt] += 1
+            cols = slice(col0, col0 + plan.cols_per_chunk)
+            cover[cols, :, d0 : d0 + plan.taps, ct, nt] += 1
+            for dt, steps in _dw_walk_ranges(t, k, d0, min(k, d0 + plan.taps), True)[2].items():
+                clipped[cols, steps.start : steps.stop, dt, ct, nt] += 1
         assert (cover == 1).all()
+        f = np.arange(t)[:, None] + np.arange(k)[None, :] - k // 2  # (output frame, tap)
+        assert (clipped == ((f >= 0) & (f < t))[None, :, :, None, None]).all()
     # the micro-benchmark's shapes at k = 3: tpu1 a 128-wide C tile and two
     # Co tiles (x read twice, g once), 66 chunks of 24 items on 132 blocks;
     # faithful1 one 144-wide tile, 131 chunks; tpu2 2 x 2 tiles, 32 chunks
@@ -628,6 +651,11 @@ def test_dw_ring_plan_covers_every_row_once_and_fits(k):
         144, 1, 1, 3, 1, 7, 5, 1568, 131, 12, 131)
     assert micro.dw_ring_plan((32, 8, 784, 256), 128, 3)[:11] == (
         128, 2, 2, 3, 1, 7, 5, 416, 32, 13, 128)
+    # K7 takes the same plan; its clipped walk loads T x frames an item and
+    # tap group at k = 3 where K9's loads T + 2 (tpu1 16 of 18, tpu2 8 of 10)
+    for t in (16, 8):
+        assert [len(_dw_walk_ranges(t, 3, 0, 3, clipped)[1]) for clipped in (True, False)] == [
+            t, t + 2]
     # partials beside x + g: 13.0 of 822 MB at tpu1, 12.6 of 154 MB at tpu2
     assert micro.dw_ring_plan((32, 16, 3136, 128), 128, 3).partial_bytes == 66 * 3 * 128 * 128 * 4
     assert micro.dw_ring_plan((32, 8, 784, 256), 128, 3).partial_bytes == 32 * 3 * 256 * 128 * 4
@@ -724,14 +752,14 @@ def test_chip_smoke_lists_the_micro_kernels_apart_from_the_main_path():
     cases = {label: (key, plan) for label, key, *_, plan in cs.micro_cases(x, w, g)}
     assert set(cs.MICRO_HEADLINE.values()) <= set(cases)
     assert {key for key, _ in cases.values()} == set(micro.launch_counts)
-    # K5, K6 and K8 on the ring (S = 24: one 64-column tile a clip), K9 on
-    # the dw ring (two items, a chunk each)
+    # K5, K6 and K8 on the ring (S = 24: one 64-column tile a clip), K9 and
+    # K7 on the dw ring with the same plan (two items, a chunk each)
     ring = ("ring: 2 items of 64 columns x 1 Co tiles of 64 x 1 channel groups of 1 boxes "
             "on 2 blocks, 8 frame slots, y staged (8192 bytes a warpgroup), 107648 bytes of "
             "shared memory")
     assert cases["v2 fwd"][1] == cases["v3 fwd tile<=448"][1] == ring
     assert cases["v3p fwd tile<=448"][1] == cases["v3p fwd tile<=224"][1] == ring
-    assert cases["dw v2"][1] == (
+    assert cases["dw v2"][1] == cases["dw v3"][1] == (
         "dw ring: 1 tiles (1 tap groups of 3 x 1 C tiles of 64 x 1 Co tiles of 64) x 2 chunks "
         "of 1 of 2 items = 2 blocks, 7 x / 5 g frame slots, 99520 bytes of shared memory; x "
         "read 1x, g 1x (re-reads from L2), partials 0.02 MB written and read")

@@ -86,7 +86,9 @@ def test_scores_from_matches_jax_at_ship_geometry(taggers, multilabel):
 
 def test_scores_from_resizes_other_geometry(taggers, monkeypatch):
     # the port resizes with the numpy spec; hold the JAX side to its numpy
-    # fallback too (its C tier rounds half away from zero)
+    # fallback too (its C tier also rounds half to even, with lrintf, but
+    # its f32 two-tap lerp can land one level off the numpy einsum's at a
+    # few pixels)
     monkeypatch.setattr(jnative, "_lib", None)
     monkeypatch.setattr(jnative, "_build_failed", True)
     jt, tt = taggers[True]
