@@ -135,6 +135,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             versions at the K1 / K2 sites of (a)'s P3D-63 and S3D forwards,
             timed beside the bound and cuDNN.
 
+10. int8 serving (ops/int8_infer.py on Q1 and Q2, ops/int8_conv.py): (a) Q1
+            at every int8 site of r2plus1d_18 (the stem and stages 1-3, the
+            sites recorded from one static forward) at clip_batch 8 and at
+            B = 32: bitwise against its plain version with the identity
+            epilogue, within one bf16 ulp with the real one, timed beside the
+            plain version, torch._int_mm over an explicit im2col (the library
+            column, timed only), the bf16 route at the same site (K1 / K2
+            where they take it, else cuDNN) and the least time the card could
+            take (1,979 TOPS int8, 3.35 TB/s), with its plan and ptxas'
+            registers and spills; (b) Q2 at every quantize site against its
+            plain version, bitwise, static and dynamic; (c) Tagger(int8=True)
+            on phase 4's video: Q1 / Q2 launches (28 / 26 a forward), scores
+            within 5e-2 of the same engine with Q1 and Q2's plain versions on
+            the same qpack, beside bf16 'cuda''s (a figure: the weights are
+            random), the int8 engine's clips/s against bf16 'cuda' at
+            clip_batch 8 and B = 32 (CUDA events), the per-video calibration's
+            ms; (d) ``cli.tag --int8`` and ``cli.evaluate --int8`` on phase
+            7/8's val pack (equal to their library calls) and ``cli.serve``
+            (with and without ``--int8``) on piped stdin: a pack, a JSON
+            object with ``top_k`` and a missing path, which gives an error
+            line while the daemon goes on.
+
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
 measured: no check and no time in the ``kernels`` line depends on one.
@@ -145,7 +167,9 @@ The line before the last is a JSON object with one entry per kernel. Its
 ``launches_by_run`` splits them by run; its times are per training step for
 K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
-times are one call at the tpu1 shape (K6, K8 at tiles <= 448). The last
+times are one call at the tpu1 shape (K6, K8 at tiles <= 448). Q1's and
+Q2's path is phase 10's int8 runs; their times are per static int8 forward
+at clip_batch 8 (the sum over its 28 / 26 launches). The last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when no CUDA device is present.
 """
@@ -170,6 +194,7 @@ import torch
 from fastvideotagging_tpu_torch import Tagger, get_model
 from fastvideotagging_tpu_torch.benchmarks import kernel_micro
 from fastvideotagging_tpu_torch.cli import evaluate as cli_evaluate
+from fastvideotagging_tpu_torch.cli import serve as cli_serve
 from fastvideotagging_tpu_torch.cli import tag as cli_tag
 from fastvideotagging_tpu_torch.cli import train as cli_train
 from fastvideotagging_tpu_torch.config import (
@@ -184,14 +209,18 @@ from fastvideotagging_tpu_torch.data.packed import open_dataset, write_pack_from
 from fastvideotagging_tpu_torch.data.pipeline import train_batches
 from fastvideotagging_tpu_torch.data.synthetic import make_frames
 from fastvideotagging_tpu_torch.evaluation import evaluate as evaluation
-from fastvideotagging_tpu_torch.evaluation.tagger import iter_pack_tags
+from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_apply, quantize_for
+from fastvideotagging_tpu_torch.evaluation.tagger import eval_clip_index, iter_pack_tags
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.layers import r2plus1d_mid_channels
 from fastvideotagging_tpu_torch.models.zoo import model_from_config
 from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 from fastvideotagging_tpu_torch.ops import fused_block as fused
+from fastvideotagging_tpu_torch.ops import int8_conv as q8
+from fastvideotagging_tpu_torch.ops import int8_infer
 from fastvideotagging_tpu_torch.ops import temporal_micro as micro
+from fastvideotagging_tpu_torch.ops.arch_spec import spec_for
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train import fit as fit_module
@@ -1925,7 +1954,8 @@ def phase_entry_points(card: str, tmp: str, train: dict, fit_run: dict) -> dict:
     del model, sd, tagger
     torch.cuda.empty_cache()
     print(f"phase 8 (a-e) took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(launches=launches, result=result)
+    return dict(launches=launches, result=result,
+                paths=dict(val=packs["val"], ckpt=ckpt_a, weights=weights))
 
 
 def accuracy_sites(b: int = ACC_BATCH):
@@ -2351,6 +2381,441 @@ def phase_zoo(card: str) -> dict:
                 sites_worst=sites["worst"], sites=sites["rows"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: int8 serving (Q1, Q2, the int8 engine and its entry points)
+# ---------------------------------------------------------------------------
+
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+_INT8_SOURCE = "fastvideotagging_tpu_torch/csrc/int8_conv.cu"
+INT8_KERNELS = {
+    "conv3d_s8": dict(
+        name="conv3d_s8_hopper_kernel (Q1)", route="cuda", source=_INT8_SOURCE,
+        replaces="none: no TPU kernel; the JAX engine's int8 conv is XLA "
+                 "(fastvideotagging_tpu/ops/int8_infer.py:112, _conv_i8)"),
+    "quantize_s8": dict(
+        name="quantize_s8_kernel + quantize_amax_kernel (Q2)", route="cuda", source=_INT8_SOURCE,
+        replaces="none: no TPU kernel; the JAX engine's quantize is XLA "
+                 "(fastvideotagging_tpu/ops/int8_infer.py:144 _dyn_quant, :543 static)"),
+}
+# launches of one static r2plus1d_18 int8 forward (stage 4 in bf16): Q1 at
+# the stem, 4 convs a block of stages 1-3 and 2 downsamples; Q2 at the 2 stem
+# sites and 4 a block (a block's input is quantized once); K1 / K2 at stage
+# 4's stride-1 convs
+INT8_FORWARD = {"conv3d_s8": 28, "quantize_s8": 26, "quantize_s8_amax": 0}
+INT8_FLOAT_K = {"spatial_conv": 3, "temporal_conv": 3}
+INT8_CLIP = (16, 112, 112)  # (T, H, W) of the int8 sites' clips
+
+
+def _int8_counts() -> dict:
+    return {**q8.launch_counts, **{k: ops.launch_counts[k] for k in INT8_FLOAT_K}}
+
+
+def _int8_reset() -> None:
+    torch.cuda.synchronize()
+    q8.reset_launch_counts()
+    ops.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def _int8_plain():
+    """Q1 and Q2's plain versions in the kernels' place, on the card."""
+    saved = q8.conv3d_s8_cuda, q8.quantize_s8_cuda
+    q8.conv3d_s8_cuda, q8.quantize_s8_cuda = q8.conv3d_s8_plain, q8.quantize_s8_plain
+    try:
+        yield
+    finally:
+        q8.conv3d_s8_cuda, q8.quantize_s8_cuda = saved
+
+
+def _record_int8_sites(qpack, x):
+    """The Q1 and Q2 calls of one static int8 forward, in order, with their
+    counts: {key: n} for Q1 (q shape, kernel, strides, pads, Co, relu,
+    out_f32) and for Q2 (y shape, dtype)."""
+    q1, q2 = {}, {}
+    conv, quant = q8.conv3d_s8_cuda, q8.quantize_s8_cuda
+
+    def rec_conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32):
+        key = (tuple(q.shape), tuple(kernel), tuple(strides), tuple(pads), wk.shape[0],
+               bool(relu), bool(out_f32))
+        q1[key] = q1.get(key, 0) + 1
+        return conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
+
+    def rec_quant(y, inv_f, s=None):
+        key = (tuple(y.shape), str(y.dtype).replace("torch.", ""))
+        q2[key] = q2.get(key, 0) + 1
+        return quant(y, inv_f, s)
+
+    q8.conv3d_s8_cuda, q8.quantize_s8_cuda = rec_conv, rec_quant
+    try:
+        int8_infer.r2plus1d_int8_infer(qpack, x)
+    finally:
+        q8.conv3d_s8_cuda, q8.quantize_s8_cuda = conv, quant
+    return q1, q2
+
+
+def _axis_pairs(n: int, k: int, s: int, lo: int, out: int) -> int:
+    """(output, tap) pairs along an axis whose input index falls inside it."""
+    return sum(1 for o in range(out) for d in range(k) if 0 <= o * s - lo + d < n)
+
+
+def _int8_bound(key, c: int):
+    """Q1's least time (ms) and what bounds it: the operations of the taps
+    inside the input at the real C at 1,979 TOPS, or the bytes of the padded
+    int8 input, the int8 weights, the epilogue's vectors and the output at
+    3.35 TB/s."""
+    qs, kernel, strides, pads, co, _relu, out_f32 = key
+    n, t, h, w, cp = qs
+    outs = [q8.out_size(d, k, st, p) for d, k, st, p in zip((t, h, w), kernel, strides, pads)]
+    pairs = 1
+    for d, k, st, p, o in zip((t, h, w), kernel, strides, pads, outs):
+        pairs *= _axis_pairs(d, k, st, p[0], o)
+    flops = 2.0 * n * pairs * c * co
+    rows = n * outs[0] * outs[1] * outs[2]
+    nbytes = n * t * h * w * cp + co * kernel[0] * kernel[1] * kernel[2] * cp + 8 * co + \
+        rows * co * (4 if out_f32 else 2)
+    t_ops, t_bytes = flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), \
+        t_ops * 1e3, t_bytes * 1e3
+
+
+def _im2col_int_mm(q, wk, kernel, strides, pads):
+    """The library column: an explicit im2col of the int8 input, then
+    torch._int_mm (cuBLASLt) against the weights, Co padded to 8."""
+    kt, kh, kw = kernel
+    (tl, th), (hl, hh), (wl, wh) = pads
+    xp = torch.nn.functional.pad(q, (0, 0, wl, wh, hl, hh, tl, th))
+    cols = xp.unfold(1, kt, strides[0]).unfold(2, kh, strides[1]).unfold(3, kw, strides[2])
+    cols = cols.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(-1, kt * kh * kw * q.shape[-1])
+    co = wk.shape[0]
+    w2 = torch.nn.functional.pad(wk.reshape(co, -1), (0, 0, 0, -co % 8))
+    return torch._int_mm(cols, w2.t())[:, :co]
+
+
+def _ptxas_q1() -> dict:
+    """{BN: (registers, spill bytes)} of Q1's instances from the build report."""
+    import re
+
+    out = {}
+    report = _build._logs.get("int8_conv", "")
+    for part in report.split("Compiling entry function")[1:]:
+        m = re.search(r"conv3d_s8_hopper_kernelILi(\d+)E", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        spills = re.search(r"(\d+) bytes spill stores", part)
+        if m and regs:
+            out[int(m.group(1))] = (int(regs.group(1)), int(spills.group(1)) if spills else 0)
+    return out
+
+
+def phase_int8_kernels(card: str, qpack, batch: int, gen: torch.Generator) -> dict:
+    """10(a, b) at one batch: every Q1 site and every Q2 site of a static
+    forward against the plain versions, timed."""
+    dev = torch.device(DEV)
+    x = torch.randn((batch, *INT8_CLIP, 3), generator=gen, device=dev).to(torch.bfloat16)
+    q1_sites, q2_sites = _record_int8_sites(qpack, x)
+    del x
+    regs = _ptxas_q1()
+    rows, agg = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0, bound_ms=0.0,
+                         ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_ulps=0.0)
+    for key, count in q1_sites.items():
+        qs, kernel, strides, pads, co, relu, out_f32 = key
+        c = next(k[0][-1] for k in q2_sites if k[0][:-1] == qs[:-1]
+                 and q8.padded_channels(k[0][-1]) == qs[-1])
+        y = torch.randn(qs[:-1] + (c,), generator=gen, device=dev).to(torch.bfloat16)
+        inv_f = torch.rand(c, generator=gen, device=dev) * 3 + 0.1
+        s = torch.tensor(0.03, device=dev)
+        q, _ = q8.quantize_s8_cuda(y, inv_f, s)
+        w = torch.randint(-127, 128, kernel + (c, co), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wk = q8.weight_layout(w)
+        one, zero = torch.ones(co, device=dev), torch.zeros(co, device=dev)
+        unit = torch.tensor(1.0, device=dev)
+        ident = q8.conv3d_s8_cuda(q, wk, kernel, one, zero, unit, strides, pads, False, True)
+        ident_ref = q8.conv3d_s8_plain(q, wk, kernel, one, zero, unit, strides, pads, False, True)
+        bitwise = torch.equal(ident, ident_ref)
+        mul = torch.rand(co, generator=gen, device=dev) * 1e-3
+        add = torch.randn(co, generator=gen, device=dev)
+        args = (q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
+        got, ref = q8.conv3d_s8_cuda(*args), q8.conv3d_s8_plain(*args)
+        diff = (got.float() - ref.float()).abs()
+        _, e = torch.frexp(ref.float())
+        ulps = (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
+        lib = _im2col_int_mm(q, wk, kernel, strides, pads)
+        lib_ok = torch.equal(lib.float().reshape(ident.shape), ident)
+        ms = time_ms(lambda: q8.conv3d_s8_cuda(*args), iters=20)
+        plain_ms = time_ms(lambda: q8.conv3d_s8_plain(*args), iters=2, warmup=1)
+        lib_ms = time_ms(lambda: _im2col_int_mm(q, wk, kernel, strides, pads), iters=5, warmup=1)
+        xb = y.contiguous()
+        wb = w.float() * 0.01
+        bf16_ms = time_ms(lambda: int8_infer._bf16_conv(xb, wb, strides, pads), iters=20)
+        bound_ms, bound_by, t_ops, t_bytes = _int8_bound(key, c)
+        plan = q8.conv_s8_plan(got.numel() // co, co, kernel[0] * kernel[1] * kernel[2], qs[-1])
+        reg, spill = regs.get(plan.bn, (None, None))
+        row = dict(x=list(qs[:-1]) + [c], cp=qs[-1], kernel=list(kernel), strides=list(strides),
+                   co=co, relu=relu, out_f32=out_f32, per_forward=count, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bf16_route_ms=bf16_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, identity_bitwise=bitwise,
+                   real_max_abs_err=diff.max().item(), real_max_ulps=ulps,
+                   int_mm_equal=lib_ok, plan=dict(bn=plan.bn, grid=plan.grid,
+                                                  slices=plan.slices, smem=plan.smem_bytes),
+                   registers=reg, spill_bytes=spill)
+        rows.append(row)
+        print(f"(a) Q1 B={batch} x{tuple(row['x'])} cp={qs[-1]} k{kernel} s{strides} -> {co} "
+              f"(x{count} a forward): {ms:.4f} ms, {bound_ms / ms:.3f} of the bound "
+              f"{bound_ms:.4f} ({bound_by}); plain {plain_ms:.3f}, im2col+_int_mm {lib_ms:.4f} "
+              f"(equal {lib_ok}), bf16 route {bf16_ms:.4f}; identity bitwise {bitwise}, real "
+              f"max err {row['real_max_abs_err']:.3e} ({ulps:.2f} bf16 ulp); plan BN {plan.bn} "
+              f"grid {plan.grid} slices {plan.slices} smem {plan.smem_bytes}; ptxas {reg} "
+              f"registers, {spill} bytes spilled", flush=True)
+        if not (bitwise and ulps <= 1.0):
+            raise SystemExit(f"(a) Q1 disagrees with its plain version at {key}")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                     ("bf16_ms", bf16_ms), ("bound_ms", bound_ms), ("ops_ms", t_ops),
+                     ("bytes_ms", t_bytes)):
+            agg[k] += count * v
+        agg["max_abs_err"] = max(agg["max_abs_err"], row["real_max_abs_err"])
+        agg["max_ulps"] = max(agg["max_ulps"], ulps)
+        del q, wk, got, ref, ident, ident_ref, lib, xb, y
+        torch.cuda.empty_cache()
+
+    q2_rows, q2_agg = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, dyn_ms=0.0, dyn_plain_ms=0.0)
+    for (ys, dtype), count in q2_sites.items():
+        y = (torch.randn(ys, generator=gen, device=dev) * 2).to(getattr(torch, dtype))
+        inv_f = torch.rand(ys[-1], generator=gen, device=dev) * 3 + 0.1
+        s = torch.tensor(0.05, device=dev)
+        a, b = q8.quantize_s8_cuda(y, inv_f, s), q8.quantize_s8_plain(y, inv_f, s)
+        d, e = q8.quantize_s8_cuda(y, inv_f), q8.quantize_s8_plain(y, inv_f)
+        ok = torch.equal(a[0], b[0]) and torch.equal(d[0], e[0]) and torch.equal(d[1], e[1])
+        ms = time_ms(lambda: q8.quantize_s8_cuda(y, inv_f, s), iters=20)
+        plain_ms = time_ms(lambda: q8.quantize_s8_plain(y, inv_f, s), iters=5)
+        dyn_ms = time_ms(lambda: q8.quantize_s8_cuda(y, inv_f), iters=20)
+        dyn_plain_ms = time_ms(lambda: q8.quantize_s8_plain(y, inv_f), iters=5)
+        nbytes = y.numel() * y.element_size() + a[0].numel() + 4 * ys[-1]
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        q2_rows.append(dict(y=list(ys), dtype=dtype, per_forward=count, ms=ms, plain_ms=plain_ms,
+                            dynamic_ms=dyn_ms, dynamic_plain_ms=dyn_plain_ms, bound_ms=bound_ms,
+                            bitwise=ok))
+        print(f"(b) Q2 B={batch} y{ys} {dtype} (x{count}): static {ms:.4f} ms, dynamic (amax + "
+              f"quantize) {dyn_ms:.4f}, bound {bound_ms:.4f} (bytes; {bound_ms / ms:.3f} of it "
+              f"static); plain {plain_ms:.4f} / {dyn_plain_ms:.4f}; bitwise both modes {ok}",
+              flush=True)
+        if not ok:
+            raise SystemExit(f"(b) Q2 disagrees with its plain version at {ys}")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                     ("dyn_ms", dyn_ms), ("dyn_plain_ms", dyn_plain_ms)):
+            q2_agg[k] += count * v
+    print(f"(a, b) B={batch}, sums over one static forward's launches: Q1 {agg['ms']:.4f} ms "
+          f"(bound {agg['bound_ms']:.4f}, plain {agg['plain_ms']:.2f}, im2col+_int_mm "
+          f"{agg['library_ms']:.4f}, bf16 route {agg['bf16_ms']:.4f}); Q2 {q2_agg['ms']:.4f} ms "
+          f"static, {q2_agg['dyn_ms']:.4f} dynamic (bound {q2_agg['bound_ms']:.4f}) on {card}",
+          flush=True)
+    return dict(q1=agg, q1_sites=rows, q2=q2_agg, q2_sites=q2_rows,
+                q1_launches=sum(q1_sites.values()), q2_launches=sum(q2_sites.values()))
+
+
+def phase_int8_tagger(card: str) -> dict:
+    """10(c): Tagger(int8=True) on phase 4's video and the engine's
+    throughput against bf16 'cuda'."""
+    g = torch.Generator().manual_seed(SEED)
+    state = get_model("r2plus1d_18", num_classes=400, device="cpu", generator=g).state_dict()
+    frames = make_frames(3, num_frames=160, height=128, width=171, seed=SEED)
+
+    def read_frames(idx):
+        return frames[idx]
+
+    tagger = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, int8=True, device=DEV)
+    clip_idx = eval_clip_index(len(frames), tagger.sampler_cfg)
+    chunks = -(-clip_idx.shape[0] // CLIP_BATCH)
+    bf16 = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, device=DEV)
+    tagger.scores_from(read_frames, len(frames))  # warm-up
+    _int8_reset()
+    scores = tagger.scores_from(read_frames, len(frames))
+    torch.cuda.synchronize()
+    launches = _int8_counts()
+    want = {k: v * chunks for k, v in INT8_FORWARD.items()}
+    want_k = {k: FORWARD_LAUNCHES["cuda"][k] + n * chunks for k, n in INT8_FLOAT_K.items()}
+    print(f"(c) Tagger(int8=True): launches over {chunks} chunks {launches} (Q1 / Q2 / amax "
+          f"{want}; K1 / K2 {want_k}: the calibration walk's and stage 4's a chunk)", flush=True)
+    if launches != {**want, **want_k}:
+        raise SystemExit(f"(c) launch counts {launches} != {want} {want_k}")
+    if scores.shape != (tagger.num_classes,) or not np.isfinite(scores).all():
+        raise SystemExit("(c) the int8 scores are not finite or of the wrong shape")
+    with _int8_plain():
+        plain = tagger.scores_from(read_frames, len(frames))
+    ref = bf16.scores_from(read_frames, len(frames))
+    err = float(np.abs(scores - plain).max())
+    print(f"(c) int8 scores vs the same engine with Q1 / Q2's plain versions on the card: max abs "
+          f"diff {err:.3e} (tol {PATH_TOL}); vs bf16 'cuda' {np.abs(scores - ref).max():.3e} (a "
+          f"figure: random weights); top-5 int8 {np.argsort(-scores)[:5].tolist()} bf16 "
+          f"{np.argsort(-ref)[:5].tolist()}", flush=True)
+    if err > PATH_TOL:
+        raise SystemExit("(c) the int8 engine disagrees with its plain versions")
+
+    # the per-video calibration apart from the forward, and clips/s
+    d = tagger.cfg.data
+    first = torch.from_numpy(frames[clip_idx[:CLIP_BATCH]]).to(DEV)
+    clips = preprocess_eval_clip(first, d.resize_hw,
+                                 d.crop_hw, d.mean, d.std, out_dtype=torch.bfloat16)
+    calib = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qpack = quantize_for("r2plus1d_18", tagger._weights, [clips], w_cols=tagger._w_cols)
+        torch.cuda.synchronize()
+        calib.append((time.perf_counter() - t0) * 1e3)
+    w_cols_ms = time_ms(lambda: int8_infer.consumer_absmax(spec_for("r2plus1d_18"),
+                                                          tagger._weights), iters=1, warmup=0)
+    rates = {}
+    for b in (CLIP_BATCH, TRAIN_BATCH):
+        x = torch.randn((b, *INT8_CLIP, 3), generator=torch.Generator(device=DEV).manual_seed(b),
+                        device=DEV).to(torch.bfloat16)
+        with torch.inference_mode():
+            runs = {
+                "bf16_cuda": lambda: bf16.model(x),
+                "int8_static": lambda: int8_infer.r2plus1d_int8_infer(qpack, x),
+                "int8_dynamic": lambda: int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=True),
+                "int8_exact_residual": lambda: int8_infer.r2plus1d_int8_infer(
+                    qpack, x, residual="exact"),
+            }
+            for name, fn in runs.items():
+                ms = time_ms(fn, iters=10)
+                rates[f"{name}_b{b}"] = dict(ms=ms, clips_per_s=b / ms * 1e3)
+        del x
+        torch.cuda.empty_cache()
+        print(f"(c) B={b}: " + "; ".join(
+            f"{k} {rates[f'{k}_b{b}']['ms']:.3f} ms = {rates[f'{k}_b{b}']['clips_per_s']:.1f} "
+            f"clips/s" for k in runs) + f" (CUDA events, 10 forwards) on {card}", flush=True)
+    print(f"(c) per-video calibration (calibrate + quantize_variables on one chunk of "
+          f"{CLIP_BATCH} clips): {[round(c, 3) for c in calib]} ms; the consumer absmax, taken "
+          f"once per Tagger: {w_cols_ms:.3f} ms", flush=True)
+    return dict(launches=launches, score_err=err, calibration_ms=calib,
+                consumer_absmax_ms=w_cols_ms, rates=rates, qpack=qpack)
+
+
+def phase_int8_entry_points(card: str, paths: dict) -> dict:
+    """10(d): cli.tag --int8, cli.evaluate --int8 and cli.serve on phase
+    7/8's val pack, each run's launches counted from 0."""
+    cfg = PRESETS["r2plus1d18_ucf101"]
+    launches = {}
+    argv = [paths["val"], "--preset", "r2plus1d18_ucf101", "--weights", paths["weights"],
+            "--threshold", "0.0", "--top-k", "5", "--int8"]
+    _int8_reset()
+    (_, printed) = _quiet(cli_tag.main, argv)
+    launches["cli_tag_int8"] = _int8_counts()
+    tagger = Tagger(cfg, load_weights(paths["weights"]), int8=True, device=DEV)
+    direct = [json.dumps({"video": path, "tags": [{"tag": r.tag, "score": round(r.score, 5)}
+                                                  for r in results]})
+              for path, results in iter_pack_tags(tagger, paths["val"], threshold=0.0, top_k=5)]
+    lines = printed.strip().splitlines()
+    print(f"(d) cli.tag --int8: {len(lines)} lines, launches {launches['cli_tag_int8']}; equal to "
+          f"iter_pack_tags(Tagger(int8=True)): {lines == direct}; the first {lines[0]}", flush=True)
+    if lines != direct or launches["cli_tag_int8"]["conv3d_s8"] != 28 * len(lines):
+        raise SystemExit("(d) cli.tag --int8 differs from its library call or its launches")
+
+    argv = ["--preset", "r2plus1d18_ucf101", "--val-list", paths["val"], "--checkpoint-dir",
+            paths["ckpt"], "--int8"]
+    _int8_reset()
+    out, printed = _quiet(cli_evaluate.main, argv)
+    launches["cli_evaluate_int8"] = _int8_counts()
+    sd, _ = CheckpointManager(paths["ckpt"]).restore_weights()
+    sd = {k: v.to(DEV) for k, v in sd.items()}
+    ds = open_dataset(paths["val"], cfg.data, mode="eval")
+    d = cfg.data
+    calib = [preprocess_eval_clip(torch.from_numpy(ds.get_eval_clips(i)[0]).to(DEV),
+                                  d.resize_hw, d.crop_hw, d.mean, d.std, out_dtype=torch.bfloat16)
+             for i in range(min(8, len(ds)))]
+    qpack, apply_fn = make_int8_apply(cfg.model.name, sd, calib, multilabel=cfg.model.multilabel)
+    direct = evaluation.evaluate(model_from_config(cfg.model, device=DEV), qpack, ds, cfg,
+                                 apply_fn=apply_fn)
+    same = json.loads(printed.strip().splitlines()[-1]) == direct == out
+    print(f"(d) cli.evaluate --int8: {printed.strip()}, launches "
+          f"{launches['cli_evaluate_int8']}; equal to evaluate(apply_fn=make_int8_apply(...)): "
+          f"{same}", flush=True)
+    if not same or launches["cli_evaluate_int8"]["conv3d_s8"] == 0:
+        raise SystemExit("(d) cli.evaluate --int8 differs from evaluate() or ran no Q1")
+
+    missing = os.path.join(os.path.dirname(paths["val"]), "missing.fvtpack")
+    requests = (f"{paths['val']}\n"
+                + json.dumps({"video": paths["val"], "top_k": 2}) + "\n"
+                + f"{missing}\n")
+    served = {}
+    for flag in ("--int8", None):
+        run = "serve_int8" if flag else "serve_bf16"
+        stdin = sys.stdin
+        sys.stdin = io.StringIO(requests)
+        err = io.StringIO()
+        _int8_reset()
+        try:
+            with contextlib.redirect_stderr(err):
+                stats, printed = _quiet(cli_serve.main, [
+                    "--preset", "r2plus1d18_ucf101", "--weights", paths["weights"],
+                    "--threshold", "0.0"] + ([flag] if flag else []))
+        finally:
+            sys.stdin = stdin
+        launches[run] = _int8_counts()
+        resp = [json.loads(line) for line in printed.strip().splitlines()]
+        n = len(lines)  # the val pack's videos
+        good = (stats == {"served": 2, "errors": 1} and len(resp) == 2 * n + 1
+                and "error" in resp[-1] and all(len(r["tags"]) == 2 for r in resp[n:2 * n])
+                and "ready" in err.getvalue())
+        served[run] = dict(stats=stats, lines=len(resp), error=resp[-1].get("error"))
+        print(f"(d) cli.serve {flag or '(bf16)'}: {stats}, {len(resp)} lines, the last "
+              f"{json.dumps(resp[-1])}; launches {launches[run]}", flush=True)
+        if not good or (flag and launches[run]["conv3d_s8"] != 28 * 2 * n):
+            raise SystemExit(f"(d) cli.serve {flag or ''} did not answer as it should")
+    return dict(launches=launches, evaluate=out, tag_lines=len(lines), serve=served)
+
+
+def phase_int8(card: str, paths: dict) -> dict:
+    print("== phase 10: int8 serving", flush=True)
+    t_phase = time.perf_counter()
+    tag = phase_int8_tagger(card)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    kernels = {b: phase_int8_kernels(card, tag["qpack"], b, gen) for b in (CLIP_BATCH, TRAIN_BATCH)}
+    for b, k in kernels.items():
+        if (k["q1_launches"], k["q2_launches"]) != (28, 26):
+            raise SystemExit(f"B={b}: a forward made {k['q1_launches']} / {k['q2_launches']} "
+                             f"Q1 / Q2 calls, not 28 / 26")
+    entry = phase_int8_entry_points(card, paths)
+    launches = {"tagger_int8": tag["launches"], **entry["launches"]}
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    del tag["qpack"]
+    return dict(launches=launches, tagger=tag, kernels=kernels, entry=entry)
+
+
+def int8_entries(int8: dict) -> list:
+    """The ``kernels`` line's entries of Q1 and Q2 from phase 10: launches of
+    its int8 runs, times per static forward at clip_batch 8."""
+    entries = []
+    for key, meta in INT8_KERNELS.items():  # Q1, Q2: phase 10's int8 runs
+        runs = {run: c[key] + (c["quantize_s8_amax"] if key == "quantize_s8" else 0)
+                for run, c in int8["launches"].items()}
+        a = int8["kernels"][CLIP_BATCH]
+        if key == "conv3d_s8":
+            s8 = a["q1"]
+            extra = dict(library_ms=s8["library_ms"], bound_ms=s8["bound_ms"],
+                         bound_by="operations" if s8["ops_ms"] >= s8["bytes_ms"] else "bytes",
+                         max_abs_err=s8["max_abs_err"], max_bf16_ulps=s8["max_ulps"],
+                         bf16_route_ms=s8["bf16_ms"],
+                         b32=dict(int8["kernels"][TRAIN_BATCH]["q1"]),
+                         sites=a["q1_sites"] + int8["kernels"][TRAIN_BATCH]["q1_sites"])
+        else:
+            s8 = a["q2"]
+            extra = dict(library_ms=None, bound_ms=s8["bound_ms"], bound_by="bytes",
+                         max_abs_err=0.0, dynamic_ms=s8["dyn_ms"],
+                         dynamic_plain_ms=s8["dyn_plain_ms"],
+                         b32=dict(int8["kernels"][TRAIN_BATCH]["q2"]),
+                         sites=a["q2_sites"] + int8["kernels"][TRAIN_BATCH]["q2_sites"])
+        if sum(runs.values()) == 0:
+            raise SystemExit(f"{meta['name']} was launched no time on its path")
+        entries.append(dict(
+            meta, launches=sum(runs.values()), launches_by_run=runs, ms=s8["ms"],
+            plain_ms=s8["plain_ms"], ok=True,
+            per=f"one static r2plus1d_18 int8 forward at clip_batch {CLIP_BATCH} (the sum over "
+                f"its launches)" + ("; library_ms: torch._int_mm over an explicit im2col"
+                                    if key == "conv3d_s8" else ""), **extra))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2366,11 +2831,12 @@ def main() -> int:
     serving = phase_path(card)
     train = phase_train(card)
     ev = phase_eval(card)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp:  # phase 7's packs, read again in 8 and 10
         fit_run = phase_fit(card, train["routes"], tmp)
         entry = phase_entry_points(card, tmp, train, fit_run)
-    acc_sites = phase_accuracy_sites()
-    zoo = phase_zoo(card)
+        acc_sites = phase_accuracy_sites()
+        zoo = phase_zoo(card)
+        int8 = phase_int8(card, entry["paths"])
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
@@ -2415,10 +2881,12 @@ def main() -> int:
             library_ms=head["library_ms"], ok=a["ok"],
             per=f"one {MICRO_HEADLINE[key]} call at the micro-benchmark's tpu1 shape",
             sites=a["sites"]))
+    entries += int8_entries(int8)
     print(json.dumps({"train": train["routes"], "eval": ev, "micro": micro_run["bench"],
                       "fit": {k: v for k, v in fit_run.items() if k not in ("launches", "packs")},
                       "entry_points": entry["result"],
                       "zoo": {k: zoo[k] for k in ("serving", "train", "entry", "sites")},
+                      "int8": {"tagger": int8["tagger"], "entry": int8["entry"]},
                       "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))

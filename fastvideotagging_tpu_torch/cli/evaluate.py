@@ -8,15 +8,19 @@ the UCF101 parity protocol as one command.
 Restores the weights of the latest checkpoint of a port training run
 (``train/checkpoint.py``; the optimizer state is not read), evaluates a
 ``.fvtpack`` or a video list on the card (``--device cpu`` for the host)
-and prints one JSON line of metrics. ``--int8`` is not ported yet
-(ROADMAP.md Queue A item 5); a config that asks for several devices is
-evaluated on one card (the multi-device evaluation is item 7).
+and prints one JSON line of metrics. ``--int8`` evaluates the int8 engine,
+calibrated on the first ``--int8-calib-videos`` videos' eval clips; a
+config that asks for several devices is evaluated on one card (the
+multi-device evaluation is ROADMAP.md Queue A item 7).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+
+import numpy as np
+import torch
 
 from fastvideotagging_tpu_torch.cli.common import (
     add_common_flags,
@@ -28,7 +32,9 @@ from fastvideotagging_tpu_torch.data import ucf101
 from fastvideotagging_tpu_torch.data.packed import is_pack, open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
 from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate
+from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_apply
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
+from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
 from fastvideotagging_tpu_torch.utils.logging import get_logger
 
@@ -42,16 +48,13 @@ def main(argv=None) -> dict:
     p.add_argument("--clip-batch", type=int, default=8)
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--int8", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue A item 5)")
+                   help="evaluate the int8 PTQ engine (calibrated on the first "
+                        "--int8-calib-videos videos)")
     p.add_argument("--int8-calib-videos", type=int, default=8)
     add_multihost_flags(p)
     args = p.parse_args(argv)
     dev = apply_platform(args)
     cfg = build_config(args)
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 needs the int8 engine, which is not ported yet "
-            "(ROADMAP.md Queue A item 5)")
 
     num_tags = cfg.model.num_classes if cfg.model.multilabel else None
     if is_pack(cfg.data.val_list):
@@ -75,8 +78,20 @@ def main(argv=None) -> dict:
             "evaluating on one card (multi-device evaluation is ROADMAP.md "
             "Queue A item 7)", cfg.parallel.data_parallel, cfg.parallel.model_parallel)
     variables = {k: v.to(dev) for k, v in state_dict.items()}
+    apply_fn = None
+    if args.int8:
+        d = cfg.data
+        dtype = getattr(torch, cfg.model.compute_dtype)
+        calib = []
+        for i in range(min(args.int8_calib_videos, len(dataset))):
+            clips_u8, _ = dataset.get_eval_clips(i)
+            calib.append(preprocess_eval_clip(
+                torch.from_numpy(np.ascontiguousarray(clips_u8)).to(dev), d.resize_hw,
+                d.crop_hw, d.mean, d.std, out_dtype=dtype))
+        variables, apply_fn = make_int8_apply(cfg.model.name, variables, calib,
+                                              multilabel=cfg.model.multilabel)
     out = evaluate(model, variables, dataset, cfg, clip_batch=args.clip_batch,
-                   threshold=args.threshold)
+                   threshold=args.threshold, apply_fn=apply_fn)
     print(json.dumps(out))
     return out
 

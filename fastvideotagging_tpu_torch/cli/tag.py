@@ -6,10 +6,10 @@
 ``--weights`` is a file of ``train.checkpoint.export_weights``. A
 ``.fvtpack`` argument tags every video in the pack (the decode-once
 backfill tier). One JSON line per video: ``{"video", "tags": [{"tag",
-"score"}]}``, scores rounded to 5 places. Runs on the card unless
+"score"}]}``, scores rounded to 5 places. ``--int8`` serves through the
+int8 engine, self-calibrated per video. Runs on the card unless
 ``--device cpu``. Not ported yet: ``--engine native``, ``--artifacts`` and
-``--pipeline`` (the C++ daemon, ROADMAP.md Queue A item 6), ``--int8``
-(item 5).
+``--pipeline`` (the C++ daemon, ROADMAP.md Queue A item 6).
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def main(argv=None) -> None:
     p.add_argument("--top-k", type=int, default=None)
     p.add_argument("--clip-batch", type=int, default=8)
     p.add_argument("--int8", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue A item 5)")
+                   help="serve through the int8 PTQ engine (self-calibrates "
+                        "on each video's first chunk)")
     p.add_argument("--engine", choices=["torch", "native"], default="torch",
                    help="torch: in-process engine from --weights; native: not "
                         "ported yet (ROADMAP.md Queue A item 6)")
@@ -56,10 +57,6 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             "--engine native, --artifacts and --pipeline need the C++ serving "
             "daemon, which is not ported yet (ROADMAP.md Queue A item 6)")
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 needs the int8 engine, which is not ported yet "
-            "(ROADMAP.md Queue A item 5)")
     if not args.weights:
         raise SystemExit("--engine torch needs --weights")
 
@@ -68,7 +65,7 @@ def main(argv=None) -> None:
         with open(args.tag_names) as f:
             tag_names = [line.strip() for line in f if line.strip()]
     tagger = Tagger(cfg, load_weights(args.weights), tag_names,
-                    clip_batch=args.clip_batch, device=dev)
+                    clip_batch=args.clip_batch, int8=args.int8, device=dev)
 
     def emit(video, results):
         print(json.dumps({

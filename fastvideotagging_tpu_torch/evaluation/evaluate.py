@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from fastvideotagging_tpu_torch._device import device_of
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.data.packed import open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
@@ -34,13 +35,6 @@ from fastvideotagging_tpu_torch.train.metrics import (
 from fastvideotagging_tpu_torch.utils.logging import get_logger
 
 log = get_logger("fvt.eval")
-
-
-def _device_of(variables) -> torch.device:
-    for v in variables.values():
-        if torch.is_tensor(v):
-            return v.device
-    raise ValueError("variables hold no tensor to take the device from")
 
 
 def _no_mesh(mesh) -> None:
@@ -91,7 +85,7 @@ def evaluate_video_scores(
     ``mesh``: not ported yet (raises)."""
     _no_mesh(mesh)
     d = cfg.data
-    device = _device_of(variables)
+    device = device_of(variables)  # a state_dict, or a nested qpack (int8 apply_fn)
     apply = apply_fn or _make_apply(model, cfg.model.multilabel)
     dtype = getattr(torch, cfg.model.compute_dtype)
     all_scores = []

@@ -5,7 +5,9 @@ decode -> dense/uniform clip sampling -> device preprocess -> batched
 forward (fixed-size chunks) -> sigmoid/softmax -> f64 host mean over clips
 -> [(tag, score), ...] above threshold. Long videos stream in bounded
 chunks, so memory is O(chunk), not O(video length). ``iter_pack_tags``
-tags every video of a decode-once ``.fvtpack``.
+tags every video of a decode-once ``.fvtpack``. ``Tagger(int8=True)``
+serves through the int8 engine (ops/int8_infer.py), recalibrated on each
+video's first chunk.
 """
 
 from __future__ import annotations
@@ -26,9 +28,12 @@ from fastvideotagging_tpu_torch.config import (
 from fastvideotagging_tpu_torch.data import decode, sampler
 from fastvideotagging_tpu_torch.data.frames import _ensure_size
 from fastvideotagging_tpu_torch.data.packed import Pack
+from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_engine, quantize_for
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
+from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, spec_for
+from fastvideotagging_tpu_torch.ops.int8_infer import consumer_absmax
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.checkpoint import load_weights
 
@@ -144,6 +149,7 @@ class Tagger:
         state_dict: dict,
         tag_names: list[str] | None = None,
         clip_batch: int = 8,
+        int8: bool = False,
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
@@ -155,10 +161,27 @@ class Tagger:
             raise ValueError(
                 f"{len(self.tag_names)} tag names for {k} classes"
             )
+        # int8 PTQ serving (ops/int8_infer): the engine is built once; the
+        # qpack recalibrates on the first preprocessed chunk of each video
+        # (representative by construction). The consumer kernels' absmax of
+        # the smoothing factors depends on the weights alone: taken once here.
+        self.int8 = int8
+        self._int8_apply = None
+        self._qpack = None
+        if int8 and cfg.model.name not in COVERED_MODELS:
+            raise ValueError(
+                f"int8 tagging covers {sorted(COVERED_MODELS)}; "
+                f"got {cfg.model.name!r}")
         self.model = model_from_config(cfg.model, device=self.device,
                                        clip_shape=config_clip_shape(cfg.data))
         self.model.load_state_dict(state_dict)
         self._dtype = getattr(torch, cfg.model.compute_dtype)
+        if int8:
+            self.model.eval()
+            self._weights = self.model.state_dict()
+            self._w_cols = consumer_absmax(spec_for(cfg.model.name), self._weights)
+            self._int8_apply = make_int8_engine(cfg.model.name,
+                                                multilabel=cfg.model.multilabel)
 
     @property
     def sampler_cfg(self):
@@ -174,12 +197,14 @@ class Tagger:
 
     def video_scores(self, video_path: str) -> np.ndarray:
         """Aggregated per-tag scores for one video, streaming over clips."""
+        self._qpack = None  # recalibrate per video (the engine stays built)
         return stream_video_scores(
             video_path, self.sampler_cfg, self.ship_hw, self.num_classes,
             self.clip_batch, self._score_u8)
 
     def scores_from(self, read_frames, n_frames: int) -> np.ndarray:
         """Aggregated scores from an arbitrary frame source (e.g. a pack)."""
+        self._qpack = None  # recalibrate per video (the engine stays built)
         return scores_from_frames(
             read_frames, n_frames, self.sampler_cfg, self.ship_hw,
             self.num_classes, self.clip_batch, self._score_u8)
@@ -194,6 +219,11 @@ class Tagger:
             frames = frames.pin_memory().to(self.device, non_blocking=True)
         clips = preprocess_eval_clip(
             frames, d.resize_hw, d.crop_hw, d.mean, d.std, out_dtype=self._dtype)
+        if self.int8:
+            if self._qpack is None:
+                self._qpack = quantize_for(self.cfg.model.name, self._weights, [clips],
+                                           w_cols=self._w_cols)
+            return self._int8_apply(self._qpack, clips)[:nclips]
         scores = heads.predict_scores(self.model(clips), self.cfg.model.multilabel)
         # still in flight on the card: the caller reads it back one chunk later
         return scores[:nclips]
@@ -244,12 +274,14 @@ def tag(
     stride: int = 1,
     eval_mode: str = "dense",
     cfg: ExperimentConfig | None = None,
+    int8: bool = False,
     device: str | torch.device = "cuda",
 ) -> list[TagResult]:
     """One-call API, in the JAX package's parameter order. The weights are
     exactly one of: a ``checkpoint`` path (a weights export of
     ``train.checkpoint.export_weights``), the JAX package's ``variables``
-    (nested dicts of arrays) or a port ``state_dict``."""
+    (nested dicts of arrays) or a port ``state_dict``. ``int8`` serves
+    through the int8 engine (``Tagger``)."""
     if sum(w is not None for w in (checkpoint, variables, state_dict)) != 1:
         raise ValueError(
             "provide exactly one of `checkpoint`, `variables` or `state_dict`")
@@ -264,5 +296,5 @@ def tag(
         state_dict = load_weights(checkpoint)
     elif variables is not None:
         state_dict = from_jax_variables(variables)
-    tagger = Tagger(cfg, state_dict, tag_names, device=device)
+    tagger = Tagger(cfg, state_dict, tag_names, int8=int8, device=device)
     return tagger.tag(video_path, threshold=threshold, top_k=top_k)

@@ -21,6 +21,12 @@ from the state_dict's own structure (a prefix with ``weight`` is a Dense,
 one with ``mean``/``var`` a BatchNorm, one with ``kernel`` a conv), which
 cannot tell a GroupNorm from a 'scaleonly' affine and raises there.
 
+``qpack_from_jax`` carries the JAX package's int8 qpack
+(``ops/int8_infer.quantize_variables``) over as the port's
+(ops/int8_infer.py): the same keys, every leaf a tensor, each conv's int8
+weights also laid out K-major for the int8 conv kernel, so that both
+engines can run on one qpack.
+
 Neither JAX nor Flax is imported: any array with ``__array__`` works.
 """
 
@@ -117,3 +123,29 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
             node = node.setdefault(name, {})
         node[leaf] = np.array(value, order="C")  # a copy: never a view of a live tensor
     return variables
+
+
+def qpack_from_jax(qpack: Mapping, device: str | torch.device = "cpu") -> dict:
+    """The JAX package's int8 qpack (nested dicts and lists of arrays) ->
+    the port's, on ``device``: float leaves f32 tensors (``s_static``'s
+    scalars 0-d), int8 weights int8, and beside each conv's ``w`` its
+    K-major layout ``wk`` (ops/int8_conv.py::weight_layout)."""
+    from fastvideotagging_tpu_torch.ops.int8_conv import weight_layout
+
+    def leaf(value):
+        a = np.asarray(value)
+        dtype = torch.int8 if a.dtype == np.int8 else torch.float32
+        return torch.as_tensor(np.array(a, dtype=np.int8 if a.dtype == np.int8 else np.float32),
+                               dtype=dtype, device=device)
+
+    def tree(node):
+        if isinstance(node, Mapping):
+            return {k: tree(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [tree(v) for v in node]
+        return leaf(node)
+
+    out = tree(qpack)
+    for pack in out["convs"].values():
+        pack["wk"] = weight_layout(pack["w"])
+    return out

@@ -1025,3 +1025,106 @@ def test_temporal_kernels_at_the_accuracy_sites(cuda, x_shape, co):
     _close(ops.temporal_conv_dx_cuda(gy, wt), ops.temporal_conv_dx_plain(gy, wt))
     dw, ref = ops.temporal_dw_cuda(x, gy, 3), ops.temporal_dw_plain(x, gy, 3)
     assert (dw - ref).abs().max().item() <= DW_TOL * ref.abs().max().item()
+
+
+# The int8 engine's kernels (ops/int8_conv.py): Q1 at each of r2plus1d_18's
+# int8 sites (stages 1-3 and the stem at 16x112x112, B = 2): (x shape (N, T,
+# H, W, C), kernel, strides, Co, relu, out_f32, padding: None for k//2)
+INT8_SITES = [
+    ((2, 16, 112, 112, 3), (1, 7, 7), (1, 2, 2), 45, True, False, None),
+    ((2, 16, 56, 56, 45), (3, 1, 1), (1, 1, 1), 64, True, False, None),
+    ((2, 16, 56, 56, 64), (1, 3, 3), (1, 1, 1), 144, True, False, None),
+    ((2, 16, 56, 56, 144), (3, 1, 1), (1, 1, 1), 64, True, False, None),
+    ((2, 16, 56, 56, 144), (3, 1, 1), (1, 1, 1), 64, False, True, None),  # a block's last conv
+    ((2, 16, 56, 56, 64), (1, 3, 3), (1, 2, 2), 230, True, False, None),
+    ((2, 16, 28, 28, 230), (3, 1, 1), (2, 1, 1), 128, True, False, None),
+    ((2, 16, 56, 56, 64), (1, 1, 1), (2, 2, 2), 128, False, True, None),  # downsample
+    ((2, 8, 28, 28, 128), (1, 3, 3), (1, 1, 1), 288, True, False, None),
+    ((2, 8, 28, 28, 288), (3, 1, 1), (1, 1, 1), 128, True, False, None),
+    ((2, 8, 28, 28, 128), (1, 3, 3), (1, 2, 2), 460, True, False, None),
+    ((2, 8, 14, 14, 460), (3, 1, 1), (2, 1, 1), 256, True, False, None),
+    ((2, 8, 28, 28, 128), (1, 1, 1), (2, 2, 2), 256, False, True, None),
+    ((2, 4, 14, 14, 256), (1, 3, 3), (1, 1, 1), 576, True, False, None),
+    ((2, 4, 14, 14, 576), (3, 1, 1), (1, 1, 1), 256, False, True, None),
+    ((2, 5, 7, 8, 3), (3, 7, 7), (2, 2, 2), 8, True, False, "same_tf"),  # I3D's stem
+]
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each value of t (bf16 holds 8 significant bits)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding", INT8_SITES)
+def test_int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, padding):
+    """Q2 against its plain version bitwise in both modes; Q1 bitwise with
+    the identity epilogue (the exact int32 sums as f32) and within one bf16
+    ulp with the real one."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+    from fastvideotagging_tpu_torch.ops.arch_spec import tf_same_pads
+
+    g = torch.Generator(device=cuda).manual_seed(sum(xs) + co)
+    c = xs[-1]
+    y = torch.randn(xs, generator=g, device=cuda).to(torch.bfloat16)
+    inv_f = torch.rand(c, generator=g, device=cuda) * 3 + 0.1
+    s = torch.tensor(0.03, device=cuda)
+    before = dict(q8.launch_counts)
+    q, s_out = q8.quantize_s8_cuda(y, inv_f, s)
+    qd, sd = q8.quantize_s8_cuda(y, inv_f)
+    torch.cuda.synchronize()
+    assert q8.launch_counts["quantize_s8"] == before["quantize_s8"] + 2
+    assert q8.launch_counts["quantize_s8_amax"] == before["quantize_s8_amax"] + 1
+    assert torch.equal(q, q8.quantize_s8_plain(y, inv_f, s)[0]) and torch.equal(s_out, s)
+    qdp, sdp = q8.quantize_s8_plain(y, inv_f)
+    assert torch.equal(qd, qdp) and torch.equal(sd, sdp)
+    w = torch.randint(-127, 128, kernel + (c, co), generator=g, device=cuda, dtype=torch.int8)
+    wk = q8.weight_layout(w)
+    if padding == "same_tf":  # asymmetric pads from the input's shape
+        pads = tuple(tf_same_pads(xs[1 + i], kernel[i], strides[i]) for i in range(3))
+    else:
+        pads = tuple((k // 2, k // 2) for k in kernel)
+    one, zero = torch.ones(co, device=cuda), torch.zeros(co, device=cuda)
+    unit = torch.tensor(1.0, device=cuda)
+    got = q8.conv3d_s8_cuda(q, wk, kernel, one, zero, unit, strides, pads, False, True)
+    torch.cuda.synchronize()
+    assert q8.launch_counts["conv3d_s8"] == before["conv3d_s8"] + 1
+    assert torch.equal(got, q8.conv3d_s8_plain(q, wk, kernel, one, zero, unit, strides, pads,
+                                               False, True))
+    mul = torch.rand(co, generator=g, device=cuda) * 1e-3
+    add = torch.randn(co, generator=g, device=cuda)
+    got = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
+    ref = q8.conv3d_s8_plain(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert ((got.float() - ref.float()).abs() <= _bf16_ulp(ref)).all()
+
+
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_int8_engine_launches_and_plain_parity(cuda, dynamic, monkeypatch):
+    """One r2plus1d_18 int8 forward (2 clips, 16x112x112, 400 classes):
+    28 Q1 and 26 Q2 launches (and 26 amax passes in the dynamic mode), K1 /
+    K2 for stage 4's stride-1 convs; its logits against the same engine
+    with Q1 and Q2's plain versions, on the same qpack, within 5e-2 of the
+    largest |logit|."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+    from fastvideotagging_tpu_torch.ops import int8_infer
+
+    model = get_model("r2plus1d_18", num_classes=400, device=cuda,
+                      generator=torch.Generator().manual_seed(0))
+    model.eval()
+    sd = model.state_dict()
+    x = torch.randn((2, 16, 112, 112, 3), generator=torch.Generator().manual_seed(1)).to(
+        cuda).to(torch.bfloat16)
+    qpack = int8_infer.quantize_variables(sd, int8_infer.calibrate(sd, [x]))
+    q8.reset_launch_counts()
+    ops.reset_launch_counts()
+    logits = int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
+    torch.cuda.synchronize()
+    assert q8.launch_counts == {"conv3d_s8": 28, "quantize_s8": 26,
+                                "quantize_s8_amax": 26 if dynamic else 0}
+    assert (ops.launch_counts["spatial_conv"], ops.launch_counts["temporal_conv"]) == (3, 3)
+    monkeypatch.setattr(q8, "conv3d_s8_cuda", q8.conv3d_s8_plain)
+    monkeypatch.setattr(q8, "quantize_s8_cuda", q8.quantize_s8_plain)
+    ref = int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
+    assert logits.shape == (2, 400) and torch.isfinite(logits).all()
+    assert (logits - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()

@@ -73,7 +73,11 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.models.slowfast",
             "fastvideotagging_tpu_torch.models.torch_import",
             "fastvideotagging_tpu_torch.ops.maxpool_grad",
-            "fastvideotagging_tpu_torch.ops.arch_spec"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.ops.arch_spec",
+            "fastvideotagging_tpu_torch.ops.int8_conv",
+            "fastvideotagging_tpu_torch.ops.int8_infer",
+            "fastvideotagging_tpu_torch.evaluation.quantized",
+            "fastvideotagging_tpu_torch.cli.serve"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -163,7 +167,8 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["fused_block", "spatial_conv", "temporal_dw", "temporal_micro"]
+    assert _build.sources() == ["fused_block", "int8_conv", "spatial_conv", "temporal_dw",
+                                "temporal_micro"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
