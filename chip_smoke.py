@@ -2398,10 +2398,13 @@ INT8_KERNELS = {
                  "(fastvideotagging_tpu/ops/int8_infer.py:144 _dyn_quant, :543 static)"),
 }
 # launches of one static r2plus1d_18 int8 forward (stage 4 in bf16): Q1 at
-# the stem, 4 convs a block of stages 1-3 and 2 downsamples; Q2 at the 2 stem
-# sites and 4 a block (a block's input is quantized once); K1 / K2 at stage
-# 4's stride-1 convs
-INT8_FORWARD = {"conv3d_s8": 28, "quantize_s8": 26, "quantize_s8_amax": 0}
+# the stem, 4 convs a block of stages 1-3 and 2 downsamples; Q2 at the input
+# site only (every other static quantize is the epilogue of the conv before
+# it); the dynamic forward's Q2 at the 2 stem sites and 4 a block (a block's
+# input is quantized once), each with its amax pass; K1 / K2 at stage 4's
+# stride-1 convs
+INT8_FORWARD = {"conv3d_s8": 28, "quantize_s8": 1, "quantize_s8_amax": 0}
+INT8_DYNAMIC = {"conv3d_s8": 28, "quantize_s8": 26, "quantize_s8_amax": 26}
 INT8_FLOAT_K = {"spatial_conv": 3, "temporal_conv": 3}
 INT8_CLIP = (16, 112, 112)  # (T, H, W) of the int8 sites' clips
 
@@ -2427,18 +2430,22 @@ def _int8_plain():
         q8.conv3d_s8_cuda, q8.quantize_s8_cuda = saved
 
 
-def _record_int8_sites(qpack, x):
-    """The Q1 and Q2 calls of one static int8 forward, in order, with their
-    counts: {key: n} for Q1 (q shape, kernel, strides, pads, Co, relu,
-    out_f32) and for Q2 (y shape, dtype)."""
+def _record_int8_sites(qpack, x, dynamic: bool = False):
+    """The Q1 and Q2 calls of one int8 forward, with their counts: {key:
+    [n, C]} for Q1 (q shape, kernel, strides, pads, Co, relu, out_f32, the
+    residual's kind, the requant: None, 'q' or 'q+bf16'; C the input's real
+    channels) and {key: n} for Q2 (y shape, dtype)."""
     q1, q2 = {}, {}
     conv, quant = q8.conv3d_s8_cuda, q8.quantize_s8_cuda
+    cin = {pack["wk"].data_ptr(): pack["w"].shape[3] for pack in qpack["convs"].values()}
 
-    def rec_conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32):
+    def rec_conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual=None,
+                 requant=None):
         key = (tuple(q.shape), tuple(kernel), tuple(strides), tuple(pads), wk.shape[0],
-               bool(relu), bool(out_f32))
-        q1[key] = q1.get(key, 0) + 1
-        return conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
+               bool(relu), bool(out_f32), residual and residual.kind,
+               requant and ("q+bf16" if requant.keep_bf16 else "q"))
+        q1.setdefault(key, [0, cin[wk.data_ptr()]])[0] += 1
+        return conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant)
 
     def rec_quant(y, inv_f, s=None):
         key = (tuple(y.shape), str(y.dtype).replace("torch.", ""))
@@ -2447,10 +2454,20 @@ def _record_int8_sites(qpack, x):
 
     q8.conv3d_s8_cuda, q8.quantize_s8_cuda = rec_conv, rec_quant
     try:
-        int8_infer.r2plus1d_int8_infer(qpack, x)
+        int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
     finally:
         q8.conv3d_s8_cuda, q8.quantize_s8_cuda = conv, quant
     return q1, q2
+
+
+def _int8_form(key) -> str:
+    """Q1's epilogue form at a recorded call: (a) bf16 / f32, (b) the next
+    site's int8 (+ bf16), (c) a residual, then int8 (+ bf16) or bf16."""
+    res_kind, rq = key[7], key[8]
+    out = rq or ("f32" if key[6] else "bf16")
+    if res_kind is None:
+        return f"(a) {out}" if rq is None else f"(b) {out}"
+    return f"(c) {res_kind} -> {out}"
 
 
 def _axis_pairs(n: int, k: int, s: int, lo: int, out: int) -> int:
@@ -2458,21 +2475,36 @@ def _axis_pairs(n: int, k: int, s: int, lo: int, out: int) -> int:
     return sum(1 for o in range(out) for d in range(k) if 0 <= o * s - lo + d < n)
 
 
+def _axis_reads(n: int, k: int, s: int, lo: int, out: int) -> int:
+    """Input indices along an axis that some (output, tap) pair reads."""
+    return len({o * s - lo + d for o in range(out) for d in range(k)} & set(range(n)))
+
+
 def _int8_bound(key, c: int):
     """Q1's least time (ms) and what bounds it: the operations of the taps
-    inside the input at the real C at 1,979 TOPS, or the bytes of the padded
-    int8 input, the int8 weights, the epilogue's vectors and the output at
-    3.35 TB/s."""
-    qs, kernel, strides, pads, co, _relu, out_f32 = key
+    inside the input at the real C at 1,979 TOPS, or at 3.35 TB/s the bytes
+    its form moves: the padded int8 input the taps read (a strided 1x1x1
+    conv reads an eighth of it), the int8 weights, the epilogue's vectors,
+    the residual's read (the block input's int8 q, or an f32 / bf16 tensor)
+    and the output (the next site's padded int8, and bf16 where it is kept;
+    or bf16 / f32)."""
+    qs, kernel, strides, pads, co, _relu, out_f32, res_kind, rq = key
     n, t, h, w, cp = qs
     outs = [q8.out_size(d, k, st, p) for d, k, st, p in zip((t, h, w), kernel, strides, pads)]
-    pairs = 1
+    pairs, read = 1, n * cp
     for d, k, st, p, o in zip((t, h, w), kernel, strides, pads, outs):
         pairs *= _axis_pairs(d, k, st, p[0], o)
+        read *= _axis_reads(d, k, st, p[0], o)
     flops = 2.0 * n * pairs * c * co
     rows = n * outs[0] * outs[1] * outs[2]
-    nbytes = n * t * h * w * cp + co * kernel[0] * kernel[1] * kernel[2] * cp + 8 * co + \
-        rows * co * (4 if out_f32 else 2)
+    if rq is None:
+        out = rows * co * (4 if out_f32 else 2)
+    else:
+        out = rows * q8.padded_channels(co) + (rows * co * 2 if rq == "q+bf16" else 0)
+    res = {None: 0, "dequant": rows * q8.padded_channels(co), "f32": rows * co * 4,
+           "bf16": rows * co * 2}[res_kind]
+    vectors = 4 * co * (2 + (rq is not None) + (res_kind == "dequant"))
+    nbytes = read + co * kernel[0] * kernel[1] * kernel[2] * cp + vectors + res + out
     t_ops, t_bytes = flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), \
         t_ops * 1e3, t_bytes * 1e3
@@ -2492,93 +2524,159 @@ def _im2col_int_mm(q, wk, kernel, strides, pads):
 
 
 def _ptxas_q1() -> dict:
-    """{BN: (registers, spill bytes)} of Q1's instances from the build report."""
+    """{(BN, output form): (registers, spill bytes)} of Q1's instances from
+    the build report (the form as the kernel's `out`: 0 bf16, 1 f32, 2
+    int8)."""
     import re
 
     out = {}
     report = _build._logs.get("int8_conv", "")
     for part in report.split("Compiling entry function")[1:]:
-        m = re.search(r"conv3d_s8_hopper_kernelILi(\d+)E", part)
+        m = re.search(r"conv3d_s8_hopper_kernelILi(\d+)ELi(\d+)E", part)
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores", part)
         if m and regs:
-            out[int(m.group(1))] = (int(regs.group(1)), int(spills.group(1)) if spills else 0)
+            out[(int(m.group(1)), int(m.group(2)))] = (
+                int(regs.group(1)), int(spills.group(1)) if spills else 0)
     return out
 
 
+def _int8_inputs(key, c: int, gen: torch.Generator):
+    """Seeded inputs of a recorded Q1 call on the card: Q1's arguments (q
+    from Q2 on a bf16 activation of C channels) and the bf16 activation and
+    the float weights for the bf16 route."""
+    dev = torch.device(DEV)
+    qs, kernel, strides, pads, co, relu, out_f32, res_kind, rq = key
+    y = torch.randn(qs[:-1] + (c,), generator=gen, device=dev).to(torch.bfloat16)
+    inv_f = torch.rand(c, generator=gen, device=dev) * 3 + 0.1
+    s = torch.tensor(0.03, device=dev)
+    q, _ = q8.quantize_s8_cuda(y, inv_f, s)
+    w = torch.randint(-127, 128, kernel + (c, co), generator=gen, device=dev, dtype=torch.int8)
+    wk = q8.weight_layout(w)
+    mul = torch.rand(co, generator=gen, device=dev) * 1e-3
+    add = torch.randn(co, generator=gen, device=dev)
+    out_shape = q8._out_shape(q, kernel, strides, pads, co)
+    residual = None
+    if res_kind == "dequant":
+        t = torch.randn(out_shape, generator=gen, device=dev).to(torch.bfloat16)
+        inv_r = torch.rand(co, generator=gen, device=dev) * 3 + 0.1
+        q_in, s_in = q8.quantize_s8_cuda(t, inv_r, torch.tensor(0.04, device=dev))
+        residual = q8.Residual("dequant", q_in, inv_r, s_in)
+    elif res_kind == "f32":
+        residual = q8.Residual("f32", torch.randn(out_shape, generator=gen, device=dev) * 4)
+    elif res_kind == "bf16":
+        residual = q8.Residual("bf16", torch.randn(out_shape, generator=gen,
+                                                   device=dev).to(torch.bfloat16))
+    requant = None if rq is None else q8.Requant(
+        torch.rand(co, generator=gen, device=dev) * 3 + 0.1, torch.tensor(0.06, device=dev),
+        rq == "q+bf16")
+    args = (q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant)
+    return args, y, w
+
+
+def _int8_unfused(args):
+    """The chain of kernels a fused form replaces: Q1 in form (a) (f32 and
+    no ReLU before a residual), the block tail's torch ops, Q2."""
+    q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant = args
+    if residual is None:
+        y = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, relu,
+                              out_f32 and requant is None)
+    else:
+        zf = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, False, True)
+        y = q8.residual_tail(zf, residual, relu)
+    if requant is None:
+        return y
+    qn, sn = q8.quantize_s8_cuda(y, requant.inv_f, requant.s)
+    return qn, sn, y if requant.keep_bf16 else None
+
+
+def _int8_outputs(out) -> list:
+    return [out] if torch.is_tensor(out) else [t for t in (out[0], out[2]) if t is not None]
+
+
 def phase_int8_kernels(card: str, qpack, batch: int, gen: torch.Generator) -> dict:
-    """10(a, b) at one batch: every Q1 site and every Q2 site of a static
-    forward against the plain versions, timed."""
+    """10(a, b) at one batch: every Q1 call of a static forward in its
+    epilogue form, against its plain version and the unfused chain of
+    kernels, timed; Q2 at the dynamic forward's sites (the static forward
+    runs it at the input site only)."""
     dev = torch.device(DEV)
     x = torch.randn((batch, *INT8_CLIP, 3), generator=gen, device=dev).to(torch.bfloat16)
     q1_sites, q2_sites = _record_int8_sites(qpack, x)
+    _, q2_dynamic = _record_int8_sites(qpack, x, dynamic=True)
     del x
     regs = _ptxas_q1()
     rows, agg = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0, bound_ms=0.0,
-                         ops_ms=0.0, bytes_ms=0.0, max_abs_err=0.0, max_ulps=0.0)
-    for key, count in q1_sites.items():
-        qs, kernel, strides, pads, co, relu, out_f32 = key
-        c = next(k[0][-1] for k in q2_sites if k[0][:-1] == qs[:-1]
-                 and q8.padded_channels(k[0][-1]) == qs[-1])
-        y = torch.randn(qs[:-1] + (c,), generator=gen, device=dev).to(torch.bfloat16)
-        inv_f = torch.rand(c, generator=gen, device=dev) * 3 + 0.1
-        s = torch.tensor(0.03, device=dev)
-        q, _ = q8.quantize_s8_cuda(y, inv_f, s)
-        w = torch.randint(-127, 128, kernel + (c, co), generator=gen, device=dev,
-                          dtype=torch.int8)
-        wk = q8.weight_layout(w)
+                         ops_ms=0.0, bytes_ms=0.0, chain_ms=0.0, max_abs_err=0.0, max_ulps=0.0)
+    for key, (count, c) in q1_sites.items():
+        qs, kernel, strides, pads, co, relu, out_f32, res_kind, rq = key
+        form = _int8_form(key)
+        args, y, w = _int8_inputs(key, c, gen)
+        q, wk = args[0], args[1]
         one, zero = torch.ones(co, device=dev), torch.zeros(co, device=dev)
         unit = torch.tensor(1.0, device=dev)
         ident = q8.conv3d_s8_cuda(q, wk, kernel, one, zero, unit, strides, pads, False, True)
         ident_ref = q8.conv3d_s8_plain(q, wk, kernel, one, zero, unit, strides, pads, False, True)
         bitwise = torch.equal(ident, ident_ref)
-        mul = torch.rand(co, generator=gen, device=dev) * 1e-3
-        add = torch.randn(co, generator=gen, device=dev)
-        args = (q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
-        got, ref = q8.conv3d_s8_cuda(*args), q8.conv3d_s8_plain(*args)
-        diff = (got.float() - ref.float()).abs()
-        _, e = torch.frexp(ref.float())
-        ulps = (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
+        got, ref = _int8_outputs(q8.conv3d_s8_cuda(*args)), _int8_outputs(q8.conv3d_s8_plain(*args))
+        chain = _int8_outputs(_int8_unfused(args))
+        form_bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        chain_equal = all(torch.equal(a, b) for a, b in zip(got, chain))
+        diff = (got[0].float() - ref[0].float()).abs()
+        _, e = torch.frexp(ref[0].float())
+        ulps = 0.0 if rq else (diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
         lib = _im2col_int_mm(q, wk, kernel, strides, pads)
         lib_ok = torch.equal(lib.float().reshape(ident.shape), ident)
         ms = time_ms(lambda: q8.conv3d_s8_cuda(*args), iters=20)
+        fused = res_kind is not None or rq is not None
+        chain_ms = time_ms(lambda: _int8_unfused(args), iters=20) if fused else ms
         plain_ms = time_ms(lambda: q8.conv3d_s8_plain(*args), iters=2, warmup=1)
         lib_ms = time_ms(lambda: _im2col_int_mm(q, wk, kernel, strides, pads), iters=5, warmup=1)
         xb = y.contiguous()
         wb = w.float() * 0.01
         bf16_ms = time_ms(lambda: int8_infer._bf16_conv(xb, wb, strides, pads), iters=20)
         bound_ms, bound_by, t_ops, t_bytes = _int8_bound(key, c)
-        plan = q8.conv_s8_plan(got.numel() // co, co, kernel[0] * kernel[1] * kernel[2], qs[-1])
-        reg, spill = regs.get(plan.bn, (None, None))
+        out0 = got[0]
+        plan = q8.conv_s8_plan(out0[..., 0].numel(), co, kernel[0] * kernel[1] * kernel[2],
+                               qs[-1], out0.element_size(), out0.shape[-1] * out0.element_size())
+        reg, spill = regs.get((plan.bn, q8._OUT[out0.dtype]), (None, None))
         row = dict(x=list(qs[:-1]) + [c], cp=qs[-1], kernel=list(kernel), strides=list(strides),
-                   co=co, relu=relu, out_f32=out_f32, per_forward=count, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bf16_route_ms=bf16_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, identity_bitwise=bitwise,
-                   real_max_abs_err=diff.max().item(), real_max_ulps=ulps,
-                   int_mm_equal=lib_ok, plan=dict(bn=plan.bn, grid=plan.grid,
-                                                  slices=plan.slices, smem=plan.smem_bytes),
+                   co=co, relu=relu, out_f32=out_f32, form=form, per_forward=count, ms=ms,
+                   unfused_chain_ms=chain_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bf16_route_ms=bf16_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   identity_bitwise=bitwise, form_bitwise=form_bitwise,
+                   unfused_chain_equal=chain_equal, real_max_abs_err=diff.max().item(),
+                   real_max_ulps=ulps, int_mm_equal=lib_ok,
+                   plan=dict(bn=plan.bn, stages=plan.stages, staged=plan.staged,
+                             grid=plan.grid, tiles=plan.tiles, slices=plan.slices,
+                             smem=plan.smem_bytes),
                    registers=reg, spill_bytes=spill)
         rows.append(row)
         print(f"(a) Q1 B={batch} x{tuple(row['x'])} cp={qs[-1]} k{kernel} s{strides} -> {co} "
-              f"(x{count} a forward): {ms:.4f} ms, {bound_ms / ms:.3f} of the bound "
-              f"{bound_ms:.4f} ({bound_by}); plain {plain_ms:.3f}, im2col+_int_mm {lib_ms:.4f} "
-              f"(equal {lib_ok}), bf16 route {bf16_ms:.4f}; identity bitwise {bitwise}, real "
-              f"max err {row['real_max_abs_err']:.3e} ({ulps:.2f} bf16 ulp); plan BN {plan.bn} "
-              f"grid {plan.grid} slices {plan.slices} smem {plan.smem_bytes}; ptxas {reg} "
+              f"{form} (x{count} a forward): {ms:.4f} ms, {bound_ms / ms:.3f} of the bound "
+              f"{bound_ms:.4f} ({bound_by}); unfused chain {chain_ms:.4f} (equal "
+              f"{chain_equal}); plain {plain_ms:.3f}, im2col+_int_mm {lib_ms:.4f} (equal "
+              f"{lib_ok}), bf16 route {bf16_ms:.4f}; identity bitwise {bitwise}, form bitwise "
+              f"{form_bitwise}, max err {row['real_max_abs_err']:.3e} ({ulps:.2f} bf16 ulp); "
+              f"plan BN {plan.bn} stages {plan.stages} staged {plan.staged} grid {plan.grid} "
+              f"tiles {plan.tiles} slices {plan.slices} smem "
+              f"{plan.smem_bytes}; ptxas {reg} "
               f"registers, {spill} bytes spilled", flush=True)
-        if not (bitwise and ulps <= 1.0):
-            raise SystemExit(f"(a) Q1 disagrees with its plain version at {key}")
+        if not (bitwise and chain_equal and (form_bitwise if fused else ulps <= 1.0)):
+            raise SystemExit(f"(a) Q1 disagrees with its plain version or the unfused chain "
+                             f"at {key}")
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                      ("bf16_ms", bf16_ms), ("bound_ms", bound_ms), ("ops_ms", t_ops),
-                     ("bytes_ms", t_bytes)):
+                     ("bytes_ms", t_bytes), ("chain_ms", chain_ms)):
             agg[k] += count * v
         agg["max_abs_err"] = max(agg["max_abs_err"], row["real_max_abs_err"])
         agg["max_ulps"] = max(agg["max_ulps"], ulps)
-        del q, wk, got, ref, ident, ident_ref, lib, xb, y
+        del args, got, ref, chain, ident, ident_ref, lib, xb, y, q, wk
         torch.cuda.empty_cache()
 
-    q2_rows, q2_agg = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, dyn_ms=0.0, dyn_plain_ms=0.0)
-    for (ys, dtype), count in q2_sites.items():
+    q2_rows, q2_agg = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, dyn_ms=0.0, dyn_plain_ms=0.0,
+                               dyn_bound_ms=0.0)
+    for (ys, dtype), count in q2_dynamic.items():
+        static_count = q2_sites.get((ys, dtype), 0)
         y = (torch.randn(ys, generator=gen, device=dev) * 2).to(getattr(torch, dtype))
         inv_f = torch.rand(ys[-1], generator=gen, device=dev) * 3 + 0.1
         s = torch.tensor(0.05, device=dev)
@@ -2591,25 +2689,29 @@ def phase_int8_kernels(card: str, qpack, batch: int, gen: torch.Generator) -> di
         dyn_plain_ms = time_ms(lambda: q8.quantize_s8_plain(y, inv_f), iters=5)
         nbytes = y.numel() * y.element_size() + a[0].numel() + 4 * ys[-1]
         bound_ms = nbytes / PEAK_BYTES_S * 1e3
-        q2_rows.append(dict(y=list(ys), dtype=dtype, per_forward=count, ms=ms, plain_ms=plain_ms,
+        q2_rows.append(dict(y=list(ys), dtype=dtype, per_static_forward=static_count,
+                            per_dynamic_forward=count, ms=ms, plain_ms=plain_ms,
                             dynamic_ms=dyn_ms, dynamic_plain_ms=dyn_plain_ms, bound_ms=bound_ms,
                             bitwise=ok))
-        print(f"(b) Q2 B={batch} y{ys} {dtype} (x{count}): static {ms:.4f} ms, dynamic (amax + "
-              f"quantize) {dyn_ms:.4f}, bound {bound_ms:.4f} (bytes; {bound_ms / ms:.3f} of it "
-              f"static); plain {plain_ms:.4f} / {dyn_plain_ms:.4f}; bitwise both modes {ok}",
-              flush=True)
+        print(f"(b) Q2 B={batch} y{ys} {dtype} (x{static_count} static, x{count} dynamic a "
+              f"forward): static {ms:.4f} ms, dynamic (amax + quantize) {dyn_ms:.4f}, bound "
+              f"{bound_ms:.4f} (bytes; {bound_ms / ms:.3f} of it static); plain {plain_ms:.4f} "
+              f"/ {dyn_plain_ms:.4f}; bitwise both modes {ok}", flush=True)
         if not ok:
             raise SystemExit(f"(b) Q2 disagrees with its plain version at {ys}")
-        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
-                     ("dyn_ms", dyn_ms), ("dyn_plain_ms", dyn_plain_ms)):
-            q2_agg[k] += count * v
+        for k, v, n in (("ms", ms, static_count), ("plain_ms", plain_ms, static_count),
+                        ("bound_ms", bound_ms, static_count), ("dyn_ms", dyn_ms, count),
+                        ("dyn_plain_ms", dyn_plain_ms, count), ("dyn_bound_ms", bound_ms, count)):
+            q2_agg[k] += n * v
     print(f"(a, b) B={batch}, sums over one static forward's launches: Q1 {agg['ms']:.4f} ms "
-          f"(bound {agg['bound_ms']:.4f}, plain {agg['plain_ms']:.2f}, im2col+_int_mm "
-          f"{agg['library_ms']:.4f}, bf16 route {agg['bf16_ms']:.4f}); Q2 {q2_agg['ms']:.4f} ms "
-          f"static, {q2_agg['dyn_ms']:.4f} dynamic (bound {q2_agg['bound_ms']:.4f}) on {card}",
-          flush=True)
+          f"({agg['bound_ms'] / agg['ms']:.3f} of its bound {agg['bound_ms']:.4f}; the unfused "
+          f"chains of kernels it replaces {agg['chain_ms']:.4f}, plain {agg['plain_ms']:.2f}, "
+          f"im2col+_int_mm {agg['library_ms']:.4f}, bf16 route {agg['bf16_ms']:.4f}); Q2 "
+          f"{q2_agg['ms']:.4f} ms static, {q2_agg['dyn_ms']:.4f} over the dynamic forward's "
+          f"sites (bound {q2_agg['dyn_bound_ms']:.4f}) on {card}", flush=True)
     return dict(q1=agg, q1_sites=rows, q2=q2_agg, q2_sites=q2_rows,
-                q1_launches=sum(q1_sites.values()), q2_launches=sum(q2_sites.values()))
+                q1_launches=sum(n for n, _ in q1_sites.values()),
+                q2_launches=sum(q2_sites.values()), q2_dynamic_launches=sum(q2_dynamic.values()))
 
 
 def phase_int8_tagger(card: str) -> dict:
@@ -2632,9 +2734,10 @@ def phase_int8_tagger(card: str) -> dict:
     torch.cuda.synchronize()
     launches = _int8_counts()
     want = {k: v * chunks for k, v in INT8_FORWARD.items()}
-    want_k = {k: FORWARD_LAUNCHES["cuda"][k] + n * chunks for k, n in INT8_FLOAT_K.items()}
+    want_k = {k: n * chunks for k, n in INT8_FLOAT_K.items()}
     print(f"(c) Tagger(int8=True): launches over {chunks} chunks {launches} (Q1 / Q2 / amax "
-          f"{want}; K1 / K2 {want_k}: the calibration walk's and stage 4's a chunk)", flush=True)
+          f"{want}; K1 / K2 {want_k}: stage 4's a chunk; the calibration walk's convs are f32 "
+          f"cuDNN)", flush=True)
     if launches != {**want, **want_k}:
         raise SystemExit(f"(c) launch counts {launches} != {want} {want_k}")
     if scores.shape != (tagger.num_classes,) or not np.isfinite(scores).all():
@@ -2679,11 +2782,22 @@ def phase_int8_tagger(card: str) -> dict:
             for name, fn in runs.items():
                 ms = time_ms(fn, iters=10)
                 rates[f"{name}_b{b}"] = dict(ms=ms, clips_per_s=b / ms * 1e3)
+            for mode, want_f in (("static", INT8_FORWARD), ("dynamic", INT8_DYNAMIC)):
+                _int8_reset()
+                int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=mode == "dynamic")
+                torch.cuda.synchronize()
+                got_f = dict(q8.launch_counts)
+                rates[f"int8_{mode}_b{b}"]["launches"] = got_f
+                if got_f != want_f:
+                    raise SystemExit(f"(c) a {mode} forward at B={b} launched {got_f}, not "
+                                     f"{want_f}")
         del x
         torch.cuda.empty_cache()
         print(f"(c) B={b}: " + "; ".join(
             f"{k} {rates[f'{k}_b{b}']['ms']:.3f} ms = {rates[f'{k}_b{b}']['clips_per_s']:.1f} "
-            f"clips/s" for k in runs) + f" (CUDA events, 10 forwards) on {card}", flush=True)
+            f"clips/s" for k in runs) + f" (CUDA events, 10 forwards) on {card}; launches a "
+              f"forward: static {rates[f'int8_static_b{b}']['launches']}, dynamic "
+              f"{rates[f'int8_dynamic_b{b}']['launches']}", flush=True)
     print(f"(c) per-video calibration (calibrate + quantize_variables on one chunk of "
           f"{CLIP_BATCH} clips): {[round(c, 3) for c in calib]} ms; the consumer absmax, taken "
           f"once per Tagger: {w_cols_ms:.3f} ms", flush=True)
@@ -2772,9 +2886,10 @@ def phase_int8(card: str, paths: dict) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     kernels = {b: phase_int8_kernels(card, tag["qpack"], b, gen) for b in (CLIP_BATCH, TRAIN_BATCH)}
     for b, k in kernels.items():
-        if (k["q1_launches"], k["q2_launches"]) != (28, 26):
-            raise SystemExit(f"B={b}: a forward made {k['q1_launches']} / {k['q2_launches']} "
-                             f"Q1 / Q2 calls, not 28 / 26")
+        calls = (k["q1_launches"], k["q2_launches"], k["q2_dynamic_launches"])
+        if calls != (28, 1, 26):
+            raise SystemExit(f"B={b}: a forward made {calls} Q1 / Q2 / dynamic Q2 calls, not "
+                             f"28 / 1 / 26")
     entry = phase_int8_entry_points(card, paths)
     launches = {"tagger_int8": tag["launches"], **entry["launches"]}
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
@@ -2795,14 +2910,14 @@ def int8_entries(int8: dict) -> list:
             extra = dict(library_ms=s8["library_ms"], bound_ms=s8["bound_ms"],
                          bound_by="operations" if s8["ops_ms"] >= s8["bytes_ms"] else "bytes",
                          max_abs_err=s8["max_abs_err"], max_bf16_ulps=s8["max_ulps"],
-                         bf16_route_ms=s8["bf16_ms"],
+                         bf16_route_ms=s8["bf16_ms"], unfused_chain_ms=s8["chain_ms"],
                          b32=dict(int8["kernels"][TRAIN_BATCH]["q1"]),
                          sites=a["q1_sites"] + int8["kernels"][TRAIN_BATCH]["q1_sites"])
         else:
             s8 = a["q2"]
             extra = dict(library_ms=None, bound_ms=s8["bound_ms"], bound_by="bytes",
                          max_abs_err=0.0, dynamic_ms=s8["dyn_ms"],
-                         dynamic_plain_ms=s8["dyn_plain_ms"],
+                         dynamic_plain_ms=s8["dyn_plain_ms"], dynamic_bound_ms=s8["dyn_bound_ms"],
                          b32=dict(int8["kernels"][TRAIN_BATCH]["q2"]),
                          sites=a["q2_sites"] + int8["kernels"][TRAIN_BATCH]["q2_sites"])
         if sum(runs.values()) == 0:

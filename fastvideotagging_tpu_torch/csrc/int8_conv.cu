@@ -8,15 +8,27 @@
 //
 //   conv3d_s8_hopper_kernel (Q1):
 //       acc[o, co] = sum_{tap, c} q[src(o, tap), c] * W[co, tap, c]   (int32, exact)
-//       y[o, co]   = relu?( fma(f32(acc), mul[co] * s, add[co]) )     (bf16 or f32)
+//       v[o, co]   = fma(f32(acc), mul[co] * s, add[co])
+//     then one of the engine's epilogue forms, each the chain of separate
+//     steps it replaces, rounding for rounding:
+//       (a) relu?(v), stored as bf16 or f32;
+//       (b) relu?(v) rounded to bf16, then quantized for the next site as Q2's
+//           static pass does: q = clamp(rint(f32(bf16) * (inv_f[c] / s_next)),
+//           -127, 127), stored int8 at the next site's padded width, the
+//           channels Co..cp-1 zero (the layout the next Q1 reads);
+//       (c) a block's tail on its main chain's last conv: v plus the residual
+//           (the dequantized block input fma(f32(q_in), s_in / inv_f_in[c], v),
+//           the downsample conv's f32 output, or the bf16 block input), ReLU,
+//           bf16, and then (b)'s quantize and/or the bf16 store.
 //     q (N, T, H, W, cp) int8, channels zero-padded to cp, a multiple of 16;
 //     W (Co, kt*kh*kw, cp) int8 K-major (laid out once per qpack); a general
 //     3-D tap set with per-dimension strides and low pads (the high pads are
-//     implied by the output size: symmetric k//2 or TF-SAME). s is read from
-//     device memory (a static scale, or the one Q2's dynamic pass wrote), so
-//     no scale crosses to the host. The epilogue is the JAX engine's
-//     acc * (mul * s) + add with the multiply-add fused, one rounding
-//     (__fmaf_rn), as XLA contracts it; the plain version's addcmul too.
+//     implied by the output size: symmetric k//2 or TF-SAME). s, s_next and
+//     s_in are read from device memory (static scales, or the one Q2's
+//     dynamic pass wrote), so no scale crosses to the host. The multiply-adds
+//     are single roundings (__fmaf_rn), as XLA contracts the JAX engine's
+//     ``acc * (mul * s) + add`` and its dequant residual, and as the plain
+//     versions' addcmul computes them.
 //   quantize_s8_kernel (Q2) and its dynamic amax pass quantize_amax_kernel:
 //       static:  q = clamp(rint(f32(y) * (inv_f[c] / s)), -127, 127)
 //       dynamic: xs = f32(y) * inv_f[c]; s = max(amax|xs|, 1e-12) * f32(1/127);
@@ -27,66 +39,135 @@
 //     padding Q1 takes). The two orders round differently and are kept
 //     apart. rintf rounds half to even, as torch.round and jnp.round do.
 //     The amax is an on-device reduction (atomicMax on the bits of a
-//     non-negative float), Q2's first launch in the dynamic mode.
+//     non-negative float), Q2's first launch in the dynamic mode. In the
+//     static mode Q2 runs at the network's input only: every other static
+//     quantize is form (b) or (c) of the conv before it.
 //
-// Q1's design is K1's implicit GEMM (csrc/spatial_conv.cu) at 8 bits: one
-// block of 256 threads (two warpgroups) owns BM = 128 output rows and BN
-// output channels, BN in {64, 128, 144} (each a valid N of wgmma's .s8
-// shapes, m64nNk32); the contraction kappa = tap*cp + c runs in slices of
-// BK = 128 int8 (128 bytes a row, the same 128-byte swizzle and shared-memory
-// descriptors as K1), loaded by 16-byte cp.async into a ring of 3 slices,
-// zero-filled (src-size 0) outside the input, past M, past Co and past the
-// contraction. wgmma .s8 takes A and B K-major only, which is how both are
-// laid out; a k32 step is 32 bytes, as K1's k16 bf16 step. A 16-byte chunk
-// is 16 channels, which is why cp is a multiple of 16: a chunk then lies in
-// one tap and works out its own source row. The accumulators are int32 in
-// registers (BN / 2 a thread); the epilogue stores from registers, masked at
-// the M and Co edges. A simple kernel first: no split of the contraction, no
-// TMA, no staging of the output.
-//
+// Q1's design: a persistent implicit GEMM, one block of 384 or 512 threads
+// an SM, warp-specialized. Tile i = (128 output rows, BN output channels),
+// BN in {64, 128, 144} (valid N of wgmma's .s8 shapes, m64nNk32); the
+// blocks walk the tiles i = blockIdx.x, + gridDim.x, ..., the column tiles
+// of a row tile next to each other (they share its A rows in L2). The
+// contraction kappa = tap*cp + c runs without gaps in slices of BK = 128
+// int8 (128 bytes a row, the 128-byte swizzle), through a ring of 4-6
+// stages with a full and an empty mbarrier each. An instance is (BN, the
+// output's form: bf16, f32 or int8), so that its unrolled epilogue holds its
+// own stores only (with all three in one, it ran slower).
+//   - The producer, two warpgroups (one at BN = 144, where the consumers'
+//     72 accumulators a thread need more than the 128 registers a thread of
+//     512 gets), setmaxnreg down to 40, loads each stage; twice the
+//     producer threads keep twice the copies in flight, and the activation
+//     loads bound the main loop. The weight slice (BN x 128 of the dense
+//     (Co, taps*cp) matrix) comes by TMA, a tiled 2-D box in the 128-byte
+//     swizzle; rows past Co and columns past the contraction are the box's
+//     zero fill. The activation slice cannot be a box: a 128-byte slice may
+//     span two taps, and a box of one tap's channels would waste 2-8x the
+//     work at this engine's widths (cp 16, 48, 64, 144). So each producer
+//     thread issues 16-byte cp.async chunks (a chunk of 16 channels lies in
+//     one tap and works out its source row from a table of the tile's rows
+//     in shared memory; zero filled outside the input and past M), then
+//     arrives on the stage's full barrier with
+//     cp.async.mbarrier.arrive.noinc, which counts once its copies have
+//     landed.
+//   - Two consumer warpgroups (setmaxnreg up to the rest of the register
+//     file), 64 rows each, wait on a stage's full barrier, fence the async
+//     proxy (wgmma reads what cp.async wrote), issue its four k32 wgmmas and
+//     release the stage one slice later (one group in flight), a lane of
+//     each warp on the empty barrier.
+//   - The epilogue goes from the int32 accumulators through passes in
+//     registers (the column factors from a table in shared memory, filled
+//     where the block's column tile changes; the residual's loads clamped
+//     inside the tensor and free of branches, so that they are in flight
+//     together), then through a staging tile in shared memory (boxes of 16
+//     bytes x 64 rows, for f32 64 bytes in the 64-byte swizzle, written
+//     without bank conflicts) to TMA stores of the warpgroup's 64 rows,
+//     which clip at M and at the row's length; where a row's bytes are not
+//     a multiple of 16 (bf16 at Co = 45, 230, 460) the threads store from
+//     registers. A second (bf16) output goes through the threads. A tile's
+//     stores overlap the next tile's main loop, and the producer runs ahead
+//     into the next tile while the consumers finish this one.
+// Tried on the way and measured slower at r2plus1d_18's sites (PERF.md's
+// findings): the weights resident in shared memory with each consumer
+// walking its own 64-row items (the narrower tiles their size forced read A
+// more often), the consumers' main loops taking turns, the activations by
+// TMA boxes of one tap's channels (32-128 bytes; the stem's strided 32-byte
+// boxes were the slowest), a producer that arrives after
+// cp.async.wait_group instead of with cp.async.mbarrier.arrive, and
+// L1-cached (.ca) copies.
+
 // What bounds them on an H100 SXM (1,979 TOPS int8, 3.35 TB/s): Q1 at
 // r2plus1d_18's int8 sites, stages 1-3, is bound by bytes at its narrow
 // sites (the stem's 16-padded C = 3, the 1x1x1 downsamples) and by
 // operations at the rest; Q2 by bytes everywhere (a read of y, a write of
-// int8).
+// int8). Forms (b) and (c) move the int8 q (and the residual's read) where
+// the unfused chain moved a bf16 or f32 y through HBM three or four times.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;                // output rows per block
+constexpr int BM = 128;                // output rows of a tile (64 a consumer warpgroup)
 constexpr int BK = 128;                // contraction slice: 128 int8 = 128 bytes a row
-constexpr int THREADS = 256;           // 8 warps, two warpgroups
-constexpr int STAGES = 3;              // slices in the cp.async ring
+constexpr int CONSUMERS = 2;           // consumer warpgroups
 constexpr int A_STAGE = BM * BK;       // bytes of one A slice
 constexpr int ALIGN = 1024;            // the 128-byte swizzle repeats every 8 rows
+constexpr int MIN_STAGES = 4;
+constexpr int MAX_STAGES = 6;
+constexpr int ROWS_TABLE = BM * 16;    // the tile's rows: {n * T, ti0, hi0, wi0}
+constexpr int SMEM_LIMIT = 232448;     // bytes of shared memory one block may use
+constexpr int PRODUCER_REGS = 40;
+
+// The producer has two warpgroups (twice the copies in flight, the
+// activation loads' limit) where the consumers' accumulators fit in the 128
+// registers a thread of 512 gets; at BN = 144 (72 a thread) ptxas spilled,
+// and one warpgroup is faster.
+template <int BN>
+struct Shape {
+  static constexpr int PRODUCERS = BN > 128 ? 1 : 2;
+  static constexpr int LOADERS = 128 * PRODUCERS;  // producer threads
+  static constexpr int THREADS = 128 * (CONSUMERS + PRODUCERS);
+  // the rest of the register file, in setmaxnreg's steps of 8
+  static constexpr int CONSUMER_REGS = (65536 - LOADERS * PRODUCER_REGS) / (128 * CONSUMERS) / 8 * 8;
+  static_assert(128 * 8 % LOADERS == 0, "the producer threads share a slice's chunks evenly");
+};
 constexpr int kOutside = -(1 << 28);   // frame coordinate of a row past M
 
-template <int BN>
-struct Tile {
-  static constexpr int B_STAGE = BN * BK;
-  static constexpr int STAGE = A_STAGE + B_STAGE;  // a multiple of ALIGN (BN % 8 == 0)
-  static constexpr int SMEM = STAGES * STAGE + ALIGN;
-  static_assert(BN % 16 == 0 && STAGE % ALIGN == 0, "BN must be a multiple of 16");
-};
+enum Out { kOutBf16 = 0, kOutF32 = 1, kOutS8 = 2 };
 
-// One launch of Q1 (see the top of the file).
+// Bytes of a staging box's row (64 rows a box): 16, or for f32 64 in the
+// 64-byte swizzle (a quarter of the TMA stores; its writes stay free of bank
+// conflicts).
+template <int OUT>
+__host__ __device__ constexpr int out_box() { return OUT == kOutF32 ? 64 : 16; }
+enum Res { kResNone = 0, kResDequant = 1, kResF32 = 2, kResBf16 = 3 };
+
+// One launch of Q1 (see the top of the file). The weights and, where the
+// output is staged, the output come through the kernel's tensor maps.
 struct ConvArgs {
-  const int8_t* x;     // (N, T, H, W, cp)
-  const int8_t* wk;    // (Co, taps, cp)
-  const float* mul;    // (Co)
-  const float* add;    // (Co)
-  const float* s;      // scalar
-  void* y;             // (M, Co) bf16 or f32
-  int64_t M;           // N * To * Ho * Wo output rows
-  int T, H, W;         // input frames, rows, columns
-  int To, Ho, Wo;      // output geometry
-  int kt, kh, kw;      // taps
-  int st, sh, sw;      // strides
-  int pt, ph, pw;      // low pads
-  int cp, co, n_tiles, relu, out_f32;
+  const int8_t* x;          // (N, T, H, W, cp)
+  const float* mul;         // (Co)
+  const float* add;         // (Co)
+  const float* s;           // scalar
+  void* y;                  // (M, ld): bf16, f32 or int8 (out)
+  __nv_bfloat16* y2;        // a second output (M, Co) bf16, or null
+  const void* res;          // (M, res_ld): int8 q_in, f32 or bf16 (res_kind)
+  const float* res_inv_f;   // dequant: (Co) inv_f of q_in's site
+  const float* res_s;       // dequant: q_in's scale
+  const float* q_inv_f;     // int8 out: (Co) the next site's inv_f
+  const float* q_s;         // int8 out: the next site's scale
+  int64_t M;                // N * To * Ho * Wo output rows
+  int T, H, W;              // input frames, rows, columns
+  int To, Ho, Wo;           // output geometry
+  int kt, kh, kw;           // taps
+  int st, sh, sw;           // strides
+  int pt, ph, pw;           // low pads
+  int cp, co, K;            // padded input channels, output channels, taps * cp
+  int n_tiles, tiles;       // column tiles (BN wide), all tiles
+  int relu, ld, res_kind, res_ld, stages, staged;  // the output's form: a template parameter
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -94,7 +175,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // Byte offset of 16-byte chunk j of row r in a K-major tile of 128-byte
-// rows, 128-byte swizzled.
+// rows, 128-byte swizzled (what TMA's CU_TENSOR_MAP_SWIZZLE_128B writes).
 __device__ __forceinline__ uint32_t swz(int r, int j) {
   return static_cast<uint32_t>(r * 128 + ((j ^ (r & 7)) << 4));
 }
@@ -104,17 +185,108 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// The mbarrier counts one arrival once this thread's cp.asyncs so far have
+// landed (noinc: the arrival is one of those the barrier was set up for).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The async proxy (wgmma) reads what cp.async wrote through the generic
-// proxy: each thread fences its own writes before the barrier.
+// The helpers below are those of csrc/temporal_micro.cu's rings.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete. The spin loop is in
+// the PTX, so that the code around a wait stays warp-uniform to the
+// compiler. A wait that lasts seconds means a lost arrival or load: it traps
+// (the launch fails) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, 4000000000;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// Arrives on `bar` from lane 0 of the warp only, predicated in the PTX.
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(bar), "r"(lane) : "memory");
+}
+
+// Box (c0, c1) of a 2-D tensor map into shared memory; its bytes complete
+// the transaction count of barrier `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One staging box to (c0, c1) of a 2-D tensor map (the parts past the
+// tensor are not written), issued by the thread whose `issuer` is set;
+// predicated in the PTX, as are the bulk-group commit and waits below.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             bool issuer) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.tensor.2d.global.shared::cta.tile.bulk_group [%0, {%2, %3}], [%1];\n}\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(static_cast<int>(issuer))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit(bool issuer) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.commit_group;\n}\n"
+               :: "r"(static_cast<int>(issuer)) : "memory");
+}
+
+// The thread's stores have read their shared memory (READ) or are done.
+template <bool READ>
+__device__ __forceinline__ void bulk_wait(bool issuer) {
+  if constexpr (READ)
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group.read 0;\n}\n"
+                 :: "r"(static_cast<int>(issuer)) : "memory");
+  else
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %0, 0;\n@p cp.async.bulk.wait_group 0;\n}\n"
+                 :: "r"(static_cast<int>(issuer)) : "memory");
+}
+
+// Named barriers: 1 + c the consumer warpgroup c, 1 + CONSUMERS the producer
+// warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+}
+
+template <int LOADERS>
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(1 + CONSUMERS), "n"(LOADERS) : "memory");
+}
+
+// The async proxy (wgmma, TMA stores) reads what the generic proxy wrote.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -226,190 +398,321 @@ __device__ __forceinline__ void wgmma_tile(int32_t (&d)[BN / 2], uint64_t da, ui
   else wgmma_s8_144(d, da, db);
 }
 
-// Block b computes column tile b % n_tiles of row tile b / n_tiles: the
-// column tiles of one row tile run side by side and share its A rows in L2.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 2) conv3d_s8_hopper_kernel(const ConvArgs args) {
-  using Tl = Tile<BN>;
-  const int8_t* __restrict__ x = args.x;
-  const int8_t* __restrict__ wk = args.wk;
-  const int64_t M = args.M;
-  const int T = args.T, H = args.H, W = args.W, C = args.cp, Co = args.co;
-  const int kh = args.kh, kw = args.kw;
+// The epilogue's residual pass on accumulators that hold f32 bits: element
+// (row, col) of `res` (its rows res_ld apart) added to each, as one
+// multiply-add with the column's s_in / inv_f (cf[.].w) for the dequantized
+// block input. The loads are clamped inside the tensor (the values of rows
+// past M and columns past Co are not stored) and free of branches, so that
+// they can all be in flight at once. `row`: this thread's first row.
+template <int KIND, int BN>
+__device__ __forceinline__ void add_residual(int32_t (&acc)[BN / 2], const void* res, int res_ld,
+                                             const float4* cf, int n0, int co, int row,
+                                             int64_t M, int lane) {
+  const int last_row = static_cast<int>(M) - 1;
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    const int c = jn * 8 + (lane & 3) * 2;
+    const int c0 = min(n0 + c, co - 1), c1 = min(n0 + c + 1, co - 1);
+    const float rs0 = cf[c].w, rs1 = cf[c + 1].w;
+#pragma unroll
+    for (int h8 = 0; h8 < 2; ++h8) {
+      const int64_t rb = static_cast<int64_t>(min(row + 8 * h8, last_row)) * res_ld;
+      int32_t* d = acc + 4 * jn + 2 * h8;
+      float v0 = __int_as_float(d[0]), v1 = __int_as_float(d[1]);
+      if constexpr (KIND == kResDequant) {
+        const int8_t* r = static_cast<const int8_t*>(res) + rb;
+        v0 = __fmaf_rn(static_cast<float>(r[c0]), rs0, v0);
+        v1 = __fmaf_rn(static_cast<float>(r[c1]), rs1, v1);
+      } else if constexpr (KIND == kResF32) {
+        const float* r = static_cast<const float*>(res) + rb;
+        v0 = __fadd_rn(v0, r[c0]);
+        v1 = __fadd_rn(v1, r[c1]);
+      } else {
+        const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(res) + rb;
+        v0 = __fadd_rn(v0, __bfloat162float(r[c0]));
+        v1 = __fadd_rn(v1, __bfloat162float(r[c1]));
+      }
+      d[0] = __float_as_int(v0);
+      d[1] = __float_as_int(v1);
+    }
+  }
+}
+
+// Q2's static quantize of a bf16-rounded value: clamp(rint(f32(bf16) * qf),
+// -127, 127), as the low clamp and one conversion that rounds to nearest
+// even and saturates at 127 (the same value for every input).
+__device__ __forceinline__ uint32_t quant(__nv_bfloat16 b, float qf) {
+  const float t = fmaxf(__fmul_rn(__bfloat162float(b), qf), -127.0f);
+  uint32_t q;
+  asm("cvt.rni.sat.s8.f32 %0, %1;\n" : "=r"(q) : "f"(t));
+  return q;
+}
+
+template <int BN, int OUT>
+__global__ void __launch_bounds__(Shape<BN>::THREADS, 1)
+conv3d_s8_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
+                        const __grid_constant__ CUtensorMap ymap, const ConvArgs a) {
+  constexpr int STAGE = A_STAGE + BN * BK;  // a multiple of ALIGN (BN % 8 == 0)
+  constexpr int LOADERS = Shape<BN>::LOADERS;
+  static_assert(BN % 16 == 0 && STAGE % ALIGN == 0, "BN must be a multiple of 16");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
+  unsigned char* smem = smem_raw + (base - raw);
+  const int NS = a.stages;
+  constexpr int es = OUT == kOutF32 ? 4 : (OUT == kOutBf16 ? 2 : 1);  // output bytes
+  constexpr int BOX = out_box<OUT>();
+  // shared memory: the ring, the consumers' staging tiles, the row table,
+  // the consumers' column tables, the barriers
+  const uint32_t wg_stage = a.staged ? 64 * BN * es : 0;
+  const uint32_t staging = base + NS * STAGE;
+  const uint32_t table = staging + CONSUMERS * wg_stage;
+  const uint32_t colf = table + ROWS_TABLE;
+  const uint32_t full = colf + CONSUMERS * BN * 16, empty = full + 8 * NS;
+  const int KT = (a.K + BK - 1) / BK;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x / args.n_tiles) * BM;
-  const int n0 = (blockIdx.x % args.n_tiles) * BN;
-  const int taps = args.kt * kh * kw;
-  const int K = taps * C;
-  const int KT = (K + BK - 1) / BK;
-
-  // Loader: thread tid moves chunk j = tid % 8 (16 channels) of rows tid / 8
-  // + 32 q, in A (4 rows) and in the weight slice (BN / 32 rows, rounded
-  // up). A row's first tap reads frame (ti0, hi0, wi0) of clip n (frame
-  // base rb = n * T); a row past M gets coordinates no tap brings inside.
-  const int j = tid & 7;
-  const int r0 = tid >> 3;
-  int ti0[4], hi0[4], wi0[4];
-  int64_t rb[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int64_t m = m0 + r0 + 32 * q;
-    if (m < M) {
-      const int wo = static_cast<int>(m % args.Wo);
-      int64_t rest = m / args.Wo;
-      const int ho = static_cast<int>(rest % args.Ho);
-      rest /= args.Ho;
-      const int to = static_cast<int>(rest % args.To);
-      rb[q] = (rest / args.To) * T;
-      ti0[q] = to * args.st - args.pt;
-      hi0[q] = ho * args.sh - args.ph;
-      wi0[q] = wo * args.sw - args.pw;
-    } else {
-      rb[q] = 0;
-      ti0[q] = hi0[q] = wi0[q] = kOutside;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, LOADERS + 1);      // the producer threads' copies + the TMA's bytes
+      mbar_init(empty + 8 * s, CONSUMERS * 4);   // each consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int8_t* wrow = wk + static_cast<int64_t>(n0 + r0) * K;
+  __syncthreads();
 
-  // The loads walk kappa in order, one slice a call: this thread's chunk
-  // starts at kappa = j * 16 and moves on by BK, its (tap, c) and the tap's
-  // (dt, dh, dw) carried along instead of divided out again.
-  int ld_tap = (j * 16) / C;
-  int ld_c = j * 16 - ld_tap * C;
-  int ld_dt = ld_tap / (kh * kw);
-  int ld_dh = (ld_tap / kw) % kh;
-  int ld_dw = ld_tap % kw;
-  auto load = [&](int s) {
-    const bool kin = ld_tap < taps;
-    const uint32_t sa = base + s * Tl::STAGE;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ti = ti0[q] + ld_dt, hi = hi0[q] + ld_dh, wi = wi0[q] + ld_dw;
-      const bool ok = kin && static_cast<unsigned>(ti) < static_cast<unsigned>(T) &&
-                      static_cast<unsigned>(hi) < static_cast<unsigned>(H) &&
-                      static_cast<unsigned>(wi) < static_cast<unsigned>(W);
-      const int8_t* src =
-          ok ? x + (((rb[q] + ti) * H + hi) * static_cast<int64_t>(W) + wi) * C + ld_c : x;
-      cp_async16(sa + swz(r0 + 32 * q, j), src, ok);
-    }
-    const int wcol = ld_tap * C + ld_c;
-    const uint32_t sb = sa + A_STAGE;
-#pragma unroll
-    for (int q = 0; q < (BN + 31) / 32; ++q) {
-      const int n = r0 + 32 * q;
-      if (n < BN) {
-        const bool ok = kin && n0 + n < Co;
-        const int8_t* src = ok ? wrow + static_cast<int64_t>(32 * q) * K + wcol : wk;
-        cp_async16(sb + swz(n, j), src, ok);
+  if (warp >= 4 * CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    const int pt = tid - 128 * CONSUMERS;
+    const int j = pt & 7;   // this thread's 16-byte chunk of a row
+    const int r0 = pt >> 3; // and its rows r0 + LOADERS / 8 q
+    const int C = a.cp, taps = a.kt * a.kh * a.kw;
+    int4* rows = reinterpret_cast<int4*>(smem + (table - base));
+    int seq = 0;
+    for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+      const int m0 = (tile / a.n_tiles) * BM;
+      const int n0 = (tile % a.n_tiles) * BN;
+      producer_sync<LOADERS>();  // the last tile's loads have read the table
+      for (int r = pt; r < BM; r += LOADERS) {
+        const int m = m0 + r;  // a row past M: coordinates no tap brings inside
+        int4 rc = make_int4(0, kOutside, kOutside, kOutside);
+        if (m < a.M) {
+          const int wo = m % a.Wo;
+          int rest = m / a.Wo;
+          const int ho = rest % a.Ho;
+          rest /= a.Ho;
+          const int to = rest % a.To;
+          rc = make_int4(rest / a.To * a.T, to * a.st - a.pt, ho * a.sh - a.ph, wo * a.sw - a.pw);
+        }
+        rows[r] = rc;
       }
-    }
-    for (ld_c += BK; ld_c >= C; ld_c -= C) {
-      ++ld_tap;
-      if (++ld_dw == kw) {
-        ld_dw = 0;
-        if (++ld_dh == kh) {
-          ld_dh = 0;
-          ++ld_dt;
+      producer_sync<LOADERS>();
+      // The loads walk kappa in order: this thread's chunk starts at kappa =
+      // j * 16 and moves on by BK a slice, its (tap, c) and the tap's (dt,
+      // dh, dw) carried along instead of divided out again.
+      int ld_tap = (j * 16) / C;
+      int ld_c = j * 16 - ld_tap * C;
+      int ld_dt = ld_tap / (a.kh * a.kw);
+      int ld_dh = (ld_tap / a.kw) % a.kh;
+      int ld_dw = ld_tap % a.kw;
+      for (int kt = 0; kt < KT; ++kt, ++seq) {
+        const int slot = seq % NS;
+        mbar_wait(empty + 8 * slot, ((seq / NS) & 1) ^ 1);
+        const uint32_t sa = base + slot * STAGE;
+        if (pt == 0) {
+          mbar_expect_tx(full + 8 * slot, BN * BK);
+          tma_load_2d(sa + A_STAGE, &wmap, full + 8 * slot, kt * BK, n0);
+        }
+        const bool kin = ld_tap < taps;
+#pragma unroll
+        for (int q = 0; q < BM * 8 / LOADERS; ++q) {
+          const int4 rc = rows[r0 + LOADERS / 8 * q];
+          const int ti = rc.y + ld_dt, hi = rc.z + ld_dh, wi = rc.w + ld_dw;
+          const bool ok = kin && static_cast<unsigned>(ti) < static_cast<unsigned>(a.T) &&
+                          static_cast<unsigned>(hi) < static_cast<unsigned>(a.H) &&
+                          static_cast<unsigned>(wi) < static_cast<unsigned>(a.W);
+          const int8_t* src =
+              ok ? a.x + ((static_cast<int64_t>(rc.x + ti) * a.H + hi) * a.W + wi) * C + ld_c
+                 : a.x;
+          cp_async16(sa + swz(r0 + LOADERS / 8 * q, j), src, ok);
+        }
+        cp_async_mbar_arrive(full + 8 * slot);
+        for (ld_c += BK; ld_c >= C; ld_c -= C) {
+          ++ld_tap;
+          if (++ld_dw == a.kw) {
+            ld_dw = 0;
+            if (++ld_dh == a.kh) {
+              ld_dh = 0;
+              ++ld_dt;
+            }
+          }
         }
       }
     }
-  };
-
-  // Product: warpgroup wg owns rows 64 wg .. +63 and all BN columns.
-  const int wg = warp >> 2;
-  int32_t acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
-
-  auto compute = [&](int s) {
-    const uint32_t sa = base + s * Tl::STAGE + wg * 64 * 128;
-    const uint32_t sb = base + s * Tl::STAGE + A_STAGE;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks)
-      wgmma_tile<BN>(acc, smem_desc(sa + ks * 32), smem_desc(sb + ks * 32));
-    wgmma_commit();
-    fence_acc(acc);
-  };
-
-  // The ring, as K1's: STAGES-1 slices of loads in flight; slice kt's
-  // products, then the load of slice kt + STAGES-1 into the stage slice kt-1
-  // used, then the wait for the products. An empty commit keeps the
-  // cp.async group count steady at the tail.
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s);
-    cp_async_commit();
+    cp_async_wait_all();
+    return;
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();
-    compute(kt % STAGES);
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load(nk % STAGES);
-    cp_async_commit();
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(Shape<BN>::CONSUMER_REGS));
+  const int wg = warp >> 2;  // rows 64 wg .. +63 of each tile
+  const int wtid = tid & 127;
+  const bool issuer = wtid == 0;  // the warpgroup's thread that issues its stores
+  const uint32_t stage_out = staging + wg * wg_stage;
+  float4* cf = reinterpret_cast<float4*>(smem + (colf - base)) + wg * BN;
+  // Warp w of the warpgroup holds rows 16 (w % 4) .. +15 of its 64: n8
+  // block jn in acc[4 jn .. 4 jn + 3], rows lane/4 and lane/4 + 8, columns
+  // (lane % 4) * 2 and + 1.
+  const int wrow = (warp & 3) * 16 + (lane >> 2);  // in the warpgroup's 64 rows
+  const float s = *a.s;
+  const float q_s = OUT == kOutS8 ? *a.q_s : 1.0f;
+  const float res_s = a.res_kind == kResDequant ? *a.res_s : 1.0f;
+  int32_t acc[BN / 2];
+  int seq = 0;
+  int table_n0 = -1;  // the column tile whose factors the table holds
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const int m0 = (tile / a.n_tiles) * BM;
+    const int n0 = (tile % a.n_tiles) * BN;
+    // The column tile's factors (mul * s, add, the next site's inv_f / s,
+    // the residual's s_in / inv_f): a thread a column, into this
+    // warpgroup's table, where the block's column tile changes (a block
+    // walks one column tile where their count divides the grid).
+    if (n0 != table_n0) {
+      warpgroup_sync(wg);  // the last tile's epilogue has read the table
+      for (int i = wtid; i < BN; i += 128) {
+        const int col = n0 + i;
+        float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (col < a.co) {
+          f.x = __fmul_rn(a.mul[col], s);
+          f.y = a.add[col];
+          if (OUT == kOutS8) f.z = __fdiv_rn(a.q_inv_f[col], q_s);
+          if (a.res_kind == kResDequant) f.w = __fdiv_rn(res_s, a.res_inv_f[col]);
+        }
+        cf[i] = f;
+      }
+      table_n0 = n0;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+    for (int kt = 0; kt < KT; ++kt, ++seq) {
+      const int slot = seq % NS;
+      mbar_wait(full + 8 * slot, (seq / NS) & 1);
+      fence_proxy_async();  // wgmma reads what cp.async wrote
+      const uint32_t sa = base + slot * STAGE + wg * 64 * 128;
+      const uint32_t sb = base + slot * STAGE + A_STAGE;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BK / 32; ++ks)
+        wgmma_tile<BN>(acc, smem_desc(sa + ks * 32), smem_desc(sb + ks * 32));
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();  // the slice before this one is done: release its stage
+      fence_acc(acc);
+      if (kt > 0) mbar_arrive_lane0(empty + 8 * ((seq - 1) % NS), lane);
+    }
     wgmma_wait<0>();
     fence_acc(acc);
-  }
-  cp_async_wait<0>();
+    mbar_arrive_lane0(empty + 8 * ((seq - 1) % NS), lane);
 
-  // Epilogue. Warp w of the warpgroup holds rows 16 (w % 4) .. +15 of the
-  // group's 64: n8 block jn in acc[4 jn .. 4 jn + 3], rows lane/4 and
-  // lane/4 + 8, columns (lane % 4) * 2 and + 1.
-  const float s = *args.s;
-  const int row = wg * 64 + (warp & 3) * 16 + (lane >> 2);
-  const bool pairs = (Co & 1) == 0;
+    // Epilogue, in passes over the accumulators, which hold f32 bits from
+    // the first on: (1) the requant multiply-add; (2) the residual, its
+    // loads clamped inside the tensor and free of branches, so that they
+    // are issued together; (3) ReLU, bf16, the quantize and the stores.
+    if (a.staged) bulk_wait<true>(issuer);  // the last tile's stores have read the staging tile
+    warpgroup_sync(wg);                      // and the column table is written
+    const int mw = m0 + wg * 64;  // the warpgroup's first row
 #pragma unroll
-  for (int jn = 0; jn < BN / 8; ++jn) {
-    const int col = n0 + jn * 8 + (lane & 3) * 2;
-    if (col >= Co) continue;
-    const bool two = col + 1 < Co;
-    const float ms0 = __fmul_rn(args.mul[col], s), ad0 = args.add[col];
-    const float ms1 = two ? __fmul_rn(args.mul[col + 1], s) : 0.0f;
-    const float ad1 = two ? args.add[col + 1] : 0.0f;
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int c = jn * 8 + (lane & 3) * 2;
+      const float4 f0 = cf[c], f1 = cf[c + 1];
 #pragma unroll
-    for (int h8 = 0; h8 < 2; ++h8) {
-      const int64_t m = m0 + row + 8 * h8;
-      if (m >= M) continue;
-      float v0 = __fmaf_rn(__int2float_rn(acc[4 * jn + 2 * h8]), ms0, ad0);
-      float v1 = __fmaf_rn(__int2float_rn(acc[4 * jn + 2 * h8 + 1]), ms1, ad1);
-      if (args.relu) {
-        v0 = fmaxf(v0, 0.0f);
-        v1 = fmaxf(v1, 0.0f);
+      for (int h8 = 0; h8 < 2; ++h8) {
+        int32_t* d = acc + 4 * jn + 2 * h8;
+        d[0] = __float_as_int(__fmaf_rn(__int2float_rn(d[0]), f0.x, f0.y));
+        d[1] = __float_as_int(__fmaf_rn(__int2float_rn(d[1]), f1.x, f1.y));
       }
-      const int64_t at = m * Co + col;
-      if (args.out_f32) {
-        float* y = static_cast<float*>(args.y);
-        if (pairs) {
-          *reinterpret_cast<float2*>(y + at) = make_float2(v0, v1);
-        } else {
-          y[at] = v0;
-          if (two) y[at + 1] = v1;
+    }
+    if (a.res_kind == kResDequant)
+      add_residual<kResDequant, BN>(acc, a.res, a.res_ld, cf, n0, a.co, mw + wrow, a.M, lane);
+    else if (a.res_kind == kResF32)
+      add_residual<kResF32, BN>(acc, a.res, a.res_ld, cf, n0, a.co, mw + wrow, a.M, lane);
+    else if (a.res_kind == kResBf16)
+      add_residual<kResBf16, BN>(acc, a.res, a.res_ld, cf, n0, a.co, mw + wrow, a.M, lane);
+#pragma unroll
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const int c = jn * 8 + (lane & 3) * 2;  // in the tile
+      const int col = n0 + c;
+      const bool in0 = col < a.co, in1 = col + 1 < a.co;
+      const float qf0 = cf[c].z, qf1 = cf[c + 1].z;
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8) {
+        const int r = wrow + 8 * h8;
+        const int m = mw + r;
+        const bool live = m < a.M;
+        float v0 = __int_as_float(acc[4 * jn + 2 * h8]);
+        float v1 = __int_as_float(acc[4 * jn + 2 * h8 + 1]);
+        if (a.relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
         }
-      } else {
-        __nv_bfloat16* y = static_cast<__nv_bfloat16*>(args.y);
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          y[at] = __float2bfloat16_rn(v0);
-          if (two) y[at + 1] = __float2bfloat16_rn(v1);
+        const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
+        if (a.y2 != nullptr && live) {
+          __nv_bfloat16* y2 = a.y2 + static_cast<int64_t>(m) * a.co + col;
+          if (in0) y2[0] = b.x;
+          if (in1) y2[1] = b.y;
+        }
+        if (a.staged) {
+          // byte c * es of the row: box (c * es) / BOX, row r of the box; in
+          // a 64-byte box the 16-byte chunk k of row r lies at k ^ (r / 2 % 4)
+          const int at_row = (c * es) & (BOX - 1);
+          const int chunk = BOX == 64 ? ((at_row >> 4) ^ ((r >> 1) & 3)) : 0;
+          unsigned char* at = smem + (stage_out - base) + (c * es / BOX) * (64 * BOX) +
+                              r * BOX + chunk * 16 + (at_row & 15);
+          if constexpr (OUT == kOutF32) {
+            *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
+          } else if constexpr (OUT == kOutBf16) {
+            *reinterpret_cast<__nv_bfloat162*>(at) = b;
+          } else {  // the next site's channels past Co are zero
+            const uint32_t q0 = in0 ? quant(b.x, qf0) : 0u, q1 = in1 ? quant(b.y, qf1) : 0u;
+            *reinterpret_cast<uint16_t*>(at) = static_cast<uint16_t>(__byte_perm(q0, q1, 0x40));
+          }
+        } else if (live) {  // masked at M and at the row's length
+          const int64_t at = static_cast<int64_t>(m) * a.ld + col;
+          const bool w0 = col < a.ld, w1 = col + 1 < a.ld;
+          if constexpr (OUT == kOutF32) {
+            float* y = static_cast<float*>(a.y) + at;
+            if (w0) y[0] = v0;
+            if (w1) y[1] = v1;
+          } else if constexpr (OUT == kOutBf16) {
+            __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y) + at;
+            if (w0) y[0] = b.x;
+            if (w1) y[1] = b.y;
+          } else {
+            int8_t* y = static_cast<int8_t*>(a.y) + at;
+            if (w0) y[0] = static_cast<int8_t>(in0 ? quant(b.x, qf0) : 0u);
+            if (w1) y[1] = static_cast<int8_t>(in1 ? quant(b.y, qf1) : 0u);
+          }
         }
       }
     }
+    if (a.staged) {
+      fence_proxy_async();
+      warpgroup_sync(wg);
+#pragma unroll 1
+      for (int bx = 0; bx < BN * es / BOX; ++bx)  // a box's row holds BOX / es outputs
+        tma_store_2d(&ymap, stage_out + bx * 64 * BOX, n0 + bx * (BOX / es), mw, issuer);
+      bulk_commit(issuer);
+    }
   }
+  if (a.staged) bulk_wait<false>(issuer);
 }
 
 // ---------------------------------------------------------------------------
 // Q2: the quantize pass
 // ---------------------------------------------------------------------------
+
+constexpr int Q2_THREADS = 256;
 
 // 16 channels c0.. of row r of y (rows, C) as f32; channels past C read 0.
 // vec: C % 16 == 0 and y 16-byte aligned, so the chunk is whole and aligned.
@@ -452,7 +755,7 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ y, int64_t 
 // Thread i of the grid (striding) quantizes 16-channel chunk i of q: row i /
 // (cp / 16), one 16-byte store. DYN takes s from the amax pass.
 template <typename In, bool DYN>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Q2_THREADS)
 quantize_s8_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
                    const float* __restrict__ s_in, const unsigned* __restrict__ amax,
                    float* __restrict__ s_out, int8_t* __restrict__ q, int64_t rows, int C, int cp,
@@ -462,8 +765,8 @@ quantize_s8_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
   if (DYN && blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
   const int per_row = cp / 16;
   const int64_t total = rows * per_row;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < total;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * Q2_THREADS;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * Q2_THREADS + threadIdx.x; i < total;
        i += stride) {
     const int64_t r = i / per_row;
     const int c0 = static_cast<int>(i - r * per_row) * 16;
@@ -489,14 +792,14 @@ quantize_s8_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
 // max |f32(y) * inv_f[c]| over y (rows, C) into *amax (the bits of a
 // non-negative float order as unsigned integers), one atomic a block.
 template <typename In>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Q2_THREADS)
 quantize_amax_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
                      unsigned* __restrict__ amax, int64_t rows, int C, int vec) {
   const int per_row = (C + 15) / 16;
   const int64_t total = rows * per_row;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * Q2_THREADS;
   float m = 0.0f;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < total;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * Q2_THREADS + threadIdx.x; i < total;
        i += stride) {
     const int64_t r = i / per_row;
     const int c0 = static_cast<int>(i - r * per_row) * 16;
@@ -508,13 +811,13 @@ quantize_amax_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
-  __shared__ float part[THREADS / 32];
+  __shared__ float part[Q2_THREADS / 32];
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
     float b = part[0];
 #pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) b = fmaxf(b, part[w]);
+    for (int w = 1; w < Q2_THREADS / 32; ++w) b = fmaxf(b, part[w]);
     atomicMax(amax, __float_as_uint(b));
   }
 }
@@ -523,22 +826,85 @@ constexpr int kMaxDevices = 64;
 
 bool aligned(const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0; }
 
-// Opts the instance in to its shared memory once per device and size (a
-// host call, not free), then launches it.
-template <int BN>
-int launch_conv(const ConvArgs& args, int smem_bytes, int device, cudaStream_t s) {
-  if (smem_bytes < Tile<BN>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (args.M + BM - 1) / BM * args.n_tiles;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  static int opted_in[kMaxDevices] = {};
-  if (opted_in[device] < smem_bytes) {
-    cudaError_t err = cudaFuncSetAttribute(conv3d_s8_hopper_kernel<BN>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in[device] = smem_bytes;
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// the library links no libcuda of its own (as csrc/temporal_micro.cu).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
   }
-  conv3d_s8_hopper_kernel<BN><<<static_cast<unsigned>(blocks), THREADS, smem_bytes, s>>>(args);
+  return fn;
+}
+
+// A 2-D tensor map of a (rows, cols) row-major tensor, cols innermost.
+bool map_2d(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int es, int64_t rows,
+            int64_t cols, int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * es};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The shared memory of a plan (ops/int8_conv.py::conv_s8_plan computes the
+// same): the ring, the staging tiles, the row table, the column tables, the
+// barriers.
+int conv_smem(int bn, int stages, int es, int staged) {
+  return ALIGN + stages * (A_STAGE + bn * BK) + (staged ? CONSUMERS * 64 * bn * es : 0) +
+         ROWS_TABLE + CONSUMERS * bn * 16 + 16 * stages;
+}
+
+// Opts the instance in to the block's whole shared memory once per device (a
+// host call, not free), then launches it.
+template <int BN, int OUT>
+int launch_conv(const CUtensorMap& wmap, const CUtensorMap& ymap, const ConvArgs& args,
+                int blocks, int smem_bytes, int device, cudaStream_t s) {
+  static bool opted_in[kMaxDevices] = {};
+  if (!opted_in[device]) {
+    cudaError_t err = cudaFuncSetAttribute(conv3d_s8_hopper_kernel<BN, OUT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           SMEM_LIMIT);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[device] = true;
+  }
+  conv3d_s8_hopper_kernel<BN, OUT><<<blocks, Shape<BN>::THREADS, smem_bytes, s>>>(wmap, ymap, args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for (bn, out): its column tile and its output's form are
+// template parameters, so that each epilogue holds only its own stores.
+template <int BN>
+int launch_by_out(int out, const CUtensorMap& wmap, const CUtensorMap& ymap,
+                  const ConvArgs& args, int blocks, int smem_bytes, int device, cudaStream_t s) {
+  switch (out) {
+    case kOutBf16: return launch_conv<BN, kOutBf16>(wmap, ymap, args, blocks, smem_bytes, device, s);
+    case kOutF32: return launch_conv<BN, kOutF32>(wmap, ymap, args, blocks, smem_bytes, device, s);
+    default: return launch_conv<BN, kOutS8>(wmap, ymap, args, blocks, smem_bytes, device, s);
+  }
+}
+
+int launch_by_bn(int bn, int out, const CUtensorMap& wmap, const CUtensorMap& ymap,
+                 const ConvArgs& args, int blocks, int smem_bytes, int device, cudaStream_t s) {
+  switch (bn) {
+    case 64: return launch_by_out<64>(out, wmap, ymap, args, blocks, smem_bytes, device, s);
+    case 128: return launch_by_out<128>(out, wmap, ymap, args, blocks, smem_bytes, device, s);
+    case 144: return launch_by_out<144>(out, wmap, ymap, args, blocks, smem_bytes, device, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename In>
@@ -546,19 +912,19 @@ int launch_quantize(const In* y, const float* inv_f, const float* s_in, unsigned
                     float* s_out, int8_t* q, int64_t rows, int c, int cp, cudaStream_t st) {
   const int vec = (c % 16 == 0 && aligned(y, 16)) ? 1 : 0;
   const int64_t chunks = rows * (cp / 16);
-  const int64_t want = (chunks + THREADS - 1) / THREADS;
+  const int64_t want = (chunks + Q2_THREADS - 1) / Q2_THREADS;
   const int blocks = static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
   if (amax == nullptr) {
-    quantize_s8_kernel<In, false><<<blocks, THREADS, 0, st>>>(y, inv_f, s_in, nullptr, nullptr,
+    quantize_s8_kernel<In, false><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, s_in, nullptr, nullptr,
                                                               q, rows, c, cp, vec);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_amax_kernel<In><<<blocks, THREADS, 0, st>>>(y, inv_f, amax, rows, c, vec);
+  quantize_amax_kernel<In><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, amax, rows, c, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_s8_kernel<In, true><<<blocks, THREADS, 0, st>>>(y, inv_f, nullptr, amax, s_out, q,
+  quantize_s8_kernel<In, true><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, nullptr, amax, s_out, q,
                                                            rows, c, cp, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -569,37 +935,71 @@ extern "C" {
 
 // Launches Q1 on `stream` of CUDA device `device`; returns cudaGetLastError()
 // after the launch (0 on success). x (n, t, h, w, cp) int8, cp a multiple of
-// 16; wk (co, kt*kh*kw, cp) int8; mul, add (co) f32; s one f32; y (n, to, ho,
-// wo, co) bf16, or f32 with out_f32. Pads are the low pads; the output size
-// carries the high ones. The plan (bn, smem_bytes) comes from
-// ops/int8_conv.py::conv_s8_plan; the launch refuses one it was not built
-// for or that does not fit. The device is set explicitly: this library
-// carries its own CUDA runtime, whose current device is not the caller's.
+// 16; wk (co, kt*kh*kw, cp) int8; mul, add (co) f32; s one f32. The output y
+// is (n*to*ho*wo, ld): out 0 bf16 or 1 f32 (ld = co), or 2 int8 for the next
+// site (ld = cp_next, a multiple of 16, q_inv_f (co) and q_s its scale).
+// y2, if not null, also takes the bf16 values (ld co). res_kind 1-3 adds a
+// residual before the ReLU: 1 res int8 (ld res_ld) times s_in / inv_f_in
+// (res_s, res_inv_f), 2 res f32 (ld co), 3 res bf16 (ld co). Pads are the
+// low pads; the output size carries the high ones. The plan (bn, stages,
+// staged, blocks, smem_bytes) comes from ops/int8_conv.py::conv_s8_plan; the
+// launch refuses one it was not built for or that does not fit. The device
+// is set explicitly: this library carries its own CUDA runtime, whose
+// current device is not the caller's.
 int fvt_conv3d_s8(const void* x, const void* wk, const void* mul, const void* add,
-                  const void* s, void* y, long long n, int t, int h, int w, int cp, int to,
-                  int ho, int wo, int kt, int kh, int kw, int st, int sh, int sw, int pt, int ph,
-                  int pw, int co, int relu, int out_f32, int bn, int smem_bytes, int device,
-                  void* stream) {
+                  const void* s, void* y, void* y2, const void* res, const void* res_inv_f,
+                  const void* res_s, const void* q_inv_f, const void* q_s, long long n, int t,
+                  int h, int w, int cp, int to, int ho, int wo, int kt, int kh, int kw, int st,
+                  int sh, int sw, int pt, int ph, int pw, int co, int relu, int out, int ld,
+                  int res_kind, int res_ld, int bn, int stages, int staged, int blocks,
+                  int smem_bytes, int device, void* stream) {
+  const int es = out == kOutF32 ? 4 : (out == kOutBf16 ? 2 : 1);
+  const int64_t m = static_cast<int64_t>(n) * to * ho * wo;
   if (n <= 0 || t <= 0 || h <= 0 || w <= 0 || to <= 0 || ho <= 0 || wo <= 0 || kt <= 0 ||
       kh <= 0 || kw <= 0 || st <= 0 || sh <= 0 || sw <= 0 || pt < 0 || ph < 0 || pw < 0 ||
       co <= 0 || cp <= 0 || (cp % 16) != 0 || device < 0 || device >= kMaxDevices ||
-      !aligned(x, 16) || !aligned(wk, 16) || !aligned(y, out_f32 ? 8 : 4) || !aligned(mul, 4) ||
+      out < kOutBf16 || out > kOutS8 || res_kind < kResNone || res_kind > kResBf16 ||
+      (out == kOutS8 ? (ld < co || ld % 16 != 0 || q_inv_f == nullptr || q_s == nullptr)
+                     : ld != co) ||
+      (res_kind != kResNone && (res == nullptr || res_ld < co)) ||
+      (res_kind == kResDequant && (res_inv_f == nullptr || res_s == nullptr)) ||
+      stages < MIN_STAGES || stages > MAX_STAGES || blocks <= 0 ||
+      smem_bytes != conv_smem(bn, stages, es, staged) || smem_bytes > SMEM_LIMIT ||
+      m > 0x7fffffffLL || (staged && ((static_cast<int64_t>(ld) * es) % 16 != 0 ||
+                                      !aligned(y, 16))) ||
+      !aligned(x, 16) || !aligned(wk, 16) || !aligned(y, es) || !aligned(mul, 4) ||
       !aligned(add, 4) || !aligned(s, 4))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tensor_map_encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ConvArgs args{static_cast<const int8_t*>(x), static_cast<const int8_t*>(wk),
-                static_cast<const float*>(mul), static_cast<const float*>(add),
-                static_cast<const float*>(s), y, static_cast<int64_t>(n) * to * ho * wo,
-                t, h, w, to, ho, wo, kt, kh, kw, st, sh, sw, pt, ph, pw, cp, co,
-                (co + bn - 1) / bn, relu, out_f32};
-  cudaStream_t s_ = reinterpret_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 64: return launch_conv<64>(args, smem_bytes, device, s_);
-    case 128: return launch_conv<128>(args, smem_bytes, device, s_);
-    case 144: return launch_conv<144>(args, smem_bytes, device, s_);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int K = kt * kh * kw * cp;
+  CUtensorMap wmap, ymap = {};
+  if (!map_2d(&wmap, wk, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, co, K, BK, bn,
+              CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (staged) {
+    const CUtensorMapDataType type = out == kOutF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : out == kOutBf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                       : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+    const int box = out == kOutF32 ? out_box<kOutF32>() : out_box<kOutS8>();
+    if (!map_2d(&ymap, y, type, es, m, ld, box / es, 64,
+                box == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int n_tiles = (co + bn - 1) / bn;
+  const int64_t tiles = (m + BM - 1) / BM * n_tiles;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  ConvArgs args{static_cast<const int8_t*>(x), static_cast<const float*>(mul),
+                static_cast<const float*>(add), static_cast<const float*>(s), y,
+                static_cast<__nv_bfloat16*>(y2), res, static_cast<const float*>(res_inv_f),
+                static_cast<const float*>(res_s), static_cast<const float*>(q_inv_f),
+                static_cast<const float*>(q_s), m, t, h, w, to, ho, wo, kt, kh, kw, st, sh, sw,
+                pt, ph, pw, cp, co, K, n_tiles, static_cast<int>(tiles), relu, ld, res_kind,
+                res_ld, stages, staged};
+  const int grid = static_cast<int>(tiles < blocks ? tiles : blocks);
+  cudaStream_t s_ = reinterpret_cast<cudaStream_t>(stream);
+  return launch_by_bn(bn, out, wmap, ymap, args, grid, smem_bytes, device, s_);
 }
 
 // Launches Q2: y (rows, c) bf16 (or f32 with in_f32) -> q (rows, cp) int8,

@@ -3,7 +3,12 @@ versions and their launch counts (csrc/int8_conv.cu).
 
 - ``conv3d_s8_hopper_kernel`` (Q1): the int8 x int8 -> int32 conv over a
   general 3-D tap set (strides, low and high pads) with the requant
-  epilogue ``relu?(fma(f32(acc), mul * s, add))``, stored as bf16 or f32.
+  epilogue ``fma(f32(acc), mul * s, add)``, then one of three forms: (a)
+  ReLU? and a bf16 or f32 store; (b) ReLU?, bf16, and Q2's static quantize
+  for the next site (``Requant``), stored int8 at its padded width; (c) a
+  block's tail: a ``Residual`` added, ReLU, bf16, then (b)'s quantize and/or
+  the bf16 store. Each form is the chain of plain steps it replaces,
+  rounding for rounding (``conv3d_s8_plain`` composes them).
 - ``quantize_s8_kernel`` (Q2) and, in the dynamic mode, its amax pass
   ``quantize_amax_kernel``: a bf16 or f32 activation to int8 in the two
   operation orders of the JAX engine (static, dynamic).
@@ -14,8 +19,8 @@ CPU tensor to the plain version; nothing falls back. The activations cross
 between them as ``(N, T, H, W, cp)`` int8 with the channels zero-padded to
 ``cp``, a multiple of 16 (a 16-byte load holds 16 channels; zero channels
 leave the int32 sum exact); the weights as ``(Co, taps, cp)`` int8, K-major,
-laid out once per qpack by ``weight_layout``. The scale ``s`` stays on the
-device as a 0-d f32 tensor: no scale is read back to the host.
+laid out once per qpack by ``weight_layout``. The scales stay on the device
+as 0-d f32 tensors: no scale is read back to the host.
 """
 
 from __future__ import annotations
@@ -28,7 +33,13 @@ import torch
 import torch.nn.functional as F
 
 from fastvideotagging_tpu_torch.ops import _build
-from fastvideotagging_tpu_torch.ops.conv2plus1d import _K1_BNS, _route
+from fastvideotagging_tpu_torch.ops.conv2plus1d import (
+    _K1_BNS,
+    SMEM_LIMIT,
+    SMS,
+    _route,
+    _sm_count,
+)
 
 # Launches since the last reset: Q1, Q2's quantize pass, Q2's amax pass
 # (dynamic mode only).
@@ -52,9 +63,11 @@ def padded_channels(c: int) -> int:
     return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
 
 
-# fvt_conv3d_s8(x, wk, mul, add, s, y, n, t, h, w, cp, to, ho, wo, kt, kh, kw,
-# st, sh, sw, pt, ph, pw, co, relu, out_f32, bn, smem_bytes, device, stream)
-_Q1_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 22 + [ctypes.c_void_p]
+# fvt_conv3d_s8(x, wk, mul, add, s, y, y2, res, res_inv_f, res_s, q_inv_f, q_s, n, t, h,
+# w, cp, to, ho, wo, kt, kh, kw, st, sh, sw, pt, ph, pw, co, relu, out, ld, res_kind, res_ld,
+# bn, stages, staged, blocks, smem_bytes, device, stream)
+_Q1_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 28
+                + [ctypes.c_void_p])
 # fvt_quantize_s8(y, in_f32, inv_f, s_in, amax, s_out, q, rows, c, cp, device, stream)
 _Q2_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -77,30 +90,62 @@ def _kernels() -> ctypes.CDLL:
 # Q1: the int8 conv
 # ---------------------------------------------------------------------------
 
-_Q1_BM = 128  # output rows per block
+_Q1_BM = 128  # output rows of a tile (64 a consumer warpgroup)
 _Q1_BK = 128  # contraction slice: 128 int8, 128 bytes a row
-_Q1_STAGES = 3  # slices in the cp.async ring
+_Q1_CONSUMERS = 2  # consumer warpgroups (a producer warpgroup beside them)
+_Q1_MAX_STAGES = 6  # slices in the ring, at most
+_Q1_MIN_STAGES = 4
 _Q1_ALIGN = 1024
+_Q1_ROWS_TABLE = _Q1_BM * 16  # the tile's row coordinates, an int4 a row
+_Q1_OUT_BOX = 16  # bytes of a row of an output staging box (64 rows a box)
+_Q1_FIXED = 64  # a tile's cost past its columns, in columns (its epilogue, its ring's fill)
+# the form of Q1's output (the kernel's `out`) and of its residual (`res_kind`)
+_OUT = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+_RES = {None: 0, "dequant": 1, "f32": 2, "bf16": 3}
 
 
 class ConvS8Plan(NamedTuple):
-    bn: int  # output channels per block (wgmma's N: 64, 128 or 144, all valid for .s8)
+    bn: int  # output channels per tile (wgmma's N: 64, 128 or 144, all valid for .s8)
+    stages: int  # slices in the ring
+    staged: bool  # the output goes through shared memory and TMA stores
     smem_bytes: int  # dynamic shared memory of one block
-    row_tiles: int  # blocks along the output rows (128 each)
-    col_tiles: int  # blocks along the output channels (bn each)
+    row_tiles: int  # tiles along the output rows (128 each)
+    col_tiles: int  # tiles along the output channels (bn each)
     slices: int  # 128-deep slices of the contraction taps * cp
+    grid: int  # blocks launched (persistent: one an SM, each walks its tiles)
 
     @property
-    def grid(self) -> int:
+    def tiles(self) -> int:
         return self.row_tiles * self.col_tiles
 
 
-@functools.lru_cache(maxsize=256)
-def conv_s8_plan(rows: int, co: int, taps: int, cp: int) -> ConvS8Plan:
+def _q1_smem(bn: int, stages: int, out_bytes: int, staged: bool) -> int:
+    """The ring, the two consumers' staging tiles, the row table, their
+    column tables (a float4 a column) and the barriers
+    (csrc/int8_conv.cu::conv_smem computes the same)."""
+    staging = _Q1_CONSUMERS * 64 * bn * out_bytes if staged else 0
+    return (_Q1_ALIGN + stages * (_Q1_BM + bn) * _Q1_BK + staging + _Q1_ROWS_TABLE
+            + _Q1_CONSUMERS * bn * 16 + 16 * stages)
+
+
+@functools.lru_cache(maxsize=512)
+def conv_s8_plan(rows: int, co: int, taps: int, cp: int, out_bytes: int = 2,
+                 row_bytes: int | None = None, sms: int = SMS) -> ConvS8Plan:
     """Q1's launch plan: ``rows`` output rows, ``co`` output channels, a
-    contraction of ``taps`` taps of ``cp`` channels. The column tile is K1's
-    rule (ops/conv2plus1d.py::_taps_plan): the narrowest tile that covers
-    Co, else the widest that divides it, else the least wasteful."""
+    contraction of ``taps`` taps of ``cp`` channels, an output of
+    ``out_bytes`` an element and ``row_bytes`` a row (``co * out_bytes``
+    unless the output is the next site's padded int8).
+
+    The column tile is K1's rule (ops/conv2plus1d.py::_taps_plan): the
+    narrowest tile that covers Co, else the widest that divides it, else the
+    least wasteful. Where the row tiles are fewer than the SMs, a narrower
+    tile is taken if it finishes sooner: the waves of tiles times a tile's
+    cost, its columns plus a fixed part (ties go to the wider tile, which
+    reads A fewer times). The output is staged for TMA stores where a row is
+    a whole number of 16-byte boxes. The ring takes what shared memory is
+    left, up to 6 stages; the block uses more than half of an SM's shared
+    memory, so one block runs on an SM (what setmaxnreg's split of the
+    register file assumes)."""
     covering = [bn for bn in _K1_BNS if bn >= co]
     dividing = [bn for bn in _K1_BNS if co % bn == 0]
     if covering:
@@ -109,8 +154,22 @@ def conv_s8_plan(rows: int, co: int, taps: int, cp: int) -> ConvS8Plan:
         bn = dividing[0]
     else:
         bn = min(_K1_BNS, key=lambda b: (-(-co // b) * b - co, -b))
-    smem = _Q1_STAGES * (_Q1_BM + bn) * _Q1_BK + _Q1_ALIGN
-    return ConvS8Plan(bn, smem, -(-rows // _Q1_BM), -(-co // bn), -(-taps * cp // _Q1_BK))
+    row_tiles = -(-rows // _Q1_BM)
+    if row_tiles < sms:
+        def makespan(b):
+            return -(-row_tiles * -(-co // b) // sms) * (b + _Q1_FIXED)
+        bn = min([bn] + [b for b in _K1_BNS if b < bn], key=lambda b: (makespan(b), -b))
+    row_bytes = co * out_bytes if row_bytes is None else row_bytes
+    staged = row_bytes % _Q1_OUT_BOX == 0
+    stages = _Q1_MAX_STAGES
+    while _q1_smem(bn, stages, out_bytes, staged) > SMEM_LIMIT:
+        stages -= 1
+    if stages < _Q1_MIN_STAGES:
+        raise ValueError(f"Q1 has no plan for BN {bn} with {out_bytes}-byte outputs")
+    smem = _q1_smem(bn, stages, out_bytes, staged)
+    tiles = row_tiles * -(-co // bn)
+    return ConvS8Plan(bn, stages, staged, smem, row_tiles, -(-co // bn), -(-taps * cp // _Q1_BK),
+                      min(tiles, sms))
 
 
 def weight_layout(w: torch.Tensor) -> torch.Tensor:
@@ -121,11 +180,34 @@ def weight_layout(w: torch.Tensor) -> torch.Tensor:
     return F.pad(wk, (0, padded_channels(c) - c)).contiguous()
 
 
+class Residual(NamedTuple):
+    """A block's residual, added to its last conv's requantized output
+    before the block's ReLU (epilogue form (c)): ``kind`` 'dequant' (``t``
+    the block input's int8 q, read back as ``q * (s / inv_f)`` with its
+    site's ``inv_f`` and scale ``s``), 'f32' (``t`` the downsample conv's
+    f32 output) or 'bf16' (``t`` the bf16 block input). ``t`` has the
+    output's shape (q: at its padded width)."""
+    kind: str
+    t: torch.Tensor
+    inv_f: torch.Tensor | None = None
+    s: torch.Tensor | None = None
+
+
+class Requant(NamedTuple):
+    """The next site's static quantize in Q1's epilogue (forms (b), (c)):
+    Q2's static pass on the bf16 output with the site's ``inv_f`` and scale
+    ``s``; ``keep_bf16`` returns the bf16 output beside the int8 one."""
+    inv_f: torch.Tensor
+    s: torch.Tensor
+    keep_bf16: bool = False
+
+
 def out_size(n: int, k: int, s: int, pad) -> int:
     return (n + pad[0] + pad[1] - k) // s + 1
 
 
-def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads):
+def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32=False, residual=None,
+              requant=None):
     if q.dtype != torch.int8 or wk.dtype != torch.int8 or q.ndim != 5 or wk.ndim != 3:
         raise ValueError(f"q (N,T,H,W,cp) and wk (Co,taps,cp) must be int8, got "
                          f"{q.dtype} {tuple(q.shape)} and {wk.dtype} {tuple(wk.shape)}")
@@ -135,45 +217,94 @@ def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads):
         raise ValueError(f"q's channels {cp} must be a multiple of {CHANNEL_ALIGN} and wk "
                          f"(Co, {kt * kh * kw}, {cp}); got wk {tuple(wk.shape)}")
     co = wk.shape[0]
-    for name, t in (("mul", mul), ("add", add)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (co,):
-            raise ValueError(f"{name} must be f32 ({co},), got {t.dtype} {tuple(t.shape)}")
-    if s.dtype != torch.float32 or s.numel() != 1:
-        raise ValueError(f"s must be one f32 value, got {s.dtype} {tuple(s.shape)}")
+    vectors = [("mul", mul), ("add", add)]
+    scalars = [("s", s)]
+    if requant is not None:
+        if out_f32:
+            raise ValueError("a requantized output is int8 (and bf16), not f32")
+        vectors.append(("requant.inv_f", requant.inv_f))
+        scalars.append(("requant.s", requant.s))
+    if residual is not None:
+        if residual.kind not in ("dequant", "f32", "bf16"):
+            raise ValueError(f"unknown residual kind {residual.kind!r}")
+        want = {"dequant": torch.int8, "f32": torch.float32, "bf16": torch.bfloat16}[residual.kind]
+        width = padded_channels(co) if residual.kind == "dequant" else co
+        if residual.t.dtype != want or residual.t.ndim != 5 or residual.t.shape[-1] != width:
+            raise ValueError(f"a {residual.kind} residual is {want} (..., {width}), got "
+                             f"{residual.t.dtype} {tuple(residual.t.shape)}")
+        if residual.kind == "dequant":
+            vectors.append(("residual.inv_f", residual.inv_f))
+            scalars.append(("residual.s", residual.s))
+    for name, t in vectors:
+        if t is None or t.dtype != torch.float32 or tuple(t.shape) != (co,):
+            raise ValueError(f"{name} must be f32 ({co},), got "
+                             f"{None if t is None else (t.dtype, tuple(t.shape))}")
+    for name, t in scalars:
+        if t is None or t.dtype != torch.float32 or t.numel() != 1:
+            raise ValueError(f"{name} must be one f32 value, got "
+                             f"{None if t is None else (t.dtype, tuple(t.shape))}")
     if len(strides) != 3 or len(pads) != 3 or min(strides) < 1:
         raise ValueError(f"bad strides {strides} or pads {pads}")
 
 
+def _out_shape(q, kernel_size, strides, pads, co):
+    n, t, h, w, _ = q.shape
+    return (n,) + tuple(out_size(d, k, st, p) for d, k, st, p in
+                        zip((t, h, w), kernel_size, strides, pads)) + (co,)
+
+
 def conv3d_s8_cuda(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
-                   out_f32: bool) -> torch.Tensor:
+                   out_f32: bool, residual: Residual | None = None,
+                   requant: Requant | None = None):
     """Q1 on the card: q (N, T, H, W, cp) int8, wk (Co, kt*kh*kw, cp) int8,
     mul / add (Co,) f32, s a 0-d f32, all on one CUDA device; ``pads`` (lo,
-    hi) per (T, H, W) -> (N, To, Ho, Wo, Co) bf16, or f32 with ``out_f32``."""
-    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads)
+    hi) per (T, H, W). Returns what ``conv3d_s8`` returns."""
+    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32, residual, requant)
     dev = q.device
-    for name, t in (("q", q), ("wk", wk), ("mul", mul), ("add", add), ("s", s)):
-        if t.device != dev or not t.is_contiguous():
+    tensors = [("q", q), ("wk", wk), ("mul", mul), ("add", add), ("s", s)]
+    if residual is not None:
+        tensors += [("residual.t", residual.t), ("residual.inv_f", residual.inv_f),
+                    ("residual.s", residual.s)]
+    if requant is not None:
+        tensors += [("requant.inv_f", requant.inv_f), ("requant.s", requant.s)]
+    for name, t in tensors:
+        if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {dev}")
     n, t, h, w, cp = q.shape
     kt, kh, kw = kernel_size
-    to, ho, wo = (out_size(d, k, st, p) for d, k, st, p in
-                  zip((t, h, w), kernel_size, strides, pads))
     co = wk.shape[0]
+    shape = _out_shape(q, kernel_size, strides, pads, co)
     q = q.clone() if q.data_ptr() % 16 else q
     wk = wk.clone() if wk.data_ptr() % 16 else wk
-    plan = conv_s8_plan(n * to * ho * wo, co, kt * kh * kw, cp)
-    y = torch.empty((n, to, ho, wo, co), dtype=torch.float32 if out_f32 else torch.bfloat16,
-                    device=dev)
+    y2 = None
+    if requant is not None:
+        ld = padded_channels(co)
+        y = torch.empty(shape[:-1] + (ld,), dtype=torch.int8, device=dev)
+        if requant.keep_bf16:
+            y2 = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    else:
+        ld = co
+        y = torch.empty(shape, dtype=torch.float32 if out_f32 else torch.bfloat16, device=dev)
+    rows = n * shape[1] * shape[2] * shape[3]
+    plan = conv_s8_plan(rows, co, kt * kh * kw, cp, y.element_size(), ld * y.element_size(),
+                        _sm_count(dev))
+    res = residual.t if residual is not None else None
+    ptr = (lambda t: None if t is None else t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernels().fvt_conv3d_s8(
         q.data_ptr(), wk.data_ptr(), mul.data_ptr(), add.data_ptr(), s.data_ptr(),
-        y.data_ptr(), n, t, h, w, cp, to, ho, wo, kt, kh, kw, *strides,
-        *(p[0] for p in pads), co, int(relu), int(out_f32), plan.bn, plan.smem_bytes,
-        dev.index, stream)
+        y.data_ptr(), ptr(y2), ptr(res), ptr(residual and residual.inv_f),
+        ptr(residual and residual.s), ptr(requant and requant.inv_f),
+        ptr(requant and requant.s), n, t, h, w, cp, *shape[1:4], kt, kh, kw, *strides,
+        *(p[0] for p in pads), co, int(relu), _OUT[y.dtype], ld,
+        _RES[residual and residual.kind], 0 if res is None else res.shape[-1], plan.bn,
+        plan.stages, int(plan.staged), plan.grid, plan.smem_bytes, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_conv3d_s8 launch failed: CUDA error {rc}")
     launch_counts["conv3d_s8"] += 1
-    return y
+    if requant is None:
+        return y
+    return y, requant.s.reshape(()), y2
 
 
 def conv3d_s8_accumulate(q, wk, kernel_size, strides, pads) -> torch.Tensor:
@@ -199,20 +330,54 @@ def requant_epilogue(acc: torch.Tensor, mul, add, s, relu: bool, out_f32: bool) 
     return (y if out_f32 else y.to(torch.bfloat16)).contiguous()
 
 
+def residual_tail(z: torch.Tensor, residual: Residual, relu: bool = True,
+                  out_f32: bool = False) -> torch.Tensor:
+    """A block's tail after its last conv's f32 output ``z``: the residual
+    added in f32 (the dequantized input as one fused multiply-add,
+    ``addcmul``, as XLA fuses the JAX engine's), ReLU, bf16 (f32 with
+    ``out_f32``): the int8 engine's unfused ops."""
+    c = z.shape[-1]
+    if residual.kind == "dequant":
+        z = torch.addcmul(z, residual.t[..., :c].float(), residual.s / residual.inv_f)
+    else:
+        z = z + residual.t.float()
+    if relu:
+        z = torch.relu(z)
+    return z if out_f32 else z.to(torch.bfloat16)
+
+
 def conv3d_s8_plain(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
-                    out_f32: bool) -> torch.Tensor:
-    """The plain version of Q1: an exact integer conv (f64 ``F.conv3d``), then
-    the same epilogue in f32."""
-    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads)
+                    out_f32: bool, residual: Residual | None = None,
+                    requant: Requant | None = None):
+    """The plain version of Q1: an exact integer conv (f64 ``F.conv3d``),
+    then the epilogue form as the composition of the plain steps it fuses:
+    ``requant_epilogue``, ``residual_tail``, ``quantize_s8_plain``."""
+    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32, residual, requant)
     acc = conv3d_s8_accumulate(q, wk, kernel_size, strides, pads)
-    return requant_epilogue(acc, mul, add, s, relu, out_f32)
+    f32 = out_f32 and requant is None
+    if residual is None:
+        y = requant_epilogue(acc, mul, add, s, relu, f32)
+    else:
+        y = residual_tail(requant_epilogue(acc, mul, add, s, False, True), residual, relu, f32)
+    if requant is None:
+        return y
+    qn, sn = _quantize_plain(y, requant.inv_f, requant.s)
+    return qn, sn, (y if requant.keep_bf16 else None)
 
 
 def conv3d_s8(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool = False,
-              out_f32: bool = False) -> torch.Tensor:
-    """Q1 for a CUDA ``q``, its plain version for a CPU one."""
+              out_f32: bool = False, residual: Residual | None = None,
+              requant: Requant | None = None):
+    """Q1 for a CUDA ``q``, its plain version for a CPU one.
+
+    Without ``requant`` it returns the output, bf16 (f32 with ``out_f32``);
+    with it, ``(q_next, s_next, y)``: the output quantized for the next site
+    (int8 at its padded width), that site's scale, and the bf16 output where
+    ``requant.keep_bf16`` asks for it (else None). With ``residual`` the
+    conv's own ReLU is off and ``relu`` is the block's, after the add."""
     return _route(conv3d_s8_cuda, conv3d_s8_plain, q, wk, tuple(kernel_size), mul, add, s,
-                  tuple(strides), tuple(tuple(p) for p in pads), relu, out_f32)
+                  tuple(strides), tuple(tuple(p) for p in pads), relu, out_f32, residual,
+                  requant)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +432,12 @@ def quantize_s8_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | No
     max(amax|xs|, 1e-12) * f32(1/127)`` (``INV_127``), ``round(xs / s)``;
     clipped to +-127 and the channels zero-padded to a multiple of 16."""
     _check_q2(y, inv_f)
+    return _quantize_plain(y, inv_f, s)
+
+
+def _quantize_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None):
+    """Q2's arithmetic (``quantize_s8_plain`` without its checks), which Q1's
+    plain version also runs for forms (b) and (c)."""
     if s is None:
         xs = y.to(torch.float32) * inv_f
         s = torch.clamp_min(xs.abs().amax(), 1e-12) * INV_127

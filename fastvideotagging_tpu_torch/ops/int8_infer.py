@@ -19,7 +19,10 @@ The scheme is the JAX engine's, number for number:
     batch's amax, ``dynamic=True``);
   * each conv runs int8 x int8 -> int32 on the card's tensor cores (Q1,
     ops/int8_conv.py) with the epilogue relu?(f32(acc) * (w_scale * bn_scale
-    * s) + bn_bias); each quantization point is Q2;
+    * s) + bn_bias); each quantization point is Q2, or, in the static mode
+    where the next site alone reads a conv's output, that conv's epilogue
+    (form (b)); a block's residual add, ReLU and the next quantize are its
+    last conv's epilogue (form (c)): the same steps, fused;
   * a multiply-add the JAX engine writes as ``a * b + c`` is one fused
     multiply-add here (``addcmul``, ``fmaf``), since XLA contracts it.
   * residual adds, pools and the head run in f32 (PyTorch ops, as they are
@@ -27,10 +30,12 @@ The scheme is the JAX engine's, number for number:
   * mixed precision: ``float_blocks`` run in bf16 with exactly dequantized
     weights, each spec's measured default tail (r2plus1d: stage 4).
 
-Where the walk runs a bf16 conv (calibration, and ``conv_f`` in the
-``float_blocks``) it takes the model's routing: ``spatial_conv`` /
-``temporal_conv`` of ops/conv2plus1d.py for the (2+1)D factors (K1 and K2
-on the stride-1 sites), ``conv3d_nthwc`` for the rest.
+The bf16 walk (calibration, and the bf16 reference engine) feeds each
+conv's f32 result to its BatchNorm affine unrounded, as the jitted JAX walk
+does (``_walk_conv``). ``conv_f`` in the ``float_blocks`` takes the model's
+routing: ``spatial_conv`` / ``temporal_conv`` of ops/conv2plus1d.py for the
+(2+1)D factors (K1 and K2 on the stride-1 sites), ``conv3d_nthwc`` for the
+rest.
 
 A qpack is ``{"convs": {conv_id: {"w", "wk", "w_scale", "f_in", "mul",
 "add", "bn_scale", "bn_bias"}}, "inv_f": {site: (C,)}, "s_static": {site:
@@ -40,6 +45,8 @@ same weights laid out K-major for Q1, once per qpack.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -142,6 +149,24 @@ def _bf16_conv(x, kernel, strides, pads=None):
     return conv3d_nthwc(F.pad(x, (0, 0, wl, wh, hl, hh, tl, th)), w, strides, (0, 0, 0))
 
 
+def _walk_conv(x, kernel, strides, pads):
+    """The bf16 walk's conv: x and the kernel rounded to bf16, the products
+    exact and the sums in f32, and the f32 result returned unrounded.
+
+    The JAX walk runs jitted, and XLA (which allows excess precision by
+    default) hands its bf16 conv's f32 result to the affine that follows
+    without the round trip through bf16 that the conv's type implies. A bf16
+    conv here rounds there, so the two walks' activations drifted apart from
+    the stem on (1-2 % of a channel's absmax by stage 1). On the card TF32
+    holds bf16 values exactly, so cuDNN's f32 conv computes the same."""
+    w = kernel.to(torch.bfloat16).float()
+    x = x.to(torch.bfloat16).float()
+    if all(lo == hi for lo, hi in pads):
+        return conv3d_nthwc(x, w, strides, tuple(lo for lo, _ in pads))
+    (tl, th), (hl, hh), (wl, wh) = pads
+    return conv3d_nthwc(F.pad(x, (0, 0, wl, wh, hl, hh, tl, th)), w, strides, (0, 0, 0))
+
+
 def _affine(x, scale, bias, relu=False):
     """x * scale + bias in f32 as one fused multiply-add (``addcmul``), as
     XLA contracts the JAX engine's; ReLU; back to x's dtype."""
@@ -237,12 +262,13 @@ def spec_walk(spec: ArchSpec, variables, x, record):
     def conv(y, node: Conv):
         y = record(node.site, y)
         k = param(p, node.kernel)
-        z = _bf16_conv(y, k, node.strides, pads=_conv_pads(y, k, node))
+        z = _walk_conv(y, k, node.strides, _conv_pads(y, k, node))
         if node.bn is not None:
             z = _affine(z, *_bn_of(variables, node.bn, node.bn_eps), relu=node.relu)
         else:
             bias = (param(p, node.bias).float() if node.bias is not None else 0.0)
             z = _affine(z, 1.0, bias, relu=node.relu)
+        z = z.to(torch.bfloat16)
         if node.gate is not None:
             z = _apply_gate(z, param(p, node.gate + ("kernel",)),
                             param(p, node.gate + ("bias",)))
@@ -454,6 +480,16 @@ def quantize_variables(variables, act_scales, stage_blocks=(2, 2, 2, 2),
 DEFAULT_FLOAT_BLOCKS = ("stage4_block0", "stage4_block1")
 
 
+class _Quantized(NamedTuple):
+    """An activation that a fused epilogue wrote quantized for ``site``
+    (with its scale ``s``), and in bf16 (``y``) where a consumer also reads
+    it so, else None."""
+    site: str
+    q: torch.Tensor
+    s: torch.Tensor
+    y: torch.Tensor | None
+
+
 @torch.inference_mode()
 def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
                dynamic: bool = False, residual: str = "dequant",
@@ -467,34 +503,81 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
     activation scales from each batch's amax (Q2's amax pass) instead of
     the calibrated static ones. ``residual``: 'dequant' (default)
     reconstructs the block input from its quantized form; 'exact' adds the
-    unquantized input in f32."""
+    unquantized input in f32.
+
+    In the static mode a conv whose output the next site alone reads (the
+    next conv of its chain, or the next int8 block's ``in`` site) quantizes
+    it in its epilogue (Q1's form (b)), and an int8 block's last conv adds
+    the residual, applies the ReLU and quantizes for the next site or stores
+    bf16 (form (c)). The results are those of the separate steps, bit for
+    bit; the dynamic mode keeps them apart (its scale needs the whole
+    tensor first)."""
     if float_blocks is None:
         float_blocks = spec.default_float_blocks
     inv_f = qpack["inv_f"]
+    fuse = not dynamic
     sites = {}
+
+    def record(site, q, s, c):
+        if debug_sites:
+            sites[site] = q[..., :c].float() * s / inv_f[site]
 
     def quant_site(y, site):
         if dynamic:
             q, s = _dyn_quant(y, inv_f[site])
         else:
             q, s = int8_conv.quantize_s8(y, inv_f[site], qpack["s_static"][site])
-        if debug_sites:
-            sites[site] = q[..., :y.shape[-1]].float() * s / inv_f[site]
+        record(site, q, s, y.shape[-1])
         return q, s
 
-    def conv_q(q, s_dyn, node: Conv, out_f32=False):
+    def take(v, site):
+        """(q, s) of activation ``v`` at ``site``: the fused epilogue's where
+        it wrote them for this site, else Q2 on the bf16 activation."""
+        if isinstance(v, _Quantized) and v.site == site:
+            return v.q, v.s
+        return quant_site(bf16_of(v), site)
+
+    def bf16_of(v):
+        return v.y if isinstance(v, _Quantized) else v
+
+    def sole_site(nxt):
+        """(site, keep_bf16): the site that alone quantizes a value whose
+        consumer is ``nxt`` (the next conv's, or the next int8 block's ``in``
+        site, whose residual reads it back from the int8 q; with 'exact' it
+        reads the bf16 too), or None where the value is needed otherwise."""
+        if not fuse:
+            return None
+        if isinstance(nxt, Conv):
+            return nxt.site, False
+        if (isinstance(nxt, Block) and nxt.key not in float_blocks
+                and isinstance(nxt.main[0], Conv)):
+            return nxt.main[0].site, residual == "exact"
+        return None
+
+    def conv_q(q, s_dyn, node: Conv, out_f32=False, tail=None, to=None):
+        """Q1 at ``node``: its output in bf16 (f32 with ``out_f32``); with
+        ``tail``, a Residual, the block's tail and ReLU (form (c)); with
+        ``to`` = (site, keep_bf16), a _Quantized for that site (forms (b),
+        (c))."""
         pack = qpack["convs"][conv_id(node)]
         w = pack["w"]
         gated = node.gate is not None
-        y = int8_conv.conv3d_s8(q, pack["wk"], w.shape[:3], pack["mul"], pack["add"], s_dyn,
-                                node.strides, _conv_pads(q, w, node), relu=node.relu,
-                                out_f32=out_f32 or gated)
+        requant = None if to is None else int8_conv.Requant(
+            inv_f[to[0]], qpack["s_static"][to[0]], to[1])
+        out = int8_conv.conv3d_s8(q, pack["wk"], w.shape[:3], pack["mul"], pack["add"], s_dyn,
+                                  node.strides, _conv_pads(q, w, node),
+                                  relu=node.relu if tail is None else True,
+                                  out_f32=out_f32 or gated, residual=tail, requant=requant)
+        if to is not None:
+            qn, sn, yb = out
+            record(to[0], qn, sn, w.shape[-1])
+            return _Quantized(to[0], qn, sn, yb)
         if gated:
             g = qpack["gates"][_gate_id(node)]
-            y = _apply_gate(y, g["kernel"], g["bias"])
+            out = _apply_gate(out, g["kernel"], g["bias"])
             if not out_f32:
-                y = y.to(torch.bfloat16)
-        return y
+                out = out.to(torch.bfloat16)
+        return out
 
     def deq_w(pack):
         # undo the per-output-channel weight scale AND the folded-in
@@ -512,26 +595,33 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
             y = _apply_gate(y, g["kernel"], g["bias"])
         return y
 
-    def chain_q(y, nodes, q_first=None):
+    def chain_q(v, nodes, q_first=None, tail=None):
         """int8 chain; q_first short-circuits an already-quantized input
         for the first conv. The LAST conv of a block main chain (relu
-        False) returns f32 for the residual add."""
+        False) returns f32 for the residual add, or with ``tail`` =
+        (Residual, to) runs the block's tail in its epilogue (form (c)); a
+        conv followed by a conv quantizes for it (form (b), static mode)."""
         for i, node in enumerate(nodes):
             last = i == len(nodes) - 1
             if isinstance(node, Conv):
                 if q_first is not None and i == 0:
                     q, s_dyn = q_first
                 else:
-                    q, s_dyn = quant_site(y, node.site)
-                y = conv_q(q, s_dyn, node, out_f32=(last and not node.relu))
+                    q, s_dyn = take(v, node.site)
+                if last and tail is not None:
+                    v = conv_q(q, s_dyn, node, tail=tail[0], to=tail[1])
+                elif not last and fuse and node.gate is None and isinstance(nodes[i + 1], Conv):
+                    v = conv_q(q, s_dyn, node, to=(nodes[i + 1].site, False))
+                else:
+                    v = conv_q(q, s_dyn, node, out_f32=(last and not node.relu))
             elif isinstance(node, Sum):
-                a = chain_q(y, node.left)
-                src = y if node.right_from == "input" else a
+                a = chain_q(v, node.left)
+                src = v if node.right_from == "input" else a
                 b = chain_q(src, node.right)
-                y = a + b
+                v = a + b
             else:
                 raise TypeError(node)
-        return y
+        return v
 
     def chain_f(y, nodes):
         for node in nodes:
@@ -545,40 +635,54 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
                 raise TypeError(node)
         return y
 
-    def run(y, nodes):
-        for node in nodes:
+    def block_q(v, node: Block, nxt):
+        """An int8 block on activation ``v``; ``nxt`` its consumer."""
+        in_site = node.main[0].site
+        q_in, s_in = take(v, in_site)
+        y = bf16_of(v)  # the bf16 block input: None where only its q is kept
+        if node.down is not None:
+            res = int8_conv.Residual("f32", conv_q(q_in, s_in, node.down, out_f32=True))
+        elif residual == "dequant":
+            # the residual from the quantized input: the block input is not
+            # read again in bf16; its multiply and the add are one FMA
+            res = int8_conv.Residual("dequant", q_in, inv_f[in_site], s_in)
+        else:
+            res = int8_conv.Residual("f32" if y.dtype == torch.float32 else "bf16", y)
+        last = node.main[-1]
+        if fuse and isinstance(last, Conv) and not last.relu and last.gate is None:
+            return chain_q(v, node.main, q_first=(q_in, s_in), tail=(res, sole_site(nxt)))
+        zf = chain_q(v, node.main, q_first=(q_in, s_in))
+        return int8_conv.residual_tail(zf, res)
+
+    def run(v, nodes):
+        for i, node in enumerate(nodes):
+            nxt = nodes[i + 1] if i + 1 < len(nodes) else None
             if isinstance(node, Conv):
-                q, s_dyn = quant_site(y, node.site)
-                y = conv_q(q, s_dyn, node)
+                q, s_dyn = take(v, node.site)
+                to = sole_site(nxt) if node.gate is None else None
+                v = conv_q(q, s_dyn, node, to=to)
             elif isinstance(node, MaxPool):
-                y = _maxpool(y.to(torch.bfloat16), node)
+                v = _maxpool(bf16_of(v).to(torch.bfloat16), node)
             elif isinstance(node, Branches):
-                y = torch.cat([run(y, br).to(torch.bfloat16) for br in node.branches], dim=-1)
+                y = bf16_of(v)
+                v = torch.cat([run(y, br).to(torch.bfloat16) for br in node.branches], dim=-1)
             elif isinstance(node, Block):
                 if node.key not in float_blocks:
-                    in_site = node.main[0].site
-                    q_in, s_in = quant_site(y, in_site)
-                    zf = chain_q(y, node.main, q_first=(q_in, s_in))
-                    if node.down is not None:
-                        z = zf + conv_q(q_in, s_in, node.down, out_f32=True)
-                    elif residual == "dequant":
-                        # the residual from the quantized input: the block
-                        # input is not read again in bf16; its multiply and
-                        # the add are one FMA (addcmul), as XLA fuses them
-                        z = torch.addcmul(zf, q_in[..., :y.shape[-1]].float(),
-                                          s_in / inv_f[in_site])
-                    else:
-                        z = zf + y.float()
+                    v = block_q(v, node, nxt)
                 else:
+                    y = bf16_of(v)
                     zf = chain_f(y, node.main).float()
                     z = zf + (conv_f(y, node.down) if node.down is not None else y).float()
-                y = torch.relu(z).to(torch.bfloat16)
+                    v = torch.relu(z).to(torch.bfloat16)
             else:
                 raise TypeError(node)
-        return y
+        return v
 
     env = {"x": _as_tensor(x, qpack["inv_f"])}
-    for node in spec.nodes:
+    nodes = spec.nodes
+    i = 0
+    while i < len(nodes):
+        node = nodes[i]
         if isinstance(node, Subsample):
             env[node.dst] = _subsample(env[node.src], node)
         elif isinstance(node, Stream):
@@ -587,8 +691,14 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
             q, s_dyn = quant_site(env[node.src], node.conv.site)
             lat = conv_q(q, s_dyn, node.conv)
             env[node.dst] = torch.cat([env[node.dst].to(torch.bfloat16), lat], dim=-1)
-        else:
-            env["x"] = run(env["x"], (node,))
+        else:  # a run of the main stream's nodes, each seeing its consumer
+            j = i
+            while j < len(nodes) and not isinstance(nodes[j], (Subsample, Stream, Fuse)):
+                j += 1
+            env["x"] = run(env["x"], nodes[i:j])
+            i = j
+            continue
+        i += 1
 
     logits = _head(spec, _pooled(spec, env), [(h["kernel"], h["bias"]) for h in qpack["head"]])
     return (logits, sites) if debug_sites else logits

@@ -31,6 +31,13 @@ bitwise at depths 1-3 (the consumer overwriting each batch before the
 next) and its producer thread has ended, a checkpoint of a train state on the card restores onto the card
 bitwise, and ``fit`` on the card takes two r2plus1d_18 steps from a pack.
 
+The int8 engine's kernels (ops/int8_conv.py) at r2plus1d_18's int8 sites:
+Q1 in form (a) against its plain version (the identity epilogue bitwise,
+the real one within a bf16 ulp), forms (b) and (c) bit for bit against its
+plain version and the unfused chain of kernels, Q2 bitwise in both modes;
+the engine's launches (28 Q1; Q2 once static, 26 dynamic) and its logits
+against the same engine on the plain versions.
+
 The train step's knobs: the device cache's rows gathered on the card equal
 the loader's frames bitwise and feed a step; each remat policy equals
 'none' on the kernels (loss, gradients, BN statistics within 1e-6); and
@@ -1099,13 +1106,90 @@ def test_int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, 
     assert ((got.float() - ref.float()).abs() <= _bf16_ulp(ref)).all()
 
 
+def _fused_forms(q8, g, cuda, out_shape, co, relu):
+    """Q1's fused epilogue forms at a site, as (residual, requant) pairs: a
+    site with its own ReLU takes form (b) (the next site's quantize, with
+    and without the bf16 kept); a block's last conv (no ReLU) form (c), each
+    residual quantized or stored as bf16 alone."""
+    def requant(keep):
+        return q8.Requant(torch.rand(co, generator=g, device=cuda) * 3 + 0.1,
+                          torch.tensor(0.06, device=cuda), keep)
+
+    if relu:
+        return [(None, requant(False)), (None, requant(True))]
+    t = torch.randn(out_shape, generator=g, device=cuda).to(torch.bfloat16)
+    inv_f = torch.rand(co, generator=g, device=cuda) * 3 + 0.1
+    q_in, s_in = q8.quantize_s8_cuda(t, inv_f, torch.tensor(0.04, device=cuda))
+    residuals = [q8.Residual("dequant", q_in, inv_f, s_in),
+                 q8.Residual("f32", torch.randn(out_shape, generator=g, device=cuda) * 4),
+                 q8.Residual("bf16", t)]
+    return [(r, rq) for r in residuals for rq in (requant(False), None)] + [
+        (residuals[2], requant(True))]
+
+
+@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding", INT8_SITES)
+def test_int8_fused_forms_match_plain_and_unfused(cuda, xs, kernel, strides, co, relu, out_f32,
+                                                  padding):
+    """Q1's fused epilogue forms (b) and (c) at each int8 site, bit for bit
+    against Q1's plain version (the composition of the plain steps) and
+    against the unfused chain of kernels: Q1 in form (a), the block tail's
+    torch ops on the card, Q2. Bitwise also on the card: the requant
+    epilogue's and the dequant residual's multiply-adds are one rounding in
+    the kernel (__fmaf_rn) and in torch's addcmul on the card."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+    from fastvideotagging_tpu_torch.ops.arch_spec import tf_same_pads
+
+    g = torch.Generator(device=cuda).manual_seed(sum(xs) + co + 1)
+    c = xs[-1]
+    y = torch.randn(xs, generator=g, device=cuda).to(torch.bfloat16)
+    s = torch.tensor(0.03, device=cuda)
+    q, _ = q8.quantize_s8_cuda(y, torch.rand(c, generator=g, device=cuda) * 3 + 0.1, s)
+    w = torch.randint(-127, 128, kernel + (c, co), generator=g, device=cuda, dtype=torch.int8)
+    wk = q8.weight_layout(w)
+    if padding == "same_tf":
+        pads = tuple(tf_same_pads(xs[1 + i], kernel[i], strides[i]) for i in range(3))
+    else:
+        pads = tuple((k // 2, k // 2) for k in kernel)
+    mul = torch.rand(co, generator=g, device=cuda) * 1e-3
+    add = torch.randn(co, generator=g, device=cuda)
+    out_shape = q8._out_shape(q, kernel, strides, pads, co)
+    for res, rq in _fused_forms(q8, g, cuda, out_shape, co, relu):
+        args = (q, wk, kernel, mul, add, s, strides, pads, relu or res is not None, False, res, rq)
+        before = q8.launch_counts["conv3d_s8"]
+        got = q8.conv3d_s8_cuda(*args)
+        torch.cuda.synchronize()
+        assert q8.launch_counts["conv3d_s8"] == before + 1
+        want = q8.conv3d_s8_plain(*args)
+        if res is None:
+            y1 = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, relu, False)
+        else:
+            zf = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, False, True)
+            if res.kind == "dequant":
+                z = torch.addcmul(zf, res.t[..., :co].float(), res.s / res.inv_f)
+            else:
+                z = zf + res.t.float()
+            y1 = torch.relu(z).to(torch.bfloat16)
+        form = (res and res.kind, rq and rq.keep_bf16)
+        if rq is None:
+            assert torch.equal(got, want) and torch.equal(got, y1), form
+            continue
+        chain = q8.quantize_s8_cuda(y1, rq.inv_f, rq.s)[0]
+        assert got[0].shape[-1] == q8.padded_channels(co) and not got[0][..., co:].any()
+        assert torch.equal(got[0], want[0]), (form, (got[0] != want[0]).sum().item())
+        assert torch.equal(got[0], chain), form
+        assert (got[2] is None) == (not rq.keep_bf16)
+        if rq.keep_bf16:
+            assert torch.equal(got[2], want[2]) and torch.equal(got[2], y1), form
+
+
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
 def test_int8_engine_launches_and_plain_parity(cuda, dynamic, monkeypatch):
-    """One r2plus1d_18 int8 forward (2 clips, 16x112x112, 400 classes):
-    28 Q1 and 26 Q2 launches (and 26 amax passes in the dynamic mode), K1 /
-    K2 for stage 4's stride-1 convs; its logits against the same engine
-    with Q1 and Q2's plain versions, on the same qpack, within 5e-2 of the
-    largest |logit|."""
+    """One r2plus1d_18 int8 forward (2 clips, 16x112x112, 400 classes): 28
+    Q1 launches; Q2 once in the static mode (the input site: every other
+    quantize is fused into the conv before it) and 26 times (and 26 amax
+    passes) in the dynamic mode; K1 / K2 for stage 4's stride-1 convs; its
+    logits against the same engine with Q1 and Q2's plain versions, on the
+    same qpack, within 5e-2 of the largest |logit|."""
     from fastvideotagging_tpu_torch.ops import int8_conv as q8
     from fastvideotagging_tpu_torch.ops import int8_infer
 
@@ -1120,7 +1204,7 @@ def test_int8_engine_launches_and_plain_parity(cuda, dynamic, monkeypatch):
     ops.reset_launch_counts()
     logits = int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
     torch.cuda.synchronize()
-    assert q8.launch_counts == {"conv3d_s8": 28, "quantize_s8": 26,
+    assert q8.launch_counts == {"conv3d_s8": 28, "quantize_s8": 26 if dynamic else 1,
                                 "quantize_s8_amax": 26 if dynamic else 0}
     assert (ops.launch_counts["spatial_conv"], ops.launch_counts["temporal_conv"]) == (3, 3)
     monkeypatch.setattr(q8, "conv3d_s8_cuda", q8.conv3d_s8_plain)

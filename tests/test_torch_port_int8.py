@@ -24,8 +24,14 @@ seeded with numpy), the same variables in both packages
 - Q1's and Q2's plain versions against the JAX engine's int8 conv and
   quantize at every r2plus1d_18 site geometry (and a TF-SAME one) at
   narrow widths: int32 sums and int8 values exact;
-- the launches a static and a dynamic forward make (28 Q1, 26 Q2), counted
-  on the plain versions;
+- Q1's fused epilogue forms (b: the next site's quantize; c: a block's
+  residual, ReLU and quantize or bf16 store) bit for bit against the
+  unfused chain of plain steps at r2plus1d_18's site geometries;
+- the launches a static and a dynamic forward make (28 Q1 and 1 Q2 static,
+  the other quantizes fused into Q1; 28 / 26 dynamic), counted on the plain
+  versions;
+- Q1's plan at every Q1 call of a static r2plus1d_18 forward at B = 8 and
+  32 and at every conv geometry of the covered models;
 - the JAX tests' own checks: ``calibrate(return_margins=True)``, the
   margin-dict ``quantize_variables``, the GroupNorm ``ValueError``.
 """
@@ -313,12 +319,115 @@ def test_q2_plain_matches_jax_quantize(xs, dtype):
     assert float(s_out) == float(js)
 
 
+# Q1's fused epilogue forms at r2plus1d_18's site geometries, B = 1: (name,
+# q shape (N,T,H,W,C), kernel, strides, Co, relu, residual, requant). Form
+# (b): the conv's ReLU, then the next site's quantize (requant False; True
+# keeps the bf16 too, the 'exact' residual's need). Form (c): the block's
+# residual ('dequant': its input's q; 'f32': a downsample conv's output;
+# 'bf16': its bf16 input), ReLU, then the quantize (requant) or the bf16
+# store alone (requant None: the last int8 block before a float one).
+FUSED = [
+    ("b_stem_spatial", (1, 4, 12, 12, 3), (1, 7, 7), (1, 2, 2), 45, True, None, False),
+    ("b_stem_temporal", (1, 4, 6, 6, 45), (3, 1, 1), (1, 1, 1), 16, True, None, False),
+    ("b_spatial", (1, 4, 6, 6, 16), (1, 3, 3), (1, 1, 1), 24, True, None, False),
+    ("b_entry_spatial", (1, 4, 6, 6, 16), (1, 3, 3), (1, 2, 2), 23, True, None, False),
+    ("b_entry_temporal", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, None, True),
+    ("c_dequant", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 16, True, "dequant", False),
+    ("c_dequant_odd", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 45, True, "dequant", False),
+    ("c_dequant_bf16", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 16, True, "dequant", None),
+    ("c_downsample", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, "f32", False),
+    ("c_downsample_bf16", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, "f32", None),
+    ("c_exact", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 16, True, "bf16", True),
+]
+
+
+def _unfused(q, wk, kernel, mul, add, s, strides, pads, relu, res, requant):
+    """The int8 engine's separate steps: Q1's plain version (bf16 out, or
+    f32 and no ReLU before a residual), the block tail's ops, Q2's."""
+    co = wk.shape[0]
+    if res is None:
+        y = int8_conv.conv3d_s8_plain(q, wk, kernel, mul, add, s, strides, pads, relu, False)
+    else:
+        zf = int8_conv.conv3d_s8_plain(q, wk, kernel, mul, add, s, strides, pads, False, True)
+        if res.kind == "dequant":
+            z = torch.addcmul(zf, res.t[..., :co].float(), res.s / res.inv_f)
+        else:
+            z = zf + res.t.float()
+        y = torch.relu(z).to(torch.bfloat16)
+    if requant is None:
+        return y
+    qn, sn = int8_conv.quantize_s8_plain(y, requant.inv_f, requant.s)
+    return qn, sn, y
+
+
+@pytest.mark.parametrize("name,xs,kernel,strides,co,relu,res_kind,requant", FUSED,
+                         ids=[f[0] for f in FUSED])
+def test_q1_fused_forms_match_the_unfused_chain(name, xs, kernel, strides, co, relu, res_kind,
+                                                requant):
+    """Each fused epilogue form of Q1's plain version equals the chain of
+    separate plain steps it replaces, bit for bit: the int8 q (its channels
+    past Co zero), the scale, the bf16 output where one is kept."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    c = xs[-1]
+    y_in = torch.from_numpy(rng.normal(0, 2, xs).astype(np.float32)).to(torch.bfloat16)
+    q, _ = int8_conv.quantize_s8_plain(y_in, torch.from_numpy(
+        rng.uniform(0.1, 3, c).astype(np.float32)), torch.tensor(0.05))
+    w = torch.from_numpy(rng.integers(-127, 128, size=kernel + (c, co), dtype=np.int8))
+    wk = int8_conv.weight_layout(w)
+    pads = tuple((k // 2, k // 2) for k in kernel)
+    mul = torch.from_numpy(rng.uniform(0.5, 2.0, co).astype(np.float32)) * 1e-3
+    add = torch.from_numpy(rng.normal(0, 1, co).astype(np.float32))
+    s = torch.tensor(0.037, dtype=torch.float32)
+    out_shape = int8_conv._out_shape(q, kernel, strides, pads, co)
+    res = None
+    if res_kind == "dequant":  # the block input's q and its site's inv_f and scale
+        t = torch.from_numpy(rng.normal(0, 2, out_shape).astype(np.float32)).to(torch.bfloat16)
+        inv_f = torch.from_numpy(rng.uniform(0.1, 3, co).astype(np.float32))
+        q_in, s_in = int8_conv.quantize_s8_plain(t, inv_f, torch.tensor(0.04))
+        res = int8_conv.Residual("dequant", q_in, inv_f, s_in)
+    elif res_kind == "f32":  # a downsample conv on the block input, 2x2x2 strided
+        qb = torch.from_numpy(rng.integers(-127, 128, size=(1, 4, 6, 6, 16), dtype=np.int8))
+        wd = int8_conv.weight_layout(torch.from_numpy(
+            rng.integers(-127, 128, size=(1, 1, 1, 16, co), dtype=np.int8)))
+        r = int8_conv.conv3d_s8_plain(qb, wd, (1, 1, 1), mul, add, s, (2, 2, 2),
+                                      ((0, 0),) * 3, False, True)
+        assert r.shape == out_shape
+        res = int8_conv.Residual("f32", r)
+    elif res_kind == "bf16":
+        res = int8_conv.Residual("bf16", torch.from_numpy(
+            rng.normal(0, 2, out_shape).astype(np.float32)).to(torch.bfloat16))
+    rq = None
+    if requant is not None:
+        rq = int8_conv.Requant(torch.from_numpy(rng.uniform(0.1, 3, co).astype(np.float32)),
+                               torch.tensor(0.06), requant)
+    want = _unfused(q, wk, kernel, mul, add, s, strides, pads, relu, res, rq)
+    calls = dict(int8_conv.launch_counts)
+    got = int8_conv.conv3d_s8(q, wk, kernel, mul, add, s, strides, pads, relu=relu,
+                              residual=res, requant=rq)
+    assert int8_conv.launch_counts == calls  # the plain version: no kernel launch
+    if rq is None:
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        return
+    (gq, gs, gy), (wq, ws, wy) = got, want
+    assert gq.dtype == torch.int8 and gq.shape[-1] == int8_conv.padded_channels(co)
+    assert torch.equal(gq, wq) and torch.equal(gs, ws) and not gq[..., co:].any()
+    assert (gy is None) == (not requant)
+    if requant:
+        assert torch.equal(gy, wy)
+    # the kernel's arguments: a residual or requant of the wrong form is refused
+    with pytest.raises(ValueError):
+        int8_conv.conv3d_s8(q, wk, kernel, mul, add, s, strides, pads, out_f32=True,
+                            requant=rq)
+
+
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
 def test_engine_launches_per_forward(setup, engines, monkeypatch, dynamic):
     """r2plus1d_18 with stage 4 in bf16: 28 Q1 calls (2 stem, 4 a block of
-    stages 1-3, the 2 downsamples) and 26 Q2 calls (a block's input is
-    quantized once for conv1 and the downsample); counted on the plain
-    versions (the kernels' counts move on the card only)."""
+    stages 1-3, the 2 downsamples). Q2: static 1 call (the input site; every
+    other static quantize is the epilogue of the conv before it, forms (b)
+    and (c)), dynamic 26 (a block's input is quantized once for conv1 and
+    the downsample); counted on the plain versions (the kernels' counts move
+    on the card only)."""
     calls = {"q1": 0, "q2": 0}
 
     def counting(key, fn):
@@ -332,7 +441,7 @@ def test_engine_launches_per_forward(setup, engines, monkeypatch, dynamic):
                         counting("q2", int8_conv.quantize_s8_plain))
     qp = engines[False][2]
     ti.r2plus1d_int8_infer(qp, torch.from_numpy(setup["x"]), dynamic=dynamic)
-    assert calls == {"q1": 28, "q2": 26}
+    assert calls == {"q1": 28, "q2": 26 if dynamic else 1}
     assert int8_conv.launch_counts == {"conv3d_s8": 0, "quantize_s8": 0, "quantize_s8_amax": 0}
 
 
@@ -406,18 +515,97 @@ def test_int8_argtypes_match_the_c_signatures(name):
     assert want == [kind(p) for p in params]
 
 
-def test_conv_s8_plan_at_the_r2plus1d_sites():
-    """Q1's column tile: K1's rule over wgmma .s8's N = 64 / 128 / 144; two
-    blocks share an SM at every tile (the kernel's launch bounds)."""
-    from fastvideotagging_tpu_torch.ops.conv2plus1d import SMEM_PER_SM
+def _record_q1(qp, x, monkeypatch):
+    """Q1's calls of one static forward, in order: (rows, Co, taps, cp,
+    output bytes an element, output bytes a row). Q1 is replaced by a stub
+    that returns zeros of its output's form, so the forward runs at full
+    size on the CPU."""
+    calls = []
 
+    def stub(q, wk, kernel, mul, add, s, strides, pads, relu=False, out_f32=False,
+             residual=None, requant=None):
+        co = wk.shape[0]
+        shape = int8_conv._out_shape(q, tuple(kernel), strides, pads, co)
+        rows = int(np.prod(shape[:-1]))
+        taps = kernel[0] * kernel[1] * kernel[2]
+        if requant is not None:
+            cp = int8_conv.padded_channels(co)
+            calls.append((rows, co, taps, q.shape[-1], 1, cp))
+            y = torch.zeros(shape, dtype=torch.bfloat16) if requant.keep_bf16 else None
+            return torch.zeros(shape[:-1] + (cp,), dtype=torch.int8), requant.s, y
+        es = 4 if out_f32 else 2
+        calls.append((rows, co, taps, q.shape[-1], es, co * es))
+        return torch.zeros(shape, dtype=torch.float32 if out_f32 else torch.bfloat16)
+
+    monkeypatch.setattr(int8_conv, "conv3d_s8", stub)
+    ti.r2plus1d_int8_infer(qp, x)
+    return calls
+
+
+def _check_plan(plan, rows, co, taps, cp, es, row_bytes):
+    from fastvideotagging_tpu_torch.ops.conv2plus1d import SMEM_LIMIT, SMEM_PER_SM, SMS
+
+    assert plan.bn in (64, 128, 144) and plan.col_tiles == -(-co // plan.bn)
+    assert plan.row_tiles == -(-rows // 128) and plan.slices == -(-taps * cp // 128)
+    assert 4 <= plan.stages <= 6 and plan.smem_bytes <= SMEM_LIMIT
+    assert 2 * plan.smem_bytes > SMEM_PER_SM  # one block an SM (setmaxnreg's register split)
+    assert plan.smem_bytes == int8_conv._q1_smem(plan.bn, plan.stages, es, plan.staged)
+    assert plan.staged == (row_bytes % 16 == 0) and plan.grid == min(plan.tiles, SMS)
+    if plan.stages < 6:  # the ring took what shared memory there was
+        assert int8_conv._q1_smem(plan.bn, plan.stages + 1, es, plan.staged) > SMEM_LIMIT
+
+
+def test_conv_s8_plan_at_the_r2plus1d_sites(engines, monkeypatch):
+    """Q1's plan: K1's column rule over wgmma .s8's N = 64 / 128 / 144, and a
+    narrower tile where the row tiles are fewer than the SMs and it finishes
+    sooner (waves x the tile's cost); 4-6 ring stages in at most 232,448
+    bytes, more than half an SM's shared memory; the output staged for TMA
+    stores where its rows are whole 16-byte boxes. Held at every Q1 call of
+    a static r2plus1d_18 forward at B = 8 and 32 (16x112x112) and at every
+    conv geometry of the covered models."""
     bns = {co: int8_conv.conv_s8_plan(8 * 16 * 56 * 56, co, 9, 64).bn
            for co in (45, 64, 128, 144, 230, 256, 288, 460, 576)}
     assert bns == {45: 64, 64: 64, 128: 128, 144: 144, 230: 128, 256: 128, 288: 144,
                    460: 128, 576: 144}
+    # 8 row tiles: Co = 576 in 9 tiles of 64 (one wave) rather than 4 of 144
     plan = int8_conv.conv_s8_plan(1000, 576, 27, 48)
-    assert plan.col_tiles == 4 and plan.row_tiles == 8 and plan.slices == -(-27 * 48 // 128)
-    assert 2 * (plan.smem_bytes + 1024) <= SMEM_PER_SM
+    assert (plan.bn, plan.col_tiles, plan.row_tiles, plan.grid) == (64, 9, 8, 72)
+    assert plan.slices == -(-27 * 48 // 128)
+    qp = engines[False][2]
+    for b in (8, 32):
+        x = torch.zeros((b, 16, 112, 112, 3))
+        calls = _record_q1(qp, x, monkeypatch)
+        assert len(calls) == 28
+        # int8 out (forms b, c) but at the downsamples (f32) and the last
+        # int8 block's tail (bf16 before stage 4)
+        assert [c[4] for c in calls].count(1) == 25 and [c[4] for c in calls].count(4) == 2
+        for rows, co, taps, cp, es, row_bytes in calls:
+            plan = int8_conv.conv_s8_plan(rows, co, taps, cp, es, row_bytes)
+            _check_plan(plan, rows, co, taps, cp, es, row_bytes)
+            assert plan.staged  # every r2plus1d_18 output row is whole 16-byte boxes
+            if rows >= 132 * 128:  # enough row tiles: K1's rule
+                assert plan.bn == int8_conv.conv_s8_plan(1 << 24, co, taps, cp).bn
+        if b == 8:  # stage 3's 6272 rows (49 row tiles): 128 columns in one wave of 98
+            assert {c[1]: int8_conv.conv_s8_plan(*c).bn for c in calls if c[0] == 6272} == {
+                256: 128, 576: 128}
+            assert int8_conv.conv_s8_plan(6272, 128, 1, 128, 4, 512).bn == 64  # 49 -> 98
+    # every conv geometry of the covered models, at four output-row counts
+    from fastvideotagging_tpu_torch import get_model
+
+    geometries = set()
+    for name in tspec.COVERED_MODELS:
+        with torch.device("meta"):
+            sd = get_model(name, num_classes=4, device="meta").state_dict()
+        for _k, c in tspec.iter_convs(tspec.spec_for(name)):
+            k = tspec.param(sd, c.kernel)
+            geometries.add((k.shape[-1], k.shape[0] * k.shape[1] * k.shape[2],
+                            int8_conv.padded_channels(k.shape[3])))
+    assert len(geometries) > 100
+    for co, taps, cp in sorted(geometries):
+        for rows in (1000, 6272, 50176, 401408):
+            for es, row_bytes in ((1, int8_conv.padded_channels(co)), (2, 2 * co), (4, 4 * co)):
+                plan = int8_conv.conv_s8_plan(rows, co, taps, cp, es, row_bytes)
+                _check_plan(plan, rows, co, taps, cp, es, row_bytes)
 
 
 def test_recorded_int8_accuracy_gate():
