@@ -144,9 +144,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             column, timed only), the bf16 route at the same site (K1 / K2
             where they take it, else cuDNN) and the least time the card could
             take (1,979 TOPS int8, 3.35 TB/s), with its plan and ptxas'
-            registers and spills; (b) Q2 at every quantize site against its
-            plain version, bitwise, static and dynamic; (c) Tagger(int8=True)
-            on phase 4's video: Q1 / Q2 launches (28 / 26 a forward), scores
+            registers and spills; and at every call of a dynamic forward that
+            reduces the next site's amax in its epilogue: the bf16 output and
+            the amax bitwise against its plain version, the parent's unfused
+            chain and the bf16 store followed by Q2's amax pass, timed with
+            and without the amax (CUDA events and the profiler's device
+            time); (b) Q2 at every quantize site of the dynamic forward in its
+            mode there (the quantize pass from the reduced amax; both passes
+            at the input site), bitwise against its plain version in the
+            static, dynamic and amax-given modes, the wrapper's time beside
+            the device's, the bare C entry point's and the wrapper's host
+            time, and the bound of one read of y and the int8 write;
+            (c) Tagger(int8=True) on phase 4's video: Q1 / Q2 / amax launches
+            (28 / 1 / 0 a static forward, 28 / 26 / 1 a dynamic one), scores
             within 5e-2 of the same engine with Q1 and Q2's plain versions on
             the same qpack, beside bf16 'cuda''s (a figure: the weights are
             random), the int8 engine's clips/s against bf16 'cuda' at
@@ -169,7 +179,8 @@ K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
 times are one call at the tpu1 shape (K6, K8 at tiles <= 448). Q1's and
 Q2's path is phase 10's int8 runs; their times are per static int8 forward
-at clip_batch 8 (the sum over its 28 / 26 launches). The last
+at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
+forward's sums beside them. The last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when no CUDA device is present.
 """
@@ -2393,7 +2404,8 @@ INT8_KERNELS = {
         replaces="none: no TPU kernel; the JAX engine's int8 conv is XLA "
                  "(fastvideotagging_tpu/ops/int8_infer.py:112, _conv_i8)"),
     "quantize_s8": dict(
-        name="quantize_s8_kernel + quantize_amax_kernel (Q2)", route="cuda", source=_INT8_SOURCE,
+        name="quantize_s8_kernel (+ quantize_amax_kernel where no Q1 call reduced the amax) (Q2)",
+        route="cuda", source=_INT8_SOURCE,
         replaces="none: no TPU kernel; the JAX engine's quantize is XLA "
                  "(fastvideotagging_tpu/ops/int8_infer.py:144 _dyn_quant, :543 static)"),
 }
@@ -2401,10 +2413,11 @@ INT8_KERNELS = {
 # the stem, 4 convs a block of stages 1-3 and 2 downsamples; Q2 at the input
 # site only (every other static quantize is the epilogue of the conv before
 # it); the dynamic forward's Q2 at the 2 stem sites and 4 a block (a block's
-# input is quantized once), each with its amax pass; K1 / K2 at stage 4's
-# stride-1 convs
+# input is quantized once), its amax pass at the input site only (every
+# other amax is reduced in the epilogue of the conv before it); K1 / K2 at
+# stage 4's stride-1 convs
 INT8_FORWARD = {"conv3d_s8": 28, "quantize_s8": 1, "quantize_s8_amax": 0}
-INT8_DYNAMIC = {"conv3d_s8": 28, "quantize_s8": 26, "quantize_s8_amax": 26}
+INT8_DYNAMIC = {"conv3d_s8": 28, "quantize_s8": 26, "quantize_s8_amax": 1}
 INT8_FLOAT_K = {"spatial_conv": 3, "temporal_conv": 3}
 INT8_CLIP = (16, 112, 112)  # (T, H, W) of the int8 sites' clips
 
@@ -2433,24 +2446,29 @@ def _int8_plain():
 def _record_int8_sites(qpack, x, dynamic: bool = False):
     """The Q1 and Q2 calls of one int8 forward, with their counts: {key:
     [n, C]} for Q1 (q shape, kernel, strides, pads, Co, relu, out_f32, the
-    residual's kind, the requant: None, 'q' or 'q+bf16'; C the input's real
-    channels) and {key: n} for Q2 (y shape, dtype)."""
+    residual's kind, the epilogue's extra output: None, 'q' or 'q+bf16' (the
+    next site's int8), 'amax' (the next site's dynamic amax); C the input's
+    real channels) and {key: n} for Q2 (y shape, dtype, mode: 'static',
+    'two passes' or 'amax given')."""
     q1, q2 = {}, {}
     conv, quant = q8.conv3d_s8_cuda, q8.quantize_s8_cuda
     cin = {pack["wk"].data_ptr(): pack["w"].shape[3] for pack in qpack["convs"].values()}
 
     def rec_conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual=None,
-                 requant=None):
+                 requant=None, amax=None):
+        extra = "amax" if amax is not None else requant and (
+            "q+bf16" if requant.keep_bf16 else "q")
         key = (tuple(q.shape), tuple(kernel), tuple(strides), tuple(pads), wk.shape[0],
-               bool(relu), bool(out_f32), residual and residual.kind,
-               requant and ("q+bf16" if requant.keep_bf16 else "q"))
+               bool(relu), bool(out_f32), residual and residual.kind, extra)
         q1.setdefault(key, [0, cin[wk.data_ptr()]])[0] += 1
-        return conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant)
+        return conv(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant,
+                    amax)
 
-    def rec_quant(y, inv_f, s=None):
-        key = (tuple(y.shape), str(y.dtype).replace("torch.", ""))
+    def rec_quant(y, inv_f, s=None, amax=None, slot=None):
+        mode = "static" if s is not None else "two passes" if amax is None else "amax given"
+        key = (tuple(y.shape), str(y.dtype).replace("torch.", ""), mode)
         q2[key] = q2.get(key, 0) + 1
-        return quant(y, inv_f, s)
+        return quant(y, inv_f, s, amax, slot)
 
     q8.conv3d_s8_cuda, q8.quantize_s8_cuda = rec_conv, rec_quant
     try:
@@ -2461,12 +2479,13 @@ def _record_int8_sites(qpack, x, dynamic: bool = False):
 
 
 def _int8_form(key) -> str:
-    """Q1's epilogue form at a recorded call: (a) bf16 / f32, (b) the next
-    site's int8 (+ bf16), (c) a residual, then int8 (+ bf16) or bf16."""
+    """Q1's epilogue form at a recorded call: (a) bf16 / f32 (+ the next
+    site's amax), (b) the next site's int8 (+ bf16), (c) a residual, then
+    int8 (+ bf16) or bf16 (+ amax)."""
     res_kind, rq = key[7], key[8]
-    out = rq or ("f32" if key[6] else "bf16")
+    out = "bf16+amax" if rq == "amax" else rq or ("f32" if key[6] else "bf16")
     if res_kind is None:
-        return f"(a) {out}" if rq is None else f"(b) {out}"
+        return f"(a) {out}" if rq in (None, "amax") else f"(b) {out}"
     return f"(c) {res_kind} -> {out}"
 
 
@@ -2487,7 +2506,7 @@ def _int8_bound(key, c: int):
     conv reads an eighth of it), the int8 weights, the epilogue's vectors,
     the residual's read (the block input's int8 q, or an f32 / bf16 tensor)
     and the output (the next site's padded int8, and bf16 where it is kept;
-    or bf16 / f32)."""
+    or bf16 / f32, and the next site's amax)."""
     qs, kernel, strides, pads, co, _relu, out_f32, res_kind, rq = key
     n, t, h, w, cp = qs
     outs = [q8.out_size(d, k, st, p) for d, k, st, p in zip((t, h, w), kernel, strides, pads)]
@@ -2497,8 +2516,8 @@ def _int8_bound(key, c: int):
         read *= _axis_reads(d, k, st, p[0], o)
     flops = 2.0 * n * pairs * c * co
     rows = n * outs[0] * outs[1] * outs[2]
-    if rq is None:
-        out = rows * co * (4 if out_f32 else 2)
+    if rq in (None, "amax"):
+        out = rows * co * (4 if out_f32 else 2) + (4 if rq else 0)
     else:
         out = rows * q8.padded_channels(co) + (rows * co * 2 if rq == "q+bf16" else 0)
     res = {None: 0, "dequant": rows * q8.padded_channels(co), "f32": rows * co * 4,
@@ -2524,19 +2543,19 @@ def _im2col_int_mm(q, wk, kernel, strides, pads):
 
 
 def _ptxas_q1() -> dict:
-    """{(BN, output form): (registers, spill bytes)} of Q1's instances from
-    the build report (the form as the kernel's `out`: 0 bf16, 1 f32, 2
-    int8)."""
+    """{(BN, output form, amax): (registers, spill bytes)} of Q1's instances
+    from the build report (the form as the kernel's `out`: 0 bf16, 1 f32, 2
+    int8; amax: the bf16 instance that reduces the next site's amax)."""
     import re
 
     out = {}
     report = _build._logs.get("int8_conv", "")
     for part in report.split("Compiling entry function")[1:]:
-        m = re.search(r"conv3d_s8_hopper_kernelILi(\d+)ELi(\d+)E", part)
+        m = re.search(r"conv3d_s8_hopper_kernelILi(\d+)ELi(\d+)ELb([01])E", part)
         regs = re.search(r"Used (\d+) registers", part)
         spills = re.search(r"(\d+) bytes spill stores", part)
         if m and regs:
-            out[(int(m.group(1)), int(m.group(2)))] = (
+            out[(int(m.group(1)), int(m.group(2)), m.group(3) == "1")] = (
                 int(regs.group(1)), int(spills.group(1)) if spills else 0)
     return out
 
@@ -2567,42 +2586,61 @@ def _int8_inputs(key, c: int, gen: torch.Generator):
     elif res_kind == "bf16":
         residual = q8.Residual("bf16", torch.randn(out_shape, generator=gen,
                                                    device=dev).to(torch.bfloat16))
-    requant = None if rq is None else q8.Requant(
-        torch.rand(co, generator=gen, device=dev) * 3 + 0.1, torch.tensor(0.06, device=dev),
-        rq == "q+bf16")
-    args = (q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant)
+    next_inv_f = torch.rand(co, generator=gen, device=dev) * 3 + 0.1
+    requant = None if rq in (None, "amax") else q8.Requant(
+        next_inv_f, torch.tensor(0.06, device=dev), rq == "q+bf16")
+    amax = q8.Amax(next_inv_f) if rq == "amax" else None
+    args = (q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant, amax)
     return args, y, w
 
 
-def _int8_unfused(args):
+def _int8_unfused(args, slot=None):
     """The chain of kernels a fused form replaces: Q1 in form (a) (f32 and
-    no ReLU before a residual), the block tail's torch ops, Q2."""
-    q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant = args
+    no ReLU before a residual), the block tail's torch ops, Q2 (for the
+    next site's amax, its amax pass into ``slot``, a new one by default)."""
+    q, wk, kernel, mul, add, s, strides, pads, relu, out_f32, residual, requant, amax = args
     if residual is None:
         y = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, relu,
                               out_f32 and requant is None)
     else:
         zf = q8.conv3d_s8_cuda(q, wk, kernel, mul, add, s, strides, pads, False, True)
         y = q8.residual_tail(zf, residual, relu)
+    if amax is not None:
+        slot = q8.ScaleSlots(1, y.device).take() if slot is None else slot
+        q8.quantize_s8_cuda(y, amax.inv_f, None, None, slot)
+        return y, slot[0]
     if requant is None:
         return y
     qn, sn = q8.quantize_s8_cuda(y, requant.inv_f, requant.s)
     return qn, sn, y if requant.keep_bf16 else None
 
 
+def _ms_or_none(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def _int8_outputs(out) -> list:
-    return [out] if torch.is_tensor(out) else [t for t in (out[0], out[2]) if t is not None]
+    """The tensors a Q1 call returns: y; (y, amax); or (q, s, y or None)."""
+    if torch.is_tensor(out):
+        return [out]
+    return list(out) if len(out) == 2 else [t for t in (out[0], out[2]) if t is not None]
 
 
 def phase_int8_kernels(card: str, qpack, batch: int, gen: torch.Generator) -> dict:
     """10(a, b) at one batch: every Q1 call of a static forward in its
     epilogue form, against its plain version and the unfused chain of
-    kernels, timed; Q2 at the dynamic forward's sites (the static forward
-    runs it at the input site only)."""
+    kernels, timed; every Q1 call of a dynamic forward that reduces the next
+    site's amax, its bf16 output and amax bit for bit against its plain
+    version and the unfused chains, timed with and without the amax; Q2 at
+    the dynamic forward's sites in their mode (the quantize pass from the
+    reduced amax, both passes at the input site; the static forward runs it
+    at the input site only): the wrapper's time, the device's, the bare C
+    launch's and the host's, beside the bound of one read of y and the int8
+    write."""
     dev = torch.device(DEV)
     x = torch.randn((batch, *INT8_CLIP, 3), generator=gen, device=dev).to(torch.bfloat16)
     q1_sites, q2_sites = _record_int8_sites(qpack, x)
-    _, q2_dynamic = _record_int8_sites(qpack, x, dynamic=True)
+    q1_dynamic, q2_dynamic = _record_int8_sites(qpack, x, dynamic=True)
     del x
     regs = _ptxas_q1()
     rows, agg = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bf16_ms=0.0, bound_ms=0.0,
@@ -2638,7 +2676,7 @@ def phase_int8_kernels(card: str, qpack, batch: int, gen: torch.Generator) -> di
         out0 = got[0]
         plan = q8.conv_s8_plan(out0[..., 0].numel(), co, kernel[0] * kernel[1] * kernel[2],
                                qs[-1], out0.element_size(), out0.shape[-1] * out0.element_size())
-        reg, spill = regs.get((plan.bn, q8._OUT[out0.dtype]), (None, None))
+        reg, spill = regs.get((plan.bn, q8._OUT[out0.dtype], False), (None, None))
         row = dict(x=list(qs[:-1]) + [c], cp=qs[-1], kernel=list(kernel), strides=list(strides),
                    co=co, relu=relu, out_f32=out_f32, form=form, per_forward=count, ms=ms,
                    unfused_chain_ms=chain_ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -2673,45 +2711,164 @@ def phase_int8_kernels(card: str, qpack, batch: int, gen: torch.Generator) -> di
         del args, got, ref, chain, ident, ident_ref, lib, xb, y, q, wk
         torch.cuda.empty_cache()
 
-    q2_rows, q2_agg = [], dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, dyn_ms=0.0, dyn_plain_ms=0.0,
-                               dyn_bound_ms=0.0)
-    for (ys, dtype), count in q2_dynamic.items():
-        static_count = q2_sites.get((ys, dtype), 0)
-        y = (torch.randn(ys, generator=gen, device=dev) * 2).to(getattr(torch, dtype))
+    dyn_rows, dyn = [], dict(ms=0.0, no_amax_ms=0.0, device_ms=0.0, device_no_amax_ms=0.0,
+                             chain_ms=0.0, bound_ms=0.0, calls=0)
+    for key, (count, c) in q1_dynamic.items():
+        if key[8] != "amax":  # the dynamic forward's other Q1 calls are forms the static one has
+            continue
+        form = _int8_form(key)
+        args, _, _ = _int8_inputs(key, c, gen)
+        bare = args[:12] + (None,)
+        got, ref, chain = q8.conv3d_s8_cuda(*args), q8.conv3d_s8_plain(*args), _int8_unfused(args)
+        # the unfused chain the issue names: the same call's bf16 store, then Q2's amax pass
+        stored, slot = q8.conv3d_s8_cuda(*bare), q8.ScaleSlots(1, dev).take()
+        q8.quantize_s8_cuda(stored, args[12].inv_f, None, None, slot)
+        y_equal = all(torch.equal(got[0], t) for t in (ref[0], chain[0], stored))
+        amax_equal = all(torch.equal(got[1], t) for t in (ref[1], chain[1], slot[0]))
+        timed = args[:12] + (args[12]._replace(out=torch.zeros((), device=dev)),)
+        ms = time_ms(lambda: q8.conv3d_s8_cuda(*timed), iters=20)
+        no_amax_ms = time_ms(lambda: q8.conv3d_s8_cuda(*bare), iters=20)
+        chain_ms = time_ms(lambda: _int8_unfused(args, slot), iters=20)
+        # the device's time a call (the wrapper's host work left out)
+        device = [traced_kernels_ms(lambda: q8.conv3d_s8_cuda(*a)) for a in (timed, bare)]
+        device = [None if d is None else sum(v for n, v in d if "conv3d_s8" in n) for d in device]
+        bound_ms, bound_by, _, _ = _int8_bound(key, c)
+        plan = q8.conv_s8_plan(got[0][..., 0].numel(), key[4], key[1][0] * key[1][1] * key[1][2],
+                               key[0][-1], 2, 2 * key[4])
+        reg, spill = regs.get((plan.bn, 0, True), (None, None))
+        row = dict(x=list(key[0][:-1]) + [c], kernel=list(key[1]), strides=list(key[2]),
+                   co=key[4], form=form, per_forward=count, ms=ms, no_amax_ms=no_amax_ms,
+                   amax_cost=ms / no_amax_ms - 1.0, device_ms=device[0],
+                   device_no_amax_ms=device[1], unfused_chain_ms=chain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, y_bitwise=y_equal, amax_bitwise=amax_equal,
+                   amax=got[1].item(), bn=plan.bn, registers=reg, spill_bytes=spill)
+        dyn_rows.append(row)
+        print(f"(a) Q1 dynamic B={batch} x{tuple(row['x'])} k{key[1]} s{key[2]} -> {key[4]} "
+              f"{form} (x{count} a forward): {ms:.4f} ms with the amax, {no_amax_ms:.4f} "
+              f"without ({row['amax_cost'] * 100:+.1f} %; device {_ms_or_none(device[0])} / "
+              f"{_ms_or_none(device[1])}), {bound_ms / ms:.3f} of the bound "
+              f"{bound_ms:.4f} ({bound_by}); the parent's unfused chain (Q1, tail, Q2's amax "
+              f"pass) {chain_ms:.4f}; y bitwise {y_equal}, amax {row['amax']:.6g} bitwise "
+              f"against the plain version, the unfused chain and the bf16 store + amax pass "
+              f"{amax_equal}; BN {plan.bn}, ptxas {reg} registers, {spill} bytes spilled",
+              flush=True)
+        if not (y_equal and amax_equal):
+            raise SystemExit(f"(a) Q1's amax disagrees with its plain version or the unfused "
+                             f"chain at {key}")
+        for k, v in (("ms", ms), ("no_amax_ms", no_amax_ms), ("chain_ms", chain_ms),
+                     ("bound_ms", bound_ms), ("calls", 1), ("device_ms", device[0]),
+                     ("device_no_amax_ms", device[1])):
+            dyn[k] = None if v is None or dyn[k] is None else dyn[k] + count * v
+        del args, got, ref, chain, stored, timed
+        torch.cuda.empty_cache()
+
+    q2_rows = []
+    q2_agg = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, dyn_ms=0.0, dyn_device_ms=0.0,
+                  dyn_bare_ms=0.0, dyn_host_ms=0.0, dyn_plain_ms=0.0, dyn_bound_ms=0.0,
+                  two_pass_ms=0.0, device_measured=True)
+    lib = q8._kernels()
+    for (ys, dtype, mode), count in q2_dynamic.items():
+        static_count = sum(n for (zs, zt, _), n in q2_sites.items() if (zs, zt) == (ys, dtype))
+        y = torch.randn(ys, generator=gen, device=dev) * 2
+        if mode == "amax given":  # a ReLU's output, as at every site but the input
+            y = torch.relu(y)
+        y = y.to(getattr(torch, dtype))
         inv_f = torch.rand(ys[-1], generator=gen, device=dev) * 3 + 0.1
         s = torch.tensor(0.05, device=dev)
+        slots = q8.ScaleSlots(2, dev)
+        two, given = slots.take(), slots.take()
         a, b = q8.quantize_s8_cuda(y, inv_f, s), q8.quantize_s8_plain(y, inv_f, s)
-        d, e = q8.quantize_s8_cuda(y, inv_f), q8.quantize_s8_plain(y, inv_f)
-        ok = torch.equal(a[0], b[0]) and torch.equal(d[0], e[0]) and torch.equal(d[1], e[1])
+        d, e = q8.quantize_s8_cuda(y, inv_f, None, None, two), q8.quantize_s8_plain(y, inv_f)
+        given[0].copy_((y.float() * inv_f).abs().amax())
+        g = q8.quantize_s8_cuda(y, inv_f, None, given[0], given)
+        h = q8.quantize_s8_plain(y, inv_f, None, given[0])
+        ok = (torch.equal(a[0], b[0]) and torch.equal(d[0], e[0]) and torch.equal(d[1], e[1])
+              and torch.equal(two[0], given[0]) and all(
+                  torch.equal(g[i], t[i]) for t in (h, d) for i in (0, 1)))
+        # the site's mode in the dynamic forward: the quantize pass from the
+        # amax a Q1 epilogue reduced, or both passes (the input site)
+        if mode == "amax given":
+            def run():
+                return q8.quantize_s8_cuda(y, inv_f, None, given[0], given)
+            plain = (lambda: q8.quantize_s8_plain(y, inv_f, None, given[0]))  # noqa: E731
+            slot, c_mode = given, 2
+        else:
+            def run():
+                return q8.quantize_s8_cuda(y, inv_f, None, None, two)
+            plain = (lambda: q8.quantize_s8_plain(y, inv_f))  # noqa: E731
+            slot, c_mode = two, 1
+        qb = torch.empty_like(g[0])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bare_args = (y.data_ptr(), int(dtype == "float32"), inv_f.data_ptr(), None,
+                     slot[0].data_ptr(), slot[1].data_ptr(), qb.data_ptr(),
+                     y.numel() // ys[-1], ys[-1], qb.shape[-1], c_mode, y.device.index, stream)
+
+        def bare():
+            return lib.fvt_quantize_s8(*bare_args)
+        dyn_ms = time_ms(run, iters=20)  # the wrapper, CUDA events over 20 calls back to back
+        bare_ms = time_ms(bare, iters=20)  # the C entry point alone, the same way
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            run()
+        host_ms = (time.perf_counter() - t0) / 50 * 1e3  # the wrapper's host time a call
+        torch.cuda.synchronize()
+        split = traced_kernels_ms(run)
+        device_ms = None if split is None else sum(v for n, v in split if "quantize" in n)
+        two_ms = time_ms(lambda: q8.quantize_s8_cuda(y, inv_f, None, None, two), iters=20)
         ms = time_ms(lambda: q8.quantize_s8_cuda(y, inv_f, s), iters=20)
         plain_ms = time_ms(lambda: q8.quantize_s8_plain(y, inv_f, s), iters=5)
-        dyn_ms = time_ms(lambda: q8.quantize_s8_cuda(y, inv_f), iters=20)
-        dyn_plain_ms = time_ms(lambda: q8.quantize_s8_plain(y, inv_f), iters=5)
+        dyn_plain_ms = time_ms(plain, iters=5)
         nbytes = y.numel() * y.element_size() + a[0].numel() + 4 * ys[-1]
         bound_ms = nbytes / PEAK_BYTES_S * 1e3
-        q2_rows.append(dict(y=list(ys), dtype=dtype, per_static_forward=static_count,
+        q2_rows.append(dict(y=list(ys), dtype=dtype, mode=mode, per_static_forward=static_count,
                             per_dynamic_forward=count, ms=ms, plain_ms=plain_ms,
-                            dynamic_ms=dyn_ms, dynamic_plain_ms=dyn_plain_ms, bound_ms=bound_ms,
-                            bitwise=ok))
+                            dynamic_ms=dyn_ms, dynamic_device_ms=device_ms,
+                            dynamic_bare_launch_ms=bare_ms, dynamic_host_ms=host_ms,
+                            dynamic_plain_ms=dyn_plain_ms, two_passes_ms=two_ms,
+                            bound_ms=bound_ms, bitwise=ok))
+        device = "not measured" if device_ms is None else f"{device_ms:.4f}"
         print(f"(b) Q2 B={batch} y{ys} {dtype} (x{static_count} static, x{count} dynamic a "
-              f"forward): static {ms:.4f} ms, dynamic (amax + quantize) {dyn_ms:.4f}, bound "
-              f"{bound_ms:.4f} (bytes; {bound_ms / ms:.3f} of it static); plain {plain_ms:.4f} "
-              f"/ {dyn_plain_ms:.4f}; bitwise both modes {ok}", flush=True)
+              f"forward, {mode}): {dyn_ms:.4f} ms a wrapper call (device {device}, the bare "
+              f"C launch {bare_ms:.4f}, the wrapper's host time {host_ms:.4f}), "
+              f"{bound_ms / dyn_ms:.3f} of the bound {bound_ms:.4f} (one read of y and the int8 "
+              f"write); both passes {two_ms:.4f}; static {ms:.4f}; plain {plain_ms:.4f} static, "
+              f"{dyn_plain_ms:.4f} {mode}; bitwise in the three modes {ok}", flush=True)
         if not ok:
             raise SystemExit(f"(b) Q2 disagrees with its plain version at {ys}")
         for k, v, n in (("ms", ms, static_count), ("plain_ms", plain_ms, static_count),
                         ("bound_ms", bound_ms, static_count), ("dyn_ms", dyn_ms, count),
-                        ("dyn_plain_ms", dyn_plain_ms, count), ("dyn_bound_ms", bound_ms, count)):
+                        ("dyn_bare_ms", bare_ms, count), ("dyn_host_ms", host_ms, count),
+                        ("dyn_plain_ms", dyn_plain_ms, count), ("dyn_bound_ms", bound_ms, count),
+                        ("two_pass_ms", two_ms, count)):
             q2_agg[k] += n * v
+        if device_ms is None:
+            q2_agg["device_measured"] = False
+        else:
+            q2_agg["dyn_device_ms"] += count * device_ms
+        del y, a, b, d, e, g, h, qb
     print(f"(a, b) B={batch}, sums over one static forward's launches: Q1 {agg['ms']:.4f} ms "
           f"({agg['bound_ms'] / agg['ms']:.3f} of its bound {agg['bound_ms']:.4f}; the unfused "
           f"chains of kernels it replaces {agg['chain_ms']:.4f}, plain {agg['plain_ms']:.2f}, "
           f"im2col+_int_mm {agg['library_ms']:.4f}, bf16 route {agg['bf16_ms']:.4f}); Q2 "
-          f"{q2_agg['ms']:.4f} ms static, {q2_agg['dyn_ms']:.4f} over the dynamic forward's "
-          f"sites (bound {q2_agg['dyn_bound_ms']:.4f}) on {card}", flush=True)
-    return dict(q1=agg, q1_sites=rows, q2=q2_agg, q2_sites=q2_rows,
-                q1_launches=sum(n for n, _ in q1_sites.values()),
-                q2_launches=sum(q2_sites.values()), q2_dynamic_launches=sum(q2_dynamic.values()))
+          f"{q2_agg['ms']:.4f} ms static on {card}", flush=True)
+    device_sum = (f"{q2_agg['dyn_device_ms']:.4f}" if q2_agg["device_measured"]
+                  else "not measured")
+    print(f"(a, b) B={batch}, sums over one dynamic forward's launches: Q1's {dyn['calls']} "
+          f"calls with the amax {dyn['ms']:.4f} ms, the same calls without it "
+          f"{dyn['no_amax_ms']:.4f} ({(dyn['ms'] / dyn['no_amax_ms'] - 1) * 100:+.1f} %; device "
+          f"{_ms_or_none(dyn['device_ms'])} / {_ms_or_none(dyn['device_no_amax_ms'])}), the "
+          f"parent's unfused chains {dyn['chain_ms']:.4f}; Q2 {q2_agg['dyn_ms']:.4f} ms (device "
+          f"{device_sum}, bare C launches {q2_agg['dyn_bare_ms']:.4f}, wrapper host "
+          f"{q2_agg['dyn_host_ms']:.4f}), {q2_agg['dyn_bound_ms'] / q2_agg['dyn_ms']:.3f} of "
+          f"its bound {q2_agg['dyn_bound_ms']:.4f}; both passes at every site (the parent's "
+          f"design) {q2_agg['two_pass_ms']:.4f} on {card}", flush=True)
+    return dict(q1=agg, q1_sites=rows, q1_dynamic=dyn, q1_dynamic_sites=dyn_rows, q2=q2_agg,
+                q2_sites=q2_rows, q1_launches=sum(n for n, _ in q1_sites.values()),
+                q1_dynamic_amax=sum(n for k, (n, _) in q1_dynamic.items() if k[8] == "amax"),
+                q2_launches=sum(q2_sites.values()),
+                q2_dynamic_launches=sum(q2_dynamic.values()),
+                q2_dynamic_two_pass=sum(n for k, n in q2_dynamic.items() if k[2] == "two passes"))
 
 
 def phase_int8_tagger(card: str) -> dict:
@@ -2886,10 +3043,11 @@ def phase_int8(card: str, paths: dict) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     kernels = {b: phase_int8_kernels(card, tag["qpack"], b, gen) for b in (CLIP_BATCH, TRAIN_BATCH)}
     for b, k in kernels.items():
-        calls = (k["q1_launches"], k["q2_launches"], k["q2_dynamic_launches"])
-        if calls != (28, 1, 26):
-            raise SystemExit(f"B={b}: a forward made {calls} Q1 / Q2 / dynamic Q2 calls, not "
-                             f"28 / 1 / 26")
+        calls = (k["q1_launches"], k["q2_launches"], k["q2_dynamic_launches"],
+                 k["q2_dynamic_two_pass"], k["q1_dynamic_amax"])
+        if calls != (28, 1, 26, 1, 25):
+            raise SystemExit(f"B={b}: a forward made {calls} Q1 / Q2 / dynamic Q2 calls / "
+                             f"dynamic amax passes / dynamic Q1 amaxes, not 28 / 1 / 26 / 1 / 25")
     entry = phase_int8_entry_points(card, paths)
     launches = {"tagger_int8": tag["launches"], **entry["launches"]}
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
@@ -2913,10 +3071,17 @@ def int8_entries(int8: dict) -> list:
                          bf16_route_ms=s8["bf16_ms"], unfused_chain_ms=s8["chain_ms"],
                          b32=dict(int8["kernels"][TRAIN_BATCH]["q1"]),
                          sites=a["q1_sites"] + int8["kernels"][TRAIN_BATCH]["q1_sites"])
+            extra.update(dynamic_amax=a["q1_dynamic"],
+                         dynamic_amax_b32=int8["kernels"][TRAIN_BATCH]["q1_dynamic"],
+                         dynamic_amax_sites=a["q1_dynamic_sites"]
+                         + int8["kernels"][TRAIN_BATCH]["q1_dynamic_sites"])
         else:
             s8 = a["q2"]
             extra = dict(library_ms=None, bound_ms=s8["bound_ms"], bound_by="bytes",
                          max_abs_err=0.0, dynamic_ms=s8["dyn_ms"],
+                         dynamic_device_ms=s8["dyn_device_ms"] if s8["device_measured"] else None,
+                         dynamic_bare_launch_ms=s8["dyn_bare_ms"],
+                         dynamic_host_ms=s8["dyn_host_ms"], dynamic_two_passes_ms=s8["two_pass_ms"],
                          dynamic_plain_ms=s8["dyn_plain_ms"], dynamic_bound_ms=s8["dyn_bound_ms"],
                          b32=dict(int8["kernels"][TRAIN_BATCH]["q2"]),
                          sites=a["q2_sites"] + int8["kernels"][TRAIN_BATCH]["q2_sites"])

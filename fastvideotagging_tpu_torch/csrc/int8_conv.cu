@@ -20,6 +20,14 @@
 //           (the dequantized block input fma(f32(q_in), s_in / inv_f_in[c], v),
 //           the downsample conv's f32 output, or the bf16 block input), ReLU,
 //           bf16, and then (b)'s quantize and/or the bf16 store.
+//     A bf16 store (form (a), or (c) without the quantize) can also reduce
+//     the next site's dynamic amax, max |f32(bf16 y) * inv_f_next[c]| over
+//     the live rows and the channels below Co (Q2's amax pass on the value
+//     it would read, exact: a max rounds nothing): in registers over the
+//     block's tiles, then across the warp and the warpgroup, then one
+//     atomicMax on the float's bits a warpgroup. That instance is its own
+//     (a template parameter), so that the bf16 calls without it run the
+//     code they ran before.
 //     q (N, T, H, W, cp) int8, channels zero-padded to cp, a multiple of 16;
 //     W (Co, kt*kh*kw, cp) int8 K-major (laid out once per qpack); a general
 //     3-D tap set with per-dimension strides and low pads (the high pads are
@@ -37,11 +45,19 @@
 //     which rounds differently in some cases, and the port does as XLA)
 //     y (rows, C) bf16 or f32 -> q (rows, cp) int8, channels C..cp-1 zero (the
 //     padding Q1 takes). The two orders round differently and are kept
-//     apart. rintf rounds half to even, as torch.round and jnp.round do.
-//     The amax is an on-device reduction (atomicMax on the bits of a
-//     non-negative float), Q2's first launch in the dynamic mode. In the
-//     static mode Q2 runs at the network's input only: every other static
-//     quantize is form (b) or (c) of the conv before it.
+//     apart; rounding is to nearest even, as torch.round and jnp.round do.
+//     The dynamic amax comes from the epilogue of the Q1 call that produced
+//     y, so the quantize pass runs alone (one read of y, one write of q);
+//     the amax pass (an on-device reduction, atomicMax on the bits of a
+//     non-negative float) runs first only where no Q1 call alone produced
+//     y: the network's input, after a pool, at a value several sites read.
+//     In the static mode Q2 runs at the network's input only: every other
+//     static quantize is form (b) or (c) of the conv before it. Both passes
+//     are bound by bytes: each thread keeps one 16-channel chunk (its
+//     factors in registers, no index division) over a stride of rows, two
+//     rows in flight, on a grid that fills every SM; the dynamic quotient
+//     is a multiply by RN(1 / s) where that rounds to the same int8 as the
+//     division, and the division elsewhere (quant16).
 //
 // Q1's design: a persistent implicit GEMM, one block of 384 or 512 threads
 // an SM, warp-specialized. Tile i = (128 output rows, BN output channels),
@@ -51,8 +67,9 @@
 // contraction kappa = tap*cp + c runs without gaps in slices of BK = 128
 // int8 (128 bytes a row, the 128-byte swizzle), through a ring of 4-6
 // stages with a full and an empty mbarrier each. An instance is (BN, the
-// output's form: bf16, f32 or int8), so that its unrolled epilogue holds its
-// own stores only (with all three in one, it ran slower).
+// output's form: bf16, f32 or int8, and for bf16 the amax or not), so that
+// its unrolled epilogue holds its own work only (with all three forms in
+// one, it ran slower).
 //   - The producer, two warpgroups (one at BN = 144, where the consumers'
 //     72 accumulators a thread need more than the 128 registers a thread of
 //     512 gets), setmaxnreg down to 40, loads each stage; twice the
@@ -100,7 +117,8 @@
 // sites (the stem's 16-padded C = 3, the 1x1x1 downsamples) and by
 // operations at the rest; Q2 by bytes everywhere (a read of y, a write of
 // int8). Forms (b) and (c) move the int8 q (and the residual's read) where
-// the unfused chain moved a bf16 or f32 y through HBM three or four times.
+// the unfused chain moved a bf16 or f32 y through HBM three or four times;
+// the amax in the epilogue saves Q2's second read of y.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -159,6 +177,8 @@ struct ConvArgs {
   const float* res_s;       // dequant: q_in's scale
   const float* q_inv_f;     // int8 out: (Co) the next site's inv_f
   const float* q_s;         // int8 out: the next site's scale
+  unsigned* amax;           // bf16 out: the next site's dynamic amax (f32 bits), or null
+  const float* amax_inv_f;  // bf16 out: (Co) the next site's inv_f
   int64_t M;                // N * To * Ho * Wo output rows
   int T, H, W;              // input frames, rows, columns
   int To, Ho, Wo;           // output geometry
@@ -438,20 +458,25 @@ __device__ __forceinline__ void add_residual(int32_t (&acc)[BN / 2], const void*
   }
 }
 
-// Q2's static quantize of a bf16-rounded value: clamp(rint(f32(bf16) * qf),
-// -127, 127), as the low clamp and one conversion that rounds to nearest
-// even and saturates at 127 (the same value for every input).
-__device__ __forceinline__ uint32_t quant(__nv_bfloat16 b, float qf) {
-  const float t = fmaxf(__fmul_rn(__bfloat162float(b), qf), -127.0f);
+// clamp(rint(t), -127, 127) in the low byte, as the low clamp and one
+// conversion that rounds to nearest even and saturates at 127 (the same
+// value for every input).
+__device__ __forceinline__ uint32_t s8_bits(float t) {
   uint32_t q;
-  asm("cvt.rni.sat.s8.f32 %0, %1;\n" : "=r"(q) : "f"(t));
+  asm("cvt.rni.sat.s8.f32 %0, %1;\n" : "=r"(q) : "f"(fmaxf(t, -127.0f)));
   return q;
 }
 
-template <int BN, int OUT>
+// Q2's static quantize of a bf16-rounded value: s8(f32(bf16) * qf).
+__device__ __forceinline__ uint32_t quant(__nv_bfloat16 b, float qf) {
+  return s8_bits(__fmul_rn(__bfloat162float(b), qf));
+}
+
+template <int BN, int OUT, bool AMAX>
 __global__ void __launch_bounds__(Shape<BN>::THREADS, 1)
 conv3d_s8_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap ymap, const ConvArgs a) {
+  static_assert(!AMAX || OUT == kOutBf16, "the amax is reduced over a bf16 output");
   constexpr int STAGE = A_STAGE + BN * BK;  // a multiple of ALIGN (BN % 8 == 0)
   constexpr int LOADERS = Shape<BN>::LOADERS;
   static_assert(BN % 16 == 0 && STAGE % ALIGN == 0, "BN must be a multiple of 16");
@@ -568,15 +593,17 @@ conv3d_s8_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
   const float q_s = OUT == kOutS8 ? *a.q_s : 1.0f;
   const float res_s = a.res_kind == kResDequant ? *a.res_s : 1.0f;
   int32_t acc[BN / 2];
+  float amax = 0.0f;  // AMAX: this thread's max |f32(bf16 y) * inv_f| over its tiles
   int seq = 0;
   int table_n0 = -1;  // the column tile whose factors the table holds
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
     const int m0 = (tile / a.n_tiles) * BM;
     const int n0 = (tile % a.n_tiles) * BN;
     // The column tile's factors (mul * s, add, the next site's inv_f / s,
-    // the residual's s_in / inv_f): a thread a column, into this
-    // warpgroup's table, where the block's column tile changes (a block
-    // walks one column tile where their count divides the grid).
+    // or its inv_f for the amax, the residual's s_in / inv_f): a thread a
+    // column, into this warpgroup's table, where the block's column tile
+    // changes (a block walks one column tile where their count divides the
+    // grid).
     if (n0 != table_n0) {
       warpgroup_sync(wg);  // the last tile's epilogue has read the table
       for (int i = wtid; i < BN; i += 128) {
@@ -586,6 +613,7 @@ conv3d_s8_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
           f.x = __fmul_rn(a.mul[col], s);
           f.y = a.add[col];
           if (OUT == kOutS8) f.z = __fdiv_rn(a.q_inv_f[col], q_s);
+          if (AMAX) f.z = a.amax_inv_f[col];
           if (a.res_kind == kResDequant) f.w = __fdiv_rn(res_s, a.res_inv_f[col]);
         }
         cf[i] = f;
@@ -657,6 +685,11 @@ conv3d_s8_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
           v1 = fmaxf(v1, 0.0f);
         }
         const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
+        if constexpr (AMAX) {  // the columns past Co have a factor of 0
+          const float m = fmaxf(fabsf(__fmul_rn(__bfloat162float(b.x), qf0)),
+                                fabsf(__fmul_rn(__bfloat162float(b.y), qf1)));
+          amax = live ? fmaxf(amax, m) : amax;
+        }
         if (a.y2 != nullptr && live) {
           __nv_bfloat16* y2 = a.y2 + static_cast<int64_t>(m) * a.co + col;
           if (in0) y2[0] = b.x;
@@ -706,13 +739,50 @@ conv3d_s8_hopper_kernel(const __grid_constant__ CUtensorMap wmap,
     }
   }
   if (a.staged) bulk_wait<false>(issuer);
+  if constexpr (AMAX) {
+    // The bits of a non-negative float order as unsigned integers: the
+    // warp's max, then the warpgroup's through its column table (its
+    // epilogue is done with it), then one atomic a warpgroup.
+    const unsigned bits = __reduce_max_sync(0xffffffffu, __float_as_uint(amax));
+    unsigned* part = reinterpret_cast<unsigned*>(cf);
+    warpgroup_sync(wg);
+    if (lane == 0) part[warp & 3] = bits;
+    warpgroup_sync(wg);
+    if (issuer) atomicMax(a.amax, max(max(part[0], part[1]), max(part[2], part[3])));
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Q2: the quantize pass
 // ---------------------------------------------------------------------------
 
-constexpr int Q2_THREADS = 256;
+// Q2's modes: static (the scale given), dynamic (the amax pass, then the
+// quantize pass) and dynamic from an amax already reduced (a Q1 epilogue's).
+enum Q2Mode { kQ2Static = 0, kQ2Dynamic = 1, kQ2Given = 2 };
+
+constexpr int Q2_THREADS = 256;  // a block
+
+// Q2's thread layout. A row's cp / 16 chunks of 16 channels go to `lanes` =
+// min(cp / 16, blockDim.x) neighbouring threads: thread t keeps chunk t %
+// lanes (and every lanes-th after it, where a row has more chunks than a
+// block has threads), so that the chunk's 16 factors stay in registers and
+// no thread divides an index. A block takes blockDim.x / lanes rows a step
+// (the threads past a whole number of rows idle) and its threads walk the
+// rows two steps at a time: two chunks of 16-byte loads in flight a thread.
+struct Q2Walk {
+  int lanes, chunk, chunks;
+  int64_t row, stride;
+  bool active;
+  __device__ __forceinline__ explicit Q2Walk(int cp) {
+    chunks = cp / 16;
+    lanes = min(chunks, static_cast<int>(blockDim.x));
+    const int step_rows = blockDim.x / lanes;
+    active = static_cast<int>(threadIdx.x) < step_rows * lanes;
+    chunk = threadIdx.x % lanes;
+    row = static_cast<int64_t>(blockIdx.x) * step_rows + threadIdx.x / lanes;
+    stride = static_cast<int64_t>(gridDim.x) * step_rows;
+  }
+};
 
 // 16 channels c0.. of row r of y (rows, C) as f32; channels past C read 0.
 // vec: C % 16 == 0 and y 16-byte aligned, so the chunk is whole and aligned.
@@ -752,73 +822,143 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ y, int64_t 
   }
 }
 
-// Thread i of the grid (striding) quantizes 16-channel chunk i of q: row i /
-// (cp / 16), one 16-byte store. DYN takes s from the amax pass.
-template <typename In, bool DYN>
+// A chunk's 16 factors, 0 past C: static inv_f / s (one division a
+// channel, the JAX engine's order), dynamic inv_f.
+template <bool DYN>
+__device__ __forceinline__ void chunk_factors(const float* __restrict__ inv_f, int c0, int C,
+                                              float s, float (&f)[16]) {
+#pragma unroll
+  for (int u = 0; u < 16; ++u)
+    f[u] = c0 + u < C ? (DYN ? inv_f[c0 + u] : __fdiv_rn(inv_f[c0 + u], s)) : 0.0f;
+}
+
+// 16 values quantized, four to a word: static q = s8(f32(y) * (inv_f /
+// s)), dynamic q = s8((f32(y) * inv_f) / s); the two orders round
+// differently and are kept apart. Channels past C are 0 * 0.
+//
+// The dynamic quotient without a division a value: t0 = x * inv_s, inv_s =
+// RN(1 / s) (the thread's, rounded once), is within 2.5 ulp of RN(x / s),
+// at most 2^-14 for |x / s| < 128 (|x| <= amax, so |x / s| <= 127 and a
+// little). rint (and so q) of t0 and of RN(x / s) can differ only where a
+// half-integer lies within that distance of t0; where one does for any of
+// the chunk's 16 values, the chunk takes RN(x / s) itself (__fdiv_rn, about
+// one chunk in 500). The division's slow path, which a zero dividend takes,
+// is kept off that path by dividing s by itself there (the product with a
+// mask gives 0 / s = 0; a select made the compiler branch around the
+// division, which diverges on a ReLU's zeros).
+template <bool DYN>
+__device__ __forceinline__ uint4 quant16(const float (&v)[16], const float (&f)[16], float s,
+                                         float inv_s) {
+  float t[16];
+  bool near = false;
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    t[u] = __fmul_rn(v[u], f[u]);
+    if (DYN) {
+      t[u] = __fmul_rn(t[u], inv_s);
+      near |= fabsf(__fsub_rn(__fsub_rn(t[u], floorf(t[u])), 0.5f)) <= 0x1p-14f;
+    }
+  }
+  if (DYN && near) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const float x = __fmul_rn(v[u], f[u]);
+      const bool zero = x == 0.0f;
+      float d = zero ? s : x;
+      asm("" : "+f"(d));
+      t[u] = __fmul_rn(__fdiv_rn(d, s), zero ? 0.0f : 1.0f);
+    }
+  }
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = __byte_perm(__byte_perm(s8_bits(t[4 * k]), s8_bits(t[4 * k + 1]), 0x40),
+                       __byte_perm(s8_bits(t[4 * k + 2]), s8_bits(t[4 * k + 3]), 0x40), 0x5410);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Quantizes y into q, one 16-byte store a chunk. DYN takes s from the
+// amax (the amax pass's, or a Q1 epilogue's) and block 0 writes it to s_out.
+// CK > 0: C is CK (the network's RGB input, C = 3, cp = 16), known to the
+// compiler, which then keeps the 13 padding channels out of registers: at 22
+// bytes a row the pass needs the occupancy that the general instance's
+// registers leave no room for.
+template <typename In, bool DYN, int CK>
 __global__ void __launch_bounds__(Q2_THREADS)
 quantize_s8_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
                    const float* __restrict__ s_in, const unsigned* __restrict__ amax,
-                   float* __restrict__ s_out, int8_t* __restrict__ q, int64_t rows, int C, int cp,
-                   int vec) {
+                   float* __restrict__ s_out, int8_t* __restrict__ q, int64_t rows, int c, int cp,
+                   int load_vec) {
+  const int C = CK > 0 ? CK : c;
+  const bool vec = CK == 0 && load_vec != 0;  // CK: C < 16
   // 1.0f / 127.0f is the f32 reciprocal, rounded once at compile time
   const float s = DYN ? __fmul_rn(fmaxf(__uint_as_float(*amax), 1e-12f), 1.0f / 127.0f) : *s_in;
+  const float inv_s = DYN ? __frcp_rn(s) : 0.0f;  // RN(1 / s)
   if (DYN && blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
-  const int per_row = cp / 16;
-  const int64_t total = rows * per_row;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * Q2_THREADS;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * Q2_THREADS + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t r = i / per_row;
-    const int c0 = static_cast<int>(i - r * per_row) * 16;
-    float v[16];
-    load_chunk(y, r, c0, C, vec != 0, v);
-    uint32_t packed[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-    for (int u = 0; u < 16; ++u) {
-      const int c = c0 + u;
-      int qv = 0;
-      if (c < C) {
-        float t = DYN ? __fdiv_rn(__fmul_rn(v[u], inv_f[c]), s)
-                      : __fmul_rn(v[u], __fdiv_rn(inv_f[c], s));
-        t = fminf(fmaxf(rintf(t), -127.0f), 127.0f);
-        qv = static_cast<int>(t);
-      }
-      packed[u >> 2] |= static_cast<uint32_t>(qv & 0xFF) << (8 * (u & 3));
+  const Q2Walk w(CK > 0 ? 16 : cp);
+  if (!w.active) return;
+  uint4* out = reinterpret_cast<uint4*>(q);
+  for (int j = w.chunk; j < w.chunks; j += w.lanes) {
+    const int c0 = CK > 0 ? 0 : j * 16;
+    float f[16];
+    chunk_factors<DYN>(inv_f, c0, C, s, f);
+    int64_t r = w.row;
+    for (; r + w.stride < rows; r += 2 * w.stride) {
+      float v0[16], v1[16];
+      load_chunk(y, r, c0, C, vec, v0);
+      load_chunk(y, r + w.stride, c0, C, vec, v1);
+      out[r * w.chunks + j] = quant16<DYN>(v0, f, s, inv_s);
+      out[(r + w.stride) * w.chunks + j] = quant16<DYN>(v1, f, s, inv_s);
     }
-    reinterpret_cast<uint4*>(q)[i] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    if (r < rows) {
+      float v0[16];
+      load_chunk(y, r, c0, C, vec, v0);
+      out[r * w.chunks + j] = quant16<DYN>(v0, f, s, inv_s);
+    }
   }
 }
 
 // max |f32(y) * inv_f[c]| over y (rows, C) into *amax (the bits of a
-// non-negative float order as unsigned integers), one atomic a block.
-template <typename In>
+// non-negative float order as unsigned integers), one atomic a block: the
+// dynamic mode's first pass where no Q1 epilogue reduced the amax. CK as
+// quantize_s8_kernel's.
+template <typename In, int CK>
 __global__ void __launch_bounds__(Q2_THREADS)
 quantize_amax_kernel(const In* __restrict__ y, const float* __restrict__ inv_f,
-                     unsigned* __restrict__ amax, int64_t rows, int C, int vec) {
-  const int per_row = (C + 15) / 16;
-  const int64_t total = rows * per_row;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * Q2_THREADS;
+                     unsigned* __restrict__ amax, int64_t rows, int c, int cp, int load_vec) {
+  const int C = CK > 0 ? CK : c;
+  const bool vec = CK == 0 && load_vec != 0;  // CK: C < 16
+  const Q2Walk w(CK > 0 ? 16 : cp);
   float m = 0.0f;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * Q2_THREADS + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t r = i / per_row;
-    const int c0 = static_cast<int>(i - r * per_row) * 16;
-    float v[16];
-    load_chunk(y, r, c0, C, vec != 0, v);
+  for (int j = w.chunk; w.active && j < w.chunks; j += w.lanes) {
+    const int c0 = CK > 0 ? 0 : j * 16;
+    float f[16];
+    chunk_factors<true>(inv_f, c0, C, 1.0f, f);
+    int64_t r = w.row;
+    for (; r + w.stride < rows; r += 2 * w.stride) {
+      float v0[16], v1[16];
+      load_chunk(y, r, c0, C, vec, v0);
+      load_chunk(y, r + w.stride, c0, C, vec, v1);
 #pragma unroll
-    for (int u = 0; u < 16; ++u)
-      if (c0 + u < C) m = fmaxf(m, fabsf(__fmul_rn(v[u], inv_f[c0 + u])));
+      for (int u = 0; u < 16; ++u)
+        m = fmaxf(m, fmaxf(fabsf(__fmul_rn(v0[u], f[u])), fabsf(__fmul_rn(v1[u], f[u]))));
+    }
+    if (r < rows) {
+      float v0[16];
+      load_chunk(y, r, c0, C, vec, v0);
+#pragma unroll
+      for (int u = 0; u < 16; ++u) m = fmaxf(m, fabsf(__fmul_rn(v0[u], f[u])));
+    }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
-  __shared__ float part[Q2_THREADS / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
+  const unsigned bits = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
+  __shared__ unsigned part[Q2_THREADS / 32];
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = bits;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float b = part[0];
+    unsigned b = part[0];
 #pragma unroll
-    for (int w = 1; w < Q2_THREADS / 32; ++w) b = fmaxf(b, part[w]);
-    atomicMax(amax, __float_as_uint(b));
+    for (int i = 1; i < Q2_THREADS / 32; ++i) b = max(b, part[i]);
+    atomicMax(amax, b);
   }
 }
 
@@ -870,28 +1010,34 @@ int conv_smem(int bn, int stages, int es, int staged) {
 
 // Opts the instance in to the block's whole shared memory once per device (a
 // host call, not free), then launches it.
-template <int BN, int OUT>
+template <int BN, int OUT, bool AMAX = false>
 int launch_conv(const CUtensorMap& wmap, const CUtensorMap& ymap, const ConvArgs& args,
                 int blocks, int smem_bytes, int device, cudaStream_t s) {
   static bool opted_in[kMaxDevices] = {};
   if (!opted_in[device]) {
-    cudaError_t err = cudaFuncSetAttribute(conv3d_s8_hopper_kernel<BN, OUT>,
+    cudaError_t err = cudaFuncSetAttribute(conv3d_s8_hopper_kernel<BN, OUT, AMAX>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            SMEM_LIMIT);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[device] = true;
   }
-  conv3d_s8_hopper_kernel<BN, OUT><<<blocks, Shape<BN>::THREADS, smem_bytes, s>>>(wmap, ymap, args);
+  conv3d_s8_hopper_kernel<BN, OUT, AMAX><<<blocks, Shape<BN>::THREADS, smem_bytes, s>>>(
+      wmap, ymap, args);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance for (bn, out): its column tile and its output's form are
-// template parameters, so that each epilogue holds only its own stores.
+// The instance for (bn, out, amax): its column tile, its output's form and
+// the amax reduction are template parameters, so that each epilogue holds
+// only its own work (the bf16 calls without an amax run the same code as
+// before the amax was added).
 template <int BN>
 int launch_by_out(int out, const CUtensorMap& wmap, const CUtensorMap& ymap,
                   const ConvArgs& args, int blocks, int smem_bytes, int device, cudaStream_t s) {
   switch (out) {
-    case kOutBf16: return launch_conv<BN, kOutBf16>(wmap, ymap, args, blocks, smem_bytes, device, s);
+    case kOutBf16:
+      if (args.amax != nullptr)
+        return launch_conv<BN, kOutBf16, true>(wmap, ymap, args, blocks, smem_bytes, device, s);
+      return launch_conv<BN, kOutBf16>(wmap, ymap, args, blocks, smem_bytes, device, s);
     case kOutF32: return launch_conv<BN, kOutF32>(wmap, ymap, args, blocks, smem_bytes, device, s);
     default: return launch_conv<BN, kOutS8>(wmap, ymap, args, blocks, smem_bytes, device, s);
   }
@@ -907,26 +1053,54 @@ int launch_by_bn(int bn, int out, const CUtensorMap& wmap, const CUtensorMap& ym
   }
 }
 
-template <typename In>
-int launch_quantize(const In* y, const float* inv_f, const float* s_in, unsigned* amax,
-                    float* s_out, int8_t* q, int64_t rows, int c, int cp, cudaStream_t st) {
+// Q2's grid: as many blocks of Q2_THREADS as fill every SM at the kernel's
+// occupancy (asked once a kernel, into *per_sm), or fewer where the rows run
+// out (a block takes Q2_THREADS / lanes rows a step; see Q2Walk).
+template <typename Kernel>
+int q2_blocks(Kernel kernel, int* per_sm, int64_t rows, int cp, int sms) {
+  if (*per_sm == 0 &&
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, Q2_THREADS, 0) != cudaSuccess)
+    *per_sm = 0;
+  const int64_t full = static_cast<int64_t>(sms) * (*per_sm > 0 ? *per_sm : 1);
+  const int step_rows = Q2_THREADS / (cp / 16 < Q2_THREADS ? cp / 16 : Q2_THREADS);
+  const int64_t want = (rows + step_rows - 1) / step_rows;
+  return static_cast<int>(want < full ? want : full);
+}
+
+// Q2's launches on y (rows, c): the quantize pass, after the amax pass in
+// the dynamic mode; CK as the kernels'.
+template <typename In, int CK>
+int launch_quantize_ck(const In* y, const float* inv_f, const float* s_in, unsigned* amax,
+                       float* s_out, int8_t* q, int64_t rows, int c, int cp, int mode, int sms,
+                       cudaStream_t st) {
   const int vec = (c % 16 == 0 && aligned(y, 16)) ? 1 : 0;
-  const int64_t chunks = rows * (cp / 16);
-  const int64_t want = (chunks + Q2_THREADS - 1) / Q2_THREADS;
-  const int blocks = static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
-  if (amax == nullptr) {
-    quantize_s8_kernel<In, false><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, s_in, nullptr, nullptr,
-                                                              q, rows, c, cp, vec);
+  static int per_sm[3] = {};  // the static, amax and dynamic kernels' blocks an SM
+  if (mode == kQ2Static) {
+    const int blocks = q2_blocks(quantize_s8_kernel<In, false, CK>, &per_sm[0], rows, cp, sms);
+    quantize_s8_kernel<In, false, CK><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, s_in, nullptr,
+                                                                     nullptr, q, rows, c, cp, vec);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_amax_kernel<In><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, amax, rows, c, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  quantize_s8_kernel<In, true><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, nullptr, amax, s_out, q,
-                                                           rows, c, cp, vec);
+  if (mode == kQ2Dynamic) {
+    const int blocks = q2_blocks(quantize_amax_kernel<In, CK>, &per_sm[1], rows, cp, sms);
+    quantize_amax_kernel<In, CK><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, amax, rows, c, cp, vec);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = q2_blocks(quantize_s8_kernel<In, true, CK>, &per_sm[2], rows, cp, sms);
+  quantize_s8_kernel<In, true, CK><<<blocks, Q2_THREADS, 0, st>>>(y, inv_f, nullptr, amax, s_out,
+                                                                  q, rows, c, cp, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for y's channels: the RGB input's own (C = 3), or the general one.
+template <typename In>
+int launch_quantize(const In* y, const float* inv_f, const float* s_in, unsigned* amax,
+                    float* s_out, int8_t* q, int64_t rows, int c, int cp, int mode, int sms,
+                    cudaStream_t st) {
+  if (c == 3)
+    return launch_quantize_ck<In, 3>(y, inv_f, s_in, amax, s_out, q, rows, c, cp, mode, sms, st);
+  return launch_quantize_ck<In, 0>(y, inv_f, s_in, amax, s_out, q, rows, c, cp, mode, sms, st);
 }
 
 }  // namespace
@@ -938,7 +1112,10 @@ extern "C" {
 // 16; wk (co, kt*kh*kw, cp) int8; mul, add (co) f32; s one f32. The output y
 // is (n*to*ho*wo, ld): out 0 bf16 or 1 f32 (ld = co), or 2 int8 for the next
 // site (ld = cp_next, a multiple of 16, q_inv_f (co) and q_s its scale).
-// y2, if not null, also takes the bf16 values (ld co). res_kind 1-3 adds a
+// y2, if not null, also takes the bf16 values (ld co). amax, if not null
+// (out 0 only), takes the next site's dynamic amax max |f32(bf16 y) *
+// amax_inv_f[c]| over the output by atomicMax on its bits: it holds 0 or
+// an earlier partial max of the same site. res_kind 1-3 adds a
 // residual before the ReLU: 1 res int8 (ld res_ld) times s_in / inv_f_in
 // (res_s, res_inv_f), 2 res f32 (ld co), 3 res bf16 (ld co). Pads are the
 // low pads; the output size carries the high ones. The plan (bn, stages,
@@ -948,11 +1125,11 @@ extern "C" {
 // current device is not the caller's.
 int fvt_conv3d_s8(const void* x, const void* wk, const void* mul, const void* add,
                   const void* s, void* y, void* y2, const void* res, const void* res_inv_f,
-                  const void* res_s, const void* q_inv_f, const void* q_s, long long n, int t,
-                  int h, int w, int cp, int to, int ho, int wo, int kt, int kh, int kw, int st,
-                  int sh, int sw, int pt, int ph, int pw, int co, int relu, int out, int ld,
-                  int res_kind, int res_ld, int bn, int stages, int staged, int blocks,
-                  int smem_bytes, int device, void* stream) {
+                  const void* res_s, const void* q_inv_f, const void* q_s, void* amax,
+                  const void* amax_inv_f, long long n, int t, int h, int w, int cp, int to,
+                  int ho, int wo, int kt, int kh, int kw, int st, int sh, int sw, int pt, int ph,
+                  int pw, int co, int relu, int out, int ld, int res_kind, int res_ld, int bn,
+                  int stages, int staged, int blocks, int smem_bytes, int device, void* stream) {
   const int es = out == kOutF32 ? 4 : (out == kOutBf16 ? 2 : 1);
   const int64_t m = static_cast<int64_t>(n) * to * ho * wo;
   if (n <= 0 || t <= 0 || h <= 0 || w <= 0 || to <= 0 || ho <= 0 || wo <= 0 || kt <= 0 ||
@@ -963,6 +1140,8 @@ int fvt_conv3d_s8(const void* x, const void* wk, const void* mul, const void* ad
                      : ld != co) ||
       (res_kind != kResNone && (res == nullptr || res_ld < co)) ||
       (res_kind == kResDequant && (res_inv_f == nullptr || res_s == nullptr)) ||
+      (amax != nullptr && (out != kOutBf16 || amax_inv_f == nullptr || !aligned(amax, 4) ||
+                           !aligned(amax_inv_f, 4))) ||
       stages < MIN_STAGES || stages > MAX_STAGES || blocks <= 0 ||
       smem_bytes != conv_smem(bn, stages, es, staged) || smem_bytes > SMEM_LIMIT ||
       m > 0x7fffffffLL || (staged && ((static_cast<int64_t>(ld) * es) % 16 != 0 ||
@@ -994,29 +1173,38 @@ int fvt_conv3d_s8(const void* x, const void* wk, const void* mul, const void* ad
                 static_cast<const float*>(add), static_cast<const float*>(s), y,
                 static_cast<__nv_bfloat16*>(y2), res, static_cast<const float*>(res_inv_f),
                 static_cast<const float*>(res_s), static_cast<const float*>(q_inv_f),
-                static_cast<const float*>(q_s), m, t, h, w, to, ho, wo, kt, kh, kw, st, sh, sw,
-                pt, ph, pw, cp, co, K, n_tiles, static_cast<int>(tiles), relu, ld, res_kind,
-                res_ld, stages, staged};
+                static_cast<const float*>(q_s), static_cast<unsigned*>(amax),
+                static_cast<const float*>(amax_inv_f), m, t, h, w, to, ho, wo, kt, kh, kw, st,
+                sh, sw, pt, ph, pw, cp, co, K, n_tiles, static_cast<int>(tiles), relu, ld,
+                res_kind, res_ld, stages, staged};
   const int grid = static_cast<int>(tiles < blocks ? tiles : blocks);
   cudaStream_t s_ = reinterpret_cast<cudaStream_t>(stream);
   return launch_by_bn(bn, out, wmap, ymap, args, grid, smem_bytes, device, s_);
 }
 
 // Launches Q2: y (rows, c) bf16 (or f32 with in_f32) -> q (rows, cp) int8,
-// cp a multiple of 16 and at least c, channels c..cp-1 zero. Static with
-// amax == null: s_in is the scale. Dynamic otherwise: amax (one unsigned,
-// scratch) is zeroed, the amax pass runs, and the quantize pass writes its
-// scale to s_out. Returns cudaGetLastError() after the launches.
+// cp a multiple of 16 and at least c, channels c..cp-1 zero. mode 0
+// (static): s_in is the scale. mode 1 (dynamic): the amax pass reduces max
+// |f32(y) * inv_f| into amax (one unsigned that holds 0: the caller zeroes
+// it), then the quantize pass writes its scale to s_out. mode 2 (dynamic,
+// the amax given, e.g. by a Q1 epilogue): the quantize pass alone, which
+// writes its scale to s_out. Returns cudaGetLastError() after the launches.
 int fvt_quantize_s8(const void* y, int in_f32, const void* inv_f, const void* s_in, void* amax,
-                    void* s_out, void* q, long long rows, int c, int cp, int device,
+                    void* s_out, void* q, long long rows, int c, int cp, int mode, int device,
                     void* stream) {
   if (rows <= 0 || c <= 0 || cp < c || (cp % 16) != 0 || cp >= c + 16 || device < 0 ||
-      device >= kMaxDevices || !aligned(q, 16) || !aligned(inv_f, 4) ||
-      (amax == nullptr && (s_in == nullptr || !aligned(s_in, 4))) ||
-      (amax != nullptr && (s_out == nullptr || !aligned(amax, 4) || !aligned(s_out, 4))))
+      device >= kMaxDevices || mode < kQ2Static || mode > kQ2Given || !aligned(q, 16) ||
+      !aligned(inv_f, 4) || (mode == kQ2Static && (s_in == nullptr || !aligned(s_in, 4))) ||
+      (mode != kQ2Static && (amax == nullptr || s_out == nullptr || !aligned(amax, 4) ||
+                             !aligned(s_out, 4))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  static int sms[kMaxDevices] = {};
+  if (sms[device] == 0) {
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(inv_f);
   const float* si = static_cast<const float*>(s_in);
@@ -1024,9 +1212,10 @@ int fvt_quantize_s8(const void* y, int in_f32, const void* inv_f, const void* s_
   float* so = static_cast<float*>(s_out);
   int8_t* qq = static_cast<int8_t*>(q);
   if (in_f32)
-    return launch_quantize(static_cast<const float*>(y), f, si, am, so, qq, rows, c, cp, st);
+    return launch_quantize(static_cast<const float*>(y), f, si, am, so, qq, rows, c, cp, mode,
+                           sms[device], st);
   return launch_quantize(static_cast<const __nv_bfloat16*>(y), f, si, am, so, qq, rows, c, cp,
-                         st);
+                         mode, sms[device], st);
 }
 
 }  // extern "C"

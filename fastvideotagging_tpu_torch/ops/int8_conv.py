@@ -8,10 +8,13 @@ versions and their launch counts (csrc/int8_conv.cu).
   for the next site (``Requant``), stored int8 at its padded width; (c) a
   block's tail: a ``Residual`` added, ReLU, bf16, then (b)'s quantize and/or
   the bf16 store. Each form is the chain of plain steps it replaces,
-  rounding for rounding (``conv3d_s8_plain`` composes them).
-- ``quantize_s8_kernel`` (Q2) and, in the dynamic mode, its amax pass
-  ``quantize_amax_kernel``: a bf16 or f32 activation to int8 in the two
-  operation orders of the JAX engine (static, dynamic).
+  rounding for rounding (``conv3d_s8_plain`` composes them). A bf16 output
+  (form (a), or (c) with the bf16 store) can also reduce the next site's
+  dynamic amax (``Amax``), so that Q2 runs its quantize pass alone there.
+- ``quantize_s8_kernel`` (Q2): a bf16 or f32 activation to int8 in the two
+  operation orders of the JAX engine (static, dynamic), the dynamic scale
+  from an amax that a Q1 epilogue reduced, or from Q2's own amax pass
+  ``quantize_amax_kernel`` where no Q1 call alone produced the activation.
 
 Neither replaces a TPU kernel: the JAX engine (``fastvideotagging_tpu/ops/
 int8_infer.py``) leaves both to XLA. A CUDA tensor goes to the kernel, a
@@ -20,7 +23,9 @@ between them as ``(N, T, H, W, cp)`` int8 with the channels zero-padded to
 ``cp``, a multiple of 16 (a 16-byte load holds 16 channels; zero channels
 leave the int32 sum exact); the weights as ``(Co, taps, cp)`` int8, K-major,
 laid out once per qpack by ``weight_layout``. The scales stay on the device
-as 0-d f32 tensors: no scale is read back to the host.
+as 0-d f32 tensors: no scale is read back to the host. A dynamic forward
+takes each site's amax and scale from one ``ScaleSlots`` buffer, zeroed
+once.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from fastvideotagging_tpu_torch.ops.conv2plus1d import (
 )
 
 # Launches since the last reset: Q1, Q2's quantize pass, Q2's amax pass
-# (dynamic mode only).
+# (dynamic mode, where no Q1 epilogue reduced the amax).
 launch_counts = {"conv3d_s8": 0, "quantize_s8": 0, "quantize_s8_amax": 0}
 
 
@@ -63,14 +68,16 @@ def padded_channels(c: int) -> int:
     return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
 
 
-# fvt_conv3d_s8(x, wk, mul, add, s, y, y2, res, res_inv_f, res_s, q_inv_f, q_s, n, t, h,
-# w, cp, to, ho, wo, kt, kh, kw, st, sh, sw, pt, ph, pw, co, relu, out, ld, res_kind, res_ld,
-# bn, stages, staged, blocks, smem_bytes, device, stream)
-_Q1_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 28
+# fvt_conv3d_s8(x, wk, mul, add, s, y, y2, res, res_inv_f, res_s, q_inv_f, q_s, amax,
+# amax_inv_f, n, t, h, w, cp, to, ho, wo, kt, kh, kw, st, sh, sw, pt, ph, pw, co, relu, out,
+# ld, res_kind, res_ld, bn, stages, staged, blocks, smem_bytes, device, stream)
+_Q1_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 28
                 + [ctypes.c_void_p])
-# fvt_quantize_s8(y, in_f32, inv_f, s_in, amax, s_out, q, rows, c, cp, device, stream)
+# fvt_quantize_s8(y, in_f32, inv_f, s_in, amax, s_out, q, rows, c, cp, mode, device, stream)
 _Q2_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# Q2's modes (the entry point's `mode`)
+_Q2_STATIC, _Q2_DYNAMIC, _Q2_GIVEN = 0, 1, 2
 
 _lib = None
 
@@ -202,12 +209,42 @@ class Requant(NamedTuple):
     keep_bf16: bool = False
 
 
+class Amax(NamedTuple):
+    """The next site's dynamic amax, reduced in the epilogue of a bf16
+    output (form (a), or (c) with the bf16 store): ``max |f32(bf16 y) *
+    inv_f|`` over the output, Q2's amax pass on it, into ``out`` (a 0-d
+    f32 that holds 0 or an earlier partial max; None: a new one)."""
+    inv_f: torch.Tensor
+    out: torch.Tensor | None = None
+
+
+class ScaleSlots:
+    """The device words of one dynamic forward: a site's amax (reduced from
+    0 by Q1's epilogue or Q2's amax pass, as the bits of a non-negative
+    f32) and its scale (Q2's quantize pass writes it), all zeroed by one
+    fill. ``take()`` hands out the next site's pair of 0-d f32 views."""
+
+    def __init__(self, n: int, device):
+        self._words = torch.zeros((n, 2), dtype=torch.float32, device=device)
+        self._used = 0
+
+    def take(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self._used == len(self._words):
+            raise RuntimeError(f"all {len(self._words)} scale slots of the forward are taken")
+        self._used += 1
+        return self._words[self._used - 1, 0], self._words[self._used - 1, 1]
+
+
+def _fresh_slot(device) -> tuple[torch.Tensor, torch.Tensor]:
+    return ScaleSlots(1, device).take()
+
+
 def out_size(n: int, k: int, s: int, pad) -> int:
     return (n + pad[0] + pad[1] - k) // s + 1
 
 
 def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32=False, residual=None,
-              requant=None):
+              requant=None, amax=None):
     if q.dtype != torch.int8 or wk.dtype != torch.int8 or q.ndim != 5 or wk.ndim != 3:
         raise ValueError(f"q (N,T,H,W,cp) and wk (Co,taps,cp) must be int8, got "
                          f"{q.dtype} {tuple(q.shape)} and {wk.dtype} {tuple(wk.shape)}")
@@ -224,6 +261,12 @@ def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32=False, res
             raise ValueError("a requantized output is int8 (and bf16), not f32")
         vectors.append(("requant.inv_f", requant.inv_f))
         scalars.append(("requant.s", requant.s))
+    if amax is not None:
+        if out_f32 or requant is not None:
+            raise ValueError("the amax is reduced over a bf16 output, not an f32 or int8 one")
+        vectors.append(("amax.inv_f", amax.inv_f))
+        if amax.out is not None:
+            scalars.append(("amax.out", amax.out))
     if residual is not None:
         if residual.kind not in ("dequant", "f32", "bf16"):
             raise ValueError(f"unknown residual kind {residual.kind!r}")
@@ -255,18 +298,22 @@ def _out_shape(q, kernel_size, strides, pads, co):
 
 def conv3d_s8_cuda(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
                    out_f32: bool, residual: Residual | None = None,
-                   requant: Requant | None = None):
+                   requant: Requant | None = None, amax: Amax | None = None):
     """Q1 on the card: q (N, T, H, W, cp) int8, wk (Co, kt*kh*kw, cp) int8,
     mul / add (Co,) f32, s a 0-d f32, all on one CUDA device; ``pads`` (lo,
     hi) per (T, H, W). Returns what ``conv3d_s8`` returns."""
-    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32, residual, requant)
+    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32, residual, requant, amax)
     dev = q.device
+    if amax is not None and amax.out is None:
+        amax = amax._replace(out=torch.zeros((), dtype=torch.float32, device=dev))
     tensors = [("q", q), ("wk", wk), ("mul", mul), ("add", add), ("s", s)]
     if residual is not None:
         tensors += [("residual.t", residual.t), ("residual.inv_f", residual.inv_f),
                     ("residual.s", residual.s)]
     if requant is not None:
         tensors += [("requant.inv_f", requant.inv_f), ("requant.s", requant.s)]
+    if amax is not None:
+        tensors += [("amax.inv_f", amax.inv_f), ("amax.out", amax.out)]
     for name, t in tensors:
         if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous on {dev}")
@@ -295,13 +342,16 @@ def conv3d_s8_cuda(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
         q.data_ptr(), wk.data_ptr(), mul.data_ptr(), add.data_ptr(), s.data_ptr(),
         y.data_ptr(), ptr(y2), ptr(res), ptr(residual and residual.inv_f),
         ptr(residual and residual.s), ptr(requant and requant.inv_f),
-        ptr(requant and requant.s), n, t, h, w, cp, *shape[1:4], kt, kh, kw, *strides,
+        ptr(requant and requant.s), ptr(amax and amax.out), ptr(amax and amax.inv_f), n, t, h,
+        w, cp, *shape[1:4], kt, kh, kw, *strides,
         *(p[0] for p in pads), co, int(relu), _OUT[y.dtype], ld,
         _RES[residual and residual.kind], 0 if res is None else res.shape[-1], plan.bn,
         plan.stages, int(plan.staged), plan.grid, plan.smem_bytes, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_conv3d_s8 launch failed: CUDA error {rc}")
     launch_counts["conv3d_s8"] += 1
+    if amax is not None:
+        return y, amax.out
     if requant is None:
         return y
     return y, requant.s.reshape(()), y2
@@ -348,17 +398,20 @@ def residual_tail(z: torch.Tensor, residual: Residual, relu: bool = True,
 
 def conv3d_s8_plain(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
                     out_f32: bool, residual: Residual | None = None,
-                    requant: Requant | None = None):
+                    requant: Requant | None = None, amax: Amax | None = None):
     """The plain version of Q1: an exact integer conv (f64 ``F.conv3d``),
     then the epilogue form as the composition of the plain steps it fuses:
-    ``requant_epilogue``, ``residual_tail``, ``quantize_s8_plain``."""
-    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32, residual, requant)
+    ``requant_epilogue``, ``residual_tail``, ``quantize_s8_plain`` (its
+    amax pass for ``amax``)."""
+    _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32, residual, requant, amax)
     acc = conv3d_s8_accumulate(q, wk, kernel_size, strides, pads)
     f32 = out_f32 and requant is None
     if residual is None:
         y = requant_epilogue(acc, mul, add, s, relu, f32)
     else:
         y = residual_tail(requant_epilogue(acc, mul, add, s, False, True), residual, relu, f32)
+    if amax is not None:
+        return y, _reduce_amax(y, amax.inv_f, amax.out)
     if requant is None:
         return y
     qn, sn = _quantize_plain(y, requant.inv_f, requant.s)
@@ -367,17 +420,19 @@ def conv3d_s8_plain(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
 
 def conv3d_s8(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool = False,
               out_f32: bool = False, residual: Residual | None = None,
-              requant: Requant | None = None):
+              requant: Requant | None = None, amax: Amax | None = None):
     """Q1 for a CUDA ``q``, its plain version for a CPU one.
 
     Without ``requant`` it returns the output, bf16 (f32 with ``out_f32``);
     with it, ``(q_next, s_next, y)``: the output quantized for the next site
     (int8 at its padded width), that site's scale, and the bf16 output where
-    ``requant.keep_bf16`` asks for it (else None). With ``residual`` the
-    conv's own ReLU is off and ``relu`` is the block's, after the add."""
+    ``requant.keep_bf16`` asks for it (else None). With ``amax`` (a bf16
+    output) it returns ``(y, amax)``: the next site's dynamic amax reduced
+    into ``amax.out``. With ``residual`` the conv's own ReLU is off and
+    ``relu`` is the block's, after the add."""
     return _route(conv3d_s8_cuda, conv3d_s8_plain, q, wk, tuple(kernel_size), mul, add, s,
                   tuple(strides), tuple(tuple(p) for p in pads), relu, out_f32, residual,
-                  requant)
+                  requant, amax)
 
 
 # ---------------------------------------------------------------------------
@@ -393,11 +448,15 @@ def _check_q2(y, inv_f):
                          f"{tuple(inv_f.shape)}")
 
 
-def quantize_s8_cuda(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None):
+def quantize_s8_cuda(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None,
+                     amax: torch.Tensor | None = None, slot=None):
     """Q2 on the card: y (..., C) bf16 or f32 -> (q (..., cp) int8 with
     channels C..cp-1 zero, s a 0-d f32). Static with ``s`` (a 0-d f32 on the
-    device); dynamic without: the amax pass, then the quantize pass, which
-    writes the scale it used."""
+    device). Dynamic without: ``slot``, a (amax, scale) pair of 0-d f32 on
+    the device (``ScaleSlots.take``; None: a new zeroed pair), takes the
+    scale the quantize pass writes; with ``amax`` (a 0-d f32 reduced
+    already, e.g. by a Q1 epilogue) the quantize pass alone, else the amax
+    pass into ``slot``'s amax (which holds 0), then the quantize pass."""
     _check_q2(y, inv_f)
     dev = y.device
     y = y.contiguous()
@@ -405,42 +464,67 @@ def quantize_s8_cuda(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | Non
     cp = padded_channels(c)
     rows = y.numel() // c
     q = torch.empty(y.shape[:-1] + (cp,), dtype=torch.int8, device=dev)
-    if s is None:
-        amax = torch.empty((), dtype=torch.int32, device=dev)
-        s_out = torch.empty((), dtype=torch.float32, device=dev)
-        args = (None, amax.data_ptr(), s_out.data_ptr())
-    else:
-        if s.dtype != torch.float32 or s.numel() != 1 or s.device != dev:
-            raise ValueError(f"s must be one f32 value on {dev}")
+    if s is not None:
+        _check_scalar("s", s, dev)
         s_out = s
-        args = (s.data_ptr(), None, None)
+        mode, args = _Q2_STATIC, (s.data_ptr(), None, None)
+    else:
+        slot = _fresh_slot(dev) if slot is None else slot
+        for name, t in (("amax", amax), ("slot[0]", slot[0]), ("slot[1]", slot[1])):
+            if t is not None:
+                _check_scalar(name, t, dev)
+        s_out = slot[1]
+        mode = _Q2_DYNAMIC if amax is None else _Q2_GIVEN
+        args = (None, (slot[0] if amax is None else amax).data_ptr(), s_out.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _kernels().fvt_quantize_s8(y.data_ptr(), int(y.dtype == torch.float32),
                                     inv_f.contiguous().data_ptr(), *args, q.data_ptr(), rows, c,
-                                    cp, dev.index, stream)
+                                    cp, mode, dev.index, stream)
     if rc != 0:
         raise RuntimeError(f"fvt_quantize_s8 launch failed: CUDA error {rc}")
     launch_counts["quantize_s8"] += 1
-    if s is None:
+    if mode == _Q2_DYNAMIC:
         launch_counts["quantize_s8_amax"] += 1
     return q, s_out.reshape(())
 
 
-def quantize_s8_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None):
+def _check_scalar(name, t, dev):
+    if t.dtype != torch.float32 or t.numel() != 1 or t.device != dev:
+        raise ValueError(f"{name} must be one f32 value on {dev}")
+
+
+def quantize_s8_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None,
+                      amax: torch.Tensor | None = None, slot=None):
     """The plain version of Q2, in the JAX engine's two orders: static
     ``round(f32(y) * (inv_f / s))``, dynamic ``xs = f32(y) * inv_f``, ``s =
-    max(amax|xs|, 1e-12) * f32(1/127)`` (``INV_127``), ``round(xs / s)``;
-    clipped to +-127 and the channels zero-padded to a multiple of 16."""
+    max(amax, 1e-12) * f32(1/127)`` (``INV_127``), ``round(xs / s)`` with
+    ``amax`` the one given or ``max |xs|`` (reduced into ``slot``'s amax as
+    the kernel's pass does); clipped to +-127 and the channels zero-padded to
+    a multiple of 16. ``slot``'s scale takes the dynamic scale."""
     _check_q2(y, inv_f)
-    return _quantize_plain(y, inv_f, s)
+    return _quantize_plain(y, inv_f, s, amax, slot)
 
 
-def _quantize_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None):
+def _reduce_amax(y: torch.Tensor, inv_f: torch.Tensor, out: torch.Tensor | None):
+    """Q2's amax pass on Q1's bf16 output: ``max |f32(y) * inv_f|``, into
+    ``out`` (the larger of the two) where one is given."""
+    a = (y.to(torch.float32) * inv_f).abs().amax()
+    return a if out is None else out.copy_(torch.maximum(out, a))
+
+
+def _quantize_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None,
+                    amax: torch.Tensor | None = None, slot=None):
     """Q2's arithmetic (``quantize_s8_plain`` without its checks), which Q1's
     plain version also runs for forms (b) and (c)."""
     if s is None:
         xs = y.to(torch.float32) * inv_f
-        s = torch.clamp_min(xs.abs().amax(), 1e-12) * INV_127
+        if amax is None:
+            amax = xs.abs().amax()
+            if slot is not None:
+                amax = slot[0].copy_(torch.maximum(slot[0], amax))
+        s = torch.clamp_min(amax.reshape(()), 1e-12) * INV_127
+        if slot is not None:
+            s = slot[1].copy_(s)
         t = xs / s
     else:
         s = s.reshape(())
@@ -450,7 +534,7 @@ def _quantize_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None
     return F.pad(q, (0, padded_channels(c) - c)).contiguous(), s
 
 
-def quantize_s8(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None):
+def quantize_s8(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None,
+                amax: torch.Tensor | None = None, slot=None):
     """Q2 for a CUDA ``y``, its plain version for a CPU one."""
-    return _route(quantize_s8_cuda, quantize_s8_plain, y, inv_f, s)
-
+    return _route(quantize_s8_cuda, quantize_s8_plain, y, inv_f, s, amax, slot)

@@ -19,10 +19,12 @@ The scheme is the JAX engine's, number for number:
     batch's amax, ``dynamic=True``);
   * each conv runs int8 x int8 -> int32 on the card's tensor cores (Q1,
     ops/int8_conv.py) with the epilogue relu?(f32(acc) * (w_scale * bn_scale
-    * s) + bn_bias); each quantization point is Q2, or, in the static mode
-    where the next site alone reads a conv's output, that conv's epilogue
-    (form (b)); a block's residual add, ReLU and the next quantize are its
-    last conv's epilogue (form (c)): the same steps, fused;
+    * s) + bn_bias); each quantization point is Q2, or, where the next site
+    alone reads a conv's output, that conv's epilogue: in the static mode
+    the quantize itself (form (b)), in the dynamic mode the site's amax,
+    leaving Q2 its quantize pass alone; a block's residual add, ReLU and the
+    next quantize (or amax) are its last conv's epilogue (form (c)): the
+    same steps, fused;
   * a multiply-add the JAX engine writes as ``a * b + c`` is one fused
     multiply-add here (``addcmul``, ``fmaf``), since XLA contracts it.
   * residual adds, pools and the head run in f32 (PyTorch ops, as they are
@@ -117,10 +119,11 @@ def _apply_gate(y, kernel, bias):
     return y * g[:, None, None, None, :]
 
 
-def _dyn_quant(x, inv_f):
+def _dyn_quant(x, inv_f, slot=None):
     """Smooth + dynamically quantize: x' = x * inv_f, s = amax|x'|/127 ->
-    (int8 q with channels padded to a multiple of 16, f32 0-d s): Q2."""
-    return int8_conv.quantize_s8(x, inv_f)
+    (int8 q with channels padded to a multiple of 16, f32 0-d s): Q2's two
+    passes, the amax and the scale in ``slot`` (``ScaleSlots.take``)."""
+    return int8_conv.quantize_s8(x, inv_f, None, None, slot)
 
 
 # ---------------------------------------------------------------------------
@@ -490,6 +493,14 @@ class _Quantized(NamedTuple):
     y: torch.Tensor | None
 
 
+class _Reduced(NamedTuple):
+    """A bf16 activation ``y`` whose dynamic amax for ``site`` a fused
+    epilogue reduced into ``slot``'s amax (dynamic mode)."""
+    site: str
+    y: torch.Tensor
+    slot: tuple
+
+
 @torch.inference_mode()
 def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
                dynamic: bool = False, residual: str = "dequant",
@@ -505,26 +516,35 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
     reconstructs the block input from its quantized form; 'exact' adds the
     unquantized input in f32.
 
-    In the static mode a conv whose output the next site alone reads (the
-    next conv of its chain, or the next int8 block's ``in`` site) quantizes
-    it in its epilogue (Q1's form (b)), and an int8 block's last conv adds
-    the residual, applies the ReLU and quantizes for the next site or stores
-    bf16 (form (c)). The results are those of the separate steps, bit for
-    bit; the dynamic mode keeps them apart (its scale needs the whole
-    tensor first)."""
+    A conv whose output the next site alone reads (the next conv of its
+    chain, or the next int8 block's ``in`` site) works for that site in its
+    epilogue: in the static mode it quantizes the output (Q1's form (b)); in
+    the dynamic mode, whose scale needs the whole tensor first, it reduces
+    the site's amax, and Q2 runs its quantize pass alone. An int8 block's
+    last conv adds the residual and applies the ReLU (form (c)), then
+    quantizes for the next site or stores bf16 (and reduces the amax). The
+    results are those of the separate steps, bit for bit. Q2's amax pass
+    runs where no Q1 call alone produced a site's input: the network's
+    input, after a pool, at a value several sites read. A dynamic forward
+    takes its sites' amax and scale words from one ``ScaleSlots``."""
     if float_blocks is None:
         float_blocks = spec.default_float_blocks
     inv_f = qpack["inv_f"]
-    fuse = not dynamic
     sites = {}
+    x = _as_tensor(x, qpack["inv_f"])
+    slots = int8_conv.ScaleSlots(len(qpack["convs"]), x.device) if dynamic else None
 
     def record(site, q, s, c):
         if debug_sites:
             sites[site] = q[..., :c].float() * s / inv_f[site]
 
-    def quant_site(y, site):
-        if dynamic:
-            q, s = _dyn_quant(y, inv_f[site])
+    def quant_site(y, site, reduced=None):
+        """Q2 at ``site``; ``reduced``: the slot whose amax an epilogue
+        reduced (the quantize pass alone)."""
+        if reduced is not None:
+            q, s = int8_conv.quantize_s8(y, inv_f[site], None, reduced[0], reduced)
+        elif dynamic:
+            q, s = _dyn_quant(y, inv_f[site], slots.take())
         else:
             q, s = int8_conv.quantize_s8(y, inv_f[site], qpack["s_static"][site])
         record(site, q, s, y.shape[-1])
@@ -532,21 +552,22 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
 
     def take(v, site):
         """(q, s) of activation ``v`` at ``site``: the fused epilogue's where
-        it wrote them for this site, else Q2 on the bf16 activation."""
+        it wrote them for this site, Q2's quantize pass where it reduced the
+        site's amax, else Q2 on the bf16 activation."""
         if isinstance(v, _Quantized) and v.site == site:
             return v.q, v.s
+        if isinstance(v, _Reduced) and v.site == site:
+            return quant_site(v.y, site, v.slot)
         return quant_site(bf16_of(v), site)
 
     def bf16_of(v):
-        return v.y if isinstance(v, _Quantized) else v
+        return v.y if isinstance(v, (_Quantized, _Reduced)) else v
 
     def sole_site(nxt):
         """(site, keep_bf16): the site that alone quantizes a value whose
         consumer is ``nxt`` (the next conv's, or the next int8 block's ``in``
         site, whose residual reads it back from the int8 q; with 'exact' it
         reads the bf16 too), or None where the value is needed otherwise."""
-        if not fuse:
-            return None
         if isinstance(nxt, Conv):
             return nxt.site, False
         if (isinstance(nxt, Block) and nxt.key not in float_blocks
@@ -558,16 +579,23 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
         """Q1 at ``node``: its output in bf16 (f32 with ``out_f32``); with
         ``tail``, a Residual, the block's tail and ReLU (form (c)); with
         ``to`` = (site, keep_bf16), a _Quantized for that site (forms (b),
-        (c))."""
+        (c)), or in the dynamic mode a _Reduced (the bf16 output and the
+        site's amax)."""
         pack = qpack["convs"][conv_id(node)]
         w = pack["w"]
         gated = node.gate is not None
+        args = (q, pack["wk"], w.shape[:3], pack["mul"], pack["add"], s_dyn, node.strides,
+                _conv_pads(q, w, node))
+        relu = node.relu if tail is None else True
+        if to is not None and dynamic:
+            slot = slots.take()
+            y, _ = int8_conv.conv3d_s8(*args, relu=relu, residual=tail,
+                                       amax=int8_conv.Amax(inv_f[to[0]], slot[0]))
+            return _Reduced(to[0], y, slot)
         requant = None if to is None else int8_conv.Requant(
             inv_f[to[0]], qpack["s_static"][to[0]], to[1])
-        out = int8_conv.conv3d_s8(q, pack["wk"], w.shape[:3], pack["mul"], pack["add"], s_dyn,
-                                  node.strides, _conv_pads(q, w, node),
-                                  relu=node.relu if tail is None else True,
-                                  out_f32=out_f32 or gated, residual=tail, requant=requant)
+        out = int8_conv.conv3d_s8(*args, relu=relu, out_f32=out_f32 or gated, residual=tail,
+                                  requant=requant)
         if to is not None:
             qn, sn, yb = out
             record(to[0], qn, sn, w.shape[-1])
@@ -600,7 +628,8 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
         for the first conv. The LAST conv of a block main chain (relu
         False) returns f32 for the residual add, or with ``tail`` =
         (Residual, to) runs the block's tail in its epilogue (form (c)); a
-        conv followed by a conv quantizes for it (form (b), static mode)."""
+        conv followed by a conv quantizes for it (form (b), static mode) or
+        reduces its amax (dynamic mode)."""
         for i, node in enumerate(nodes):
             last = i == len(nodes) - 1
             if isinstance(node, Conv):
@@ -610,7 +639,7 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
                     q, s_dyn = take(v, node.site)
                 if last and tail is not None:
                     v = conv_q(q, s_dyn, node, tail=tail[0], to=tail[1])
-                elif not last and fuse and node.gate is None and isinstance(nodes[i + 1], Conv):
+                elif not last and node.gate is None and isinstance(nodes[i + 1], Conv):
                     v = conv_q(q, s_dyn, node, to=(nodes[i + 1].site, False))
                 else:
                     v = conv_q(q, s_dyn, node, out_f32=(last and not node.relu))
@@ -649,7 +678,7 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
         else:
             res = int8_conv.Residual("f32" if y.dtype == torch.float32 else "bf16", y)
         last = node.main[-1]
-        if fuse and isinstance(last, Conv) and not last.relu and last.gate is None:
+        if isinstance(last, Conv) and not last.relu and last.gate is None:
             return chain_q(v, node.main, q_first=(q_in, s_in), tail=(res, sole_site(nxt)))
         zf = chain_q(v, node.main, q_first=(q_in, s_in))
         return int8_conv.residual_tail(zf, res)
@@ -678,7 +707,7 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
                 raise TypeError(node)
         return v
 
-    env = {"x": _as_tensor(x, qpack["inv_f"])}
+    env = {"x": x}
     nodes = spec.nodes
     i = 0
     while i < len(nodes):

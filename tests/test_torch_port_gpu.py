@@ -34,9 +34,12 @@ bitwise, and ``fit`` on the card takes two r2plus1d_18 steps from a pack.
 The int8 engine's kernels (ops/int8_conv.py) at r2plus1d_18's int8 sites:
 Q1 in form (a) against its plain version (the identity epilogue bitwise,
 the real one within a bf16 ulp), forms (b) and (c) bit for bit against its
-plain version and the unfused chain of kernels, Q2 bitwise in both modes;
-the engine's launches (28 Q1; Q2 once static, 26 dynamic) and its logits
-against the same engine on the plain versions.
+plain version and the unfused chain of kernels, Q2 bitwise in its three
+modes (static, dynamic with its amax pass, dynamic from an amax given); the
+next site's dynamic amax that Q1's epilogue reduces, bit for bit against
+its plain version and against Q2's amax pass on the bf16 output; the
+engine's launches (28 Q1; Q2 once static, 26 dynamic with 1 amax pass) and
+its logits against the same engine on the plain versions.
 
 The train step's knobs: the device cache's rows gathered on the card equal
 the loader's frames bitwise and feed a step; each remat policy equals
@@ -1182,12 +1185,108 @@ def test_int8_fused_forms_match_plain_and_unfused(cuda, xs, kernel, strides, co,
             assert torch.equal(got[2], want[2]) and torch.equal(got[2], y1), form
 
 
+def _amax_forms(q8, g, cuda, out_shape, co, relu):
+    """The dynamic walk's Q1 calls with the next site's amax at a site: form
+    (a) bf16 (the conv's ReLU); at a block's last conv (no ReLU) form (c)
+    with each residual and the bf16 store."""
+    if relu:
+        return [None]
+    t = torch.randn(out_shape, generator=g, device=cuda).to(torch.bfloat16)
+    inv_f = torch.rand(co, generator=g, device=cuda) * 3 + 0.1
+    q_in, s_in = q8.quantize_s8_cuda(t, inv_f)
+    return [None, q8.Residual("dequant", q_in, inv_f, s_in),
+            q8.Residual("f32", torch.randn(out_shape, generator=g, device=cuda) * 4),
+            q8.Residual("bf16", t)]
+
+
+@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding", INT8_SITES)
+def test_int8_q1_amax_matches_plain_and_unfused(cuda, xs, kernel, strides, co, relu, out_f32,
+                                                 padding):
+    """Q1's bf16 output with the next site's dynamic amax reduced in its
+    epilogue, at each int8 site: the bf16 output and the amax bit for bit
+    against Q1's plain version and against the unfused chain (Q1's bf16
+    store, then Q2's amax pass on it); a slot that holds a larger partial
+    max keeps it, one that holds a smaller one takes the call's."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+    from fastvideotagging_tpu_torch.ops.arch_spec import tf_same_pads
+
+    g = torch.Generator(device=cuda).manual_seed(sum(xs) + co + 2)
+    c = xs[-1]
+    y = torch.randn(xs, generator=g, device=cuda).to(torch.bfloat16)
+    s = torch.tensor(0.03, device=cuda)
+    q, _ = q8.quantize_s8_cuda(y, torch.rand(c, generator=g, device=cuda) * 3 + 0.1, s)
+    w = torch.randint(-127, 128, kernel + (c, co), generator=g, device=cuda, dtype=torch.int8)
+    wk = q8.weight_layout(w)
+    if padding == "same_tf":
+        pads = tuple(tf_same_pads(xs[1 + i], kernel[i], strides[i]) for i in range(3))
+    else:
+        pads = tuple((k // 2, k // 2) for k in kernel)
+    mul = torch.rand(co, generator=g, device=cuda) * 1e-3
+    add = torch.randn(co, generator=g, device=cuda)
+    inv_f = torch.rand(co, generator=g, device=cuda) * 3 + 0.1
+    out_shape = q8._out_shape(q, kernel, strides, pads, co)
+    for res in _amax_forms(q8, g, cuda, out_shape, co, relu):
+        args = (q, wk, kernel, mul, add, s, strides, pads, relu or res is not None, False, res)
+        before = dict(q8.launch_counts)
+        got_y, got_a = q8.conv3d_s8_cuda(*args, None, q8.Amax(inv_f))
+        torch.cuda.synchronize()
+        assert q8.launch_counts["conv3d_s8"] == before["conv3d_s8"] + 1
+        want_y, want_a = q8.conv3d_s8_plain(*args, None, q8.Amax(inv_f))
+        chain_y = q8.conv3d_s8_cuda(*args)
+        slot = q8.ScaleSlots(1, cuda).take()
+        q8.quantize_s8_cuda(chain_y, inv_f, None, None, slot)
+        form = res and res.kind
+        assert got_y.dtype == torch.bfloat16 and torch.equal(got_y, want_y), form
+        assert torch.equal(got_y, chain_y), form
+        assert got_a.item() > 0 and torch.equal(got_a, want_a), (form, got_a, want_a)
+        assert torch.equal(got_a, slot[0]), (form, got_a, slot[0])
+        for partial in (got_a * 2, got_a * 0.5):
+            out = partial.clone()
+            q8.conv3d_s8_cuda(*args, None, q8.Amax(inv_f, out))
+            assert torch.equal(out, torch.maximum(partial, got_a)), form
+
+
+@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding", INT8_SITES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_q2_given_amax_matches_plain_and_two_passes(cuda, xs, kernel, strides, co, relu,
+                                                         out_f32, padding, dtype):
+    """Q2's quantize pass from an amax given (the dynamic mode where Q1's
+    epilogue reduced it) at each int8 site's activation: q and s bit for
+    bit against its plain version and against the two passes (the amax
+    pass, then the quantize pass), one launch and no amax pass; the static
+    mode against its plain version."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+
+    g = torch.Generator(device=cuda).manual_seed(sum(xs) + co + 3)
+    c = xs[-1]
+    y = (torch.randn(xs, generator=g, device=cuda) * 2).to(dtype)
+    inv_f = torch.rand(c, generator=g, device=cuda) * 3 + 0.1
+    slots = q8.ScaleSlots(2, cuda)
+    two = slots.take()
+    q2, s2 = q8.quantize_s8_cuda(y, inv_f, None, None, two)
+    given = slots.take()
+    given[0].copy_((y.float() * inv_f).abs().amax())
+    before = dict(q8.launch_counts)
+    q, s_out = q8.quantize_s8_cuda(y, inv_f, None, given[0], given)
+    torch.cuda.synchronize()
+    assert q8.launch_counts["quantize_s8"] == before["quantize_s8"] + 1
+    assert q8.launch_counts["quantize_s8_amax"] == before["quantize_s8_amax"]
+    assert torch.equal(two[0], given[0]) and s_out.data_ptr() == given[1].data_ptr()
+    qp, sp = q8.quantize_s8_plain(y, inv_f, None, given[0])
+    assert torch.equal(q, qp) and torch.equal(s_out, sp)
+    assert torch.equal(q, q2) and torch.equal(s_out, s2)
+    assert q.shape[-1] == q8.padded_channels(c) and not q[..., c:].any()
+    st = torch.tensor(0.05, device=cuda)
+    assert torch.equal(q8.quantize_s8_cuda(y, inv_f, st)[0], q8.quantize_s8_plain(y, inv_f, st)[0])
+
+
 @pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
 def test_int8_engine_launches_and_plain_parity(cuda, dynamic, monkeypatch):
     """One r2plus1d_18 int8 forward (2 clips, 16x112x112, 400 classes): 28
     Q1 launches; Q2 once in the static mode (the input site: every other
-    quantize is fused into the conv before it) and 26 times (and 26 amax
-    passes) in the dynamic mode; K1 / K2 for stage 4's stride-1 convs; its
+    quantize is fused into the conv before it) and 26 times in the dynamic
+    mode, with 1 amax pass (the input site: every other amax is reduced in
+    the epilogue of the conv before it); K1 / K2 for stage 4's stride-1 convs; its
     logits against the same engine with Q1 and Q2's plain versions, on the
     same qpack, within 5e-2 of the largest |logit|."""
     from fastvideotagging_tpu_torch.ops import int8_conv as q8
@@ -1205,7 +1304,7 @@ def test_int8_engine_launches_and_plain_parity(cuda, dynamic, monkeypatch):
     logits = int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
     torch.cuda.synchronize()
     assert q8.launch_counts == {"conv3d_s8": 28, "quantize_s8": 26 if dynamic else 1,
-                                "quantize_s8_amax": 26 if dynamic else 0}
+                                "quantize_s8_amax": 1 if dynamic else 0}
     assert (ops.launch_counts["spatial_conv"], ops.launch_counts["temporal_conv"]) == (3, 3)
     monkeypatch.setattr(q8, "conv3d_s8_cuda", q8.conv3d_s8_plain)
     monkeypatch.setattr(q8, "quantize_s8_cuda", q8.quantize_s8_plain)

@@ -25,10 +25,14 @@ seeded with numpy), the same variables in both packages
   quantize at every r2plus1d_18 site geometry (and a TF-SAME one) at
   narrow widths: int32 sums and int8 values exact;
 - Q1's fused epilogue forms (b: the next site's quantize; c: a block's
-  residual, ReLU and quantize or bf16 store) bit for bit against the
-  unfused chain of plain steps at r2plus1d_18's site geometries;
+  residual, ReLU and quantize or bf16 store; a bf16 output with the next
+  site's dynamic amax) bit for bit against the unfused chain of plain steps
+  at r2plus1d_18's site geometries;
+- Q2 from an amax given (the one Q1's epilogue reduces) against the JAX
+  engine's ``_dyn_quant``;
 - the launches a static and a dynamic forward make (28 Q1 and 1 Q2 static,
-  the other quantizes fused into Q1; 28 / 26 dynamic), counted on the plain
+  the other quantizes fused into Q1; 28 Q1, 26 Q2 and 1 amax pass dynamic,
+  the other amaxes reduced in Q1's epilogue), counted on the plain
   versions;
 - Q1's plan at every Q1 call of a static r2plus1d_18 forward at B = 8 and
   32 and at every conv geometry of the covered models;
@@ -317,6 +321,19 @@ def test_q2_plain_matches_jax_quantize(xs, dtype):
     q, s_out = int8_conv.quantize_s8(y, inv_f)
     np.testing.assert_array_equal(q[..., :xs[-1]].numpy(), np.asarray(jq))
     assert float(s_out) == float(js)
+    # dynamic from an amax given (Q1's epilogue reduces it), the quantize
+    # pass alone; and the two passes into a forward's slot
+    amax = (y.float() * inv_f).abs().amax()
+    slots = int8_conv.ScaleSlots(2, "cpu")
+    given = slots.take()
+    given[0].copy_(amax)
+    q, s_out = int8_conv.quantize_s8(y, inv_f, None, given[0], given)
+    np.testing.assert_array_equal(q[..., :xs[-1]].numpy(), np.asarray(jq))
+    assert float(s_out) == float(js) and s_out.data_ptr() == given[1].data_ptr()
+    assert not q[..., xs[-1]:].any()
+    two = slots.take()
+    q2, s2 = int8_conv.quantize_s8(y, inv_f, None, None, two)
+    assert torch.equal(q2, q) and torch.equal(s2, s_out) and torch.equal(two[0], amax)
 
 
 # Q1's fused epilogue forms at r2plus1d_18's site geometries, B = 1: (name,
@@ -326,6 +343,8 @@ def test_q2_plain_matches_jax_quantize(xs, dtype):
 # residual ('dequant': its input's q; 'f32': a downsample conv's output;
 # 'bf16': its bf16 input), ReLU, then the quantize (requant) or the bf16
 # store alone (requant None: the last int8 block before a float one).
+# requant 'amax': the bf16 output of form (a) or (c) and the next site's
+# dynamic amax (the dynamic mode's fused walk).
 FUSED = [
     ("b_stem_spatial", (1, 4, 12, 12, 3), (1, 7, 7), (1, 2, 2), 45, True, None, False),
     ("b_stem_temporal", (1, 4, 6, 6, 45), (3, 1, 1), (1, 1, 1), 16, True, None, False),
@@ -338,12 +357,18 @@ FUSED = [
     ("c_downsample", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, "f32", False),
     ("c_downsample_bf16", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, "f32", None),
     ("c_exact", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 16, True, "bf16", True),
+    ("a_amax_stem_spatial", (1, 4, 12, 12, 3), (1, 7, 7), (1, 2, 2), 45, True, None, "amax"),
+    ("a_amax_entry_temporal", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, None, "amax"),
+    ("c_dequant_amax", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 45, True, "dequant", "amax"),
+    ("c_downsample_amax", (1, 4, 3, 3, 23), (3, 1, 1), (2, 1, 1), 32, True, "f32", "amax"),
+    ("c_exact_amax", (1, 4, 6, 6, 24), (3, 1, 1), (1, 1, 1), 16, True, "bf16", "amax"),
 ]
 
 
 def _unfused(q, wk, kernel, mul, add, s, strides, pads, relu, res, requant):
     """The int8 engine's separate steps: Q1's plain version (bf16 out, or
-    f32 and no ReLU before a residual), the block tail's ops, Q2's."""
+    f32 and no ReLU before a residual), the block tail's ops, Q2's (for an
+    ``Amax``, its amax pass into a forward's slot)."""
     co = wk.shape[0]
     if res is None:
         y = int8_conv.conv3d_s8_plain(q, wk, kernel, mul, add, s, strides, pads, relu, False)
@@ -356,6 +381,10 @@ def _unfused(q, wk, kernel, mul, add, s, strides, pads, relu, res, requant):
         y = torch.relu(z).to(torch.bfloat16)
     if requant is None:
         return y
+    if isinstance(requant, int8_conv.Amax):
+        slot = int8_conv.ScaleSlots(1, "cpu").take()
+        int8_conv.quantize_s8_plain(y, requant.inv_f, None, None, slot)
+        return y, slot[0]
     qn, sn = int8_conv.quantize_s8_plain(y, requant.inv_f, requant.s)
     return qn, sn, y
 
@@ -366,7 +395,8 @@ def test_q1_fused_forms_match_the_unfused_chain(name, xs, kernel, strides, co, r
                                                 requant):
     """Each fused epilogue form of Q1's plain version equals the chain of
     separate plain steps it replaces, bit for bit: the int8 q (its channels
-    past Co zero), the scale, the bf16 output where one is kept."""
+    past Co zero), the scale, the bf16 output where one is kept; the next
+    site's amax against Q2's amax pass on the bf16 output."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     c = xs[-1]
     y_in = torch.from_numpy(rng.normal(0, 2, xs).astype(np.float32)).to(torch.bfloat16)
@@ -397,16 +427,33 @@ def test_q1_fused_forms_match_the_unfused_chain(name, xs, kernel, strides, co, r
         res = int8_conv.Residual("bf16", torch.from_numpy(
             rng.normal(0, 2, out_shape).astype(np.float32)).to(torch.bfloat16))
     rq = None
-    if requant is not None:
-        rq = int8_conv.Requant(torch.from_numpy(rng.uniform(0.1, 3, co).astype(np.float32)),
-                               torch.tensor(0.06), requant)
+    next_inv_f = torch.from_numpy(rng.uniform(0.1, 3, co).astype(np.float32))
+    if requant == "amax":
+        rq = int8_conv.Amax(next_inv_f)
+    elif requant is not None:
+        rq = int8_conv.Requant(next_inv_f, torch.tensor(0.06), requant)
     want = _unfused(q, wk, kernel, mul, add, s, strides, pads, relu, res, rq)
     calls = dict(int8_conv.launch_counts)
+    fused = dict(amax=rq) if requant == "amax" else dict(requant=rq)
     got = int8_conv.conv3d_s8(q, wk, kernel, mul, add, s, strides, pads, relu=relu,
-                              residual=res, requant=rq)
+                              residual=res, **fused)
     assert int8_conv.launch_counts == calls  # the plain version: no kernel launch
     if rq is None:
         assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        return
+    if requant == "amax":
+        (gy, ga), (wy, wa) = got, want
+        assert gy.dtype == torch.bfloat16 and torch.equal(gy, wy)
+        assert ga.shape == () and ga > 0 and torch.equal(ga, wa)
+        # into a slot that holds a partial max: the larger of the two
+        slot = int8_conv.ScaleSlots(1, "cpu").take()
+        slot[0].fill_(float(wa) * 2)
+        int8_conv.conv3d_s8(q, wk, kernel, mul, add, s, strides, pads, relu=relu, residual=res,
+                            amax=rq._replace(out=slot[0]))
+        assert float(slot[0]) == float(wa) * 2
+        with pytest.raises(ValueError):  # an f32 output takes no amax
+            int8_conv.conv3d_s8(q, wk, kernel, mul, add, s, strides, pads, out_f32=True,
+                                amax=rq)
         return
     (gq, gs, gy), (wq, ws, wy) = got, want
     assert gq.dtype == torch.int8 and gq.shape[-1] == int8_conv.padded_channels(co)
@@ -426,22 +473,27 @@ def test_engine_launches_per_forward(setup, engines, monkeypatch, dynamic):
     stages 1-3, the 2 downsamples). Q2: static 1 call (the input site; every
     other static quantize is the epilogue of the conv before it, forms (b)
     and (c)), dynamic 26 (a block's input is quantized once for conv1 and
-    the downsample); counted on the plain versions (the kernels' counts move
-    on the card only)."""
-    calls = {"q1": 0, "q2": 0}
+    the downsample), of which 1 runs the amax pass (the input site; every
+    other dynamic amax is reduced in the epilogue of the conv before it);
+    counted on the plain versions (the kernels' counts move on the card
+    only)."""
+    calls = {"q1": 0, "q2": 0, "amax": 0}
 
-    def counting(key, fn):
-        def wrapped(*a, **k):
-            calls[key] += 1
-            return fn(*a, **k)
-        return wrapped
+    def q1(*a, **k):
+        calls["q1"] += 1
+        return plain_q1(*a, **k)
 
-    monkeypatch.setattr(int8_conv, "conv3d_s8_plain", counting("q1", int8_conv.conv3d_s8_plain))
-    monkeypatch.setattr(int8_conv, "quantize_s8_plain",
-                        counting("q2", int8_conv.quantize_s8_plain))
+    def q2(y, inv_f, s=None, amax=None, slot=None):
+        calls["q2"] += 1
+        calls["amax"] += s is None and amax is None
+        return plain_q2(y, inv_f, s, amax, slot)
+
+    plain_q1, plain_q2 = int8_conv.conv3d_s8_plain, int8_conv.quantize_s8_plain
+    monkeypatch.setattr(int8_conv, "conv3d_s8_plain", q1)
+    monkeypatch.setattr(int8_conv, "quantize_s8_plain", q2)
     qp = engines[False][2]
     ti.r2plus1d_int8_infer(qp, torch.from_numpy(setup["x"]), dynamic=dynamic)
-    assert calls == {"q1": 28, "q2": 26 if dynamic else 1}
+    assert calls == {"q1": 28, "q2": 26 if dynamic else 1, "amax": 1 if dynamic else 0}
     assert int8_conv.launch_counts == {"conv3d_s8": 0, "quantize_s8": 0, "quantize_s8_amax": 0}
 
 
@@ -495,7 +547,8 @@ def test_bn_of_groupnorm_checkpoint_fails_with_reason():
 def test_int8_argtypes_match_the_c_signatures(name):
     """The ctypes bindings of Q1's and Q2's entry points have one type per
     parameter of the C functions, in the same kinds (a mismatch would show
-    only on the card)."""
+    only on the card); Q1's takes the amax output and its factors into
+    ``ConvArgs``, Q2's its mode (static, dynamic, amax given)."""
     import ctypes
     import os
     import re
@@ -513,6 +566,16 @@ def test_int8_argtypes_match_the_c_signatures(name):
 
     want = int8_conv._Q1_ARGTYPES if name == "fvt_conv3d_s8" else int8_conv._Q2_ARGTYPES
     assert want == [kind(p) for p in params]
+    names = [p.split()[-1].lstrip("*") for p in params]
+    if name == "fvt_conv3d_s8":
+        assert names[12:14] == ["amax", "amax_inv_f"]  # after q_s, before n
+        struct = re.search(r"struct ConvArgs \{([^}]*)\}", src).group(1)
+        assert re.search(r"unsigned\* amax;", struct)
+        assert re.search(r"const float\* amax_inv_f;", struct)
+    else:
+        assert names[10] == "mode"
+        assert (int8_conv._Q2_STATIC, int8_conv._Q2_DYNAMIC, int8_conv._Q2_GIVEN) == (0, 1, 2)
+        assert re.search(r"enum Q2Mode \{ kQ2Static = 0, kQ2Dynamic = 1, kQ2Given = 2 \};", src)
 
 
 def _record_q1(qp, x, monkeypatch):
