@@ -166,6 +166,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             (with and without ``--int8``) on piped stdin: a pack, a JSON
             object with ``top_k`` and a missing path, which gives an error
             line while the daemon goes on.
+11. export (evaluation/serving.py, cli/export.py; the serving kernels as
+            ``fvt::*`` custom ops, ops/library.py): (a) ``cli.export
+            --preset r2plus1d18_ucf101 --clip-batch 8`` of seeded random
+            weights, bf16 and ``--int8 --calib-video`` (phase 4's video as a
+            one-video pack), the seconds and the artifact's bytes, and the
+            same two engines through ``export_serving`` at B = 32; (b) each
+            artifact loaded in a fresh ``python3`` process that imports
+            evaluation/serving.py alone, its scores on clips the parent saved
+            against the in-process serving fn's (within 1e-3); (c) a
+            forward's launches there (K1 13 / K2 14; Q1 28 / Q2 1, stage 4's
+            K1 / K2 3 / 3) against the in-process forward's; (d) a
+            ``torch.export`` of the dynamic int8 engine on the same qpack:
+            the in-place amax ops in its graph, 28 / 26 / 1 launches a
+            forward, scores against the eager dynamic forward; (e) a
+            forward's ms loaded against in-process (CUDA events, 20 forwards)
+            at B = 8 and 32: in the fresh process, and in turns in this one
+            (in-process, loaded, loaded, in-process) with the host's enqueue
+            time a forward beside; (f) the host time a call of K1, K2, Q1 and Q2
+            through its ``fvt::*`` op and through the bare wrapper: the
+            dispatcher's cost.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -178,7 +198,10 @@ The line before the last is a JSON object with one entry per kernel. Its
 K1-K3 and per serving forward for K4 (inference only). K5-K9's path is the
 micro-benchmark's run in phase 3d (``launches_by_run`` {"micro": n}); their
 times are one call at the tpu1 shape (K6, K8 at tiles <= 448). Q1's and
-Q2's path is phase 10's int8 runs; their times are per static int8 forward
+Q2's path is phase 10's int8 runs; phase 11's runs add ``"export"`` to
+every entry's ``launches_by_run`` (its CLI exports, in-process forwards,
+the fresh process's forwards and the dynamic export's forwards, timing
+loops left out). Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -3096,6 +3119,348 @@ def int8_entries(int8: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the serving export (cli.export, evaluation/serving.py) on the
+# fvt::* custom ops
+# ---------------------------------------------------------------------------
+
+EXPORT_PRESET = "r2plus1d18_ucf101"
+EXPORT_FORWARD = {  # launches a forward of a loaded artifact at clip_batch 8
+    "bf16": {"conv3d_s8": 0, "quantize_s8": 0, "quantize_s8_amax": 0, "spatial_conv": 13,
+             "temporal_conv": 14},
+    "int8": {**INT8_FORWARD, **INT8_FLOAT_K},
+    "int8_dynamic": {**INT8_DYNAMIC, **INT8_FLOAT_K},
+}
+EXPORT_TOL = 1e-3  # loaded artifact against the in-process serving fn, absolute
+EXPORT_TIMED = 20  # forwards timed by CUDA events a measurement
+DISPATCH_CALLS = 200  # calls a host-time measurement of the dispatcher
+
+# Run in a fresh python3 process: loads each artifact with nothing but
+# evaluation/serving.py imported, scores the parent's clips, counts a
+# forward's launches and times forwards by CUDA events.
+_LOAD_ARTIFACTS = r"""
+import json, sys, time
+import numpy as np
+import torch
+from fastvideotagging_tpu_torch.evaluation import serving
+
+k12, q8 = serving.library.k12, serving.library.q8
+
+
+def counts():
+    torch.cuda.synchronize()
+    return {**q8.launch_counts, "spatial_conv": k12.launch_counts["spatial_conv"],
+            "temporal_conv": k12.launch_counts["temporal_conv"]}
+
+
+def reset():
+    torch.cuda.synchronize()
+    q8.reset_launch_counts()
+    k12.reset_launch_counts()
+
+
+out = {}
+jobs, timed = json.loads(sys.argv[1]), int(sys.argv[2])
+for name, job in jobs.items():
+    t0 = time.perf_counter()
+    run = serving.load_serving(job["artifact"])
+    load_s = time.perf_counter() - t0
+    clips = np.load(job["clips"])
+    reset()
+    t0 = time.perf_counter()
+    run(clips)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    warm = counts()
+    reset()
+    scores = run(clips)
+    launches = counts()
+    np.save(job["scores"], scores.float().cpu().numpy())
+    x = torch.from_numpy(clips).cuda()
+    for _ in range(2):
+        run(x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        run(x)
+    end.record()
+    torch.cuda.synchronize()
+    out[name] = dict(load_s=load_s, first_call_s=first_s, launches=launches,
+                     launches_total={k: warm[k] + launches[k] for k in warm},
+                     ms=start.elapsed_time(end) / timed)
+print(json.dumps(out))
+"""
+
+
+def _ms_and_host(fn, x) -> tuple[float, float]:
+    """(CUDA-event ms, the host's ms) a forward of ``fn(x)`` over
+    ``EXPORT_TIMED`` forwards after two warm-up forwards; the host's is the
+    time to enqueue them, which is the forward's time where the host is the
+    bottleneck."""
+    for _ in range(2):
+        fn(x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(EXPORT_TIMED):
+        fn(x)
+    host = (time.perf_counter() - t0) * 1e3 / EXPORT_TIMED
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / EXPORT_TIMED, host
+
+
+def _export_counts() -> dict:
+    torch.cuda.synchronize()
+    return {**q8.launch_counts, **{k: ops.launch_counts[k] for k in INT8_FLOAT_K}}
+
+
+def _add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def _dispatch_costs(card: str) -> dict:
+    """Host time a call of each serving kernel through its ``fvt::*`` op
+    and through the bare wrapper it reaches (the kernel's ctypes launch),
+    at small stage-4 shapes where the device keeps up: the enqueue time of
+    ``DISPATCH_CALLS`` calls, the card synchronized before and after."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+
+    def bf16(*shape):
+        return torch.randn(shape, device=DEV, generator=gen).to(torch.bfloat16)
+
+    x, w1, w2 = bf16(2, 7, 7, 512), bf16(3, 3, 512, 512), bf16(3, 512, 512)
+    xt = bf16(2, 2, 49, 512)
+    q = torch.randint(-127, 128, (1, 2, 7, 7, 512), device=DEV, generator=gen,
+                      dtype=torch.int8)
+    wk = torch.randint(-127, 128, (512, 9, 512), device=DEV, generator=gen, dtype=torch.int8)
+    vec = torch.rand(512, device=DEV, generator=gen) * 1e-3
+    s = torch.tensor(0.05, device=DEV)
+    conv = (q, wk, [1, 3, 3], vec, vec, s, [1, 1, 1], [0, 0, 1, 1, 1, 1])
+    y = bf16(2, 2, 7, 7, 512)
+    cases = {
+        "K1 spatial_conv": (lambda: torch.ops.fvt.spatial_conv(x, w1),
+                            lambda: ops.spatial_conv_cuda(x, w1)),
+        "K2 temporal_conv": (lambda: torch.ops.fvt.temporal_conv(xt, w2),
+                             lambda: ops.temporal_conv_cuda(xt, w2)),
+        "Q1 conv3d_s8 (a)": (lambda: torch.ops.fvt.conv3d_s8(*conv, True, False, "", None,
+                                                             None, None),
+                             lambda: q8.conv3d_s8_cuda(q, wk, (1, 3, 3), vec, vec, s,
+                                                       (1, 1, 1), ((0, 0), (1, 1), (1, 1)),
+                                                       True, False)),
+        "Q2 quantize_s8 static": (lambda: torch.ops.fvt.quantize_s8(y, vec, s),
+                                  lambda: q8.quantize_s8_cuda(y, vec, s)),
+    }
+    out = {}
+    for name, (op, bare) in cases.items():
+        host = {}
+        for route, fn in (("op", op), ("bare", bare), ("op2", op), ("bare2", bare)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            host[route] = (time.perf_counter() - t0) / DISPATCH_CALLS * 1e6
+            torch.cuda.synchronize()
+        op_us, bare_us = min(host["op"], host["op2"]), min(host["bare"], host["bare2"])
+        out[name] = dict(op_us=op_us, bare_us=bare_us, dispatcher_us=op_us - bare_us,
+                         turns_us=host)
+        turns = json.dumps({k: round(v, 2) for k, v in host.items()})
+        print(f"(f) {name}: host time a call through the op {op_us:.2f} us, the bare wrapper "
+              f"{bare_us:.2f} us: the dispatcher {op_us - bare_us:.2f} us a call (best of 2 "
+              f"turns of {DISPATCH_CALLS} calls; turns {turns}) on {card}", flush=True)
+    return out
+
+
+def phase_export(card: str, tmp: str) -> dict:
+    """Phase 11: ``cli.export`` (bf16 and ``--int8 --calib-video``) of
+    r2plus1d_18 at full width, each artifact loaded in a fresh process and
+    held to the in-process serving fn, a forward's launches, an export of
+    the dynamic int8 engine, the forwards' ms and the dispatcher's cost."""
+    print("== phase 11: export", flush=True)
+    t_phase = time.perf_counter()
+    from fastvideotagging_tpu_torch.cli import export as cli_export
+    from fastvideotagging_tpu_torch.cli.common import build_config
+    from fastvideotagging_tpu_torch.evaluation import serving
+
+    d11 = os.path.join(tmp, "export")
+    os.makedirs(d11, exist_ok=True)
+    preset = PRESETS[EXPORT_PRESET]
+    t, (h, w) = preset.data.sampler.clip_len, preset.data.source_hw or preset.data.resize_hw
+    classes = preset.model.num_classes
+    g = torch.Generator().manual_seed(SEED)
+    state = get_model("r2plus1d_18", num_classes=classes, device="cpu",
+                      generator=g).state_dict()
+    weights = os.path.join(d11, "w.pt")
+    export_weights(weights, state)
+    frames = make_frames(3, num_frames=160, height=h, width=w, seed=SEED)  # phase 4's video
+    video = os.path.join(d11, "video.fvtpack")
+    write_pack_from_arrays([("video.mp4", 0, (), frames)], video, (h, w))
+
+    # (a) cli.export, bf16 and int8; the launches of phase 11's runs from 0
+    argv = ["--preset", EXPORT_PRESET, "--weights", weights, "--clip-batch", str(CLIP_BATCH)]
+    int8_argv = ["--int8", "--calib-video", video]
+    _int8_reset()
+    metas, export_s = {}, {}
+    for engine, extra in (("bf16", []), ("int8", int8_argv)):
+        t0 = time.perf_counter()
+        metas[engine] = cli_export.main(argv + ["--out", os.path.join(d11, engine)] + extra)
+        export_s[engine] = time.perf_counter() - t0
+        size = metas[engine]["artifacts"]["torch"]["bytes"]
+        print(f"(a) cli.export {engine}: {export_s[engine]:.1f} s (weights load, "
+              f"{'calibration, ' if engine == 'int8' else ''}torch.export, save), serving.pt2 "
+              f"{size} bytes; input {metas[engine]['input']['shape']} uint8", flush=True)
+        if metas[engine]["int8"] != (engine == "int8") or metas[engine]["input"]["shape"] != [
+                CLIP_BATCH, t, h, w, 3]:
+            raise SystemExit(f"(a) cli.export {engine} wrote the wrong meta.json")
+    launches = _export_counts()
+
+    # the in-process serving fns on the same weights and qpack
+    cfg = build_config(cli_export.parse_args(argv + ["--out", d11]))
+    calib = cli_export.collect_pack_calib_clips(cfg, video, CLIP_BATCH)
+    sd = {k: v.to(DEV) for k, v in state.items()}
+    _int8_reset()
+    qpack = serving.quantize_for_serving(cfg, sd, calib, device=DEV)
+    fns = {"bf16": serving.make_serving_fn(cfg, sd, device=DEV),
+           "int8": serving.make_serving_fn(cfg, sd, qpack=qpack, device=DEV)}
+    clips = {CLIP_BATCH: frames[np.arange(CLIP_BATCH * t).reshape(CLIP_BATCH, t)],
+             TRAIN_BATCH: np.random.default_rng(SEED + 12).integers(
+                 0, 256, (TRAIN_BATCH, t, h, w, 3), dtype=np.uint8)}
+
+    # the B = 32 artifacts through the library call, for (e)
+    paths = {("bf16", CLIP_BATCH): os.path.join(d11, "bf16", "serving.pt2"),
+             ("int8", CLIP_BATCH): os.path.join(d11, "int8", "serving.pt2")}
+    for engine in fns:
+        t0 = time.perf_counter()
+        path = os.path.join(d11, f"{engine}_b{TRAIN_BATCH}.pt2")
+        serving.export_serving(cfg, sd, TRAIN_BATCH, path=path,
+                               qpack=qpack if engine == "int8" else None, device=DEV)
+        paths[(engine, TRAIN_BATCH)] = path
+        print(f"(a) export_serving {engine} at clip_batch {TRAIN_BATCH}: "
+              f"{time.perf_counter() - t0:.1f} s, {os.path.getsize(path)} bytes", flush=True)
+    launches = _add_counts(launches, _export_counts())
+
+    # in-process: a forward's launches, scores and ms
+    inproc, scores_in = {}, {}
+    for (engine, b), _ in paths.items():
+        fn, x = fns[engine], torch.from_numpy(clips[b]).to(DEV)
+        with torch.no_grad():
+            fn(x)
+            _int8_reset()
+            scores_in[(engine, b)] = fn(x).float().cpu().numpy()
+            counted = _export_counts()
+            launches = _add_counts(launches, counted)
+            inproc[(engine, b)] = dict(launches=counted, ms=time_ms(lambda: fn(x),
+                                                                     iters=EXPORT_TIMED))
+        _int8_reset()
+        if b == CLIP_BATCH and counted != EXPORT_FORWARD[engine]:
+            raise SystemExit(f"(c) an in-process {engine} forward launched {counted}, not "
+                             f"{EXPORT_FORWARD[engine]}")
+
+    # (b, c, e) each artifact in a fresh process
+    jobs = {}
+    for (engine, b), path in paths.items():
+        name = f"{engine}_b{b}"
+        np.save(os.path.join(d11, f"clips_b{b}.npy"), clips[b])
+        jobs[name] = dict(artifact=path, clips=os.path.join(d11, f"clips_b{b}.npy"),
+                          scores=os.path.join(d11, f"scores_{name}.npy"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _LOAD_ARTIFACTS, json.dumps(jobs),
+                           str(EXPORT_TIMED)], capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise SystemExit(f"(b) loading the artifacts in a fresh process failed:\n"
+                         f"{proc.stderr[-4000:]}")
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"(b) the fresh process (imports evaluation.serving only) took "
+          f"{time.perf_counter() - t0:.1f} s for {len(jobs)} artifacts", flush=True)
+    result = {}
+    for (engine, b), path in paths.items():
+        name = f"{engine}_b{b}"
+        got = np.load(jobs[name]["scores"])
+        err = float(np.abs(got - scores_in[(engine, b)]).max())
+        lo = loaded[name]
+        launches = _add_counts(launches, lo["launches_total"])
+        result[name] = dict(bytes=os.path.getsize(path), max_abs_diff=err,
+                            loaded_ms=lo["ms"], in_process_ms=inproc[(engine, b)]["ms"],
+                            loaded_launches=lo["launches"],
+                            in_process_launches=inproc[(engine, b)]["launches"],
+                            load_s=lo["load_s"], first_call_s=lo["first_call_s"])
+        print(f"(b) {name}: loaded artifact vs in-process scores max |diff| {err:.3e} (tol "
+              f"{EXPORT_TOL}); (c) a forward's launches loaded {lo['launches']}, in-process "
+              f"{inproc[(engine, b)]['launches']}; (e) forward {lo['ms']:.3f} ms loaded, "
+              f"{inproc[(engine, b)]['ms']:.3f} ms in-process (CUDA events, {EXPORT_TIMED} "
+              f"forwards); load {lo['load_s']:.2f} s, first call {lo['first_call_s']:.2f} s "
+              f"on {card}", flush=True)
+        if not (got.shape == (b, classes) and np.isfinite(got).all() and err <= EXPORT_TOL):
+            raise SystemExit(f"(b) the loaded {name} artifact disagrees with the in-process fn")
+        if lo["launches"] != inproc[(engine, b)]["launches"] or (
+                b == CLIP_BATCH and lo["launches"] != EXPORT_FORWARD[engine]):
+            raise SystemExit(f"(c) the loaded {name} artifact launched {lo['launches']}")
+
+    # (e) in turns in this process: the in-process fn and the artifact loaded
+    # here, CUDA events and the host's enqueue time a forward
+    for (engine, b), path in paths.items():
+        name = f"{engine}_b{b}"
+        fn, run = fns[engine], serving.load_serving(path)
+        x = torch.from_numpy(clips[b]).to(DEV)
+        turns = {"in_process": [], "loaded": []}
+        with torch.no_grad():
+            for route in ("in_process", "loaded", "loaded", "in_process"):
+                turns[route].append(_ms_and_host(fn if route == "in_process" else run, x))
+        _int8_reset()
+        graph = [str(n.target) for n in run.program.graph.nodes if n.op == "call_function"]
+        nodes = dict(calls=len(graph), fvt_ops=sum(t.startswith("fvt.") for t in graph),
+                     metadata_asserts=graph.count("aten._assert_tensor_metadata.default"),
+                     dtype_casts=graph.count("aten.to.dtype"))
+        result[name].update(turns=turns, graph_nodes=nodes)
+        print(f"(e) {name} in turns in one process (in-process, loaded, loaded, in-process): "
+              f"forward ms {[round(t[0], 3) for t in turns['in_process']]} in-process, "
+              f"{[round(t[0], 3) for t in turns['loaded']]} loaded; the host's ms a forward "
+              f"{[round(t[1], 3) for t in turns['in_process']]} / "
+              f"{[round(t[1], 3) for t in turns['loaded']]} (CUDA events and the host clock, "
+              f"{EXPORT_TIMED} forwards a turn) on {card}; the loaded graph's op calls "
+              f"{json.dumps(nodes)}", flush=True)
+        del run
+
+    # (d) torch.export of the dynamic int8 engine on the same qpack
+    x = torch.from_numpy(clips[CLIP_BATCH]).to(DEV)
+    dyn = serving.ServingFn(cfg, sd, qpack=qpack, device=DEV, dynamic=True)
+    with torch.no_grad():
+        want = dyn(x)
+        t0 = time.perf_counter()
+        program = torch.export.export(dyn, (x,))
+        dyn_export_s = time.perf_counter() - t0
+        module = program.module()
+        module(x)
+        _int8_reset()
+        got = module(x)
+        counted = _export_counts()
+    launches = _add_counts(launches, counted)
+    nodes = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    mutating = {op: nodes.count(f"fvt.{op}.default") for op in
+                ("conv3d_s8_amax", "quantize_s8_given", "quantize_s8_dynamic")}
+    err = (got - want).abs().max().item()
+    print(f"(d) torch.export of the dynamic int8 engine: {dyn_export_s:.1f} s; the graph's "
+          f"mutating ops {mutating}; a forward's launches {counted} (want "
+          f"{EXPORT_FORWARD['int8_dynamic']}); scores vs the eager dynamic forward max |diff| "
+          f"{err:.3e} (tol {EXPORT_TOL})", flush=True)
+    if counted != EXPORT_FORWARD["int8_dynamic"] or err > EXPORT_TOL or mutating != {
+            "conv3d_s8_amax": 25, "quantize_s8_given": 25, "quantize_s8_dynamic": 1}:
+        raise SystemExit("(d) the dynamic int8 export lost its amax reductions or disagrees")
+    del program, module, dyn, fns
+    torch.cuda.empty_cache()
+
+    dispatch = _dispatch_costs(card)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return dict(launches=launches, export_s=export_s, artifacts=result,
+                dynamic=dict(export_s=dyn_export_s, launches=counted, max_abs_diff=err,
+                             mutating_ops=mutating),
+                dispatch=dispatch)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3117,13 +3482,16 @@ def main() -> int:
         acc_sites = phase_accuracy_sites()
         zoo = phase_zoo(card)
         int8 = phase_int8(card, entry["paths"])
+        export = phase_export(card, tmp)
+    int8["launches"]["export"] = export["launches"]
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
                 **{f"eval_{e}": ev[e]["launches"][kernel] for e in FORWARD_LAUNCHES},
                 "fit": fit_run["launches"][kernel],
                 **{run: c[kernel] for run, c in entry["launches"].items()},
-                **{run: c[kernel] for run, c in zoo["launches"].items()}}
+                **{run: c[kernel] for run, c in zoo["launches"].items()},
+                "export": export["launches"].get(kernel, 0)}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -3167,6 +3535,8 @@ def main() -> int:
                       "entry_points": entry["result"],
                       "zoo": {k: zoo[k] for k in ("serving", "train", "entry", "sites")},
                       "int8": {"tagger": int8["tagger"], "entry": int8["entry"]},
+                      "export": {k: export[k] for k in ("export_s", "artifacts", "dynamic",
+                                                        "dispatch")},
                       "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))

@@ -23,11 +23,14 @@ version.
 
 ``spatial_conv`` / ``temporal_conv`` are differentiable through two
 ``torch.autograd.Function``s, the counterparts of the JAX package's
-``_spatial_op`` / ``_temporal_op``: dx is the same forward kernel on the
-flipped, channel-transposed weights (``spatial_conv_dx_cuda`` /
-``temporal_conv_dx_cuda`` lay the weight out for it straight from the
-forward weight); the temporal dw is K3; the spatial dw is k*k tap-sliced
-matmuls (XLA's in the JAX package, the matmul library's here).
+``_spatial_op`` / ``_temporal_op``. Their forward calls K1 / K2 through
+the ops ``fvt::spatial_conv`` / ``fvt::temporal_conv`` (ops/library.py),
+which ``torch.export`` records; their backward calls the wrappers: dx is
+the same forward kernel on the flipped, channel-transposed weights
+(``spatial_conv_dx_cuda`` / ``temporal_conv_dx_cuda`` lay the weight out
+for it straight from the forward weight); the temporal dw is K3; the
+spatial dw is k*k tap-sliced matmuls (XLA's in the JAX package, the matmul
+library's here).
 
 Convs the kernels do not take (strided stage entries, the 3-channel stem,
 C < MIN_C) go to ``F.conv3d``, as the JAX package sends them to
@@ -372,7 +375,7 @@ class _SpatialOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _route(spatial_conv_cuda, spatial_conv_plain, x, w)
+        return torch.ops.fvt.spatial_conv.default(x, w)
 
     @staticmethod
     @once_differentiable
@@ -653,7 +656,7 @@ class _TemporalOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _route(temporal_conv_cuda, temporal_conv_plain, x, w)
+        return torch.ops.fvt.temporal_conv.default(x, w)
 
     @staticmethod
     @once_differentiable

@@ -42,7 +42,6 @@ from fastvideotagging_tpu_torch.ops.conv2plus1d import (
     _K1_BNS,
     SMEM_LIMIT,
     SMS,
-    _route,
     _sm_count,
 )
 
@@ -243,6 +242,13 @@ def out_size(n: int, k: int, s: int, pad) -> int:
     return (n + pad[0] + pad[1] - k) // s + 1
 
 
+def _check_form(out_f32, requant, amax):
+    if requant is not None and out_f32:
+        raise ValueError("a requantized output is int8 (and bf16), not f32")
+    if amax is not None and (out_f32 or requant is not None):
+        raise ValueError("the amax is reduced over a bf16 output, not an f32 or int8 one")
+
+
 def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32=False, residual=None,
               requant=None, amax=None):
     if q.dtype != torch.int8 or wk.dtype != torch.int8 or q.ndim != 5 or wk.ndim != 3:
@@ -254,16 +260,13 @@ def _check_q1(q, wk, kernel_size, mul, add, s, strides, pads, out_f32=False, res
         raise ValueError(f"q's channels {cp} must be a multiple of {CHANNEL_ALIGN} and wk "
                          f"(Co, {kt * kh * kw}, {cp}); got wk {tuple(wk.shape)}")
     co = wk.shape[0]
+    _check_form(out_f32, requant, amax)
     vectors = [("mul", mul), ("add", add)]
     scalars = [("s", s)]
     if requant is not None:
-        if out_f32:
-            raise ValueError("a requantized output is int8 (and bf16), not f32")
         vectors.append(("requant.inv_f", requant.inv_f))
         scalars.append(("requant.s", requant.s))
     if amax is not None:
-        if out_f32 or requant is not None:
-            raise ValueError("the amax is reduced over a bf16 output, not an f32 or int8 one")
         vectors.append(("amax.inv_f", amax.inv_f))
         if amax.out is not None:
             scalars.append(("amax.out", amax.out))
@@ -421,7 +424,8 @@ def conv3d_s8_plain(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool,
 def conv3d_s8(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool = False,
               out_f32: bool = False, residual: Residual | None = None,
               requant: Requant | None = None, amax: Amax | None = None):
-    """Q1 for a CUDA ``q``, its plain version for a CPU one.
+    """Q1 for a CUDA ``q``, its plain version for a CPU one, through the
+    op of its output form (ops/library.py).
 
     Without ``requant`` it returns the output, bf16 (f32 with ``out_f32``);
     with it, ``(q_next, s_next, y)``: the output quantized for the next site
@@ -430,9 +434,23 @@ def conv3d_s8(q, wk, kernel_size, mul, add, s, strides, pads, relu: bool = False
     output) it returns ``(y, amax)``: the next site's dynamic amax reduced
     into ``amax.out``. With ``residual`` the conv's own ReLU is off and
     ``relu`` is the block's, after the add."""
-    return _route(conv3d_s8_cuda, conv3d_s8_plain, q, wk, tuple(kernel_size), mul, add, s,
-                  tuple(strides), tuple(tuple(p) for p in pads), relu, out_f32, residual,
-                  requant, amax)
+    _check_form(out_f32, requant, amax)
+    res = ((residual.kind, residual.t, residual.inv_f, residual.s) if residual is not None
+           else ("", None, None, None))
+    args = (q, wk, [int(k) for k in kernel_size], mul, add, s, [int(st) for st in strides],
+            [int(p) for pair in pads for p in pair], relu)
+    if amax is not None:
+        out = amax.out if amax.out is not None else torch.zeros((), dtype=torch.float32,
+                                                                 device=q.device)
+        return torch.ops.fvt.conv3d_s8_amax.default(*args, *res, amax.inv_f, out), out
+    if requant is None:
+        return torch.ops.fvt.conv3d_s8.default(*args, out_f32, *res)
+    nxt = (requant.inv_f, requant.s)
+    if requant.keep_bf16:
+        qn, y = torch.ops.fvt.conv3d_s8_requant_bf16.default(*args, *res, *nxt)
+    else:
+        qn, y = torch.ops.fvt.conv3d_s8_requant.default(*args, *res, *nxt), None
+    return qn, requant.s.reshape(()), y
 
 
 # ---------------------------------------------------------------------------
@@ -536,5 +554,12 @@ def _quantize_plain(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None
 
 def quantize_s8(y: torch.Tensor, inv_f: torch.Tensor, s: torch.Tensor | None = None,
                 amax: torch.Tensor | None = None, slot=None):
-    """Q2 for a CUDA ``y``, its plain version for a CPU one."""
-    return _route(quantize_s8_cuda, quantize_s8_plain, y, inv_f, s, amax, slot)
+    """Q2 for a CUDA ``y``, its plain version for a CPU one, through the op
+    of its mode (ops/library.py): -> (q, s), ``s`` the static scale given or
+    ``slot``'s scale (None: a new zeroed slot) that the dynamic modes write."""
+    if s is not None:
+        return torch.ops.fvt.quantize_s8.default(y, inv_f, s), s.reshape(())
+    slot = _fresh_slot(y.device) if slot is None else slot
+    if amax is None:
+        return torch.ops.fvt.quantize_s8_dynamic.default(y, inv_f, slot[0], slot[1]), slot[1]
+    return torch.ops.fvt.quantize_s8_given.default(y, inv_f, amax, slot[1]), slot[1]

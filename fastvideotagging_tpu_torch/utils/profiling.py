@@ -3,10 +3,14 @@ on the card.
 
     python -m fastvideotagging_tpu_torch.utils.profiling [--model r2plus1d_18]
         [--clip-batch 8] [--iters 5] [--steps 20] [--train [--batch 32]] [--sites]
+        [--int8]
 
 Without ``--train``: the eval forward of a seeded random-weight model
 (16x112x112 clips, bf16) with ``kernels='cuda'``, ``kernels='torch'`` and
 the fused engine on K4 (``ops/fused_infer.py``, R(2+1)D only). With
+``--int8``: the forward with ``kernels='cuda'`` beside the int8 engine's
+(``ops/int8_infer.py``, on Q1 / Q2), static and dynamic, its qpack
+calibrated on the run's clips (r2plus1d only). With
 ``--train``: the training step of ``train/loop.py`` (preprocess, forward in
 train mode, loss, backward, SGD) for the ``r2plus1d18_ucf101`` preset on
 one seeded random batch of ``--batch`` clips, with ``kernels='cuda'`` and
@@ -132,7 +136,7 @@ def _forward_runs(args):
     x = torch.randn((args.clip_batch, 16, 112, 112, 3),
                     generator=torch.Generator(device="cuda").manual_seed(1),
                     device="cuda").to(torch.bfloat16)
-    for backend in ("cuda", "torch"):
+    for backend in ("cuda",) if args.int8 else ("cuda", "torch"):
         model = get_model(args.model, num_classes=400, backend=backend)
         model.load_state_dict(state)
 
@@ -141,6 +145,16 @@ def _forward_runs(args):
                 model(x)
         yield backend, dict(what="eval forward", clip_batch=args.clip_batch), run
     weights = {k: v.cuda() for k, v in state.items()}
+    if args.int8:
+        from fastvideotagging_tpu_torch.ops import int8_infer
+
+        qpack = int8_infer.quantize_variables(weights, int8_infer.calibrate(weights, [x]))
+        for mode in ("static", "dynamic"):
+            def int8(dynamic=mode == "dynamic"):
+                int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
+            yield f"int8_{mode}", dict(what="eval forward, int8 engine",
+                                       clip_batch=args.clip_batch), int8
+        return
     blocks = model.stage_blocks
 
     def fused():
@@ -224,6 +238,7 @@ def main() -> None:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--sites", action="store_true")
+    ap.add_argument("--int8", action="store_true")
     args = ap.parse_args()
     runs = _train_runs if args.train else _site_runs if args.sites else _forward_runs
     for backend, what, run in runs(args):

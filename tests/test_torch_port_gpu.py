@@ -1311,3 +1311,140 @@ def test_int8_engine_launches_and_plain_parity(cuda, dynamic, monkeypatch):
     ref = int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
     assert logits.shape == (2, 400) and torch.isfinite(logits).all()
     assert (logits - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The serving kernels as custom ops (ops/library.py) and the serving export
+# (evaluation/serving.py) on the card
+# ---------------------------------------------------------------------------
+
+
+def _cuda_opcheck_cases():
+    """Every ``fvt::*`` op on small CUDA inputs of the dtypes its kernel
+    takes: K1 / K2 bf16, Q1 in each epilogue form, Q2 in its three modes
+    (the dynamic ones on views of one scale buffer, as ScaleSlots hands
+    them out)."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    def s8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+
+    co = 40
+    inv_f = torch.rand(co, generator=g).to(dev) + 0.5
+    slots = torch.zeros((3, 2), device=dev)
+    yield "spatial_conv", (rand(6, 9, 11, 48, dtype=torch.bfloat16),
+                           rand(3, 3, 48, 40, dtype=torch.bfloat16))
+    yield "temporal_conv", (rand(2, 5, 13, 45, dtype=torch.bfloat16),
+                            rand(3, 45, 40, dtype=torch.bfloat16))
+    conv = (s8(2, 4, 6, 6, 32), s8(co, 27, 32), [3, 3, 3], torch.rand(co, generator=g).to(dev)
+            * 1e-3, rand(co), torch.tensor(0.05, device=dev), [1, 1, 1], [1, 1, 1, 1, 1, 1])
+    res = {"": ("", None, None, None),
+           "dequant": ("dequant", s8(2, 4, 6, 6, 48), inv_f, torch.tensor(0.02, device=dev)),
+           "f32": ("f32", rand(2, 4, 6, 6, co), None, None),
+           "bf16": ("bf16", rand(2, 4, 6, 6, co, dtype=torch.bfloat16), None, None)}
+    for kind, r in res.items():
+        name = kind or "plain"
+        relu = not kind
+        yield f"conv3d_s8[{name}]", (*conv, relu, False, *r)
+        yield f"conv3d_s8[{name},f32]", (*conv, relu, True, *r)
+        yield f"conv3d_s8_requant[{name}]", (*conv, relu, *r, inv_f,
+                                             torch.tensor(0.03, device=dev))
+        yield f"conv3d_s8_requant_bf16[{name}]", (*conv, relu, *r, inv_f,
+                                                  torch.tensor(0.03, device=dev))
+        yield f"conv3d_s8_amax[{name}]", (*conv, relu, *r, inv_f, slots[0, 0])
+    y = rand(2, 3, 5, co, dtype=torch.bfloat16)
+    yield "quantize_s8", (y, inv_f, torch.tensor(0.04, device=dev))
+    yield "quantize_s8_dynamic", (y, inv_f, slots[1, 0], slots[1, 1])
+    yield "quantize_s8_given", (y, inv_f, torch.tensor(3.5, device=dev), slots[2, 1])
+
+
+_CUDA_OPCHECK_IDS = ["spatial_conv", "temporal_conv"] + [
+    f"{op}[{kind}{suffix}]" for kind in ("plain", "dequant", "f32", "bf16")
+    for op, suffix in (("conv3d_s8", ""), ("conv3d_s8", ",f32"), ("conv3d_s8_requant", ""),
+                       ("conv3d_s8_requant_bf16", ""), ("conv3d_s8_amax", ""))] + [
+    "quantize_s8", "quantize_s8_dynamic", "quantize_s8_given"]
+
+
+@pytest.mark.parametrize("case", _CUDA_OPCHECK_IDS)
+def test_opcheck_every_fvt_op_on_the_card(cuda, case):
+    """``torch.library.opcheck`` (schema and mutations, the fake
+    implementation against the kernel's outputs, the op under AOT dispatch)
+    with CUDA inputs: the kernels, not their plain versions."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+
+    args = dict(_cuda_opcheck_cases())[case]
+    q8.reset_launch_counts()
+    ops.reset_launch_counts()
+    torch.library.opcheck(getattr(torch.ops.fvt, case.split("[")[0]), args)
+    torch.cuda.synchronize()
+    assert sum(q8.launch_counts.values()) + sum(ops.launch_counts.values()) > 0
+
+
+def _launches():
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+
+    torch.cuda.synchronize()
+    return {**q8.launch_counts, "spatial_conv": ops.launch_counts["spatial_conv"],
+            "temporal_conv": ops.launch_counts["temporal_conv"]}
+
+
+def _reset_launches():
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+
+    torch.cuda.synchronize()
+    q8.reset_launch_counts()
+    ops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("engine", ["bf16", "int8", "int8_dynamic"])
+def test_export_on_the_card_matches_the_eager_engine(cuda, engine, tmp_path):
+    """r2plus1d_18 (5 classes, bf16) at 4x32x32 clips from 40x56 frames:
+    ``export_serving`` -> ``load_serving`` on the card gives the eager
+    serving fn's scores bit for bit, with the same kernel launches a
+    forward (bf16: K1 / K2; int8: Q1 / Q2, the dynamic engine's in-place
+    amax reductions included)."""
+    from fastvideotagging_tpu_torch.config import (
+        ClipSamplerConfig,
+        DataConfig,
+        ExperimentConfig,
+        ModelConfig,
+    )
+    from fastvideotagging_tpu_torch.evaluation import serving
+
+    cfg = ExperimentConfig(
+        model=ModelConfig(name="r2plus1d_18", num_classes=5, multilabel=True, dropout=0.0),
+        data=DataConfig(resize_hw=(40, 56), crop_hw=(32, 32),
+                        sampler=ClipSamplerConfig(clip_len=4)))
+    sd = get_model("r2plus1d_18", num_classes=5, device=cuda,
+                   generator=torch.Generator().manual_seed(0)).state_dict()
+    clips = torch.randint(0, 256, (2, 4, 40, 56, 3), generator=torch.Generator().manual_seed(1),
+                          dtype=torch.uint8)
+    qpack = (serving.quantize_for_serving(cfg, sd, [clips.numpy()], device=cuda)
+             if engine != "bf16" else None)
+    fn = serving.ServingFn(cfg, sd, qpack=qpack, device=cuda, dynamic=engine == "int8_dynamic")
+    x = clips.to(cuda)
+    with torch.no_grad():
+        fn(x)  # builds the kernels
+        _reset_launches()
+        want = fn(x)
+        eager = _launches()
+        program = torch.export.export(fn, (x,))
+    path = str(tmp_path / "serving.pt2")
+    torch.export.save(program, path)
+    run = serving.load_serving(path)
+    _reset_launches()
+    got = run(clips.numpy())
+    loaded = _launches()
+    assert got.device.type == "cuda" and got.shape == (2, 5)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert loaded == eager
+    if engine == "bf16":
+        assert loaded["spatial_conv"] > 0 and loaded["temporal_conv"] > 0
+    else:
+        assert loaded["conv3d_s8"] == 28
+        assert (loaded["quantize_s8"], loaded["quantize_s8_amax"]) == (
+            (26, 1) if engine == "int8_dynamic" else (1, 0))

@@ -77,7 +77,10 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.ops.int8_conv",
             "fastvideotagging_tpu_torch.ops.int8_infer",
             "fastvideotagging_tpu_torch.evaluation.quantized",
-            "fastvideotagging_tpu_torch.cli.serve"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.cli.serve",
+            "fastvideotagging_tpu_torch.ops.library",
+            "fastvideotagging_tpu_torch.evaluation.serving",
+            "fastvideotagging_tpu_torch.cli.export"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -159,6 +162,33 @@ def test_entry_points_of_the_last_slice_raise_without_cuda(tmp_path):
     for case in cases:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             case()
+
+
+def test_export_entry_points_raise_without_cuda(tmp_path):
+    """cli.export and the serving export run on the card unless told
+    otherwise; an artifact exported with device='cpu' loads and runs on
+    the host."""
+    _needs_no_card()
+    from fastvideotagging_tpu_torch.cli import export as cli_export
+    from fastvideotagging_tpu_torch.evaluation import serving
+    from fastvideotagging_tpu_torch.train.checkpoint import export_weights
+
+    cfg = ExperimentConfig(model=ModelConfig(name="tiny3d", num_classes=3))
+    state = get_model("tiny3d", num_classes=3, device="cpu").state_dict()
+    weights = str(tmp_path / "w.pt")
+    export_weights(weights, state)
+    clips = np.zeros((1, 16, 128, 171, 3), np.uint8)
+    cases = [lambda: cli_export.main(["--model", "tiny3d", "--num-classes", "3", "--weights",
+                                      weights, "--out", str(tmp_path / "a")]),
+             lambda: serving.make_serving_fn(cfg, state),
+             lambda: serving.export_serving(cfg, state, 1),
+             lambda: serving.quantize_for_serving(cfg, state, [clips])]
+    for case in cases:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            case()
+    assert not (tmp_path / "a").exists()
+    run = serving.load_serving(serving.export_serving(cfg, state, 1, device="cpu"))
+    assert run(clips).shape == (1, 3)
 
 
 def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
