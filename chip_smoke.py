@@ -186,6 +186,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             time a forward beside; (f) the host time a call of K1, K2, Q1 and Q2
             through its ``fvt::*`` op and through the bare wrapper: the
             dispatcher's cost.
+12. native serving (csrc/fvt_ops.cpp, csrc/native_runner.cpp,
+            native/runner.py, evaluation/native_tagger.py): (a) the op
+            library and the CUDA runner built with g++ against libtorch (in
+            a thread from phase 2 on), the seconds; (b) ``cli.export
+            --format native`` of phase 11's weights, bf16 and ``--int8``
+            at clip_batch 8, and the dynamic int8 engine through
+            ``export_serving_native``: AOTInductor packages, their seconds
+            and bytes; (c) each package in the runner, one shot on seeded
+            uint8 clips: scores within 5e-2 of the in-process ``ServingFn``
+            (Inductor's glue rounds elsewhere), the C++ op library's
+            launches a forward (K1 13 / K2 14; Q1 28 / Q2 1; Q1 28 / Q2 26
+            + 1 amax pass; stage 4's K1 / K2 3 / 3), and no libpython in
+            the ``--serve`` daemon's /proc/<pid>/maps; a malformed request
+            line answered with an error line and the daemon alive after it;
+            (d) ``NativeTagger`` over phase 6's kind of eval pack, sequential
+            and ``--pipeline 2``, against the in-process ``Tagger`` (within
+            5e-2), ``cli.tag --engine native`` and ``cli.serve --engine
+            native`` (a pack, a missing path answered with an error line, a
+            JSON request after it); (e) in turns (in-process, native,
+            loaded, loaded, native, in-process): the in-process forward and
+            phase 11's loaded ``serving.pt2`` by CUDA events, the runner's
+            ``--bench`` (its own CUDA events on its execution stream and the
+            host's two-point slope), at clip_batch 8.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -201,7 +224,9 @@ times are one call at the tpu1 shape (K6, K8 at tiles <= 448). Q1's and
 Q2's path is phase 10's int8 runs; phase 11's runs add ``"export"`` to
 every entry's ``launches_by_run`` (its CLI exports, in-process forwards,
 the fresh process's forwards and the dynamic export's forwards, timing
-loops left out). Q1's and Q2's times are per static int8 forward
+loops left out), phase 12's ``"native"`` (the runner processes' counts
+from the C++ op library: one shot, bench, the daemons and taggers).
+Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -220,6 +245,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3458,7 +3484,265 @@ def phase_export(card: str, tmp: str) -> dict:
     return dict(launches=launches, export_s=export_s, artifacts=result,
                 dynamic=dict(export_s=dyn_export_s, launches=counted, max_abs_diff=err,
                              mutating_ops=mutating),
-                dispatch=dispatch)
+                dispatch=dispatch,
+                files=dict(dir=d11, argv=argv, int8_argv=int8_argv, state=state,
+                           frames=frames, video=video,
+                           loaded={e: paths[(e, CLIP_BATCH)] for e in ("bf16", "int8")}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the native serving tier (the fvt::* ops registered in C++, the
+# AOTInductor packages, the runner, NativeTagger, --engine native)
+# ---------------------------------------------------------------------------
+
+# the runner's scores against the in-process ServingFn: the same kernels, but
+# Inductor's fused glue (the uint8 preprocess, eval BatchNorm in bf16) rounds
+# at other places than the eager chain; the serving tolerance
+NATIVE_TOL = 5e-2
+NATIVE_BENCH = 12  # distinct instances of the runner's --bench: 1 warm-up, 2 + 9 timed
+NATIVE_ENGINES = ("bf16", "int8", "int8_dynamic")
+
+
+def start_native_build() -> dict:
+    """Phase 12(a)'s build, the op library and the CUDA runner (g++ against
+    libtorch, tens of seconds), in a thread while phases 3-11 run; phase 12
+    joins it (and the interpreter waits for it at exit)."""
+    job = {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            job["paths"] = _build.build_native()
+        except RuntimeError as e:
+            job["error"] = str(e)
+        job["s"] = time.perf_counter() - t0
+
+    job["thread"] = threading.Thread(target=build, name="native-build")
+    job["thread"].start()
+    return job
+
+
+def _native_counts(launches) -> dict:
+    """The op library's counts as phase 11's forward dicts have them."""
+    return {k: int((launches or {}).get(k, 0)) for k in EXPORT_FORWARD["bf16"]}
+
+
+def phase_native(card: str, tmp: str, export: dict, build: dict) -> dict:
+    """Phase 12: the native serving tier on phase 11's weights: the build,
+    ``cli.export --format native``, the runner one shot and as a daemon, the
+    taggers and CLIs on top of it, and the forward's ms in turns."""
+    print("== phase 12: native serving", flush=True)
+    t_phase = time.perf_counter()
+    from fastvideotagging_tpu_torch.cli import export as cli_export
+    from fastvideotagging_tpu_torch.cli.common import build_config
+    from fastvideotagging_tpu_torch.evaluation import serving
+    from fastvideotagging_tpu_torch.evaluation.native_tagger import NativeTagger
+    from fastvideotagging_tpu_torch.native import runner
+
+    # (a) the build started in phase 2
+    build["thread"].join()
+    if "error" in build:
+        raise SystemExit(f"(a) building the op library and the runner failed:\n"
+                         f"{build['error'][-4000:]}")
+    print(f"(a) the op library and the CUDA runner built with g++ against libtorch in "
+          f"{build['s']:.1f} s (a thread from phase 2 on): "
+          f"{json.dumps({k: os.path.basename(v) for k, v in build['paths'].items()})}",
+          flush=True)
+    files = export["files"]
+    d12 = os.path.join(tmp, "native")
+    os.makedirs(d12, exist_ok=True)
+    launches = _native_counts(None)  # summed over the runner processes
+
+    def add(counts):
+        for k, v in _native_counts(counts).items():
+            launches[k] += v
+
+    # (b) the packages: cli.export --format native, and the dynamic engine
+    pkgs, export_s = {}, {}
+    for engine, extra in (("bf16", []), ("int8", files["int8_argv"])):
+        t0 = time.perf_counter()
+        meta = cli_export.main(files["argv"] + ["--out", os.path.join(d12, engine), "--format",
+                                                "native"] + extra)
+        export_s[engine] = time.perf_counter() - t0
+        art = meta["artifacts"]
+        pkgs[engine] = os.path.join(d12, engine, art["native"]["file"])
+        if list(art) != ["native"] or art["native"]["device"] != "cuda" or meta["int8"] != (
+                engine == "int8"):
+            raise SystemExit(f"(b) cli.export --format native {engine} wrote {art}")
+    cfg = build_config(cli_export.parse_args(files["argv"] + ["--out", d12]))
+    sd = {k: v.to(DEV) for k, v in files["state"].items()}
+    calib = cli_export.collect_pack_calib_clips(cfg, files["video"], CLIP_BATCH)
+    qpack = serving.quantize_for_serving(cfg, sd, calib, device=DEV)
+    t0 = time.perf_counter()
+    pkgs["int8_dynamic"] = serving.export_serving_native(
+        cfg, sd, CLIP_BATCH, os.path.join(d12, "int8_dynamic.native.pt2"), qpack=qpack,
+        device=DEV, dynamic=True)
+    export_s["int8_dynamic"] = time.perf_counter() - t0
+    sizes = {e: os.path.getsize(p) for e, p in pkgs.items()}
+    for engine in NATIVE_ENGINES:
+        print(f"(b) {engine} AOTInductor package at clip_batch {CLIP_BATCH}: "
+              f"{export_s[engine]:.1f} s ({'cli.export --format native' if engine != 'int8_dynamic' else 'export_serving_native(dynamic=True)'}"
+              f"{', calibration included' if engine == 'int8' else ''}), {sizes[engine]} bytes",
+              flush=True)
+    fns = {"bf16": serving.ServingFn(cfg, sd, device=DEV),
+           "int8": serving.ServingFn(cfg, sd, qpack=qpack, device=DEV, dynamic=False),
+           "int8_dynamic": serving.ServingFn(cfg, sd, qpack=qpack, device=DEV, dynamic=True)}
+    t, (h, w) = cfg.data.sampler.clip_len, cfg.data.source_hw or cfg.data.resize_hw
+    clips = np.random.default_rng(SEED + 13).integers(
+        0, 256, (NATIVE_BENCH, CLIP_BATCH, t, h, w, 3), dtype=np.uint8)
+
+    def in_process(engine, x):
+        with torch.no_grad():
+            return fns[engine](torch.from_numpy(x).to(DEV)).float().cpu().numpy()
+
+    # (c) one shot, each package: scores, a forward's launches
+    one_shot = {}
+    for engine in NATIVE_ENGINES:
+        want = in_process(engine, clips[0])
+        t0 = time.perf_counter()
+        summary = runner.run_summary(pkgs[engine], [clips[0]], os.path.join(d12, f"run_{engine}"),
+                                     device=DEV)
+        run_s = time.perf_counter() - t0
+        got, counts = summary["outputs"][0], _native_counts(summary["launches"])
+        add(counts)
+        err = float(np.abs(got - want).max())
+        one_shot[engine] = dict(max_abs_diff=err, launches=counts, process_s=run_s)
+        print(f"(c) {engine}: the runner's scores vs the in-process ServingFn max |diff| "
+              f"{err:.3e} (tol {NATIVE_TOL}); the C++ op library's launches a forward {counts}; "
+              f"the process (load, one forward, exit) {run_s:.2f} s", flush=True)
+        if not (got.shape == want.shape and np.isfinite(got).all() and err <= NATIVE_TOL):
+            raise SystemExit(f"(c) the native {engine} package disagrees with the serving fn")
+        if counts != EXPORT_FORWARD[engine]:
+            raise SystemExit(f"(c) the native {engine} forward launched {counts}, not "
+                             f"{EXPORT_FORWARD[engine]}")
+
+    # (c) the daemon: no Python in its process; a malformed line answered
+    spec = [((CLIP_BATCH, t, h, w, 3), np.uint8)]
+    with runner.NativeServer(pkgs["bf16"], spec, os.path.join(d12, "serve"), device=DEV) as srv:
+        with open(f"/proc/{srv.pid}/maps") as f:
+            maps = f.read()
+        exe = os.readlink(f"/proc/{srv.pid}/exe")
+        first, = srv.request([clips[1]])
+        srv._proc.stdin.write("/no/such/request.bin\n")
+        srv._proc.stdin.flush()
+        bad = json.loads(srv._proc.stdout.readline())
+        srv._req_id += 1  # the raw line spent an id the client did not issue
+        after, = srv.request([clips[2]])
+        add(srv.launches)
+    no_python = "libpython" not in maps and "python" not in os.path.basename(exe)
+    daemon_err = max(float(np.abs(first - in_process("bf16", clips[1])).max()),
+                     float(np.abs(after - in_process("bf16", clips[2])).max()))
+    print(f"(c) the --serve daemon: {os.path.basename(exe)}, libpython in its maps: "
+          f"{'libpython' in maps}; a malformed line answered {json.dumps(bad)}, the next "
+          f"request served (max |diff| {daemon_err:.3e})", flush=True)
+    if not (no_python and "error" in bad and daemon_err <= NATIVE_TOL):
+        raise SystemExit("(c) the native daemon has Python in it or lost a request")
+
+    # (d) NativeTagger, cli.tag and cli.serve --engine native over an eval pack
+    pack = os.path.join(d12, "eval.fvtpack")
+    write_pack_from_arrays(list(_eval_items()), pack, (h, w), EVAL_CLASSES)
+    tagger = Tagger(cfg, sd, clip_batch=CLIP_BATCH, device=DEV)
+    p = open_dataset(pack, cfg.data, mode="eval").pack
+    ref = {rec.path: tagger.scores_from(lambda idx, _i=i: p.gather(_i, idx),
+                                        p.entries[i]["probe_frames"])
+           for i, rec in enumerate(p.records(""))}
+    closed = []
+    close = runner.NativeServer.close
+
+    def counting_close(server):  # the CLIs' daemons' counts
+        closed.append(server.launches)
+        close(server)
+
+    taggers = {}
+    runner.NativeServer.close = counting_close
+    try:
+        for pipeline in (0, 2):
+            t0 = time.perf_counter()
+            with NativeTagger(os.path.join(d12, "bf16"), pipeline=pipeline, device=DEV) as nt:
+                got = dict(nt.iter_pack_scores(pack))
+            err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+            taggers[pipeline] = dict(max_abs_diff=err, s=time.perf_counter() - t0)
+            print(f"(d) NativeTagger --pipeline {pipeline} over the {len(ref)}-video pack: "
+                  f"video scores vs the in-process Tagger max |diff| {err:.3e} (tol "
+                  f"{NATIVE_TOL}), {taggers[pipeline]['s']:.2f} s", flush=True)
+            if list(got) != list(ref) or err > NATIVE_TOL:
+                raise SystemExit("(d) NativeTagger disagrees with the in-process Tagger")
+        art_flags = ["--engine", "native", "--artifacts", os.path.join(d12, "bf16")]
+        _, printed = _quiet(cli_tag.main, [pack] + art_flags + ["--threshold", "0.0"])
+        lines = [json.loads(line) for line in printed.strip().splitlines()]
+        tag_err = max(abs(tg["score"] - float(ref[r["video"]][int(tg["tag"].split("_")[1])]))
+                      for r in lines for tg in r["tags"])
+        missing = os.path.join(d12, "missing.fvtpack")
+        stdin = sys.stdin
+        sys.stdin = io.StringIO(f"{pack}\n{missing}\n" + json.dumps({"video": pack, "top_k": 2})
+                                + "\n")
+        err_buf = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err_buf):
+                stats, printed = _quiet(cli_serve.main, art_flags + ["--threshold", "0.0"])
+        finally:
+            sys.stdin = stdin
+    finally:
+        runner.NativeServer.close = close
+    for counts in closed:
+        add(counts)
+    resp = [json.loads(line) for line in printed.strip().splitlines()]
+    n = len(ref)
+    print(f"(d) cli.tag --engine native: {len(lines)} lines, scores vs the in-process Tagger "
+          f"max |diff| {tag_err:.3e}; cli.serve --engine native: {stats}, {len(resp)} lines, "
+          f"line {n + 1} {json.dumps(resp[n]) if len(resp) > n else None}", flush=True)
+    if len(lines) != n or tag_err > NATIVE_TOL:
+        raise SystemExit("(d) cli.tag --engine native did not answer as it should")
+    if not (stats == {"served": 2, "errors": 1} and len(resp) == 2 * n + 1
+            and "error" in resp[n] and all(len(r["tags"]) == 2 for r in resp[n + 1:])
+            and "ready" in err_buf.getvalue()):
+        raise SystemExit("(d) cli.serve --engine native did not answer as it should")
+
+    # (e) the forward at clip_batch 8 in turns: in-process and phase 11's loaded
+    # serving.pt2 by CUDA events here, the runner's --bench in its process
+    turns = {}
+    for engine in NATIVE_ENGINES:
+        loaded = (serving.load_serving(files["loaded"][engine]) if engine in files["loaded"]
+                  else None)
+        x = torch.from_numpy(clips[0]).to(DEV)
+        rec = {"in_process": [], "native": [], "loaded": []}
+        order = ("in_process", "native", "loaded", "loaded", "native", "in_process")
+        for route in order:
+            if route == "loaded" and loaded is None:
+                continue
+            if route == "native":
+                summary = runner.run_summary(pkgs[engine], [clips],
+                                             os.path.join(d12, f"bench_{engine}"), device=DEV,
+                                             bench=NATIVE_BENCH)
+                add(summary["launches"])
+                b = summary.get("bench")
+                last = float(np.abs(summary["outputs"][0]
+                                    - in_process(engine, clips[-1])).max())
+                if b is None or b["device_ms_per_exec"] <= 0 or last > NATIVE_TOL:
+                    raise SystemExit(f"(e) the runner's --bench of {engine} failed: {b}, "
+                                     f"last instance max |diff| {last:.3e}")
+                rec["native"].append((b["device_ms_per_exec"], b["sec_per_exec"] * 1e3))
+            else:
+                with torch.no_grad():
+                    rec[route].append(_ms_and_host(fns[engine] if route == "in_process"
+                                                   else loaded, x))
+        turns[engine] = rec
+        fmt = {k: [[round(a, 3), round(b, 3)] for a, b in v] for k, v in rec.items() if v}
+        print(f"(e) {engine} at clip_batch {CLIP_BATCH} in turns (in-process, native, loaded, "
+              f"loaded, native, in-process): [device ms by CUDA events, host ms] a forward "
+              f"{json.dumps(fmt)}; the runner's {CLIP_BATCH} / device ms = "
+              f"{[round(CLIP_BATCH / a * 1e3, 1) for a, _ in rec['native']]} clips/s on {card}",
+              flush=True)
+        del loaded
+    torch.cuda.empty_cache()
+    print(f"(f) phase 12's launches counted by the C++ op library {launches}", flush=True)
+    if min(launches.values()) == 0:
+        raise SystemExit(f"(f) a serving kernel was launched no time in phase 12: {launches}")
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return dict(launches=launches, build_s=build["s"], export_s=export_s, bytes=sizes,
+                one_shot=one_shot, daemon=dict(no_python=no_python, max_abs_diff=daemon_err,
+                                               bad_request=bad),
+                tagger=taggers, cli=dict(tag_max_abs_diff=tag_err, serve=stats), turns=turns)
 
 
 def main() -> int:
@@ -3469,6 +3753,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
+    native_build = start_native_build()
     agg = phase_kernels(card)
     phase_functions()
     k4 = phase_fused_kernel(card)
@@ -3483,7 +3768,9 @@ def main() -> int:
         zoo = phase_zoo(card)
         int8 = phase_int8(card, entry["paths"])
         export = phase_export(card, tmp)
+        native = phase_native(card, tmp, export, native_build)
     int8["launches"]["export"] = export["launches"]
+    int8["launches"]["native"] = native["launches"]
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
@@ -3491,7 +3778,8 @@ def main() -> int:
                 "fit": fit_run["launches"][kernel],
                 **{run: c[kernel] for run, c in entry["launches"].items()},
                 **{run: c[kernel] for run, c in zoo["launches"].items()},
-                "export": export["launches"].get(kernel, 0)}
+                "export": export["launches"].get(kernel, 0),
+                "native": native["launches"].get(kernel, 0)}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -3537,6 +3825,7 @@ def main() -> int:
                       "int8": {"tagger": int8["tagger"], "entry": int8["entry"]},
                       "export": {k: export[k] for k in ("export_s", "artifacts", "dynamic",
                                                         "dispatch")},
+                      "native": {k: v for k, v in native.items() if k != "launches"},
                       "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))

@@ -8,8 +8,7 @@ knobs the port does not have yet are accepted and raise
 ``NotImplementedError`` naming their ROADMAP.md Queue A item: the
 multi-host flags (``--coordinator``, ``--num-processes``, ``--process-id``;
 item 7). Training raises for ``--data-parallel`` / ``--model-parallel`` > 1
-(item 7) and the entry points for their own flags (``--engine native``,
-``--artifacts`` and ``--pipeline``, item 6).
+(item 7).
 """
 
 from __future__ import annotations

@@ -8,9 +8,14 @@ artifacts to ``--out``:
 * ``serving.pt2`` — a ``torch.export`` artifact, reloadable by any process
   that imports the port's op library, through
   ``evaluation.serving.load_serving`` (``--format torch``).
+* ``serving.native.pt2`` — the same program compiled ahead of time by
+  AOTInductor for the no-Python C++ runner (``--format native``; the
+  counterpart of the JAX CLI's ``stablehlo``): ``cli.tag`` / ``cli.serve
+  --engine native --artifacts DIR`` serve it. ``--format both`` writes both.
 * ``meta.json`` — input/output shapes+dtypes, model identity, tag names:
   everything a serving front-end needs to feed the program (the JAX CLI's
-  keys; ``artifacts`` names ``serving.pt2``).
+  keys; ``artifacts`` names each file, the native package with the device
+  it was compiled for).
 
 ``--int8`` exports through the PTQ engine (int8 weights + requant
 constants baked in as the program's buffers), calibrated on dense clips
@@ -21,10 +26,10 @@ videos) — pass clips representative of production traffic.
         --model r2plus1d_18 --num-classes 1000 --multilabel \
         --clip-batch 8 [--int8 --calib-video sample.mp4]
 
-The artifact runs on the device it was exported on: the card unless
-``--device cpu``. Not ported yet: ``--format stablehlo`` / ``both`` and
-``--platforms`` (raw StableHLO for the C++ runner and cross-platform
-lowering; ROADMAP.md Queue A item 6).
+The artifacts run on the device they were exported on: the card unless
+``--device cpu``. ``--platforms`` (the JAX CLI's cross-platform lowering)
+is refused: an AOTInductor package is compiled for the device it is built
+on.
 """
 
 from __future__ import annotations
@@ -34,13 +39,19 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from fastvideotagging_tpu_torch.cli.common import add_common_flags, apply_platform, build_config
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.data import decode, sampler
 from fastvideotagging_tpu_torch.data.frames import _ensure_size
 from fastvideotagging_tpu_torch.data.packed import Pack, is_pack
-from fastvideotagging_tpu_torch.evaluation.serving import export_serving, quantize_for_serving
+from fastvideotagging_tpu_torch.evaluation.serving import (
+    NATIVE_PACKAGE,
+    export_serving,
+    export_serving_native,
+    quantize_for_serving,
+)
 from fastvideotagging_tpu_torch.train.checkpoint import load_weights
 from fastvideotagging_tpu_torch.utils.logging import get_logger
 
@@ -55,12 +66,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--out", required=True, help="output artifact directory")
     p.add_argument("--clip-batch", type=int, default=8,
                    help="baked batch size of the serving program")
-    p.add_argument("--format", choices=["torch", "stablehlo", "both"], default="torch",
-                   help="torch: serving.pt2; stablehlo / both: not ported yet "
-                        "(ROADMAP.md Queue A item 6)")
+    p.add_argument("--format", choices=["torch", "native", "both"], default="torch",
+                   help="torch: serving.pt2; native: serving.native.pt2 (AOTInductor, "
+                        "for the C++ runner); both: the two")
     p.add_argument("--platforms", nargs="*", default=None, metavar="PLAT",
-                   help="not ported yet (ROADMAP.md Queue A item 6): the artifact "
-                        "is for the device it is exported on (--device)")
+                   help="refused: the artifacts are compiled for the device they are "
+                        "exported on (--device)")
     p.add_argument("--tag-names", default=None,
                    help="text file, one tag name per line, copied into "
                         "meta.json")
@@ -114,18 +125,24 @@ def collect_pack_calib_clips(cfg: ExperimentConfig, pack_path: str, clip_batch: 
             for i, e in enumerate(pack.entries)]
 
 
-def _check_ported(fmt: str, platforms) -> None:
-    if fmt != "torch" or platforms is not None:
-        raise NotImplementedError(
-            "--format stablehlo / both and --platforms need the native runner's "
-            "artifact, which is not ported yet (ROADMAP.md Queue A item 6)")
+FORMATS = ("torch", "native", "both")
+
+
+def _check_format(fmt: str, platforms) -> None:
+    if fmt not in FORMATS:
+        raise SystemExit(f"--format {fmt}: one of {', '.join(FORMATS)}")
+    if platforms is not None:
+        raise SystemExit(
+            "--platforms: the artifacts are compiled for the device they are exported on "
+            "(--device); there is no cross-platform lowering")
 
 
 def export_artifacts(cfg: ExperimentConfig, state_dict: dict, out_dir: str,
                      clip_batch: int, fmt: str = "torch", platforms=None,
                      tag_names=None, qpack=None, device="cuda") -> dict:
-    """Write the serving artifact + meta.json to ``out_dir``; returns meta."""
-    _check_ported(fmt, platforms)
+    """Write the serving artifact(s) of ``fmt`` + meta.json to ``out_dir``;
+    returns meta."""
+    _check_format(fmt, platforms)
     os.makedirs(out_dir, exist_ok=True)
     d = cfg.data
     h, w = d.source_hw or d.resize_hw
@@ -155,10 +172,19 @@ def export_artifacts(cfg: ExperimentConfig, state_dict: dict, out_dir: str,
         "tag_names": tag_names,
         "artifacts": {},
     }
-    path = os.path.join(out_dir, "serving.pt2")
-    data = export_serving(cfg, state_dict, clip_batch, path=path, qpack=qpack, device=device)
-    meta["artifacts"]["torch"] = {"file": "serving.pt2", "bytes": len(data)}
-    log.info("export: wrote %s (%d bytes)", path, len(data))
+    if fmt in ("torch", "both"):
+        path = os.path.join(out_dir, "serving.pt2")
+        data = export_serving(cfg, state_dict, clip_batch, path=path, qpack=qpack,
+                              device=device)
+        meta["artifacts"]["torch"] = {"file": "serving.pt2", "bytes": len(data)}
+        log.info("export: wrote %s (%d bytes)", path, len(data))
+    if fmt in ("native", "both"):
+        path = export_serving_native(cfg, state_dict, clip_batch,
+                                     os.path.join(out_dir, NATIVE_PACKAGE), qpack=qpack,
+                                     device=device)
+        meta["artifacts"]["native"] = {"file": NATIVE_PACKAGE, "bytes": os.path.getsize(path),
+                                       "device": torch.device(device).type}
+        log.info("export: wrote %s (%d bytes)", path, os.path.getsize(path))
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=2)
     return meta
@@ -168,7 +194,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = apply_platform(args)
     cfg = build_config(args)
-    _check_ported(args.format, args.platforms)
+    _check_format(args.format, args.platforms)
 
     tag_names = None
     if args.tag_names:

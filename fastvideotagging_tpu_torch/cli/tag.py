@@ -8,14 +8,21 @@
 backfill tier). One JSON line per video: ``{"video", "tags": [{"tag",
 "score"}]}``, scores rounded to 5 places. ``--int8`` serves through the
 int8 engine, self-calibrated per video. Runs on the card unless
-``--device cpu``. Not ported yet: ``--engine native``, ``--artifacts`` and
-``--pipeline`` (the C++ daemon, ROADMAP.md Queue A item 6).
+``--device cpu``.
+
+``--engine native --artifacts art/`` scores through the long-running C++
+daemon (csrc/native_runner.cpp) on a ``cli.export --format native``
+package instead of the in-process engine; for packs the daemon pipelines:
+``--pipeline K`` requests are staged ahead while the device executes, with
+bit-identical aggregation. The sampler, the clip batch and ``--int8`` are
+baked into the package (its meta.json).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 from fastvideotagging_tpu_torch.cli.common import (
     add_common_flags,
@@ -44,28 +51,50 @@ def main(argv=None) -> None:
                    help="serve through the int8 PTQ engine (self-calibrates "
                         "on each video's first chunk)")
     p.add_argument("--engine", choices=["torch", "native"], default="torch",
-                   help="torch: in-process engine from --weights; native: not "
-                        "ported yet (ROADMAP.md Queue A item 6)")
+                   help="torch: in-process engine from --weights. native: the C++ "
+                        "daemon from --artifacts (Python stays a host-only decode "
+                        "front end)")
     p.add_argument("--artifacts", default=None,
-                   help="not ported yet (ROADMAP.md Queue A item 6)")
-    p.add_argument("--pipeline", type=int, default=None,
-                   help="not ported yet (ROADMAP.md Queue A item 6)")
+                   help="export-CLI artifact dir (required with --engine native)")
+    p.add_argument("--pipeline", type=int, default=2,
+                   help="native engine: requests staged ahead of execution in the "
+                        "daemon; bulk pack tagging keeps this many chunks in flight "
+                        "(0 = strictly sequential)")
     args = p.parse_args(argv)
     dev = apply_platform(args)
     cfg = build_config(args)
-    if args.engine == "native" or args.artifacts is not None or args.pipeline is not None:
-        raise NotImplementedError(
-            "--engine native, --artifacts and --pipeline need the C++ serving "
-            "daemon, which is not ported yet (ROADMAP.md Queue A item 6)")
-    if not args.weights:
-        raise SystemExit("--engine torch needs --weights")
 
     tag_names = None
     if args.tag_names:
         with open(args.tag_names) as f:
             tag_names = [line.strip() for line in f if line.strip()]
-    tagger = Tagger(cfg, load_weights(args.weights), tag_names,
-                    clip_batch=args.clip_batch, int8=args.int8, device=dev)
+
+    if args.engine == "native":
+        if not args.artifacts:
+            raise SystemExit("--engine native needs --artifacts (an export-CLI directory: "
+                             "serving.native.pt2 + meta.json)")
+        if args.int8:
+            raise SystemExit("--int8 is baked at export time for the native engine "
+                             "(cli.export --int8)")
+        # The native engine's sampling and batch are frozen in the exported
+        # meta.json: these flags are refused rather than ignored.
+        raw = list(argv) if argv is not None else sys.argv[1:]
+        frozen = {"--weights", "--clip-len", "--stride", "--eval-mode", "--num-eval-clips",
+                  "--clip-batch", "--resize", "--crop"}
+        offending = sorted(frozen.intersection(raw))
+        if offending:
+            raise SystemExit(
+                f"{' '.join(offending)}: fixed at export time for --engine native (see "
+                f"{args.artifacts}/meta.json); re-export with cli.export to change them")
+        from fastvideotagging_tpu_torch.evaluation.native_tagger import NativeTagger
+
+        tagger = NativeTagger(args.artifacts, tag_names=tag_names, pipeline=args.pipeline,
+                              device=dev)
+    else:
+        if not args.weights:
+            raise SystemExit("--engine torch needs --weights")
+        tagger = Tagger(cfg, load_weights(args.weights), tag_names,
+                        clip_batch=args.clip_batch, int8=args.int8, device=dev)
 
     def emit(video, results):
         print(json.dumps({
@@ -74,15 +103,19 @@ def main(argv=None) -> None:
                      for r in results],
         }))
 
-    for video in args.videos:
-        if is_pack(video):
-            for path, results in iter_pack_tags(
-                    tagger, video, threshold=args.threshold,
-                    top_k=args.top_k, root=cfg.data.root or ""):
-                emit(path, results)
-        else:
-            emit(video, tagger.tag(video, threshold=args.threshold,
-                                   top_k=args.top_k))
+    try:
+        for video in args.videos:
+            if is_pack(video):
+                for path, results in iter_pack_tags(
+                        tagger, video, threshold=args.threshold,
+                        top_k=args.top_k, root=cfg.data.root or ""):
+                    emit(path, results)
+            else:
+                emit(video, tagger.tag(video, threshold=args.threshold,
+                                       top_k=args.top_k))
+    finally:
+        if hasattr(tagger, "close"):
+            tagger.close()  # the native engine owns a daemon and a workdir
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ as the ``variables`` argument. Coverage comes from the architecture specs
 from __future__ import annotations
 
 from fastvideotagging_tpu_torch.models import heads
-from fastvideotagging_tpu_torch.ops.arch_spec import spec_for
+from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, spec_for  # noqa: F401
 from fastvideotagging_tpu_torch.ops.int8_infer import calibrate, int8_infer, quantize_variables
 
 # The stage depths of the r2plus1d family (coverage itself lives in

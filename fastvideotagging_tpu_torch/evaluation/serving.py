@@ -16,9 +16,16 @@ with ``backend="xla"`` for portability across XLA backends; this artifact
 is for the device it was exported on. Its weights live on that device, so
 loading it without a card raises.
 
-The native-runner format (the JAX package's ``export_serving_stablehlo``,
-raw StableHLO for the C++ PJRT runner) is not ported yet: it comes with the
-runner (ROADMAP.md Queue A item 6).
+``export_serving_native`` is the native-runner format (the counterpart of
+the JAX package's ``export_serving_stablehlo``, raw StableHLO for its C++
+PJRT runner): the same program compiled ahead of time by AOTInductor into
+one package, ``serving.native.pt2``, that the C++ runner
+(csrc/native_runner.cpp, driven by native/runner.py) loads and runs with no
+Python in its process. Inductor compiles the glue (the uint8 preprocess,
+eval BatchNorm, ReLU, the residual adds, the head), as XLA compiles the
+reference's StableHLO; the hand kernels stay extern calls of the ``fvt::*``
+ops, which the runner takes from the C++ op library (csrc/fvt_ops.cpp).
+The package is compiled for the device it is exported on.
 """
 
 from __future__ import annotations
@@ -35,9 +42,13 @@ from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.evaluation.quantized import _resolved
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
+from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import library  # noqa: F401  (registers fvt::*)
 from fastvideotagging_tpu_torch.ops.int8_infer import calibrate, int8_infer, quantize_variables
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
+
+
+NATIVE_PACKAGE = "serving.native.pt2"  # the native format's file in an export directory
 
 
 class ServingFn(nn.Module):
@@ -135,6 +146,27 @@ def export_serving(cfg: ExperimentConfig, state_dict: dict, clip_batch: int,
         with open(path, "wb") as f:
             f.write(data)
     return data
+
+
+def export_serving_native(cfg: ExperimentConfig, state_dict: dict, clip_batch: int, path: str,
+                          qpack=None, device: str | torch.device = "cuda",
+                          dynamic: bool | None = None) -> str:
+    """The serving fn for a static (clip_batch, T, H, W, 3) uint8 input
+    (``export_serving``'s program; ``dynamic`` picks the int8 engine's mode,
+    the spec's default where None), compiled by AOTInductor for ``device``
+    into the package at ``path``; returns ``path``."""
+    dev = resolve_device(device)
+    fn = ServingFn(cfg, state_dict, qpack=qpack, device=dev, dynamic=dynamic)
+    d = cfg.data
+    h, w = d.source_hw or d.resize_hw
+    example = torch.zeros((clip_batch, d.sampler.clip_len, h, w, 3), dtype=torch.uint8,
+                          device=dev)
+    with torch.no_grad():
+        program = torch.export.export(fn, (example,))
+        # the package's C++ is compiled and linked by the g++ that builds the
+        # runner and the op library (ops/_build.py), not one that $CXX may name
+        return torch._inductor.aoti_compile_and_package(
+            program, package_path=path, inductor_configs={"cpp.cxx": (None, _build._gxx())})
 
 
 def load_serving(path_or_bytes):

@@ -238,7 +238,10 @@ def iter_pack_tags(engine, pack, threshold: float = 0.5,
                    top_k: int | None = None, root: str = ""):
     """Bulk-tag every video in a ``.fvtpack`` — the decode-once backfill
     tier: no decode per request, frames served from the pack's mmap to any
-    engine that exposes ``scores_from`` and ``ship_hw`` (``Tagger``).
+    engine that exposes ``scores_from`` and ``ship_hw`` (``Tagger``,
+    ``NativeTagger``). An engine with ``iter_pack_scores`` (NativeTagger,
+    which keeps several chunks in flight in its daemon) scores the whole
+    pack itself, with the same chunks and f64 aggregation.
 
     Sampling parity with the streaming ``tag()`` holds by construction: the
     pack stores ship-geometry frames from the same decode + resize path and
@@ -251,6 +254,10 @@ def iter_pack_tags(engine, pack, threshold: float = 0.5,
         raise ValueError(
             f"pack geometry {pack.height}x{pack.width} != the engine's ship "
             f"geometry {ship}; re-write the pack at this config")
+    if hasattr(engine, "iter_pack_scores"):
+        for path, scores in engine.iter_pack_scores(pack, root=root):
+            yield path, rank_tags(scores, engine.tag_names, threshold=threshold, top_k=top_k)
+        return
     for i, rec in enumerate(pack.records(root)):
         scores = engine.scores_from(
             lambda idx, _i=i: pack.gather(_i, idx),

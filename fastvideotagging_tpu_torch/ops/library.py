@@ -10,8 +10,10 @@ paths go through the same ops (``spatial_conv`` / ``temporal_conv`` inside
 K1's and K2's ``autograd.Function``s, ``conv3d_s8`` and ``quantize_s8`` of
 ops/int8_conv.py): one route.
 
-Each op is defined from its schema string (the text a C++ registration
-would take) with one kernel for every device (``CompositeExplicitAutograd``):
+Each op is defined from its schema string in ``csrc/fvt_schemas.inc``,
+the one source of the nine schemas, which csrc/fvt_ops.cpp also registers
+in C++ for the native runner (evaluation/serving.py's AOTInductor
+package), with one kernel for every device (``CompositeExplicitAutograd``):
 the wrapper's route (``conv2plus1d._route``), where a CUDA tensor launches
 the kernel or raises and a CPU tensor takes the plain version. Each wrapper
 adds to its launch count where it launches its kernel, so the counts are of
@@ -46,22 +48,35 @@ No op returns an input or a view of one: the scale that the Python
 wrappers return beside an int8 output is the caller's own tensor.
 """
 
+import os
+import re
+
 import torch
 
+from fastvideotagging_tpu_torch.ops import _build
 from fastvideotagging_tpu_torch.ops import conv2plus1d as k12
 from fastvideotagging_tpu_torch.ops import int8_conv as q8
 
+SCHEMA_FILE = os.path.join(_build.CSRC, "fvt_schemas.inc")
+
+
+def read_schemas() -> dict[str, str]:
+    """The ``FVT_SCHEMA("...")`` lines of ``SCHEMA_FILE``: {op name:
+    schema}, in the file's order."""
+    with open(SCHEMA_FILE) as f:
+        schemas = re.findall(r'^FVT_SCHEMA\("([^"]+)"\)$', f.read(), re.M)
+    return {s.split("(")[0]: s for s in schemas}
+
+
+SCHEMAS = read_schemas()
 _LIB = torch.library.Library("fvt", "DEF")  # the ops live as long as the process
 
-_Q1_ARGS = ("Tensor q, Tensor wk, int[] kernel_size, Tensor mul, Tensor add, Tensor s, "
-            "int[] strides, int[] pads, bool relu")
-_RES_ARGS = "str res_kind, Tensor? res, Tensor? res_inv_f, Tensor? res_s"
 
-
-def _op(schema: str, fake):
-    """Define ``fvt::<schema>`` with the decorated function as its kernel on
-    every device and ``fake`` as its fake implementation; -> the op."""
-    name = schema.split("(")[0]
+def _op(name: str, fake):
+    """Define ``fvt::<name>`` from its schema in ``SCHEMAS`` with the
+    decorated function as its kernel on every device and ``fake`` as its
+    fake implementation; -> the op."""
+    schema = SCHEMAS[name]
 
     def register(kernel):
         _LIB.define(schema)
@@ -75,12 +90,12 @@ def _conv_fake(x, w):
     return x.new_empty((*x.shape[:-1], w.shape[-1]))
 
 
-@_op("spatial_conv(Tensor x, Tensor w) -> Tensor", _conv_fake)
+@_op("spatial_conv", _conv_fake)
 def spatial_conv(x, w):
     return k12._route(k12.spatial_conv_cuda, k12.spatial_conv_plain, x, w)
 
 
-@_op("temporal_conv(Tensor x, Tensor w) -> Tensor", _conv_fake)
+@_op("temporal_conv", _conv_fake)
 def temporal_conv(x, w):
     return k12._route(k12.temporal_conv_cuda, k12.temporal_conv_plain, x, w)
 
@@ -107,7 +122,7 @@ def _q1_fake(q, wk, kernel_size, mul, add, s, strides, pads, relu, out_f32, *res
                        dtype=torch.float32 if out_f32 else torch.bfloat16)
 
 
-@_op(f"conv3d_s8({_Q1_ARGS}, bool out_f32, {_RES_ARGS}) -> Tensor", _q1_fake)
+@_op("conv3d_s8", _q1_fake)
 def conv3d_s8(q, wk, kernel_size, mul, add, s, strides, pads, relu, out_f32, res_kind, res,
               res_inv_f, res_s):
     return _q1(q, wk, kernel_size, mul, add, s, strides, pads, relu, out_f32, res_kind, res,
@@ -119,8 +134,7 @@ def _requant_fake(q, wk, kernel_size, mul, add, s, strides, pads, *rest):
     return q.new_empty((*shape[:-1], q8.padded_channels(shape[-1])))
 
 
-@_op(f"conv3d_s8_requant({_Q1_ARGS}, {_RES_ARGS}, Tensor q_inv_f, Tensor q_s) -> Tensor",
-     _requant_fake)
+@_op("conv3d_s8_requant", _requant_fake)
 def conv3d_s8_requant(q, wk, kernel_size, mul, add, s, strides, pads, relu, res_kind, res,
                       res_inv_f, res_s, q_inv_f, q_s):
     return _q1(q, wk, kernel_size, mul, add, s, strides, pads, relu, False, res_kind, res,
@@ -132,8 +146,7 @@ def _requant_bf16_fake(q, wk, kernel_size, mul, add, s, strides, pads, *rest):
             _q1_fake(q, wk, kernel_size, mul, add, s, strides, pads, False, False))
 
 
-@_op(f"conv3d_s8_requant_bf16({_Q1_ARGS}, {_RES_ARGS}, Tensor q_inv_f, Tensor q_s) "
-     "-> (Tensor, Tensor)", _requant_bf16_fake)
+@_op("conv3d_s8_requant_bf16", _requant_bf16_fake)
 def conv3d_s8_requant_bf16(q, wk, kernel_size, mul, add, s, strides, pads, relu, res_kind, res,
                            res_inv_f, res_s, q_inv_f, q_s):
     qn, _, y = _q1(q, wk, kernel_size, mul, add, s, strides, pads, relu, False, res_kind, res,
@@ -145,8 +158,7 @@ def _amax_fake(q, wk, kernel_size, mul, add, s, strides, pads, *rest):
     return _q1_fake(q, wk, kernel_size, mul, add, s, strides, pads, False, False)
 
 
-@_op(f"conv3d_s8_amax({_Q1_ARGS}, {_RES_ARGS}, Tensor amax_inv_f, Tensor(a!) amax) -> Tensor",
-     _amax_fake)
+@_op("conv3d_s8_amax", _amax_fake)
 def conv3d_s8_amax(q, wk, kernel_size, mul, add, s, strides, pads, relu, res_kind, res,
                    res_inv_f, res_s, amax_inv_f, amax):
     return _q1(q, wk, kernel_size, mul, add, s, strides, pads, relu, False, res_kind, res,
@@ -161,19 +173,17 @@ def _q2_fake(y, *rest):
     return y.new_empty((*y.shape[:-1], q8.padded_channels(y.shape[-1])), dtype=torch.int8)
 
 
-@_op("quantize_s8(Tensor y, Tensor inv_f, Tensor s) -> Tensor", _q2_fake)
+@_op("quantize_s8", _q2_fake)
 def quantize_s8(y, inv_f, s):
     return _q2(y, inv_f, s)
 
 
-@_op("quantize_s8_dynamic(Tensor y, Tensor inv_f, Tensor(a!) amax, Tensor(b!) scale) "
-     "-> Tensor", _q2_fake)
+@_op("quantize_s8_dynamic", _q2_fake)
 def quantize_s8_dynamic(y, inv_f, amax, scale):
     return _q2(y, inv_f, slot=(amax, scale))
 
 
-@_op("quantize_s8_given(Tensor y, Tensor inv_f, Tensor amax, Tensor(a!) scale) -> Tensor",
-     _q2_fake)
+@_op("quantize_s8_given", _q2_fake)
 def quantize_s8_given(y, inv_f, amax, scale):
     return _q2(y, inv_f, amax=amax, slot=(amax, scale))
 

@@ -166,13 +166,20 @@ def test_cli_flags_not_ported_raise(served):
                    "--device", "cpu"]
     tg = COMMON + [pack, "--weights", str(tmp / "port_weights.pt"), "--device", "cpu"]
     cases = [(cli_evaluate.main, ev + ["--coordinator", "h:1"], "item 7"),
-             (cli_evaluate.main, ev + ["--process-id", "0"], "item 7"),
-             (cli_tag.main, tg + ["--engine", "native"], "item 6"),
-             (cli_tag.main, tg + ["--artifacts", "art"], "item 6"),
-             (cli_tag.main, tg + ["--pipeline", "2"], "item 6")]
+             (cli_evaluate.main, ev + ["--process-id", "0"], "item 7")]
     for main, argv, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             main(argv)
+    # --engine native is ported (tests/test_torch_port_native.py): the JAX
+    # CLI's checks, before any daemon starts
+    native = [(tg + ["--engine", "native"], "needs --artifacts"),
+              (COMMON + [pack, "--device", "cpu", "--engine", "native", "--artifacts", "art",
+                         "--int8"], "baked at export time"),
+              (tg + ["--engine", "native", "--artifacts", "art", "--pipeline", "2"],
+               "--weights: fixed at export time")]
+    for argv, msg in native:
+        with pytest.raises(SystemExit, match=msg):
+            cli_tag.main(argv)
     # --int8 is ported (tests/test_torch_port_serve.py); tiny3d is outside
     # the int8 engine's coverage
     with pytest.raises(KeyError, match="covers"):

@@ -10,9 +10,10 @@ serving export that need no JAX reference, on the CPU.
   ``fvt::quantize_s8_dynamic``): the loaded program makes 28 Q1 / 26 Q2 / 1
   amax-pass calls and equals the eager engine bit for bit;
 - ``cli.export``'s exits: ``--int8`` without ``--calib-video``, a model the
-  int8 engine does not cover, and the ``NotImplementedError`` of
-  ``--format stablehlo`` / ``both`` and ``--platforms``; ``--int8``
-  calibrated on a ``.fvtpack`` (each of its videos).
+  int8 engine does not cover, the JAX CLI's ``--format jax`` /
+  ``stablehlo`` and ``--platforms`` (an AOTInductor package is compiled
+  for its device); ``--int8`` calibrated on a ``.fvtpack`` (each of its
+  videos).
 
 Weights: seeded port inits (r2plus1d_18, tiny3d; 5 classes). The JAX
 comparisons are in test_torch_port_export.py.
@@ -162,9 +163,16 @@ def test_cli_export_exits(tmp_path):
     write_pack_from_arrays([("v.mp4", 0, (), frames)], pack, (40, 56))
     with pytest.raises(SystemExit, match="serving/int8 engine covers"):
         tcli_export.main(flags + ["--int8", "--calib-video", pack])
-    for extra in (["--format", "stablehlo"], ["--format", "both"], ["--platforms", "tpu"]):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            tcli_export.main(flags + extra)
+    # the JAX CLI's jax / stablehlo formats are the port's torch / native
+    # (--format native is in tests/test_torch_port_native_runner.py); an
+    # AOTInductor package is compiled for its device: --platforms is refused
+    for fmt in ("jax", "stablehlo"):
+        with pytest.raises(SystemExit):
+            tcli_export.main(flags + ["--format", fmt])
+    with pytest.raises(SystemExit, match="compiled for the device"):
+        tcli_export.main(flags + ["--platforms", "tpu"])
+    with pytest.raises(SystemExit, match="--format jax: one of torch, native, both"):
+        tcli_export.export_artifacts(None, {}, str(tmp_path / "x"), 2, fmt="jax")
     assert not os.path.exists(tmp_path / "x")
 
 

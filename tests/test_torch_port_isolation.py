@@ -80,7 +80,10 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.cli.serve",
             "fastvideotagging_tpu_torch.ops.library",
             "fastvideotagging_tpu_torch.evaluation.serving",
-            "fastvideotagging_tpu_torch.cli.export"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.cli.export",
+            "fastvideotagging_tpu_torch.native",
+            "fastvideotagging_tpu_torch.native.runner",
+            "fastvideotagging_tpu_torch.evaluation.native_tagger"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -396,3 +399,77 @@ def test_temporal_dw_is_built_with_its_wrappers_plan(tmp_path, monkeypatch):
     a = _build._so_path("temporal_dw")
     monkeypatch.setattr(conv2plus1d, "NVCC_DEFINES", ("-DFVT_K3_ROWS=64", "-DFVT_K3_AHEAD=2"))
     assert _build._so_path("temporal_dw") != a
+
+
+def _public_names(path: str) -> set[str]:
+    """The public top-level names a module of the JAX package defines or
+    imports (read from its source: nothing of it is imported here)."""
+    import ast
+
+    with open(os.path.join(_ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_") or n == "__version__"}
+
+
+@pytest.mark.parametrize("module", ["", "models", "evaluation.quantized"])
+def test_the_port_has_the_references_public_names(module):
+    """Each public name of the JAX package's top level, of its ``models``
+    and of ``evaluation.quantized`` exists in the port's counterpart."""
+    import importlib
+
+    path = os.path.join("fastvideotagging_tpu", *module.split("."))
+    path = os.path.join(path, "__init__.py") if os.path.isdir(os.path.join(_ROOT, path)) \
+        else path + ".py"
+    want = _public_names(path)
+    port = importlib.import_module(".".join(filter(None, ["fastvideotagging_tpu_torch", module])))
+    assert want and not sorted(n for n in want if not hasattr(port, n))
+    if not module:
+        import fastvideotagging_tpu_torch as pkg
+
+        assert pkg.__version__ == "0.1.0" and set(pkg.__all__) >= want
+        assert "r2plus1d18_ucf101" in pkg.PRESETS
+
+
+def test_native_builds_are_keyed_and_raise_without_a_compiler(tmp_path, monkeypatch):
+    """The runner and the op library build as the kernels do: into the
+    build directory, under a name keyed on a hash of their sources and
+    flags (an edited source or a changed flag is a new build), and a missing
+    compiler raises."""
+    import shutil
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    cmd, out = _build._runner_job("cpu")
+    assert out.startswith(str(tmp_path / "build")) and "fvt_native_runner-cpu-" in out
+    assert os.path.join(_build.CSRC, "native_runner.cpp") in cmd
+    assert _build._runner_job("cpu")[1] == out
+    monkeypatch.setattr(_build, "CXX_FLAGS", _build.CXX_FLAGS + ("-g",))
+    assert _build._runner_job("cpu")[1] != out
+    monkeypatch.undo()
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    out = _build._runner_job("cpu")[1]
+    assert _build._runner_job("cpu")[1] == out
+    with open(csrc / "plans.h", "a") as f:
+        f.write("// edited\n")
+    assert _build._runner_job("cpu")[1] != out
+    with pytest.raises(ValueError, match="'cpu' or 'cuda'"):
+        _build._runner_job("tpu")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        _build.build_runner("cpu")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_op_library()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_native()
+    assert not os.path.exists(tmp_path / "build")

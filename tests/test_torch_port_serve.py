@@ -19,8 +19,8 @@ BatchNorm statistics, on a pack of 3 seeded videos:
 - ``cli.serve``'s ``serve()`` on an in-memory request stream (a bare path,
   a blank line, a JSON object with ``threshold`` / ``top_k``, a missing
   video, a pack) against the JAX ``serve()`` on tiny3d in f32 (scores within
-  1e-4), and through the int8 tagger; ``main`` raises for the C++ daemon's
-  flags (ROADMAP.md Queue A item 6).
+  1e-4), and through the int8 tagger; ``main`` checks ``--engine native``'s
+  flags as the JAX CLI does (the engine: tests/test_torch_port_native.py).
 """
 
 import io
@@ -353,8 +353,12 @@ def test_serve_int8_isolates_faults(served, tmp_path):
 
 def test_serve_main_flags(served, monkeypatch, capsys):
     tmp = served["tmp"]
-    for flags in (["--engine", "native"], ["--artifacts", "art"]):
-        with pytest.raises(NotImplementedError, match="item 6"):
+    # --engine native is ported (tests/test_torch_port_native.py): the JAX
+    # CLI's checks, before any daemon starts
+    for flags, msg in ((["--engine", "native"], "needs --artifacts"),
+                       (["--engine", "native", "--artifacts", "art", "--int8"],
+                        "baked at export time")):
+        with pytest.raises(SystemExit, match=msg):
             cli_serve.main(COMMON + flags)
     with pytest.raises(SystemExit, match="needs --weights"):
         cli_serve.main(COMMON + ["--device", "cpu"])
