@@ -209,6 +209,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             phase 11's loaded ``serving.pt2`` by CUDA events, the runner's
             ``--bench`` (its own CUDA events on its execution stream and the
             host's two-point slope), at clip_batch 8.
+13. parallelism (parallel/, train/shardmap_step.py, train/time_sharded.py,
+            evaluation/long_clip.py; about 2 minutes): (a) an NCCL group of
+            world size 1 runs the data-parallel step (BatchNorm statistics
+            and gradients all-reduced) on phase 5's preset for 2 steps; its
+            losses, weights and BN statistics equal the plain step's bit for
+            bit, with K1 / K2 / K3 launches a step; (b) ``cli.train
+            --coordinator 127.0.0.1:<port> --num-processes 2 --process-id
+            {0,1} --dist-backend gloo``, two processes sharing the card,
+            3 steps at global B = 16, against one process on the global
+            batch, in bf16 (kernels='cuda') and in float64 activations on
+            F.conv3d: both ranks' weights equal; in f64 step 1's loss,
+            gradients and BN statistics within PAR_F64_TOL of one
+            process; in bf16 the loss within PATH_TOL and the gradients
+            within PAR_BF16_DIST and PAR_BF16_NORM; each rank's launches
+            and ms a step by CUDA events beside one process's; (c)
+            64x112x112 clips at B = 2 over the same two processes:
+            ``score_long_clip`` (K2 over halo'd slabs) against the
+            unsharded forward within PATH_TOL, with the halo bytes a
+            forward and each rank's peak memory beside the unsharded
+            forward's, and one time-sharded train step against the
+            unsharded step, in f64 within PAR_F64_TOL and in bf16 within
+            PATH_TOL (loss), PAR_BF16_DIST and PAR_BF16_NORM (gradients).
+            Each gradient limit is first shown to reject a zeroed, a
+            halved and a doubled gradient. Each rank is a ``python3 -c``
+            subprocess from the checkout's root under one deadline; a
+            failing rank kills the others and fails the run.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -225,7 +251,9 @@ Q2's path is phase 10's int8 runs; phase 11's runs add ``"export"`` to
 every entry's ``launches_by_run`` (its CLI exports, in-process forwards,
 the fresh process's forwards and the dynamic export's forwards, timing
 loops left out), phase 12's ``"native"`` (the runner processes' counts
-from the C++ op library: one shot, bench, the daemons and taggers).
+from the C++ op library: one shot, bench, the daemons and taggers), phase
+13's ``"parallel_world1"``, ``"parallel_cli"`` and ``"parallel_long_clip"``
+(K1-K3: the rank processes' counts, each from 0, summed).
 Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
@@ -242,6 +270,7 @@ import hashlib
 import io
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -3499,7 +3528,13 @@ def phase_export(card: str, tmp: str) -> dict:
 # Inductor's fused glue (the uint8 preprocess, eval BatchNorm in bf16) rounds
 # at other places than the eager chain; the serving tolerance
 NATIVE_TOL = 5e-2
-NATIVE_BENCH = 12  # distinct instances of the runner's --bench: 1 warm-up, 2 + 9 timed
+# distinct instances of the runner's --bench: 1 warm-up, 7 + 24 timed. The
+# host slope is (t_long - t_short) / (n_long - n_short), and the short batch
+# carries a start-up cost of tens of ms (a slope of 1.5 ms against 4.5 ms of
+# device time at 2 + 9 instances: 21 ms), which at 2 + 9 made the slope
+# non-positive three times in a row in one run; 17 executions outweigh it.
+NATIVE_BENCH = 32
+NATIVE_BENCH_ATTEMPTS = 3  # runs of one --bench until the host slope is positive
 NATIVE_ENGINES = ("bf16", "int8", "int8_dynamic")
 
 
@@ -3711,13 +3746,21 @@ def phase_native(card: str, tmp: str, export: dict, build: dict) -> dict:
             if route == "loaded" and loaded is None:
                 continue
             if route == "native":
-                summary = runner.run_summary(pkgs[engine], [clips],
-                                             os.path.join(d12, f"bench_{engine}"), device=DEV,
-                                             bench=NATIVE_BENCH)
-                add(summary["launches"])
-                b = summary.get("bench")
-                last = float(np.abs(summary["outputs"][0]
-                                    - in_process(engine, clips[-1])).max())
+                # the runner leaves its bench out when the host's two-point
+                # slope comes out non-positive (host noise over a few ms):
+                # then the instance is measured again, at most twice more
+                for attempt in range(NATIVE_BENCH_ATTEMPTS):
+                    summary = runner.run_summary(pkgs[engine], [clips],
+                                                 os.path.join(d12, f"bench_{engine}"),
+                                                 device=DEV, bench=NATIVE_BENCH)
+                    add(summary["launches"])
+                    b = summary.get("bench")
+                    last = float(np.abs(summary["outputs"][0]
+                                        - in_process(engine, clips[-1])).max())
+                    if last > NATIVE_TOL or b is not None:
+                        break
+                    print(f"(e) the runner's --bench of {engine}: no positive host slope "
+                          f"(attempt {attempt + 1}); measured again", flush=True)
                 if b is None or b["device_ms_per_exec"] <= 0 or last > NATIVE_TOL:
                     raise SystemExit(f"(e) the runner's --bench of {engine} failed: {b}, "
                                      f"last instance max |diff| {last:.3e}")
@@ -3745,6 +3788,591 @@ def phase_native(card: str, tmp: str, export: dict, build: dict) -> dict:
                 tagger=taggers, cli=dict(tag_max_abs_diff=tag_err, serve=stats), turns=turns)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: parallelism across processes
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 2  # (a): steps of the data-parallel step at world size 1 against the plain one
+PAR_RANKS = 2  # (b), (c): processes sharing the one card over gloo
+PAR_CLI_BATCH, PAR_CLI_VIDEOS = 16, 48  # (b): 3 steps of 8 rows a rank, one epoch
+LONG_B, LONG_T = 2, 64  # (c): clips of 64 frames, 32 a rank
+PAR_TIMEOUT = 420  # seconds the ranks of one job may take together
+PAR_GROUP_TIMEOUT = 120  # seconds a collective may wait before the job fails
+# Step-1 gradients over the ranks against one process (b) or the unsharded
+# step (c), all parameters taken together: ||g - g_ref|| / ||g_ref|| and
+# ||g|| / ||g_ref||. The collectives and the halo's backward are held in
+# float64 activations on F.conv3d (``f64_config``; params, head and loss
+# stay f32, as everywhere in the port), where the two sides differ by
+# summation order only: step 1's gradient distance, loss and BatchNorm
+# statistics within PAR_F64_TOL. Not in f32: there that order flips ReLU
+# gates, and the ranks' gradients lay 9.3e-3 from one process's (ROADMAP
+# Queue C item 4 holds the whole-step tests in float64 for the same
+# reason); and not after step 1: the f32 params' rounding is amplified the
+# same way by the steps after it ((b)'s state after 3 steps is printed). In bf16 (kernels='cuda') the rounding is a large
+# part of this network's gradient at a random init (phase 5: 0.86 from
+# f32): the bf16 pair, run for the kernels' launches, is held to a distance
+# under PAR_BF16_DIST (a zero gradient lies at 1) and a norm ratio within
+# PAR_BF16_NORM (a halved or doubled gradient lies at 0.5 or 2). Each limit
+# is shown to reject a zeroed, a halved and a doubled gradient before it is
+# applied.
+PAR_F64_TOL = 1e-5
+PAR_BF16_DIST, PAR_BF16_NORM = 0.9, 1.25
+_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def f64_config(cfg):
+    """``cfg`` with float64 activations on F.conv3d (kernels='torch')."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, kernels="torch", compute_dtype="float64"))
+
+
+@contextlib.contextmanager
+def cli_train_run(run: str, times: list, counts: list, first: dict):
+    """Inside, ``cli.train``'s steps are timed (``timed_steps``) and, for run
+    'f64', its config goes through ``f64_config`` (the CLI offers bfloat16
+    and float32 only)."""
+    make, build = fit_module.make_train_step, cli_train.build_config
+    fit_module.make_train_step = timed_steps(make, times, counts, first)
+    if run == "f64":
+        cli_train.build_config = lambda args: f64_config(build(args))
+    try:
+        yield
+    finally:
+        fit_module.make_train_step, cli_train.build_config = make, build
+
+
+def timed_steps(make, times: list, counts: list, first: dict | None = None):
+    """``make`` (a train-step factory) wrapped so that every step it builds
+    is timed by CUDA events (into ``times``) and has its launches counted
+    from 0 (into ``counts``); the first step's loss, the gradients it
+    applies and the BatchNorm statistics it leaves (f32, on the host) go
+    into ``first`` ("loss", "grads", "buffers") when one is given. Phase
+    13's ranks import it too."""
+    def build(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(state, *sa, **skw):
+            keep = first is not None and not times
+            if keep:
+                apply = state.apply_gradients
+
+                def capture():
+                    m = state.model
+                    first["grads"] = {n: p.grad.detach().float().cpu()
+                                      for n, p in m.named_parameters()}
+                    first["buffers"] = {n: b.detach().float().cpu()
+                                        for n, b in m.named_buffers() if b.is_floating_point()}
+                    apply()
+                state.apply_gradients = capture
+            ops.reset_launch_counts()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            try:
+                res = step(state, *sa, **skw)
+            finally:
+                if keep:
+                    state.apply_gradients = apply
+            e.record()
+            e.synchronize()
+            if keep:
+                first["loss"] = float(res[1]["loss"])
+            times.append(s.elapsed_time(e))
+            counts.append(dict(ops.launch_counts))
+            return res
+        return run
+    return build
+
+
+# The script each rank of (b) and (c) runs, from the checkout's root:
+# ``python3 -c _PAR_RANK role rank world port,port tmp``. It writes its
+# results to tmp/par_<role><rank>.json (and tensors to .pt files beside it).
+_PAR_RANK = r"""
+import functools, json, os, sys
+import torch
+from chip_smoke import cli_train, cli_train_run, timed_steps
+from fastvideotagging_tpu_torch.parallel import temporal as tp
+role, rank, world, tmp = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[5]
+ports = [int(p) for p in sys.argv[4].split(",")]
+out = {}
+if role == "cli":
+    with open(os.path.join(tmp, "par_argv.json")) as f:
+        argv = json.load(f)
+    for run, port in (("bf16", ports[0]), ("f64", ports[1])):
+        ms, launches, first = [], [], {}
+        with cli_train_run(run, ms, launches, first):
+            state = cli_train.main(argv + [
+                "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(world),
+                "--process-id", str(rank), "--dist-backend", "gloo",
+                "--dist-timeout", "%(group)d"])
+        cli_train.finish_multihost()  # as ``python -m ...cli.train`` ends
+        out[run] = dict(ms=ms, launches=launches, first_loss=first["loss"], step=state.step,
+                        device=str(next(state.model.parameters()).device))
+        torch.save({k: v.cpu() for k, v in state.model.state_dict().items()},
+                   os.path.join(tmp, f"par_cli_{run}{rank}.pt"))
+        torch.save(first, os.path.join(tmp, f"par_cli_first_{run}{rank}.pt"))
+        del state
+        torch.cuda.empty_cache()
+else:  # "long": score_long_clip and one time-sharded train step in bf16 and in f64
+    from fastvideotagging_tpu_torch import get_model
+    from fastvideotagging_tpu_torch.evaluation.long_clip import make_time_mesh, score_long_clip
+    from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+    from fastvideotagging_tpu_torch.parallel import init_multihost
+    from fastvideotagging_tpu_torch.train.state import create_train_state
+    from fastvideotagging_tpu_torch.train.time_sharded import make_time_sharded_train_step
+    init_multihost(f"127.0.0.1:{ports[0]}", world, rank, backend="gloo", timeout=%(group)d)
+    mesh = make_time_mesh(world)
+    spec = torch.load(os.path.join(tmp, "long_spec.pt"), weights_only=False)
+    factory = functools.partial(get_model, "r2plus1d_18", num_classes=spec["classes"],
+                                device=mesh.device, dropout=0.0)
+    score_long_clip(factory, spec["weights"], spec["clips"], mesh, multilabel=True)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tp.reset_halo_counts()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    scores = score_long_clip(factory, spec["weights"], spec["clips"], mesh, multilabel=True)
+    e.record()
+    e.synchronize()
+    out["forward"] = dict(ms=s.elapsed_time(e), peak_bytes=torch.cuda.max_memory_allocated(),
+                          launches=dict(ops.launch_counts), halo=dict(tp.halo_counts),
+                          device=str(mesh.device))
+    out["scores"] = scores.float().cpu().tolist()
+    del scores
+    # the sharded forward alone, on a model built once (score_long_clip
+    # builds its model and loads the weights at every call)
+    model = factory(time_axis=mesh.group).eval()
+    model.load_state_dict(spec["weights"])
+    xl = tp.time_shard(spec["clips"], mesh.group).to(mesh.device)
+    ms = []
+    with torch.inference_mode():
+        for _ in range(3):
+            s.record()
+            pooled = model(xl, features_only=True).float().sum(dim=(1, 2, 3))
+            torch.distributed.all_reduce(pooled, group=mesh.group)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+    out["forward"]["model_forward_ms"] = ms
+    del model, xl, pooled
+    torch.cuda.empty_cache()
+    for run, kw in (("bf16", {}), ("f64", dict(backend="torch", dtype=torch.float64))):
+        cfg = spec["cfgs"][run]
+        step, model = make_time_sharded_train_step(functools.partial(factory, **kw), cfg, mesh)
+        model.load_state_dict(spec["weights"])
+        state = create_train_state(cfg, 10, device=mesh.device, model=model)
+        times, counts, first = [], [], {}
+        torch.cuda.reset_peak_memory_stats()
+        tp.reset_halo_counts()
+        timed_steps(lambda: step, times, counts, first)()(state, spec["batch"])
+        out["train_" + run] = dict(ms=times[0], launches=counts[0], halo=dict(tp.halo_counts),
+                                   loss=first["loss"],
+                                   peak_bytes=torch.cuda.max_memory_allocated())
+        torch.save(first, os.path.join(tmp, f"par_first_{run}{rank}.pt"))
+        del step, model, state, first
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+with open(os.path.join(tmp, f"par_{role}{rank}.json"), "w") as f:
+    json.dump(out, f)
+""" % {"group": PAR_GROUP_TIMEOUT}
+
+
+def _free_ports(n: int) -> list[int]:
+    """``n`` distinct free ports on the loopback (held together while
+    picked)."""
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(n)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+
+
+def _run_ranks(role: str, tmp: str) -> list:
+    """PAR_RANKS processes of ``_PAR_RANK`` on the card, all under one
+    deadline; the first that fails (or the deadline) kills the others and
+    fails the run. Returns each rank's results."""
+    ports = ",".join(map(str, _free_ports(2)))
+    logs = [os.path.join(tmp, f"par_{role}{r}.log") for r in range(PAR_RANKS)]
+    procs = []
+    for r in range(PAR_RANKS):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _PAR_RANK, role, str(r), str(PAR_RANKS), ports, tmp],
+                cwd=_ROOT, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                r = bad[0] if bad else 0
+                with open(logs[r]) as f:
+                    tail = f.read()[-6000:]
+                raise SystemExit(f"phase 13 {role}: rank {r} "
+                                 f"{'exited ' + str(codes[r]) if bad else 'timed out'}:\n{tail}")
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(tmp, f"par_{role}{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _sum_counts(rows) -> dict:
+    return {k: sum(r.get(k, 0) for r in rows) for k in KERNELS}
+
+
+def _grad_distance(a: dict, ref: dict) -> float:
+    num = sum((a[k].float() - ref[k]).pow(2).sum().item() for k in ref)
+    return (num / sum(ref[k].pow(2).sum().item() for k in ref)) ** 0.5
+
+
+def _grad_check(g: dict, ref: dict, dist_limit: float, norm_limit: float) -> tuple:
+    """``(distance, norm ratio, held)``: ||g - ref|| / ||ref|| within
+    ``dist_limit`` and ||g|| / ||ref|| within [1 / norm_limit, norm_limit]."""
+    d = _grad_distance(g, ref)
+    ratio = (sum(g[k].float().pow(2).sum().item() for k in ref)
+             / sum(ref[k].pow(2).sum().item() for k in ref)) ** 0.5
+    return d, ratio, d <= dist_limit and 1 / norm_limit <= ratio <= norm_limit
+
+
+def _limit_rejects(ref: dict, dist_limit: float, norm_limit: float, what: str) -> str:
+    """Fail unless the limit rejects ``ref`` zeroed, halved and doubled (a
+    lost gradient, one not averaged or averaged twice); returns a note of
+    what each gave."""
+    notes = []
+    for name, scale in (("zeroed", 0.0), ("halved", 0.5), ("doubled", 2.0)):
+        d, ratio, held = _grad_check({k: v * scale for k, v in ref.items()}, ref,
+                                     dist_limit, norm_limit)
+        if held:
+            raise SystemExit(f"{what}: the limit passes a {name} gradient")
+        notes.append(f"{name} {d:.3f} / {ratio:.3f}")
+    return ", ".join(notes)
+
+
+def _state_err(a: dict, ref: dict) -> float:
+    """The largest max|a - ref| / max|ref| over the float tensors of ``a``
+    (a state_dict, or part of one) and their namesakes in ``ref``."""
+    return max((a[k].float() - ref[k].float()).abs().max().item()
+               / max(ref[k].float().abs().max().item(), 1e-30)
+               for k in a if a[k].is_floating_point())
+
+
+def _limits_note(run: str) -> str:
+    if run == "bf16":
+        return f"distance <= {PAR_BF16_DIST}, ratio within 1/{PAR_BF16_NORM}..{PAR_BF16_NORM}"
+    return f"distance <= {PAR_F64_TOL}, ratio within 1 -/+ {PAR_F64_TOL}"
+
+
+def phase_parallel(card: str, tmp: str) -> dict:
+    """(a) the data-parallel step on an NCCL group of world size 1 against
+    the plain step, bit for bit; (b) cli.train as 2 processes on the card
+    over gloo against one process, in bf16 and in f64; (c) score_long_clip
+    and the time-sharded train step over 2 processes against the unsharded
+    forward and step, the step in bf16 and in f64."""
+    print("== phase 13: parallelism", flush=True)
+    import torch.distributed as dist
+
+    from fastvideotagging_tpu_torch.evaluation.long_clip import TOTAL_STRIDE
+    from fastvideotagging_tpu_torch.parallel import init_multihost, make_mesh
+    from fastvideotagging_tpu_torch.train.fit import dropout_generator
+
+    t_phase = time.perf_counter()
+    result, launches = {}, {}
+    cfg = PRESETS["r2plus1d18_ucf101"]
+    # (a) NCCL at world size 1: the step with the group's collectives against
+    # the step without a group, from the same weights, batch and masks
+    backend = init_multihost(f"127.0.0.1:{_free_ports(1)[0]}", 1, 0,
+                             timeout=PAR_GROUP_TIMEOUT)
+    mesh = make_mesh()
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in _train_batch(cfg).items()}
+    runs = {}
+    try:
+        for form in ("plain", "data_parallel"):
+            state = create_train_state(cfg, steps_per_epoch=100, device=DEV,
+                                       generator=torch.Generator().manual_seed(SEED))
+            step = make_train_step(state.model, cfg,
+                                   mesh=mesh if form == "data_parallel" else None)
+            losses, counts, ms = [], [], []
+            for i in range(PAR_STEPS):
+                ops.reset_launch_counts()
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                state, metrics = step(state, batch, dropout_generator(SEED, i, mesh.device))
+                e.record()
+                e.synchronize()
+                ms.append(s.elapsed_time(e))
+                counts.append(dict(ops.launch_counts))
+                losses.append(metrics["loss"].clone())
+            runs[form] = (losses, {k: v.clone() for k, v in state.model.state_dict().items()},
+                          counts, ms)
+            del state, step
+    finally:
+        dist.destroy_process_group()
+    (lp, sp, _, msp), (ld, sd, cd, msd) = runs["plain"], runs["data_parallel"]
+    bitwise = (all(torch.equal(a, b) for a, b in zip(lp, ld))
+               and all(torch.equal(sp[k], sd[k]) for k in sp))
+    launches["world1"] = _sum_counts(cd)
+    print(f"(a) {backend} group of world size {mesh.world} on {mesh.device}: {PAR_STEPS} "
+          f"data-parallel steps of the r2plus1d18_ucf101 preset (B={cfg.train.batch_size}, "
+          f"bf16, kernels='cuda') against the plain step: losses "
+          f"{[float(x) for x in ld]}; loss, weights and BN statistics bitwise equal: "
+          f"{bitwise}; launches a step {cd}; ms a step {['%.2f' % x for x in msd]} against "
+          f"{['%.2f' % x for x in msp]} (CUDA events, {card})", flush=True)
+    if not bitwise:
+        raise SystemExit("(a) the data-parallel step at world size 1 is not the plain step")
+    if any(c != TRAIN_STEP_LAUNCHES for c in cd):
+        raise SystemExit(f"(a) launches {cd} != {TRAIN_STEP_LAUNCHES} a step")
+    result["a"] = dict(backend=backend, world=mesh.world, bitwise=bitwise,
+                       losses=[float(x) for x in ld], launches_per_step=cd[0],
+                       ms_per_step=msd, plain_ms_per_step=msp)
+    del runs, batch, sp, sd
+    torch.cuda.empty_cache()
+
+    # (b) cli.train as PAR_RANKS processes sharing the card over gloo, one
+    # epoch of 3 steps at global B = 16, against one process on the same
+    # pack; each in bf16 on the kernels and in f64 on F.conv3d, with the
+    # same batches and dropout masks
+    pack = os.path.join(tmp, "par.fvtpack")
+    write_pack_from_arrays(_fit_items(PAR_CLI_VIDEOS, SEED + 500), pack, (128, 171))
+    argv = ["--preset", "r2plus1d18_ucf101", "--train-list", pack, "--batch-size",
+            str(PAR_CLI_BATCH), "--epochs", "1", "--checkpoint-dir", "", "--log-every", "1"]
+    with open(os.path.join(tmp, "par_argv.json"), "w") as f:
+        json.dump(argv, f)
+    t0 = time.perf_counter()
+    ranks = _run_ranks("cli", tmp)
+    ranks_s = time.perf_counter() - t0
+    one = {}
+    for run in ("bf16", "f64"):
+        ms, counts, first = [], [], {}
+        with cli_train_run(run, ms, counts, first):
+            state = cli_train.main(argv)
+        one[run] = dict(ms=ms, counts=counts, **first,
+                        state={k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+        del state
+        torch.cuda.empty_cache()
+    chk, same = {}, {}
+    for run in ("bf16", "f64"):
+        wr = [torch.load(os.path.join(tmp, f"par_cli_{run}{r}.pt")) for r in range(PAR_RANKS)]
+        same[run] = all(torch.equal(wr[0][k], wr[r][k])
+                        for r in range(1, PAR_RANKS) for k in wr[0])
+        first = torch.load(os.path.join(tmp, f"par_cli_first_{run}0.pt"))
+        g = first["grads"]
+        limits = (PAR_BF16_DIST, PAR_BF16_NORM) if run == "bf16" else (PAR_F64_TOL,
+                                                                       1 + PAR_F64_TOL)
+        d, ratio, held = _grad_check(g, one[run]["grads"], *limits)
+        stats = [k for k in wr[0] if k.endswith((".mean", ".var"))]
+        chk[run] = dict(
+            loss_err=abs(ranks[0][run]["first_loss"] - one[run]["loss"]) / abs(one[run]["loss"]),
+            grad_dist=d, norm_ratio=ratio, held=held,
+            rejects=_limit_rejects(one[run]["grads"], *limits, f"(b) {run}"),
+            to_f64=_grad_distance(g, one["f64"]["grads"]),
+            one_to_f64=_grad_distance(one[run]["grads"], one["f64"]["grads"]),
+            bn1_err=_state_err(first["buffers"], one[run]["buffers"]),
+            bn_err=_state_err({k: wr[0][k] for k in stats}, one[run]["state"]),
+            state_err=_state_err(wr[0], one[run]["state"]))
+        del wr, g, first
+    launches["cli"] = _sum_counts([c for r in ranks for c in r["bf16"]["launches"]])
+    for r, res in enumerate(ranks):
+        print(f"(b) rank {r} of {PAR_RANKS} on {res['bf16']['device']} (gloo): "
+              f"{res['bf16']['step']} steps of {PAR_CLI_BATCH // PAR_RANKS} rows; launches a "
+              f"step {res['bf16']['launches']}; ms a step "
+              f"{['%.2f' % x for x in res['bf16']['ms']]}, f64 on F.conv3d "
+              f"{['%.2f' % x for x in res['f64']['ms']]} (CUDA events, {card})")
+    print(f"(b) one process on the global batch B={PAR_CLI_BATCH}: ms a step "
+          f"{['%.2f' % x for x in one['bf16']['ms']]}; launches a step {one['bf16']['counts']}; "
+          f"f64 on F.conv3d {['%.2f' % x for x in one['f64']['ms']]}; the ranks' two jobs took "
+          f"{ranks_s:.1f} s of wall time with their processes' start")
+    for run, c in chk.items():
+        tol = PATH_TOL if run == "bf16" else PAR_F64_TOL
+        print(f"(b) {run}: ranks' weights and BN statistics equal: {same[run]}; step 1 against "
+              f"one process: loss rel diff {c['loss_err']:.3e} (tol {tol}), gradients "
+              f"||g - g_one|| / ||g_one|| {c['grad_dist']:.3e}, ||g|| / ||g_one|| "
+              f"{c['norm_ratio']:.4f} (limits {_limits_note(run)}; the limits give a "
+              f"{c['rejects']}); max diff / max|value| of the BN statistics after step 1 "
+              f"{c['bn1_err']:.3e}" + (f" (tol {tol})" if run == "f64" else "")
+              + f"; after 3 steps (not held) the BN statistics {c['bn_err']:.3e}, the whole "
+              f"state {c['state_err']:.3e}; ||g - g_f64one|| / ||g_f64one||: ranks {c['to_f64']:.3e}, one process "
+              f"{c['one_to_f64']:.3e}", flush=True)
+    if not all(same.values()):
+        raise SystemExit(f"(b) the ranks' weights differ: {same}")
+    if not (chk["bf16"]["loss_err"] <= PATH_TOL and chk["bf16"]["held"]):
+        raise SystemExit("(b) the ranks' bf16 step 1 is not within its limits of one process")
+    c64 = chk["f64"]
+    if not (c64["loss_err"] <= PAR_F64_TOL and c64["held"] and c64["bn1_err"] <= PAR_F64_TOL):
+        raise SystemExit("(b) the ranks' f64 run is not within PAR_F64_TOL of one process")
+    for res in ranks:
+        if any(res[run]["step"] != PAR_CLI_VIDEOS // PAR_CLI_BATCH for run in res) or not all(
+                c["spatial_conv"] and c["temporal_conv"] and c["temporal_dw"]
+                for c in res["bf16"]["launches"]):
+            raise SystemExit(f"(b) a rank missed steps or kernels: {res}")
+    result["b"] = dict(ranks=[dict(ms_per_step=r["bf16"]["ms"],
+                                   f64_ms_per_step=r["f64"]["ms"],
+                                   launches_per_step=r["bf16"]["launches"][0]) for r in ranks],
+                       one_process_ms_per_step=one["bf16"]["ms"],
+                       one_process_f64_ms_per_step=one["f64"]["ms"],
+                       checks={run: {k: v for k, v in c.items() if k != "held"}
+                               for run, c in chk.items()},
+                       job_wall_s=ranks_s)
+    del one
+    torch.cuda.empty_cache()
+
+    # (c) long clips at full width: score_long_clip (400 sigmoid scores, as
+    # phase 4's Tagger) and the time-sharded train step (softmax over the
+    # same 400 logits) over PAR_RANKS processes against the unsharded ones,
+    # the step in bf16 on the kernels and in f64 on F.conv3d
+    lcfg = dataclasses.replace(
+        _cfg("cuda"), model=dataclasses.replace(_cfg("cuda").model, dropout=0.0,
+                                                multilabel=False),
+        data=dataclasses.replace(_cfg("cuda").data,
+                                 sampler=ClipSamplerConfig(clip_len=LONG_T)),
+        train=dataclasses.replace(cfg.train, batch_size=LONG_B))
+    lcfgs = {"bf16": lcfg, "f64": f64_config(lcfg)}
+    host = _train_batch(lcfg)
+    lbatch = {k: torch.as_tensor(v).to(DEV) for k, v in host.items()}
+    d = lcfg.data
+    centre = [(d.resize_hw[0] - d.crop_hw[0]) // 2] * LONG_B, \
+        [(d.resize_hw[1] - d.crop_hw[1]) // 2] * LONG_B
+    clips = preprocess_batch(lbatch["frames"], torch.tensor(centre[0], device=DEV),
+                             torch.tensor(centre[1], device=DEV),
+                             torch.zeros(LONG_B, dtype=torch.bool, device=DEV), d.mean, d.std,
+                             resize_hw=d.resize_hw, crop_hw=d.crop_hw, out_dtype=torch.bfloat16)
+    model = model_from_config(lcfg.model, device=DEV,
+                              generator=torch.Generator().manual_seed(SEED + 7))
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(dict(weights=weights, clips=clips.cpu(), cfgs=lcfgs, batch=host,
+                    classes=lcfg.model.num_classes), os.path.join(tmp, "long_spec.pt"))
+    model.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        fwd_ms = []
+        for _ in range(3):
+            s.record()
+            ref_scores = heads.predict_scores(model(clips), True).float()
+            e.record()
+            e.synchronize()
+            fwd_ms.append(s.elapsed_time(e))
+    unsharded = dict(ms=fwd_ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                     activation_peak_bytes=torch.cuda.max_memory_allocated() - base_mem,
+                     launches={k: v // 3 for k, v in ops.launch_counts.items()})
+    # the unsharded step in bf16 on the kernels and in f64 on F.conv3d
+    ref = {}
+    for run, rcfg in lcfgs.items():
+        state = create_train_state(rcfg, steps_per_epoch=10, device=DEV,
+                                   model=model_from_config(rcfg.model, device=DEV))
+        state.model.load_state_dict(weights)
+        torch.cuda.reset_peak_memory_stats()
+        times, counts, first = [], [], {}
+        timed_steps(lambda: make_train_step(state.model, rcfg), times, counts, first)()(
+            state, lbatch)
+        ref[run] = dict(first, ms=times[0], peak_bytes=torch.cuda.max_memory_allocated())
+        del state
+        torch.cuda.empty_cache()
+    del model, clips, lbatch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks("long", tmp)
+    ranks_s = time.perf_counter() - t0
+    chk = {}
+    for run in ("bf16", "f64"):
+        firsts = [torch.load(os.path.join(tmp, f"par_first_{run}{r}.pt"))
+                  for r in range(PAR_RANKS)]
+        grads = [f["grads"] for f in firsts]
+        limits = (PAR_BF16_DIST, PAR_BF16_NORM) if run == "bf16" else (PAR_F64_TOL,
+                                                                       1 + PAR_F64_TOL)
+        dist_, ratio, held = _grad_check(grads[0], ref[run]["grads"], *limits)
+        chk[run] = dict(
+            same=all(torch.equal(grads[0][k], grads[r][k]) for r in range(1, PAR_RANKS)
+                     for k in grads[0]),
+            finite=all(torch.isfinite(g).all().item() for g in grads[0].values()),
+            loss_err=max(abs(r["train_" + run]["loss"] - ref[run]["loss"]) / abs(ref[run]["loss"])
+                         for r in ranks),
+            grad_dist=dist_, norm_ratio=ratio, held=held,
+            bn1_err=_state_err(firsts[0]["buffers"], ref[run]["buffers"]),
+            rejects=_limit_rejects(ref[run]["grads"], *limits, f"(c) {run}"),
+            to_f64=_grad_distance(grads[0], ref["f64"]["grads"]),
+            unsharded_to_f64=_grad_distance(ref[run]["grads"], ref["f64"]["grads"]))
+        del grads, firsts
+    score_err = max((torch.tensor(r["scores"]) - ref_scores.cpu()).abs().max().item()
+                    for r in ranks)
+    launches["long_clip"] = _sum_counts(
+        [r["forward"]["launches"] for r in ranks] + [r["train_bf16"]["launches"] for r in ranks])
+    t_local = LONG_T // PAR_RANKS
+    extra = {f"T_local={t}": 2 / t for t in (t_local, t_local // 2, t_local // 4,
+                                              t_local // TOTAL_STRIDE)}
+    print(f"(c) unsharded forward of {LONG_B} x {LONG_T}x112x112 clips (r2plus1d_18, "
+          f"{lcfg.model.num_classes} classes, bf16, kernels='cuda'): "
+          f"{['%.2f' % x for x in unsharded['ms']]} ms, "
+          f"peak {unsharded['peak_bytes'] / 1e9:.3f} GB (of it activations "
+          f"{unsharded['activation_peak_bytes'] / 1e9:.3f} GB); launches {unsharded['launches']} "
+          f"on {card}")
+    for r, res in enumerate(ranks):
+        fw, tr, t64 = res["forward"], res["train_bf16"], res["train_f64"]
+        print(f"(c) rank {r} on {fw['device']} (gloo, {t_local} frames): score_long_clip "
+              f"{fw['ms']:.2f} ms (its model built and loaded in the call), the sharded "
+              f"forward alone {['%.2f' % x for x in fw['model_forward_ms']]} ms, peak "
+              f"{fw['peak_bytes'] / 1e9:.3f} GB, launches "
+              f"{fw['launches']}, K2 over halo'd slabs {fw['halo']['k2_slabs']}, halo "
+              f"exchanges {fw['halo']['exchanges_fwd']} sending {fw['halo']['bytes_fwd']} bytes "
+              f"a forward; time-sharded step {tr['ms']:.2f} ms, peak "
+              f"{tr['peak_bytes'] / 1e9:.3f} GB, launches {tr['launches']}, halo bytes sent "
+              f"{tr['halo']['bytes_fwd']} forward + {tr['halo']['bytes_bwd']} backward, loss "
+              f"{tr['loss']:.5f}; f64 step {t64['ms']:.2f} ms, peak "
+              f"{t64['peak_bytes'] / 1e9:.3f} GB (CUDA events, {card})")
+    print(f"(c) unsharded step: bf16 {ref['bf16']['ms']:.2f} ms (its first), peak "
+          f"{ref['bf16']['peak_bytes'] / 1e9:.3f} GB; f64 {ref['f64']['ms']:.2f} ms, peak "
+          f"{ref['f64']['peak_bytes'] / 1e9:.3f} GB; K2's extra frames over the halo'd slab "
+          f"2p/T_local (k = 3): " + ", ".join(f"{k} {v:.1%}" for k, v in extra.items()))
+    print(f"(c) scores max abs diff against the unsharded forward {score_err:.3e} (tol "
+          f"{PATH_TOL}); the job took {ranks_s:.1f} s of wall time with its processes' start",
+          flush=True)
+    for run, c in chk.items():
+        tol = PATH_TOL if run == "bf16" else PAR_F64_TOL
+        print(f"(c) time-sharded step, {run}, against the unsharded: loss rel diff "
+              f"{c['loss_err']:.3e} (tol {tol}); ranks' gradients equal {c['same']}, finite "
+              f"{c['finite']}; ||g - g_ref|| / ||g_ref|| {c['grad_dist']:.3e}, ||g|| / ||g_ref|| "
+              f"{c['norm_ratio']:.4f} (limits {_limits_note(run)}; the limits give a "
+              f"{c['rejects']}); BN statistics after the step max diff / max|value| "
+              f"{c['bn1_err']:.3e}" + (f" (tol {tol})" if run == "f64" else "")
+              + f"; ||g - g_f64|| / ||g_f64||: time-sharded {c['to_f64']:.3e}, "
+              f"unsharded {c['unsharded_to_f64']:.3e}", flush=True)
+    if score_err > PATH_TOL:
+        raise SystemExit("(c) the time-sharded forward disagrees with the unsharded")
+    for run, c in chk.items():
+        tol = PATH_TOL if run == "bf16" else PAR_F64_TOL
+        if not (c["loss_err"] <= tol and c["same"] and c["finite"] and c["held"]
+                and (run == "bf16" or c["bn1_err"] <= PAR_F64_TOL)):
+            raise SystemExit(f"(c) the {run} time-sharded step disagrees with the unsharded")
+    for res in ranks:
+        fw, tr = res["forward"]["launches"], res["train_bf16"]["launches"]
+        if not (fw["spatial_conv"] and fw["temporal_conv"] and tr["spatial_conv"]
+                and tr["temporal_conv"] and tr["temporal_dw"]):
+            raise SystemExit(f"(c) a rank missed a kernel: {res}")
+        if res["forward"]["halo"]["k2_slabs"] == 0:
+            raise SystemExit("(c) no halo'd slab went to K2")
+    result["c"] = dict(
+        unsharded=unsharded, ranks=[{k: r[k] for k in ("forward", "train_bf16", "train_f64")}
+                                    for r in ranks],
+        score_err=score_err, checks={run: {k: v for k, v in c.items() if k != "held"}
+                                     for run, c in chk.items()},
+        unsharded_step={run: {k: ref[run][k] for k in ("loss", "ms", "peak_bytes")}
+                        for run in ref},
+        k2_extra_frames=extra)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(result=result, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -3769,6 +4397,7 @@ def main() -> int:
         int8 = phase_int8(card, entry["paths"])
         export = phase_export(card, tmp)
         native = phase_native(card, tmp, export, native_build)
+        par = phase_parallel(card, tmp)
     int8["launches"]["export"] = export["launches"]
     int8["launches"]["native"] = native["launches"]
     entries = []
@@ -3779,7 +4408,8 @@ def main() -> int:
                 **{run: c[kernel] for run, c in entry["launches"].items()},
                 **{run: c[kernel] for run, c in zoo["launches"].items()},
                 "export": export["launches"].get(kernel, 0),
-                "native": native["launches"].get(kernel, 0)}
+                "native": native["launches"].get(kernel, 0),
+                **{f"parallel_{run}": c[kernel] for run, c in par["launches"].items()}}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -3826,7 +4456,7 @@ def main() -> int:
                       "export": {k: export[k] for k in ("export_s", "artifacts", "dynamic",
                                                         "dispatch")},
                       "native": {k: v for k, v in native.items() if k != "launches"},
-                      "card": card}))
+                      "parallel": par["result"], "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

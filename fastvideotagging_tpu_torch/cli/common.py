@@ -3,12 +3,16 @@
 
 ``--preset`` selects one of the BASELINE configs and flags override its
 fields. The JAX package's ``--platform`` / ``--cpu-devices`` become
-``--device cuda|cpu`` (the card by default; ``apply_platform``). Flags of
-knobs the port does not have yet are accepted and raise
-``NotImplementedError`` naming their ROADMAP.md Queue A item: the
-multi-host flags (``--coordinator``, ``--num-processes``, ``--process-id``;
-item 7). Training raises for ``--data-parallel`` / ``--model-parallel`` > 1
-(item 7).
+``--device cuda|cpu`` (the card by default; ``apply_platform``).
+
+A multi-process job runs the same command once a process, each with its
+``--process-id``: ``--coordinator HOST:PORT --num-processes N --process-id
+i`` join it (``maybe_init_multihost``), one card a process, over NCCL on
+the card and gloo on the CPU (``--dist-backend`` overrides: two processes
+that share one card take gloo). Training and evaluation then run
+data-parallel over the job. ``--model-parallel`` > 1 (channel sharding) is
+not ported and raises ``NotImplementedError`` naming ROADMAP.md Queue A
+item 7.
 """
 
 from __future__ import annotations
@@ -91,14 +95,20 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
 
 
 def add_multihost_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX package's multi-host flags; not ported yet (ROADMAP.md Queue A
-    item 7): ``check_ported`` raises when one is given."""
+    """The multi-process flags: run the same command in every process with
+    its --process-id; used by train and evaluate."""
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="not ported yet (ROADMAP.md Queue A item 7)")
+                   help="rank 0's address; joins the multi-process job "
+                        "(torch.distributed over tcp://HOST:PORT)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="not ported yet (ROADMAP.md Queue A item 7)")
+                   help="total number of processes in the job (one card each)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="not ported yet (ROADMAP.md Queue A item 7)")
+                   help="this process's rank in [0, num-processes)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="the job's backend (default: nccl on the card, gloo on the "
+                        "CPU; ranks that share one card need gloo)")
+    p.add_argument("--dist-timeout", type=float, default=600.0,
+                   help="seconds a collective may wait before the job fails")
 
 
 def apply_platform(args: argparse.Namespace) -> torch.device:
@@ -107,13 +117,39 @@ def apply_platform(args: argparse.Namespace) -> torch.device:
     return resolve_device(getattr(args, "device", None) or "cuda")
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise for a flag whose knob the port does not have yet."""
-    g = lambda name: getattr(args, name, None)  # noqa: E731
-    if any(g(name) is not None for name in ("coordinator", "num_processes", "process_id")):
+def check_ported(cfg: ExperimentConfig) -> None:
+    """Raise for a knob the port does not have yet (train and evaluate
+    call it before they join a job)."""
+    if cfg.parallel.model_parallel > 1:
         raise NotImplementedError(
-            "multi-host runs (--coordinator, --num-processes, --process-id) are "
-            "not ported yet (ROADMAP.md Queue A item 7)")
+            "model_parallel > 1 (--model-parallel, or a preset's channel sharding) is "
+            "not ported yet (ROADMAP.md Queue A item 7); run data-parallel only")
+
+
+def maybe_init_multihost(args: argparse.Namespace) -> None:
+    """Join the multi-process job when --coordinator is given (before the
+    run builds anything on its device)."""
+    if getattr(args, "coordinator", None) is None:
+        return
+    if args.num_processes is None or args.process_id is None:
+        raise SystemExit("--coordinator needs --num-processes and --process-id")
+    import torch.distributed as dist
+
+    from fastvideotagging_tpu_torch.parallel.mesh import init_multihost
+
+    if dist.is_initialized():
+        raise SystemExit("this process already joined a job")
+    init_multihost(args.coordinator, args.num_processes, args.process_id,
+                   backend=args.dist_backend, device=getattr(args, "device", None) or "cuda",
+                   timeout=args.dist_timeout)
+
+
+def finish_multihost() -> None:
+    """Leave the job, if this process joined one."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _override(dc, **kw):
@@ -122,7 +158,6 @@ def _override(dc, **kw):
 
 
 def build_config(args: argparse.Namespace) -> ExperimentConfig:
-    check_ported(args)
     cfg = PRESETS[args.preset] if args.preset else ExperimentConfig()
     g = lambda name: getattr(args, name, None)  # noqa: E731
 

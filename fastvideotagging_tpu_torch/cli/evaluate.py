@@ -9,9 +9,11 @@ Restores the weights of the latest checkpoint of a port training run
 (``train/checkpoint.py``; the optimizer state is not read), evaluates a
 ``.fvtpack`` or a video list on the card (``--device cpu`` for the host)
 and prints one JSON line of metrics. ``--int8`` evaluates the int8 engine,
-calibrated on the first ``--int8-calib-videos`` videos' eval clips; a
-config that asks for several devices is evaluated on one card (the
-multi-device evaluation is ROADMAP.md Queue A item 7).
+calibrated on the first ``--int8-calib-videos`` videos' eval clips. In a
+multi-process job (``--coordinator``, ``--num-processes``,
+``--process-id``) the evaluation runs data-parallel over its ranks, one
+card each: every rank restores the weights and decodes the list, the clip
+chunks are split over the ranks, and rank 0 prints the metrics.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ import torch
 from fastvideotagging_tpu_torch.cli.common import (
     add_common_flags,
     add_multihost_flags,
-    apply_platform,
     build_config,
+    check_ported,
+    finish_multihost,
+    maybe_init_multihost,
 )
 from fastvideotagging_tpu_torch.data import ucf101
 from fastvideotagging_tpu_torch.data.packed import is_pack, open_dataset
@@ -35,8 +39,8 @@ from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate
 from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_apply
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
+from fastvideotagging_tpu_torch.parallel.mesh import make_mesh
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
-from fastvideotagging_tpu_torch.utils.logging import get_logger
 
 
 def main(argv=None) -> dict:
@@ -53,8 +57,12 @@ def main(argv=None) -> dict:
     p.add_argument("--int8-calib-videos", type=int, default=8)
     add_multihost_flags(p)
     args = p.parse_args(argv)
-    dev = apply_platform(args)
     cfg = build_config(args)
+    check_ported(cfg)
+    maybe_init_multihost(args)
+    mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel,
+                     device=args.device)
+    dev = mesh.device
 
     num_tags = cfg.model.num_classes if cfg.model.multilabel else None
     if is_pack(cfg.data.val_list):
@@ -72,11 +80,6 @@ def main(argv=None) -> dict:
     state_dict, _step = CheckpointManager(args.checkpoint_dir).restore_weights()
     if state_dict is None:
         raise SystemExit(f"no checkpoint found in {args.checkpoint_dir}")
-    if cfg.parallel.data_parallel > 1 or cfg.parallel.model_parallel > 1:
-        get_logger("fvt.eval").warning(
-            "eval: the config asks for data_parallel=%d, model_parallel=%d; "
-            "evaluating on one card (multi-device evaluation is ROADMAP.md "
-            "Queue A item 7)", cfg.parallel.data_parallel, cfg.parallel.model_parallel)
     variables = {k: v.to(dev) for k, v in state_dict.items()}
     apply_fn = None
     if args.int8:
@@ -91,10 +94,12 @@ def main(argv=None) -> dict:
         variables, apply_fn = make_int8_apply(cfg.model.name, variables, calib,
                                               multilabel=cfg.model.multilabel)
     out = evaluate(model, variables, dataset, cfg, clip_batch=args.clip_batch,
-                   threshold=args.threshold, apply_fn=apply_fn)
-    print(json.dumps(out))
+                   threshold=args.threshold, apply_fn=apply_fn, mesh=mesh)
+    if mesh.is_main:
+        print(json.dumps(out))
     return out
 
 
 if __name__ == "__main__":
     main()
+    finish_multihost()

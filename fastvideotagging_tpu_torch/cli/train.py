@@ -8,6 +8,12 @@ Trains on the card unless ``--device cpu`` is given; without a card it
 raises. ``--train-list`` is a ``.fvtpack`` (labels inside) or a video list
 (``path label`` rows, ``--class-index`` for UCF101's 1-based lists,
 ``--tag-lists`` for ``path tag_a,tag_b`` rows).
+
+Data-parallel over N processes, one card each (the same command in each,
+with its ``--process-id``)::
+
+    python -m fastvideotagging_tpu_torch.cli.train ... \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from fastvideotagging_tpu_torch.cli.common import (
     add_common_flags,
     add_train_flags,
     build_config,
+    check_ported,
+    finish_multihost,
+    maybe_init_multihost,
 )
 from fastvideotagging_tpu_torch.data import ucf101
 from fastvideotagging_tpu_torch.data.packed import Pack, is_pack
@@ -82,6 +91,8 @@ def main(argv=None):
     """Train per the flags; returns the final TrainState."""
     args = parse_args(argv)
     cfg = build_config(args)
+    check_ported(cfg)
+    maybe_init_multihost(args)
     train_records, val_records, num_tags = load_records(cfg, args)
     init_variables = None
     if args.pretrained:
@@ -96,3 +107,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    finish_multihost()

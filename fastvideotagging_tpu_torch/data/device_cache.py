@@ -17,8 +17,9 @@ once per step (the counterpart of
   leading axis; train/loop.py ``make_train_step(device_cache=True)``) and
   runs the usual preprocess. The host does index arithmetic only.
 
-One device only: a cache replicated over a mesh (``replicated_sharding``,
-``build_cache(mesh=...)``) is ROADMAP.md Queue A item 7.
+In a data-parallel job (``build_cache(mesh=...)``) each rank holds the
+whole pack on its own card and gathers its own rows of every batch
+(``train_index_batches(rows=...)``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.data.packed import _HEADER, Pack, PackedDataset
 from fastvideotagging_tpu_torch.data.pipeline import epoch_order
+from fastvideotagging_tpu_torch.parallel.mesh import check_mesh
 from fastvideotagging_tpu_torch.utils.logging import get_logger
 
 log = get_logger("fvt.data")
@@ -152,18 +154,16 @@ def _collate_index(samples: list[tuple]) -> dict[str, np.ndarray]:
 
 
 def replicated_sharding(mesh=None):
-    """None (one device) for ``mesh=None``; a cache replicated over a mesh
-    is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device cache replicated over a mesh is not ported yet "
-            "(ROADMAP.md Queue A item 7, parallelism)")
-    return None
+    """Where a replicated cache lives: None (the caller's device) for
+    ``mesh=None``; on a data-parallel mesh, this rank's device (each rank
+    holds the whole pack on its own card, the reference's replicated
+    sharding, and gathers its own rows there)."""
+    return None if check_mesh(mesh) is None else mesh.device
 
 
 def build_cache(dataset: PackedDataset, mesh=None, budget_bytes: int | None = None,
                 device: str | torch.device = "cuda") -> DeviceFrameCache:
     """The dataset's pack on ``device`` (the card unless the caller asks for
-    the CPU); ``mesh``: only None."""
-    replicated_sharding(mesh)
-    return DeviceFrameCache(dataset.pack, device=device, budget_bytes=budget_bytes)
+    the CPU), or with ``mesh`` on this rank's device."""
+    return DeviceFrameCache(dataset.pack, device=replicated_sharding(mesh) or device,
+                            budget_bytes=budget_bytes)

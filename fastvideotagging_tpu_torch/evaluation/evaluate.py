@@ -10,6 +10,13 @@ and the aggregation is the JAX package's, so engines compare fairly.
 ``variables`` is a ``state_dict`` of the model's weights. The device that
 evaluation runs on is theirs: clips are preprocessed and forwarded there,
 and nothing moves to the CPU or to a plain kernel version on a card.
+
+Data parallel (``mesh``, parallel/mesh.py): every rank decodes every video;
+each chunk of clip_batch clips is split over the ranks (rank r forwards its
+contiguous block of rows) and the scores are all-gathered, so every rank
+returns the same array. A clip_batch the ranks do not divide is rounded up
+to a multiple of them (chunks are padded to clip_batch anyway, so the
+scores do not change).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from fastvideotagging_tpu_torch._device import device_of
@@ -27,6 +35,7 @@ from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
+from fastvideotagging_tpu_torch.parallel.mesh import Mesh, check_mesh
 from fastvideotagging_tpu_torch.train.metrics import (
     mean_average_precision,
     per_tag_precision_recall,
@@ -37,11 +46,19 @@ from fastvideotagging_tpu_torch.utils.logging import get_logger
 log = get_logger("fvt.eval")
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel evaluation (mesh=) is not ported yet (ROADMAP.md "
-            "Queue A item 7); evaluate runs on the device of its variables")
+def _eval_plan(mesh, clip_batch: int) -> tuple[Mesh | None, int]:
+    """-> (the mesh to split chunks over, or None; the clip_batch). A
+    clip_batch the ranks do not divide is rounded up to a multiple of them
+    (with a warning): every rank must take whole rows of every chunk."""
+    if check_mesh(mesh) is None or mesh.group is None or mesh.world <= 1:
+        return None, clip_batch
+    shards = mesh.world
+    if clip_batch % shards:
+        rounded = -(-clip_batch // shards) * shards
+        log.warning("eval: clip_batch=%d not divisible by data shards %d; padding "
+                    "chunks to %d", clip_batch, shards, rounded)
+        return mesh, rounded
+    return mesh, clip_batch
 
 
 def _make_apply(model, multilabel: bool):
@@ -57,9 +74,12 @@ def _make_apply(model, multilabel: bool):
 
 
 @torch.inference_mode()
-def _forward_scores(apply, variables, clips: torch.Tensor, clip_batch: int = 8) -> np.ndarray:
+def _forward_scores(apply, variables, clips: torch.Tensor, clip_batch: int = 8,
+                    mesh: Mesh | None = None) -> np.ndarray:
     """Forward (K, T, ch, cw, 3) clips in fixed-size chunks; returns (K, C)
-    f32. Chunks are padded to clip_batch, so every forward has one shape."""
+    f32. Chunks are padded to clip_batch, so every forward has one shape.
+    With ``mesh`` each rank forwards its rows of every chunk and the scores
+    are all-gathered."""
     k = clips.shape[0]
     out = []
     for i in range(0, k, clip_batch):
@@ -68,7 +88,15 @@ def _forward_scores(apply, variables, clips: torch.Tensor, clip_batch: int = 8) 
         if n < clip_batch:
             pad = chunk.new_zeros((clip_batch - n,) + tuple(chunk.shape[1:]))
             chunk = torch.cat([chunk, pad], dim=0)
-        out.append(apply(variables, chunk)[:n].float().cpu().numpy())
+        if mesh is None:
+            scores = apply(variables, chunk)
+        else:
+            per = clip_batch // mesh.world
+            part = apply(variables, chunk[mesh.rank * per:(mesh.rank + 1) * per]).float()
+            parts = [torch.empty_like(part) for _ in range(mesh.world)]
+            dist.all_gather(parts, part.contiguous(), group=mesh.group)
+            scores = torch.cat(parts)
+        out.append(scores[:n].float().cpu().numpy())
     return np.concatenate(out, axis=0)
 
 
@@ -82,8 +110,9 @@ def evaluate_video_scores(
     forward — the hook for alternate serving engines, e.g. the fused engine
     on K4 (ops/fused_infer.py; ``variables`` is then its ``state_dict``).
     The aggregation downstream is the same for every engine.
-    ``mesh``: not ported yet (raises)."""
-    _no_mesh(mesh)
+    ``mesh``: evaluate data-parallel over its ranks (``variables`` on each
+    rank's device); every rank returns the same scores."""
+    mesh, clip_batch = _eval_plan(mesh, clip_batch)
     d = cfg.data
     device = device_of(variables)  # a state_dict, or a nested qpack (int8 apply_fn)
     apply = apply_fn or _make_apply(model, cfg.model.multilabel)
@@ -112,7 +141,7 @@ def evaluate_video_scores(
                 frames = frames.pin_memory().to(device, non_blocking=True)
             clips = preprocess_eval_clip(frames, pre_hw, d.crop_hw, d.mean, d.std,
                                          out_dtype=dtype)
-            scores = _forward_scores(apply, variables, clips, clip_batch)
+            scores = _forward_scores(apply, variables, clips, clip_batch, mesh)
             # Aggregation spec: f32 sum in clip order, divided by clip count.
             video = scores.astype(np.float32).sum(axis=0) / scores.shape[0]
             all_scores.append(video)
@@ -158,17 +187,21 @@ def make_eval_fn(cfg: ExperimentConfig, val_records, num_tags=None,
 
     ``val_records``: VideoRecords or a ``.fvtpack`` path (decode-once tier).
     The eval model is built once, on ``device`` (the card unless the caller
-    asks for the CPU); ``mesh``: not ported yet (raises).
+    asks for the CPU), or with ``mesh`` on this rank's device; the forward
+    then runs data-parallel over the mesh (every rank decodes the whole val
+    list; fit passes its training mesh).
     """
-    _no_mesh(mesh)
+    if check_mesh(mesh) is not None:
+        device = mesh.device
     dataset = open_dataset(val_records, cfg.data, mode="eval", num_tags=num_tags)
     model = model_from_config(cfg.model, device=device, clip_shape=config_clip_shape(cfg.data))
     apply = _make_apply(model, cfg.model.multilabel)
 
     def eval_fn(state, epoch):
         scalars = evaluate(model, state.model.state_dict(), dataset, cfg, clip_batch,
-                           apply_fn=apply)
-        log.info("epoch %d eval: %s", epoch, scalars)
+                           apply_fn=apply, mesh=mesh)
+        if mesh is None or mesh.is_main:
+            log.info("epoch %d eval: %s", epoch, scalars)
         return scalars
 
     return eval_fn

@@ -21,6 +21,8 @@ import math
 import threading
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
@@ -193,23 +195,35 @@ class SpatialConv(nn.Module):
 
 
 class TemporalConv(nn.Module):
-    """k x 1 x 1 conv — the temporal factor of a (2+1)D conv."""
+    """k x 1 x 1 conv — the temporal factor of a (2+1)D conv.
+
+    ``time_axis``: a process group over which the clip's T is sharded (the
+    long-clip path): the conv then runs as the halo conv of
+    parallel/temporal.py (K2 over the halo'd slab with the 'cuda'
+    backend), equal to the unsharded conv."""
 
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1,
                  backend: str = "cuda", dtype: torch.dtype = torch.bfloat16,
-                 ws: bool = False, generator: torch.Generator | None = None):
+                 ws: bool = False, generator: torch.Generator | None = None,
+                 time_axis=None):
         super().__init__()
         self.k = kernel
         self.stride = stride
         self.backend = _check_backend(backend)
         self.dtype = dtype
         self.ws = ws
+        self.time_axis = time_axis
         self.kernel = nn.Parameter(he_normal((kernel, 1, 1, cin, features), generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         w = (scaled_ws(self.kernel) if self.ws else self.kernel).to(self.dtype)
-        if self.backend == "cuda":
+        if self.time_axis is not None:
+            from fastvideotagging_tpu_torch.parallel.temporal import halo_temporal_conv
+
+            y = halo_temporal_conv(x, w[:, 0, 0], self.time_axis, stride=self.stride,
+                                   kernels=self.backend == "cuda")
+        elif self.backend == "cuda":
             y = ops.temporal_conv(x, w[:, 0, 0], stride=self.stride)
         else:
             p = self.k // 2
@@ -250,19 +264,29 @@ class Norm(nn.Module):
 
     The normalizing kinds compute ``(x - mean) * (rsqrt(var + eps) * scale)
     + bias`` in f32 and cast to the compute dtype, Flax's order and
-    promotion."""
+    promotion.
+
+    ``group`` (Flax's ``axis_name``): a process group whose ranks hold equal
+    shards of one batch (the data group's rows, the time group's frames).
+    Train-mode 'batch' then averages the local ``(E[x], E[x^2])`` over the
+    group by an autograd-aware all-reduce (its backward is an all-reduce of
+    the gradient) and a division by the world size, so every rank
+    normalizes with the statistics of the global batch and moves its
+    running statistics identically. ``sync_batch_norm`` sets it on every
+    Norm of a model."""
 
     KINDS = ("batch", "frozen", "group", "scaleonly")
 
     def __init__(self, features: int, kind: str = "batch", epsilon: float = 1e-5,
                  dtype: torch.dtype = torch.bfloat16, momentum: float = 0.9,
-                 scale_init: str = "ones"):
+                 scale_init: str = "ones", group=None):
         super().__init__()
         if kind not in self.KINDS:
             raise ValueError(f"unknown norm kind {kind!r}; expected one of {self.KINDS}")
         if scale_init not in ("ones", "zeros"):
             raise ValueError(f"scale_init must be 'ones' or 'zeros', got {scale_init!r}")
         self.kind = kind
+        self.group = group
         self.epsilon = epsilon
         self.momentum = momentum
         self.dtype = dtype
@@ -291,7 +315,12 @@ class Norm(nn.Module):
         elif self.training and self.kind == "batch":
             dims = tuple(range(x.ndim - 1))
             mean = xf.mean(dim=dims)
-            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+            sq = (xf * xf).mean(dim=dims)
+            if self.group is not None:  # equal shards: the mean of the means
+                both = dist_nn.all_reduce(torch.stack([mean, sq]), group=self.group)
+                both = both / dist.get_world_size(self.group)
+                mean, sq = both[0], both[1]
+            var = torch.clamp(sq - mean * mean, min=0.0)
             if not getattr(_recompute, "active", False):
                 with torch.no_grad():
                     self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
@@ -303,6 +332,16 @@ class Norm(nn.Module):
         return y.to(self.dtype)
 
 
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Set ``group`` on every ``Norm`` of ``model`` (the mid BNs of the
+    factorized convs included): their train-mode statistics are then those
+    of the group's global batch (None: each rank's own). Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, Norm):
+            m.group = group
+    return model
+
+
 def max_pool_3d(x: torch.Tensor, window, strides=None, padding="VALID",
                 train: bool = False) -> torch.Tensor:
     """Max-pool over (T, H, W) of an NTHWC tensor through
@@ -311,15 +350,41 @@ def max_pool_3d(x: torch.Tensor, window, strides=None, padding="VALID",
     return max_pool_nthwc(x, _triple(window), _triple(strides or window), padding, train=train)
 
 
+# Set by a data-parallel step around its forward (``global_dropout_rows``):
+# the global batch size and this rank's first row.
+_dropout_rows = threading.local()
+
+
+@contextlib.contextmanager
+def global_dropout_rows(batch: int, first_row: int):
+    """Inside, ``dropout`` draws the mask of the whole global batch of
+    ``batch`` rows and keeps this rank's rows from ``first_row`` on, so N
+    ranks drawing from one generator seed apply the mask one process
+    would."""
+    before = getattr(_dropout_rows, "rows", None)
+    _dropout_rows.rows = (batch, first_row)
+    try:
+        yield
+    finally:
+        _dropout_rows.rows = before
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """Flax's Dropout: in train mode keep each value with probability
     1 - rate (drawn from ``generator``, on x's device) and scale by
-    1 / (1 - rate); the identity otherwise."""
+    1 / (1 - rate); the identity otherwise. Inside ``global_dropout_rows``
+    the mask is this rank's rows of the global batch's."""
     if not training or rate <= 0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    rows = getattr(_dropout_rows, "rows", None)
+    if rows is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        batch, first = rows
+        full = torch.rand((batch,) + tuple(x.shape[1:]), generator=generator, device=x.device)
+        mask = full[first:first + x.shape[0]] < keep
     return x * mask / keep
 
 

@@ -16,7 +16,14 @@ dropout (before ``fc``) is drawn from the ``generator`` given to
 also standardizes every conv kernel (``ws``) and starts each block's
 ``bn2`` scale at zero (SkipInit), as the JAX modules do. ``remat`` (``REMAT_POLICIES``) recomputes parts of each
 residual block's forward in the backward instead of keeping them; its
-numerics are those of ``'none'``. ``time_axis`` is not ported.
+numerics are those of ``'none'``.
+
+``bn_axis_name`` (a process group) syncs every BatchNorm's train-mode
+statistics over its ranks (``layers.Norm``'s ``group``), the mid BNs of the
+factorized convs included; ``time_axis`` (a process group over which the
+clip's T is sharded: evaluation/long_clip.py, train/time_sharded.py) runs
+every temporal conv as the halo conv of parallel/temporal.py. The
+time-sharded step passes the time group as both.
 """
 
 from __future__ import annotations
@@ -82,14 +89,18 @@ class Conv2Plus1D(nn.Module):
     def __init__(self, cin: int, features: int, mid_features: int,
                  spatial_stride: int = 1, temporal_stride: int = 1,
                  backend: str = "cuda", dtype: torch.dtype = torch.bfloat16,
-                 norm: str = "batch", generator: torch.Generator | None = None):
+                 norm: str = "batch", generator: torch.Generator | None = None,
+                 bn_axis_name=None, time_axis=None):
         super().__init__()
         ws = norm == "scaleonly"  # the stats-free mode standardizes kernels
         self.spatial = SpatialConv(cin, mid_features, 3, stride=spatial_stride,
                                    backend=backend, dtype=dtype, ws=ws, generator=generator)
-        self.bn_mid = Norm(mid_features, kind=norm, dtype=dtype)
+        # the group reaches the mid BN too: with local statistics here a
+        # sharded step would normalize the mid activation by its own shard's
+        self.bn_mid = Norm(mid_features, kind=norm, dtype=dtype, group=bn_axis_name)
         self.temporal = TemporalConv(mid_features, features, 3, stride=temporal_stride,
-                                     backend=backend, dtype=dtype, ws=ws, generator=generator)
+                                     backend=backend, dtype=dtype, ws=ws, generator=generator,
+                                     time_axis=time_axis)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.mid_to_out(self.spatial(x))
@@ -104,23 +115,26 @@ class BasicBlock(nn.Module):
                  backend: str = "cuda", dtype: torch.dtype = torch.bfloat16,
                  norm: str = "batch",
                  mid_channels_fn: Callable[[int, int], int] = r2plus1d_mid_channels,
-                 generator: torch.Generator | None = None, remat: str = "none"):
+                 generator: torch.Generator | None = None, remat: str = "none",
+                 bn_axis_name=None, time_axis=None):
         super().__init__()
         self.remat = _check_remat(remat)
-        kw = dict(backend=backend, dtype=dtype, norm=norm, generator=generator)
+        kw = dict(backend=backend, dtype=dtype, norm=norm, generator=generator,
+                  bn_axis_name=bn_axis_name, time_axis=time_axis)
         self.conv1 = Conv2Plus1D(cin, features, mid_channels_fn(cin, features),
                                  spatial_stride=stride, temporal_stride=stride, **kw)
-        self.bn1 = Norm(features, kind=norm, dtype=dtype)
+        self.bn1 = Norm(features, kind=norm, dtype=dtype, group=bn_axis_name)
         self.conv2 = Conv2Plus1D(features, features, mid_channels_fn(features, features),
                                  **kw)
         # scaleonly: the branch's last scale starts at zero (SkipInit), so
         # the block is the identity at init
-        self.bn2 = Norm(features, kind=norm, dtype=dtype, scale_init="zeros")
+        self.bn2 = Norm(features, kind=norm, dtype=dtype, scale_init="zeros",
+                        group=bn_axis_name)
         self.downsample = self.bn_down = None
         if stride != 1 or cin != features:
             self.downsample = Conv3D(cin, features, (1, 1, 1), strides=stride,
                                      ws=norm == "scaleonly", dtype=dtype, generator=generator)
-            self.bn_down = Norm(features, kind=norm, dtype=dtype)
+            self.bn_down = Norm(features, kind=norm, dtype=dtype, group=bn_axis_name)
 
     def _tail(self, t2: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         """bn2, the residual (``r``: x, or the downsample conv's output) and
@@ -166,21 +180,25 @@ class R2Plus1D(nn.Module):
                  norm: str = "batch",
                  mid_channels_fn: Callable[[int, int], int] = r2plus1d_mid_channels,
                  stem_mid: int = 45, generator: torch.Generator | None = None,
-                 remat: str = "none"):
+                 remat: str = "none", bn_axis_name=None, time_axis=None):
         super().__init__()
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {dropout}")
+        if time_axis is not None and norm == "group":
+            raise ValueError("norm='group' takes per-clip statistics over the whole T, "
+                             "which a time-sharded model does not sync")
         self.stage_blocks = tuple(stage_blocks)
         self.dtype = dtype
         self.dropout = dropout
+        self.time_axis = time_axis
         g = generator
         ws = norm == "scaleonly"
         self.stem_spatial = SpatialConv(3, stem_mid, 7, stride=2, backend=backend,
                                         dtype=dtype, ws=ws, generator=g)
-        self.stem_bn1 = Norm(stem_mid, kind=norm, dtype=dtype)
+        self.stem_bn1 = Norm(stem_mid, kind=norm, dtype=dtype, group=bn_axis_name)
         self.stem_temporal = TemporalConv(stem_mid, 64, 3, backend=backend,
-                                          dtype=dtype, ws=ws, generator=g)
-        self.stem_bn2 = Norm(64, kind=norm, dtype=dtype)
+                                          dtype=dtype, ws=ws, generator=g, time_axis=time_axis)
+        self.stem_bn2 = Norm(64, kind=norm, dtype=dtype, group=bn_axis_name)
         cin = 64
         self.block_names = []
         for stage, num_blocks in enumerate(self.stage_blocks):
@@ -191,7 +209,7 @@ class R2Plus1D(nn.Module):
                 self.add_module(name, BasicBlock(
                     cin, features, stride=stride, backend=backend, dtype=dtype,
                     norm=norm, mid_channels_fn=mid_channels_fn, generator=g,
-                    remat=remat))
+                    remat=remat, bn_axis_name=bn_axis_name, time_axis=time_axis))
                 self.block_names.append(name)
                 cin = features
         self.fc = dense(cin, num_classes, g)

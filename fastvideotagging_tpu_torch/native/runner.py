@@ -150,13 +150,19 @@ class NativeServer:
             cmd += ["--serve-input", f"{tag}:{','.join(str(d) for d in shape)}"]
         self._proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True)
-        # stderr drains on a thread (load logs may precede "ready")
+        # stderr drains on a thread (load logs may precede "ready"). The
+        # event unblocks the wait on "ready" or on EOF; ``_saw_ready`` says
+        # which. A child that closed stderr may not have been reaped yet
+        # (poll() is still None), so EOF without "ready" is a death, not a
+        # start.
         self._ready = threading.Event()
+        self._saw_ready = False
         self._stderr: list[str] = []
 
         def _drain():
             for line in self._proc.stderr:
                 if line.strip() == "ready":
+                    self._saw_ready = True
                     self._ready.set()
                 else:
                     self._stderr.append(line)
@@ -169,8 +175,13 @@ class NativeServer:
             if time.monotonic() > deadline:
                 self.close()
                 raise TimeoutError("native server never became ready")
-        if self._proc.poll() is not None:
+        if not self._saw_ready or self._proc.poll() is not None:
             self._drainer.join(timeout=5)
+            try:
+                self._proc.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass  # closed stderr but lives on: close() kills it
+            self.close()
             raise NativeServerDied("native server died during startup:\n"
                                    + "".join(self._stderr))
 

@@ -13,6 +13,11 @@ second save at the same step replaces the first. Saves are synchronous:
 ``save`` returns when the file is in place, so ``wait`` and ``close`` have
 nothing to wait for. ``export_weights`` / ``load_weights`` write and read a
 weights-only ``state_dict`` for the tag()/serving path.
+
+In a data-parallel job (``mesh``) every rank holds the same state: rank 0
+writes the file, the other ranks wait at a barrier until it is in place,
+and every rank restores from it, so a resumed job continues as one process
+would.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import re
 
 import torch
 
+from fastvideotagging_tpu_torch.parallel.mesh import Mesh, barrier
 from fastvideotagging_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -72,10 +78,14 @@ class NullCheckpointManager:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh: Mesh | None = None):
         self._dir = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self._dir, exist_ok=True)
+        self._mesh = mesh
+        self._writes = mesh is None or mesh.is_main
+        if self._writes:
+            os.makedirs(self._dir, exist_ok=True)
+        barrier(mesh)
 
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, f"step_{step}.pt")
@@ -93,17 +103,20 @@ class CheckpointManager:
         the first: when checkpoint_every_steps divides the epoch length, the
         mid-epoch save records epoch - 1 and the epoch-end save at the same
         step records epoch, and a resume must take the latter (or it would
-        replay the whole completed epoch)."""
-        payload = {
-            "model": _to_host(state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.state_dict()),
-            "step": int(state.step),
-            "acc_grads": _to_host(state.acc_grads),
-            "epoch": int((extra or {}).get("epoch", 0)),
-        }
-        _atomic_save(payload, self._path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self._path(old))
+        replay the whole completed epoch). In a job, rank 0 writes and every
+        rank returns once the file is in place."""
+        if self._writes:
+            payload = {
+                "model": _to_host(state.model.state_dict()),
+                "optimizer": _to_host(state.optimizer.state_dict()),
+                "step": int(state.step),
+                "acc_grads": _to_host(state.acc_grads),
+                "epoch": int((extra or {}).get("epoch", 0)),
+            }
+            _atomic_save(payload, self._path(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self._path(old))
+        barrier(self._mesh)
 
     def _load(self, step: int | None):
         step = self.latest_step() if step is None else step

@@ -1,5 +1,6 @@
 """fit(): the end-to-end training orchestration (the counterpart of
-``fastvideotagging_tpu/train/fit.py``) on one card.
+``fastvideotagging_tpu/train/fit.py``), on one card or data-parallel over
+the processes of a job, one card each.
 
 Epoch/batch loop, periodic speed/loss logging, per-epoch checkpoint and
 eval: worker-decoded uint8 batches (``train_batches``) are prefetched onto
@@ -12,6 +13,16 @@ kernels, SGD); checkpoints hold the full state, so a resume is exact. With
 Dropout draws from a generator seeded from ``(seed, global_step)`` on the
 model's device (the counterpart of ``fold_in(rng, global_step)``), so a
 resumed run needs no generator state to draw the same masks.
+
+Data parallel (a job joined by ``parallel.init_multihost``; the mesh comes
+from ``cfg.parallel``, ``data_parallel = -1`` meaning the world size): each
+rank loads only its rows of every global batch (``local_batch_rows``),
+starts from rank 0's weights, and runs the data-parallel step
+(train/loop.py), so every rank holds the same state after every step; the
+per-epoch evaluation runs on the same mesh; rank 0 alone logs and writes
+checkpoints, and every rank restores them. A stop request (a signal on any
+one rank) is decided collectively every step (an all-reduce with MAX), so
+all ranks save and return at the same step.
 """
 
 from __future__ import annotations
@@ -21,13 +32,20 @@ import time
 import numpy as np
 import torch
 
-from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.data.device_cache import build_cache, train_index_batches
 from fastvideotagging_tpu_torch.data.packed import PackedDataset, open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import device_prefetch, train_batches
 from fastvideotagging_tpu_torch.evaluation.evaluate import make_eval_fn
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
+from fastvideotagging_tpu_torch.parallel.mesh import (
+    Mesh,
+    any_rank,
+    check_mesh,
+    local_batch_rows,
+    make_mesh,
+    shard_train_state,
+)
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager, NullCheckpointManager
 from fastvideotagging_tpu_torch.train.loop import make_train_step
 from fastvideotagging_tpu_torch.train.metrics import RunningMean
@@ -46,12 +64,12 @@ def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Gener
     return g
 
 
-def _check_single_card(cfg: ExperimentConfig, mesh) -> None:
-    p = cfg.parallel
-    if mesh is not None or p.data_parallel > 1 or p.model_parallel > 1:
+def _check_parallel(cfg: ExperimentConfig, mesh) -> None:
+    check_mesh(mesh)
+    if cfg.parallel.model_parallel > 1:
         raise NotImplementedError(
-            "fit runs on one card: mesh=, data_parallel > 1 and model_parallel > 1 "
-            "are not ported yet (ROADMAP.md Queue A item 7, parallelism)")
+            "model_parallel > 1 (channel sharding) is not ported yet (ROADMAP.md "
+            "Queue A item 7, parallelism); train data-parallel only")
 
 
 def fit(
@@ -76,14 +94,26 @@ def fit(
     init: a state_dict of the port (``zoo.load_pretrained``, as the train
     CLI's ``--pretrained`` gives it) or JAX-package variables ``{'params',
     'batch_stats'}``; structure and shape mismatches raise.
-    device: the card by default; raises without one unless ``'cpu'``.
-    mesh: only None (one card).
+    device: the card by default (in a job, this rank's); raises without one
+    unless ``'cpu'``.
+    mesh: the data-parallel mesh (``parallel.make_mesh``), whose device is
+    then the run's; by default the one ``cfg.parallel`` gives on ``device``.
     """
-    _check_single_card(cfg, mesh)
-    dev = resolve_device(device)
+    _check_parallel(cfg, mesh)
+    if mesh is None:
+        mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel,
+                         device=device)
+    dev = mesh.device
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
+    if t_cfg.batch_size % mesh.world:
+        raise ValueError(
+            f"batch_size={t_cfg.batch_size} must be divisible by the data-parallel "
+            f"degree {mesh.world}; set train.batch_size or parallel.data_parallel "
+            f"accordingly")
     if eval_fn is None and val_records:
-        eval_fn = make_eval_fn(cfg, val_records, num_tags=num_tags, device=dev)
+        # per-epoch eval rides the same mesh as training (clip chunks split
+        # over the ranks), not one card
+        eval_fn = make_eval_fn(cfg, val_records, num_tags=num_tags, device=dev, mesh=mesh)
     num_tags = num_tags or (m_cfg.num_classes if m_cfg.multilabel else None)
 
     dataset = open_dataset(train_records, d_cfg, mode="train",
@@ -100,8 +130,9 @@ def fit(
                                generator=torch.Generator().manual_seed(t_cfg.seed))
     if init_variables is not None:
         _apply_pretrained(state, init_variables)
+    shard_train_state(state, mesh)  # every rank starts from rank 0's weights
 
-    ckpt = (CheckpointManager(t_cfg.checkpoint_dir) if t_cfg.checkpoint_dir
+    ckpt = (CheckpointManager(t_cfg.checkpoint_dir, mesh=mesh) if t_cfg.checkpoint_dir
             else NullCheckpointManager())  # benchmark/throwaway runs
     start_epoch = 0
     if t_cfg.resume:
@@ -117,16 +148,23 @@ def fit(
                 "cache_on_device=True needs a .fvtpack train source "
                 "(cli.prepare --pack); streaming records cannot be staged "
                 "into device memory")
-        cache = build_cache(dataset, device=dev)
-        raw_step = make_train_step(state.model, cfg, device_cache=True)
+        cache = build_cache(dataset, mesh=mesh, device=dev)
+        raw_step = make_train_step(state.model, cfg, device_cache=True, mesh=mesh)
         step_fn = lambda s, b, g: raw_step(s, b, g, cache.frames)  # noqa: E731
     else:
-        step_fn = make_train_step(state.model, cfg)
-    mlog = MetricsLogger(metrics_path)
+        step_fn = make_train_step(state.model, cfg, mesh=mesh)
+    # Each rank loads only its rows of every global batch; the metrics are
+    # averaged over the ranks by the step, so only rank 0 logs them.
+    local_rows = None
+    if mesh.world > 1:
+        local_rows = local_batch_rows(mesh, t_cfg.batch_size)
+        log.info("data parallel: process %d/%d loads %d/%d rows per batch",
+                 mesh.rank, mesh.world, len(local_rows), t_cfg.batch_size)
+    mlog = MetricsLogger(metrics_path, enabled=mesh.is_main)
     try:
         with GracefulStopper() as stopper:
             _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev,
-                        start_epoch, eval_fn, stopper, cache)
+                        start_epoch, eval_fn, stopper, cache, mesh, local_rows)
     finally:
         ckpt.wait()
         mlog.close()
@@ -162,15 +200,16 @@ def _apply_pretrained(state: TrainState, variables: dict) -> None:
 
 
 def _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev, start_epoch,
-                eval_fn, stopper, cache=None) -> None:
+                eval_fn, stopper, cache, mesh: Mesh, local_rows: list[int] | None) -> None:
     t_cfg, d_cfg = cfg.train, cfg.data
 
     def make_batches(epoch):
         if cache is not None:
             # index-only batches: a few KB a step; the pixels are on the card
-            return train_index_batches(dataset, cache, t_cfg.batch_size, epoch)
+            return train_index_batches(dataset, cache, t_cfg.batch_size, epoch,
+                                       rows=local_rows)
         return train_batches(dataset, t_cfg.batch_size, epoch,
-                             num_workers=d_cfg.num_workers)
+                             num_workers=d_cfg.num_workers, rows=local_rows)
 
     global_step = state.step
     for epoch in range(start_epoch, t_cfg.num_epochs):
@@ -188,7 +227,10 @@ def _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev, start_epoch,
                 if batch is None:
                     break
                 data_wait += time.time() - t_wait
-                if stopper.stop_requested:
+                # In a job the decision is collective: a signal lands on one
+                # rank, and if it alone saved and returned, the others would
+                # wait in the next step's all-reduce for ever.
+                if any_rank(stopper.stop_requested, mesh):
                     ckpt.save(global_step, state, {"epoch": epoch - 1})
                     log.warning("stopping at step %d on request; checkpoint saved "
                                 "(resume with --resume)", global_step)
@@ -232,8 +274,9 @@ def _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev, start_epoch,
             loss_avg.update(last["loss"], t_cfg.batch_size)
             if "top1" in last:
                 top1_avg.update(last["top1"], t_cfg.batch_size)
-        log.info("epoch %d done in %.1fs loss=%.4f top1=%.4f", epoch,
-                 time.time() - epoch_start, loss_avg.value, top1_avg.value)
+        if mesh.is_main:
+            log.info("epoch %d done in %.1fs loss=%.4f top1=%.4f", epoch,
+                     time.time() - epoch_start, loss_avg.value, top1_avg.value)
         ckpt.save(global_step, state, {"epoch": epoch})
         if eval_fn is not None:
             scalars = eval_fn(state, epoch)

@@ -8,6 +8,14 @@
 The step runs eagerly on the state's device and never waits for it: the
 metrics come back as device tensors, for the caller to read every
 ``log_every`` steps.
+
+Data parallel (``mesh`` with a data group, parallel/mesh.py): each rank runs
+the step on its rows of the global batch; every BatchNorm sums its
+statistics over the group (``layers.sync_batch_norm``), the dropout mask is
+the global batch's (``layers.global_dropout_rows``), and after the backward
+the gradients are averaged over the group (one all-reduce a gradient, then
+a division), as are the loss and top-1 metrics. Each rank
+then makes the same update, so the ranks' weights stay equal.
 """
 
 from __future__ import annotations
@@ -18,12 +26,15 @@ import torch
 
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.models import heads
+from fastvideotagging_tpu_torch.models.layers import global_dropout_rows, sync_batch_norm
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch
+from fastvideotagging_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, check_mesh
 from fastvideotagging_tpu_torch.train.state import TrainState
 
 
 def make_train_step(
     model: torch.nn.Module, cfg: ExperimentConfig, device_cache: bool = False,
+    mesh: Mesh | None = None,
 ) -> Callable[..., tuple[TrainState, dict]]:
     """Build the train step: ``(state, batch, generator) -> (state, metrics)``.
 
@@ -40,7 +51,13 @@ def make_train_step(
     int cache rows in place of ``frames``; the clips' pixels are gathered
     there (one gather over the leading axis), so a step copies a few KB of
     indices to the device.
+
+    ``mesh``: a data-parallel mesh (the batch is this rank's rows; the
+    model's BatchNorms are put on the mesh's group here).
     """
+    group = check_mesh(mesh) and mesh.group
+    if group is not None:
+        sync_batch_norm(model, group)
     d = cfg.data
     multilabel = cfg.model.multilabel
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
@@ -64,18 +81,29 @@ def make_train_step(
             d.mean, d.std, resize_hw=resize_hw, crop_hw=d.crop_hw,
             out_dtype=compute_dtype)
         model.train()
-        logits = model(clips, generator=generator)
+        if group is None:
+            logits = model(clips, generator=generator)
+        else:
+            b = clips.shape[0]
+            with global_dropout_rows(b * mesh.world, b * mesh.rank):
+                logits = model(clips, generator=generator)
         if multilabel:
             loss = heads.sigmoid_bce(logits, batch["multihot"], batch["weights"])
         else:
             loss = heads.softmax_cross_entropy(logits, batch["labels"], batch["weights"])
         loss.backward()
+        if group is not None:
+            all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None],
+                             mesh)
         state.apply_gradients()
         metrics = {"loss": loss.detach()}
         if not multilabel:
             w = batch["weights"].float()
             top1 = (logits.detach().argmax(dim=-1) == batch["labels"]).float()
             metrics["top1"] = (top1 * w).sum() / torch.clamp(w.sum(), min=1.0)
+        if group is not None:
+            values = list(metrics.values())
+            all_reduce_mean_(values, mesh)
         return state, metrics
 
     return step

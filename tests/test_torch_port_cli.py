@@ -165,11 +165,12 @@ def test_cli_flags_not_ported_raise(served):
     ev = COMMON + ["--val-list", pack, "--checkpoint-dir", str(tmp / "port_ckpt"),
                    "--device", "cpu"]
     tg = COMMON + [pack, "--weights", str(tmp / "port_weights.pt"), "--device", "cpu"]
-    cases = [(cli_evaluate.main, ev + ["--coordinator", "h:1"], "item 7"),
-             (cli_evaluate.main, ev + ["--process-id", "0"], "item 7")]
-    for main, argv, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
-            main(argv)
+    # the multi-process flags are ported (tests/test_torch_port_multiproc.py):
+    # channel sharding is not, and a coordinator needs the job's size and rank
+    with pytest.raises(NotImplementedError, match="item 7"):  # model_parallel = 2
+        cli_evaluate.main(ev + ["--preset", "slowfast_stretch"])
+    with pytest.raises(SystemExit, match="needs --num-processes"):
+        cli_evaluate.main(ev + ["--coordinator", "h:1", "--process-id", "0"])
     # --engine native is ported (tests/test_torch_port_native.py): the JAX
     # CLI's checks, before any daemon starts
     native = [(tg + ["--engine", "native"], "needs --artifacts"),

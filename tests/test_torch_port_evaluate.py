@@ -295,10 +295,17 @@ def test_evaluate_mesh_is_not_ported(packs, small_model):
     _, _, tmodel, state = small_model
     tc = _cfg(tcfg, False)
     tds = tpacked.open_dataset(paths["torch"], tc.data, mode="eval")
-    with pytest.raises(NotImplementedError, match="mesh.*item 7"):
+    # data-parallel evaluation is ported (tests/test_torch_port_multiproc.py):
+    # a mesh must be a parallel.Mesh, and a single process's mesh is one card
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         teval.evaluate(tmodel, state, tds, tc, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh.*item 7"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         teval.make_eval_fn(tc, paths["torch"], mesh=object(), device="cpu")
+    from fastvideotagging_tpu_torch.parallel import make_mesh
+
+    one = make_mesh(device="cpu")
+    assert (one.world, one.rank, one.group) == (1, 0, None)
+    assert teval._eval_plan(one, 3) == (None, 3)  # no split, no rounding
 
 
 def test_make_eval_fn_over_a_pack(packs):

@@ -265,8 +265,8 @@ def test_stopped_then_resumed_run_is_exact(records, tmp_path):
 
 def _recorder(log):
     class Recorder:
-        def __init__(self, directory, max_to_keep=3):
-            pass
+        def __init__(self, directory, max_to_keep=3, mesh=None):
+            pass  # mesh: the port's manager takes the data-parallel mesh
 
         def save(self, step, state, extra=None):
             log.append(("save", int(step), int(extra["epoch"])))
@@ -343,14 +343,19 @@ def test_fit_checks_its_inputs(records, tmp_path):
     big = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=7))
     with pytest.raises(ValueError, match="batch_size"):
         tfit.fit(big, trecs, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    # data parallel is ported (tests/test_torch_port_multiproc.py): one process
+    # is a data-parallel degree of 1, and channel sharding is not ported
+    with pytest.raises(ValueError, match="data_parallel=2 must equal the 1 process"):
         tfit.fit(dataclasses.replace(cfg, parallel=tconfig.ParallelConfig(data_parallel=2)),
+                 trecs, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        tfit.fit(dataclasses.replace(cfg, parallel=tconfig.ParallelConfig(model_parallel=2)),
                  trecs, device="cpu")
     # the device cache takes a pack, not streaming records (the JAX fit's ValueError)
     with pytest.raises(ValueError, match="needs a .fvtpack"):
         tfit.fit(dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, cache_on_device=True)),
                  trecs, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tfit.fit(cfg, trecs, mesh=object(), device="cpu")
     # pretrained variables: num_epochs=0 returns them untouched
     variables = _jax_init(_cfg(jconfig), seed=123)
@@ -497,14 +502,16 @@ def test_cli_train_on_a_pack_then_tag_from_its_export(tmp_path):
                                    "--epochs", "1", "--checkpoint-dir", "",
                                    "--metrics-jsonl", str(tmp_path / "knobs.jsonl")])
     assert knobs.step == 2 and knobs.acc_grads is None
-    for extra, item in ((["--coordinator", "h:1"], "item 7"),):
-        with pytest.raises(NotImplementedError, match=item):
-            cli_train.main(argv + ["--device", "cpu"] + extra)
+    # the multi-process flags are ported (tests/test_torch_port_multiproc.py)
+    with pytest.raises(SystemExit, match="needs --num-processes"):
+        cli_train.main(argv + ["--device", "cpu", "--coordinator", "h:1"])
     # --pretrained is ported (tests/test_torch_port_pretrained.py): a missing file raises
     with pytest.raises(FileNotFoundError):
         cli_train.main(argv + ["--device", "cpu", "--pretrained", str(tmp_path / "w.pt")])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="data_parallel=2"):
         cli_train.main(argv + ["--device", "cpu", "--data-parallel", "2"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        cli_train.main(argv + ["--device", "cpu", "--model-parallel", "2"])
 
 
 # --------------------------------------------------------------------------

@@ -1448,3 +1448,65 @@ def test_export_on_the_card_matches_the_eager_engine(cuda, engine, tmp_path):
         assert loaded["conv3d_s8"] == 28
         assert (loaded["quantize_s8"], loaded["quantize_s8_amax"]) == (
             (26, 1) if engine == "int8_dynamic" else (1, 0))
+
+
+# ---------------------------------------------------------------------------
+# parallelism: two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+_HALO_ON_CARD = r"""
+from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
+from fastvideotagging_tpu_torch.parallel import temporal as tp
+import torch.distributed as dist
+data = torch.load(os.path.join(work, "inputs.pt"))
+x, w, gy = (data[k].to(mesh.device) for k in ("x", "w", "gy"))
+group = mesh.group
+out["transport"] = tp.halo_transport(group, x.device)
+xl = tp.time_shard(x, group).clone().requires_grad_(True)
+wl = w.clone().requires_grad_(True)
+ops.reset_launch_counts()
+y = tp.halo_temporal_conv(xl, wl, group)
+y.backward(tp.time_shard(gy, group))
+torch.cuda.synchronize()
+out["launches"] = dict(ops.launch_counts)
+out["halo"] = dict(tp.halo_counts)
+parts = [torch.empty_like(y) for _ in range(world)]
+dist.all_gather(parts, y.detach().contiguous(), group=group)
+out["y"] = torch.cat(parts, 1).cpu()
+parts = [torch.empty_like(xl.grad) for _ in range(world)]
+dist.all_gather(parts, xl.grad.contiguous(), group=group)
+out["dx"] = torch.cat(parts, 1).cpu()
+dw = wl.grad.float()
+dist.all_reduce(dw, group=group)
+out["dw"] = dw.cpu()
+"""
+
+
+def test_halo_conv_on_the_card_over_gloo(cuda, tmp_path):
+    """Two ranks sharing the card over a gloo group (gloo's point-to-point
+    takes no CUDA tensors: the halos go through the host): the halo conv of
+    a 16-frame clip, 8 frames a rank, runs K2 over each 10-frame slab and
+    K2's dx and K3 in the backward, and equals the unsharded conv (f32
+    F.conv3d from the same bf16 inputs) within 1e-2 of each output's
+    largest magnitude, gradients too."""
+    from test_torch_port_multiproc import RankJob
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 16, 28, 28, 64, generator=g).to(torch.bfloat16)
+    w = (torch.randn(3, 64, 128, generator=g) / 14).to(torch.bfloat16)
+    gy = torch.randn(2, 16, 28, 28, 128, generator=g).to(torch.bfloat16)
+    torch.save({"x": x, "w": w, "gy": gy}, tmp_path / "inputs.pt")
+    job = RankJob(2, _HALO_ON_CARD, tmp_path, device="cuda", timeout=300)
+    res = job.results()
+    xf = x.to(cuda).float().requires_grad_(True)
+    wf = w.to(cuda).float().requires_grad_(True)
+    yf = ops.conv3d_nthwc(xf, wf[:, None, None], (1, 1, 1), (1, 0, 0))
+    yf.backward(gy.to(cuda).float())
+    for r in res:
+        assert r["transport"] == "host"
+        assert r["halo"]["k2_slabs"] == 1
+        assert r["launches"]["temporal_conv"] == 2 and r["launches"]["temporal_dw"] == 1
+        for got, ref in ((r["y"], yf), (r["dx"], xf.grad), (r["dw"], wf.grad)):
+            ref = ref.detach().cpu()
+            err = (got.float() - ref).abs().max().item()
+            assert err <= TOL * ref.abs().max().item(), err

@@ -83,7 +83,13 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.cli.export",
             "fastvideotagging_tpu_torch.native",
             "fastvideotagging_tpu_torch.native.runner",
-            "fastvideotagging_tpu_torch.evaluation.native_tagger"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.evaluation.native_tagger",
+            "fastvideotagging_tpu_torch.parallel",
+            "fastvideotagging_tpu_torch.parallel.mesh",
+            "fastvideotagging_tpu_torch.parallel.temporal",
+            "fastvideotagging_tpu_torch.train.shardmap_step",
+            "fastvideotagging_tpu_torch.train.time_sharded",
+            "fastvideotagging_tpu_torch.evaluation.long_clip"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -165,6 +171,27 @@ def test_entry_points_of_the_last_slice_raise_without_cuda(tmp_path):
     for case in cases:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             case()
+
+
+def test_parallel_entry_points_raise_without_cuda():
+    """Joining a job, the mesh, the time mesh and a rank's device are the
+    card's unless the caller asks for the CPU: without one they raise
+    before any process group is made; NCCL takes only CUDA ranks."""
+    _needs_no_card()
+    import torch.distributed as dist
+
+    from fastvideotagging_tpu_torch.evaluation.long_clip import make_time_mesh
+    from fastvideotagging_tpu_torch.parallel import init_multihost, make_mesh
+    from fastvideotagging_tpu_torch.parallel.mesh import rank_device
+
+    for case in (lambda: init_multihost("127.0.0.1:1", 2, 0), make_mesh, make_time_mesh,
+                 rank_device):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            case()
+    with pytest.raises(ValueError, match="NCCL backend needs the ranks on CUDA"):
+        init_multihost("127.0.0.1:1", 2, 0, backend="nccl", device="cpu")
+    assert not dist.is_initialized()
+    assert make_mesh(device="cpu").device.type == "cpu"
 
 
 def test_export_entry_points_raise_without_cuda(tmp_path):

@@ -108,8 +108,12 @@ def test_cache_guards(pack):
     tds = tpacked.PackedDataset(pack, _data_cfg(tconfig), mode="train")
     with pytest.raises(ValueError, match="cache budget"):
         tcache.build_cache(tds, budget_bytes=1000, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a replicated cache is ported: on a mesh it lives on the rank's device
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tcache.build_cache(tds, mesh=object(), device="cpu")
+    from fastvideotagging_tpu_torch.parallel import make_mesh
+
+    assert tcache.build_cache(tds, mesh=make_mesh(device="cpu")).frames.device.type == "cpu"
     cache = tcache.build_cache(tds, device="cpu")
     with pytest.raises(TypeError, match="PackedDataset"):
         next(tcache.train_index_batches(object(), cache, 2, 0))

@@ -436,6 +436,20 @@ def test_startup_death_raises(tmp_path, monkeypatch):
         runner.NativeServer("m.pt2", [((4,), np.uint8)], str(tmp_path / "wd"), device="cpu")
 
 
+def test_startup_death_after_closing_stderr_raises(tmp_path, monkeypatch):
+    """A runner that writes its error, closes stderr and exits only later:
+    the EOF comes before the child can be reaped (poll() is still None), and
+    the server must still raise, every time, not take the dead child for a
+    ready one."""
+    _install_fake_runner(tmp_path, monkeypatch,
+                         "import os, sys, time\nsys.stderr.write('no package\\n')\n"
+                         "sys.stderr.flush()\nos.close(2)\ntime.sleep(0.3)\nsys.exit(1)\n")
+    for _ in range(2):
+        with pytest.raises(runner.NativeServerDied, match="no package"):
+            runner.NativeServer("m.pt2", [((4,), np.uint8)], str(tmp_path / "wd"),
+                                device="cpu")
+
+
 def test_a_cuda_package_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
