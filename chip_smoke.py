@@ -8,6 +8,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. card   — name, power limit and device count;
 2. build  — compile every csrc/*.cu kernel (one nvcc per source, in
             parallel) and print ptxas' register / shared memory report;
+            then the host line: the host data plane's resize
+            (``native.resize_batch_u8``, csrc/framepack.c built with the
+            system C compiler) against its plain numpy version at 240x320
+            -> 128x171 (within one level) and at a 2x upscale (equal), both
+            timed on the host;
 3. kernels — at every kernel-eligible (2+1)D conv site of R(2+1)D-18
             (16x112x112, bf16), at the serving clip batch (8) and the
             training batch (32): K1 (spatial 1xkxk) and K2 (temporal kx1x1)
@@ -232,9 +237,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             unsharded step, in f64 within PAR_F64_TOL and in bf16 within
             PATH_TOL (loss), PAR_BF16_DIST and PAR_BF16_NORM (gradients).
             Each gradient limit is first shown to reject a zeroed, a
-            halved and a doubled gradient. Each rank is a ``python3 -c``
-            subprocess from the checkout's root under one deadline; a
-            failing rank kills the others and fails the run.
+            halved and a doubled gradient; (d) channel sharding: the
+            ``slowfast_stretch`` preset's model at its published widths
+            (base_width 64, stage_blocks (1, 1, 1, 1), 400 classes) on
+            32x224x224 clips at B = 4, data 1 x model 2 over the same two
+            processes, 2 steps against the unsharded step in one process,
+            in bf16 (loss within PATH_TOL, gradients gathered over the model
+            group within PAR_BF16_DIST / PAR_BF16_NORM) and in f64
+            (``f64_config``: loss, gradients and BN statistics within
+            PAR_F64_TOL), each rank's conv kernels half the unsharded
+            model's, its peak memory, ms a step beside the unsharded step's
+            and the bytes all-gathered and all-reduced a step; then
+            ``cli.train --preset slowfast_stretch`` over the two processes
+            for one step with a checkpoint (whole kernels) and
+            ``cli.evaluate --preset slowfast_stretch`` on it in this
+            process (unsharded, with the warning). SlowFast's convs are
+            F.conv3d (no hand kernel), so (d) adds no launches. Each rank
+            is a ``python3 -c`` subprocess from the checkout's root under
+            one deadline; a failing rank kills the others and fails the
+            run.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -269,6 +290,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import logging
 import os
 import socket
 import subprocess
@@ -518,6 +540,45 @@ def phase_build() -> None:
     for name, report in reports.items():
         print(f"-- ptxas report for {name}.cu:")
         print(report.strip())
+
+
+HOST_RESIZE = ((240, 320), (128, 171), 8)  # the host resize's source, ship size, frames
+
+
+def phase_host_resize(card: str) -> dict:
+    """The host data plane's resize (``native.resize_batch_u8``, csrc/
+    framepack.c, built here with the system C compiler) against its plain
+    numpy version: within one level at 240x320 -> 128x171, equal at a 2x
+    upscale (whose taps are exact), both timed on the host."""
+    from fastvideotagging_tpu_torch import native
+    from fastvideotagging_tpu_torch.data.frames import resize_batch_u8_plain
+
+    (h, w), (oh, ow), t = HOST_RESIZE
+    t0 = time.perf_counter()
+    lib = _build.build_framepack()
+    build_s = time.perf_counter() - t0
+    x = np.random.default_rng(SEED).integers(0, 256, size=(t, h, w, 3), dtype=np.uint8)
+    times = {}
+    for name, fn in (("c", native.resize_batch_u8), ("plain", resize_batch_u8_plain)):
+        fn(x[:1], oh, ow)
+        t0 = time.perf_counter()
+        out = fn(x, oh, ow)
+        times[name] = ((time.perf_counter() - t0) * 1e3, out)
+    diff = np.abs(times["c"][1].astype(np.int16) - times["plain"][1])
+    up = x[:, : h // 2, : w // 2]
+    upscale_equal = bool(np.array_equal(native.resize_batch_u8(up, h, w),
+                                        resize_batch_u8_plain(up, h, w)))
+    res = dict(c_ms=times["c"][0], plain_ms=times["plain"][0], differ=int((diff > 0).sum()),
+               values=int(diff.size), max_level=int(diff.max()), upscale_equal=upscale_equal,
+               build_s=build_s, library=os.path.basename(lib))
+    print(f"host resize (native.resize_batch_u8, {res['library']} built in {build_s:.2f} s): "
+          f"{t} frames {h}x{w} -> {oh}x{ow} in {res['c_ms']:.2f} ms, the plain numpy version "
+          f"{res['plain_ms']:.2f} ms (host clock); {res['differ']} of {res['values']} values "
+          f"differ, by at most {res['max_level']} level; a 2x upscale {h // 2}x{w // 2} -> "
+          f"{h}x{w} equal: {upscale_equal} (the host of {card})", flush=True)
+    if res["max_level"] > 1 or not upscale_equal:
+        raise SystemExit(f"the host resize disagrees with its plain version: {res}")
+    return res
 
 
 def _ncdhw(x5: torch.Tensor) -> torch.Tensor:
@@ -3883,7 +3944,82 @@ def timed_steps(make, times: list, counts: list, first: dict | None = None):
     return build
 
 
-# The script each rank of (b) and (c) runs, from the checkout's root:
+# (d): the slowfast_stretch preset's model at its published widths
+# (base_width 64, stage_blocks (1, 1, 1, 1), 400 classes) on its 32x224x224
+# clips, data 1 x model 2 over the two processes, against the unsharded step
+TP_PRESET = "slowfast_stretch"
+TP_BATCH, TP_STEPS = 4, 2
+TP_CLI_VIDEOS, TP_CLI_FRAMES = 4, 64  # (d)'s cli.train: one step of 4 clips of 32 at stride 2
+TP_SEED = SEED + 23
+
+
+def tp_config(run: str) -> ExperimentConfig:
+    """(d)'s config: the preset at B = TP_BATCH, in bf16 or (``f64_config``)
+    float64 activations."""
+    cfg = PRESETS[TP_PRESET]
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=TP_BATCH))
+    return cfg if run == "bf16" else f64_config(cfg)
+
+
+def tp_steps(spec: dict, run: str, mesh=None) -> tuple[dict, dict]:
+    """TP_STEPS train steps of (d)'s model from ``spec``'s seed and batch
+    (step 1 alone in f64), channel-sharded over ``mesh``'s model group or
+    unsharded without one: per step the ms by CUDA events, the loss and the
+    channel collectives' counts and bytes; the peak memory and the conv
+    kernels' bytes on this process; and step 1's loss, whole gradients
+    (gathered over the model group) and BatchNorm statistics, on the host.
+    Phase 13's ranks import it too."""
+    from fastvideotagging_tpu_torch.parallel import channel, shard_train_state
+    from fastvideotagging_tpu_torch.parallel.mesh import param_partition_specs
+    from fastvideotagging_tpu_torch.train.fit import dropout_generator
+
+    cfg = tp_config(run)
+    kw = {} if mesh is None else {"shard_axis": mesh.model_group}
+    model = model_from_config(cfg.model, device=DEV,
+                              generator=torch.Generator().manual_seed(spec["seed"]), **kw)
+    state = create_train_state(cfg, 10, device=DEV, model=model)
+    if mesh is not None:
+        shard_train_state(state, mesh)
+    specs = param_partition_specs(model)
+    step = make_train_step(model, cfg, mesh=mesh)
+    batch = {k: torch.as_tensor(v).to(DEV) for k, v in spec["batches"][run].items()}
+    first, apply = {}, state.apply_gradients
+
+    def capture():
+        grads = {}
+        for n, p in model.named_parameters():
+            g = p.grad.detach()
+            if specs[n] is not None:
+                g = channel.gather_along(g, specs[n], mesh.model_group)
+            grads[n] = g.float().cpu()
+        first["grads"] = grads
+        first["buffers"] = {n: b.detach().float().cpu() for n, b in model.named_buffers()
+                            if b.is_floating_point()}
+        apply()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = dict(ms=[], losses=[], collectives=[],
+               kernel_bytes=sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                                if n.endswith(".kernel")))
+    for i in range(TP_STEPS if run == "bf16" else 1):
+        state.apply_gradients = capture if i == 0 else apply
+        channel.reset_channel_counts()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        state, metrics = step(state, batch, dropout_generator(spec["seed"], i, torch.device(DEV)))
+        e.record()
+        e.synchronize()
+        res["ms"].append(s.elapsed_time(e))
+        res["losses"].append(float(metrics["loss"]))
+        res["collectives"].append(dict(channel.channel_counts))
+    state.apply_gradients = apply
+    first["loss"] = res["losses"][0]
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, step, model, batch
+    return res, first
+
+
+# The script each rank of (b), (c) and (d) runs, from the checkout's root:
 # ``python3 -c _PAR_RANK role rank world port,port tmp``. It writes its
 # results to tmp/par_<role><rank>.json (and tensors to .pt files beside it).
 _PAR_RANK = r"""
@@ -3912,6 +4048,31 @@ if role == "cli":
         torch.save(first, os.path.join(tmp, f"par_cli_first_{run}{rank}.pt"))
         del state
         torch.cuda.empty_cache()
+elif role == "tp":  # (d): the slowfast_stretch model channel-sharded, data 1 x model 2
+    from chip_smoke import tp_steps
+    from fastvideotagging_tpu_torch.parallel import init_multihost, make_mesh
+    init_multihost(f"127.0.0.1:{ports[0]}", world, rank, backend="gloo", timeout=%(group)d)
+    mesh = make_mesh(1, world)
+    spec = torch.load(os.path.join(tmp, "tp_spec.pt"), weights_only=False)
+    for run in ("bf16", "f64"):
+        out[run], first = tp_steps(spec, run, mesh)
+        out[run]["device"] = str(mesh.device)
+        torch.save(first, os.path.join(tmp, f"tp_first_{run}{rank}.pt"))
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+elif role == "tpcli":  # (d): cli.train --preset slowfast_stretch over the ranks
+    from fastvideotagging_tpu_torch.parallel.mesh import param_partition_specs
+    with open(os.path.join(tmp, "tp_argv.json")) as f:
+        argv = json.load(f)
+    state = cli_train.main(argv + [
+        "--coordinator", f"127.0.0.1:{ports[0]}", "--num-processes", str(world),
+        "--process-id", str(rank), "--dist-backend", "gloo", "--dist-timeout", "%(group)d"])
+    specs = param_partition_specs(state.model)
+    out["cli"] = dict(step=state.step, device=str(next(state.model.parameters()).device),
+                      kernel_bytes=sum(p.numel() * p.element_size()
+                                       for n, p in state.model.named_parameters()
+                                       if specs[n] is not None))
+    cli_train.finish_multihost()
 else:  # "long": score_long_clip and one time-sharded train step in bf16 and in f64
     from fastvideotagging_tpu_torch import get_model
     from fastvideotagging_tpu_torch.evaluation.long_clip import make_time_mesh, score_long_clip
@@ -4369,8 +4530,149 @@ def phase_parallel(card: str, tmp: str) -> dict:
         unsharded_step={run: {k: ref[run][k] for k in ("loss", "ms", "peak_bytes")}
                         for run in ref},
         k2_extra_frames=extra)
+    result["d"] = phase_channel(card, tmp)
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return dict(result=result, launches=launches)
+
+
+def _kernel_bytes_note(bytes_: int, whole: int) -> str:
+    return f"{bytes_ / 1e6:.3f} MB of conv kernels ({bytes_ / whole:.3f} of the unsharded)"
+
+
+def phase_channel(card: str, tmp: str) -> dict:
+    """(d) channel sharding: the slowfast_stretch preset's model at its
+    published widths on 32x224x224 clips, data 1 x model 2 over two
+    processes sharing the card over gloo, against the unsharded step in one
+    process, in bf16 and in f64; then ``cli.train --preset
+    slowfast_stretch`` over the two processes for one step with a
+    checkpoint, and ``cli.evaluate --preset slowfast_stretch`` on it in
+    this process (unsharded, with the warning)."""
+    from fastvideotagging_tpu_torch.parallel.channel import reset_channel_counts
+
+    spec = dict(seed=TP_SEED, batches={run: _train_batch(tp_config(run))
+                                       for run in ("bf16", "f64")})
+    torch.save(spec, os.path.join(tmp, "tp_spec.pt"))
+    reset_channel_counts()
+    ref = {}
+    for run in ("bf16", "f64"):
+        ref[run] = tp_steps(spec, run)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks("tp", tmp)
+    ranks_s = time.perf_counter() - t0
+    d = tp_config("bf16").data
+    shape = f"{TP_BATCH} x {d.sampler.clip_len}x{d.crop_hw[0]}x{d.crop_hw[1]}"
+    whole = ref["bf16"][0]["kernel_bytes"]
+    chk = {}
+    for run in ("bf16", "f64"):
+        res, first = ref[run]
+        firsts = [torch.load(os.path.join(tmp, f"tp_first_{run}{r}.pt")) for r in range(PAR_RANKS)]
+        limits = (PAR_BF16_DIST, PAR_BF16_NORM) if run == "bf16" else (PAR_F64_TOL,
+                                                                       1 + PAR_F64_TOL)
+        dist_, ratio, held = _grad_check(firsts[0]["grads"], first["grads"], *limits)
+        chk[run] = dict(
+            same=all(torch.equal(firsts[0]["grads"][k], f["grads"][k])
+                     for f in firsts[1:] for k in first["grads"]),
+            finite=all(torch.isfinite(g).all().item() for g in firsts[0]["grads"].values()),
+            loss_err=max(abs(r[run]["losses"][0] - first["loss"]) / abs(first["loss"])
+                         for r in ranks),
+            grad_dist=dist_, norm_ratio=ratio, held=held,
+            bn1_err=_state_err(firsts[0]["buffers"], first["buffers"]),
+            rejects=_limit_rejects(first["grads"], *limits, f"(d) {run}"),
+            to_f64=_grad_distance(firsts[0]["grads"], ref["f64"][1]["grads"]),
+            unsharded_to_f64=_grad_distance(first["grads"], ref["f64"][1]["grads"]))
+        del firsts
+    for run in ("bf16", "f64"):
+        res = ref[run][0]
+        print(f"(d) unsharded {TP_PRESET} step ({shape}, {run}): ms a step "
+              f"{['%.2f' % x for x in res['ms']]}, losses {res['losses']}, peak "
+              f"{res['peak_bytes'] / 1e9:.3f} GB, {whole / 1e6:.3f} MB of conv kernels "
+              f"(CUDA events, {card})")
+    for r, res in enumerate(ranks):
+        for run in ("bf16", "f64"):
+            c = res[run]["collectives"][0]
+            print(f"(d) rank {r} of {PAR_RANKS} on {res[run]['device']} (gloo, model index {r}), "
+                  f"{run}: {_kernel_bytes_note(res[run]['kernel_bytes'], whole)}; peak "
+                  f"{res[run]['peak_bytes'] / 1e9:.3f} GB; ms a step "
+                  f"{['%.2f' % x for x in res[run]['ms']]} against the unsharded "
+                  f"{['%.2f' % x for x in ref[run][0]['ms']]}; a step all-gathers "
+                  f"{c['gather_bytes'] / 1e6:.1f} MB in {c['gathers']} calls and all-reduces "
+                  f"{c['reduce_bytes'] / 1e6:.1f} MB of dx in {c['reduces']} calls; losses "
+                  f"{res[run]['losses']} (CUDA events, {card})")
+    for run, c in chk.items():
+        tol = PATH_TOL if run == "bf16" else PAR_F64_TOL
+        print(f"(d) {run}, step 1 over the ranks against the unsharded: loss rel diff "
+              f"{c['loss_err']:.3e} (tol {tol}); ranks' gathered gradients equal {c['same']}, "
+              f"finite {c['finite']}; ||g - g_ref|| / ||g_ref|| {c['grad_dist']:.3e}, "
+              f"||g|| / ||g_ref|| {c['norm_ratio']:.4f} (limits {_limits_note(run)}; the limits "
+              f"give a {c['rejects']}); BN statistics max diff / max|value| {c['bn1_err']:.3e}"
+              + (f" (tol {tol})" if run == "f64" else "")
+              + f"; ||g - g_f64|| / ||g_f64||: sharded {c['to_f64']:.3e}, unsharded "
+              f"{c['unsharded_to_f64']:.3e}; the job took {ranks_s:.1f} s of wall time with "
+              f"its processes' start", flush=True)
+    for run, c in chk.items():
+        tol = PATH_TOL if run == "bf16" else PAR_F64_TOL
+        if not (c["loss_err"] <= tol and c["same"] and c["finite"] and c["held"]
+                and (run == "bf16" or c["bn1_err"] <= PAR_F64_TOL)):
+            raise SystemExit(f"(d) the {run} channel-sharded step disagrees with the unsharded")
+    for res in ranks:
+        for run in ("bf16", "f64"):
+            if 2 * res[run]["kernel_bytes"] != whole:
+                raise SystemExit(f"(d) a rank holds {res[run]['kernel_bytes']} bytes of conv "
+                                 f"kernels, not half of {whole}")
+            if not all(c["gathers"] and c["reduces"] for c in res[run]["collectives"]):
+                raise SystemExit(f"(d) a step ran no channel collective: {res[run]}")
+    out = dict(unsharded={run: ref[run][0] for run in ref},
+               ranks=[{run: r[run] for run in ("bf16", "f64")} for r in ranks],
+               checks={run: {k: v for k, v in c.items() if k != "held"} for run, c in chk.items()},
+               job_wall_s=ranks_s)
+    del ref, ranks
+    torch.cuda.empty_cache()
+
+    # the CLIs: cli.train over the two processes (one step, a checkpoint),
+    # then cli.evaluate in this process, where model_parallel = 2 cannot fit
+    pack, ckdir = os.path.join(tmp, "tp.fvtpack"), os.path.join(tmp, "tp_ckpt")
+    _zoo_pack(pack, PRESETS[TP_PRESET].data.resize_hw, n=TP_CLI_VIDEOS, frames=TP_CLI_FRAMES)
+    argv = ["--preset", TP_PRESET, "--train-list", pack, "--batch-size", str(TP_CLI_VIDEOS),
+            "--epochs", "1", "--checkpoint-dir", ckdir, "--log-every", "1"]
+    with open(os.path.join(tmp, "tp_argv.json"), "w") as f:
+        json.dump(argv, f)
+    t0 = time.perf_counter()
+    cli_ranks = _run_ranks("tpcli", tmp)
+    cli_s = time.perf_counter() - t0
+    saved = torch.load(os.path.join(ckdir, "step_1.pt"), map_location="cpu")["model"]
+    whole_saved = sum(v.numel() * v.element_size() for k, v in saved.items()
+                      if k.endswith(".kernel"))
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logging.getLogger("fvt.eval").addHandler(handler)
+    t0 = time.perf_counter()
+    try:
+        metrics, printed = _quiet(cli_evaluate.main, [
+            "--preset", TP_PRESET, "--val-list", pack, "--checkpoint-dir", ckdir,
+            "--num-eval-clips", "2", "--clip-batch", "4"])
+    finally:
+        logging.getLogger("fvt.eval").removeHandler(handler)
+    eval_s = time.perf_counter() - t0
+    for r, res in enumerate(cli_ranks):
+        print(f"(d) cli.train --preset {TP_PRESET} rank {r} on {res['cli']['device']}: "
+              f"{res['cli']['step']} step(s), "
+              f"{_kernel_bytes_note(res['cli']['kernel_bytes'], whole_saved)}")
+    print(f"(d) the checkpoint holds {whole_saved / 1e6:.3f} MB of whole conv kernels; "
+          f"cli.evaluate --preset {TP_PRESET} in one process ({eval_s:.1f} s): {metrics}; "
+          f"warned: {warnings}; the train job took {cli_s:.1f} s with its processes' start "
+          f"({card})", flush=True)
+    if any(res["cli"]["step"] != 1 or 2 * res["cli"]["kernel_bytes"] != whole_saved
+           for res in cli_ranks):
+        raise SystemExit(f"(d) cli.train across the processes: {cli_ranks}")
+    if not (any("evaluating unsharded" in w for w in warnings)
+            and metrics.get("num_videos") == TP_CLI_VIDEOS
+            and json.loads(printed.strip().splitlines()[-1]) == metrics):
+        raise SystemExit(f"(d) cli.evaluate on the sharded run's checkpoint: {metrics} {warnings}")
+    out["cli"] = dict(ranks=[r["cli"] for r in cli_ranks], train_job_s=cli_s,
+                      evaluate=metrics, evaluate_s=eval_s, warnings=warnings)
+    return out
 
 
 def main() -> int:
@@ -4381,6 +4683,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
+    host_resize = phase_host_resize(card)
     native_build = start_native_build()
     agg = phase_kernels(card)
     phase_functions()
@@ -4456,7 +4759,7 @@ def main() -> int:
                       "export": {k: export[k] for k in ("export_s", "artifacts", "dynamic",
                                                         "dispatch")},
                       "native": {k: v for k, v in native.items() if k != "launches"},
-                      "parallel": par["result"], "card": card}))
+                      "parallel": par["result"], "host_resize": host_resize, "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,10 +9,10 @@ A multi-process job runs the same command once a process, each with its
 ``--process-id``: ``--coordinator HOST:PORT --num-processes N --process-id
 i`` join it (``maybe_init_multihost``), one card a process, over NCCL on
 the card and gloo on the CPU (``--dist-backend`` overrides: two processes
-that share one card take gloo). Training and evaluation then run
-data-parallel over the job. ``--model-parallel`` > 1 (channel sharding) is
-not ported and raises ``NotImplementedError`` naming ROADMAP.md Queue A
-item 7.
+that share one card take gloo). Training and evaluation then run over the
+job: data-parallel, and with ``--model-parallel`` > 1 (or a preset's, such
+as ``slowfast_stretch``'s 2) SlowFast's convs channel-sharded over each
+model group of that many consecutive ranks (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -115,15 +115,6 @@ def apply_platform(args: argparse.Namespace) -> torch.device:
     """The device of ``--device`` (the JAX package's ``--platform``): the
     card unless ``--device cpu``; raises without a card."""
     return resolve_device(getattr(args, "device", None) or "cuda")
-
-
-def check_ported(cfg: ExperimentConfig) -> None:
-    """Raise for a knob the port does not have yet (train and evaluate
-    call it before they join a job)."""
-    if cfg.parallel.model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1 (--model-parallel, or a preset's channel sharding) is "
-            "not ported yet (ROADMAP.md Queue A item 7); run data-parallel only")
 
 
 def maybe_init_multihost(args: argparse.Namespace) -> None:

@@ -11,9 +11,14 @@ Restores the weights of the latest checkpoint of a port training run
 and prints one JSON line of metrics. ``--int8`` evaluates the int8 engine,
 calibrated on the first ``--int8-calib-videos`` videos' eval clips. In a
 multi-process job (``--coordinator``, ``--num-processes``,
-``--process-id``) the evaluation runs data-parallel over its ranks, one
-card each: every rank restores the weights and decodes the list, the clip
-chunks are split over the ranks, and rank 0 prints the metrics.
+``--process-id``) the evaluation runs over its ranks, one card each: every
+rank restores the weights and decodes the list, the clip chunks are split
+over the data indices, with ``--model-parallel`` > 1 (or a preset's) the
+ranks of a model group score their rows through the channel-sharded model,
+each taking its part of the restored weights, and rank 0 prints the
+metrics. A mesh that does not fit the job (``slowfast_stretch``'s
+``model_parallel = 2`` in one process) evaluates unsharded, with a warning,
+as the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -27,8 +32,8 @@ import torch
 from fastvideotagging_tpu_torch.cli.common import (
     add_common_flags,
     add_multihost_flags,
+    apply_platform,
     build_config,
-    check_ported,
     finish_multihost,
     maybe_init_multihost,
 )
@@ -39,8 +44,9 @@ from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate
 from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_apply
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
-from fastvideotagging_tpu_torch.parallel.mesh import make_mesh
+from fastvideotagging_tpu_torch.parallel.mesh import local_parts, make_mesh
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager
+from fastvideotagging_tpu_torch.utils.logging import get_logger
 
 
 def main(argv=None) -> dict:
@@ -58,11 +64,18 @@ def main(argv=None) -> dict:
     add_multihost_flags(p)
     args = p.parse_args(argv)
     cfg = build_config(args)
-    check_ported(cfg)
     maybe_init_multihost(args)
-    mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel,
-                     device=args.device)
-    dev = mesh.device
+    try:
+        mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel,
+                         device=args.device)
+        dev = mesh.device
+    except ValueError as e:
+        # a config whose (training) parallelism does not fit the job, e.g. a
+        # model_parallel preset evaluated in one process, still evaluates:
+        # unsharded, on this process's device
+        get_logger("fvt.eval").warning(
+            "eval: config mesh unavailable in this job (%s); evaluating unsharded", e)
+        mesh, dev = None, apply_platform(args)
 
     num_tags = cfg.model.num_classes if cfg.model.multilabel else None
     if is_pack(cfg.data.val_list):
@@ -74,13 +87,16 @@ def main(argv=None) -> dict:
         records = ucf101.load_video_list(cfg.data.val_list, cfg.data.root, cidx)
         dataset = ClipDataset(records, cfg.data, mode="eval", num_tags=num_tags)
 
-    model = model_from_config(cfg.model, device=dev, clip_shape=config_clip_shape(cfg.data))
+    kw = {} if mesh is None or mesh.model_group is None else {"shard_axis": mesh.model_group}
+    model = model_from_config(cfg.model, device=dev, clip_shape=config_clip_shape(cfg.data),
+                              **kw)
     # Weights only: evaluation needs no optimizer state, so this CLI's
-    # optimizer flags need not match the training run's.
+    # optimizer flags need not match the training run's. The checkpoint
+    # holds whole tensors; a channel-sharded model takes its parts.
     state_dict, _step = CheckpointManager(args.checkpoint_dir).restore_weights()
     if state_dict is None:
         raise SystemExit(f"no checkpoint found in {args.checkpoint_dir}")
-    variables = {k: v.to(dev) for k, v in state_dict.items()}
+    variables = {k: v.to(dev) for k, v in local_parts(model, state_dict).items()}
     apply_fn = None
     if args.int8:
         d = cfg.data
@@ -95,7 +111,7 @@ def main(argv=None) -> dict:
                                               multilabel=cfg.model.multilabel)
     out = evaluate(model, variables, dataset, cfg, clip_batch=args.clip_batch,
                    threshold=args.threshold, apply_fn=apply_fn, mesh=mesh)
-    if mesh.is_main:
+    if mesh is None or mesh.is_main:
         print(json.dumps(out))
     return out
 

@@ -9,7 +9,7 @@ the JAX CLI's for the same tree, seed and fraction:
         --val-fraction 0.25 --seed 0 --out /data/ucf101 [--pack]
 
 ``--pack`` (or ``--pack-lists``) decodes each video once into ``.fvtpack``
-files (data/packed.py; the host resize is the numpy spec, data/frames.py).
+files (data/packed.py; the host resize is the C tier, data/frames.py).
 Runs on the host only.
 """
 

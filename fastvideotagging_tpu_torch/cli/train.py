@@ -9,8 +9,9 @@ raises. ``--train-list`` is a ``.fvtpack`` (labels inside) or a video list
 (``path label`` rows, ``--class-index`` for UCF101's 1-based lists,
 ``--tag-lists`` for ``path tag_a,tag_b`` rows).
 
-Data-parallel over N processes, one card each (the same command in each,
-with its ``--process-id``)::
+Over N processes, one card each (the same command in each, with its
+``--process-id``): data-parallel, and channel-sharded with
+``--model-parallel`` > 1 (the ``slowfast_stretch`` preset sets 2)::
 
     python -m fastvideotagging_tpu_torch.cli.train ... \
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
@@ -24,7 +25,6 @@ from fastvideotagging_tpu_torch.cli.common import (
     add_common_flags,
     add_train_flags,
     build_config,
-    check_ported,
     finish_multihost,
     maybe_init_multihost,
 )
@@ -91,7 +91,6 @@ def main(argv=None):
     """Train per the flags; returns the final TrainState."""
     args = parse_args(argv)
     cfg = build_config(args)
-    check_ported(cfg)
     maybe_init_multihost(args)
     train_records, val_records, num_tags = load_records(cfg, args)
     init_variables = None

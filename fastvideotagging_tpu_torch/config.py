@@ -111,12 +111,14 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Mesh/partitioning config, kept field for field; the port runs on one
-    card until the parallel slice.
+    """Mesh/partitioning config, kept field for field (parallel/mesh.py:
+    one process a card, ``data_parallel * model_parallel`` of them).
 
     data_axis:  batch sharded over this axis, grads allreduced.
     model_axis: channel sharding for the dual-pathway stretch config.
-    Sizes of -1 mean "use all available devices on the data axis".
+    ``data_parallel = -1`` means "the processes of the job over
+    model_parallel". The axis names are the JAX package's; the port's model
+    group is a process group, not a name.
     """
 
     data_parallel: int = -1

@@ -14,7 +14,8 @@ The counterpart of ``ClipSample`` and ``ClipDataset`` in
   deterministically replaced by the next record.
 * An optional decode-once frame cache (``DataConfig.cache_mb``).
 
-Host resizing to the ship geometry is data/frames.py's numpy spec.
+Host resizing to the ship geometry is data/frames.py's (the C tier,
+csrc/framepack.c).
 
 ``train_batches`` collates shuffled, worker-decoded clips into uint8 numpy
 batches for one epoch (the same Philox permutation per (seed, epoch) and the
@@ -164,8 +165,8 @@ class ClipDataset:
         indices, frames | None, top, left, flip), deterministic in
         (seed, epoch, index) with the frozen draw order (clip start, crop
         top, crop left, flip). ``fetch=False`` skips the pixel IO — the
-        index-only spec the JAX package's HBM-resident device-cache tier
-        consumes (not ported yet); on mmap-backed PackedDatasets the fault
+        index-only spec the device-cache tier consumes
+        (data/device_cache.py); on mmap-backed PackedDatasets the fault
         policy is identical either way (pack reads cannot raise)."""
         s = self.cfg.sampler
         attempts = 0

@@ -11,12 +11,16 @@ and the aggregation is the JAX package's, so engines compare fairly.
 evaluation runs on is theirs: clips are preprocessed and forwarded there,
 and nothing moves to the CPU or to a plain kernel version on a card.
 
-Data parallel (``mesh``, parallel/mesh.py): every rank decodes every video;
-each chunk of clip_batch clips is split over the ranks (rank r forwards its
-contiguous block of rows) and the scores are all-gathered, so every rank
-returns the same array. A clip_batch the ranks do not divide is rounded up
-to a multiple of them (chunks are padded to clip_batch anyway, so the
-scores do not change).
+Parallel (``mesh``, parallel/mesh.py): every rank decodes every video;
+each chunk of clip_batch clips is split over the data indices (data index d
+forwards its contiguous block of rows) and the scores are all-gathered over
+the data group, so every rank returns the same array. A clip_batch the data
+indices do not divide is rounded up to a multiple of them (chunks are
+padded to clip_batch anyway, so the scores do not change). With
+``model_parallel > 1`` the ranks of a model group score the same rows
+through the channel-sharded model (``make_eval_fn`` builds it on the model
+group; ``variables`` are then each rank's parts), and each data group,
+which holds one rank of every model group, gathers the scores.
 """
 
 from __future__ import annotations
@@ -48,11 +52,12 @@ log = get_logger("fvt.eval")
 
 def _eval_plan(mesh, clip_batch: int) -> tuple[Mesh | None, int]:
     """-> (the mesh to split chunks over, or None; the clip_batch). A
-    clip_batch the ranks do not divide is rounded up to a multiple of them
-    (with a warning): every rank must take whole rows of every chunk."""
-    if check_mesh(mesh) is None or mesh.group is None or mesh.world <= 1:
+    clip_batch the data indices do not divide is rounded up to a multiple of
+    them (with a warning): every rank must take whole rows of every
+    chunk."""
+    if check_mesh(mesh) is None or mesh.group is None or mesh.data_parallel <= 1:
         return None, clip_batch
-    shards = mesh.world
+    shards = mesh.data_parallel
     if clip_batch % shards:
         rounded = -(-clip_batch // shards) * shards
         log.warning("eval: clip_batch=%d not divisible by data shards %d; padding "
@@ -78,8 +83,8 @@ def _forward_scores(apply, variables, clips: torch.Tensor, clip_batch: int = 8,
                     mesh: Mesh | None = None) -> np.ndarray:
     """Forward (K, T, ch, cw, 3) clips in fixed-size chunks; returns (K, C)
     f32. Chunks are padded to clip_batch, so every forward has one shape.
-    With ``mesh`` each rank forwards its rows of every chunk and the scores
-    are all-gathered."""
+    With ``mesh`` each data index forwards its rows of every chunk and the
+    scores are all-gathered over the data group."""
     k = clips.shape[0]
     out = []
     for i in range(0, k, clip_batch):
@@ -91,9 +96,9 @@ def _forward_scores(apply, variables, clips: torch.Tensor, clip_batch: int = 8,
         if mesh is None:
             scores = apply(variables, chunk)
         else:
-            per = clip_batch // mesh.world
-            part = apply(variables, chunk[mesh.rank * per:(mesh.rank + 1) * per]).float()
-            parts = [torch.empty_like(part) for _ in range(mesh.world)]
+            per, d = clip_batch // mesh.data_parallel, mesh.data_index
+            part = apply(variables, chunk[d * per:(d + 1) * per]).float()
+            parts = [torch.empty_like(part) for _ in range(mesh.data_parallel)]
             dist.all_gather(parts, part.contiguous(), group=mesh.group)
             scores = torch.cat(parts)
         out.append(scores[:n].float().cpu().numpy())
@@ -187,14 +192,20 @@ def make_eval_fn(cfg: ExperimentConfig, val_records, num_tags=None,
 
     ``val_records``: VideoRecords or a ``.fvtpack`` path (decode-once tier).
     The eval model is built once, on ``device`` (the card unless the caller
-    asks for the CPU), or with ``mesh`` on this rank's device; the forward
-    then runs data-parallel over the mesh (every rank decodes the whole val
-    list; fit passes its training mesh).
+    asks for the CPU), or with ``mesh`` on this rank's device, channel-
+    sharded on its model group when ``model_parallel > 1`` (the state's
+    weights are then this rank's parts); the forward then runs over the
+    mesh (every rank decodes the whole val list; fit passes its training
+    mesh).
     """
+    kw = {}
     if check_mesh(mesh) is not None:
         device = mesh.device
+        if mesh.model_group is not None:
+            kw["shard_axis"] = mesh.model_group
     dataset = open_dataset(val_records, cfg.data, mode="eval", num_tags=num_tags)
-    model = model_from_config(cfg.model, device=device, clip_shape=config_clip_shape(cfg.data))
+    model = model_from_config(cfg.model, device=device, clip_shape=config_clip_shape(cfg.data),
+                              **kw)
     apply = _make_apply(model, cfg.model.multilabel)
 
     def eval_fn(state, epoch):

@@ -54,6 +54,9 @@ def score_long_clip(model_factory, variables: dict, clips: torch.Tensor, mesh: M
     device=...)``); ``variables`` are its ordinary weights (a state_dict):
     the sharded and unsharded models share one parameter tree; the time
     group is the mesh's."""
+    if mesh.model_parallel > 1:
+        raise ValueError(f"score_long_clip runs on a time mesh (make_time_mesh), not on one "
+                         f"of model_parallel={mesh.model_parallel}")
     n = mesh.world
     t = clips.shape[1]
     if t % n or (t // n) % TOTAL_STRIDE:

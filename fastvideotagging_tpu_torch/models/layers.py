@@ -29,6 +29,12 @@ from torch import nn
 from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 from fastvideotagging_tpu_torch.ops.arch_spec import tf_same_pads
 from fastvideotagging_tpu_torch.ops.maxpool_grad import max_pool_nthwc
+from fastvideotagging_tpu_torch.parallel.channel import (
+    check_shard_axis,
+    gather_channels,
+    model_input,
+    shard_of,
+)
 
 BACKENDS = ("cuda", "torch")
 
@@ -140,30 +146,46 @@ class Conv3D(nn.Module):
     """3D convolution on NTHWC input, kernel (kt, kh, kw, Cin, Cout); always
     the library conv. ``padding``: 'SYM' (k//2 per dim, the default),
     'SAME', 'VALID' or explicit ``((lo, hi),) * 3``; ``use_bias`` adds a
-    zero-initialized bias; ``ws`` standardizes the kernel (``scaled_ws``)."""
+    zero-initialized bias; ``ws`` standardizes the kernel (``scaled_ws``).
+
+    ``shard_axis``: a model group (``parallel.Mesh.model_group``) over which
+    the output channels are sharded (the reference's ``shard_axis``): the
+    kernel is initialised whole from ``generator`` and this rank keeps its
+    ``(kt, kh, kw, Cin, Cout / mp)`` part, so the generator moves as in the
+    unsharded model and every part equals that model's slice bit for bit.
+    The conv then computes this rank's channels and all-gathers them
+    (parallel/channel.py); the bias stays whole and replicated, as the
+    reference's."""
 
     def __init__(self, cin: int, features: int, kernel_size, strides=(1, 1, 1),
                  padding="SYM", use_bias: bool = False, ws: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, shard_axis=None):
         super().__init__()
         self.kernel_size = _triple(kernel_size)
         self.strides = _triple(strides)
         self.padding = padding
         self.ws = ws
         self.dtype = dtype
-        self.kernel = nn.Parameter(
-            he_normal(self.kernel_size + (cin, features), generator))
+        self.shard_axis = check_shard_axis(shard_axis)
+        kernel = he_normal(self.kernel_size + (cin, features), generator)
+        if shard_axis is not None:
+            kernel = shard_of(kernel, 4, shard_axis.rank(), shard_axis.size())
+        self.kernel = nn.Parameter(kernel)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        if self.shard_axis is not None:
+            x = model_input(x, self.shard_axis)
         w = (scaled_ws(self.kernel) if self.ws else self.kernel).to(self.dtype)
         pads = _conv_pads(self.padding, self.kernel_size, self.strides, tuple(x.shape[1:4]))
         if any(lo != hi for lo, hi in pads):  # F.conv3d pads symmetrically only
             (t0, t1), (h0, h1), (w0, w1) = pads
             x, pads = F.pad(x, (0, 0, w0, w1, h0, h1, t0, t1)), ((0, 0),) * 3
         y = ops.conv3d_nthwc(x, w, self.strides, tuple(lo for lo, _ in pads))
+        if self.shard_axis is not None:
+            y = gather_channels(y, self.shard_axis)
         if self.bias is not None:  # Flax's y + bias: the f32 bias promotes the sum
             y = y.to(torch.promote_types(y.dtype, self.bias.dtype)) + self.bias
         return y.to(self.dtype)

@@ -1,5 +1,5 @@
-"""SlowFast-style dual-pathway network on the R(2+1)D substrate, on one
-card; the counterpart of ``fastvideotagging_tpu/models/slowfast.py``.
+"""SlowFast-style dual-pathway network on the R(2+1)D substrate; the
+counterpart of ``fastvideotagging_tpu/models/slowfast.py``.
 
 Two pathways over the same clip: Slow takes every ``alpha``-th frame at
 full width, Fast every frame at ``1/beta`` of the channels. Lateral
@@ -14,8 +14,12 @@ axis and the laterals are stride-free 3x1x1 convs. Not weight-compatible
 with the faithful model.
 
 Every conv is a full ``Conv3D``, the library's (the JAX package pops
-``backend`` for this family). Channel sharding (``shard_axis``) is
-ROADMAP.md Queue A item 7 and raises.
+``backend`` for this family). Channel parallelism: with ``shard_axis`` (a
+model group, ``parallel.Mesh.model_group``) every conv the reference shards
+(the stems, every block's convs and the laterals, in both variants) keeps
+its part of the output channels and all-gathers its output
+(parallel/channel.py); BatchNorm and the fc stay replicated, their
+statistics summed over the data group (``layers.sync_batch_norm``).
 """
 
 from __future__ import annotations
@@ -40,13 +44,14 @@ class SFBlock(nn.Module):
 
     def __init__(self, cin: int, features: int, spatial_stride: int = 1,
                  dtype: torch.dtype = torch.bfloat16,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, shard_axis=None):
         super().__init__()
         s = spatial_stride
         g = generator
 
         def conv(c_in, k, st):
-            return Conv3D(c_in, features, k, strides=st, dtype=dtype, generator=g)
+            return Conv3D(c_in, features, k, strides=st, dtype=dtype, generator=g,
+                          shard_axis=shard_axis)
 
         self.spatial1 = conv(cin, (1, 3, 3), (1, s, s))
         self.bn1 = Norm(features, dtype=dtype)
@@ -71,30 +76,27 @@ class SlowFastR2Plus1D(nn.Module):
     def __init__(self, num_classes: int = 400, alpha: int = 4, beta: int = 8,
                  base_width: int = 64, stage_blocks: Sequence[int] = (1, 1, 1, 1),
                  dropout: float = 0.5, dtype: torch.dtype = torch.bfloat16,
-                 shard_axis: str | None = None, pack_fast: bool = False,
+                 shard_axis=None, pack_fast: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if shard_axis is not None:
-            raise NotImplementedError(
-                "shard_axis (channel sharding) is not ported yet "
-                "(ROADMAP.md Queue A item 7, parallelism)")
         if not 0.0 <= dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got {dropout}")
         self.alpha, self.pack_fast = alpha, pack_fast
         self.dtype = dtype
         self.dropout = dropout
+        self._shard_axis = shard_axis  # the laterals' (_add_lateral)
         g = generator
         cf = max(base_width // beta, 8)
         fmul = alpha if pack_fast else 1  # the packed fast widths carry alpha frames
         self.slow_stem = Conv3D(3, base_width, (1, 7, 7), strides=(1, 2, 2), dtype=dtype,
-                                generator=g)
+                                generator=g, shard_axis=shard_axis)
         self.slow_stem_bn = Norm(base_width, dtype=dtype)
         if pack_fast:
             self.fast_stem = Conv3D(3 * alpha, cf * fmul, (3, 7, 7), strides=(1, 2, 2),
-                                    dtype=dtype, generator=g)
+                                    dtype=dtype, generator=g, shard_axis=shard_axis)
         else:
             self.fast_stem = Conv3D(3, cf, (5, 7, 7), strides=(1, 2, 2), dtype=dtype,
-                                    generator=g)
+                                    generator=g, shard_axis=shard_axis)
         self.fast_stem_bn = Norm(cf * fmul, dtype=dtype)
         slow_c, fast_c = base_width, cf * fmul
         self._add_lateral(0, fast_c, cf, g)
@@ -108,10 +110,10 @@ class SlowFastR2Plus1D(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 self.add_module(f"slow_s{stage}_b{b}",
                                 SFBlock(slow_c, ws, spatial_stride=stride, dtype=dtype,
-                                        generator=g))
+                                        generator=g, shard_axis=shard_axis))
                 self.add_module(f"fast_s{stage}_b{b}",
                                 SFBlock(fast_c, wf * fmul, spatial_stride=stride,
-                                        dtype=dtype, generator=g))
+                                        dtype=dtype, generator=g, shard_axis=shard_axis))
                 names.append((f"slow_s{stage}_b{b}", f"fast_s{stage}_b{b}"))
                 slow_c, fast_c = ws, wf * fmul
             self._add_lateral(stage + 1, fast_c, wf, g)
@@ -125,7 +127,8 @@ class SlowFastR2Plus1D(nn.Module):
         alpha) aligns the rates; packed, a stride-free 3x1x1."""
         k, st = ((3, 1, 1), (1, 1, 1)) if self.pack_fast else ((5, 1, 1), (self.alpha, 1, 1))
         self.add_module(f"lateral{idx}", Conv3D(fast_c, 2 * cf, k, strides=st,
-                                                dtype=self.dtype, generator=generator))
+                                                dtype=self.dtype, generator=generator,
+                                                shard_axis=self._shard_axis))
         self.add_module(f"lateral{idx}_bn", Norm(2 * cf, dtype=self.dtype))
 
     def _fuse(self, slow: torch.Tensor, fast: torch.Tensor, idx: int) -> torch.Tensor:

@@ -281,8 +281,8 @@ def _i3d(num_classes: int, **kw) -> nn.Module:
 
 @register("slowfast_r2plus1d")
 def _slowfast(num_classes: int, **kw) -> nn.Module:
-    """Dual-pathway stretch config on one card; kwargs: alpha, beta,
-    shard_axis (None only: channel sharding is Queue A item 7)."""
+    """Dual-pathway stretch config; kwargs: alpha, beta, shard_axis (a model
+    group: the convs channel-sharded over it, parallel/channel.py)."""
     kw.pop("backend", None)  # full 3D convs
     _require_batch_norm(kw, "slowfast_r2plus1d")
     return SlowFastR2Plus1D(num_classes=num_classes, **kw)

@@ -22,6 +22,13 @@ the card, linked with the kernel libraries it calls) and
 (csrc/native_runner.cpp; ``'cpu'`` or ``'cuda'``), keyed like the kernels on
 a hash of their sources, flags and torch version. ``build_native()`` starts
 both card builds at once. A missing compiler or a failed build raises.
+
+The host data plane (csrc/framepack.c, a plain C interface bound by
+``native/__init__.py``) is built by ``build_framepack()`` with the system C
+compiler and the JAX package's flags for it (``FRAMEPACK_FLAGS``), into
+``libfvt_framepack-<hash>.so``, the hash over the source, the flags, the
+torch version and the host CPU (``-march=native`` code runs only where it
+was built).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import ctypes
 import hashlib
 import importlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -49,6 +57,7 @@ _PLANNED = {"fused_block": "fastvideotagging_tpu_torch.ops.fused_block",
 
 _lock = threading.Lock()
 _native_lock = threading.Lock()  # the native tier's g++ builds
+_host_lock = threading.Lock()  # the host data plane's cc build
 _libs: dict[str, ctypes.CDLL] = {}
 _logs: dict[str, str] = {}
 
@@ -253,3 +262,45 @@ def build_native() -> dict[str, str]:
     {label: path}. Their compiler output is in ``_logs`` under the labels."""
     return _build_native({"libfvt_ops": _op_library_job(), "runner-cuda": _runner_job("cuda")},
                          OP_KERNELS)
+
+
+# ---------------------------------------------------------------------------
+# The host data plane: csrc/framepack.c with the system C compiler
+# ---------------------------------------------------------------------------
+
+# The JAX package's flags for framepack.c. Keep them: -march=native lets gcc
+# contract the resize's lerps into fused multiply-adds, and the port's resize
+# equals the JAX package's bit for bit only when both round there.
+FRAMEPACK_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
+
+
+def _cc() -> str:
+    for name in ("cc", "gcc", "clang"):
+        cand = shutil.which(name)
+        if cand is not None:
+            return cand
+    raise RuntimeError("no C compiler (cc, gcc or clang on PATH); the host data plane "
+                       "(csrc/framepack.c) cannot be built on this machine")
+
+
+def _host_cpu() -> str:
+    """The host CPU's model and feature flags (from /proc/cpuinfo where there
+    is one): a ``-march=native`` build's key."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = sorted({line for line in f if line.startswith(("model name", "flags"))})
+    except OSError:
+        lines = [platform.processor()]
+    return hashlib.sha256("".join(lines).encode()).hexdigest()[:16]
+
+
+def build_framepack() -> str:
+    """The host data plane's shared library (csrc/framepack.c), building it
+    if needed; raises when there is no C compiler or the build fails."""
+    src = os.path.join(CSRC, "framepack.c")
+    out = _keyed("libfvt_framepack", (src,), (*FRAMEPACK_FLAGS, "-lm", _host_cpu()), ".so")
+    with _host_lock:
+        if not os.path.exists(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            _run_builds({"framepack": ((_cc(), *FRAMEPACK_FLAGS, src, "-lm"), out)})
+    return out

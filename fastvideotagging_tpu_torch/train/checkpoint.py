@@ -14,10 +14,16 @@ second save at the same step replaces the first. Saves are synchronous:
 nothing to wait for. ``export_weights`` / ``load_weights`` write and read a
 weights-only ``state_dict`` for the tag()/serving path.
 
-In a data-parallel job (``mesh``) every rank holds the same state: rank 0
-writes the file, the other ranks wait at a barrier until it is in place,
-and every rank restores from it, so a resumed job continues as one process
-would.
+In a job (``mesh``) every rank holds the same state, or with channel
+sharding its part of it: a save gathers each sharded parameter, its
+momentum and its running mean of an accumulation whole over the model group
+(every rank calls ``save``), rank 0 writes the file, and the other ranks
+wait at a barrier until it is in place. A checkpoint thus holds whole
+tensors at any ``model_parallel``: every rank restores from it and takes
+its part for the mesh it restores on, so a resumed job continues as one
+process would, a ``model_parallel = 2`` checkpoint restores at 2 bit for
+bit and at 1 as the gathered weights, and ``restore_weights`` gives whole
+weights (for ``export_weights``, ``Tagger`` and ``cli.evaluate``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,14 @@ import re
 
 import torch
 
-from fastvideotagging_tpu_torch.parallel.mesh import Mesh, barrier
+from fastvideotagging_tpu_torch.parallel.channel import gather_along, shard_of
+from fastvideotagging_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    full_state_dict,
+    local_parts,
+    sharded_params,
+)
 from fastvideotagging_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -43,6 +56,29 @@ def _to_host(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     return tree
+
+
+def _by_index(state: TrainState) -> dict[int, tuple[int, object]]:
+    """``{optimizer / acc_grads index: (dim, model group)}`` of the sharded
+    parameters (the optimizer holds the model's parameters in order)."""
+    names = [n for n, _ in state.model.named_parameters()]
+    sharded = sharded_params(state.model)
+    return {i: sharded[n] for i, n in enumerate(names) if n in sharded}
+
+
+def _whole_optimizer(state: TrainState, sharded: dict) -> dict:
+    """The optimizer's state_dict with the sharded momentum gathered whole
+    (a collective over each model group)."""
+    sd = state.optimizer.state_dict()
+    for i, (dim, group) in sharded.items():
+        buf = sd["state"].get(i, {}).get("momentum_buffer")
+        if buf is not None:
+            sd["state"][i] = dict(sd["state"][i], momentum_buffer=gather_along(buf, dim, group))
+    return sd
+
+
+def _part(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return shard_of(t, dim, group.rank(), group.size())
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -103,14 +139,22 @@ class CheckpointManager:
         the first: when checkpoint_every_steps divides the epoch length, the
         mid-epoch save records epoch - 1 and the epoch-end save at the same
         step records epoch, and a resume must take the latter (or it would
-        replay the whole completed epoch). In a job, rank 0 writes and every
-        rank returns once the file is in place."""
+        replay the whole completed epoch). In a job, the sharded tensors are
+        gathered whole, rank 0 writes and every rank returns once the file
+        is in place."""
+        sharded = _by_index(state)
+        model_sd = full_state_dict(state.model)
+        optimizer_sd = _whole_optimizer(state, sharded)
+        acc = state.acc_grads
+        if acc is not None and sharded:
+            acc = [gather_along(g, *sharded[i]) if i in sharded else g
+                   for i, g in enumerate(acc)]
         if self._writes:
             payload = {
-                "model": _to_host(state.model.state_dict()),
-                "optimizer": _to_host(state.optimizer.state_dict()),
+                "model": _to_host(model_sd),
+                "optimizer": _to_host(optimizer_sd),
                 "step": int(state.step),
-                "acc_grads": _to_host(state.acc_grads),
+                "acc_grads": _to_host(acc),
                 "epoch": int((extra or {}).get("epoch", 0)),
             }
             _atomic_save(payload, self._path(step))
@@ -127,17 +171,25 @@ class CheckpointManager:
     def restore(self, target_state: TrainState, step: int | None = None):
         """Load the checkpoint at ``step`` (the latest by default) into
         ``target_state`` in place — model and optimizer state go to the
-        model's device — and return ``(state, {"epoch": e})``, or
-        ``(None, None)`` when there is none."""
+        model's device, each rank of a channel-sharded model taking its
+        part — and return ``(state, {"epoch": e})``, or ``(None, None)``
+        when there is none."""
         payload = self._load(step)
         if payload is None:
             return None, None
-        target_state.model.load_state_dict(payload["model"])
-        target_state.optimizer.load_state_dict(payload["optimizer"])
+        sharded = _by_index(target_state)
+        target_state.model.load_state_dict(local_parts(target_state.model, payload["model"]))
+        optimizer_sd = payload["optimizer"]
+        for i, (dim, group) in sharded.items():
+            buf = optimizer_sd["state"].get(i, {}).get("momentum_buffer")
+            if buf is not None:
+                optimizer_sd["state"][i]["momentum_buffer"] = _part(buf, dim, group)
+        target_state.optimizer.load_state_dict(optimizer_sd)
         target_state.step = payload["step"]
         acc = payload.get("acc_grads")
         dev = next(target_state.model.parameters()).device
-        target_state.acc_grads = None if acc is None else [g.to(dev) for g in acc]
+        target_state.acc_grads = None if acc is None else [
+            (_part(g, *sharded[i]) if i in sharded else g).to(dev) for i, g in enumerate(acc)]
         return target_state, {"epoch": payload["epoch"]}
 
     def restore_weights(self, step: int | None = None):

@@ -1,6 +1,7 @@
 """fit(): the end-to-end training orchestration (the counterpart of
-``fastvideotagging_tpu/train/fit.py``), on one card or data-parallel over
-the processes of a job, one card each.
+``fastvideotagging_tpu/train/fit.py``), on one card or over the processes of
+a job, one card each: data-parallel, and with ``model_parallel > 1``
+channel-sharded as well.
 
 Epoch/batch loop, periodic speed/loss logging, per-epoch checkpoint and
 eval: worker-decoded uint8 batches (``train_batches``) are prefetched onto
@@ -14,13 +15,19 @@ Dropout draws from a generator seeded from ``(seed, global_step)`` on the
 model's device (the counterpart of ``fold_in(rng, global_step)``), so a
 resumed run needs no generator state to draw the same masks.
 
-Data parallel (a job joined by ``parallel.init_multihost``; the mesh comes
-from ``cfg.parallel``, ``data_parallel = -1`` meaning the world size): each
-rank loads only its rows of every global batch (``local_batch_rows``),
-starts from rank 0's weights, and runs the data-parallel step
-(train/loop.py), so every rank holds the same state after every step; the
-per-epoch evaluation runs on the same mesh; rank 0 alone logs and writes
-checkpoints, and every rank restores them. A stop request (a signal on any
+Parallel (a job joined by ``parallel.init_multihost``; the mesh comes from
+``cfg.parallel``, ``data_parallel = -1`` meaning the world size over
+``model_parallel``): each data index loads only its rows of every global
+batch (``local_batch_rows``; the ranks of a model group load the same
+rows), every rank starts from rank 0's weights, and runs the parallel step
+(train/loop.py), so every rank holds the same state, or its part of it,
+after every step. With ``model_parallel > 1`` the model is built with
+``shard_axis`` = the mesh's model group (the slowfast family; another model
+raises ``ValueError``, as the reference's fit does): each rank keeps its
+part of every sharded conv kernel and its momentum. The per-epoch
+evaluation runs on the same mesh; rank 0 alone logs and writes checkpoints
+(whole tensors, gathered over the model group), and every rank restores
+them and takes its part, also on a resume. A stop request (a signal on any
 one rank) is decided collectively every step (an all-reduce with MAX), so
 all ranks save and return at the same step.
 """
@@ -38,13 +45,16 @@ from fastvideotagging_tpu_torch.data.packed import PackedDataset, open_dataset
 from fastvideotagging_tpu_torch.data.pipeline import device_prefetch, train_batches
 from fastvideotagging_tpu_torch.evaluation.evaluate import make_eval_fn
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
+from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
 from fastvideotagging_tpu_torch.parallel.mesh import (
     Mesh,
     any_rank,
     check_mesh,
     local_batch_rows,
+    local_parts,
     make_mesh,
     shard_train_state,
+    whole_shapes,
 )
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager, NullCheckpointManager
 from fastvideotagging_tpu_torch.train.loop import make_train_step
@@ -62,14 +72,6 @@ def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Gener
     g = torch.Generator(device=device)
     g.manual_seed(int(np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]))
     return g
-
-
-def _check_parallel(cfg: ExperimentConfig, mesh) -> None:
-    check_mesh(mesh)
-    if cfg.parallel.model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1 (channel sharding) is not ported yet (ROADMAP.md "
-            "Queue A item 7, parallelism); train data-parallel only")
 
 
 def fit(
@@ -96,19 +98,18 @@ def fit(
     'batch_stats'}``; structure and shape mismatches raise.
     device: the card by default (in a job, this rank's); raises without one
     unless ``'cpu'``.
-    mesh: the data-parallel mesh (``parallel.make_mesh``), whose device is
-    then the run's; by default the one ``cfg.parallel`` gives on ``device``.
+    mesh: the job's mesh (``parallel.make_mesh``), whose device is then the
+    run's; by default the one ``cfg.parallel`` gives on ``device``.
     """
-    _check_parallel(cfg, mesh)
-    if mesh is None:
+    if check_mesh(mesh) is None:
         mesh = make_mesh(cfg.parallel.data_parallel, cfg.parallel.model_parallel,
                          device=device)
     dev = mesh.device
     t_cfg, d_cfg, m_cfg = cfg.train, cfg.data, cfg.model
-    if t_cfg.batch_size % mesh.world:
+    if t_cfg.batch_size % mesh.data_parallel:
         raise ValueError(
             f"batch_size={t_cfg.batch_size} must be divisible by the data-parallel "
-            f"degree {mesh.world}; set train.batch_size or parallel.data_parallel "
+            f"degree {mesh.data_parallel}; set train.batch_size or parallel.data_parallel "
             f"accordingly")
     if eval_fn is None and val_records:
         # per-epoch eval rides the same mesh as training (clip chunks split
@@ -126,8 +127,22 @@ def fit(
             f"{t_cfg.batch_size}; no full batch can be formed")
     steps_per_epoch = max(1, len(dataset) // t_cfg.batch_size)
 
-    state = create_train_state(cfg, steps_per_epoch, device=dev,
-                               generator=torch.Generator().manual_seed(t_cfg.seed))
+    model_kw = {}
+    if mesh.model_parallel > 1:
+        # channel parallelism over the model group (the SlowFast config)
+        model_kw["shard_axis"] = mesh.model_group
+    try:
+        model = model_from_config(m_cfg, device=dev,
+                                  generator=torch.Generator().manual_seed(t_cfg.seed),
+                                  clip_shape=config_clip_shape(d_cfg), **model_kw)
+    except TypeError as e:
+        if "shard_axis" in str(e):
+            raise ValueError(
+                f"model {m_cfg.name!r} does not support model_parallel="
+                f"{mesh.model_parallel} (channel sharding needs a shard_axis-capable "
+                f"model — the slowfast family); use data_parallel only") from e
+        raise
+    state = create_train_state(cfg, steps_per_epoch, device=dev, model=model)
     if init_variables is not None:
         _apply_pretrained(state, init_variables)
     shard_train_state(state, mesh)  # every rank starts from rank 0's weights
@@ -156,10 +171,11 @@ def fit(
     # Each rank loads only its rows of every global batch; the metrics are
     # averaged over the ranks by the step, so only rank 0 logs them.
     local_rows = None
-    if mesh.world > 1:
+    if mesh.data_parallel > 1:
         local_rows = local_batch_rows(mesh, t_cfg.batch_size)
-        log.info("data parallel: process %d/%d loads %d/%d rows per batch",
-                 mesh.rank, mesh.world, len(local_rows), t_cfg.batch_size)
+        log.info("data parallel: process %d/%d (data index %d/%d) loads %d/%d rows per "
+                 "batch", mesh.rank, mesh.world, mesh.data_index, mesh.data_parallel,
+                 len(local_rows), t_cfg.batch_size)
     mlog = MetricsLogger(metrics_path, enabled=mesh.is_main)
     try:
         with GracefulStopper() as stopper:
@@ -175,7 +191,9 @@ def _apply_pretrained(state: TrainState, variables: dict) -> None:
     """Load pretrained weights into the state's model, after checking their
     structure and shapes against it: a state_dict of the port replaces
     every tensor; the JAX package's variables replace the params, and the
-    BatchNorm statistics only when ``batch_stats`` is given."""
+    BatchNorm statistics only when ``batch_stats`` is given. The weights
+    are whole tensors; a channel-sharded model takes its part of each
+    sharded one."""
     model = state.model
     current = model.state_dict()
     if "params" in variables:
@@ -189,13 +207,14 @@ def _apply_pretrained(state: TrainState, variables: dict) -> None:
         missing = sorted(want - set(new))[:4]
         extra = sorted(set(new) - want)[:4]
         raise ValueError(f"pretrained tree mismatch: missing={missing} extra={extra}")
+    whole = whole_shapes(model)
     for name, value in new.items():
-        if tuple(value.shape) != tuple(current[name].shape):
+        if tuple(value.shape) != whole[name]:
             raise ValueError(
                 f"pretrained shape mismatch at {name}: {tuple(value.shape)} vs "
-                f"{tuple(current[name].shape)}")
+                f"{whole[name]}")
     with torch.no_grad():
-        for name, value in new.items():
+        for name, value in local_parts(model, new).items():
             current[name].copy_(value)
 
 

@@ -9,13 +9,17 @@ The step runs eagerly on the state's device and never waits for it: the
 metrics come back as device tensors, for the caller to read every
 ``log_every`` steps.
 
-Data parallel (``mesh`` with a data group, parallel/mesh.py): each rank runs
-the step on its rows of the global batch; every BatchNorm sums its
-statistics over the group (``layers.sync_batch_norm``), the dropout mask is
-the global batch's (``layers.global_dropout_rows``), and after the backward
-the gradients are averaged over the group (one all-reduce a gradient, then
-a division), as are the loss and top-1 metrics. Each rank
-then makes the same update, so the ranks' weights stay equal.
+Parallel (``mesh`` with a data group, parallel/mesh.py): each rank runs
+the step on its data index's rows of the global batch; every BatchNorm sums
+its statistics over the data group (``layers.sync_batch_norm``), the
+dropout mask is the global batch's (``layers.global_dropout_rows``, by the
+data index, so the ranks of a model group draw the same mask), and after
+the backward the gradients are averaged over the data group (one all-reduce
+a gradient, then a division), as are the loss and top-1 metrics. Each rank
+then makes the same update, so the ranks' weights stay equal. A
+channel-sharded model (``model_parallel > 1``) runs its convs' collectives
+over the model group inside its forward and backward (parallel/channel.py);
+each rank then updates its part of every sharded kernel.
 """
 
 from __future__ import annotations
@@ -52,8 +56,9 @@ def make_train_step(
     there (one gather over the leading axis), so a step copies a few KB of
     indices to the device.
 
-    ``mesh``: a data-parallel mesh (the batch is this rank's rows; the
-    model's BatchNorms are put on the mesh's group here).
+    ``mesh``: the job's mesh (the batch is this rank's rows; the model's
+    BatchNorms are put on the mesh's data group here; a channel-sharded
+    model is built on its model group).
     """
     group = check_mesh(mesh) and mesh.group
     if group is not None:
@@ -85,7 +90,7 @@ def make_train_step(
             logits = model(clips, generator=generator)
         else:
             b = clips.shape[0]
-            with global_dropout_rows(b * mesh.world, b * mesh.rank):
+            with global_dropout_rows(b * mesh.data_parallel, b * mesh.data_index):
                 logits = model(clips, generator=generator)
         if multilabel:
             loss = heads.sigmoid_bce(logits, batch["multihot"], batch["weights"])
@@ -95,6 +100,7 @@ def make_train_step(
         if group is not None:
             all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None],
                              mesh)
+            state.model_group = mesh.model_group
         state.apply_gradients()
         metrics = {"loss": loss.detach()}
         if not multilabel:

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 from fastvideotagging_tpu_torch.config import TrainConfig
 
@@ -54,11 +55,25 @@ def multifactor_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[in
     return schedule
 
 
-def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float,
+                         sharded: list[bool] | None = None, group=None) -> None:
     """Scale ``grads`` in place to a global L2 norm of at most ``max_norm``
     (optax ``clip_by_global_norm``: untouched below it, ``g / norm *
-    max_norm`` above). Stays on the device: no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    max_norm`` above). Stays on the device: no host sync.
+
+    ``sharded`` marks the gradients of which this rank holds only a part
+    (channel sharding over the model group ``group``): their squares are
+    summed over the group before they join the norm, so every rank clips
+    with the norm of the whole gradient."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if group is not None and sharded is not None and any(sharded):
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = norms * norms
+        parts = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+        dist.all_reduce(parts, group=group)
+        norm = torch.sqrt(torch.where(mask, torch.zeros_like(sq), sq).sum() + parts)
+    else:
+        norm = torch.linalg.vector_norm(norms)
     coef = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, coef)
 

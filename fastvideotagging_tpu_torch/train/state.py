@@ -15,6 +15,7 @@ from torch import nn
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.models.zoo import config_clip_shape, model_from_config
+from fastvideotagging_tpu_torch.parallel.mesh import sharded_params
 from fastvideotagging_tpu_torch.train.lr import clip_by_global_norm_, make_optimizer
 
 
@@ -28,7 +29,12 @@ class TrainState:
     gradients to ``acc_grads``, their running mean; the k-th runs the
     optimizer on that mean and clears it. The parameters and the momentum
     move only then; the schedule sees the updates made so far, ``step //
-    k``. BatchNorm's statistics move in every micro step's forward."""
+    k``. BatchNorm's statistics move in every micro step's forward.
+
+    ``model_group``: the model group of a channel-sharded model (the
+    parallel step sets it), over which the clip's global norm sums the
+    sharded gradients' parts; the optimizer's momentum of a sharded
+    parameter is this rank's part, as the parameter is."""
 
     model: nn.Module
     optimizer: torch.optim.SGD
@@ -37,6 +43,7 @@ class TrainState:
     step: int = 0
     grad_accum_steps: int = 1
     acc_grads: list[torch.Tensor] | None = None
+    model_group: object = None
 
     def apply_gradients(self) -> None:
         """One micro step from the ``.grad`` of the model's params; the
@@ -60,7 +67,13 @@ class TrainState:
                 p.grad = acc
             self.acc_grads = None
         if self.clip_grad_norm > 0:
-            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm)
+            sharded = None
+            if self.model_group is not None:
+                named = dict(self.model.named_parameters())
+                parts = {id(named[n]) for n in sharded_params(self.model)}
+                sharded = [id(p) in parts for p in params]
+            clip_by_global_norm_([p.grad for p in params], self.clip_grad_norm,
+                                 sharded=sharded, group=self.model_group)
         lr = self.schedule(self.step // k)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -60,6 +60,11 @@ def make_time_sharded_train_step(model_factory, cfg: ExperimentConfig, mesh: Mes
     multilabel = cfg.model.multilabel
     compute_dtype = getattr(torch, cfg.model.compute_dtype)
     resize_hw = d.crop_hw if d.host_crop else d.resize_hw
+    if mesh.model_parallel > 1:
+        raise ValueError(
+            f"the time-sharded step runs on a mesh of model_parallel=1, not "
+            f"{mesh.model_parallel} (the JAX package does not combine it with channel "
+            f"sharding either)")
     group, n = mesh.group, mesh.world
     model = model_factory(time_axis=group, bn_axis_name=group)
     if not time_shardable(model):

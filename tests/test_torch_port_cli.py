@@ -18,6 +18,7 @@ benchmark's module.
 
 import dataclasses
 import json
+import logging
 import os
 
 import jax
@@ -26,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-from fastvideotagging_tpu import native as jnative
 from fastvideotagging_tpu.cli import evaluate as jcli_evaluate
 from fastvideotagging_tpu.cli import prepare as jcli_prepare
 from fastvideotagging_tpu.cli import tag as jcli_tag
@@ -64,10 +64,9 @@ def one_thread():
 
 
 @pytest.mark.parametrize("mode", ["tree", "lists"])
-def test_prepare_matches_the_jax_cli(synthetic_dataset, tmp_path, monkeypatch, mode):
+def test_prepare_matches_the_jax_cli(synthetic_dataset, tmp_path, mode):
     root, _ = synthetic_dataset
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_build_failed", True)
+    # both sides resize with their C tier (the JAX package's default)
     outs = {side: str(tmp_path / side) for side in ("jax", "port")}
     for side, main in (("jax", jcli_prepare.main), ("port", cli_prepare.main)):
         if mode == "tree":
@@ -165,10 +164,20 @@ def test_cli_flags_not_ported_raise(served):
     ev = COMMON + ["--val-list", pack, "--checkpoint-dir", str(tmp / "port_ckpt"),
                    "--device", "cpu"]
     tg = COMMON + [pack, "--weights", str(tmp / "port_weights.pt"), "--device", "cpu"]
-    # the multi-process flags are ported (tests/test_torch_port_multiproc.py):
-    # channel sharding is not, and a coordinator needs the job's size and rank
-    with pytest.raises(NotImplementedError, match="item 7"):  # model_parallel = 2
-        cli_evaluate.main(ev + ["--preset", "slowfast_stretch"])
+    # the multi-process flags and channel sharding are ported
+    # (tests/test_torch_port_multiproc.py, tests/test_torch_port_channel.py): a
+    # preset's model_parallel = 2 in one process evaluates unsharded with a
+    # warning, as the JAX CLI does, and a coordinator needs the job's size and rank
+    warnings = []
+    handler = logging.Handler()
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    logging.getLogger("fvt.eval").addHandler(handler)
+    try:
+        sharded = cli_evaluate.main(ev + ["--preset", "slowfast_stretch"])
+    finally:
+        logging.getLogger("fvt.eval").removeHandler(handler)
+    assert sharded == cli_evaluate.main(ev)
+    assert any("evaluating unsharded" in w and "model_parallel=2" in w for w in warnings)
     with pytest.raises(SystemExit, match="needs --num-processes"):
         cli_evaluate.main(ev + ["--coordinator", "h:1", "--process-id", "0"])
     # --engine native is ported (tests/test_torch_port_native.py): the JAX

@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from fastvideotagging_tpu import config as jcfg
-from fastvideotagging_tpu import native as jnative
 from fastvideotagging_tpu.data import packed as jpacked
 from fastvideotagging_tpu.data import pipeline as jpipeline
 from fastvideotagging_tpu.data import ucf101 as jucf
@@ -159,19 +158,9 @@ def test_dataset_guards_raise(packs, tmp_path):
     assert type(tpacked.open_dataset(records, _data(tcfg))) is tpipeline.ClipDataset
 
 
-def _numpy_host_resize(monkeypatch):
-    # the port resizes with the numpy spec; hold the JAX side to its numpy
-    # fallback (its C tier also rounds half to even, with lrintf, but its
-    # f32 two-tap lerp can land one level off the numpy einsum's at a few
-    # pixels)
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_build_failed", True)
-
-
 @pytest.mark.parametrize("cache_mb", [0, 64])
-def test_streaming_dataset_and_write_pack_match_jax(synthetic_dataset, monkeypatch, tmp_path,
-                                                     cache_mb):
-    _numpy_host_resize(monkeypatch)
+def test_streaming_dataset_and_write_pack_match_jax(synthetic_dataset, tmp_path, cache_mb):
+    # both sides resize with their C tier (the JAX package's default)
     root, list_path = synthetic_dataset
     records = tucf.load_video_list(list_path, root=root)
     assert ([dataclasses.astuple(r) for r in records]

@@ -343,12 +343,13 @@ def test_fit_checks_its_inputs(records, tmp_path):
     big = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, batch_size=7))
     with pytest.raises(ValueError, match="batch_size"):
         tfit.fit(big, trecs, device="cpu")
-    # data parallel is ported (tests/test_torch_port_multiproc.py): one process
-    # is a data-parallel degree of 1, and channel sharding is not ported
+    # data parallel and channel sharding are ported (tests/test_torch_port_multiproc.py,
+    # tests/test_torch_port_channel.py): one process is a data-parallel degree of
+    # 1, and model_parallel = 2 in one process raises the JAX fit's ValueError
     with pytest.raises(ValueError, match="data_parallel=2 must equal the 1 process"):
         tfit.fit(dataclasses.replace(cfg, parallel=tconfig.ParallelConfig(data_parallel=2)),
                  trecs, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(ValueError, match="model_parallel=2 must divide 1"):
         tfit.fit(dataclasses.replace(cfg, parallel=tconfig.ParallelConfig(model_parallel=2)),
                  trecs, device="cpu")
     # the device cache takes a pack, not streaming records (the JAX fit's ValueError)
@@ -510,7 +511,9 @@ def test_cli_train_on_a_pack_then_tag_from_its_export(tmp_path):
         cli_train.main(argv + ["--device", "cpu", "--pretrained", str(tmp_path / "w.pt")])
     with pytest.raises(ValueError, match="data_parallel=2"):
         cli_train.main(argv + ["--device", "cpu", "--data-parallel", "2"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # channel sharding is ported (tests/test_torch_port_channel.py): one
+    # process cannot hold a model group of 2 (the JAX make_mesh's ValueError)
+    with pytest.raises(ValueError, match="model_parallel=2 must divide 1"):
         cli_train.main(argv + ["--device", "cpu", "--model-parallel", "2"])
 
 

@@ -35,7 +35,6 @@ import pytest
 import torch
 
 from fastvideotagging_tpu.cli import tag as jcli_tag
-from fastvideotagging_tpu import native as jnative
 from fastvideotagging_tpu.data.packed import write_pack as jwrite_pack
 from fastvideotagging_tpu.data.ucf101 import load_video_list as jload_video_list
 from fastvideotagging_tpu.evaluation.native_tagger import NativeTagger as JNativeTagger
@@ -520,9 +519,7 @@ def scorer(tmp_path, monkeypatch, synthetic_dataset):
     monkeypatch.setattr(jpjrt, "build_runner", lambda force=False: wrapper)
     monkeypatch.setattr(jpjrt, "default_plugin", lambda: "fake.so")
     monkeypatch.setattr(jpjrt, "plugin_client_options_for", lambda p: {})
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_build_failed", True)
-    root, list_path = synthetic_dataset
+    root, list_path = synthetic_dataset  # both sides resize with their C tier
     records = jload_video_list(list_path, root=root)
     pack = str(tmp_path / "lib.fvtpack")
     jwrite_pack(records, pack, (40, 56), root=root)

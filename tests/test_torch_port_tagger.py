@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 
 from fastvideotagging_tpu import config as jcfg
-from fastvideotagging_tpu import native as jnative
 from fastvideotagging_tpu.evaluation import tagger as jtagger
 from fastvideotagging_tpu.models import get_model as jget_model
 from fastvideotagging_tpu_torch import config as tcfg
@@ -84,13 +83,9 @@ def test_scores_from_matches_jax_at_ship_geometry(taggers, multilabel):
             == [r.index for r in jtagger.rank_tags(ref, names, threshold=0.0)])
 
 
-def test_scores_from_resizes_other_geometry(taggers, monkeypatch):
-    # the port resizes with the numpy spec; hold the JAX side to its numpy
-    # fallback too (its C tier also rounds half to even, with lrintf, but
-    # its f32 two-tap lerp can land one level off the numpy einsum's at a
-    # few pixels)
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_build_failed", True)
+def test_scores_from_resizes_other_geometry(taggers):
+    # both sides resize with their C tier (the JAX package's default), bit
+    # for bit (tests/test_torch_port_framepack.py)
     jt, tt = taggers[True]
     frames = _frames(48, 64)
     ref = jt.scores_from(lambda i: frames[i], len(frames))

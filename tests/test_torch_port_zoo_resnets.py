@@ -54,15 +54,16 @@ def test_param_counts_equal_the_jax_goldens(name):
 
 def test_keyword_handling_follows_the_jax_zoo():
     """backend is dropped by the full-3D families; norm variants raise on
-    the models without them; SlowFast's channel sharding and a clip length
-    not divisible by alpha raise; dropout is drawn from the generator."""
+    the models without them; SlowFast's shard_axis is a process group (the
+    JAX package's axis name raises) and a clip length not divisible by
+    alpha raises; dropout is drawn from the generator."""
     for name in ("c3d", "p3d_63", "slowfast_r2plus1d", "slowfast_r2plus1d_tpu"):
         with pytest.raises(ValueError, match="norm='batch'"):
             tzoo.get_model(name, num_classes=5, norm="group", device="cpu")
     with torch.device("meta"):
         m = tzoo._REGISTRY["i3d"](num_classes=3, backend="torch", norm="group")
     assert not list(m.buffers())  # GroupNorm: no statistics
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="process group"):
         tzoo.get_model("slowfast_r2plus1d", num_classes=3, shard_axis="model", device="cpu")
     sf = tzoo.get_model("slowfast_r2plus1d", num_classes=3, device="cpu")
     with pytest.raises(ValueError, match="divisible by alpha"):
