@@ -170,7 +170,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             7/8's val pack (equal to their library calls) and ``cli.serve``
             (with and without ``--int8``) on piped stdin: a pack, a JSON
             object with ``top_k`` and a missing path, which gives an error
-            line while the daemon goes on.
+            line while the daemon goes on; (e) every other covered name
+            (ops/arch_spec.py's COVERED_MODELS) at its serving clip
+            (``INT8_FAMILY_CLIPS``: phase 9's, 16x112x112 for the R(2+1)D
+            family) and clip_batch 8, seeded random weights with the head
+            scaled to unit logits: ``make_int8_apply`` (the calibration's ms,
+            CUDA events), the static, dynamic and bf16 forwards' ms, each
+            mode's Q1 / Q2 / amax launches against the walk's calls and Q1's
+            against the spec's int8 convs, the default mode's sigmoid scores
+            within PATH_TOL of the bf16 'cuda' model's, ``Tagger(int8=True)``
+            on a dense 8-clip video within PATH_TOL of the bf16 Tagger; Q1 at
+            every distinct call of the families' static and dynamic forwards
+            (the identity epilogue bitwise against its plain version, the
+            form bitwise or within one bf16 ulp, two launches bitwise equal,
+            the share of the bound) and Q2 at every distinct (y, dtype, mode)
+            call, bitwise.
 11. export (evaluation/serving.py, cli/export.py; the serving kernels as
             ``fvt::*`` custom ops, ops/library.py): (a) ``cli.export
             --preset r2plus1d18_ucf101 --clip-batch 8`` of seeded random
@@ -256,6 +270,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             is a ``python3 -c`` subprocess from the checkout's root under
             one deadline; a failing rank kills the others and fails the
             run.
+14. the step profiler (utils/step_profiler.py): ``profile_train_step`` on
+            the ``r2plus1d18_ucf101`` preset at B = 32, ``profile_eval_step``
+            for r2plus1d_18 in bf16 at clip_batch 8 and in static int8 at B
+            = 32, PROFILE_STEPS traced steps each: the categories, the
+            closure of the conv floors, the rows with the largest slack, the
+            reference's conv roofline and its share of a step's CUDA-event
+            time, StepTimer's seconds a step. The device time attributed
+            must lie within PROFILE_CLOSURE of the traced busy time, every
+            hand kernel's launch under a conv site, and at least one step
+            captured (a trace that records no device activity is taken
+            again, PROFILE_ATTEMPTS in all).
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -274,7 +299,9 @@ the fresh process's forwards and the dynamic export's forwards, timing
 loops left out), phase 12's ``"native"`` (the runner processes' counts
 from the C++ op library: one shot, bench, the daemons and taggers), phase
 13's ``"parallel_world1"``, ``"parallel_cli"`` and ``"parallel_long_clip"``
-(K1-K3: the rank processes' counts, each from 0, summed).
+(K1-K3: the rank processes' counts, each from 0, summed), phase 10(e)'s
+``"int8_families"`` and phase 14's ``"step_profiler_train"``,
+``"step_profiler_eval_bf16"`` and ``"step_profiler_eval_int8"``.
 Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
@@ -331,7 +358,7 @@ from fastvideotagging_tpu_torch.ops import fused_block as fused
 from fastvideotagging_tpu_torch.ops import int8_conv as q8
 from fastvideotagging_tpu_torch.ops import int8_infer
 from fastvideotagging_tpu_torch.ops import temporal_micro as micro
-from fastvideotagging_tpu_torch.ops.arch_spec import spec_for
+from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, iter_convs, spec_for
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train import fit as fit_module
@@ -342,11 +369,12 @@ from fastvideotagging_tpu_torch.train.checkpoint import (
 )
 from fastvideotagging_tpu_torch.train.loop import make_train_step
 from fastvideotagging_tpu_torch.train.state import create_train_state
+from fastvideotagging_tpu_torch.utils import step_profiler as sprof
 from fastvideotagging_tpu_torch.utils.profiling import breakdown
 
 # Published H100 SXM peaks (dense bf16 tensor-core rate, HBM3 bandwidth).
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = sprof.PEAK_FLOPS["bfloat16"]
+PEAK_BYTES_S = sprof.PEAK_BYTES_S
 
 CLIP_BATCH = 8
 TRAIN_BATCH = 32
@@ -464,41 +492,29 @@ def path_sites(b: int = CLIP_BATCH):
     return sites
 
 
-def tap_pairs(n: int, k: int = K) -> int:
-    """(output, input) position pairs of a size-k, stride-1, k//2-padded
-    conv along an axis of length n that fall inside it: n - |d - k//2| per
-    tap d. Taps into the zero padding do no work."""
-    return sum(max(0, n - abs(d - k // 2)) for d in range(k))
-
-
-def spatial_flops(x_shape, co: int, k: int = K) -> float:
-    """Operations of a 1 x k x k conv over the taps that fall inside the
-    frame: x (B, T, H, W, C) -> Co channels."""
-    b, t, h, w, c = x_shape
-    return 2.0 * b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * co
+def _geometry(kernel: str, k: int = K):
+    """(kernel size, strides, pads) of a path site's stride-1, k//2-padded
+    conv: K1's 1 x k x k, K2's and K3's k x 1 x 1."""
+    p = k // 2
+    if kernel == "spatial_conv":
+        return (1, k, k), (1, 1, 1), ((0, 0), (p, p), (p, p))
+    return (k, 1, 1), (1, 1, 1), ((p, p), (0, 0), (0, 0))
 
 
 def _min_time(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    sec, by = sprof.least_seconds(sprof.ConvWork(flops, nbytes, 0.0, 0.0), "bfloat16")
+    return sec * 1e3, by
 
 
 def work(kernel: str, x_shape, co: int, k: int = K):
-    """(operations, bytes) of one call: each input read once, each output
-    written once, and the operations of the taps that fall inside the input
-    (none into its zero padding)."""
-    b, t, h, w, c = x_shape
-    rows = b * t * h * w
-    if kernel == "spatial_conv":
-        flops = spatial_flops(x_shape, co, k)
-    else:
-        flops = 2.0 * b * h * w * tap_pairs(t, k) * c * co
-    if kernel == "temporal_dw":
-        nbytes = 2.0 * rows * (c + co) + 4.0 * k * c * co
-    else:
-        taps = k * k if kernel == "spatial_conv" else k
-        nbytes = 2.0 * (rows * (c + co) + taps * c * co)
-    return flops, nbytes
+    """(operations, bytes) of one call (``step_profiler.conv_work``): each
+    input read once, each output written once, and the operations of the
+    taps that fall inside the input (none into its zero padding); K3 writes
+    its weight gradient in f32."""
+    size, strides, pads = _geometry(kernel, k)
+    w = (sprof.conv_work(x_shape, size, strides, pads, co, "bfloat16", "dw", out_dtype="float32")
+         if kernel == "temporal_dw" else sprof.conv_work(x_shape, size, strides, pads, co))
+    return w.flops, w.nbytes
 
 
 def bound(kernel: str, x_shape, co: int, k: int = K):
@@ -889,9 +905,8 @@ def fused_sites(b: int = CLIP_BATCH):
 def fused_flops(x_shape, m: int, co: int, k: int = K) -> float:
     """Operations of K4's two GEMMs over the taps that fall inside the frame
     (spatial) and inside [0, T) (temporal)."""
-    b, t, h, w, c = x_shape
-    return 2.0 * (b * t * tap_pairs(h, k) * tap_pairs(w, k) * c * m
-                  + b * h * w * tap_pairs(t, k) * m * co)
+    return (work("spatial_conv", x_shape, m, k)[0]
+            + work("temporal_conv", x_shape[:-1] + (m,), co, k)[0])
 
 
 def fused_bound(x_shape, m: int, co: int, k: int = K):
@@ -2535,7 +2550,7 @@ def phase_zoo(card: str) -> dict:
 # Phase 10: int8 serving (Q1, Q2, the int8 engine and its entry points)
 # ---------------------------------------------------------------------------
 
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
+PEAK_INT8_OPS = sprof.PEAK_FLOPS["int8"]  # H100 SXM dense int8 tensor-core rate
 _INT8_SOURCE = "fastvideotagging_tpu_torch/csrc/int8_conv.cu"
 INT8_KERNELS = {
     "conv3d_s8": dict(
@@ -2582,7 +2597,7 @@ def _int8_plain():
         q8.conv3d_s8_cuda, q8.quantize_s8_cuda = saved
 
 
-def _record_int8_sites(qpack, x, dynamic: bool = False):
+def _record_int8_sites(qpack, x, dynamic: bool = False, spec=None):
     """The Q1 and Q2 calls of one int8 forward, with their counts: {key:
     [n, C]} for Q1 (q shape, kernel, strides, pads, Co, relu, out_f32, the
     residual's kind, the epilogue's extra output: None, 'q' or 'q+bf16' (the
@@ -2611,7 +2626,10 @@ def _record_int8_sites(qpack, x, dynamic: bool = False):
 
     q8.conv3d_s8_cuda, q8.quantize_s8_cuda = rec_conv, rec_quant
     try:
-        int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
+        if spec is None:
+            int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
+        else:
+            int8_infer.int8_infer(qpack, x, spec, dynamic=dynamic)
     finally:
         q8.conv3d_s8_cuda, q8.quantize_s8_cuda = conv, quant
     return q1, q2
@@ -2628,32 +2646,19 @@ def _int8_form(key) -> str:
     return f"(c) {res_kind} -> {out}"
 
 
-def _axis_pairs(n: int, k: int, s: int, lo: int, out: int) -> int:
-    """(output, tap) pairs along an axis whose input index falls inside it."""
-    return sum(1 for o in range(out) for d in range(k) if 0 <= o * s - lo + d < n)
-
-
-def _axis_reads(n: int, k: int, s: int, lo: int, out: int) -> int:
-    """Input indices along an axis that some (output, tap) pair reads."""
-    return len({o * s - lo + d for o in range(out) for d in range(k)} & set(range(n)))
-
-
 def _int8_bound(key, c: int):
     """Q1's least time (ms) and what bounds it: the operations of the taps
     inside the input at the real C at 1,979 TOPS, or at 3.35 TB/s the bytes
     its form moves: the padded int8 input the taps read (a strided 1x1x1
-    conv reads an eighth of it), the int8 weights, the epilogue's vectors,
-    the residual's read (the block input's int8 q, or an f32 / bf16 tensor)
-    and the output (the next site's padded int8, and bf16 where it is kept;
-    or bf16 / f32, and the next site's amax)."""
+    conv reads an eighth of it) and the int8 weights
+    (``step_profiler.conv_work``), the epilogue's vectors, the residual's
+    read (the block input's int8 q, or an f32 / bf16 tensor) and the output
+    (the next site's padded int8, and bf16 where it is kept; or bf16 / f32,
+    and the next site's amax)."""
     qs, kernel, strides, pads, co, _relu, out_f32, res_kind, rq = key
     n, t, h, w, cp = qs
+    conv = sprof.conv_work((n, t, h, w, c), kernel, strides, pads, co, "int8", stored_c=cp)
     outs = [q8.out_size(d, k, st, p) for d, k, st, p in zip((t, h, w), kernel, strides, pads)]
-    pairs, read = 1, n * cp
-    for d, k, st, p, o in zip((t, h, w), kernel, strides, pads, outs):
-        pairs *= _axis_pairs(d, k, st, p[0], o)
-        read *= _axis_reads(d, k, st, p[0], o)
-    flops = 2.0 * n * pairs * c * co
     rows = n * outs[0] * outs[1] * outs[2]
     if rq in (None, "amax"):
         out = rows * co * (4 if out_f32 else 2) + (4 if rq else 0)
@@ -2662,8 +2667,8 @@ def _int8_bound(key, c: int):
     res = {None: 0, "dequant": rows * q8.padded_channels(co), "f32": rows * co * 4,
            "bf16": rows * co * 2}[res_kind]
     vectors = 4 * co * (2 + (rq is not None) + (res_kind == "dequant"))
-    nbytes = read + co * kernel[0] * kernel[1] * kernel[2] * cp + vectors + res + out
-    t_ops, t_bytes = flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_S
+    nbytes = conv.x_bytes + conv.w_bytes + vectors + res + out
+    t_ops, t_bytes = conv.flops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), \
         t_ops * 1e3, t_bytes * 1e3
 
@@ -3192,6 +3197,246 @@ def phase_int8(card: str, paths: dict) -> dict:
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     del tag["qpack"]
     return dict(launches=launches, tagger=tag, kernels=kernels, entry=entry)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10(e): every other covered family in int8
+# ---------------------------------------------------------------------------
+
+# the serving clip (T, H, W) of each covered name: phase 9's, and 16x112x112
+# for the R(2+1)D family; the frames the taggers read (the presets' resize)
+INT8_FAMILY_CLIPS = {**{n: (16, 112, 112) for n in ("r2plus1d_18_tpu", "r2plus1d_34",
+                                                    "r2plus1d_34_tpu")}, **ZOO_CLIPS}
+INT8_FAMILY_HW = {112: (128, 171), 224: (256, 342)}
+Q1_FAMILY_ITERS = 5  # CUDA-event-timed launches of Q1 at each new site geometry
+
+
+def _int8_convs(spec) -> int:
+    """Q1 calls a forward makes: the spec's convs outside its bf16 tail."""
+    return sum(1 for key, _ in iter_convs(spec) if key not in spec.default_float_blocks)
+
+
+def _family_cfg(name: str, clip) -> ExperimentConfig:
+    t, h, w = clip
+    return ExperimentConfig(
+        model=ModelConfig(name=name, num_classes=ZOO_CLASSES, multilabel=True),
+        data=DataConfig(resize_hw=INT8_FAMILY_HW[h], crop_hw=(h, w),
+                        sampler=ClipSamplerConfig(clip_len=t, eval_mode="dense")))
+
+
+def _unit_logits(model, spec, x) -> None:
+    """Scale the head (its last Dense, kernel and bias) of ``model`` so that
+    its bf16 logits on ``x`` have unit standard deviation, as a trained
+    head's are of the order of one: at their seeded init the deep families'
+    logits reach 1e3-1e4, where the sigmoid of any rounding saturates."""
+    from fastvideotagging_tpu_torch.ops.arch_spec import param
+
+    with torch.inference_mode():
+        std = model(x).float().std().item()
+    sd = model.state_dict()
+    with torch.no_grad():
+        for leaf in ("kernel", "bias"):
+            param(sd, spec.head[-1].param + (leaf,)).div_(std)
+
+
+def _q1_site_check(key, c: int, gen: torch.Generator) -> dict:
+    """Q1 at one recorded call: the identity epilogue bitwise against its
+    plain version, the call's form bitwise (fused) or within one bf16 ulp,
+    two launches bitwise equal, its time against the bound."""
+    dev = torch.device(DEV)
+    qs, kernel, strides, pads, co, *_ = key
+    rq, fused = key[8], key[7] is not None or key[8] not in (None, "amax")
+    args, _, _ = _int8_inputs(key, c, gen)
+    q, wk = args[0], args[1]
+    one, zero = torch.ones(co, device=dev), torch.zeros(co, device=dev)
+    unit = torch.tensor(1.0, device=dev)
+    ident = torch.equal(q8.conv3d_s8_cuda(q, wk, kernel, one, zero, unit, strides, pads, False,
+                                          True),
+                        q8.conv3d_s8_plain(q, wk, kernel, one, zero, unit, strides, pads, False,
+                                           True))
+    got = _int8_outputs(q8.conv3d_s8_cuda(*args))
+    again = _int8_outputs(q8.conv3d_s8_cuda(*args))
+    ref = _int8_outputs(q8.conv3d_s8_plain(*args))
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    form = all(torch.equal(a, b) for a, b in zip(got, ref))
+    diff = (got[0].float() - ref[0].float()).abs()
+    _, e = torch.frexp(ref[0].float())
+    ulps = 0.0 if rq not in (None, "amax") else (
+        diff / torch.ldexp(torch.ones_like(diff), e - 8)).max().item()
+    ms = time_ms(lambda: q8.conv3d_s8_cuda(*args), iters=Q1_FAMILY_ITERS)
+    bound_ms, by, _, _ = _int8_bound(key, c)
+    ok = ident and repeat and (form if fused else ulps <= 1.0)
+    return dict(x=list(qs[:-1]) + [c], cp=qs[-1], kernel=list(kernel), strides=list(strides),
+                pads=[list(p) for p in pads], co=co, form=_int8_form(key), ms=ms,
+                bound_ms=bound_ms, bound_by=by, share=bound_ms / ms, identity_bitwise=ident,
+                two_launches_bitwise=repeat, form_bitwise=form, max_bf16_ulps=ulps, ok=ok)
+
+
+def _q2_site_check(key, gen: torch.Generator) -> dict:
+    """Q2 at one recorded (y shape, dtype, mode) against its plain version,
+    bit for bit (the amax-given mode on the amax the plain pass reduces)."""
+    dev = torch.device(DEV)
+    ys, dtype, mode = key
+    y = (torch.randn(ys, generator=gen, device=dev) * 3).to(getattr(torch, dtype))
+    inv_f = torch.rand(ys[-1], generator=gen, device=dev) * 3 + 0.1
+    if mode == "static":
+        s = torch.tensor(0.05, device=dev)
+        got, ref = q8.quantize_s8_cuda(y, inv_f, s), q8.quantize_s8_plain(y, inv_f, s)
+    else:
+        amax = None
+        if mode == "amax given":
+            amax = (y.float() * inv_f).abs().amax().reshape(())
+        slots = [q8.ScaleSlots(1, dev).take() for _ in range(2)]
+        got = q8.quantize_s8_cuda(y, inv_f, None, amax, slots[0])
+        ref = q8.quantize_s8_plain(y, inv_f, None, amax, slots[1])
+    ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+    return dict(y=list(ys), dtype=dtype, mode=mode, bitwise=ok)
+
+
+def phase_int8_families(card: str) -> dict:
+    """10(e): every covered name but r2plus1d_18 in int8 at its serving clip
+    and clip_batch 8 (seeded random weights, 400 classes, the head scaled
+    to unit logits: ``_unit_logits``): Q1 at every
+    distinct call of its static and dynamic forwards (against its plain
+    version, two launches bitwise, the share of the bound), Q2 at every
+    distinct quantize call; the calibration's ms; the static, dynamic and
+    bf16 forwards' ms (CUDA events); each mode's Q1 / Q2 launches against
+    the walk's calls and Q1's against the spec's int8 convs; scores of
+    ``make_int8_apply`` (the spec's default mode) against the bf16 'cuda'
+    model within PATH_TOL; and ``Tagger(int8=True)`` on a dense 8-clip
+    video against the bf16 Tagger."""
+    print("== phase 10(e): every covered family in int8", flush=True)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    checked_q1, checked_q2 = {}, {}
+    result, launches, failures = {}, _int8_counts(), []
+    launches = {k: 0 for k in launches}
+    videos = {}
+    for name in (n for n in COVERED_MODELS if n != "r2plus1d_18"):
+        t0 = time.perf_counter()
+        clip = INT8_FAMILY_CLIPS[name]
+        spec = spec_for(name)
+        torch.cuda.empty_cache()
+        model = _zoo_model(name) if name in ZOO_CLIPS else get_model(
+            name, num_classes=ZOO_CLASSES, device="cpu",
+            generator=torch.Generator().manual_seed(SEED)).to(DEV).eval()
+        x = torch.randn((CLIP_BATCH, *clip, 3), generator=gen, device=DEV).to(torch.bfloat16)
+        _unit_logits(model, spec, x)
+        state = model.state_dict()
+        calib = []
+        for _ in range(2):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            qpack, apply_fn = make_int8_apply(name, state, [x], multilabel=True)
+            end.record()
+            torch.cuda.synchronize()
+            calib.append(start.elapsed_time(end))
+        runs = {"static": lambda: int8_infer.int8_infer(qpack, x, spec),
+                "dynamic": lambda: int8_infer.int8_infer(qpack, x, spec, dynamic=True)}
+        row = dict(clip=[CLIP_BATCH, *clip], default_dynamic=spec.default_dynamic,
+                   calibration_ms=calib, int8_convs=_int8_convs(spec))
+        for mode, run in runs.items():
+            q1_calls, q2_calls = _record_int8_sites(qpack, x, mode == "dynamic", spec)
+            walk = dict(conv3d_s8=sum(n for n, _ in q1_calls.values()),
+                        quantize_s8=sum(q2_calls.values()),
+                        quantize_s8_amax=sum(n for k, n in q2_calls.items()
+                                             if k[2] == "two passes"))
+            _int8_reset()
+            with torch.inference_mode():
+                logits = run()
+            torch.cuda.synchronize()
+            got = _int8_counts()
+            for k, v in got.items():
+                launches[k] += v
+            counts = {k: got[k] for k in walk}
+            ok = counts == walk and counts["conv3d_s8"] == row["int8_convs"] and bool(
+                torch.isfinite(logits).all().item())
+            with torch.inference_mode():
+                ms = time_ms(run, iters=3)
+            row[mode] = dict(ms=ms, clips_per_s=CLIP_BATCH / ms * 1e3, launches=counts,
+                             walk=walk, float_k=[got["spatial_conv"], got["temporal_conv"]],
+                             ok=ok)
+            if not ok:
+                failures.append((name, mode, counts, walk))
+            for key, (n, c) in q1_calls.items():
+                if key not in checked_q1:
+                    checked_q1[key] = dict(_q1_site_check(key, c, gen), first=name)
+            for key in q2_calls:
+                if key not in checked_q2:
+                    checked_q2[key] = dict(_q2_site_check(key, gen), first=name)
+        with torch.inference_mode():
+            bf16_logits = model(x)
+            row["bf16_ms"] = time_ms(lambda: model(x), iters=3)
+            scores = apply_fn(qpack, x)
+        ref = heads.predict_scores(bf16_logits.float(), True)
+        err = (scores.float() - ref).abs().max().item()
+        row.update(score_max_abs_diff=err,
+                   logit_scale=bf16_logits.float().abs().max().item(),
+                   top1_agree=float((scores.argmax(-1) == ref.argmax(-1)).float().mean().item()))
+        # the normal entry point: Tagger(int8=True) against the bf16 Tagger
+        t, h, w = clip
+        hw = INT8_FAMILY_HW[h]
+        if (t, hw) not in videos:
+            videos[(t, hw)] = make_frames(5, num_frames=t * CLIP_BATCH, height=hw[0],
+                                          width=hw[1], seed=SEED + 10)
+        frames = videos[(t, hw)]
+        cfg = _family_cfg(name, clip)
+        tagged = {}
+        for int8 in (True, False):
+            tagger = Tagger(cfg, state, clip_batch=CLIP_BATCH, int8=int8, device=DEV)
+            _int8_reset()
+            tagged[int8] = tagger.scores_from(lambda idx: frames[idx], len(frames))
+            torch.cuda.synchronize()
+            if int8:
+                tag_counts = {k: v for k, v in _int8_counts().items()}
+                for k, v in tag_counts.items():
+                    launches[k] += v
+            del tagger
+        tag_err = float(np.abs(tagged[True] - tagged[False]).max())
+        row.update(tagger_score_max_abs_diff=tag_err,
+                   tagger_launches={k: tag_counts[k] for k in ("conv3d_s8", "quantize_s8",
+                                                               "quantize_s8_amax")},
+                   seconds=time.perf_counter() - t0)
+        mode = "dynamic" if spec.default_dynamic else "static"
+        tag_ok = (tag_counts["conv3d_s8"] == row["int8_convs"]
+                  and np.isfinite(tagged[True]).all())
+        if err > PATH_TOL or not tag_ok or tag_err > PATH_TOL:
+            failures.append((name, "scores", err, tag_err, tag_counts))
+        result[name] = row
+        print(f"  {name:22s} {CLIP_BATCH}x{t}x{h}x{w}: calibration {calib[-1]:.1f} ms; static "
+              f"{row['static']['ms']:.3f} ms, dynamic {row['dynamic']['ms']:.3f} ms, bf16 "
+              f"{row['bf16_ms']:.3f} ms a forward; Q1 / Q2 / amax static "
+              f"{list(row['static']['launches'].values())} dynamic "
+              f"{list(row['dynamic']['launches'].values())} (walk {row['static']['walk'] == row['static']['launches']}"
+              f"/{row['dynamic']['walk'] == row['dynamic']['launches']}, int8 convs "
+              f"{row['int8_convs']}), K1/K2 {row['static']['float_k']}; scores ({mode}) vs bf16 "
+              f"{err:.3e} (logits up to {row['logit_scale']:.3g}, top-1 agree "
+              f"{row['top1_agree']:.2f}); Tagger int8 vs bf16 {tag_err:.3e}, launches "
+              f"{row['tagger_launches']}; {row['seconds']:.1f} s", flush=True)
+        del model, state, qpack, apply_fn, x, runs, bf16_logits, scores
+    q1_rows = list(checked_q1.values())
+    for r in q1_rows:
+        print(f"  Q1 {r['first']:20s} x{tuple(r['x'])} cp={r['cp']} k{tuple(r['kernel'])} "
+              f"s{tuple(r['strides'])} pads {r['pads']} -> {r['co']} {r['form']}: {r['ms']:.4f} "
+              f"ms, {r['share']:.3f} of the bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+              f"identity bitwise {r['identity_bitwise']}, two launches bitwise "
+              f"{r['two_launches_bitwise']}, form bitwise {r['form_bitwise']} "
+              f"({r['max_bf16_ulps']:.2f} bf16 ulp) ok={r['ok']}", flush=True)
+    q2_rows = list(checked_q2.values())
+    bad_q2 = [r for r in q2_rows if not r["bitwise"]]
+    print(f"  Q2 at {len(q2_rows)} distinct (y, dtype, mode) calls bitwise against its plain "
+          f"version: {len(q2_rows) - len(bad_q2)} (failing: {bad_q2})", flush=True)
+    worst = min(q1_rows, key=lambda r: r["share"])
+    print(f"(e) Q1 at {len(q1_rows)} distinct calls, its worst share of the bound "
+          f"{worst['share']:.3f} at {worst['first']} x{tuple(worst['x'])} k{tuple(worst['kernel'])} "
+          f"-> {worst['co']} {worst['form']}; phase 10(e) took {time.perf_counter() - t_phase:.1f} "
+          f"s on {card}", flush=True)
+    failures += [("Q1", r["first"], r["x"], r["kernel"], r["co"], r["form"])
+                 for r in q1_rows if not r["ok"]] + [("Q2", r) for r in bad_q2]
+    if failures:
+        raise SystemExit(f"10(e) failed: {failures}")
+    return dict(result=result, q1_sites=q1_rows, q2_sites=q2_rows, launches=launches,
+                worst=dict(worst))
 
 
 def int8_entries(int8: dict) -> list:
@@ -4675,6 +4920,89 @@ def phase_channel(card: str, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the step profiler (utils/step_profiler.py)
+# ---------------------------------------------------------------------------
+
+PROFILE_STEPS = 4  # traced steps a run
+PROFILE_CLOSURE = 0.02  # attributed device time against the traced busy time
+PROFILE_ATTEMPTS = 3  # traces a run before "no device activity" fails it
+
+
+def _profiled(fn):
+    """``fn()`` again (at most PROFILE_ATTEMPTS times in all) while the
+    profiler records no device activity."""
+    for attempt in range(PROFILE_ATTEMPTS):
+        try:
+            return fn(), attempt + 1
+        except RuntimeError as e:
+            if "no device activity" not in str(e) or attempt == PROFILE_ATTEMPTS - 1:
+                raise
+            print(f"    attempt {attempt + 1}: the profiler recorded no device activity; "
+                  "tracing again", flush=True)
+
+
+def phase_step_profiler(card: str) -> dict:
+    """14: ``profile_train_step`` on the ``r2plus1d18_ucf101`` preset at B =
+    32, ``profile_eval_step`` for r2plus1d_18 in bf16 at clip_batch 8 and
+    in static int8 at B = 32: the categories, the closure, the rows with the
+    largest slack, the conv roofline and its share of a step's CUDA-event
+    time, StepTimer's seconds a step. Fails when the attributed device time
+    is more than PROFILE_CLOSURE from the traced busy time, when a hand
+    kernel's launch lies under no conv site, or when no step was captured."""
+    print("== phase 14: the step profiler", flush=True)
+    t_phase = time.perf_counter()
+    runs = {
+        "train": (f"train step, the r2plus1d18_ucf101 preset at B={TRAIN_BATCH}",
+                  lambda d: sprof.profile_train_step(batch_size=TRAIN_BATCH,
+                                                     n_steps=PROFILE_STEPS, trace_dir=d)),
+        "eval_bf16": (f"r2plus1d_18 bf16 forward at clip_batch {CLIP_BATCH}",
+                      lambda d: sprof.profile_eval_step(batch_size=CLIP_BATCH,
+                                                        n_steps=PROFILE_STEPS, trace_dir=d)),
+        "eval_int8": (f"r2plus1d_18 static int8 forward at B={TRAIN_BATCH}",
+                      lambda d: sprof.profile_eval_step(batch_size=TRAIN_BATCH, int8="static",
+                                                        n_steps=PROFILE_STEPS, trace_dir=d)),
+    }
+    result, launches, failures = {}, {}, []
+    for key, (what, run) in runs.items():
+        torch.cuda.empty_cache()
+        _int8_reset()
+        with tempfile.TemporaryDirectory() as d:
+            (rows, cats, info), attempts = _profiled(lambda: run(os.path.join(d, "trace")))
+        torch.cuda.synchronize()
+        launches[key] = {**{k: ops.launch_counts[k] for k in KERNELS}, **q8.launch_counts}
+        event_ms = sorted(info["step_ms"])[len(info["step_ms"]) // 2]
+        closure = abs(info["attributed_us_per_step"] - info["device_us_per_step"]) / max(
+            info["device_us_per_step"], 1e-9)
+        ok = (closure <= PROFILE_CLOSURE and not info["hand_kernels_unplaced"]
+              and info["hand_kernels"] > 0 and info["steps_captured"] >= 1)
+        print(f"-- {what} ({attempts} trace(s)):", flush=True)
+        print(sprof.format_report(rows, cats, info, top=12), flush=True)
+        print(f"   steps captured {info['steps_captured']} of {PROFILE_STEPS} traced; CUDA-event ms "
+              f"a step {['%.3f' % v for v in info['step_ms']]}, device busy "
+              f"{['%.3f' % v for v in info['busy_ms']]}; attributed "
+              f"{info['attributed_us_per_step'] / 1e3:.3f} ms against busy "
+              f"{info['device_us_per_step'] / 1e3:.3f} ms ({closure * 100:.2f} %, limit "
+              f"{PROFILE_CLOSURE * 100:.0f} %); hand-kernel launches {info['hand_kernels']} "
+              f"({info['hand_kernels'] / max(info['steps_captured'], 1):.0f} a step), under no "
+              f"conv site {info['hand_kernels_unplaced']}; unjoined {info['unjoined']}, outside "
+              f"the steps {info['outside_steps']}; conv roofline "
+              f"{info['roofline_s'] * 1e3:.3f} ms = {info['roofline_s'] * 1e3 / event_ms:.3f} of "
+              f"the step's {event_ms:.3f} ms; StepTimer {info['step_timer_s'] * 1e3:.3f} ms a "
+              f"step after the trace, {info['step_timer_before_s'] * 1e3:.3f} before it; on "
+              f"{card} ok={ok}", flush=True)
+        result[key] = dict(info, what=what, categories_ms={k: v / 1e3 for k, v in cats.items()},
+                           rows=[dataclasses.asdict(r) for r in rows[:40]],
+                           attempts=attempts, busy_closure=closure, event_ms=event_ms,
+                           roofline_share=info["roofline_s"] * 1e3 / event_ms, ok=ok)
+        if not ok:
+            failures.append(key)
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    if failures:
+        raise SystemExit(f"phase 14 failed: {failures}")
+    return dict(result=result, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -4698,11 +5026,16 @@ def main() -> int:
         acc_sites = phase_accuracy_sites()
         zoo = phase_zoo(card)
         int8 = phase_int8(card, entry["paths"])
+        families = phase_int8_families(card)
         export = phase_export(card, tmp)
         native = phase_native(card, tmp, export, native_build)
         par = phase_parallel(card, tmp)
+    profiler = phase_step_profiler(card)
+    int8["launches"]["int8_families"] = families["launches"]
     int8["launches"]["export"] = export["launches"]
     int8["launches"]["native"] = native["launches"]
+    for run, counts in profiler["launches"].items():
+        int8["launches"][f"step_profiler_{run}"] = counts
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
@@ -4712,7 +5045,10 @@ def main() -> int:
                 **{run: c[kernel] for run, c in zoo["launches"].items()},
                 "export": export["launches"].get(kernel, 0),
                 "native": native["launches"].get(kernel, 0),
-                **{f"parallel_{run}": c[kernel] for run, c in par["launches"].items()}}
+                **{f"parallel_{run}": c[kernel] for run, c in par["launches"].items()},
+                "int8_families": families["launches"].get(kernel, 0),
+                **{f"step_profiler_{run}": c[kernel]
+                   for run, c in profiler["launches"].items()}}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -4759,7 +5095,10 @@ def main() -> int:
                       "export": {k: export[k] for k in ("export_s", "artifacts", "dynamic",
                                                         "dispatch")},
                       "native": {k: v for k, v in native.items() if k != "launches"},
-                      "parallel": par["result"], "host_resize": host_resize, "card": card}))
+                      "parallel": par["result"], "host_resize": host_resize,
+                      "int8_families": {k: families[k] for k in ("result", "q1_sites", "q2_sites",
+                                                                 "worst")},
+                      "step_profiler": profiler["result"], "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -30,7 +30,9 @@ the same forward kernel on the flipped, channel-transposed weights
 (``spatial_conv_dx_cuda`` / ``temporal_conv_dx_cuda`` lay the weight out
 for it straight from the forward weight); the temporal dw is K3; the
 spatial dw is k*k tap-sliced matmuls (XLA's in the JAX package, the matmul
-library's here).
+library's here). With a profiler's scopes on (ops/scopes.py), the backward
+opens ``fvt/dx/<layer>`` and ``fvt/dw/<layer>`` around its launches, the
+layer being the site that was open when the forward ran.
 
 Convs the kernels do not take (strided stage entries, the 3-channel stem,
 C < MIN_C) go to ``F.conv3d``, as the JAX package sends them to
@@ -49,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from fastvideotagging_tpu_torch.ops import _build
+from fastvideotagging_tpu_torch.ops import _build, scopes
 
 # Kernel eligibility (the JAX package's MIN_C): narrower contractions stay
 # with the library conv.
@@ -375,6 +377,7 @@ class _SpatialOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        ctx.site = scopes.current_path()  # the layer, for a profiler's scopes
         return torch.ops.fvt.spatial_conv.default(x, w)
 
     @staticmethod
@@ -385,9 +388,11 @@ class _SpatialOp(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # dx: correlate g with spatially flipped, channel-transposed weights.
-            dx = _route(spatial_conv_dx_cuda, spatial_conv_dx_plain, g, w)
+            with scopes.site("dx", ctx.site):
+                dx = _route(spatial_conv_dx_cuda, spatial_conv_dx_plain, g, w)
         if ctx.needs_input_grad[1]:
-            dw = spatial_dw(x, g, w.shape[0]).to(w.dtype)
+            with scopes.site("dw", ctx.site):
+                dw = spatial_dw(x, g, w.shape[0]).to(w.dtype)
         return dx, dw
 
 
@@ -656,6 +661,7 @@ class _TemporalOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        ctx.site = scopes.current_path()
         return torch.ops.fvt.temporal_conv.default(x, w)
 
     @staticmethod
@@ -666,9 +672,11 @@ class _TemporalOp(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # dx: correlate g with flipped, channel-transposed weights.
-            dx = _route(temporal_conv_dx_cuda, temporal_conv_dx_plain, g, w)
+            with scopes.site("dx", ctx.site):
+                dx = _route(temporal_conv_dx_cuda, temporal_conv_dx_plain, g, w)
         if ctx.needs_input_grad[1]:
-            dw = _route(temporal_dw_cuda, temporal_dw_plain, x, g, w.shape[0]).to(w.dtype)
+            with scopes.site("dw", ctx.site):
+                dw = _route(temporal_dw_cuda, temporal_dw_plain, x, g, w.shape[0]).to(w.dtype)
         return dx, dw
 
 

@@ -32,6 +32,9 @@ The scheme is the JAX engine's, number for number:
   * mixed precision: ``float_blocks`` run in bf16 with exactly dequantized
     weights, each spec's measured default tail (r2plus1d: stage 4).
 
+With a profiler's scopes on (ops/scopes.py), each conv runs under
+``fvt/fwd/<conv id>`` and each quantize pass under ``fvt/quant/<site>``.
+
 The bf16 walk (calibration, and the bf16 reference engine) feeds each
 conv's f32 result to its BatchNorm affine unrounded, as the jitted JAX walk
 does (``_walk_conv``). ``conv_f`` in the ``float_blocks`` takes the model's
@@ -55,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from fastvideotagging_tpu_torch._device import device_of
-from fastvideotagging_tpu_torch.ops import int8_conv
+from fastvideotagging_tpu_torch.ops import int8_conv, scopes
 from fastvideotagging_tpu_torch.ops.arch_spec import (
     ArchSpec,
     Block,
@@ -541,12 +544,13 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
     def quant_site(y, site, reduced=None):
         """Q2 at ``site``; ``reduced``: the slot whose amax an epilogue
         reduced (the quantize pass alone)."""
-        if reduced is not None:
-            q, s = int8_conv.quantize_s8(y, inv_f[site], None, reduced[0], reduced)
-        elif dynamic:
-            q, s = _dyn_quant(y, inv_f[site], slots.take())
-        else:
-            q, s = int8_conv.quantize_s8(y, inv_f[site], qpack["s_static"][site])
+        with scopes.site("quant", site):
+            if reduced is not None:
+                q, s = int8_conv.quantize_s8(y, inv_f[site], None, reduced[0], reduced)
+            elif dynamic:
+                q, s = _dyn_quant(y, inv_f[site], slots.take())
+            else:
+                q, s = int8_conv.quantize_s8(y, inv_f[site], qpack["s_static"][site])
         record(site, q, s, y.shape[-1])
         return q, s
 
@@ -581,6 +585,10 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
         ``to`` = (site, keep_bf16), a _Quantized for that site (forms (b),
         (c)), or in the dynamic mode a _Reduced (the bf16 output and the
         site's amax)."""
+        with scopes.site("fwd", conv_id(node)):
+            return _conv_q(q, s_dyn, node, out_f32, tail, to)
+
+    def _conv_q(q, s_dyn, node, out_f32, tail, to):
         pack = qpack["convs"][conv_id(node)]
         w = pack["w"]
         gated = node.gate is not None
@@ -615,12 +623,14 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
     def conv_f(xf, node: Conv):
         """bf16 conv with exactly dequantized int8 weights + affine."""
         pack = qpack["convs"][conv_id(node)]
-        w = deq_w(pack)
-        acc = _bf16_conv(xf.to(torch.bfloat16), w, node.strides, pads=_conv_pads(xf, w, node))
-        y = _affine(acc, pack["bn_scale"], pack["bn_bias"], relu=node.relu)
-        if node.gate is not None:
-            g = qpack["gates"][_gate_id(node)]
-            y = _apply_gate(y, g["kernel"], g["bias"])
+        with scopes.site("fwd", conv_id(node)):
+            w = deq_w(pack)
+            acc = _bf16_conv(xf.to(torch.bfloat16), w, node.strides,
+                             pads=_conv_pads(xf, w, node))
+            y = _affine(acc, pack["bn_scale"], pack["bn_bias"], relu=node.relu)
+            if node.gate is not None:
+                g = qpack["gates"][_gate_id(node)]
+                y = _apply_gate(y, g["kernel"], g["bias"])
         return y
 
     def chain_q(v, nodes, q_first=None, tail=None):
@@ -647,7 +657,11 @@ def int8_infer(qpack, x, spec: ArchSpec, float_blocks=None,
                 a = chain_q(v, node.left)
                 src = v if node.right_from == "input" else a
                 b = chain_q(src, node.right)
-                v = a + b
+                # the sum of the two bf16 branches in f32, handed to the next
+                # quantize unrounded: XLA's excess precision in the jitted
+                # JAX engine (rounded to bf16 first, 1 % of P3D's exp-site
+                # values came out one quantum apart)
+                v = bf16_of(a).float() + bf16_of(b).float()
             else:
                 raise TypeError(node)
         return v

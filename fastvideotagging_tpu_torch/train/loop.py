@@ -20,6 +20,9 @@ then makes the same update, so the ranks' weights stay equal. A
 channel-sharded model (``model_parallel > 1``) runs its convs' collectives
 over the model group inside its forward and backward (parallel/channel.py);
 each rank then updates its part of every sharded kernel.
+
+With a profiler's scopes on (ops/scopes.py), the preprocess and the update
+run under ``fvt/preprocess`` and ``fvt/optimizer``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.layers import global_dropout_rows, sync_batch_norm
+from fastvideotagging_tpu_torch.ops import scopes
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch
 from fastvideotagging_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, check_mesh
 from fastvideotagging_tpu_torch.train.state import TrainState
@@ -81,10 +85,11 @@ def make_train_step(
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
         frames = (cache_frames[batch["rows"].long()] if device_cache
                   else batch["frames"])
-        clips = preprocess_batch(
-            frames, batch["crop_tops"], batch["crop_lefts"], batch["flips"],
-            d.mean, d.std, resize_hw=resize_hw, crop_hw=d.crop_hw,
-            out_dtype=compute_dtype)
+        with scopes.region("preprocess"):
+            clips = preprocess_batch(
+                frames, batch["crop_tops"], batch["crop_lefts"], batch["flips"],
+                d.mean, d.std, resize_hw=resize_hw, crop_hw=d.crop_hw,
+                out_dtype=compute_dtype)
         model.train()
         if group is None:
             logits = model(clips, generator=generator)
@@ -101,7 +106,8 @@ def make_train_step(
             all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None],
                              mesh)
             state.model_group = mesh.model_group
-        state.apply_gradients()
+        with scopes.region("optimizer"):
+            state.apply_gradients()
         metrics = {"loss": loss.detach()}
         if not multilabel:
             w = batch["weights"].float()

@@ -1,16 +1,26 @@
-"""Device-time breakdown of one R(2+1)D forward, or of one training step,
-on the card.
+"""Tracing and step timing (the reference's ``utils/profiling.py``), and the
+device-time breakdown of one forward, or of one training step, on the card.
+
+* ``trace(logdir)``: a context manager around ``torch.profiler`` that
+  writes a Chrome / Perfetto trace of the block into ``logdir``;
+* ``sync(tree)``: waits for the device that holds the first tensor of a
+  pytree;
+* ``StepTimer``: seconds a step, warm-up steps left out, synchronized every
+  ``sync_every`` steps.
+
+The breakdown:
 
     python -m fastvideotagging_tpu_torch.utils.profiling [--model r2plus1d_18]
-        [--clip-batch 8] [--iters 5] [--steps 20] [--train [--batch 32]] [--sites]
-        [--int8]
+        [--clip-batch 8] [--clip 16 112 112] [--iters 5] [--steps 20]
+        [--train [--batch 32]] [--sites] [--int8]
 
 Without ``--train``: the eval forward of a seeded random-weight model
-(16x112x112 clips, bf16) with ``kernels='cuda'``, ``kernels='torch'`` and
-the fused engine on K4 (``ops/fused_infer.py``, R(2+1)D only). With
-``--int8``: the forward with ``kernels='cuda'`` beside the int8 engine's
-(``ops/int8_infer.py``, on Q1 / Q2), static and dynamic, its qpack
-calibrated on the run's clips (r2plus1d only). With
+(``--clip`` clips, 16x112x112 by default, bf16) with ``kernels='cuda'``,
+``kernels='torch'`` and the fused engine on K4 (``ops/fused_infer.py``,
+R(2+1)D only). With ``--int8``: the forward with ``kernels='cuda'`` beside
+the int8 engine's (``ops/int8_infer.py``, on Q1 / Q2, through the model's
+spec: any name of ``ops.arch_spec.COVERED_MODELS``), static and dynamic,
+its qpack calibrated on the run's clips. With
 ``--train``: the training step of ``train/loop.py`` (preprocess, forward in
 train mode, loss, backward, SGD) for the ``r2plus1d18_ucf101`` preset on
 one seeded random batch of ``--batch`` clips, with ``kernels='cuda'`` and
@@ -30,9 +40,12 @@ synchronize: the median, least and greatest time of one iteration.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import time
+from collections.abc import Mapping
 from typing import Callable
 
 import torch
@@ -41,6 +54,93 @@ from torch.profiler import ProfilerActivity, profile
 
 from fastvideotagging_tpu_torch.models.zoo import get_model
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "fvt_trace"):
+    """Trace the block with ``torch.profiler`` (the host, and the card where
+    there is one) and write it to ``<logdir>/trace.json`` as a Chrome /
+    Perfetto trace. Yields ``logdir``."""
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield logdir
+    prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
+
+
+def _first_tensor(tree):
+    """The first tensor of a pytree: a tensor, mappings, lists and tuples of
+    them, dataclasses (a TrainState) and modules (parameters, then buffers)."""
+    if torch.is_tensor(tree):
+        return tree
+    if isinstance(tree, Mapping):
+        items = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        items = tree
+    elif isinstance(tree, torch.nn.Module):
+        items = list(tree.parameters()) + list(tree.buffers())
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    else:
+        return None
+    for item in items:
+        leaf = _first_tensor(item)
+        if leaf is not None:
+            return leaf
+    return None
+
+
+def sync(tree) -> None:
+    """Wait until the device that holds the first tensor of ``tree`` has run
+    all the work queued on it; a tensor on the host needs no wait. Raises on
+    a tree without a tensor."""
+    leaf = _first_tensor(tree)
+    if leaf is None:
+        raise ValueError("sync: the tree holds no tensor")
+    if leaf.device.type == "cuda":
+        torch.cuda.synchronize(leaf.device)
+
+
+class StepTimer:
+    """Seconds a step over the steps after ``warmup``, counted as the
+    reference's ``StepTimer`` counts them: the clock starts at step
+    ``warmup`` and, every ``sync_every`` steps after it, the time since the
+    last reading is credited to those ``sync_every`` steps.
+
+    Each reading is the host clock right after ``sync`` of the step's
+    result, so between two readings the host queues steps while the card
+    runs them, and a reading covers both: the time a user waits for those
+    steps. CUDA events would leave the host's share out."""
+
+    def __init__(self, warmup: int = 2, sync_every: int = 10):
+        self.warmup = warmup
+        self.sync_every = sync_every
+        self.steps = 0
+        self.timed_steps = 0
+        self.total = 0.0
+        self._tic = None
+
+    def step(self, result_tree) -> None:
+        self.steps += 1
+        if self.steps == self.warmup:
+            sync(result_tree)
+            self._tic = time.perf_counter()
+            return
+        if self.steps > self.warmup and (self.steps - self.warmup) % self.sync_every == 0:
+            sync(result_tree)
+            now = time.perf_counter()
+            self.total += now - self._tic
+            self.timed_steps += self.sync_every
+            self._tic = now
+
+    @property
+    def seconds_per_step(self) -> float:
+        return self.total / self.timed_steps if self.timed_steps else float("nan")
+
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("K1 spatial_conv_hopper_kernel (+ weight layout, reduce)",
@@ -80,22 +180,41 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+# seconds of calls a trace starts with, left out: the card's first
+# milliseconds of kernels after the profiler starts go unrecorded
+PROFILER_RAMP_S = 0.05
+_MEASURED = "fvt/measured"
+
+
 def breakdown(run: Callable[[], object], iters: int) -> dict:
-    """Trace ``iters`` calls of ``run`` after three warm-up calls."""
+    """Trace ``iters`` calls of ``run`` after three warm-up calls, and calls
+    for PROFILER_RAMP_S inside the trace that are left out."""
     for _ in range(3):
         run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
+        while time.perf_counter() - t0 < PROFILER_RAMP_S:
             run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with torch.profiler.record_function(_MEASURED):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    start = min((e.time_range.start for e in events
+                 if e.name == _MEASURED and e.device_type == DeviceType.CPU), default=None)
+    if start is None:
+        raise RuntimeError("the profiler recorded no measured window")
     groups: dict[str, float] = {}
     names: dict[str, float] = {}
     intervals = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in events:
+        # the card's copy of the window's annotation is no kernel
+        if (e.device_type != DeviceType.CUDA or e.time_range.start < start
+                or e.is_user_annotation or e.name == _MEASURED):
             continue
         dur = e.time_range.elapsed_us()
         intervals.append((e.time_range.start, e.time_range.end))
@@ -131,13 +250,16 @@ def event_ms(run: Callable[[], object], iters: int) -> dict:
 
 
 def _forward_runs(args):
+    from fastvideotagging_tpu_torch.models.zoo import CLIP_SHAPED
+
+    kw = {"clip_shape": tuple(args.clip)} if args.model in CLIP_SHAPED else {}
     g = torch.Generator().manual_seed(0)
-    state = get_model(args.model, num_classes=400, device="cpu", generator=g).state_dict()
-    x = torch.randn((args.clip_batch, 16, 112, 112, 3),
+    state = get_model(args.model, num_classes=400, device="cpu", generator=g, **kw).state_dict()
+    x = torch.randn((args.clip_batch, *args.clip, 3),
                     generator=torch.Generator(device="cuda").manual_seed(1),
                     device="cuda").to(torch.bfloat16)
     for backend in ("cuda",) if args.int8 else ("cuda", "torch"):
-        model = get_model(args.model, num_classes=400, backend=backend)
+        model = get_model(args.model, num_classes=400, backend=backend, **kw)
         model.load_state_dict(state)
 
         def run(model=model):
@@ -146,12 +268,15 @@ def _forward_runs(args):
         yield backend, dict(what="eval forward", clip_batch=args.clip_batch), run
     weights = {k: v.cuda() for k, v in state.items()}
     if args.int8:
-        from fastvideotagging_tpu_torch.ops import int8_infer
+        from fastvideotagging_tpu_torch.evaluation.quantized import quantize_for
+        from fastvideotagging_tpu_torch.ops.arch_spec import spec_for
+        from fastvideotagging_tpu_torch.ops.int8_infer import int8_infer
 
-        qpack = int8_infer.quantize_variables(weights, int8_infer.calibrate(weights, [x]))
+        spec = spec_for(args.model)
+        qpack = quantize_for(args.model, weights, [x])
         for mode in ("static", "dynamic"):
             def int8(dynamic=mode == "dynamic"):
-                int8_infer.r2plus1d_int8_infer(qpack, x, dynamic=dynamic)
+                int8_infer(qpack, x, spec, dynamic=dynamic)
             yield f"int8_{mode}", dict(what="eval forward, int8 engine",
                                        clip_batch=args.clip_batch), int8
         return
@@ -233,6 +358,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="r2plus1d_18")
     ap.add_argument("--clip-batch", type=int, default=8)
+    ap.add_argument("--clip", type=int, nargs=3, default=(16, 112, 112), metavar=("T", "H", "W"))
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--train", action="store_true")

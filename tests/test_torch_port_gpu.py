@@ -1058,6 +1058,21 @@ INT8_SITES = [
     ((2, 4, 14, 14, 576), (3, 1, 1), (1, 1, 1), 256, False, True, None),
     ((2, 5, 7, 8, 3), (3, 7, 7), (2, 2, 2), 8, True, False, "same_tf"),  # I3D's stem
 ]
+# the other covered families' int8 geometries (ops/arch_spec.py's specs) at
+# narrow widths: Co and C below or off Q1's 16-channel alignment, many taps
+# over C = 3, strides and TF-SAME's asymmetric pads
+INT8_FAMILY_SITES = [
+    ((2, 8, 32, 32, 3), (7, 7, 7), (2, 2, 2), 64, True, False, "same_tf"),  # I3D's stem, 343 taps
+    ((2, 4, 8, 8, 512), (1, 1, 1), (1, 1, 1), 24, True, False, None),  # Co = 24 (I3D, S3D)
+    ((2, 8, 16, 16, 16), (1, 3, 3), (1, 1, 1), 48, True, False, None),  # S3D's separable conv
+    ((2, 8, 32, 32, 3), (5, 7, 7), (1, 2, 2), 8, True, False, None),  # SlowFast's fast stem
+    ((2, 8, 16, 16, 8), (1, 3, 3), (1, 1, 1), 8, True, False, None),  # C = Co = 8
+    ((2, 8, 16, 16, 8), (3, 1, 1), (1, 1, 1), 8, False, True, None),
+    ((2, 8, 16, 16, 8), (5, 1, 1), (4, 1, 1), 16, True, False, None),  # a lateral, stride 4 in T
+    ((2, 8, 16, 16, 8), (1, 1, 1), (1, 2, 2), 16, False, True, None),  # the fast pathway's down
+    ((2, 8, 16, 16, 64), (3, 3, 3), (1, 1, 1), 128, True, False, None),  # C3D
+    ((2, 8, 16, 16, 45), (3, 3, 3), (2, 2, 2), 24, True, False, "same_tf"),  # pads (0, 1)
+]
 
 
 def _bf16_ulp(t):
@@ -1071,6 +1086,21 @@ def test_int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, 
     """Q2 against its plain version bitwise in both modes; Q1 bitwise with
     the identity epilogue (the exact int32 sums as f32) and within one bf16
     ulp with the real one."""
+    _int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, padding)
+
+
+@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding", INT8_FAMILY_SITES)
+def test_int8_kernels_match_plain_at_family_sites(cuda, xs, kernel, strides, co, relu, out_f32,
+                                                  padding):
+    """The same checks at the other families' geometries, and two launches
+    of Q1 bitwise equal."""
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+
+    got, args = _int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, padding)
+    assert torch.equal(got, q8.conv3d_s8_cuda(*args))
+
+
+def _int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, padding):
     from fastvideotagging_tpu_torch.ops import int8_conv as q8
     from fastvideotagging_tpu_torch.ops.arch_spec import tf_same_pads
 
@@ -1107,6 +1137,7 @@ def test_int8_kernels_match_plain(cuda, xs, kernel, strides, co, relu, out_f32, 
     ref = q8.conv3d_s8_plain(q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
     assert got.dtype == ref.dtype and got.shape == ref.shape
     assert ((got.float() - ref.float()).abs() <= _bf16_ulp(ref)).all()
+    return got, (q, wk, kernel, mul, add, s, strides, pads, relu, out_f32)
 
 
 def _fused_forms(q8, g, cuda, out_shape, co, relu):
@@ -1130,7 +1161,8 @@ def _fused_forms(q8, g, cuda, out_shape, co, relu):
         (residuals[2], requant(True))]
 
 
-@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding", INT8_SITES)
+@pytest.mark.parametrize("xs,kernel,strides,co,relu,out_f32,padding",
+                         INT8_SITES + INT8_FAMILY_SITES)
 def test_int8_fused_forms_match_plain_and_unfused(cuda, xs, kernel, strides, co, relu, out_f32,
                                                   padding):
     """Q1's fused epilogue forms (b) and (c) at each int8 site, bit for bit
@@ -1510,3 +1542,42 @@ def test_halo_conv_on_the_card_over_gloo(cuda, tmp_path):
             ref = ref.detach().cpu()
             err = (got.float() - ref).abs().max().item()
             assert err <= TOL * ref.abs().max().item(), err
+
+
+def test_sync_and_step_timer_on_the_card(cuda):
+    """``sync`` waits for the card (its stream is idle after), and
+    ``StepTimer`` counts as on the host with a positive time a step."""
+    from fastvideotagging_tpu_torch.utils.profiling import StepTimer, sync
+
+    a = torch.randn(2048, 2048, device=cuda)
+    timer = StepTimer(warmup=2, sync_every=3)
+    for _ in range(11):
+        for _ in range(8):
+            a = torch.tanh(a @ a)
+        timer.step({"out": [a]})
+    sync({"out": (a,)})
+    assert torch.cuda.current_stream().query()
+    assert timer.timed_steps == 9 and timer.seconds_per_step > 0
+
+
+def test_step_profiler_places_every_hand_kernel_on_the_card(cuda, tmp_path):
+    """A small r2plus1d_18 train step and int8 forward, traced: the device
+    time attributed equals the busy time within 2 %, and every K1-K3, Q1
+    and Q2 launch lies under a conv site."""
+    from fastvideotagging_tpu_torch.utils import step_profiler as sp
+
+    for run in (lambda d: sp.profile_train_step(batch_size=2, clip_len=8, crop=32,
+                                                source_hw=(36, 40), n_steps=2, trace_dir=d),
+                lambda d: sp.profile_eval_step(batch_size=2, clip_len=8, crop=32, n_steps=2,
+                                               trace_dir=d, int8="dynamic")):
+        for attempt in range(3):
+            try:
+                rows, cats, info = run(str(tmp_path / f"t{attempt}"))
+                break
+            except RuntimeError as e:
+                if "no device activity" not in str(e) or attempt == 2:
+                    raise
+        assert info["steps_captured"] == 2 and info["hand_kernels"] > 0
+        assert not info["hand_kernels_unplaced"]
+        assert abs(info["attributed_us_per_step"] - info["device_us_per_step"]) <= \
+            0.02 * info["device_us_per_step"]

@@ -89,7 +89,10 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.parallel.temporal",
             "fastvideotagging_tpu_torch.train.shardmap_step",
             "fastvideotagging_tpu_torch.train.time_sharded",
-            "fastvideotagging_tpu_torch.evaluation.long_clip"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.evaluation.long_clip",
+            "fastvideotagging_tpu_torch.ops.scopes",
+            "fastvideotagging_tpu_torch.utils.profiling",
+            "fastvideotagging_tpu_torch.utils.step_profiler"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -446,16 +449,33 @@ def _public_names(path: str) -> set[str]:
     return {n for n in names if not n.startswith("_") or n == "__version__"}
 
 
-@pytest.mark.parametrize("module", ["", "models", "evaluation.quantized"])
+# Public names of the reference with no counterpart in the port, each with
+# its reason.
+DELIBERATE_OMISSIONS = {
+    "utils.step_profiler": {
+        # both parse XLA's HLO text: the port has no HLO; its step profiler
+        # takes the convs from hooks on the model (ConvInventory)
+        "parse_hlo": "HLO text",
+        "parse_fusion_bytes": "HLO text (a fusion's tile-padded TPU bytes)",
+    },
+}
+
+
+@pytest.mark.parametrize("module", ["", "models", "evaluation.quantized", "utils.profiling",
+                                    "utils.step_profiler"])
 def test_the_port_has_the_references_public_names(module):
-    """Each public name of the JAX package's top level, of its ``models``
-    and of ``evaluation.quantized`` exists in the port's counterpart."""
+    """Each public name of the JAX package's top level, of its ``models``,
+    of ``evaluation.quantized`` and of the profiling tier exists in the
+    port's counterpart, but for the deliberate omissions."""
     import importlib
 
     path = os.path.join("fastvideotagging_tpu", *module.split("."))
     path = os.path.join(path, "__init__.py") if os.path.isdir(os.path.join(_ROOT, path)) \
         else path + ".py"
+    omitted = DELIBERATE_OMISSIONS.get(module, {})
     want = _public_names(path)
+    assert set(omitted) <= want
+    want -= set(omitted)
     port = importlib.import_module(".".join(filter(None, ["fastvideotagging_tpu_torch", module])))
     assert want and not sorted(n for n in want if not hasattr(port, n))
     if not module:
