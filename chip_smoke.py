@@ -281,6 +281,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             hand kernel's launch under a conv site, and at least one step
             captured (a trace that records no device activity is taken
             again, PROFILE_ATTEMPTS in all).
+15. the accuracy scripts (``benchmarks/accuracy_hard.py``,
+            ``int8_s3d.py``, ``int8_family.py``, ``int8_inception.py``,
+            ``accuracy_kinetics_geom.py``, ``examples/train_synthetic.py``)
+            through their entry points at ACC_CLASSES classes and
+            ACC_EPOCHS epochs of one step, on packs: finite scores, the
+            card in each record, K1 / K2 / K3 launched by accuracy_hard's
+            r2plus1d_18 training, and each int8 record's Q1 / Q2 launches
+            a forward equal to the engine walk's calls (Q1's to the
+            spec's int8 convs); every launch of K1-K4, Q1 and Q2 counted
+            across the scripts' own resets.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -300,8 +310,9 @@ loops left out), phase 12's ``"native"`` (the runner processes' counts
 from the C++ op library: one shot, bench, the daemons and taggers), phase
 13's ``"parallel_world1"``, ``"parallel_cli"`` and ``"parallel_long_clip"``
 (K1-K3: the rank processes' counts, each from 0, summed), phase 10(e)'s
-``"int8_families"`` and phase 14's ``"step_profiler_train"``,
-``"step_profiler_eval_bf16"`` and ``"step_profiler_eval_int8"``.
+``"int8_families"``, phase 14's ``"step_profiler_train"``,
+``"step_profiler_eval_bf16"`` and ``"step_profiler_eval_int8"``, and phase
+15's ``"accuracy_<script>"``, one a script.
 Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
@@ -331,6 +342,7 @@ import torch
 
 from fastvideotagging_tpu_torch import Tagger, get_model
 from fastvideotagging_tpu_torch.benchmarks import kernel_micro
+from fastvideotagging_tpu_torch.benchmarks.int8_serving import int8_convs
 from fastvideotagging_tpu_torch.cli import evaluate as cli_evaluate
 from fastvideotagging_tpu_torch.cli import serve as cli_serve
 from fastvideotagging_tpu_torch.cli import tag as cli_tag
@@ -358,7 +370,7 @@ from fastvideotagging_tpu_torch.ops import fused_block as fused
 from fastvideotagging_tpu_torch.ops import int8_conv as q8
 from fastvideotagging_tpu_torch.ops import int8_infer
 from fastvideotagging_tpu_torch.ops import temporal_micro as micro
-from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, iter_convs, spec_for
+from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, spec_for
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch, preprocess_eval_clip
 from fastvideotagging_tpu_torch.train import fit as fit_module
@@ -3211,11 +3223,6 @@ INT8_FAMILY_HW = {112: (128, 171), 224: (256, 342)}
 Q1_FAMILY_ITERS = 5  # CUDA-event-timed launches of Q1 at each new site geometry
 
 
-def _int8_convs(spec) -> int:
-    """Q1 calls a forward makes: the spec's convs outside its bf16 tail."""
-    return sum(1 for key, _ in iter_convs(spec) if key not in spec.default_float_blocks)
-
-
 def _family_cfg(name: str, clip) -> ExperimentConfig:
     t, h, w = clip
     return ExperimentConfig(
@@ -3334,7 +3341,8 @@ def phase_int8_families(card: str) -> dict:
         runs = {"static": lambda: int8_infer.int8_infer(qpack, x, spec),
                 "dynamic": lambda: int8_infer.int8_infer(qpack, x, spec, dynamic=True)}
         row = dict(clip=[CLIP_BATCH, *clip], default_dynamic=spec.default_dynamic,
-                   calibration_ms=calib, int8_convs=_int8_convs(spec))
+                   calibration_ms=calib,
+                   int8_convs=int8_convs(spec, spec.default_float_blocks))
         for mode, run in runs.items():
             q1_calls, q2_calls = _record_int8_sites(qpack, x, mode == "dynamic", spec)
             walk = dict(conv3d_s8=sum(n for n, _ in q1_calls.values()),
@@ -5003,6 +5011,106 @@ def phase_step_profiler(card: str) -> dict:
     return dict(result=result, launches=launches)
 
 
+# phase 15: each accuracy script's run at a reduced size (classes, epochs,
+# videos a class), the recipe otherwise the script's own
+ACC_CLASSES = 4
+ACC_EPOCHS = 5  # the least the schedule takes: warmup 2 ends before the first decay
+ACC_KINETICS_GEOMETRY = dict(train_per_class=2, eval_per_class=1)
+
+
+def _int8_walk_failures(name: str, by_mode: dict) -> list:
+    """A record's Q1 / Q2 launches a forward that differ from the engine
+    walk's calls or Q1's from the spec's int8 convs."""
+    return [(name, mode, f) for mode, f in by_mode.items()
+            if f["launches"] != f["walk"] or f["launches"]["conv3d_s8"] != f["int8_convs"]]
+
+
+def phase_accuracy_scripts(card: str) -> dict:
+    """15: the accuracy scripts' runs on the card at ACC_CLASSES classes and
+    ACC_EPOCHS epochs (one step an epoch), through their ``main``:
+    ``accuracy_hard`` on r2plus1d_18 (K1 / K2 / K3 launched in its
+    training), ``int8_s3d``, ``int8_family`` on p3d_63, ``int8_inception``
+    on i3d with the margin sweep and the serving throughput,
+    ``examples.train_synthetic`` (1 epoch, a pack), and
+    ``accuracy_kinetics_geom.run`` at ACC_KINETICS_GEOMETRY's videos a class:
+    finite scores, each int8 record's Q1 / Q2 launches a forward equal to the
+    engine walk's calls (and Q1's to the spec's int8 convs), the card in
+    each record, and every run's launches of K1-K4, Q1 and Q2 summed."""
+    from fastvideotagging_tpu_torch.benchmarks import (
+        accuracy_hard,
+        accuracy_kinetics_geom,
+        int8_family,
+        int8_inception,
+        int8_s3d,
+    )
+    from fastvideotagging_tpu_torch.examples import train_synthetic
+
+    print("== phase 15: the accuracy scripts at a reduced size", flush=True)
+    t_phase = time.perf_counter()
+    small = ["--classes", str(ACC_CLASSES), "--epochs", str(ACC_EPOCHS), "--source", "pack",
+             "--device", DEV]
+
+    def one_row(out: dict) -> dict:
+        return dict(out["results"][0], card=out["card"])
+
+    runs = {
+        "accuracy_hard": lambda: accuracy_hard.main(["--model", "r2plus1d_18", *small]),
+        "int8_s3d": lambda: int8_s3d.main(small),
+        "int8_family": lambda: one_row(int8_family.main(["--models", "p3d_63", *small])),
+        "int8_inception": lambda: one_row(int8_inception.main(
+            ["--models", "i3d", "--margin-sweep", *small])),
+        "accuracy_kinetics_geom": lambda: accuracy_kinetics_geom.run(
+            ACC_CLASSES, ACC_EPOCHS, source="pack", device=DEV,
+            geometry=ACC_KINETICS_GEOMETRY),
+        "train_synthetic": lambda: train_synthetic.main(
+            ["--source", "pack", "--epochs", "1", "--device", DEV]),
+    }
+    result, launches, failures = {}, {}, []
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        q8.reset_launch_counts()
+        r = run()
+        torch.cuda.synchronize()
+        total = {**ops.launch_counts, **q8.launch_counts}
+        seconds = time.perf_counter() - t0
+        scores = [v for k, v in r.items() if ("top1" in k or k == "mAP")
+                  and isinstance(v, float)]
+        for k in ("sweep_top1", "margin_sweep", "eval"):
+            scores += list(r.get(k, {}).values())
+        ok = bool(scores) and all(np.isfinite(v) for v in scores)
+        if name in ("int8_s3d", "int8_family", "int8_inception"):
+            bad = _int8_walk_failures(name, r["int8_launches"])
+            failures += bad
+            ok = ok and not bad
+        if name == "accuracy_hard":
+            ok = ok and all(r["launches"]["fit"][k] > 0 for k in accuracy_hard.TRAIN_KERNELS)
+        if name == "train_synthetic":
+            ok = ok and len(r["tags"]) == 3
+        else:
+            ok = ok and r["card"] == card
+        launches[name] = total
+        result[name] = dict(seconds=seconds, ok=ok, launches=total,
+                            record={k: v for k, v in r.items() if k != "int8_launches"},
+                            int8_launches=r.get("int8_launches"))
+        k123 = [total.get(k, 0) for k in accuracy_hard.TRAIN_KERNELS]
+        q12 = [total.get(k, 0) for k in ("conv3d_s8", "quantize_s8", "quantize_s8_amax")]
+        print(f"  {name:24s} {seconds:6.1f} s; scores {[round(float(v), 4) for v in scores]}; "
+              f"K1/K2/K3 {k123}, Q1/Q2/amax {q12}; ok={ok}", flush=True)
+        if "int8_launches" in r:
+            for mode, f in r["int8_launches"].items():
+                print(f"    {mode:13s} a forward of {f['clips']} clips: launches "
+                      f"{list(f['launches'].values())} walk {list(f['walk'].values())} "
+                      f"int8 convs {f['int8_convs']}", flush=True)
+        if not ok:
+            failures.append((name, "checks"))
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    if failures:
+        raise SystemExit(f"phase 15 failed: {failures}")
+    return dict(result=result, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -5031,11 +5139,14 @@ def main() -> int:
         native = phase_native(card, tmp, export, native_build)
         par = phase_parallel(card, tmp)
     profiler = phase_step_profiler(card)
+    acc = phase_accuracy_scripts(card)
     int8["launches"]["int8_families"] = families["launches"]
     int8["launches"]["export"] = export["launches"]
     int8["launches"]["native"] = native["launches"]
     for run, counts in profiler["launches"].items():
         int8["launches"][f"step_profiler_{run}"] = counts
+    for run, counts in acc["launches"].items():
+        int8["launches"][f"accuracy_{run}"] = {k: counts.get(k, 0) for k in q8.launch_counts}
     entries = []
     for kernel, meta in KERNELS.items():
         runs = {"serving": serving[kernel], "train_step": train["launches"][kernel],
@@ -5048,7 +5159,8 @@ def main() -> int:
                 **{f"parallel_{run}": c[kernel] for run, c in par["launches"].items()},
                 "int8_families": families["launches"].get(kernel, 0),
                 **{f"step_profiler_{run}": c[kernel]
-                   for run, c in profiler["launches"].items()}}
+                   for run, c in profiler["launches"].items()},
+                **{f"accuracy_{run}": c.get(kernel, 0) for run, c in acc["launches"].items()}}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -5098,7 +5210,8 @@ def main() -> int:
                       "parallel": par["result"], "host_resize": host_resize,
                       "int8_families": {k: families[k] for k in ("result", "q1_sites", "q2_sites",
                                                                  "worst")},
-                      "step_profiler": profiler["result"], "card": card}))
+                      "step_profiler": profiler["result"],
+                      "accuracy_scripts": acc["result"], "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Hard accuracy benchmark: r2plus1d_18 trained from scratch on 50
-confusable motion classes (the port of the JAX package's
+"""Hard accuracy benchmark: a zoo backbone (r2plus1d_18 by default) trained
+from scratch on 50 confusable motion classes (the port of the JAX package's
 ``benchmarks/accuracy_hard.py``, with its configs field for field).
 
 Class identity is pure motion (direction x speed x trajectory; appearance is
@@ -11,6 +11,15 @@ draws and init all come from the seed.
         --epochs 60 --out fastvideotagging_tpu_torch/benchmarks/ACCURACY_HARD.json
     python -m fastvideotagging_tpu_torch.benchmarks.accuracy_hard --source pack \
         --multilabel --out fastvideotagging_tpu_torch/benchmarks/ACCURACY_TAGGING.json
+
+Each other family's record (``ACCURACY_HARD_<FAMILY>.json``) takes the JAX
+record's recipe, e.g. ``--model s3d --epochs 120 --clip-grad-norm 1.0`` or
+``--model c3d --clip-len 16 --stride 1 --clip-grad-norm 1.0 --lr 0.03
+--epochs 120`` (tests/test_torch_port_accuracy_families.py lists them all).
+A record counts the launches of K1-K3 over training and evaluation: the
+families built on SpatialConv / TemporalConv (R(2+1)D, P3D, S3D) launch
+them; C3D, I3D, R3D, MC3 and SlowFast, whose convs are all layers.Conv3D,
+do not.
 
 ``--source`` picks how the videos reach the loader, the caller's choice:
 ``mp4`` (the default) writes and decodes ``.mp4`` files as the JAX file
@@ -24,6 +33,7 @@ card's name and power limit. Trains and evaluates on the card unless
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -48,6 +58,7 @@ from fastvideotagging_tpu_torch.data.packed import Pack, PackedDataset, write_pa
 from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
 from fastvideotagging_tpu_torch.data.ucf101 import load_tag_list, load_video_list
 from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate_video_scores
+from fastvideotagging_tpu_torch.ops import conv2plus1d
 from fastvideotagging_tpu_torch.train.fit import fit
 from fastvideotagging_tpu_torch.train.metrics import (
     mean_average_precision,
@@ -59,18 +70,54 @@ SOURCES = ("mp4", "pack")
 # the videos' frame size (data/synthetic_motion.py's default): the packs'
 # geometry and the configs' source_hw
 VIDEO_HW = (48, 48)
+# the training kernels whose launches a record counts: K1, K2 (forward and
+# dx) and K3 (the temporal weight gradient)
+TRAIN_KERNELS = ("spatial_conv", "temporal_conv", "temporal_dw")
+NO_KERNEL_SITES = ("no SpatialConv / TemporalConv on this family's path: every conv is "
+                   "layers.Conv3D (F.conv3d), so K1-K3 have no site")
+
+
+class LaunchCounter:
+    """K1-K3 launches of the phases of one run: ``with counter("fit"):``
+    keeps the launches made inside the block under that name. It reads the
+    process-wide counts before and after and resets nothing, so a count
+    taken around it still sees every launch."""
+
+    def __init__(self):
+        self.counts: dict[str, dict[str, int]] = {}
+
+    @contextlib.contextmanager
+    def __call__(self, phase: str):
+        before = {k: conv2plus1d.launch_counts[k] for k in TRAIN_KERNELS}
+        try:
+            yield
+        finally:
+            self.counts[phase] = {k: conv2plus1d.launch_counts[k] - before[k]
+                                  for k in TRAIN_KERNELS}
+
+    def record(self, dev: torch.device) -> dict:
+        """The record's launch fields: the counts by phase, and what zero
+        counts on the card mean (a family with no SpatialConv /
+        TemporalConv runs every conv on F.conv3d, SlowFast's (2+1)D blocks
+        too; the CPU launches no kernel at all)."""
+        out = {"launches": self.counts}
+        if not any(n for c in self.counts.values() for n in c.values()):
+            out["launches_note"] = (
+                NO_KERNEL_SITES if dev.type == "cuda" else "the CPU route launches no kernel")
+        return out
 
 
 def hard_config(num_classes: int = 50, epochs: int = 40, batch_size: int = 64,
                 base_lr: float = 0.05, seed: int = 0, model_name: str = "r2plus1d_18",
                 clip_grad_norm: float = 0.0, norm: str = "batch", clip_len: int = 8,
-                stride: int = 2, dropout: float = 0.0) -> ExperimentConfig:
+                stride: int = 2, dropout: float = 0.0, kernels: str = "cuda") -> ExperimentConfig:
     """The single-label run's config: the JAX file's ``run``, field for field
-    (``kernels`` takes the port's default)."""
+    (``kernels`` is the port's own: 'torch' runs the same recipe off the hand
+    kernels)."""
     return ExperimentConfig(
         # the real backbone at a reduced input resolution (8x32x32)
         model=ModelConfig(name=model_name, num_classes=num_classes,
-                          dropout=dropout, norm=norm),
+                          dropout=dropout, norm=norm, kernels=kernels),
         data=DataConfig(source_hw=VIDEO_HW, resize_hw=(40, 40),
                         crop_hw=(32, 32), random_flip=False,
                         num_workers=8, cache_mb=1024,  # the whole set, ~300 MiB
@@ -110,9 +157,11 @@ def tagging_config(num_classes: int = 24, epochs: int = 90, batch_size: int = 64
     )
 
 
-def _packs(root: str, videos, num_tags: int | None) -> tuple[str, str]:
-    """Write ``videos`` ((split, path, label or tag ids, frames)) into a
-    train and an eval pack under ``root``; returns their paths."""
+def _packs(root: str, videos, num_tags: int | None,
+           hw: tuple[int, int] = VIDEO_HW) -> tuple[str, str]:
+    """Write ``videos`` ((split, path, label or tag ids, frames), frames of
+    size ``hw``) into a train and an eval pack under ``root``; returns their
+    paths."""
     paths = {split: os.path.join(root, f"{split}.fvtpack") for split in ("train", "eval")}
     split_items = {"train": [], "eval": []}
     for split, rel, target, frames in videos:
@@ -121,13 +170,39 @@ def _packs(root: str, videos, num_tags: int | None) -> tuple[str, str]:
         else:
             split_items[split].append((rel, None, tuple(int(t) for t in target), frames))
     for split, items in split_items.items():
-        write_pack_from_arrays(items, paths[split], VIDEO_HW, num_tags=num_tags)
+        write_pack_from_arrays(items, paths[split], hw, num_tags=num_tags)
     return paths["train"], paths["eval"]
 
 
 def _check_source(source: str) -> None:
     if source not in SOURCES:
         raise ValueError(f"source must be one of {SOURCES}, got {source!r}")
+
+
+def motion_sources(root: str, source: str, num_classes: int, seed: int, **geometry):
+    """The motion set's (train, eval) sources under ``root``: lists of video
+    records (``mp4``: written and decoded) or pack paths (``pack``).
+    ``geometry``: ``iter_motion_videos``' videos per class, frames and frame
+    size."""
+    _check_source(source)
+    if source == "mp4":
+        train_list, eval_list = synthetic_motion.make_motion_dataset(
+            root, num_classes=num_classes, seed=seed, **geometry)
+        return load_video_list(train_list, root=root), load_video_list(eval_list, root=root)
+    hw = (geometry.get("height", VIDEO_HW[0]), geometry.get("width", VIDEO_HW[1]))
+    return _packs(root, synthetic_motion.iter_motion_videos(
+        num_classes, seed=seed, **geometry), None, hw)
+
+
+def eval_dataset(src, data: DataConfig, source: str, num_tags: int | None = None):
+    """The eval-mode dataset over ``motion_sources``' ``src``."""
+    if source == "mp4":
+        return ClipDataset(src, data, mode="eval", num_tags=num_tags)
+    return PackedDataset(src, data, mode="eval", num_tags=num_tags)
+
+
+def num_videos(src, source: str) -> int:
+    return len(src) if source == "mp4" else len(Pack(src))
 
 
 def run(num_classes: int = 50, epochs: int = 40, batch_size: int = 64,
@@ -140,28 +215,22 @@ def run(num_classes: int = 50, epochs: int = 40, batch_size: int = 64,
     dev = resolve_device(device)
     root = root or tempfile.mkdtemp(prefix="fvt_hard_")
     t0 = time.time()
-    if source == "mp4":
-        train_list, eval_list = synthetic_motion.make_motion_dataset(
-            root, num_classes=num_classes, seed=seed)
-        train_src = load_video_list(train_list, root=root)
-        eval_records = load_video_list(eval_list, root=root)
-    else:
-        train_src, eval_pack = _packs(root, synthetic_motion.iter_motion_videos(
-            num_classes, seed=seed), None)
+    train_src, eval_src = motion_sources(root, source, num_classes, seed)
     gen_s = time.time() - t0
-    n_train = len(train_src) if source == "mp4" else len(Pack(train_src))
 
     cfg = hard_config(num_classes, epochs, batch_size, base_lr, seed, model_name,
                       clip_grad_norm, norm, clip_len, stride, dropout)
+    counter = LaunchCounter()
     t0 = time.time()
-    state = fit(cfg, train_src, device=dev)
+    with counter("fit"):
+        state = fit(cfg, train_src, device=dev)
     train_s = time.time() - t0
 
-    ds = (ClipDataset(eval_records, cfg.data, mode="eval") if source == "mp4"
-          else PackedDataset(eval_pack, cfg.data, mode="eval"))
+    ds = eval_dataset(eval_src, cfg.data, source)
     t0 = time.time()
-    scores, records = evaluate_video_scores(state.model, state.model.state_dict(), ds,
-                                            cfg, clip_batch=8)
+    with counter("eval"):
+        scores, records = evaluate_video_scores(state.model, state.model.state_dict(), ds,
+                                                cfg, clip_batch=8)
     eval_s = time.time() - t0
     labels = np.asarray([r.label for r in records])
     onehot = np.eye(num_classes, dtype=np.float32)[labels]
@@ -169,7 +238,7 @@ def run(num_classes: int = 50, epochs: int = 40, batch_size: int = 64,
         "benchmark": "hard_synthetic_motion_50",
         "model": model_name,
         "num_classes": num_classes,
-        "train_videos": n_train,
+        "train_videos": num_videos(train_src, source),
         "eval_videos": len(records),
         "clip_geometry": f"{clip_len}x32x32 (stride {stride}) "
                          "from 48x48x48 videos",
@@ -182,9 +251,13 @@ def run(num_classes: int = 50, epochs: int = 40, batch_size: int = 64,
         "chance_top1": round(1.0 / num_classes, 4),
         "clip_grad_norm": clip_grad_norm,
         "norm": norm,
+        "batch_size": batch_size,
+        "base_lr": base_lr,
+        "dropout": dropout,
         "gen_seconds": round(gen_s, 1),
         "train_seconds": round(train_s, 1),
         "eval_seconds": round(eval_s, 1),
+        **counter.record(dev),
         "source": source,
         "device": str(dev),
         "card": card() if dev.type == "cuda" else None,
@@ -212,22 +285,19 @@ def run_multilabel(num_classes: int = 24, epochs: int = 90,
             train_videos=train_videos, eval_videos=eval_videos)
         tidx = synthetic_motion.tag_index(num_classes)
         train_src, _ = load_tag_list(train_list, root, tidx)
-        eval_records, _ = load_tag_list(eval_list, root, tidx)
+        eval_src, _ = load_tag_list(eval_list, root, tidx)
     else:
-        train_src, eval_pack = _packs(root, synthetic_motion.iter_tagging_videos(
+        train_src, eval_src = _packs(root, synthetic_motion.iter_tagging_videos(
             num_classes, train_videos=train_videos, eval_videos=eval_videos,
             seed=seed), num_classes)
     gen_s = time.time() - t0
-    n_train = len(train_src) if source == "mp4" else len(Pack(train_src))
 
     cfg = tagging_config(num_classes, epochs, batch_size, base_lr, seed)
     t0 = time.time()
     state = fit(cfg, train_src, num_tags=num_classes, device=dev)
     train_s = time.time() - t0
 
-    ds = (ClipDataset(eval_records, cfg.data, mode="eval", num_tags=num_classes)
-          if source == "mp4" else
-          PackedDataset(eval_pack, cfg.data, mode="eval", num_tags=num_classes))
+    ds = eval_dataset(eval_src, cfg.data, source, num_tags=num_classes)
     scores, records = evaluate_video_scores(state.model, state.model.state_dict(), ds,
                                             cfg, clip_batch=8)
     multihot = np.stack([r.multihot(num_classes) for r in records])
@@ -241,7 +311,7 @@ def run_multilabel(num_classes: int = 24, epochs: int = 90,
         "model": "r2plus1d_18 (sigmoid multi-label head)",
         "num_tags": num_classes,
         "objects_per_video": 2,
-        "train_videos": n_train,
+        "train_videos": num_videos(train_src, source),
         "eval_videos": len(records),
         "epochs": epochs,
         "steps": int(state.step),

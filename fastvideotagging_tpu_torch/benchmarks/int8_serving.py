@@ -12,7 +12,8 @@ engine on the first eval clips of 16 train videos, then reports:
   * serving throughput (clips/s at B = 32, 16x112x112, random weights:
     throughput does not depend on them) of the bf16 model (kernels='cuda')
     against the int8 engine static, dynamic and with the exact residual,
-    timed by CUDA events.
+    timed by CUDA events (the fastest of 5 windows; ``serving_throughput``
+    serves int8_inception too).
 
     python -m fastvideotagging_tpu_torch.benchmarks.int8_serving --source pack \\
         --out fastvideotagging_tpu_torch/benchmarks/INT8_SERVING.json
@@ -24,6 +25,9 @@ records the card's name and power limit. Runs on the card.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import functools
 import json
 import shutil
 import tempfile
@@ -35,20 +39,21 @@ import torch
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import (
     SOURCES,
-    _check_source,
-    _packs,
+    LaunchCounter,
+    eval_dataset,
     hard_config,
+    motion_sources,
 )
 from fastvideotagging_tpu_torch.benchmarks.kernel_micro import card
-from fastvideotagging_tpu_torch.data import synthetic_motion
-from fastvideotagging_tpu_torch.data.packed import PackedDataset
-from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
-from fastvideotagging_tpu_torch.data.ucf101 import load_video_list
+from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate_video_scores
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.zoo import get_model
+from fastvideotagging_tpu_torch.ops import int8_conv
+from fastvideotagging_tpu_torch.ops.arch_spec import iter_convs, spec_for
 from fastvideotagging_tpu_torch.ops.int8_infer import (
     calibrate,
+    int8_infer,
     quantize_variables,
     r2plus1d_int8_infer,
 )
@@ -59,88 +64,171 @@ from fastvideotagging_tpu_torch.train.metrics import topk_accuracy
 CALIB_VIDEOS = 16
 
 
-def _event_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def int8_hard_config(model_name: str, num_classes: int = 50, epochs: int = 120,
+                     batch_size: int = 64, base_lr: float = 0.05, seed: int = 0,
+                     clip_grad_norm: float = 0.0, clip_len: int = 8, stride: int = 2,
+                     dropout: float = 0.0, kernels: str = "cuda") -> ExperimentConfig:
+    """The config the JAX package's int8_s3d / int8_family / int8_inception
+    train with: accuracy_hard's, logging every 50 steps."""
+    cfg = hard_config(num_classes, epochs, batch_size, base_lr, seed, model_name,
+                      clip_grad_norm, clip_len=clip_len, stride=stride, dropout=dropout,
+                      kernels=kernels)
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_every=50))
+
+
+def train_motion(cfg: ExperimentConfig, root: str, source: str, dev: torch.device):
+    """Write the motion set under ``root`` and train ``cfg`` on it: -> (state,
+    train source, eval dataset, facts: train seconds, steps, K1-K3 launches)."""
+    train_src, eval_src = motion_sources(root, source, cfg.model.num_classes, cfg.train.seed)
+    counter = LaunchCounter()
+    t0 = time.time()
+    with counter("fit"):
+        state = fit(cfg, train_src, device=dev)
+    facts = dict(train_seconds=round(time.time() - t0, 1), steps=int(state.step),
+                 train_launches=counter.counts["fit"])
+    state.model.eval()
+    return state, train_src, eval_dataset(eval_src, cfg.data, source), facts
+
+
+def calibration_clips(train_src, cfg: ExperimentConfig, source: str, dev: torch.device,
+                      n: int = CALIB_VIDEOS) -> list[torch.Tensor]:
+    """The first eval clips of the first ``n`` train videos, preprocessed as
+    the engines consume them: the int8 benchmarks' calibration set."""
+    d = cfg.data
+    ds = eval_dataset(train_src[:n] if source == "mp4" else train_src, d, source)
+    return [preprocess_eval_clip(
+        torch.from_numpy(np.ascontiguousarray(ds.get_eval_clips(i)[0])).to(dev),
+        d.resize_hw, d.crop_hw, d.mean, d.std, out_dtype=getattr(torch, cfg.model.compute_dtype))
+        for i in range(min(n, len(ds)))]
+
+
+def int8_convs(spec, float_blocks) -> int:
+    """Q1 calls an int8 forward makes: the spec's convs outside its bf16 blocks."""
+    return sum(1 for key, _ in iter_convs(spec) if key not in float_blocks)
+
+
+@contextlib.contextmanager
+def _walk_calls(calls: dict):
+    """Count the engine walk's calls of Q1 and Q2 into ``calls`` (Q2's
+    two-pass dynamic calls, the amax pass, under ``quantize_s8_amax``)."""
+    conv, quant = int8_conv.conv3d_s8, int8_conv.quantize_s8
+
+    def counted_conv(*args, **kw):
+        calls["conv3d_s8"] += 1
+        return conv(*args, **kw)
+
+    def counted_quant(y, inv_f, s=None, amax=None, slot=None):
+        calls["quantize_s8"] += 1
+        calls["quantize_s8_amax"] += int(s is None and amax is None)
+        return quant(y, inv_f, s, amax, slot)
+
+    int8_conv.conv3d_s8, int8_conv.quantize_s8 = counted_conv, counted_quant
+    try:
+        yield
+    finally:
+        int8_conv.conv3d_s8, int8_conv.quantize_s8 = conv, quant
 
 
 @torch.inference_mode()
-def serving_throughput(batch_size: int = 32, clip_len: int = 16, crop: int = 112,
-                       classes: int = 101, iters: int = 10, seed: int = 0) -> dict:
-    """ms per forward and clips/s of the bf16 model and of the int8 engine's
-    three modes on the same random weights and clips, on the card."""
+def forward_launches(apply_fn, qpack, x: torch.Tensor, spec, float_blocks) -> dict:
+    """Q1 / Q2 launches of one int8 forward of ``x`` beside the calls the
+    engine's walk makes and the Q1 calls ``spec`` predicts outside
+    ``float_blocks`` (on the card they agree; the CPU launches nothing). The
+    launches are the counts' growth over the forward: nothing is reset."""
+    walk = dict.fromkeys(int8_conv.launch_counts, 0)
+    with _walk_calls(walk):
+        apply_fn(qpack, x)
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    before = dict(int8_conv.launch_counts)
+    apply_fn(qpack, x)
+    return {"clips": int(x.shape[0]),
+            "launches": {k: n - before[k] for k, n in int8_conv.launch_counts.items()},
+            "walk": walk, "int8_convs": int8_convs(spec, float_blocks)}
+
+
+def _window_ms(runs: dict, iters: int, windows: int) -> dict:
+    """ms per call of each run: ``windows`` windows, each timing ``iters``
+    calls of every run in turn by CUDA events, after one such window that
+    is not kept (the first windows of a process run slow) -> {run: [ms of
+    each kept window]}."""
+    out = {name: [] for name in runs}
+    for w in range(windows + 1):
+        events = {}
+        for name, fn in runs.items():
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            events[name] = (start, end)
+        torch.cuda.synchronize()
+        for name, (start, end) in events.items():
+            if w:
+                out[name].append(start.elapsed_time(end) / iters)
+    return out
+
+
+# the r2plus1d_18 engine's serving modes: int8_infer's options a run takes
+R2PLUS1D_ENGINES = {"int8": {},  # the engine's defaults
+                    "int8_dynamic": {"dynamic": True},
+                    "int8_exact_residual": {"residual": "exact"}}
+
+
+@torch.inference_mode()
+def serving_throughput(model_name: str = "r2plus1d_18", engines: dict | None = None,
+                       batch_size: int = 32, clip_len: int = 16, crop: int = 112,
+                       classes: int = 101, iters: int = 20, windows: int = 5,
+                       seed: int = 0) -> dict:
+    """ms per forward and clips/s of the bf16 model (kernels='cuda') and of
+    the int8 engine in each mode of ``engines`` ({run: int8_infer options},
+    the spec's bf16 blocks; R2PLUS1D_ENGINES by default), on the same random
+    weights and clips, on the card.
+
+    A run's time is its fastest window, as the JAX package's
+    ``bench._timeit_chain`` takes the least of repeated estimates: one window
+    swings with the host, whose launches bound these forwards. The runs take
+    turns within a window, so a drift of the card's clock reaches all of
+    them. -> {"runs": {run: {ms, clips_per_sec, window_ms}}, "timing": ...}."""
     dev = resolve_device("cuda")
-    model = get_model("r2plus1d_18", num_classes=classes, device=dev,
-                      generator=torch.Generator().manual_seed(seed))
-    model.eval()
+    model = get_model(model_name, num_classes=classes, device=dev,
+                      generator=torch.Generator().manual_seed(seed)).eval()
     x = torch.randn((batch_size, clip_len, crop, crop, 3),
                     generator=torch.Generator(device=dev).manual_seed(seed),
                     device=dev).to(torch.bfloat16)
+    spec = spec_for(model_name)
     sd = model.state_dict()
-    qpack = quantize_variables(sd, calibrate(sd, [x[:4]]))
-    runs = {
-        "bf16": lambda: model(x),
-        "int8": lambda: r2plus1d_int8_infer(qpack, x),  # the engine's defaults
-        "int8_dynamic": lambda: r2plus1d_int8_infer(qpack, x, dynamic=True),
-        "int8_exact_residual": lambda: r2plus1d_int8_infer(qpack, x, residual="exact"),
-    }
+    qpack = quantize_variables(sd, calibrate(sd, [x[:4]], spec=spec), spec=spec)
+    runs = {"bf16": lambda: model(x)}
+    for name, opts in (R2PLUS1D_ENGINES if engines is None else engines).items():
+        runs[name] = functools.partial(int8_infer, qpack, x, spec,
+                                       float_blocks=spec.default_float_blocks, **opts)
     out = {}
-    for name, fn in runs.items():
-        ms = _event_ms(fn, iters)
-        out[name] = dict(ms=ms, clips_per_sec=batch_size / ms * 1e3)
-    return out
+    for name, ms in _window_ms(runs, iters, windows).items():
+        out[name] = dict(ms=round(min(ms), 4), clips_per_sec=round(batch_size / min(ms) * 1e3, 1),
+                         window_ms=[round(t, 4) for t in ms])
+    return {"runs": out,
+            "timing": f"CUDA events, the fastest of {windows} windows of {iters} forwards, "
+                      "the runs in turn within a window, after one window not kept"}
 
 
 def accuracy(num_classes: int = 50, epochs: int = 60, batch_size: int = 64,
              base_lr: float = 0.05, seed: int = 0, source: str = "pack",
              device: str | torch.device = "cuda") -> tuple[float, dict, dict]:
     """-> (bf16 top-1, {sweep point: int8 top-1}, facts of the run)."""
-    _check_source(source)
     dev = resolve_device(device)
     root = tempfile.mkdtemp(prefix="fvt_int8_")
     try:
-        if source == "mp4":
-            train_list, eval_list = synthetic_motion.make_motion_dataset(
-                root, num_classes=num_classes, seed=seed)
-            train_src = load_video_list(train_list, root=root)
-            eval_src = load_video_list(eval_list, root=root)
-        else:
-            train_src, eval_src = _packs(root, synthetic_motion.iter_motion_videos(
-                num_classes, seed=seed), None)
         cfg = hard_config(num_classes, epochs, batch_size, base_lr, seed)
-        t0 = time.time()
-        state = fit(cfg, train_src, device=dev)
-        train_s = time.time() - t0
-        model = state.model.eval()
+        state, train_src, ds, facts = train_motion(cfg, root, source, dev)
+        model = state.model
         sd = model.state_dict()
 
-        def dataset(src, n=None):
-            if source == "mp4":
-                return ClipDataset(src[:n] if n else src, cfg.data, mode="eval")
-            return PackedDataset(src, cfg.data, mode="eval")
-
-        # calibration: the first eval clips of a few TRAIN videos, preprocessed
-        # as the engines consume them
-        d = cfg.data
-        train_ds = dataset(train_src, CALIB_VIDEOS)
-        calib = [preprocess_eval_clip(
-            torch.from_numpy(np.ascontiguousarray(train_ds.get_eval_clips(i)[0])).to(dev),
-            d.resize_hw, d.crop_hw, d.mean, d.std, out_dtype=torch.bfloat16)
-            for i in range(min(CALIB_VIDEOS, len(train_ds)))]
-        scales = calibrate(sd, calib)
+        scales = calibrate(sd, calibration_clips(train_src, cfg, source, dev))
         qpack = quantize_variables(sd, scales)
         qpacks_margin = {m: quantize_variables(sd, scales, static_margin=m)
                          for m in (1.0, 1.5, 2.0)}
 
-        ds = dataset(eval_src)
         t0 = time.time()
         bf16_scores, records = evaluate_video_scores(model, sd, ds, cfg, clip_batch=8)
         bf16_s = time.time() - t0
@@ -176,8 +264,7 @@ def accuracy(num_classes: int = 50, epochs: int = 60, batch_size: int = 64,
                 int8_scores_for(sweep["stage4_float"], qp=qp), labels, k=1)
         top1["stage4_float_exact_residual"] = topk_accuracy(
             int8_scores_for(sweep["stage4_float"], residual="exact"), labels, k=1)
-        facts = dict(train_seconds=round(train_s, 1), steps=int(state.step),
-                     eval_videos=len(records), bf16_eval_seconds=round(bf16_s, 2),
+        facts.update(eval_videos=len(records), bf16_eval_seconds=round(bf16_s, 2),
                      int8_eval_seconds=round(int8_s, 2))
         return topk_accuracy(bf16_scores, labels, k=1), top1, facts
     finally:
@@ -213,17 +300,17 @@ def main(argv=None) -> dict:
         "card": card() if args.device == "cuda" else None,
     }
     if not args.skip_throughput:
-        rates = serving_throughput()
+        tp = serving_throughput()
+        rates = tp["runs"]
         result.update({
             "geometry": "B=32 16x112x112, 101 classes, random weights",
-            "timing": "CUDA events, 10 forwards after 2 warm-up",
-            "bf16_clips_per_sec": round(rates["bf16"]["clips_per_sec"], 1),
-            "int8_clips_per_sec": round(rates["int8"]["clips_per_sec"], 1),
-            "int8_dynamic_clips_per_sec": round(rates["int8_dynamic"]["clips_per_sec"], 1),
-            "int8_exact_residual_clips_per_sec": round(
-                rates["int8_exact_residual"]["clips_per_sec"], 1),
+            "timing": tp["timing"],
+            "bf16_clips_per_sec": rates["bf16"]["clips_per_sec"],
+            "int8_clips_per_sec": rates["int8"]["clips_per_sec"],
+            "int8_dynamic_clips_per_sec": rates["int8_dynamic"]["clips_per_sec"],
+            "int8_exact_residual_clips_per_sec": rates["int8_exact_residual"]["clips_per_sec"],
             "speedup": round(rates["int8"]["clips_per_sec"] / rates["bf16"]["clips_per_sec"], 3),
-            "ms_per_forward": {k: round(v["ms"], 4) for k, v in rates.items()},
+            "ms_per_forward": {k: v["ms"] for k, v in rates.items()},
         })
     line = json.dumps(result, indent=2)
     print(line)

@@ -280,8 +280,12 @@ def test_accuracy_run_on_the_cpu(tmp_path):
     out = str(tmp_path / "acc.json")
     r = accuracy_hard.main(["--classes", "2", "--epochs", "5", "--batch", "32", "--model",
                             "tiny3d", "--source", "pack", "--device", "cpu", "--out", out])
-    assert set(r) == JAX_KEYS | {"source", "device", "card"}
+    assert set(r) == JAX_KEYS | {"source", "device", "card", "batch_size", "base_lr",
+                                 "dropout", "launches", "launches_note"}
     assert (r["source"], r["device"], r["card"]) == ("pack", "cpu", None)
+    assert (r["batch_size"], r["base_lr"], r["dropout"]) == (32, 0.05, 0.0)
+    assert r["launches"] == {phase: dict.fromkeys(accuracy_hard.TRAIN_KERNELS, 0)
+                             for phase in ("fit", "eval")}
     assert r["steps"] == 5 and r["train_videos"] == 32 and r["eval_videos"] == 8
     assert 0 <= r["top1"] <= 1 and np.isfinite(r["mAP"])
     with open(out) as f:

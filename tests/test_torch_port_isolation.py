@@ -92,7 +92,14 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.evaluation.long_clip",
             "fastvideotagging_tpu_torch.ops.scopes",
             "fastvideotagging_tpu_torch.utils.profiling",
-            "fastvideotagging_tpu_torch.utils.step_profiler"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.utils.step_profiler",
+            "fastvideotagging_tpu_torch.benchmarks.int8_serving",
+            "fastvideotagging_tpu_torch.benchmarks.int8_s3d",
+            "fastvideotagging_tpu_torch.benchmarks.int8_family",
+            "fastvideotagging_tpu_torch.benchmarks.int8_inception",
+            "fastvideotagging_tpu_torch.benchmarks.accuracy_kinetics_geom",
+            "fastvideotagging_tpu_torch.examples",
+            "fastvideotagging_tpu_torch.examples.train_synthetic"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -171,6 +178,32 @@ def test_entry_points_of_the_last_slice_raise_without_cuda(tmp_path):
              lambda: bench_loader.measure(videos=1, frames=4),
              lambda: accuracy_hard.run(num_classes=2, epochs=5, root=str(tmp_path / "a")),
              lambda: build_cache(PackedDataset(pack, DataConfig(resize_hw=(40, 56))))]
+    for case in cases:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            case()
+
+
+def test_accuracy_scripts_raise_without_cuda():
+    """The int8 accuracy scripts, the Kinetics-geometry run, the int8
+    throughput and the example run on the card unless told otherwise, and
+    raise before they write any data."""
+    _needs_no_card()
+    from fastvideotagging_tpu_torch.benchmarks import (
+        accuracy_kinetics_geom,
+        int8_family,
+        int8_inception,
+        int8_s3d,
+        int8_serving,
+    )
+    from fastvideotagging_tpu_torch.examples import train_synthetic
+
+    cases = [lambda: int8_s3d.run(num_classes=2, epochs=5),
+             lambda: int8_family.run_model("p3d_63", num_classes=2, epochs=5),
+             lambda: int8_inception.accuracy("i3d", num_classes=2, epochs=5),
+             lambda: int8_inception.serving_throughput("s3d"),
+             lambda: int8_serving.serving_throughput(),
+             lambda: accuracy_kinetics_geom.run(num_classes=2, epochs=5),
+             lambda: train_synthetic.main(["--epochs", "1"])]
     for case in cases:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             case()
