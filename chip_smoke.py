@@ -291,6 +291,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             a forward equal to the engine walk's calls (Q1's to the
             spec's int8 convs); every launch of K1-K4, Q1 and Q2 counted
             across the scripts' own resets.
+16. the serving forwards as captured CUDA graphs (evaluation/graphed.py):
+            r2plus1d_18 bf16 through ``Tagger`` at 8 clips (its scores
+            against the same Tagger on the eager walk) and the i3d and s3d
+            int8 engines (``make_int8_engine``) static and dynamic at B =
+            32, 16x112x112: graphed against eager bit for bit, the launch
+            counts of k replays equal to k eager walks, a second call's
+            clips leaving the first call's result as it was, a second
+            qpack copied in without a recapture, and the graphed and eager
+            ms a forward (CUDA events, the fastest of GRAPH_WINDOWS windows
+            of GRAPH_ITERS forwards after one not kept, every window
+            printed), each beside its idle share of the card over
+            GRAPH_ITERS traced forwards.
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -312,7 +324,8 @@ from the C++ op library: one shot, bench, the daemons and taggers), phase
 (K1-K3: the rank processes' counts, each from 0, summed), phase 10(e)'s
 ``"int8_families"``, phase 14's ``"step_profiler_train"``,
 ``"step_profiler_eval_bf16"`` and ``"step_profiler_eval_int8"``, and phase
-15's ``"accuracy_<script>"``, one a script.
+15's ``"accuracy_<script>"``, one a script, and phase 16's ``"graphs"``
+(K1, K2, Q1, Q2: the eager walks and the replays, counted from 0).
 Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
@@ -3055,8 +3068,9 @@ def phase_int8_tagger(card: str) -> dict:
         raise SystemExit(f"(c) launch counts {launches} != {want} {want_k}")
     if scores.shape != (tagger.num_classes,) or not np.isfinite(scores).all():
         raise SystemExit("(c) the int8 scores are not finite or of the wrong shape")
-    with _int8_plain():
-        plain = tagger.scores_from(read_frames, len(frames))
+    with _int8_plain():  # a new Tagger: the first's graph replays the kernels it captured
+        plain = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, int8=True,
+                       device=DEV).scores_from(read_frames, len(frames))
     ref = bf16.scores_from(read_frames, len(frames))
     err = float(np.abs(scores - plain).max())
     print(f"(c) int8 scores vs the same engine with Q1 / Q2's plain versions on the card: max abs "
@@ -5111,6 +5125,184 @@ def phase_accuracy_scripts(card: str) -> dict:
     return dict(result=result, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serving forwards as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_ITERS, GRAPH_WINDOWS = 10, 3  # forwards a window, windows kept
+GRAPH_REPLAYS = 3  # replays whose launches are held to as many eager walks
+GRAPH_INT8 = ("i3d", "s3d")  # the int8 engines at B = TRAIN_BATCH, INT8_CLIP
+# a library call that picks another algorithm under capture (the bf16
+# forward's cuDNN / cuBLAS calls) is held to the serving tolerance
+# (tests/test_torch_port_export.py's INT8_SCORE_ATOL) where not bitwise
+GRAPH_TOL = 5e-2 / 4
+
+
+def _graph_counts() -> dict:
+    torch.cuda.synchronize()
+    return {**{k: ops.launch_counts[k] for k in ("spatial_conv", "temporal_conv")},
+            **q8.launch_counts}
+
+
+def _graph_timing(graphed, args) -> dict:
+    """Graphed and eager ms a forward (CUDA events, window_ms), then each's
+    idle share of the card over GRAPH_ITERS traced forwards (torch.profiler,
+    ``breakdown``; None where the trace records no device activity)."""
+    from fastvideotagging_tpu_torch.utils.profiling import window_ms
+
+    runs = {"graphed": lambda: graphed(*args), "eager": lambda: graphed.fn(*args)}
+    with torch.inference_mode():  # as Tagger and the engines serve
+        ms = window_ms(runs, GRAPH_ITERS, GRAPH_WINDOWS)
+        out = {k: dict(ms=min(v), window_ms=[round(t, 4) for t in v]) for k, v in ms.items()}
+        for k, run in runs.items():
+            try:
+                b = breakdown(run, iters=GRAPH_ITERS)
+            except RuntimeError as e:
+                if "no device activity" not in str(e):
+                    raise
+                out[k].update(idle_share=None, busy_ms=None)
+                continue
+            out[k].update(idle_share=round(b["idle_share"], 4),
+                          busy_ms=round(b["device_busy_ms_per_iter"], 4))
+    return out
+
+
+def _idle_note(t: dict) -> str:
+    if t["idle_share"] is None:
+        return "idle share not measured (no device activity traced)"
+    return f"idle share {t['idle_share']} (busy {t['busy_ms']} ms)"
+
+
+def _graph_engine(name: str, dynamic: bool, qpacks, x, x2) -> dict:
+    """One int8 engine graphed against its eager walk."""
+    from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_engine
+
+    engine = make_int8_engine(name, dynamic=dynamic)
+    qpack, qpack2 = qpacks
+    with torch.inference_mode():
+        first = engine(qpack, x)  # the eager warm-up, then the capture
+        before = _graph_counts()
+        eager = engine.fn(qpack, x)
+        walk = {k: v - before[k] for k, v in _graph_counts().items()}
+        before = _graph_counts()
+        outs = [engine(qpack, x) for _ in range(GRAPH_REPLAYS)]
+        replays = {k: v - before[k] for k, v in _graph_counts().items()}
+        a = engine(qpack, x)
+        kept = a.clone()
+        b = engine(qpack, x2)
+        other = engine.fn(qpack, x2)
+        second = engine(qpack2, x)
+        second_eager = engine.fn(qpack2, x)
+        back = engine(qpack, x)
+        torch.cuda.synchronize()
+    row = dict(
+        bitwise=all(torch.equal(o, eager) for o in [first] + outs),
+        max_abs_diff=max(float((o - eager).abs().max()) for o in [first] + outs),
+        launches_walk=walk, launches_replays=replays,
+        launches_ok=replays == {k: GRAPH_REPLAYS * v for k, v in walk.items()},
+        clone_kept=torch.equal(a, kept) and torch.equal(b, other) and not torch.equal(a, b),
+        second_qpack=torch.equal(second, second_eager) and not torch.equal(second, eager)
+        and torch.equal(back, eager),
+        captures=engine.captures)
+    row.update(ok=row["bitwise"] and row["launches_ok"] and row["clone_kept"]
+               and row["second_qpack"] and row["captures"] == 1)
+    row["timing"] = _graph_timing(engine, (qpack, x))
+    return row
+
+
+def phase_graphs(card: str) -> dict:
+    """16: the serving forwards as captured CUDA graphs against their eager
+    walks (the docstring's list); the launches of K1, K2, Q1 and Q2 in the
+    phase, counted from 0."""
+    print("== phase 16: the serving forwards as captured CUDA graphs", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    q8.reset_launch_counts()
+    failures, result = [], {}
+
+    # (a) r2plus1d_18 bf16 through Tagger at 8 clips
+    g = torch.Generator().manual_seed(SEED)
+    state = get_model("r2plus1d_18", num_classes=400, device="cpu", generator=g).state_dict()
+    frames = make_frames(3, num_frames=160, height=128, width=171, seed=SEED)
+
+    def read_frames(idx):
+        return frames[idx]
+
+    chunks = -(-(len(frames) // 16) // CLIP_BATCH)
+    tagger = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, device=DEV)
+    eager_tagger = Tagger(_cfg("cuda"), state, clip_batch=CLIP_BATCH, device=DEV)
+    eager_tagger._bf16_apply = eager_tagger._bf16_apply.fn  # the eager walk, for reference
+    tagger.scores_from(read_frames, len(frames))  # the first chunk captures
+    before = _graph_counts()
+    graphed = tagger.scores_from(read_frames, len(frames))
+    counts = {k: v - before[k] for k, v in _graph_counts().items()}
+    eager = eager_tagger.scores_from(read_frames, len(frames))
+    want = {k: n * chunks for k, n in FORWARD_LAUNCHES["cuda"].items()
+            if k in ("spatial_conv", "temporal_conv")}
+    err = float(np.abs(graphed - eager).max())
+    d = tagger.cfg.data
+    x = preprocess_eval_clip(torch.from_numpy(frames[:CLIP_BATCH * 16].reshape(
+        CLIP_BATCH, 16, 128, 171, 3)).to(DEV), d.resize_hw, d.crop_hw, d.mean, d.std,
+        out_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        fwd_err = float((tagger._bf16_apply(x) - tagger._bf16_apply.fn(x)).abs().max())
+    row = dict(bitwise=err == 0.0 and fwd_err == 0.0, max_abs_diff=max(err, fwd_err),
+               launches=counts, launches_ok=counts == {**want, "conv3d_s8": 0,
+                                                       "quantize_s8": 0,
+                                                       "quantize_s8_amax": 0},
+               captures=tagger._bf16_apply.captures,
+               timing=_graph_timing(tagger._bf16_apply, (x,)))
+    row["ok"] = (row["max_abs_diff"] <= GRAPH_TOL and row["launches_ok"]
+                 and row["captures"] == 1)
+    result["r2plus1d_18_bf16_tagger"] = row
+    del tagger, eager_tagger, x
+
+    # (b) the i3d and s3d int8 engines at B = 32
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 16)
+    for name in GRAPH_INT8:
+        model = get_model(name, num_classes=400, device="cpu",
+                          generator=torch.Generator().manual_seed(SEED)).to(DEV).eval()
+        x = torch.randn((TRAIN_BATCH, *INT8_CLIP, 3), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        x2 = torch.randn((TRAIN_BATCH, *INT8_CLIP, 3), generator=gen, device=DEV).to(
+            torch.bfloat16)
+        sd = model.state_dict()
+        qpacks = (quantize_for(name, sd, [x[:CLIP_BATCH]]),
+                  quantize_for(name, sd, [x2[:CLIP_BATCH]]))
+        for mode in ("static", "dynamic"):
+            result[f"{name}_int8_{mode}"] = _graph_engine(name, mode == "dynamic", qpacks, x, x2)
+        del model, x, x2, sd, qpacks
+        torch.cuda.empty_cache()
+    launches = _graph_counts()
+    for key, row in result.items():
+        t = row["timing"]
+        diff = "" if row["bitwise"] else f" (max |diff| {row.get('max_abs_diff')})"
+        print(f"(16) {key}: graphed against eager bitwise {row['bitwise']}{diff}; "
+              f"launches ok {row['launches_ok']}; captures {row['captures']}; "
+              + ("" if "clone_kept" not in row else
+                 f"clone kept {row['clone_kept']}, second qpack {row['second_qpack']}; ")
+              + f"ms a forward graphed {t['graphed']['ms']:.4f} (windows "
+              f"{t['graphed']['window_ms']}; {_idle_note(t['graphed'])}), eager "
+              f"{t['eager']['ms']:.4f} (windows {t['eager']['window_ms']}; "
+              f"{_idle_note(t['eager'])}); ok={row['ok']}", flush=True)
+        if not row["ok"]:
+            failures.append(key)
+    for name in GRAPH_INT8:
+        st, dy = (result[f"{name}_int8_{m}"]["timing"] for m in ("static", "dynamic"))
+        print(f"(16) {name} int8 at B={TRAIN_BATCH}: dynamic / static clips/s graphed "
+              f"{st['graphed']['ms'] / dy['graphed']['ms']:.3f}, eager "
+              f"{st['eager']['ms'] / dy['eager']['ms']:.3f}", flush=True)
+    print(f"(16) launches in the phase {launches}; phase 16 took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    if failures:
+        raise SystemExit(f"phase 16 failed: {failures}")
+    if min(launches[k] for k in ("spatial_conv", "temporal_conv", "conv3d_s8",
+                                 "quantize_s8")) == 0:
+        raise SystemExit(f"(16) a kernel of the graphed path was launched no time: {launches}")
+    return dict(result=result, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -5140,6 +5332,8 @@ def main() -> int:
         par = phase_parallel(card, tmp)
     profiler = phase_step_profiler(card)
     acc = phase_accuracy_scripts(card)
+    graphs = phase_graphs(card)
+    int8["launches"]["graphs"] = {k: graphs["launches"][k] for k in q8.launch_counts}
     int8["launches"]["int8_families"] = families["launches"]
     int8["launches"]["export"] = export["launches"]
     int8["launches"]["native"] = native["launches"]
@@ -5160,7 +5354,8 @@ def main() -> int:
                 "int8_families": families["launches"].get(kernel, 0),
                 **{f"step_profiler_{run}": c[kernel]
                    for run, c in profiler["launches"].items()},
-                **{f"accuracy_{run}": c.get(kernel, 0) for run, c in acc["launches"].items()}}
+                **{f"accuracy_{run}": c.get(kernel, 0) for run, c in acc["launches"].items()},
+                "graphs": graphs["launches"].get(kernel, 0)}
         if kernel == "fused_block":  # inference only: times per serving forward
             a, s = k4, k4["serving"]
             extra = dict(
@@ -5211,7 +5406,8 @@ def main() -> int:
                       "int8_families": {k: families[k] for k in ("result", "q1_sites", "q2_sites",
                                                                  "worst")},
                       "step_profiler": profiler["result"],
-                      "accuracy_scripts": acc["result"], "card": card}))
+                      "accuracy_scripts": acc["result"], "graphs": graphs["result"],
+                      "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,8 +12,9 @@ engine on the first eval clips of 16 train videos, then reports:
   * serving throughput (clips/s at B = 32, 16x112x112, random weights:
     throughput does not depend on them) of the bf16 model (kernels='cuda')
     against the int8 engine static, dynamic and with the exact residual,
-    timed by CUDA events (the fastest of 5 windows; ``serving_throughput``
-    serves int8_inception too).
+    each a captured CUDA graph (evaluation/graphed.py, as the JAX script
+    times jitted engines), timed by CUDA events (the fastest of 5 windows;
+    ``serving_throughput`` serves int8_inception too).
 
     python -m fastvideotagging_tpu_torch.benchmarks.int8_serving --source pack \\
         --out fastvideotagging_tpu_torch/benchmarks/INT8_SERVING.json
@@ -47,6 +48,7 @@ from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import (
 from fastvideotagging_tpu_torch.benchmarks.kernel_micro import card
 from fastvideotagging_tpu_torch.config import ExperimentConfig
 from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate_video_scores
+from fastvideotagging_tpu_torch.evaluation.graphed import Graphed
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.zoo import get_model
 from fastvideotagging_tpu_torch.ops import int8_conv
@@ -60,6 +62,7 @@ from fastvideotagging_tpu_torch.ops.int8_infer import (
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.fit import fit
 from fastvideotagging_tpu_torch.train.metrics import topk_accuracy
+from fastvideotagging_tpu_torch.utils.profiling import window_ms
 
 CALIB_VIDEOS = 16
 
@@ -94,8 +97,14 @@ def calibration_clips(train_src, cfg: ExperimentConfig, source: str, dev: torch.
                       n: int = CALIB_VIDEOS) -> list[torch.Tensor]:
     """The first eval clips of the first ``n`` train videos, preprocessed as
     the engines consume them: the int8 benchmarks' calibration set."""
+    ds = eval_dataset(train_src[:n] if source == "mp4" else train_src, cfg.data, source)
+    return eval_clips(ds, cfg, dev, n)
+
+
+def eval_clips(ds, cfg: ExperimentConfig, dev: torch.device, n: int) -> list[torch.Tensor]:
+    """The eval clips of the first ``n`` videos of ``ds``, one (K, T, ch, cw,
+    3) batch a video, preprocessed as the engines consume them."""
     d = cfg.data
-    ds = eval_dataset(train_src[:n] if source == "mp4" else train_src, d, source)
     return [preprocess_eval_clip(
         torch.from_numpy(np.ascontiguousarray(ds.get_eval_clips(i)[0])).to(dev),
         d.resize_hw, d.crop_hw, d.mean, d.std, out_dtype=getattr(torch, cfg.model.compute_dtype))
@@ -134,10 +143,14 @@ def forward_launches(apply_fn, qpack, x: torch.Tensor, spec, float_blocks) -> di
     """Q1 / Q2 launches of one int8 forward of ``x`` beside the calls the
     engine's walk makes and the Q1 calls ``spec`` predicts outside
     ``float_blocks`` (on the card they agree; the CPU launches nothing). The
-    launches are the counts' growth over the forward: nothing is reset."""
+    launches are the counts' growth over the forward: nothing is reset.
+    ``apply_fn`` is a graphed engine (``make_int8_engine``): the walk is its
+    eager one (``apply_fn.fn``: a replay runs no Python); the forward
+    counted is ``apply_fn`` itself, after a call that captures its graph."""
     walk = dict.fromkeys(int8_conv.launch_counts, 0)
     with _walk_calls(walk):
-        apply_fn(qpack, x)
+        apply_fn.fn(qpack, x)
+    apply_fn(qpack, x)
     if x.is_cuda:
         torch.cuda.synchronize(x.device)
     before = dict(int8_conv.launch_counts)
@@ -145,28 +158,6 @@ def forward_launches(apply_fn, qpack, x: torch.Tensor, spec, float_blocks) -> di
     return {"clips": int(x.shape[0]),
             "launches": {k: n - before[k] for k, n in int8_conv.launch_counts.items()},
             "walk": walk, "int8_convs": int8_convs(spec, float_blocks)}
-
-
-def _window_ms(runs: dict, iters: int, windows: int) -> dict:
-    """ms per call of each run: ``windows`` windows, each timing ``iters``
-    calls of every run in turn by CUDA events, after one such window that
-    is not kept (the first windows of a process run slow) -> {run: [ms of
-    each kept window]}."""
-    out = {name: [] for name in runs}
-    for w in range(windows + 1):
-        events = {}
-        for name, fn in runs.items():
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            events[name] = (start, end)
-        torch.cuda.synchronize()
-        for name, (start, end) in events.items():
-            if w:
-                out[name].append(start.elapsed_time(end) / iters)
-    return out
 
 
 # the r2plus1d_18 engine's serving modes: int8_infer's options a run takes
@@ -179,18 +170,22 @@ R2PLUS1D_ENGINES = {"int8": {},  # the engine's defaults
 def serving_throughput(model_name: str = "r2plus1d_18", engines: dict | None = None,
                        batch_size: int = 32, clip_len: int = 16, crop: int = 112,
                        classes: int = 101, iters: int = 20, windows: int = 5,
-                       seed: int = 0) -> dict:
+                       seed: int = 0, calib: int = 4, device: str = "cuda") -> dict:
     """ms per forward and clips/s of the bf16 model (kernels='cuda') and of
     the int8 engine in each mode of ``engines`` ({run: int8_infer options},
-    the spec's bf16 blocks; R2PLUS1D_ENGINES by default), on the same random
-    weights and clips, on the card.
+    the spec's bf16 blocks unless a mode names its own; R2PLUS1D_ENGINES by
+    default), on the same random weights and clips, the qpack calibrated on
+    the first ``calib`` clips; each forward a captured CUDA graph
+    (``Graphed``, captured in the window that is not kept), as the JAX
+    script times each engine as one jitted executable. On the card unless
+    ``device='cpu'`` (the host's clock, the forwards eager).
 
     A run's time is its fastest window, as the JAX package's
     ``bench._timeit_chain`` takes the least of repeated estimates: one window
     swings with the host, whose launches bound these forwards. The runs take
     turns within a window, so a drift of the card's clock reaches all of
     them. -> {"runs": {run: {ms, clips_per_sec, window_ms}}, "timing": ...}."""
-    dev = resolve_device("cuda")
+    dev = resolve_device(device)
     model = get_model(model_name, num_classes=classes, device=dev,
                       generator=torch.Generator().manual_seed(seed)).eval()
     x = torch.randn((batch_size, clip_len, crop, crop, 3),
@@ -198,18 +193,22 @@ def serving_throughput(model_name: str = "r2plus1d_18", engines: dict | None = N
                     device=dev).to(torch.bfloat16)
     spec = spec_for(model_name)
     sd = model.state_dict()
-    qpack = quantize_variables(sd, calibrate(sd, [x[:4]], spec=spec), spec=spec)
-    runs = {"bf16": lambda: model(x)}
+    qpack = quantize_variables(sd, calibrate(sd, [x[:calib]], spec=spec), spec=spec)
+    runs = {"bf16": functools.partial(Graphed(model, f"the {model_name} bf16 model"), x)}
     for name, opts in (R2PLUS1D_ENGINES if engines is None else engines).items():
-        runs[name] = functools.partial(int8_infer, qpack, x, spec,
-                                       float_blocks=spec.default_float_blocks, **opts)
+        engine = Graphed(functools.partial(int8_infer, spec=spec, **opts),
+                         f"the {model_name} {name} engine", reused=(0,))
+        runs[name] = functools.partial(engine, qpack, x)
     out = {}
-    for name, ms in _window_ms(runs, iters, windows).items():
+    cuda = dev.type == "cuda"
+    for name, ms in window_ms(runs, iters, windows, cuda).items():
         out[name] = dict(ms=round(min(ms), 4), clips_per_sec=round(batch_size / min(ms) * 1e3, 1),
                          window_ms=[round(t, 4) for t in ms])
     return {"runs": out,
-            "timing": f"CUDA events, the fastest of {windows} windows of {iters} forwards, "
-                      "the runs in turn within a window, after one window not kept"}
+            "timing": (f"{'CUDA events' if cuda else 'the host clock'}, the fastest of {windows} "
+                       f"windows of {iters} forwards, the runs in turn within a window, after "
+                       "one window not kept"
+                       + ("; each forward a captured CUDA graph" if cuda else ""))}
 
 
 def accuracy(num_classes: int = 50, epochs: int = 60, batch_size: int = 64,

@@ -4,8 +4,11 @@ counterpart of ``fastvideotagging_tpu/evaluation/quantized.py``).
 Bridges ops/int8_infer (the quantized engine) into the evaluation surface:
 ``make_int8_engine`` builds the engine's ``apply_fn(qpack, clips) ->
 scores`` once (the qpack is an argument, so one engine serves any number
-of recalibrations), ``quantize_for`` produces a qpack from calibration
-clips, and ``make_int8_apply`` does both. The apply_fn plugs into
+of recalibrations); on the card it replays one captured CUDA graph per
+input shape (evaluation/graphed.py), as the JAX engine is one jitted
+executable with the qpack traced, and a recalibrated qpack is copied into
+the graph's static buffers, never recaptured. ``quantize_for`` produces a
+qpack from calibration clips, and ``make_int8_apply`` does both. The apply_fn plugs into
 ``evaluate(..., apply_fn=...)`` / ``evaluate_video_scores`` with the qpack
 as the ``variables`` argument. Coverage comes from the architecture specs
 (ops/arch_spec.spec_for); each spec carries its mixed-precision bf16 tail
@@ -14,6 +17,7 @@ as the ``variables`` argument. Coverage comes from the architecture specs
 
 from __future__ import annotations
 
+from fastvideotagging_tpu_torch.evaluation.graphed import Graphed
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, spec_for  # noqa: F401
 from fastvideotagging_tpu_torch.ops.int8_infer import calibrate, int8_infer, quantize_variables
@@ -38,8 +42,10 @@ def _resolved(model_name: str, float_blocks):
 
 
 def make_int8_engine(model_name: str, multilabel: bool = False,
-                     float_blocks=None, dynamic: bool | None = None):
-    """-> ``apply_fn(qpack, clips) -> scores``.
+                     float_blocks=None, dynamic: bool | None = None) -> Graphed:
+    """-> ``apply_fn(qpack, clips) -> scores``: on the card one captured
+    graph per input shape (``Graphed``; ``apply_fn.fn`` is the eager walk),
+    on the CPU the walk itself.
 
     ``dynamic=None`` takes the spec's measured default: static calibrated
     scales for the residual families, dynamic per-batch scales where the
@@ -52,7 +58,8 @@ def make_int8_engine(model_name: str, multilabel: bool = False,
         return heads.predict_scores(
             int8_infer(qpack, clips, spec, float_blocks=fb, dynamic=dynamic), multilabel)
 
-    return apply_fn
+    mode = "dynamic" if dynamic else "static"
+    return Graphed(apply_fn, f"the {model_name} int8 engine ({mode})", reused=(0,))
 
 
 def quantize_for(model_name: str, variables: dict, calib_clips, w_cols=None):

@@ -89,6 +89,12 @@ class ServingFn(nn.Module):
         d = self.cfg.data
         clips = preprocess_eval_clip(frames_u8, d.resize_hw, d.crop_hw, d.mean, d.std,
                                      out_dtype=self.dtype)
+        return self.scores(clips)
+
+    def scores(self, clips: torch.Tensor) -> torch.Tensor:
+        """The backbone (or the int8 engine) and the head on preprocessed
+        clips: the part a CUDA graph can capture (the preprocess copies its
+        resize tables from the host on every call)."""
         if self.model is not None:
             logits = self.model(clips)
         else:

@@ -7,12 +7,15 @@ forward (fixed-size chunks) -> sigmoid/softmax -> f64 host mean over clips
 chunks, so memory is O(chunk), not O(video length). ``iter_pack_tags``
 tags every video of a decode-once ``.fvtpack``. ``Tagger(int8=True)``
 serves through the int8 engine (ops/int8_infer.py), recalibrated on each
-video's first chunk.
+video's first chunk. On the card both forwards replay a captured CUDA graph
+at the fixed chunk shape (evaluation/graphed.py), as the JAX tagger runs
+one compiled executable.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 
 import numpy as np
@@ -28,6 +31,7 @@ from fastvideotagging_tpu_torch.config import (
 from fastvideotagging_tpu_torch.data import decode, sampler
 from fastvideotagging_tpu_torch.data.frames import _ensure_size
 from fastvideotagging_tpu_torch.data.packed import Pack
+from fastvideotagging_tpu_torch.evaluation.graphed import Graphed
 from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_engine, quantize_for
 from fastvideotagging_tpu_torch.models import heads
 from fastvideotagging_tpu_torch.models.convert import from_jax_variables
@@ -140,6 +144,10 @@ def rank_tags(scores: np.ndarray, tag_names: list[str],
     return results
 
 
+def _bf16_scores(model, multilabel: bool, clips: torch.Tensor) -> torch.Tensor:
+    return heads.predict_scores(model(clips), multilabel)
+
+
 class Tagger:
     """Reusable tagger: holds the model and its weights on one device."""
 
@@ -176,6 +184,9 @@ class Tagger:
                                        clip_shape=config_clip_shape(cfg.data))
         self.model.load_state_dict(state_dict)
         self._dtype = getattr(torch, cfg.model.compute_dtype)
+        self._bf16_apply = Graphed(
+            functools.partial(_bf16_scores, self.model, cfg.model.multilabel),
+            f"the {cfg.model.name} tagger's forward")
         if int8:
             self.model.eval()
             self._weights = self.model.state_dict()
@@ -224,9 +235,10 @@ class Tagger:
                 self._qpack = quantize_for(self.cfg.model.name, self._weights, [clips],
                                            w_cols=self._w_cols)
             return self._int8_apply(self._qpack, clips)[:nclips]
-        scores = heads.predict_scores(self.model(clips), self.cfg.model.multilabel)
-        # still in flight on the card: the caller reads it back one chunk later
-        return scores[:nclips]
+        # still in flight on the card: the caller reads it back one chunk
+        # later. The engines return a copy of the graph's output, which the
+        # next chunk's replay overwrites.
+        return self._bf16_apply(clips)[:nclips]
 
     def tag(self, video_path: str, threshold: float = 0.5,
             top_k: int | None = None) -> list[TagResult]:

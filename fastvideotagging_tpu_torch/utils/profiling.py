@@ -6,7 +6,10 @@ device-time breakdown of one forward, or of one training step, on the card.
 * ``sync(tree)``: waits for the device that holds the first tensor of a
   pytree;
 * ``StepTimer``: seconds a step, warm-up steps left out, synchronized every
-  ``sync_every`` steps.
+  ``sync_every`` steps;
+* ``window_ms``: the speed scripts' protocol: ms a call of each of several
+  runs by CUDA events, in windows that take the runs in turn, after one
+  window not kept.
 
 The breakdown:
 
@@ -140,6 +143,35 @@ class StepTimer:
     @property
     def seconds_per_step(self) -> float:
         return self.total / self.timed_steps if self.timed_steps else float("nan")
+
+
+def window_ms(runs: dict, iters: int, windows: int, cuda: bool = True) -> dict:
+    """ms per call of each run: ``windows`` windows, each timing ``iters``
+    calls of every run in turn by CUDA events, after one such window that
+    is not kept (the first windows of a process run slow) -> {run: [ms of
+    each kept window]}. ``cuda=False``: the host's clock (a CPU run)."""
+    out = {name: [] for name in runs}
+    for w in range(windows + 1):
+        events = {}
+        for name, fn in runs.items():
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            else:
+                t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            if cuda:
+                end.record()
+                events[name] = (start, end)
+            elif w:
+                out[name].append((time.perf_counter() - t0) * 1e3 / iters)
+        if cuda:
+            torch.cuda.synchronize()
+        for name, (start, end) in events.items():
+            if w:
+                out[name].append(start.elapsed_time(end) / iters)
+    return out
 
 
 GROUPS = (  # first match wins; matched against the lower-cased kernel name

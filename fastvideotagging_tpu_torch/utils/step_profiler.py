@@ -29,6 +29,9 @@ port has no HLO: it joins its own inventory of the convs a step runs to a
 * ``conv_roofline_seconds``: the reference's op-level conv roofline of a
   step, a sum over every conv of max(flops / peak, bytes / bandwidth), the
   yardstick of the benchmark's north star.
+* ``bench_train_step`` / ``bench_inference``: the reference's
+  ``bench.bench_train_step`` / ``bench_inference`` on the port (the speed
+  scripts' step and forward times, ``profiling.window_ms``'s protocol).
 
 Usage (the card by default; ``--device cpu`` traces the host's ops in
 place of the card's kernels):
@@ -55,7 +58,13 @@ import numpy as np
 import torch
 
 from fastvideotagging_tpu_torch.ops import scopes
-from fastvideotagging_tpu_torch.utils.profiling import PROFILER_RAMP_S, StepTimer, sync, trace
+from fastvideotagging_tpu_torch.utils.profiling import (
+    PROFILER_RAMP_S,
+    StepTimer,
+    sync,
+    trace,
+    window_ms,
+)
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): tensor-core rates
 # by operand type (float32 outside the tensor cores: the port keeps TF32
@@ -847,6 +856,63 @@ def profile_eval_step(model_name: str = "r2plus1d_18", batch_size: int = 32,
         sync(run())
     sync(run())
     return _finish(run, sites, n_steps, trace_dir, dev, extra)
+
+
+def bench_train_step(model_name: str = "r2plus1d_18", batch_size: int = 32,
+                     clip_len: int = 16, crop: int = 112, source_hw=(128, 171),
+                     norm: str = "batch", remat: str = "none", device: str = "cuda",
+                     iters: int = 5, windows: int = 3) -> dict:
+    """The reference's ``bench.bench_train_step`` on the port: the preset's
+    train step (``train_config`` with ``remat``) from seeded uint8 clips,
+    timed by ``window_ms`` (the fastest of ``windows`` windows of ``iters``
+    steps after one not kept; the host clock on the CPU). The reference
+    divides XLA's count of the step's operations by its time; the port has
+    no compiler's count, so ``achieved_tflops`` is the conv operations of the
+    step (fwd, dx, dw at every site, ``conv_work``'s count with every tap)
+    over its time, and ``conv_roofline_step_s`` is ``conv_roofline_seconds``
+    of the same sites. ``peak_step_mib``: the memory a step allocates above
+    what is held before it (the card only; None on the CPU)."""
+    cfg = train_config(model_name, batch_size, clip_len, crop, source_hw, norm)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, remat=remat))
+    state, run = _train_run(cfg, device)
+    dev = next(state.model.parameters()).device
+    cuda = dev.type == "cuda"
+    with ConvInventory(state.model) as inv:
+        sync(run())
+    roof, flops, _ = conv_roofline_seconds(inv.sites.values())
+    peak = None
+    if cuda:
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sync(run())
+        peak = round((torch.cuda.max_memory_allocated(dev) - held) / 2**20, 1)
+    ms = window_ms({"step": run}, iters, windows, cuda)["step"]
+    sec = min(ms) / 1e3
+    return dict(clips_per_sec=batch_size / sec, step_s=sec, achieved_tflops=flops / sec / 1e12,
+                conv_flops=flops, conv_roofline_step_s=roof, roofline_fraction=roof / sec,
+                window_ms=ms, peak_step_mib=peak)
+
+
+def bench_inference(model_name: str = "r2plus1d_18", batch_size: int = 32, clip_len: int = 16,
+                    crop: int = 112, device: str = "cuda", iters: int = 10,
+                    windows: int = 3) -> dict:
+    """The reference's ``bench.bench_inference`` on the port: the eval
+    forward of seeded random weights (101 classes, bf16) on seeded clips as
+    one captured CUDA graph (evaluation/graphed.py; the reference times a
+    jitted forward), timed by ``window_ms`` -> {clips_per_sec, ms,
+    window_ms}."""
+    from fastvideotagging_tpu_torch._device import resolve_device
+    from fastvideotagging_tpu_torch.evaluation.graphed import Graphed
+    from fastvideotagging_tpu_torch.models.zoo import get_model
+
+    dev = resolve_device(device)
+    model = get_model(model_name, num_classes=101, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    x = _clips((batch_size, clip_len, crop, crop, 3), dev)
+    fwd = Graphed(model, f"the {model_name} eval forward")
+    ms = window_ms({"fwd": lambda: fwd(x)}, iters, windows, dev.type == "cuda")["fwd"]
+    return dict(clips_per_sec=batch_size / min(ms) * 1e3, ms=min(ms), window_ms=ms)
 
 
 def format_report(rows, cats, info, top: int = 30) -> str:

@@ -1581,3 +1581,106 @@ def test_step_profiler_places_every_hand_kernel_on_the_card(cuda, tmp_path):
         assert not info["hand_kernels_unplaced"]
         assert abs(info["attributed_us_per_step"] - info["device_us_per_step"]) <= \
             0.02 * info["device_us_per_step"]
+
+
+# The serving forwards as captured CUDA graphs (evaluation/graphed.py).
+
+def _graph_counts():
+    from fastvideotagging_tpu_torch.ops import int8_conv as q8
+
+    torch.cuda.synchronize()
+    return {**{k: ops.launch_counts[k] for k in ("spatial_conv", "temporal_conv")},
+            **q8.launch_counts}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _graph_counts().items()}
+
+
+def test_graphed_bf16_forward_matches_the_eager_walk(cuda):
+    """r2plus1d_18 bf16 at 8 clips through Tagger's graphed forward: bit for
+    bit the eager walk's scores (its library calls pick the same algorithms
+    under capture as outside it), K1 / K2 launches of k replays equal to k
+    eager walks, a call on other clips leaving the last result as it was,
+    one capture for the fixed chunk shape."""
+    from fastvideotagging_tpu_torch.config import DataConfig, ExperimentConfig, ModelConfig
+    from fastvideotagging_tpu_torch.evaluation.tagger import Tagger
+
+    cfg = ExperimentConfig(model=ModelConfig(name="r2plus1d_18", num_classes=5),
+                           data=DataConfig(resize_hw=(36, 40), crop_hw=(32, 32)))
+    state = get_model("r2plus1d_18", num_classes=5, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).state_dict()
+    tagger = Tagger(cfg, state, clip_batch=8, device=cuda)
+    fwd = tagger._bf16_apply
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, x2 = (torch.randn((8, 8, 32, 32, 3), generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    with torch.inference_mode():
+        first = fwd(x)  # the warm-up's result; the graph is captured after it
+        before = _graph_counts()
+        eager = fwd.fn(x)
+        walk = _delta(before)
+        before = _graph_counts()
+        outs = [fwd(x) for _ in range(3)]
+        assert _delta(before) == {k: 3 * v for k, v in walk.items()}
+        kept = outs[-1].clone()
+        other, other_eager = fwd(x2), fwd.fn(x2)
+        torch.cuda.synchronize()
+    assert walk["spatial_conv"] > 0
+    assert torch.equal(outs[-1], kept)  # a clone: the next replay left it alone
+    for out in [first] + outs:
+        assert torch.equal(out, eager), float((out - eager).abs().max())
+    assert torch.equal(other, other_eager) and not torch.equal(other, eager)
+    assert fwd.captures == 1
+
+
+@pytest.mark.parametrize("name", ["i3d", "s3d"])
+@pytest.mark.parametrize("dynamic", [False, True], ids=["static", "dynamic"])
+def test_graphed_int8_engine_matches_the_eager_walk(cuda, name, dynamic):
+    """``make_int8_engine`` on the card (2 clips, 8x32x32): every replay bit
+    for bit the eager walk, Q1 / Q2 launches of k replays equal to k eager
+    walks, a call on other clips leaving the first call's result as it was,
+    a second qpack copied in (its own scores, no second capture) and the
+    first served again after it."""
+    from fastvideotagging_tpu_torch.evaluation.quantized import make_int8_engine, quantize_for
+
+    model = get_model(name, num_classes=5, device="cpu",
+                      generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, x2 = (torch.randn((2, 8, 32, 32, 3), generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    sd = model.state_dict()
+    qpack, qpack2 = quantize_for(name, sd, [x]), quantize_for(name, sd, [x2])
+    engine = make_int8_engine(name, dynamic=dynamic)
+    with torch.inference_mode():
+        first = engine(qpack, x)
+        before = _graph_counts()
+        eager = engine.fn(qpack, x)
+        walk = _delta(before)
+        before = _graph_counts()
+        outs = [engine(qpack, x) for _ in range(3)]
+        replays = _delta(before)
+        kept = outs[-1].clone()
+        other = engine(qpack, x2)
+        other_eager = engine.fn(qpack, x2)
+        second = engine(qpack2, x)
+        second_eager = engine.fn(qpack2, x)
+        back = engine(qpack, x)
+        torch.cuda.synchronize()
+    assert walk["conv3d_s8"] > 0 and replays == {k: 3 * v for k, v in walk.items()}
+    for out in [first] + outs + [back]:
+        assert torch.equal(out, eager)
+    assert torch.equal(outs[-1], kept) and torch.equal(other, other_eager)
+    assert torch.equal(second, second_eager) and not torch.equal(second, eager)
+    assert engine.captures == 1
+
+
+def test_graphed_capture_failure_raises(cuda):
+    """A forward that syncs the host (``.item()``) cannot be captured: the
+    call raises, naming the forward and the step, and falls back to
+    nothing."""
+    from fastvideotagging_tpu_torch.evaluation.graphed import Graphed
+
+    fwd = Graphed(lambda x: x * float(x.sum().item()), "the syncing forward")
+    with pytest.raises(RuntimeError, match="the syncing forward: the CUDA graph's capture"):
+        fwd(torch.ones(4, device=cuda))
