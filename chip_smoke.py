@@ -303,6 +303,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
             of GRAPH_ITERS forwards after one not kept, every window
             printed), each beside its idle share of the card over
             GRAPH_ITERS traced forwards.
+17. repeatable training (csrc/maxpool_grad.cu, train/loop.py's
+            deterministic mode): (a) the max pool's backward kernel against
+            its plain version, bit for bit and two launches equal, at every
+            max pool of the train-mode forwards of s3d, i3d, c3d and p3d_63
+            at B = 64 (8x32x32, C3D 16x32x32; ``repeat_train.pool_calls``)
+            on post-ReLU inputs with ties, timed beside its plain version,
+            F.max_pool3d's own backward and its bound, summed a train step;
+            (b) two 5-step ``fit`` runs from one seed of each of those
+            families and of r2plus1d_18 (``repeat_train.two_fits``), every
+            parameter and BN statistic equal bit for bit, the kernel's
+            launches in them counted from 0 (2 x 5 x its calls a step).
 
 The device splits of phases 3, 3c and 3d come from torch.profiler. Where it
 records no device activity in three traces, a split is printed as not
@@ -326,6 +337,9 @@ from the C++ op library: one shot, bench, the daemons and taggers), phase
 ``"step_profiler_eval_bf16"`` and ``"step_profiler_eval_int8"``, and phase
 15's ``"accuracy_<script>"``, one a script, and phase 16's ``"graphs"``
 (K1, K2, Q1, Q2: the eager walks and the replays, counted from 0).
+The max pool's backward kernel's path is phase 17's fits
+(``launches_by_run`` {"repeatable_fits": n}); its times are one s3d train
+step's max pools at B = 64, its library time F.max_pool3d's own backward.
 Q1's and Q2's times are per static int8 forward
 at clip_batch 8 (the sum over its 28 / 1 launches), with the dynamic
 forward's sums beside them. The last
@@ -352,9 +366,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fastvideotagging_tpu_torch import Tagger, get_model
 from fastvideotagging_tpu_torch.benchmarks import kernel_micro
+from fastvideotagging_tpu_torch.benchmarks import repeat_train as rt
 from fastvideotagging_tpu_torch.benchmarks.int8_serving import int8_convs
 from fastvideotagging_tpu_torch.cli import evaluate as cli_evaluate
 from fastvideotagging_tpu_torch.cli import serve as cli_serve
@@ -382,6 +398,7 @@ from fastvideotagging_tpu_torch.ops import conv2plus1d as ops
 from fastvideotagging_tpu_torch.ops import fused_block as fused
 from fastvideotagging_tpu_torch.ops import int8_conv as q8
 from fastvideotagging_tpu_torch.ops import int8_infer
+from fastvideotagging_tpu_torch.ops import maxpool_grad as mp
 from fastvideotagging_tpu_torch.ops import temporal_micro as micro
 from fastvideotagging_tpu_torch.ops.arch_spec import COVERED_MODELS, spec_for
 from fastvideotagging_tpu_torch.ops.fused_infer import r2plus1d_fused_infer
@@ -5303,6 +5320,123 @@ def phase_graphs(card: str) -> dict:
     return dict(result=result, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: repeatable training (csrc/maxpool_grad.cu, train/loop.py's
+# deterministic mode)
+# ---------------------------------------------------------------------------
+
+MAXPOOL_KERNEL = dict(
+    name="maxpool_grad_kernel", route="cuda",
+    source="fastvideotagging_tpu_torch/csrc/maxpool_grad.cu",
+    replaces="none: no TPU kernel; the JAX package's max-pool backward is XLA's "
+             "select_and_scatter (fastvideotagging_tpu/ops/maxpool_grad.py:206 'sas', "
+             ":221 'sep'), run to run the same; F.max_pool3d's CUDA backward adds atomically")
+POOL_ITERS = 20  # wrapper calls a kernel or library time
+
+
+def _pool_library(x, ct, window, strides, pads):
+    """F.max_pool3d's own backward at a site (its indices from the padded
+    input), the yardstick: a call of it."""
+    xp = mp._pad(x, pads, float("-inf")).permute(0, 4, 1, 2, 3)
+    _, idx = F.max_pool3d(xp, window, strides, return_indices=True)
+    ctl = ct.permute(0, 4, 1, 2, 3)
+    return lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+        ctl, xp, list(window), list(strides), [0, 0, 0], [1, 1, 1], False, idx)
+
+
+def _pool_site(model: str, call: tuple, gen: torch.Generator) -> dict:
+    """The kernel against its plain version at one site (bit for bit, and
+    two launches), the times of the kernel, the plain version and the
+    library's backward, and the bound: x, y and ct read once, dx written
+    once."""
+    x, y, ct = rt.site_inputs(call, gen)
+    shape, _, window, strides, pads = call
+    args = (x, y, ct, window, strides, pads)
+    dx, dx2, ref = mp.maxpool_grad_cuda(*args), mp.maxpool_grad_cuda(*args), \
+        mp.maxpool_grad_plain(*args)
+    torch.cuda.synchronize()
+    nbytes = (2 * x.numel() + 2 * y.numel()) * x.element_size()
+    return dict(model=model, x=list(shape), window=list(window), strides=list(strides),
+                pads=[list(p) for p in pads], bitwise=torch.equal(dx, ref),
+                repeatable=torch.equal(dx, dx2),
+                max_abs_err=(dx.float() - ref.float()).abs().max().item(),
+                ms=time_ms(lambda: mp.maxpool_grad_cuda(*args), POOL_ITERS),
+                plain_ms=time_ms(lambda: mp.maxpool_grad_plain(*args), 3, warmup=1),
+                library_ms=time_ms(_pool_library(x, ct, window, strides, pads), POOL_ITERS),
+                bound_ms=nbytes / PEAK_BYTES_S * 1e3)
+
+
+def phase_repeatable(card: str) -> dict:
+    """17: (a) csrc/maxpool_grad.cu against its plain version, bit for bit,
+    at every max pool of the train-mode forwards of s3d, i3d, c3d and p3d_63
+    at B = 64 (``repeat_train.pool_calls``; the accuracy geometry 8x32x32,
+    C3D 16x32x32), post-ReLU inputs with ties, timed beside its plain
+    version, F.max_pool3d's own backward and its bound, summed over each
+    family's train step; (b) two short ``fit`` runs of each pooled family
+    and of r2plus1d_18 from one seed (``repeat_train.two_fits``), equal bit
+    for bit in every parameter and BN statistic, the kernel's launches in
+    them counted from 0."""
+    print("== phase 17: repeatable training", flush=True)
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    sites, per_model = {}, {}
+    for m in rt.POOLED:
+        calls = rt.pool_calls(m, dev)
+        tot = dict(launches=len(calls), ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for call in calls:
+            if call not in sites:
+                sites[call] = _pool_site(m, call, gen)
+                r = sites[call]
+                print(f"  {m} x={r['x']} window={r['window']} strides={r['strides']} "
+                      f"pads={r['pads']}: bitwise={r['bitwise']} repeatable={r['repeatable']} "
+                      f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
+                      f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f}", flush=True)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[k] += sites[call][k]
+        per_model[m] = tot
+        print(f"  {m} a train step at B = {rt.BATCH}: {tot}", flush=True)
+    failures = [f"(17a) {r['model']} {r['x']} {r['window']}: bitwise={r['bitwise']} "
+                f"repeatable={r['repeatable']}" for r in sites.values()
+                if not (r["bitwise"] and r["repeatable"])]
+
+    torch.cuda.empty_cache()
+    mp.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pack = rt.motion_packs(tmp)
+        fits = {m: rt.two_fits(m, pack, dev) for m in rt.MODELS}
+    torch.cuda.synchronize()
+    launches = mp.launch_counts["maxpool_grad"]
+    for m, f in fits.items():
+        print(f"  {m}: two fits of {f['steps']} steps equal={f['equal']} "
+              f"({f['differing']} of {f['tensors']} tensors differ, max |diff| "
+              f"{f['max_abs_diff']:.3e}), {f['fit_seconds']} s", flush=True)
+        if not f["equal"]:
+            failures.append(f"(17b) {m}: two fits from one seed differ: {f}")
+    want = 2 * rt.FIT_EPOCHS * sum(per_model[m]["launches"] for m in fits if m in per_model)
+    print(f"  the kernel's launches in the fits: {launches} (want {want}), fits "
+          f"{time.perf_counter() - t0:.1f} s; phase 17 took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    if launches != want:
+        failures.append(f"(17b) maxpool_grad launched {launches} times in the fits, want {want}")
+    if failures:
+        raise SystemExit("phase 17 failed:\n" + "\n".join(failures))
+    s3d = per_model["s3d"]
+    entry = dict(
+        MAXPOOL_KERNEL, launches=launches, launches_by_run={"repeatable_fits": launches},
+        max_abs_err=max(r["max_abs_err"] for r in sites.values()), ms=s3d["ms"],
+        plain_ms=s3d["plain_ms"], bound_ms=s3d["bound_ms"], bound_by="bytes",
+        library_ms=s3d["library_ms"], ok=True,
+        per=f"one s3d train step's max-pool backward at B = {rt.BATCH}, 8x32x32 (the sum "
+            f"over its {s3d['launches']} launches); library_ms: F.max_pool3d's own backward "
+            f"at the same sites",
+        per_model=per_model, sites=list(sites.values()))
+    return dict(entry=entry, result=dict(per_model=per_model, fits=fits,
+                                         seconds=time.perf_counter() - t_phase))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -5333,6 +5467,7 @@ def main() -> int:
     profiler = phase_step_profiler(card)
     acc = phase_accuracy_scripts(card)
     graphs = phase_graphs(card)
+    repeat = phase_repeatable(card)
     int8["launches"]["graphs"] = {k: graphs["launches"][k] for k in q8.launch_counts}
     int8["launches"]["int8_families"] = families["launches"]
     int8["launches"]["export"] = export["launches"]
@@ -5394,6 +5529,7 @@ def main() -> int:
             per=f"one {MICRO_HEADLINE[key]} call at the micro-benchmark's tpu1 shape",
             sites=a["sites"]))
     entries += int8_entries(int8)
+    entries.append(repeat["entry"])
     print(json.dumps({"train": train["routes"], "eval": ev, "micro": micro_run["bench"],
                       "fit": {k: v for k, v in fit_run.items() if k not in ("launches", "packs")},
                       "entry_points": entry["result"],
@@ -5407,7 +5543,7 @@ def main() -> int:
                                                                  "worst")},
                       "step_profiler": profiler["result"],
                       "accuracy_scripts": acc["result"], "graphs": graphs["result"],
-                      "card": card}))
+                      "repeatable": repeat["result"], "card": card}))
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

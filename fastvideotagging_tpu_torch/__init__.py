@@ -15,6 +15,15 @@ process. It imports neither JAX nor the JAX package. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 """
 
+import os
+
+# cuBLAS's part of the training's deterministic mode (train/loop.py::
+# deterministic): cuBLAS reads its workspace configuration once a process,
+# when the first handle is made, so it is set on import, before any. A value
+# the caller set stays; deterministic mode raises at its first cuBLAS call if
+# that value is not one of cuBLAS's deterministic settings.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 __version__ = "0.1.0"
 
 from fastvideotagging_tpu_torch.config import (

@@ -23,17 +23,34 @@ do not.
 
 ``--source`` picks how the videos reach the loader, the caller's choice:
 ``mp4`` (the default) writes and decodes ``.mp4`` files as the JAX file
-does (needs cv2); ``pack`` writes the same seeded frames straight into
-``.fvtpack`` files (``write_pack_from_arrays``), with no codec round trip,
-for a machine without cv2. The result JSON records the route and the
-card's name and power limit. Trains and evaluates on the card unless
-``--device cpu``.
+does (needs cv2); ``mp4pack`` takes the same decoded pixels from packs:
+the set written as ``.mp4`` (cv2's mp4v codec, ``make_motion_dataset``)
+and each video decoded once into ``train.fvtpack`` / ``eval.fvtpack``
+(``write_pack``; the resize at the 48x48 ship size is the identity), the
+pixels the JAX package's ``ClipDataset`` reads; ``pack`` writes the
+generator's raw frames straight into packs (``write_pack_from_arrays``),
+with no codec round trip, so its pixels are not the reference's: over the
+50-class set the codec (4:2:0 chroma, block artifacts) moves a value by
+12.83 levels on average (``--pixel-gap``; PERF.md, "pixels").
+
+``mp4pack`` with ``--pack-dir DIR`` reads the two packs from DIR, which is
+how a machine without cv2 (the card's) gets them; each pack's index names
+the set (classes, seed, geometry) and the cv2 version that wrote it, and a
+pack that is missing or names another set raises. Without ``--pack-dir``
+the packs are written under the run's root (needs cv2). To write them once
+on a machine with cv2:
+
+    python -m fastvideotagging_tpu_torch.benchmarks.accuracy_hard --write-packs DIR
+
+The result JSON records the route and the card's name and power limit.
+Trains and evaluates on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import json
 import os
 import shutil
@@ -54,7 +71,12 @@ from fastvideotagging_tpu_torch.config import (
     TrainConfig,
 )
 from fastvideotagging_tpu_torch.data import synthetic_motion
-from fastvideotagging_tpu_torch.data.packed import Pack, PackedDataset, write_pack_from_arrays
+from fastvideotagging_tpu_torch.data.packed import (
+    Pack,
+    PackedDataset,
+    write_pack,
+    write_pack_from_arrays,
+)
 from fastvideotagging_tpu_torch.data.pipeline import ClipDataset
 from fastvideotagging_tpu_torch.data.ucf101 import load_tag_list, load_video_list
 from fastvideotagging_tpu_torch.evaluation.evaluate import evaluate_video_scores
@@ -66,7 +88,9 @@ from fastvideotagging_tpu_torch.train.metrics import (
     topk_accuracy,
 )
 
-SOURCES = ("mp4", "pack")
+SOURCES = ("mp4", "pack", "mp4pack")
+# mp4pack's two packs in a pack directory
+MP4PACK_FILES = {"train": "train.fvtpack", "eval": "eval.fvtpack"}
 # the videos' frame size (data/synthetic_motion.py's default): the packs'
 # geometry and the configs' source_hw
 VIDEO_HW = (48, 48)
@@ -174,21 +198,126 @@ def _packs(root: str, videos, num_tags: int | None,
     return paths["train"], paths["eval"]
 
 
+def add_pack_dir(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--pack-dir", default=None,
+                   help="--source mp4pack: the directory of train.fvtpack / eval.fvtpack "
+                        "(--write-packs); without it they are written (needs cv2)")
+
+
 def _check_source(source: str) -> None:
     if source not in SOURCES:
         raise ValueError(f"source must be one of {SOURCES}, got {source!r}")
 
 
-def motion_sources(root: str, source: str, num_classes: int, seed: int, **geometry):
+def motion_set(num_classes: int, seed: int, **geometry) -> dict:
+    """What names a motion set: the class count, the seed and
+    ``make_motion_dataset``'s geometry (its defaults where not given)."""
+    params = inspect.signature(synthetic_motion.make_motion_dataset).parameters
+    full = {k: p.default for k, p in params.items() if k not in ("root", "num_classes", "seed")}
+    unknown = set(geometry) - set(full)
+    if unknown:
+        raise ValueError(f"unknown geometry {sorted(unknown)}")
+    return {"set": "synthetic_motion", "num_classes": num_classes, "seed": seed,
+            **full, **geometry, "codec": "mp4v"}
+
+
+def write_mp4_packs(pack_dir: str, num_classes: int, seed: int, **geometry) -> dict:
+    """Write the motion set as ``.mp4`` (mp4v, ``make_motion_dataset``) in a
+    temporary directory and decode each video once into ``pack_dir``'s
+    ``train.fvtpack`` / ``eval.fvtpack`` (``write_pack``, the ship size the
+    set's frame size); each index names the set and the cv2 version. Needs
+    cv2. -> {split: path}."""
+    import cv2
+
+    meta = {**motion_set(num_classes, seed, **geometry), "cv2": cv2.__version__}
+    hw = (meta["height"], meta["width"])
+    os.makedirs(pack_dir, exist_ok=True)
+    paths = {split: os.path.join(pack_dir, name) for split, name in MP4PACK_FILES.items()}
+    with tempfile.TemporaryDirectory(prefix="fvt_mp4pack_") as root:
+        lists = synthetic_motion.make_motion_dataset(root, num_classes=num_classes, seed=seed,
+                                                     **geometry)
+        for path, lst in zip(paths.values(), lists):
+            write_pack(load_video_list(lst, root=root), path, hw, root=root, meta=meta)
+    return paths
+
+
+def mp4pack_paths(pack_dir: str, num_classes: int, seed: int, **geometry) -> tuple[str, str]:
+    """The (train, eval) packs of ``pack_dir``, after checking that each
+    holds the set asked for, decoded from mp4v by a cv2 that names itself:
+    raises ``FileNotFoundError`` for a missing pack, ``ValueError`` for one
+    of another set (nothing falls back to raw frames)."""
+    want = motion_set(num_classes, seed, **geometry)
+    paths = {split: os.path.join(pack_dir, name) for split, name in MP4PACK_FILES.items()}
+    for split, path in paths.items():
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"no mp4pack {split} pack at {path}; write the pair on a machine with cv2 "
+                f"(accuracy_hard --write-packs DIR) and pass DIR as --pack-dir")
+        meta = Pack(path).meta or {}
+        got = {k: meta.get(k) for k in want}
+        if got != want or not meta.get("cv2"):
+            raise ValueError(f"{path} holds another set: {meta} (wanted {want} and the "
+                             f"cv2 version that wrote it)")
+    return paths["train"], paths["eval"]
+
+
+def pixel_gap(pack_dir: str, num_classes: int = 50, seed: int = 0, **geometry) -> dict:
+    """What the mp4v round trip does to the motion set's pixels: the decoded
+    frames of ``pack_dir``'s mp4pack pair against the generator's raw frames,
+    over every video: the mean |difference| a value, its 99th percentile and
+    largest value, the values' std before and after, and the mean |change|
+    between consecutive frames before and after."""
+    train, ev = mp4pack_paths(pack_dir, num_classes, seed, **geometry)
+    packs, seen = {"train": Pack(train), "eval": Pack(ev)}, {"train": 0, "eval": 0}
+    hist = np.zeros(256, np.int64)
+    acc = dict.fromkeys(("raw", "raw2", "dec", "dec2", "raw_tt", "dec_tt"), 0.0)
+    n = n_tt = 0
+    for split, _, _, frames in synthetic_motion.iter_motion_videos(num_classes, seed=seed,
+                                                                   **geometry):
+        raw = frames.astype(np.int64)
+        dec = packs[split].video_view(seen[split]).astype(np.int64)
+        seen[split] += 1
+        if dec.shape != raw.shape:
+            raise ValueError(f"decoded {dec.shape} against raw {raw.shape}")
+        hist += np.bincount(np.abs(dec - raw).ravel(), minlength=256)
+        for key, v in (("raw", raw), ("dec", dec)):
+            acc[key] += v.sum()
+            acc[key + "2"] += (v * v).sum()
+            acc[key + "_tt"] += np.abs(np.diff(v, axis=0)).sum()
+        n += raw.size
+        n_tt += raw[1:].size
+    cum = np.cumsum(hist)
+
+    def std(key):
+        return float(np.sqrt(acc[key + "2"] / n - (acc[key] / n) ** 2))
+
+    return {"videos": sum(seen.values()), "values": n,
+            "mean_abs_diff": float((hist * np.arange(256)).sum() / n),
+            "p99_abs_diff": int(np.searchsorted(cum, 0.99 * n)),
+            "max_abs_diff": int(np.nonzero(hist)[0].max()),
+            "std_raw": std("raw"), "std_decoded": std("dec"),
+            "frame_to_frame_raw": acc["raw_tt"] / n_tt,
+            "frame_to_frame_decoded": acc["dec_tt"] / n_tt,
+            "meta": packs["train"].meta}
+
+
+def motion_sources(root: str, source: str, num_classes: int, seed: int,
+                   pack_dir: str | None = None, **geometry):
     """The motion set's (train, eval) sources under ``root``: lists of video
-    records (``mp4``: written and decoded) or pack paths (``pack``).
-    ``geometry``: ``iter_motion_videos``' videos per class, frames and frame
-    size."""
+    records (``mp4``: written and decoded) or pack paths (``pack``: raw
+    frames; ``mp4pack``: decoded ``.mp4``, read from ``pack_dir`` where it
+    is given, else written under ``root``). ``geometry``:
+    ``iter_motion_videos``' videos per class, frames and frame size."""
     _check_source(source)
     if source == "mp4":
         train_list, eval_list = synthetic_motion.make_motion_dataset(
             root, num_classes=num_classes, seed=seed, **geometry)
         return load_video_list(train_list, root=root), load_video_list(eval_list, root=root)
+    if source == "mp4pack":
+        if pack_dir is None:
+            pack_dir = root
+            write_mp4_packs(pack_dir, num_classes, seed, **geometry)
+        return mp4pack_paths(pack_dir, num_classes, seed, **geometry)
     hw = (geometry.get("height", VIDEO_HW[0]), geometry.get("width", VIDEO_HW[1]))
     return _packs(root, synthetic_motion.iter_motion_videos(
         num_classes, seed=seed, **geometry), None, hw)
@@ -210,12 +339,13 @@ def run(num_classes: int = 50, epochs: int = 40, batch_size: int = 64,
         keep_data: bool = False, model_name: str = "r2plus1d_18",
         clip_grad_norm: float = 0.0, norm: str = "batch",
         clip_len: int = 8, stride: int = 2, dropout: float = 0.0,
-        source: str = "mp4", device: str | torch.device = "cuda") -> dict:
+        source: str = "mp4", device: str | torch.device = "cuda",
+        pack_dir: str | None = None) -> dict:
     _check_source(source)
     dev = resolve_device(device)
     root = root or tempfile.mkdtemp(prefix="fvt_hard_")
     t0 = time.time()
-    train_src, eval_src = motion_sources(root, source, num_classes, seed)
+    train_src, eval_src = motion_sources(root, source, num_classes, seed, pack_dir)
     gen_s = time.time() - t0
 
     cfg = hard_config(num_classes, epochs, batch_size, base_lr, seed, model_name,
@@ -276,6 +406,8 @@ def run_multilabel(num_classes: int = 24, epochs: int = 90,
     head on r2plus1d_18 (the JAX file's measured recipe: 1500 videos, 90
     epochs, lr 0.08)."""
     _check_source(source)
+    if source == "mp4pack":
+        raise ValueError("the tagging set has no mp4pack packs: use 'mp4' or 'pack'")
     dev = resolve_device(device)
     root = root or tempfile.mkdtemp(prefix="fvt_hard_ml_")
     t0 = time.time()
@@ -350,10 +482,22 @@ def main(argv=None):
     p.add_argument("--norm", default="batch",
                    help="ModelConfig.norm for the single-label run (batch|frozen)")
     p.add_argument("--source", choices=SOURCES, default="mp4",
-                   help="mp4: write and decode .mp4 files (needs cv2); pack: the "
-                        "same frames straight into .fvtpack files")
+                   help="mp4: write and decode .mp4 files (needs cv2); mp4pack: the same "
+                        "decoded pixels from packs (--pack-dir); pack: the generator's raw "
+                        "frames straight into .fvtpack files")
+    add_pack_dir(p)
+    p.add_argument("--write-packs", metavar="DIR", default=None,
+                   help="write the motion set's mp4pack pair (--classes, --seed) into DIR "
+                        "and exit (needs cv2)")
+    p.add_argument("--pixel-gap", metavar="DIR", default=None,
+                   help="compare DIR's mp4pack pair with the raw frames (pixel_gap), exit")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
+    if args.write_packs or args.pixel_gap:
+        out = (write_mp4_packs(args.write_packs, args.classes or 50, args.seed)
+               if args.write_packs else pixel_gap(args.pixel_gap, args.classes or 50, args.seed))
+        print(json.dumps(out))
+        return out
     if args.multilabel:
         result = run_multilabel(
             min(args.classes or 24, 24), args.epochs or 90, args.batch,
@@ -365,7 +509,8 @@ def main(argv=None):
                      model_name=args.model,
                      clip_grad_norm=args.clip_grad_norm, norm=args.norm,
                      clip_len=args.clip_len, stride=args.stride,
-                     dropout=args.dropout, source=args.source, device=args.device)
+                     dropout=args.dropout, source=args.source, device=args.device,
+                     pack_dir=args.pack_dir)
     line = json.dumps(result, indent=2)
     print(line)
     if args.out:

@@ -30,6 +30,7 @@ from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import (
     SOURCES,
     LaunchCounter,
+    add_pack_dir,
     eval_dataset,
     motion_sources,
     num_videos,
@@ -76,14 +77,15 @@ def kinetics_config(num_classes: int = 8, epochs: int = 30, batch_size: int = 8,
 
 def run(num_classes: int = 8, epochs: int = 30, batch_size: int = 8,
         base_lr: float = 0.02, seed: int = 0, source: str = "mp4",
-        device: str | torch.device = "cuda", geometry: dict | None = None) -> dict:
+        device: str | torch.device = "cuda", geometry: dict | None = None,
+        pack_dir: str | None = None) -> dict:
     """``geometry`` replaces ``GEOMETRY``'s entries (a smaller set for a
     test; the record's crop and clip stay the config's)."""
     dev = resolve_device(device)
     root = tempfile.mkdtemp(prefix="fvt_kinetics_geom_")
     try:
         t0 = time.time()
-        train_src, eval_src = motion_sources(root, source, num_classes, seed,
+        train_src, eval_src = motion_sources(root, source, num_classes, seed, pack_dir,
                                              **{**GEOMETRY, **(geometry or {})})
         gen_s = time.time() - t0
         cfg = kinetics_config(num_classes, epochs, batch_size, base_lr, seed)
@@ -144,11 +146,12 @@ def main(argv=None) -> dict:
     p.add_argument("--classes", type=int, default=8)
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--source", choices=SOURCES, default="mp4")
+    add_pack_dir(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     result = run(num_classes=args.classes, epochs=args.epochs, source=args.source,
-                 device=args.device)
+                 device=args.device, pack_dir=args.pack_dir)
     line = json.dumps(result, indent=2)
     print(line)
     if args.out:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from fastvideotagging_tpu_torch._device import resolve_device
-from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import SOURCES
+from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import SOURCES, add_pack_dir
 from fastvideotagging_tpu_torch.benchmarks.int8_serving import (
     calibration_clips,
     forward_launches,
@@ -62,12 +62,13 @@ def family_config(model_name: str, num_classes: int = 50, epochs: int = 40,
 
 def run_model(model_name: str, num_classes: int = 50, epochs: int = 40,
               batch_size: int = 64, base_lr: float = 0.05, seed: int = 0,
-              source: str = "mp4", device: str | torch.device = "cuda") -> dict:
+              source: str = "mp4", device: str | torch.device = "cuda",
+              pack_dir: str | None = None) -> dict:
     dev = resolve_device(device)
     cfg = family_config(model_name, num_classes, epochs, batch_size, base_lr, seed)
     root = tempfile.mkdtemp(prefix=f"fvt_int8_{model_name}_")
     try:
-        state, train_src, ds, facts = train_motion(cfg, root, source, dev)
+        state, train_src, ds, facts = train_motion(cfg, root, source, dev, pack_dir)
         model = state.model
         sd = model.state_dict()
         spec = spec_for(model_name)
@@ -114,13 +115,15 @@ def main(argv=None) -> dict:
     p.add_argument("--classes", type=int, default=50)
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--source", choices=SOURCES, default="mp4")
+    add_pack_dir(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
     result = {"benchmark": "int8_ptq_family",
               "task": "hard_synthetic_motion_50 (8x32x32 clips)",
               "results": [run_model(m, num_classes=args.classes, epochs=args.epochs,
                                     batch_size=args.batch, source=args.source,
-                                    device=args.device) for m in args.models],
+                                    device=args.device, pack_dir=args.pack_dir)
+                          for m in args.models],
               "source": args.source,
               "device": args.device,
               "card": card() if args.device == "cuda" else None}

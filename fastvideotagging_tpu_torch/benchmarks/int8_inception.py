@@ -34,7 +34,10 @@ Two runs that train nothing into the record:
   calibration amax of each batch, the site margin, the share of the eval
   clips' values clipped at the site-static scale and the relative error of
   the reconstructed conv input (``int8_infer(..., debug_sites=True)``
-  against the bf16 walk), the sites ranked by that error (``site_report``).
+  against the bf16 walk), the sites ranked by that error (``site_report``),
+  and at mixed5b / mixed5c each channel's calibration and eval amax. Its
+  training is the record's recipe, so with the same source its
+  ``state_sha256`` and top-1 figures are the record's s3d row's.
 
 ``--source`` as in accuracy_hard. Runs on the card unless ``--device cpu``
 (the throughput needs the card: ``--skip-throughput`` on the host).
@@ -54,7 +57,7 @@ import torch
 
 from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.benchmarks import int8_serving
-from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import SOURCES
+from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import SOURCES, add_pack_dir
 from fastvideotagging_tpu_torch.benchmarks.int8_serving import (
     calibration_clips,
     eval_clips,
@@ -79,6 +82,9 @@ SWEEP_MARGINS = (1.0, 1.25, 1.5, 2.5)
 RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "INT8_INCEPTION.json")
 # eval videos whose clips the site report holds each site's values from
 SITE_REPORT_VIDEOS = 64
+# the sites whose channels the site report lists one by one (the worst
+# sites of the s3d static default, INT8_INCEPTION_S3D_SITES)
+CHANNEL_SITES = ("mixed5b.", "mixed5c.")
 # the int8 engines whose throughput a record holds against bf16
 ENGINES = {"int8_static": {"dynamic": False}, "int8_dynamic": {"dynamic": True}}
 
@@ -108,14 +114,21 @@ def site_report(variables: dict, calib, eval_batches, spec) -> list[dict]:
     (|round(x * inv_f / s)| > 127, the engine's static quantize) and the
     relative error of the engine's reconstructed input (``int8_infer(...,
     debug_sites=True)``) against the bf16 walk's, mean |q - r| / (mean |r|
-    + 1e-9) as the JAX package's attribution tests take it."""
+    + 1e-9) as the JAX package's attribution tests take it. At the
+    CHANNEL_SITES sites also ``channels``: each channel's calibration amax
+    (over every calibration batch), its eval amax, the |value| past which
+    the static scale clips it, and its share of the eval values clipped."""
     per_batch: dict[str, list] = {}
+    calib_ch: dict[str, torch.Tensor] = {}
     for x in calib:
         for site, amax in _calibrate_sites(variables, x, spec).items():
             per_batch.setdefault(site, []).append(float(amax.max()))
+            if site.startswith(CHANNEL_SITES):
+                calib_ch[site] = torch.maximum(calib_ch.get(site, amax), amax)
     scales, margins = calibrate(variables, calib, spec=spec, return_margins=True)
     qpack = quantize_variables(variables, scales, spec=spec, static_margin=margins)
     sums: dict[str, list] = {}
+    eval_ch: dict[str, list] = {}
     ref = {}
 
     def record(site, t):
@@ -128,11 +141,19 @@ def site_report(variables: dict, calib, eval_batches, spec) -> list[dict]:
         for site, q in got.items():
             r = ref[site]
             t = r * (qpack["inv_f"][site] / qpack["s_static"][site])
+            clipped = torch.round(t).abs() > 127
             acc = sums.setdefault(site, [0.0, 0.0, 0, 0])
             acc[0] += float((q - r).abs().sum())
             acc[1] += float(r.abs().sum())
-            acc[2] += int((torch.round(t).abs() > 127).sum())
+            acc[2] += int(clipped.sum())
             acc[3] += r.numel()
+            if site in calib_ch:
+                dims = tuple(range(r.ndim - 1))
+                amax, hits = r.abs().amax(dim=dims), clipped.sum(dim=dims)
+                prev = eval_ch.get(site)
+                eval_ch[site] = ([amax, hits, r.numel() // r.shape[-1]] if prev is None else
+                                 [torch.maximum(prev[0], amax), prev[1] + hits,
+                                  prev[2] + r.numel() // r.shape[-1]])
     rows = [{"site": site,
              "rel_error": (d / n) / (a / n + 1e-9),
              "clipped_share": c / n,
@@ -140,6 +161,19 @@ def site_report(variables: dict, calib, eval_batches, spec) -> list[dict]:
              "static_scale": float(qpack["s_static"][site]),
              "calib_amax_per_batch": per_batch[site]}
             for site, (d, a, c, n) in sums.items()]
+    for row in rows:
+        site = row["site"]
+        if site in eval_ch:
+            amax, hits, count = eval_ch[site]
+            clip_at = (127.5 * qpack["s_static"][site]
+                       / torch.as_tensor(qpack["inv_f"][site], dtype=torch.float32,
+                                         device=amax.device)).expand_as(amax)
+            row["channels"] = {
+                "calib_amax": [round(float(v), 5) for v in calib_ch[site]],
+                "eval_amax": [round(float(v), 5) for v in amax],
+                "clips_past": [round(float(v), 5) for v in clip_at],
+                "eval_clipped_share": [round(float(v) / count, 5) for v in hits],
+            }
     return sorted(rows, key=lambda r: -r["rel_error"])
 
 
@@ -147,7 +181,7 @@ def accuracy(model_name: str, num_classes: int = 50, epochs: int = 120,
              batch_size: int = 64, base_lr: float = 0.05, seed: int = 0,
              margin_sweep: bool = False, source: str = "mp4",
              device: str | torch.device = "cuda", kernels: str = "cuda",
-             sites: bool = False) -> dict:
+             sites: bool = False, pack_dir: str | None = None) -> dict:
     """``kernels`` trains on the hand kernels ('cuda') or on their plain
     versions ('torch'), which tells a weight-dependent int8 result from one
     of the kernels. ``sites``: add the ``site_report`` of the trained
@@ -158,7 +192,7 @@ def accuracy(model_name: str, num_classes: int = 50, epochs: int = 120,
                            clip_grad_norm=1.0, kernels=kernels)
     root = tempfile.mkdtemp(prefix=f"fvt_int8inc_{model_name}_")
     try:
-        state, train_src, ds, facts = train_motion(cfg, root, source, dev)
+        state, train_src, ds, facts = train_motion(cfg, root, source, dev, pack_dir)
         model = state.model
         sd = model.state_dict()
         spec = spec_for(model_name)
@@ -231,6 +265,7 @@ def main(argv=None) -> dict:
     p.add_argument("--margin-sweep", action="store_true",
                    help="also sweep static margins (global 1.0-2.5 and the site margins x0.75)")
     p.add_argument("--source", choices=SOURCES, default="mp4")
+    add_pack_dir(p)
     p.add_argument("--kernels", choices=["cuda", "torch"], default="cuda",
                    help="ModelConfig.kernels of the training: 'torch' takes the hand "
                         "kernels' plain versions")
@@ -251,7 +286,7 @@ def main(argv=None) -> dict:
     for m in args.models:
         row = accuracy(m, num_classes=args.classes, epochs=args.epochs, batch_size=args.batch,
                        margin_sweep=args.margin_sweep, source=args.source, device=args.device,
-                       kernels=args.kernels)
+                       kernels=args.kernels, pack_dir=args.pack_dir)
         if not args.skip_throughput:
             row["throughput"] = serving_throughput(m)
         results.append(row)
@@ -302,10 +337,11 @@ def write_site_report(args) -> dict:
     """--site-report: one s3d training on the record's recipe, its top-1 per
     scheme and ``site_report``."""
     row = accuracy("s3d", num_classes=args.classes, epochs=args.epochs, batch_size=args.batch,
-                   source=args.source, device=args.device, kernels=args.kernels, sites=True)
+                   source=args.source, device=args.device, kernels=args.kernels, sites=True,
+                   pack_dir=args.pack_dir)
     keep = ("model", "num_classes", "epochs", "seed", "clip_grad_norm", "bf16_top1",
             "int8_static_global_top1", "int8_static_site_top1", "int8_dynamic_top1",
-            "site_margins", "train_seconds", "steps", "kernels")
+            "site_margins", "train_seconds", "steps", "kernels", "state_sha256")
     result = {"benchmark": "int8_inception_s3d_sites",
               "task": "hard_synthetic_motion_50 (8x32x32 clips)",
               **{k: row[k] for k in keep},

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from fastvideotagging_tpu_torch._device import resolve_device
-from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import SOURCES
+from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import SOURCES, add_pack_dir
 from fastvideotagging_tpu_torch.benchmarks.int8_serving import (
     calibration_clips,
     forward_launches,
@@ -42,13 +42,13 @@ from fastvideotagging_tpu_torch.train.metrics import topk_accuracy
 
 def run(num_classes: int = 50, epochs: int = 120, batch_size: int = 64,
         base_lr: float = 0.05, seed: int = 0, source: str = "mp4",
-        device: str | torch.device = "cuda") -> dict:
+        device: str | torch.device = "cuda", pack_dir: str | None = None) -> dict:
     dev = resolve_device(device)
     cfg = int8_hard_config("s3d", num_classes, epochs, batch_size, base_lr, seed,
                            clip_grad_norm=1.0)  # s3d diverges without it
     root = tempfile.mkdtemp(prefix="fvt_int8_s3d_")
     try:
-        state, train_src, ds, facts = train_motion(cfg, root, source, dev)
+        state, train_src, ds, facts = train_motion(cfg, root, source, dev, pack_dir)
         model = state.model
         sd = model.state_dict()
         calib = calibration_clips(train_src, cfg, source, dev)
@@ -96,11 +96,13 @@ def main(argv=None) -> dict:
     p.add_argument("--classes", type=int, default=50)
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--source", choices=SOURCES, default="mp4")
+    add_pack_dir(p)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     result = run(num_classes=args.classes, epochs=args.epochs, batch_size=args.batch,
-                 seed=args.seed, source=args.source, device=args.device)
+                 seed=args.seed, source=args.source, device=args.device,
+                 pack_dir=args.pack_dir)
     line = json.dumps(result, indent=2)
     print(line)
     if args.out:

@@ -41,6 +41,7 @@ from fastvideotagging_tpu_torch._device import resolve_device
 from fastvideotagging_tpu_torch.benchmarks.accuracy_hard import (
     SOURCES,
     LaunchCounter,
+    add_pack_dir,
     eval_dataset,
     hard_config,
     motion_sources,
@@ -62,6 +63,7 @@ from fastvideotagging_tpu_torch.ops.int8_infer import (
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_eval_clip
 from fastvideotagging_tpu_torch.train.fit import fit
 from fastvideotagging_tpu_torch.train.metrics import topk_accuracy
+from fastvideotagging_tpu_torch.train.state import state_digest
 from fastvideotagging_tpu_torch.utils.profiling import window_ms
 
 CALIB_VIDEOS = 16
@@ -79,16 +81,21 @@ def int8_hard_config(model_name: str, num_classes: int = 50, epochs: int = 120,
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, log_every=50))
 
 
-def train_motion(cfg: ExperimentConfig, root: str, source: str, dev: torch.device):
-    """Write the motion set under ``root`` and train ``cfg`` on it: -> (state,
-    train source, eval dataset, facts: train seconds, steps, K1-K3 launches)."""
-    train_src, eval_src = motion_sources(root, source, cfg.model.num_classes, cfg.train.seed)
+def train_motion(cfg: ExperimentConfig, root: str, source: str, dev: torch.device,
+                 pack_dir: str | None = None):
+    """Write the motion set under ``root`` (or read mp4pack's packs from
+    ``pack_dir``) and train ``cfg`` on it: -> (state, train source, eval
+    dataset, facts: train seconds, steps, K1-K3 launches, the trained
+    state_dict's digest)."""
+    train_src, eval_src = motion_sources(root, source, cfg.model.num_classes, cfg.train.seed,
+                                         pack_dir)
     counter = LaunchCounter()
     t0 = time.time()
     with counter("fit"):
         state = fit(cfg, train_src, device=dev)
     facts = dict(train_seconds=round(time.time() - t0, 1), steps=int(state.step),
-                 train_launches=counter.counts["fit"])
+                 train_launches=counter.counts["fit"],
+                 state_sha256=state_digest(state.model.state_dict()))
     state.model.eval()
     return state, train_src, eval_dataset(eval_src, cfg.data, source), facts
 
@@ -213,13 +220,14 @@ def serving_throughput(model_name: str = "r2plus1d_18", engines: dict | None = N
 
 def accuracy(num_classes: int = 50, epochs: int = 60, batch_size: int = 64,
              base_lr: float = 0.05, seed: int = 0, source: str = "pack",
-             device: str | torch.device = "cuda") -> tuple[float, dict, dict]:
+             device: str | torch.device = "cuda",
+             pack_dir: str | None = None) -> tuple[float, dict, dict]:
     """-> (bf16 top-1, {sweep point: int8 top-1}, facts of the run)."""
     dev = resolve_device(device)
     root = tempfile.mkdtemp(prefix="fvt_int8_")
     try:
         cfg = hard_config(num_classes, epochs, batch_size, base_lr, seed)
-        state, train_src, ds, facts = train_motion(cfg, root, source, dev)
+        state, train_src, ds, facts = train_motion(cfg, root, source, dev, pack_dir)
         model = state.model
         sd = model.state_dict()
 
@@ -277,13 +285,14 @@ def main(argv=None) -> dict:
     p.add_argument("--classes", type=int, default=50)
     p.add_argument("--batch", type=int, default=64)
     p.add_argument("--source", choices=SOURCES, default="mp4")
+    add_pack_dir(p)
     p.add_argument("--skip-throughput", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
 
     bf16_top1, sweep_top1, facts = accuracy(num_classes=args.classes, epochs=args.epochs,
                                             batch_size=args.batch, source=args.source,
-                                            device=args.device)
+                                            device=args.device, pack_dir=args.pack_dir)
     result = {
         "benchmark": "int8_ptq_serving",
         "scheme": ("per-out-channel int8 weights with folded smoothing factors (clamped 10x "

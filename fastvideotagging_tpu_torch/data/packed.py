@@ -19,7 +19,7 @@ File layout (version 1, little-endian)::
     [0:8)    magic  b"FVTPACK1"
     [8:16)   uint64 absolute byte offset of the JSON index
     [16:...) frame data: per video, C-order uint8 (frames, H, W, 3)
-    [index_offset:EOF) JSON index {height, width, num_tags?, videos: [
+    [index_offset:EOF) JSON index {height, width, num_tags?, meta?, videos: [
         {path, label, tags, frames, probe_frames, offset}]}
 
 ``probe_frames`` preserves the container-reported frame count the streaming
@@ -58,10 +58,11 @@ class _PackWriter:
     """Low-level writer of the pack layout (one place owns the format:
     header patching, per-video index entries, JSON footer)."""
 
-    def __init__(self, f, resize_hw, num_tags=None):
+    def __init__(self, f, resize_hw, num_tags=None, meta=None):
         self.f = f
         self.h, self.w = resize_hw
         self.num_tags = num_tags
+        self.meta = meta
         self.entries: list[dict] = []
         f.write(MAGIC)
         f.write(struct.pack("<Q", 0))  # index offset, patched by finish()
@@ -94,6 +95,8 @@ class _PackWriter:
         index = {"height": self.h, "width": self.w, "videos": self.entries}
         if self.num_tags is not None:
             index["num_tags"] = self.num_tags
+        if self.meta is not None:
+            index["meta"] = self.meta
         self.f.write(json.dumps(index).encode())
         self.f.seek(len(MAGIC))
         self.f.write(struct.pack("<Q", index_offset))
@@ -129,7 +132,8 @@ def write_pack_from_arrays(items, out_path: str, resize_hw,
 
 
 def write_pack(records, out_path: str, resize_hw, root: str = "",
-               chunk_size: int = 256, num_tags: int | None = None) -> dict:
+               chunk_size: int = 256, num_tags: int | None = None,
+               meta: dict | None = None) -> dict:
     """Decode each record once -> ship-geometry uint8 stacks in a flat file.
 
     ``resize_hw`` must be the config's SHIP geometry (``source_hw`` if set,
@@ -139,13 +143,14 @@ def write_pack(records, out_path: str, resize_hw, root: str = "",
     ``root``: stored paths are relative to it when given, keeping packs
     relocatable. ``num_tags``: record it in the index when packing
     multi-label tag lists (enables multilabel training from the pack).
-    Returns a summary dict.
+    ``meta``: a JSON object the index keeps as ``meta`` (what the videos are
+    and what wrote them; ``Pack.meta``). Returns a summary dict.
     """
     h, w = resize_hw
     skipped = 0
     tmp = str(out_path) + ".tmp"
     with open(tmp, "wb") as f:
-        writer = _PackWriter(f, resize_hw, num_tags)
+        writer = _PackWriter(f, resize_hw, num_tags, meta)
         for rec in records:
             start = writer.begin_video()
             try:
@@ -185,6 +190,7 @@ class Pack:
         self.height = int(index["height"])
         self.width = int(index["width"])
         self.num_tags = index.get("num_tags")
+        self.meta = index.get("meta")
         self.entries = index["videos"]
         self._frame_bytes = self.height * self.width * 3
         # One flat uint8 memmap; the page cache is the only "cache" needed.

@@ -13,7 +13,10 @@ kernels, SGD); checkpoints hold the full state, so a resume is exact. With
 
 Dropout draws from a generator seeded from ``(seed, global_step)`` on the
 model's device (the counterpart of ``fold_in(rng, global_step)``), so a
-resumed run needs no generator state to draw the same masks.
+resumed run needs no generator state to draw the same masks. On the card the
+epochs, their steps and evaluations run under PyTorch's deterministic mode
+(train/loop.py::deterministic), so one recipe gives the same weights every
+run, as the JAX package's does.
 
 Parallel (a job joined by ``parallel.init_multihost``; the mesh comes from
 ``cfg.parallel``, ``data_parallel = -1`` meaning the world size over
@@ -57,7 +60,7 @@ from fastvideotagging_tpu_torch.parallel.mesh import (
     whole_shapes,
 )
 from fastvideotagging_tpu_torch.train.checkpoint import CheckpointManager, NullCheckpointManager
-from fastvideotagging_tpu_torch.train.loop import make_train_step
+from fastvideotagging_tpu_torch.train.loop import deterministic, make_train_step
 from fastvideotagging_tpu_torch.train.metrics import RunningMean
 from fastvideotagging_tpu_torch.train.state import TrainState, create_train_state
 from fastvideotagging_tpu_torch.utils.interrupt import GracefulStopper
@@ -178,7 +181,7 @@ def fit(
                  len(local_rows), t_cfg.batch_size)
     mlog = MetricsLogger(metrics_path, enabled=mesh.is_main)
     try:
-        with GracefulStopper() as stopper:
+        with GracefulStopper() as stopper, deterministic(dev):
             _epoch_loop(cfg, state, step_fn, dataset, ckpt, mlog, dev,
                         start_epoch, eval_fn, stopper, cache, mesh, local_rows)
     finally:

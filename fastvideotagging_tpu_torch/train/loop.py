@@ -23,10 +23,17 @@ each rank then updates its part of every sharded kernel.
 
 With a profiler's scopes on (ops/scopes.py), the preprocess and the update
 run under ``fvt/preprocess`` and ``fvt/optimizer``.
+
+On the card the step runs under PyTorch's deterministic mode
+(``deterministic``), so a recipe gives the same weights every run, as the
+JAX package's XLA programs do: the max pools' backward is the gather of
+ops/maxpool_grad.py (no atomics), cuDNN takes only deterministic
+algorithms, and an op with no deterministic CUDA implementation raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -38,6 +45,31 @@ from fastvideotagging_tpu_torch.ops import scopes
 from fastvideotagging_tpu_torch.ops.preprocess import preprocess_batch
 from fastvideotagging_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, check_mesh
 from fastvideotagging_tpu_torch.train.state import TrainState
+
+
+@contextlib.contextmanager
+def deterministic(device: str | torch.device):
+    """PyTorch's deterministic mode for a training run on ``device``, a
+    no-op off the card: ``torch.use_deterministic_algorithms(True)`` (an op
+    with no deterministic implementation raises), cuDNN's deterministic
+    algorithms and no autotuning; the caller's settings come back on exit.
+    cuBLAS's part, ``CUBLAS_WORKSPACE_CONFIG``, is set when the package is
+    imported (fastvideotagging_tpu_torch/__init__.py): cuBLAS reads it once
+    a process."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        cudnn.deterministic, cudnn.benchmark = before[2], before[3]
 
 
 def make_train_step(
@@ -81,6 +113,10 @@ def make_train_step(
         if device_cache != (cache_frames is not None):
             raise ValueError("a device_cache step takes the cache's frames, and only it does")
         dev = next(model.parameters()).device
+        with deterministic(dev):
+            return _step(state, batch, generator, cache_frames, dev)
+
+    def _step(state, batch, generator, cache_frames, dev):
         # a no-op for batches that data.pipeline.device_prefetch put on the card
         batch = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
         frames = (cache_frames[batch["rows"].long()] if device_cache

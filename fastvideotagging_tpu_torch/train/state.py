@@ -7,6 +7,7 @@ accumulation, the running mean of the micro steps' gradients, as one object.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable
 
 import torch
@@ -99,3 +100,16 @@ def create_train_state(cfg: ExperimentConfig, steps_per_epoch: int,
     return TrainState(model=model, optimizer=optimizer, schedule=schedule,
                       clip_grad_norm=cfg.train.clip_grad_norm,
                       grad_accum_steps=cfg.train.grad_accum_steps)
+
+
+def state_digest(state_dict: dict) -> str:
+    """sha256 over a state_dict's names, dtypes, shapes and bytes, in its
+    order: two trainings that end on the same weights and statistics give
+    the same digest."""
+    h = hashlib.sha256()
+    for name, t in state_dict.items():
+        t = t.detach().contiguous().cpu()
+        h.update(f"{name} {t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+

@@ -95,7 +95,7 @@ def _check_hard(suffix):
     assert r["clip_grad_norm"] == ref.get("clip_grad_norm", 0.0)
     assert r["norm"] == ref.get("norm", "batch")
     assert (r["batch_size"], r["base_lr"], r["dropout"]) == (64, lr, 0.0)
-    assert r["source"] in ("mp4", "pack")
+    assert r["source"] in ("mp4", "pack", "mp4pack")
     assert r["top1"] >= top1, r
     if m_ap is not None:
         assert r["mAP"] >= m_ap, r

@@ -106,7 +106,8 @@ def test_importing_every_port_module_loads_no_jax():
             "fastvideotagging_tpu_torch.benchmarks.e2e_train",
             "fastvideotagging_tpu_torch.benchmarks.slowfast_step",
             "fastvideotagging_tpu_torch.benchmarks.scaleonly_step",
-            "fastvideotagging_tpu_torch.benchmarks.remat_step"} <= set(res["imported"])
+            "fastvideotagging_tpu_torch.benchmarks.remat_step",
+            "fastvideotagging_tpu_torch.benchmarks.repeat_train"} <= set(res["imported"])
     for mod in res["modules"]:
         root = mod.split(".")[0]
         assert root not in ("jax", "jaxlib", "flax", "optax", "orbax"), mod
@@ -270,8 +271,8 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["fused_block", "int8_conv", "spatial_conv", "temporal_dw",
-                                "temporal_micro"]
+    assert _build.sources() == ["fused_block", "int8_conv", "maxpool_grad", "spatial_conv",
+                                "temporal_dw", "temporal_micro"]
 
 
 def test_kernel_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
